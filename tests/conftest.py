@@ -45,6 +45,9 @@ def pytest_configure(config):
     # heavyweight coverage (subprocess smokes etc.) out of the CI budget
     config.addinivalue_line(
         "markers", "slow: heavyweight test excluded from the tier-1 run")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU (a hand-written kernel of the "
+        "PyTorch port, which has no CPU mode); skips without one")
 
 
 # Tier-1 budget ordering: the suite brushes its CI wall-clock timeout, and
