@@ -12,13 +12,14 @@ Usage, with the JAX model's state as numpy arrays::
 
     named = {k: np.asarray(v.numpy()) for k, v in jax_model.state_dict().items()}
     load_jax_state(torch_model, named)
+    back = state_to_jax(torch_model)     # the same names and layouts again
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "load_jax_state"]
+__all__ = ["params_from_jax", "load_jax_state", "state_to_jax"]
 
 #: modules whose 2-D `.weight` is an embedding table, not a Linear
 _EMBEDDINGS = ("wte", "wpe")
@@ -63,3 +64,20 @@ def load_jax_state(model, named_numpy):
                              f"the model's {tuple(dst.shape)}")
         dst.copy_(t.to(device=dst.device, dtype=dst.dtype))
     return model
+
+
+@torch.no_grad()
+def state_to_jax(model):
+    """The reverse of `params_from_jax`: the model's parameters and
+    buffers as {name: np.ndarray} in the JAX layouts (Linear weights
+    transposed back to [in, out], embeddings as they are). Floating
+    tensors come back as float32 (numpy has no bfloat16)."""
+    out = {}
+    named = dict(model.named_parameters())
+    named.update(model.named_buffers())
+    for name, t in named.items():
+        t = t.detach().cpu()
+        a = (t.float() if t.is_floating_point() else t).numpy()
+        out[name] = np.ascontiguousarray(
+            a.T if _is_linear_weight(name, a) else a)
+    return out

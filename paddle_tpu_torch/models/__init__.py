@@ -1,7 +1,8 @@
 """Models of the port (counterpart of paddle_tpu/models)."""
 from .generation import GenerationConfig, generate
 from .gpt import (CONFIGS, CacheQuantError, GPTConfig, GPTForCausalLM,
-                  GPTModel, gpt)
+                  GPTModel, flops_per_token, gpt)
 
 __all__ = ["CONFIGS", "CacheQuantError", "GPTConfig", "GPTForCausalLM",
-           "GPTModel", "gpt", "GenerationConfig", "generate"]
+           "GPTModel", "flops_per_token", "gpt", "GenerationConfig",
+           "generate"]

@@ -8,8 +8,10 @@ weights: ``[in, out]`` there, ``[out, in]`` here).
 
 Three attention paths:
 
-* `forward` — full causal attention in plain PyTorch (the FlashAttention
-  kernel belongs to the training slice);
+* `forward` (and `loss`, the training path) — full causal attention
+  through `nn.functional.flash_attention`: the FlashAttention-2 kernels
+  on the GPU at the shapes the JAX package's predicate admits, the plain
+  version otherwise;
 * `decode_step` — the contiguous per-layer cache ``[B, T, Hkv, D]``
   (bf16/f32 pairs or int8 quads), written IN PLACE at ``pos`` (PyTorch
   tensors are mutable; the JAX version returns updated copies) and
@@ -30,13 +32,14 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..nn import functional as F
 from ..nn.functional import apply_rotary_pos_emb, gelu, silu
 from ..nn.layer.norm import LayerNorm, RMSNorm
 from ..ops.decode_attn import paged_decode_attention
 
 __all__ = ["GPTConfig", "CONFIGS", "gpt", "GPTAttention", "GPTMLP",
            "GPTBlock", "GPTModel", "GPTForCausalLM", "CacheQuantError",
-           "PagedBatch"]
+           "PagedBatch", "flops_per_token"]
 
 
 @dataclass
@@ -315,7 +318,12 @@ class GPTAttention(nn.Module):
                 out, *new = _cached_attn_impl(q, k, v, k_c, v_c, pos,
                                               num_heads=cfg.num_heads)
             return self.out_proj(out.reshape(b, s, q_sz)), tuple(new)
-        out = _cached_attn_core(q, k, v, 0, cfg.num_heads)   # causal
+        if cfg.num_kv_heads != cfg.num_heads:
+            rep = cfg.num_heads // cfg.num_kv_heads
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        out, _ = F.flash_attention(q, k, v, dropout=cfg.dropout, causal=True,
+                                   training=self.training)
         return self.out_proj(out.reshape(b, s, q_sz))
 
 
@@ -445,6 +453,17 @@ class GPTForCausalLM(nn.Module):
     def forward(self, input_ids, position_ids=None):
         return self._project(self.transformer(input_ids, position_ids))
 
+    def loss(self, input_ids, labels=None, position_ids=None):
+        """Causal LM loss (mean over the shifted tokens). labels default to
+        input_ids. The shift slices the hidden states before the vocab
+        projection, so the full [B, S, V] logits are never copied."""
+        if labels is None:
+            labels = input_ids
+        hidden = self.transformer(input_ids, position_ids)[:, :-1, :]
+        logits = self._project(hidden)
+        return F.cross_entropy(logits.reshape(-1, self.cfg.vocab_size),
+                               labels[:, 1:].reshape(-1))
+
     def _resolve_cache_quant(self, quant):
         """An explicit `quant=` wins over the model's `cache_quant`
         attribute; only `quant=None` falls back to it. Returns None
@@ -524,3 +543,19 @@ def gpt(name="gpt_base", *, device=None, seed=0, **overrides):
     d = dict(CONFIGS[name])
     d.update(overrides)
     return GPTForCausalLM(GPTConfig(**d), device=device, seed=seed)
+
+
+def flops_per_token(cfg: GPTConfig, seq_len: int) -> float:
+    """Approximate training FLOPs per token (forward + backward: 6 N plus
+    the attention term), the MFU numerator of the JAX package."""
+    n_params = (
+        cfg.vocab_size * cfg.hidden_size
+        * (1 if cfg.tie_word_embeddings else 2)
+        + cfg.num_layers * (
+            cfg.hidden_size * (cfg.num_heads + 2 * cfg.num_kv_heads)
+            * cfg.head_dim
+            + cfg.num_heads * cfg.head_dim * cfg.hidden_size
+            + cfg.hidden_size * cfg.intermediate_size
+            * (3 if cfg.swiglu else 2)))
+    attn = 12 * cfg.num_layers * cfg.hidden_size * seq_len
+    return 6.0 * n_params + attn

@@ -1,6 +1,7 @@
 """nn surface of the port (counterpart of paddle_tpu/nn): the functionals,
-norm layers and weight-only quantization the serving slice needs."""
+norm layers, weight-only quantization and gradient clipping."""
 from . import functional
+from .clip import ClipGradByGlobalNorm
 from .layer.norm import LayerNorm, RMSNorm
 
-__all__ = ["functional", "LayerNorm", "RMSNorm"]
+__all__ = ["functional", "ClipGradByGlobalNorm", "LayerNorm", "RMSNorm"]

@@ -26,7 +26,8 @@ LIB_NAME = "libpaddle_tpu_torch_kernels.so"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _lib = None
-#: what the last build did: {"seconds", "cached", "ptxas"} (ptxas -v lines)
+#: what the last build did: {"seconds", "cached", "ptxas"} (ptxas -v
+#: register, shared-memory and spill lines)
 build_info = {}
 
 
@@ -93,8 +94,9 @@ def build():
         with open(stamp, "w") as f:
             f.write(digest)
         ptxas = [ln.strip() for log in logs for ln in log.splitlines()
-                 if "ptxas info" in ln and ("registers" in ln
-                                            or "Compiling" in ln)]
+                 if ("ptxas info" in ln and ("registers" in ln
+                                             or "Compiling" in ln))
+                 or "spill" in ln]
         build_info.update(seconds=time.perf_counter() - t0, cached=False,
                           ptxas=ptxas)
         return lib_path
@@ -121,6 +123,10 @@ def lib():
     _sig(handle.ptt_paged_decode_attention, P, P, P, P, P, P, P, P,
          I, I, I, I, I, I, L, L, L, L, L, L, I, I, F, P, P)
     _sig(handle.ptt_paged_decode_splits, I, I)
+    # kind, q, k, v, dout, lse, delta, out0, out1, lse_out, B, S, H, D,
+    # strides (b, s, h) of q, k, v, dout, dtype, scale, causal, stream
+    _sig(handle.ptt_flash_attention, I, P, P, P, P, P, P, P, P, P,
+         I, I, I, I, *([L] * 12), I, F, I, P)
     _sig(handle.ptt_cuda_error_string, I, ctypes.c_char_p, I)
     _lib = handle
     return _lib

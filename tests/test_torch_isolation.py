@@ -69,8 +69,33 @@ def test_engine_raises_without_gpu_and_checks_model_device():
 
 
 def test_kernel_wrappers_have_launch_counters():
-    from paddle_tpu_torch.ops import (paged_decode_attention,
+    from paddle_tpu_torch.ops import (flash_attention_bwd_dkv,
+                                      flash_attention_bwd_dq,
+                                      flash_attention_fwd,
+                                      paged_decode_attention,
                                       weight_only_matmul)
 
-    assert isinstance(weight_only_matmul.launches, int)
-    assert isinstance(paged_decode_attention.launches, int)
+    for wrapper in (weight_only_matmul, paged_decode_attention,
+                    flash_attention_fwd, flash_attention_bwd_dq,
+                    flash_attention_bwd_dkv):
+        assert isinstance(wrapper.launches, int)
+
+
+def test_parallelize_trains_where_the_model_lives():
+    """The engine never moves the model: it trains on the device the
+    caller built it on (the CPU here only because the caller asked), and
+    brings the batch there. A CPU step launches no kernel."""
+    from paddle_tpu_torch.distributed import parallelize
+    from paddle_tpu_torch.ops import flash_attention_fwd
+    from paddle_tpu_torch.optimizer import AdamW
+
+    m = gpt("gpt_tiny", device="cpu")
+    before = {n: p.data_ptr() for n, p in m.named_parameters()}
+    eng = parallelize(m, AdamW(parameters=m.parameters()))
+    launches = flash_attention_fwd.launches
+    loss = eng.train_batch(torch.zeros(2, 128, dtype=torch.long).numpy())
+    assert loss.device.type == "cpu" and eng.device.type == "cpu"
+    assert all(p.device.type == "cpu" for p in m.parameters())
+    assert {n: p.data_ptr() for n, p in m.named_parameters()} == before
+    assert eng.stats["device_puts"] == 0
+    assert flash_attention_fwd.launches == launches
