@@ -15,10 +15,12 @@ Phases (any failure exits non-zero and prints no result line):
    after warm-up) beside the plain version, one PyTorch library call
    computing the same function (a yardstick only; the port never calls
    it) and the bound: the larger of bytes moved / 3.35 TB/s and
-   operations / 989 TFLOP/s (H100 SXM bf16 dense). Serving kernels at the
-   llama2_7b shapes of the decode path; the FlashAttention-2 forward, dq
-   and dkv kernels at the gpt_base and llama2_7b training shapes, causal
-   and not, a ragged S, a padded head dim, bf16 and f32;
+   operations / 989 TFLOP/s (H100 SXM bf16 dense; 67 TFLOP/s, the f32
+   non-tensor peak, for BGMV's f32 work). Serving kernels at the
+   llama2_7b shapes of the decode path (BGMV at the qkv_proj and out_proj
+   shapes of a multi-tenant batch); the FlashAttention-2 forward, dq and
+   dkv kernels at the gpt_base and llama2_7b training shapes, causal and
+   not, a ragged S, a padded head dim, bf16 and f32;
 3. serving end to end: llama2_7b at full width (random weights from a
    seed) served by `DecodeEngine` — (a) bf16 weights with a bf16 KV pool,
    (b) int8 weights with an int8 KV pool, (c) int4 weights, one short
@@ -27,7 +29,11 @@ Phases (any failure exits non-zero and prints no result line):
    conservation check, the engine's first decode-step logits against a
    dense `model.forward` recompute, solo-vs-batched token agreement, and a
    torch.profiler window over decode steps (device-busy time per step
-   and kernel time by family);
+   and kernel time by family); then (d) multi-tenant serving on run (b)'s
+   int8 model: LoRA adapters through BGMV, a shared system prompt through
+   the prefix cache with copy-on-write, sampled and greedy requests, a
+   stop sequence — tokens held against a private-copy engine — and its
+   decode step under torch.profiler in a child process;
 4. training end to end: gpt_base at full width and depth (f32 masters,
    bf16 compute) through `distributed.parallelize` with AdamW and global
    grad-norm clipping — a throughput run on one fixed batch from
@@ -53,6 +59,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12                # H100 SXM f32 peak outside the tensor cores
 LLAMA_LINEARS = {                # (n, k) of the llama2_7b serving path
     "qkv": (12288, 4096), "o_proj": (4096, 4096),
     "gate_up": (22016, 4096), "down": (4096, 11008),
@@ -108,9 +115,41 @@ def time_ms(torch, fn, iters, warmup=3):
     return times[len(times) // 2]
 
 
-def bound(nbytes, flops):
+def time_graph_ms(torch, fns, calls=32, reps=7):
+    """Device time of one call, host overhead left out: `calls` calls
+    (cycling through `fns`) captured in one CUDA graph, the graph replayed
+    `reps` times after a warm-up replay; the median replay time over
+    `calls`. Cycling through inputs larger than the 50 MB L2 between
+    calls makes each call read its inputs from HBM, as the decode step's
+    layer after layer does."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fns[i % len(fns)]()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / calls)
+    times.sort()
+    del graph
+    return times[len(times) // 2]
+
+
+def bound(nbytes, flops, peak=BF16_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -293,6 +332,88 @@ def check_paged(torch, iters):
         log(f"  paged_decode {row['case']}: err {err:.3g} (tol {tol}) "
             f"kernel {ms:.4f} ms plain {plain:.4f} ms library {lib:.4f} ms "
             f"bound {bms:.4f} ms ({by})")
+    return rows
+
+
+# BGMV checks: (label, d_in, d_out, rank, batch, s, x dtype); slots 8.
+# The first is the decode path's qkv_proj launch, the kernels line's case.
+BGMV_CASES = (
+    ("qkv_proj", 4096, 12288, 16, 8, 1, "bfloat16"),
+    ("out_proj", 4096, 4096, 16, 8, 1, "bfloat16"),
+    ("qkv_proj", 4096, 12288, 16, 8, 1, "float32"),
+    ("out_proj", 4096, 4096, 16, 8, 1, "float32"),
+    ("qkv_proj prefill", 4096, 12288, 16, 2, 256, "bfloat16"),
+    ("out_proj rank 64", 4096, 4096, 64, 8, 1, "bfloat16"),
+    ("ragged d_out", 4096, 5000, 16, 8, 1, "bfloat16"),
+)
+BGMV_IDS = (0, 1, 1, 2, 3, 0, 5, 7)   # slot 0, a repeat, distinct slots
+
+
+def check_bgmv(torch, iters):
+    """BGMV against its plain version (f32 gather + two einsums):
+    max abs error <= 1e-5 x max |ref| + 1e-6 (f32 sums in another order);
+    each row of the first case bitwise equal alone and in the batch.
+    `ms` is one wrapper call between CUDA events (the host's share
+    included, as for the other kernels); `device_ms` the kernels alone
+    (`time_graph_ms`, cycling through 16 copies of the slot stacks).
+    Library yardstick: torch.bmm(torch.bmm(x.float(), A[ids]), B[ids]).
+    Bound: x read once, each distinct slot's A and B once, the output
+    written once over 3.35 TB/s; 2*b*s*r*(d_in + d_out) f32 operations
+    over 67 TFLOP/s."""
+    from paddle_tpu_torch.ops.bgmv import lora_delta, lora_delta_ref
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for label, d_in, d_out, r, b, s, dt in BGMV_CASES:
+        x = torch.randn(b, s, d_in, device="cuda", generator=g).to(
+            getattr(torch, dt))
+        A = torch.randn(8, d_in, r, device="cuda", generator=g) * 0.02
+        B = torch.randn(8, r, d_out, device="cuda", generator=g) * 0.02
+        A[0] = 0.0
+        B[0] = 0.0
+        ids = torch.tensor(BGMV_IDS[:b], dtype=torch.int32, device="cuda")
+        got = lora_delta(x, A, B, ids)
+        ref = lora_delta_ref(x, A, B, ids)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        tol = 1e-5 * ref.abs().max().item() + 1e-6
+        if not (err <= tol and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"bgmv {label} {dt}: max abs err {err} > "
+                                 f"{tol}")
+        row = dict(case=f"{label} d_in={d_in} d_out={d_out} r={r} b={b} "
+                        f"s={s} {dt} slots=8", max_abs_err=err, tol=tol)
+        if not rows:
+            solo = [lora_delta(x[i:i + 1], A, B, ids[i:i + 1])
+                    for i in range(b)]
+            same = sum(bool(torch.equal(o, got[i:i + 1]))
+                       for i, o in enumerate(solo))
+            row["solo_vs_batched_bitwise"] = f"{same}/{b}"
+            if same != b:
+                raise AssertionError(f"bgmv rows not batch-invariant: "
+                                     f"{same}/{b} equal")
+        row["ms"] = time_ms(torch, lambda: lora_delta(x, A, B, ids), iters)
+        copies = [(A.clone(), B.clone()) for _ in range(16)]
+        row["device_ms"] = time_graph_ms(torch, [
+            lambda a=a, b_=b_: lora_delta(x, a, b_, ids)
+            for a, b_ in copies])
+        del copies
+        row["plain_ms"] = time_ms(torch, lambda: lora_delta_ref(x, A, B,
+                                                                ids),
+                                  max(3, iters // 4))
+        row["library_ms"] = time_ms(torch, lambda: torch.bmm(torch.bmm(
+            x.float(), A[ids.long()]), B[ids.long()]), iters)
+        distinct = len(set(BGMV_IDS[:b]))
+        nbytes = x.numel() * x.element_size() + distinct * (
+            d_in * r + r * d_out) * 4 + b * s * d_out * 4 + b * 4
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, 2.0 * b * s * r * (d_in + d_out), F32_FLOPS)
+        rows.append(row)
+        log(f"  bgmv {row['case']}: err {err:.3g} (tol {tol:.3g}) kernel "
+            f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}) plain "
+            f"{row['plain_ms']:.4f} ms library "
+            f"{row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+        del x, A, B, got, ref
     return rows
 
 
@@ -540,24 +661,34 @@ def dense_check(torch, np, model, prompt, first_token, eng_logits):
     return out
 
 
-def profile_decode(torch, np, model, quant, label, steps=12):
+def profile_decode(torch, np, model, quant, label, steps=12, pool=None):
     """Where a decode step's time goes: 8 sequences of 300 prompt tokens
     are prefilled, then `steps` batched decode steps run under
     torch.profiler. Reports the host-clock step time, the device-busy time
     per step (the sum of kernel times; the rest is the GPU idling on the
-    eager host loop) and the kernel time by family."""
+    eager host loop) and the kernel time by family. With an adapter
+    `pool`, the sequences go round-robin over {none, a1..a6} and the odd
+    ones are sampled, as in run (d)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from paddle_tpu_torch.inference import DecodeEngine
+    from paddle_tpu_torch.inference import DecodeEngine, SamplingParams
 
     eng = DecodeEngine(model, max_length=1024, block_size=16,
                        decode_buckets=(1, 2, 4, 8), prefill_chunk=256,
-                       quant=quant, default_timeout=600.0,
+                       quant=quant, default_timeout=600.0, adapters=pool,
                        device=model.device)
+
+    def opts(i):
+        if pool is None:
+            return {}
+        return {"adapter": None if i % 7 == 0 else f"a{i % 7}",
+                "sampling": SamplingParams(**SAMPLED, seed=1000 + i)
+                if i % 2 else None}
+
     # enough new tokens that no sequence finishes inside the window; the
     # rest is cancelled after it
-    streams = [eng.submit(p, 4 * steps + 16) for p in
-               _prompts(np, model.cfg.vocab_size, (300,) * 8)]
+    streams = [eng.submit(p, 4 * steps + 16, **opts(i)) for i, p in
+               enumerate(_prompts(np, model.cfg.vocab_size, (300,) * 8))]
     for st in streams:
         next(iter(st))                      # every prompt is prefilled
     give_up = time.perf_counter() + 120.0
@@ -580,13 +711,240 @@ def profile_decode(torch, np, model, quant, label, steps=12):
     fam = kernel_families(prof, (
         ("paged_decode_attention", ("paged_decode", "merge_splits")),
         ("weight_only_matmul", ("wo_gemv", "wo_wmma")),
+        ("bgmv", ("bgmv_",)),
         ("library_gemm", GEMM_NAMES)))
     busy_ms = sum(fam.values()) / 1e3 / done
     res = {"run": label, "steps": done, "step_ms": wall * 1e3 / done,
            "device_busy_ms_per_step": busy_ms,
            "device_idle_share": max(0.0, 1 - busy_ms / (wall * 1e3 / done)),
-           "kernel_ms_per_step": {k: v / 1e3 / done for k, v in fam.items()}}
+           "kernel_ms_per_step": {k: v / 1e3 / done for k, v in fam.items()},
+           **host_ops(prof, done)}
     log(f"  profile {json.dumps(res)}")
+    return res
+
+
+def host_ops(prof, steps, n=12):
+    """The host side of a profiled window: the summed self CPU time of
+    every recorded host event (CUDA runtime calls such as
+    cudaLaunchKernel; aten ops issued from the engine's scheduler thread
+    are not recorded) and the n with the most, as (name, calls per step,
+    ms per step)."""
+    from torch.autograd import DeviceType
+
+    evts = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU
+            and not getattr(e, "is_user_annotation", False)]
+    top = sorted(evts, key=lambda e: -e.self_cpu_time_total)[:n]
+    return {"host_op_self_ms_per_step": sum(e.self_cpu_time_total
+                                            for e in evts) / 1e3 / steps,
+            "top_host_ops_ms_per_step": [
+                (e.key[:60], e.count / steps,
+                 e.self_cpu_time_total / 1e3 / steps) for e in top]}
+
+
+SYSTEM_LEN = 256
+TAIL_LENS = (16, 40, 90, 150, 200, 260, 300)   # + a resubmission of [0]
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9)
+
+
+def _adapter_weights(torch, pool, seed, scale=0.02):
+    dev = pool.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {name: (torch.randn(i, pool.rank, device=dev, generator=g)
+                   * scale,
+                   torch.randn(pool.rank, o, device=dev, generator=g)
+                   * scale)
+            for name, (i, o) in sorted(pool.layers.items())}
+
+
+def _tenant_requests(np, vocab):
+    """8 requests over one 256-token system prefix: unique tails of
+    16-300 tokens, adapters round-robin over {none, a1..a6}, the odd ones
+    sampled (distinct seeds), and an exact resubmission of request 0
+    (greedy: a full-prompt hit)."""
+    rng = np.random.RandomState(1)
+    system = rng.randint(0, vocab, (SYSTEM_LEN,))
+    reqs = []
+    for i, t in enumerate(TAIL_LENS):
+        prompt = np.concatenate([system, rng.randint(0, vocab, (t,))])
+        tenant = None if i % 7 == 0 else f"a{i % 7}"
+        sampling = dict(SAMPLED, seed=1000 + i) if i % 2 else None
+        reqs.append((prompt.astype(np.int64), tenant, sampling))
+    reqs.append((reqs[0][0].copy(), reqs[0][1], None))
+    return reqs
+
+
+def _serve_tenants(eng, reqs, new_tokens, stop=None):
+    """Request 0 first; once it streams (its prompt's chunk-boundary and
+    full-prompt entries are published by then) the other seven together,
+    the resubmission of request 0 among them. `stop` = (index, stop
+    sequence) gives that sampled request a stop sequence."""
+    from paddle_tpu_torch.inference import SamplingParams
+
+    def submit(i):
+        prompt, tenant, sampling = reqs[i]
+        sp = None
+        if sampling is not None:
+            extra = {"stop_sequences": [stop[1]]} \
+                if stop and stop[0] == i else {}
+            sp = SamplingParams(**sampling, **extra)
+        return eng.submit(prompt, new_tokens, adapter=tenant, sampling=sp)
+
+    streams = [submit(0)]
+    next(iter(streams[0]))
+    streams += [submit(i) for i in range(1, len(reqs))]
+    return streams, [s.result() for s in streams]
+
+
+def bucket_invariance(torch, model):
+    """Row stability of the plain reductions of a decode step, reported,
+    not held: for n in 1, 2, 4, how many of the first n rows of an 8-row
+    input keep their bits in a call of n rows — a plain f32 mean and the
+    norms' two-stage `_row_mean` of [8, 4096] squares, a softmax,
+    PyTorch's cumsum and the sampler's row-grouped cumsum of [8, 32000].
+    (The decode step's kernels are held to it in phase 2 and in
+    tests/test_torch_cuda.py.)"""
+    from paddle_tpu_torch.inference.sampling import _row_cumsum
+    from paddle_tpu_torch.nn.functional.norm import _row_mean
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    sq = torch.randn(8, model.cfg.hidden_size, device="cuda",
+                     generator=g).square()
+    z = torch.randn(8, model.cfg.vocab_size, device="cuda", generator=g)
+    p = torch.softmax(z, -1)
+
+    def same(fn, t):
+        full, out = fn(t), {}
+        for n in (1, 2, 4):
+            part = fn(t[:n])
+            eq = sum(bool(torch.equal(part[i], full[i])) for i in range(n))
+            out[n] = f"{eq}/{n}"
+        return out
+
+    return {"rows_equal_in_fewer": {
+        "mean_f32": same(lambda t: t.mean(-1), sq),
+        "row_mean_f32": same(_row_mean, sq),
+        "softmax": same(lambda t: torch.softmax(t, -1), z),
+        "cumsum": same(lambda t: torch.cumsum(t, -1), p),
+        "sampler_cumsum": same(_row_cumsum, p)}}
+
+
+def _count_equal(outs, ref, idx):
+    return f"{sum(outs[i] == ref[i] for i in idx)}/{len(idx)}"
+
+
+def multi_tenant(torch, np, model, new_tokens):
+    """Run (d): llama2_7b int8 weights + int8 KV serving 8 requests for
+    6 LoRA adapters (rank 16, slots 8, qkv_proj and out_proj) through
+    BGMV, with the prefix cache sharing a 256-token system prompt
+    (prefill_chunk=256 publishes the boundary) and half the requests
+    sampled, on the decode buckets (1, 2, 4, 8). The private-copy engine
+    (prefix_cache=False) runs the same requests first; with int8 weights
+    every decode product is row-stable, so each greedy sequence must match
+    it exactly. The sampled request with a stop sequence stops where the
+    private run's tokens say it must; a sampled request resubmitted alone
+    (bucket 1) reproduces its tokens from the batch (buckets 8 down to
+    2)."""
+    from paddle_tpu_torch.inference import (AdapterPool, DecodeEngine,
+                                            SamplingParams)
+    from paddle_tpu_torch.ops.bgmv import lora_delta
+    from paddle_tpu_torch.ops.decode_attn import paged_decode_attention
+    from paddle_tpu_torch.ops.weight_only import weight_only_matmul
+
+    pool = AdapterPool(model, rank=16, slots=8, device=model.device)
+    for k in range(1, 7):
+        pool.load(f"a{k}", _adapter_weights(torch, pool, 100 + k))
+    stack_gb = sum(a.numel() + b.numel()
+                   for a, b in pool.stacks().values()) * 4 / 1e9
+    reqs = _tenant_requests(np, model.cfg.vocab_size)
+    geo = dict(max_length=1024, block_size=16, decode_buckets=(1, 2, 4, 8),
+               prefill_chunk=256, quant="int8", default_timeout=600.0,
+               adapters=pool, device=model.device)
+    try:
+        with DecodeEngine(model, prefix_cache=False, **geo) as priv:
+            priv.generate(reqs[0][0][:8], 2)          # warm-up
+            _, ref = _serve_tenants(priv, reqs, new_tokens)
+        # the stop: the first bigram of sampled request 3's private run
+        # whose first occurrence is past position 0
+        toks = ref[3]
+        idx, stop = next((i, tuple(toks[i:i + 2]))
+                         for i in range(1, len(toks) - 1)
+                         if tuple(toks[i:i + 2]) not in
+                         {tuple(toks[j:j + 2]) for j in range(i)})
+        eng = DecodeEngine(model, **geo)
+        eng.generate(reqs[1][0][:8], 2)               # warm-up
+        for w in (lora_delta, paged_decode_attention, weight_only_matmul):
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams, outs = _serve_tenants(eng, reqs, new_tokens,
+                                       stop=(3, stop))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"lora_delta": lora_delta.launches,
+                    "paged_decode_attention": paged_decode_attention.launches,
+                    "weight_only_matmul": weight_only_matmul.launches}
+        st = eng.stats()
+        quiesced = st["blocks"]["allocated"] \
+            - st["prefix_cache"]["physical_blocks"]
+        prompt, tenant, sampling = reqs[5]
+        alone = eng.generate(prompt, new_tokens, adapter=tenant,
+                             sampling=SamplingParams(**sampling))
+        drained = eng.shutdown()
+        blocks = eng.stats()["blocks"]
+        refs = pool.stats()["refs"]
+    finally:
+        pool.detach()
+    greedy = [i for i, r in enumerate(reqs) if r[2] is None]
+    sampled = [i for i, r in enumerate(reqs) if r[2] is not None and i != 3]
+    ttft = sorted(s.ttft for s in streams)
+    pc = st["prefix_cache"]
+    res = {"run": "d: multi-tenant, int8 weights + KV, 6 adapters",
+           "requests": len(reqs), "tokens": sum(map(len, outs)),
+           "wall_s": wall, "tokens_per_s": sum(map(len, outs)) / wall,
+           "ttft_p50_s": ttft[len(ttft) // 2],
+           "ttft_p95_s": ttft[min(len(ttft) - 1, int(0.95 * len(ttft)))],
+           "steps": st["steps"], "prefill_chunks": st["prefill_chunks"],
+           "occupancy": st["occupancy"], "launches": launches,
+           "adapter_stacks_gb": stack_gb,
+           "prefix_hits": pc["hits"], "prefix_full_hits": pc["full_hits"],
+           "prefix_hit_rate": st["prefix_hit_rate"],
+           "tokens_reused": pc["tokens_reused"],
+           "cow_copies": st["cow_copies"],
+           "greedy_equal_private": _count_equal(outs, ref, greedy),
+           "sampled_equal_private": _count_equal(outs, ref, sampled),
+           "stop_truncated_at": idx, "stop_hits": st["stop_hits"],
+           "sampled_alone_equal": alone == outs[5],
+           "adapter_refs_after": refs, "quiesced_extra_blocks": quiesced,
+           **bucket_invariance(torch, model),
+           "blocks_after_shutdown": {k: blocks[k] for k in (
+               "total", "allocated", "free", "reserved", "allocs",
+               "frees")}}
+    log(f"  e2e {json.dumps(res)}")
+    fails = []
+    if launches["lora_delta"] == 0:
+        fails.append("lora_delta never launched")
+    if pc["hits"] < 1 or pc["full_hits"] < 1 or st["cow_copies"] < 1:
+        fails.append(f"prefix cache: hits {pc['hits']}, full hits "
+                     f"{pc['full_hits']}, cow copies {st['cow_copies']}")
+    if any(outs[i] != ref[i] for i in greedy):
+        fails.append(f"greedy tokens differ from the private engine: "
+                     f"{res['greedy_equal_private']} equal")
+    if outs[3] != ref[3][:idx]:
+        fails.append(f"stop sequence {stop}: got {outs[3]}, expected "
+                     f"{ref[3][:idx]}")
+    if alone != outs[5]:
+        fails.append("sampled request resubmitted alone differs")
+    if refs != 0 or quiesced != 0 or not drained \
+            or blocks["allocated"] != 0 or blocks["allocs"] != blocks["frees"]:
+        fails.append(f"conservation: adapter refs {refs}, quiesced extra "
+                     f"blocks {quiesced}, blocks {blocks}")
+    if any(len(o) != new_tokens for i, o in enumerate(outs) if i != 3) \
+            or any(not 0 <= t < model.cfg.vocab_size for o in outs
+                   for t in o):
+        fails.append("malformed token output")
+    if fails:
+        raise AssertionError(f"run (d): {'; '.join(fails)}")
     return res
 
 
@@ -615,6 +973,7 @@ def end_to_end(torch, np, layers, new_tokens):
     # recorded no device activity on the card
     profiles = [profile_decode(torch, np, model, "int8",
                                "b: int8 + int8 KV, bs 8")]
+    runs.append(multi_tenant(torch, np, model, new_tokens))
     del model
     model = build()
     quantize_for_inference(model, "int4")
@@ -776,19 +1135,45 @@ def profile_train(torch, layers, seed, steps=3):
             "top_kernels_ms_per_step": top_kernels(prof, steps)}
 
 
-def profile_train_child(torch, layers, seed, report):
-    """Run `profile_train` in a child process; returns its result."""
-    path = report + ".profile_train.json"
+def profile_tenants(torch, np, layers):
+    """Run (d)'s decode step under torch.profiler, in a child process of
+    its own (`--profile-tenants`; one profiler session per process): the
+    int8 llama2_7b of run (b) with run (d)'s six adapters."""
+    from paddle_tpu_torch.inference import AdapterPool
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.nn.quant import quantize_for_inference
+
+    model = gpt("llama2_7b", dtype="bfloat16", device="cuda", seed=0,
+                num_layers=layers)
+    quantize_for_inference(model, "int8")
+    torch.cuda.empty_cache()
+    pool = AdapterPool(model, rank=16, slots=8, device=model.device)
+    for k in range(1, 7):
+        pool.load(f"a{k}", _adapter_weights(torch, pool, 100 + k))
+    return profile_decode(torch, np, model, "int8",
+                          "d: 6 adapters, half sampled, bs 8", pool=pool)
+
+
+def run_child(flag, layers, seed, report):
+    """Run one `--profile-*` phase in a child process; returns its
+    result."""
+    path = f"{report}.{flag.strip('-')}.json"
     proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--profile-train", path,
+        [sys.executable, os.path.abspath(__file__), flag, path,
          "--layers", str(layers), "--seed", str(seed)],
         capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
-        raise AssertionError(f"training profile child failed:\n"
+        raise AssertionError(f"{flag} child failed:\n"
                              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     with open(path) as f:
         res = json.load(f)
     os.remove(path)
+    return res
+
+
+def profile_train_child(torch, layers, seed, report):
+    """Run `profile_train` in a child process; returns its result."""
+    res = run_child("--profile-train", layers, seed, report)
     log(f"  train profile {json.dumps(res)}")
     return res
 
@@ -806,6 +1191,8 @@ def main(argv):
                     help="seed of the training batches")
     # internal: the training profile's child process
     ap.add_argument("--profile-train", metavar="OUT",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--profile-tenants", metavar="OUT",
                     help=argparse.SUPPRESS)
     ap.add_argument("--layers", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -826,6 +1213,11 @@ def main(argv):
     if args.profile_train:
         res = profile_train(torch, args.layers, args.seed)
         with open(args.profile_train, "w") as f:
+            json.dump(res, f)
+        return 0
+    if args.profile_tenants:
+        res = profile_tenants(torch, np, args.layers)
+        with open(args.profile_tenants, "w") as f:
             json.dump(res, f)
         return 0
     t_start = time.perf_counter()
@@ -849,11 +1241,16 @@ def main(argv):
     log("phase 2: kernels vs plain versions")
     wo_rows = check_weight_only(torch, iters)
     pd_rows = check_paged(torch, iters)
+    bg_rows = check_bgmv(torch, iters)
     fa_rows = check_flash(torch, iters)
 
     log("phase 3: llama2_7b end to end through DecodeEngine")
-    runs, profiles = end_to_end(torch, np, 2 if args.quick else 32,
+    serve_layers = 2 if args.quick else 32
+    runs, profiles = end_to_end(torch, np, serve_layers,
                                 8 if args.quick else 32)
+    profiles.append(run_child("--profile-tenants", serve_layers, args.seed,
+                              args.report))
+    log(f"  profile {json.dumps(profiles[-1])}")
 
     log("phase 4: gpt_base training through parallelize")
     layers = 2 if args.quick else 12
@@ -864,6 +1261,7 @@ def main(argv):
 
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
+    tenant_run = next(r for r in runs if "lora_delta" in r["launches"])
     wo_main = next(r for r in wo_rows if r["wdt"] == "int8"
                    and r["m"] == 8 and r["layer"] == "gate_up")
     pd_main = pd_rows[0]
@@ -885,6 +1283,16 @@ def main(argv):
              bound_ms=pd_main["bound_ms"], bound_by=pd_main["bound_by"],
              library_ms=pd_main["library_ms"], case=pd_main["case"]),
     ]
+    bg_main = bg_rows[0]
+    kernels.append(dict(
+        name="bgmv", route="cuda", source="paddle_tpu_torch/csrc/bgmv.cu",
+        replaces="paddle_tpu/ops/pallas/bgmv.py:46",
+        launches=tenant_run["launches"]["lora_delta"],
+        max_abs_err=max(r["max_abs_err"] for r in bg_rows),
+        ms=bg_main["ms"], plain_ms=bg_main["plain_ms"],
+        bound_ms=bg_main["bound_ms"], bound_by=bg_main["bound_by"],
+        library_ms=bg_main["library_ms"], device_ms=bg_main["device_ms"],
+        case=bg_main["case"]))
     fa_main = fa_rows[0]
     # No PyTorch call forms dq alone or dk, dv alone: SDPA's backward forms
     # all three, so it stands beside the pair (pair_ms = dq + dkv), and
@@ -910,6 +1318,7 @@ def main(argv):
     report = {"device": smi, "quick": args.quick,
               "build": build_rec,
               "weight_only": wo_rows, "paged_decode": pd_rows,
+              "bgmv": bg_rows,
               "flash_attention": fa_rows,
               "e2e": runs, "profiles": profiles, "train": train,
               "seconds": time.perf_counter() - t_start}

@@ -13,6 +13,14 @@ Usage, with the JAX model's state as numpy arrays::
     named = {k: np.asarray(v.numpy()) for k, v in jax_model.state_dict().items()}
     load_jax_state(torch_model, named)
     back = state_to_jax(torch_model)     # the same names and layouts again
+
+LoRA adapters need no conversion: a JAX adapter is ``{layer name: (A
+[in, r], B [r, out])}`` keyed by the JAX model's sublayer names
+(``transformer.layers.<i>.attn.qkv_proj`` ...), which are the port's module
+names, and A/B have the same layout on both sides (x @ A @ B), so
+`AdapterPool.load` takes it as it is (numpy or JAX arrays)::
+
+    pool.load("tenant", jax_weights)
 """
 from __future__ import annotations
 

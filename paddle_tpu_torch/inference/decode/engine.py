@@ -25,6 +25,30 @@ batched decode step:
   pos % BS)`` (int8 pools quantize it first) and attends with the paged
   flash-decoding kernel (`ops.decode_attn.paged_decode_attention`),
   which reads every sequence's blocks in place through its table.
+* **Copy-on-write prefix sharing** (vLLM): a completed prefill publishes
+  its prompt's blocks into a prefix cache keyed by token content and
+  adapter signature — a full-prompt entry, plus one entry at every
+  chunk boundary. Admission matches the longest cached prefix and bumps
+  block refcounts instead of prefilling those tokens again; a sequence
+  whose write lands in a block another holder references copies that
+  block first (`BlockKVCache.copy_block`, in place). Entries pin their
+  blocks and are LRU-evicted under admission pressure or the block cap.
+  Chunks start at absolute multiples of the chunk size and run at their
+  own length, so a sequence that matched a boundary prefills its
+  remainder in the same chunks a private run would: sharing is
+  bit-exact.
+* **Per-request sampling** (`sampling.SamplingParams`): temperature,
+  top-k, top-p, repetition penalty, seed and stop sequences; the draw of
+  a token is a pure function of (seed, output index), made with JAX's
+  threefry. Greedy rows (no params, or temperature <= 0) take the
+  raw-logits argmax. Only greedy sequences publish full-prompt entries
+  and take full-prompt hits (a hit delivers the publisher's next token).
+* **Multi-tenant LoRA** (`adapter_pool.AdapterPool`, S-LoRA / Punica): a
+  request names an adapter; its slot is pinned for the sequence's life,
+  and every model call runs inside an `adapter_context`: a scalar slot
+  id for a prefill chunk, a ``[bucket]`` id vector (padded rows at slot
+  0) for a decode step, whose deltas go through the BGMV kernel
+  (`ops.bgmv.lora_delta`) in one launch per projection.
 * **Typed request semantics**: a bounded waiting queue (`Overloaded`),
   per-sequence deadlines covering queue wait and generation
   (`DeadlineExceeded`), cancel (`PoolClosed`), `PoolClosed` after
@@ -33,25 +57,27 @@ batched decode step:
   culpable sequence fails (a re-run rewrites the same rows from the same
   committed state).
 
-Determinism contract. Decoding is greedy (argmax). The JAX engine gets
-bit-identity across batch sizes from a scan over sequences; this port runs
-the batch as one set of batched products instead, and promises this:
-both hand-written kernels are row-stable — each output row is reduced in
-an order that does not depend on how many rows share the launch (the
-weight-only matmul runs its GEMV for every m <= 16, which covers every
-decode bucket; the paged attention has one block per (head, sequence)) —
-and, in float32 on the CPU, a sequence's tokens are the same decoded
-alone and in a batch (tested). The float Linears go through the BLAS
-library (cuBLAS on the GPU), which may pick another reduction for another
-batch size, so on the GPU with float weights the logits of a sequence can
-differ in the last bits between batch sizes and a near-tie can flip a
-token; `chip_smoke.py` reports how many sequences agree.
+Determinism contract. The JAX engine gets bit-identity across batch sizes
+from a scan over sequences; this port runs the batch as one set of
+batched products instead, and promises this: the hand-written kernels are
+row-stable — each output row is reduced in an order that does not depend
+on how many rows share the launch (the weight-only matmul runs its GEMV
+for every m <= 16, which covers every decode bucket; the paged attention
+has one block per (head, sequence); BGMV reduces each row inside one
+CTA), the norms sum each row in two fixed stages and the sampler scans
+top-p's cumsum in fixed-size row groups (PyTorch's own CUDA mean and scan
+pick their order by the row count) — and, in float32 on the
+CPU, a sequence's tokens are the same decoded alone and in a batch
+(tested). The float Linears go through the BLAS library (cuBLAS on the
+GPU), which may pick another reduction for another batch size, so on
+the GPU with float weights the logits of a sequence can differ in the
+last bits between batch sizes and a near-tie can flip a token;
+`chip_smoke.py` reports how many sequences agree, and holds a sampled
+request resubmitted alone to its tokens in a batch (int8 weights).
 
-Not ported yet (passing them raises `NotImplementedError`): the prefix
-cache with copy-on-write sharing (``prefix_cache`` therefore defaults to
-False here), speculative decoding, LoRA adapters (BGMV), `SamplingParams`,
-tensor-parallel meshes, the `ServingPool` integration, the AOT compile
-cache and the fault hook.
+Not ported yet (passing them raises `NotImplementedError`): speculative
+decoding, `resume_committed`, tensor-parallel meshes, the `ServingPool`
+integration, the AOT compile cache and the fault hook.
 
 Usage::
 
@@ -63,6 +89,9 @@ Usage::
 """
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import itertools
 import math
 import queue
 import threading
@@ -73,8 +102,10 @@ import torch
 
 from ... import resolve_device
 from ...models.gpt import PagedBatch
-from ..serving import (Deadline, DeadlineExceeded, Overloaded, PoolClosed,
-                       RequestFailed)
+from ..sampling import PACK_FIELDS, SamplingParams, sample_token
+from ..serving import (AdapterNotLoaded, Deadline, DeadlineExceeded,
+                       Overloaded, PoolClosed, RequestFailed)
+from .adapter_pool import AdapterPool, adapter_context
 from .block_pool import OutOfBlocks, RESERVED_BLOCKS
 
 __all__ = ["DecodeEngine", "SequenceStream"]
@@ -82,16 +113,14 @@ __all__ = ["DecodeEngine", "SequenceStream"]
 _WAITING, _PREFILL, _ACTIVE, _DONE = "waiting", "prefill", "active", "done"
 _END = object()   # stream sentinel
 
+#: reference-owner tag of the blocks the prefix cache pins
+_CACHE_OWNER = "prefix-cache"
+
 #: unported constructor / submit options -> the later slice that ports them
 _LATER = {
-    "prefix_cache": "the prefix-cache (copy-on-write sharing) slice",
-    "prefix_cache_blocks": "the prefix-cache (copy-on-write sharing) slice",
     "draft_model": "the speculative-decoding slice",
     "speculate_k": "the speculative-decoding slice",
     "draft_num_blocks": "the speculative-decoding slice",
-    "adapters": "the multi-tenant LoRA (BGMV) slice",
-    "adapter": "the multi-tenant LoRA (BGMV) slice",
-    "sampling": "the prefix-cache slice, with SamplingParams",
     "resume_committed": "the serving-runtime slice",
     "mesh": "the parallelism (NCCL) slice",
     "sharding_rules": "the parallelism (NCCL) slice",
@@ -182,8 +211,10 @@ class SequenceStream:
 class _Seq:
     __slots__ = ("id", "prompt", "max_new", "deadline", "stream", "state",
                  "blocks", "reserved_total", "outstanding", "pos",
-                 "prefill_pos", "last_token", "generated", "cancelled",
-                 "submitted_at", "keep_logits")
+                 "prefill_pos", "last_token", "generated",
+                 "cancelled", "submitted_at", "keep_logits", "sampling",
+                 "adapter", "adapter_slot", "adapter_sig", "sample_base",
+                 "out_tokens", "held")
 
     def __init__(self, sid, prompt, max_new, deadline):
         self.id = sid
@@ -193,8 +224,8 @@ class _Seq:
         self.stream = SequenceStream(sid, deadline)
         self.state = _WAITING
         self.blocks = []                # pool block ids, table order
-        self.reserved_total = 0         # worst-case blocks (admission)
-        self.outstanding = 0            # allocations still to come
+        self.reserved_total = 0         # worst-case FRESH blocks (admission)
+        self.outstanding = 0            # fresh allocations still to come
         self.pos = 0                    # cache position of last_token
         self.prefill_pos = 0            # prompt tokens already cached
         self.last_token = None
@@ -202,33 +233,51 @@ class _Seq:
         self.cancelled = False
         self.submitted_at = None
         self.keep_logits = 0
+        self.sampling = None            # SamplingParams or None (greedy)
+        self.adapter = None             # adapter name or None (base model)
+        self.adapter_slot = 0           # slot 0 = reserved no-adapter lane
+        self.adapter_sig = (0, 0)       # (slot, generation) cache signature
+        self.sample_base = 0            # committed tokens before this run
+        self.out_tokens = []            # every committed token (incl. held)
+        self.held = []                  # committed, not yet streamed (a
+        #                                 possible stop-sequence prefix)
 
 
 class DecodeEngine:
-    """Iteration-level greedy decode engine over a paged KV cache. See
-    the module docstring for the semantics and the determinism contract.
+    """Iteration-level decode engine over a paged KV cache, with prefix
+    sharing, per-request sampling and LoRA adapters. See the module
+    docstring for the semantics and the determinism contract.
 
     `device` defaults to the GPU (raising when there is none) and must be
-    the model's device."""
+    the model's device. `adapters` is an `AdapterPool` built over `model`
+    (or None)."""
+
+    #: samp-pack values of a greedy row: the raw-argmax lane
+    _PACK_DEFAULTS = {"ctr": 0, "greedy": 1, "rep": 1.0, "seed": 0,
+                      "temp": 1.0, "top_k": 0, "top_p": 1.0}
 
     def __init__(self, model, *, max_length, block_size=16, num_blocks=None,
                  decode_buckets=(1, 2, 4, 8), prefill_buckets=None,
                  prefill_chunk=None, quant=None, max_waiting=64,
                  default_timeout=None, eos_token_id=None, pad_token_id=0,
-                 prefix_cache=False, device=None, clock=time.monotonic,
-                 **unported):
+                 prefix_cache=True, prefix_cache_blocks=None, adapters=None,
+                 device=None, clock=time.monotonic, **unported):
         for name, value in unported.items():
             if name not in _LATER:
                 raise TypeError(f"DecodeEngine got an unexpected keyword "
                                 f"argument {name!r}")
             if value not in (None, 0, False):
                 _not_ported(name)
-        if prefix_cache:
-            _not_ported("prefix_cache")
+        if adapters is not None and not isinstance(adapters, AdapterPool):
+            raise ValueError(f"adapters must be an AdapterPool, got "
+                             f"{type(adapters).__name__}")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine device is "
                              f"{self.device}")
+        if adapters is not None and adapters.device != self.device:
+            raise ValueError(f"adapter pool is on {adapters.device}, engine "
+                             f"device is {self.device}")
         if max_length < 2:
             raise ValueError("max_length must be >= 2 (prompt + 1 token)")
         bs = sorted({int(b) for b in decode_buckets})
@@ -276,11 +325,27 @@ class DecodeEngine:
                     f"{self.block_size}")
             self._chunk = c
 
+        # default capacity: a full bucket of worst-case sequences, plus
+        # one copy-on-write block per slot when sharing is on (a sequence
+        # whose shared prompt tail ends mid-block copies that one block)
+        self._prefix_on = bool(prefix_cache)
         self._nb = max(1, math.ceil(self.max_length / self.block_size))
         if num_blocks is None:
-            num_blocks = RESERVED_BLOCKS + self.max_active * self._nb
+            num_blocks = RESERVED_BLOCKS + self.max_active * (
+                self._nb + (1 if self._prefix_on else 0))
         self.pool = model.init_block_pool(num_blocks, self.block_size,
                                           quant=quant, name="target")
+
+        # prefix -> block-table cache (scheduler-owned; structure reads and
+        # counters under _cv): entries pin their blocks with _CACHE_OWNER
+        # references and are LRU-evicted under pressure or the block cap
+        self._prefix_cache = {}
+        self._lru = itertools.count()
+        if prefix_cache_blocks is None:
+            prefix_cache_blocks = max(
+                0, (self.pool.num_blocks - RESERVED_BLOCKS) // 2)
+        self._prefix_cap = int(prefix_cache_blocks)
+        self._adapters = adapters
 
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
@@ -299,6 +364,9 @@ class DecodeEngine:
         self._steps_run = self._prefills = self._prefill_chunks = 0
         self._tokens_out = self._isolations = 0
         self._step_slots = self._step_active = self._peak_resident = 0
+        self._prefix_hits = self._prefix_misses = self._prefix_full_hits = 0
+        self._prefix_tokens_reused = self._prefix_evictions = 0
+        self._cow_copies = self._sampled = self._stop_hits = 0
         self._ttfts = []
 
         self._thread = threading.Thread(target=self._loop,
@@ -308,21 +376,28 @@ class DecodeEngine:
 
     # -- admission ---------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens, timeout=None, *,
-               keep_logits=0, **unported):
+               keep_logits=0, sampling=None, adapter=None, **unported):
         """Admit one generation request; returns its `SequenceStream`.
 
         Malformed requests raise `ValueError` synchronously; a full
         waiting queue raises `Overloaded`, a closed engine `PoolClosed`, a
         dead-on-arrival deadline `DeadlineExceeded`. `timeout` (None ->
         `default_timeout`, both None -> unbounded) covers queue wait and
-        generation. `keep_logits=k` keeps the first k next-token logit
-        rows on the stream (the prefill's, then each decode step's)."""
+        generation. `sampling` (a `SamplingParams` or its `to_dict()`
+        form) samples this request; None is greedy. `adapter` names a
+        LoRA adapter of the engine's `AdapterPool` (an unknown name, or no
+        pool, raises `AdapterNotLoaded`). `keep_logits=k` keeps the first
+        k next-token logit rows on the stream (the prefill's, then each
+        decode step's); such a request recomputes its last prompt chunk
+        rather than take a full-prompt cache hit."""
         for name, value in unported.items():
             if name not in _LATER:
                 raise TypeError(f"submit() got an unexpected keyword "
                                 f"argument {name!r}")
             if value is not None:
                 _not_ported(name)
+        if sampling is not None and not isinstance(sampling, SamplingParams):
+            sampling = SamplingParams.from_dict(dict(sampling))
         ids = np.asarray(prompt_ids.cpu() if torch.is_tensor(prompt_ids)
                          else prompt_ids)
         if ids.ndim == 2 and ids.shape[0] == 1:
@@ -342,7 +417,8 @@ class DecodeEngine:
             raise ValueError(
                 f"prompt ({ids.shape[0]}) + max_new_tokens ({max_new}) "
                 f"exceeds max_length {self.max_length}")
-        worst = self.pool.blocks_for(ids.shape[0] + max_new)
+        worst = self.pool.blocks_for(ids.shape[0] + max_new) + (
+            1 if self._prefix_on and ids.shape[0] % self.block_size else 0)
         if worst > self.pool.num_blocks - RESERVED_BLOCKS:
             raise ValueError(f"request needs {worst} worst-case blocks but "
                              f"the pool holds only "
@@ -365,17 +441,33 @@ class DecodeEngine:
             self._ids += 1
             seq = _Seq(self._ids, ids.astype(np.int64), max_new, dl)
             seq.keep_logits = int(keep_logits)
+            seq.sampling = sampling
+            if adapter is not None:
+                if self._adapters is None:
+                    raise AdapterNotLoaded(
+                        f"adapter {adapter!r} requested but this engine has "
+                        f"no adapter pool (pass adapters= to DecodeEngine)")
+                # the slot is pinned for the sequence's life: a reload of
+                # the same name lands in a fresh slot, and this sequence
+                # keeps the weights it was admitted with
+                slot, gen = self._adapters.acquire(adapter, owner=seq.id)
+                seq.adapter = adapter
+                seq.adapter_slot = slot
+                seq.adapter_sig = (slot, gen)
             seq.submitted_at = self._clock()
             seq.stream._cancel = lambda s=seq: self._request_cancel(s)
             self._waiting.append(seq)
             self._admitted += 1
+            if sampling is not None:
+                self._sampled += 1
             self._cv.notify()
         return seq.stream
 
-    def generate(self, prompt_ids, max_new_tokens, timeout=None):
+    def generate(self, prompt_ids, max_new_tokens, timeout=None, *,
+                 sampling=None, adapter=None):
         """Submit and drain; returns the generated token list."""
-        return self.submit(prompt_ids, max_new_tokens,
-                           timeout=timeout).result()
+        return self.submit(prompt_ids, max_new_tokens, timeout=timeout,
+                           sampling=sampling, adapter=adapter).result()
 
     def _request_cancel(self, seq):
         with self._cv:
@@ -429,27 +521,80 @@ class DecodeEngine:
 
     def _admit_waiting(self):
         """Admit from the head of the queue while a batch slot is free and
-        the free blocks cover the newcomer's worst case on top of every
-        live sequence's outstanding worst case."""
-        with self._cv:
-            while self._waiting and not self._stopping:
+        the free blocks cover the newcomer's worst-case FRESH growth (its
+        worst case minus the blocks a prefix-cache hit shares, plus one
+        copy-on-write block when its prompt ends mid-block) on top of
+        every live sequence's outstanding worst case. Under pressure, LRU
+        cache entries are evicted to make room."""
+        while True:
+            with self._cv:
+                if self._stopping or not self._waiting:
+                    return
                 if len(self._active) + len(self._prefill_q) \
                         >= self.max_active:
                     return
                 seq = self._waiting[0]
+                plen = len(seq.prompt)
+                cow = 1 if (self._prefix_on and plen % self.block_size) \
+                    else 0
                 seq.reserved_total = self.pool.blocks_for(
-                    len(seq.prompt) + seq.max_new)
+                    plen + seq.max_new) + cow
+                entry = self._match_prefix(
+                    seq.prompt, seq.adapter_sig,
+                    full_ok=self._full_hit_ok(seq)) \
+                    if self._prefix_on else None
+                matched = len(entry["blocks"]) if entry else 0
                 reserve = sum(s.outstanding
                               for s in self._active + self._prefill_q)
-                if self.pool.free_count < reserve + seq.reserved_total:
+                fresh = seq.reserved_total - matched
+                if self.pool.free_count < reserve + fresh \
+                        and not self._evict_for(reserve + fresh,
+                                                keep=entry):
                     return        # not enough headroom yet
                 self._waiting.pop(0)
-                seq.outstanding = seq.reserved_total
-                seq.state = _PREFILL
-                self._prefill_q.append(seq)
-                self._peak_resident = max(
-                    self._peak_resident,
-                    len(self._active) + len(self._prefill_q))
+            try:
+                self._begin_sequence(seq, entry)
+            except Exception as exc:  # noqa: BLE001 — the sequence is in
+                # no queue here: fail it, or its stream hangs
+                self._finish(seq, "failed", RequestFailed(
+                    f"sequence {seq.id}: admission error: "
+                    f"{type(exc).__name__}: {exc}", cause=exc))
+
+    def _begin_sequence(self, seq, entry):
+        """Attach an admitted sequence to its prefix-cache hit (refcounts,
+        not prefill) and route it: a full-prompt hit joins the running
+        batch at once, anything else enters the chunked-prefill queue."""
+        plen = len(seq.prompt)
+        if entry is not None:
+            self.pool.incref(entry["blocks"], owner=seq.id)
+            seq.blocks = list(entry["blocks"])
+            seq.prefill_pos = entry["t"]
+            with self._cv:
+                self._prefix_hits += 1
+                self._prefix_tokens_reused += entry["t"]
+                if entry["t"] == plen:
+                    self._prefix_full_hits += 1
+        elif self._prefix_on:
+            with self._cv:
+                self._prefix_misses += 1
+        seq.outstanding = seq.reserved_total - len(seq.blocks)
+        if seq.prefill_pos == plen:
+            # the whole prompt and its next token are cached
+            seq.state = _ACTIVE
+            seq.pos = plen
+            with self._cv:
+                self._active.append(seq)
+                self._note_resident()
+            self._deliver(seq, int(entry["next_token"]))
+            return
+        seq.state = _PREFILL
+        with self._cv:
+            self._prefill_q.append(seq)
+            self._note_resident()
+
+    def _note_resident(self):
+        self._peak_resident = max(self._peak_resident,
+                                  len(self._active) + len(self._prefill_q))
 
     def _sweep_prefilling(self):
         with self._cv:
@@ -476,6 +621,15 @@ class DecodeEngine:
                 f"sequence {seq.id}: prefill error: "
                 f"{type(exc).__name__}: {exc}", cause=exc))
 
+    def _adapter_scope(self, ids):
+        """The adapter context of one model call (`ids`: a scalar slot or
+        a [bucket] vector), or a no-op without an adapter pool."""
+        if self._adapters is None:
+            return contextlib.nullcontext()
+        return adapter_context(
+            self._adapters.stacks(),
+            torch.as_tensor(ids, dtype=torch.int32).to(self.device))
+
     def _prefill_chunk(self, seq):
         plen = len(seq.prompt)
         start = seq.prefill_pos
@@ -491,18 +645,40 @@ class DecodeEngine:
         batch = PagedBatch.prefill(table, start, this_len, self.block_size)
         tokens = torch.as_tensor(seq.prompt[start:start + this_len],
                                  device=dev)[None]
-        logits = self.model.decode_step_paged(tokens, self.pool.tensors,
-                                              batch)
+        with self._adapter_scope(seq.adapter_slot):
+            logits = self.model.decode_step_paged(tokens, self.pool.tensors,
+                                                  batch)
         last = logits[0, -1].to(torch.float32)
         done = start + this_len
         seq.prefill_pos = done
         with self._lock:
             self._prefill_chunks += 1
+        greedy = self._is_greedy(seq)
+        # the raw argmax is what a greedy full-prompt hit on this entry
+        # must deliver, whoever published it
+        argmax = int(last.argmax())
+        if self._prefix_on and self._chunk and done % self._chunk == 0 \
+                and (greedy or done < plen):
+            # a chunk boundary: publish tokens[0:done]. Boundaries are
+            # absolute multiples of the chunk size, so a later prompt
+            # sharing these tokens would have computed the same chunks
+            with self._cv:
+                self._prefix_insert(
+                    "chunk", seq.prompt[:done],
+                    seq.blocks[:done // self.block_size], argmax,
+                    seq.adapter_sig)
         if done < plen:
             return
-        tok = int(last.argmax())
+        tok = argmax if greedy else self._sample_rows(last[None], [seq])[0]
         if seq.keep_logits:
             seq.stream.logits.append(last.cpu())
+        # prompt complete: greedy sequences publish the full-prompt entry
+        # (a mid-block tail is shared too: its writer copies it first)
+        if self._prefix_on and greedy \
+                and not (self._chunk and plen % self._chunk == 0):
+            with self._cv:
+                self._prefix_insert("full", seq.prompt, seq.blocks, tok,
+                                    seq.adapter_sig)
         with self._cv:
             self._prefills += 1
             seq.state = _ACTIVE
@@ -512,20 +688,214 @@ class DecodeEngine:
             self._active.append(seq)
         self._deliver(seq, tok)
 
+    # -- prefix cache (copy-on-write block sharing) ------------------------
+    # The helpers below run on the scheduler thread with _cv held. Entries
+    # pin their blocks with _CACHE_OWNER references; a sequence that
+    # matches bumps refcounts instead of prefilling, and a holder that
+    # must write into a shared block copies it first (_decode_round).
+
+    @staticmethod
+    def _digest(ids, t):
+        return hashlib.sha1(
+            np.ascontiguousarray(ids[:t]).tobytes()).hexdigest()
+
+    def _match_prefix(self, ids, sig=(0, 0), full_ok=True):
+        """Longest cached prefix of `ids` under adapter signature `sig`:
+        the full-prompt entry first, then chunk boundaries descending.
+        Token contents are compared, never just hashes. `full_ok=False`
+        skips any entry covering the WHOLE prompt (such a hit delivers the
+        publisher's next token)."""
+        plen = len(ids)
+        if full_ok:
+            e = self._prefix_cache.get(
+                ("full", plen, self._digest(ids, plen), sig))
+            if e is not None and np.array_equal(e["tokens"], ids):
+                e["stamp"] = next(self._lru)
+                return e
+        if self._chunk:
+            t = (plen // self._chunk) * self._chunk
+            if not full_ok and t == plen:
+                t -= self._chunk
+            while t >= self._chunk:
+                e = self._prefix_cache.get(
+                    ("chunk", t, self._digest(ids, t), sig))
+                if e is not None and np.array_equal(e["tokens"], ids[:t]):
+                    e["stamp"] = next(self._lru)
+                    return e
+                t -= self._chunk
+        return None
+
+    def _prefix_insert(self, kind, toks, blocks, next_token, sig=(0, 0)):
+        """Publish `blocks` (the KV of `toks`) for reuse; the cache takes a
+        reference on every block. The cap bounds the distinct blocks the
+        cache pins (LRU evictions make room; an entry that cannot fit is
+        not cached)."""
+        key = (kind, len(toks), self._digest(toks, len(toks)), sig)
+        e = self._prefix_cache.get(key)
+        if e is not None:
+            e["stamp"] = next(self._lru)
+            return
+        want = set(blocks)
+
+        def held():
+            return len({b for x in self._prefix_cache.values()
+                        for b in x["blocks"]} | want)
+
+        while self._prefix_cache and held() > self._prefix_cap:
+            self._evict_one()
+        if held() > self._prefix_cap:
+            return
+        self.pool.incref(blocks, owner=_CACHE_OWNER)
+        self._prefix_cache[key] = {
+            "key": key, "tokens": np.array(toks, np.int64), "t": len(toks),
+            "blocks": list(blocks), "next_token": int(next_token),
+            "stamp": next(self._lru)}
+
+    def _evict_one(self, keep=None):
+        """Drop the least recently used entry (never `keep`) and its block
+        references. Returns the entry or None."""
+        victims = [e for e in self._prefix_cache.values() if e is not keep]
+        if not victims:
+            return None
+        e = min(victims, key=lambda x: x["stamp"])
+        del self._prefix_cache[e["key"]]
+        self.pool.decref(e["blocks"], owner=_CACHE_OWNER)
+        self._prefix_evictions += 1
+        return e
+
+    def _evict_for(self, need_free, keep=None):
+        """Evict LRU entries until `need_free` blocks are free. True when
+        satisfied."""
+        while self.pool.free_count < need_free:
+            if self._evict_one(keep=keep) is None:
+                return False
+        return True
+
+    def _clear_prefix_cache_locked(self):
+        for e in list(self._prefix_cache.values()):
+            self.pool.decref(e["blocks"], owner=_CACHE_OWNER)
+        self._prefix_cache.clear()
+
+    # -- sampling ----------------------------------------------------------
+    @staticmethod
+    def _is_greedy(seq):
+        """True when this sequence's next token is the raw-logits argmax
+        (no params, or temperature <= 0)."""
+        return seq.sampling is None or seq.sampling.is_greedy()
+
+    def _full_hit_ok(self, seq):
+        """A full-prompt hit delivers the publisher's cached next token and
+        skips the prefill logits: exact only for greedy sequences that keep
+        no logits."""
+        return self._is_greedy(seq) and not seq.keep_logits
+
+    def _pack_values(self, seq):
+        """This sequence's samp-pack scalars for its NEXT token; the
+        counter is the token's absolute output index."""
+        sp = seq.sampling
+        ctr = seq.sample_base + seq.generated
+        if sp is None or sp.is_greedy():
+            return dict(self._PACK_DEFAULTS, ctr=ctr)
+        return {"ctr": ctr, "greedy": 0, "rep": sp.repetition_penalty,
+                "seed": sp.seed, "temp": sp.temperature, "top_k": sp.top_k,
+                "top_p": sp.top_p}
+
+    def _committed_tokens(self, seq):
+        """Every committed token (prompt + generated, held ones included),
+        index == cache position."""
+        if not seq.out_tokens:
+            return seq.prompt
+        return np.concatenate([seq.prompt,
+                               np.asarray(seq.out_tokens, np.int64)])
+
+    def _hist_fill(self, row, seq):
+        sp = seq.sampling
+        if sp is not None and not sp.is_greedy() \
+                and sp.repetition_penalty != 1.0:
+            toks = self._committed_tokens(seq)
+            row[:len(toks)] = toks
+
+    def _sample_rows(self, rows, seqs):
+        """Next tokens of `seqs` from their f32 logit rows [n, V]: the
+        samp pack and (when a row penalises repetition) the -1 padded
+        history go to `sampling.sample_token` on the logits' device."""
+        vals = [self._pack_values(s) for s in seqs]
+        pack = {name: torch.tensor([v[name] for v in vals], dtype=dt,
+                                   device=rows.device)
+                for name, dt in PACK_FIELDS}
+        hist = None
+        if any(v["rep"] != 1.0 for v in vals):
+            h = np.full((len(seqs), self.max_length), -1, np.int64)
+            for i, s in enumerate(seqs):
+                self._hist_fill(h[i], s)
+            hist = torch.from_numpy(h).to(rows.device)
+        return sample_token(rows, pack, hist).tolist()
+
+    # -- decode ------------------------------------------------------------
+    def _push_tokens(self, seq, toks):
+        for t in toks:
+            seq.stream._push(int(t))
+        if toks:
+            with self._lock:
+                self._tokens_out += len(toks)
+
     def _deliver(self, seq, tok):
-        """Commit one token: stream it, retire the sequence if done."""
+        """Commit one token: stream it (stop-sequence hold-back), retire
+        the sequence if done.
+
+        A token is held back while it could still be the prefix of a stop
+        sequence and released once it provably is not, so the released
+        tokens never end with a proper prefix of a stop sequence; a match
+        swallows the stop's own tokens and completes the sequence."""
         seq.last_token = tok
         seq.generated += 1
+        seq.out_tokens.append(int(tok))
         if seq.generated == 1 and seq.submitted_at is not None:
             seq.stream.ttft = self._clock() - seq.submitted_at
             with self._lock:
                 self._ttfts.append(seq.stream.ttft)
-        seq.stream._push(int(tok))
-        with self._lock:
-            self._tokens_out += 1
+        sps = seq.sampling.stop_sequences if seq.sampling is not None else ()
+        if not sps:
+            self._push_tokens(seq, [tok])
+        else:
+            seq.held.append(int(tok))
+            out = seq.out_tokens
+            hit = next((stop for stop in sps if len(out) >= len(stop)
+                        and tuple(out[-len(stop):]) == stop), None)
+            if hit is not None:
+                flush = seq.held[:len(seq.held) - len(hit)]
+                seq.held = []
+                self._push_tokens(seq, flush)
+                with self._lock:
+                    self._stop_hits += 1
+                self._finish(seq, "completed")
+                return
+            keep = 0
+            for stop in sps:
+                top = min(len(stop) - 1, len(seq.held))
+                for n in range(top, keep, -1):
+                    if tuple(out[-n:]) == stop[:n]:
+                        keep = n
+                        break
+            if len(seq.held) > keep:
+                flush = seq.held[:len(seq.held) - keep]
+                seq.held = seq.held[len(seq.held) - keep:]
+                self._push_tokens(seq, flush)
         if (self.eos_token_id is not None and tok == self.eos_token_id) \
                 or seq.generated >= seq.max_new:
             self._finish(seq, "completed")
+
+    def _cow_block(self, seq, bi):
+        """Copy-on-write: give `seq` a private copy of `seq.blocks[bi]`
+        (written in place in every layer's pool tensors) before it writes
+        there."""
+        new = self.pool.alloc(1, owner=seq.id)[0]
+        self.pool.copy_block(seq.blocks[bi], new)
+        self.pool.decref([seq.blocks[bi]], owner=seq.id)
+        seq.blocks[bi] = new
+        seq.outstanding -= 1
+        with self._lock:
+            self._cow_copies += 1
 
     def _decode_round(self):
         for seq in list(self._active):
@@ -537,16 +907,24 @@ class DecodeEngine:
                     f"sequence {seq.id} exceeded its deadline "
                     f"mid-generation"))
         active = list(self._active)
+        # lazy block growth and copy-on-write (the admission reserve covers
+        # both): this step writes each sequence's row at seq.pos, and a
+        # write into a block another holder references must not be seen
+        # by it
         for seq in list(active):
-            if seq.pos >= len(seq.blocks) * self.block_size:
-                try:
+            try:
+                if seq.pos >= len(seq.blocks) * self.block_size:
                     seq.blocks += self.pool.alloc(1, owner=seq.id)
                     seq.outstanding -= 1
-                except OutOfBlocks as e:
-                    active.remove(seq)
-                    self._finish(seq, "failed", RequestFailed(
-                        f"sequence {seq.id}: block pool exhausted "
-                        f"mid-decode (admission reserve bug)", cause=e))
+                else:
+                    bi = seq.pos // self.block_size
+                    if self.pool.refcount(seq.blocks[bi]) > 1:
+                        self._cow_block(seq, bi)
+            except OutOfBlocks as e:
+                active.remove(seq)
+                self._finish(seq, "failed", RequestFailed(
+                    f"sequence {seq.id}: block pool exhausted "
+                    f"mid-decode (admission reserve bug)", cause=e))
         if not active:
             return
         try:
@@ -570,18 +948,24 @@ class DecodeEngine:
         tokens = np.zeros((bucket, 1), np.int64)
         positions = np.zeros(bucket, np.int32)
         tables = np.zeros((bucket, self._nb), np.int32)  # pad rows -> 0
+        aids = np.zeros(bucket, np.int32)                # pad rows -> slot 0
         for i, seq in enumerate(active):
             tokens[i, 0] = seq.last_token
             positions[i] = seq.pos
             tables[i, :len(seq.blocks)] = seq.blocks
+            aids[i] = seq.adapter_slot
         dev = self.device
         batch = PagedBatch.decode(torch.from_numpy(tables).to(dev),
                                   torch.from_numpy(positions).to(dev),
                                   self.block_size)
-        logits = self.model.decode_step_paged(
-            torch.from_numpy(tokens).to(dev), self.pool.tensors, batch)
+        with self._adapter_scope(aids):
+            logits = self.model.decode_step_paged(
+                torch.from_numpy(tokens).to(dev), self.pool.tensors, batch)
         rows = logits[:n, -1].to(torch.float32)
-        nxt = rows.argmax(-1).tolist()
+        if all(self._is_greedy(s) for s in active):
+            nxt = rows.argmax(-1).tolist()
+        else:
+            nxt = self._sample_rows(rows, active)
         for i, seq in enumerate(active):
             if len(seq.stream.logits) < seq.keep_logits:
                 seq.stream.logits.append(rows[i].cpu())
@@ -619,7 +1003,19 @@ class DecodeEngine:
             self._active.remove(seq)
         if seq in self._prefill_q:
             self._prefill_q.remove(seq)
+        if seq.held and status == "completed":
+            # eos / max_new ended the stream mid-hold: no stop match is
+            # coming, so the held tail is plain output (pushed inline:
+            # _lock is held here)
+            for t in seq.held:
+                seq.stream._push(int(t))
+            self._tokens_out += len(seq.held)
+        seq.held = []
+        # exclusive blocks free; shared prefix blocks stay with their
+        # other holders
         self.pool.free_owned(seq.id)
+        if self._adapters is not None:
+            self._adapters.release_owned(seq.id)
         if status == "completed":
             self._completed += 1
         elif status == "failed":
@@ -633,7 +1029,8 @@ class DecodeEngine:
     def shutdown(self, drain_timeout=30.0):
         """Stop admissions, decode until every live sequence finishes (or
         `drain_timeout` passes), fail leftovers with `PoolClosed`, stop
-        the scheduler. Returns True on a full drain. Idempotent."""
+        the scheduler and release the prefix cache's blocks. Returns True
+        on a full drain. Idempotent."""
         with self._cv:
             if self._shutdown_called:
                 return self._drained
@@ -660,6 +1057,8 @@ class DecodeEngine:
             for seq in list(leftovers):
                 self._finish_locked(seq, "cancelled", PoolClosed(
                     f"engine shut down before sequence {seq.id} finished"))
+            # a shut-down engine returns the pool to allocated == 0
+            self._clear_prefix_cache_locked()
         self._drained = drained
         return drained
 
@@ -673,13 +1072,15 @@ class DecodeEngine:
     # -- observability -----------------------------------------------------
     def stats(self):
         """Counter snapshot. Quiesced: ``admitted == completed + failed +
-        timed_out + cancelled``; `blocks` carries the pool's conservation
-        numbers (checked as they are read)."""
+        timed_out + cancelled`` and ``blocks.allocated ==
+        prefix_cache.physical_blocks`` (the cache's pins); `blocks` carries
+        the pool's conservation numbers (checked as they are read)."""
         with self._cv:
             used = sum(s.pos for s in self._active)
             slots = sum(len(s.blocks) for s in self._active) \
                 * self.block_size
             ttfts = sorted(self._ttfts)
+            lookups = self._prefix_hits + self._prefix_misses
             snap = {
                 "admitted": self._admitted,
                 "completed": self._completed,
@@ -700,7 +1101,28 @@ class DecodeEngine:
                 if self._step_slots else 0.0,
                 "internal_fragmentation": (1.0 - used / slots)
                 if slots else 0.0,
-                "prefix_cache": {"enabled": False},
+                "prefix_hit_rate": (self._prefix_hits / lookups)
+                if lookups else 0.0,
+                "cow_copies": self._cow_copies,
+                "sampled": self._sampled,
+                "stop_hits": self._stop_hits,
+                "prefix_cache": {
+                    "enabled": self._prefix_on,
+                    "entries": len(self._prefix_cache),
+                    "blocks": sum(len(e["blocks"])
+                                  for e in self._prefix_cache.values()),
+                    # distinct pool blocks the cache pins: a quiesced
+                    # engine holds exactly these, anything beyond leaks
+                    "physical_blocks": len(
+                        {b for e in self._prefix_cache.values()
+                         for b in e["blocks"]}),
+                    "block_cap": self._prefix_cap,
+                    "hits": self._prefix_hits,
+                    "full_hits": self._prefix_full_hits,
+                    "misses": self._prefix_misses,
+                    "tokens_reused": self._prefix_tokens_reused,
+                    "evictions": self._prefix_evictions,
+                },
                 "buckets": {"decode": list(self.decode_buckets),
                             "prefill": list(self.prefill_buckets),
                             "prefill_chunk": self._chunk},
@@ -716,4 +1138,6 @@ class DecodeEngine:
                         "p50_s": pct(0.5), "p95_s": pct(0.95),
                         "p99_s": pct(0.99)}
         snap["blocks"] = self.pool.stats()
+        if self._adapters is not None:
+            snap["adapters"] = self._adapters.stats()
         return snap

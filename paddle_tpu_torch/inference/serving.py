@@ -6,7 +6,7 @@ from __future__ import annotations
 import time
 
 __all__ = ["ServingError", "DeadlineExceeded", "Overloaded", "PoolClosed",
-           "RequestFailed", "Deadline"]
+           "RequestFailed", "AdapterNotLoaded", "Deadline"]
 
 
 class ServingError(RuntimeError):
@@ -34,6 +34,12 @@ class RequestFailed(ServingError):
         super().__init__(msg)
         self.cause = cause
         self.attempts = attempts
+
+
+class AdapterNotLoaded(ValueError):
+    """A request named a LoRA adapter the engine's `AdapterPool` does not
+    hold (or the engine has no pool): a deterministic request error, raised
+    synchronously at submit."""
 
 
 class Deadline:

@@ -127,6 +127,9 @@ def lib():
     # strides (b, s, h) of q, k, v, dout, dtype, scale, causal, stream
     _sig(handle.ptt_flash_attention, I, P, P, P, P, P, P, P, P, P,
          I, I, I, I, *([L] * 12), I, F, I, P)
+    # x, x strides (b, s), A, B, ids, h scratch, out, batch, s, d_in, r,
+    # d_out, slots, x_dtype, stream
+    _sig(handle.ptt_bgmv, P, L, L, P, P, P, P, P, I, I, I, I, I, I, I, P)
     _sig(handle.ptt_cuda_error_string, I, ctypes.c_char_p, I)
     _lib = handle
     return _lib

@@ -1,6 +1,7 @@
 """GPU-only tests of the port's hand-written CUDA kernels: each kernel
 against its plain PyTorch version, a tiny model served through the decode
-kernels and trained through the flash-attention kernels.
+kernels (with prefix sharing and LoRA adapters through BGMV) and trained
+through the flash-attention kernels.
 The kernels have no CPU mode, so every test here skips without a GPU.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -17,6 +18,7 @@ import torch
 from paddle_tpu_torch.models import gpt
 from paddle_tpu_torch.models.gpt import _quant_kv
 from paddle_tpu_torch.nn import quant as tq
+from paddle_tpu_torch.ops import bgmv as tb
 from paddle_tpu_torch.ops import decode_attn as td
 from paddle_tpu_torch.ops import weight_only as tw
 
@@ -121,7 +123,11 @@ def test_engine_serves_through_both_kernels(cuda):
               tw.weight_only_matmul.launches)
     with DecodeEngine(m, max_length=32, block_size=8, quant="int8") as e:
         assert len(e.generate([1, 2, 3], 4)) == 4
-        assert e.stats()["blocks"]["allocated"] == 0
+        st = e.stats()
+        # quiesced: only the prefix cache's pins remain
+        assert st["blocks"]["allocated"] \
+            == st["prefix_cache"]["physical_blocks"]
+    assert e.stats()["blocks"]["allocated"] == 0
     assert td.paged_decode_attention.launches > before[0]
     assert tw.weight_only_matmul.launches > before[1]
 
@@ -253,3 +259,212 @@ def test_parallelize_trains_gpt_tiny_through_flash_kernels(cuda):
     assert tuple(a - b for a, b in zip(after, before)) == (per, per, per)
     assert torch.isfinite(losses).all() and losses[-1] < losses[0]
     assert m.device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# BGMV (multi-tenant LoRA)
+# ---------------------------------------------------------------------------
+
+def _bgmv_case(b, s, d_in, d_out, r, slots, dtype, seed, strided=False):
+    """x (optionally a strided view: every row padded to 2*d_in), slot
+    stacks with slot 0 zero, ids mixing slot 0, repeats and distinct
+    slots."""
+    g = torch.Generator().manual_seed(seed)
+    width = 2 * d_in if strided else d_in
+    x = torch.randn(b, s, width, generator=g).to(dtype)[..., :d_in]
+    A = torch.randn(slots, d_in, r, generator=g) * 0.05
+    B = torch.randn(slots, r, d_out, generator=g) * 0.05
+    A[0] = 0.0
+    B[0] = 0.0
+    ids = torch.tensor([(i * 3) % slots if i % 3 else 0 for i in range(b)],
+                       dtype=torch.int32)
+    return x, A, B, ids
+
+
+def _bgmv_tol(ref):
+    """f32 sums in another order: 1e-5 of the largest |output| + 1e-6."""
+    return 1e-5 * ref.abs().max().item() + 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,d_in,d_out,r,strided", [
+    (8, 1, 4096, 12288, 16, False),    # llama2_7b qkv_proj, decode
+    (8, 1, 4096, 4096, 64, True),      # out_proj at rank 64, strided x
+    (3, 5, 300, 77, 3, False),         # r % 4 != 0: element loads; ragged
+    (2, 9, 256, 513, 128, True),       # rank 128, ragged s and d_out
+    (5, 1, 64, 100, 1, False)])        # rank 1
+def test_bgmv_kernel_matches_plain(cuda, dtype, b, s, d_in, d_out, r,
+                                   strided):
+    x, A, B, ids = _bgmv_case(b, s, d_in, d_out, r, 6, dtype, seed=d_in + r,
+                              strided=strided)
+    ref = tb.lora_delta_ref(x, A, B, ids)
+    before = tb.lora_delta.launches
+    got = tb.lora_delta(x.to(cuda), A.to(cuda), B.to(cuda), ids.to(cuda))
+    torch.cuda.synchronize()
+    assert tb.lora_delta.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert (got.cpu() - ref).abs().max().item() <= _bgmv_tol(ref)
+    for i in range(b):
+        if ids[i] == 0:
+            assert not got[i].any()
+
+
+def test_bgmv_rows_are_batch_invariant(cuda):
+    """A row's bits do not depend on its batchmates or the batch size."""
+    x, A, B, ids = _bgmv_case(8, 1, 4096, 4096, 16, 8, torch.bfloat16, 5)
+    x, A, B, ids = x.to(cuda), A.to(cuda), B.to(cuda), ids.to(cuda)
+    full = tb.lora_delta(x, A, B, ids)
+    for i in range(8):
+        one = tb.lora_delta(x[i:i + 1], A, B, ids[i:i + 1])
+        assert torch.equal(full[i:i + 1], one)
+    part = tb.lora_delta(x[2:5], A, B, ids[2:5])
+    assert torch.equal(full[2:5], part)
+
+
+def test_bgmv_scalar_ids_take_the_matmul_path(cuda):
+    x, A, B, _ = _bgmv_case(1, 7, 96, 80, 8, 4, torch.float32, 9)
+    before = tb.lora_delta.launches
+    got = tb.lora_delta(x.to(cuda), A.to(cuda), B.to(cuda),
+                        torch.tensor(2, dtype=torch.int32, device=cuda))
+    assert tb.lora_delta.launches == before
+    ref = tb.lora_delta_ref(x, A, B, torch.tensor([2], dtype=torch.int32))
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_bgmv_out_of_range_slot_gives_nan_rows(cuda):
+    x, A, B, _ = _bgmv_case(2, 1, 64, 48, 4, 3, torch.float32, 1)
+    ids = torch.tensor([1, 7], dtype=torch.int32, device=cuda)
+    got = tb.lora_delta(x.to(cuda), A.to(cuda), B.to(cuda), ids)
+    assert torch.isfinite(got[0]).all() and torch.isnan(got[1]).all()
+
+
+def _tiny_int8(cuda):
+    """gpt_tiny with an untied head, every Linear int8: each product of a
+    decode step is a row-stable kernel."""
+    from paddle_tpu_torch.nn.quant import quantize_for_inference
+
+    return quantize_for_inference(
+        gpt("gpt_tiny", device=cuda, tie_word_embeddings=False), "int8",
+        min_features=0)
+
+
+def test_engine_sharing_equals_private_on_gpu(cuda):
+    """int8 weights and KV: every decode product is row-stable, so a
+    sharing engine's tokens equal a private engine's."""
+    from paddle_tpu_torch.inference import DecodeEngine
+
+    m = _tiny_int8(cuda)
+    g = torch.Generator().manual_seed(4)
+    system = torch.randint(0, 256, (16,), generator=g).tolist()
+    prompts = [system + torch.randint(0, 256, (t,), generator=g).tolist()
+               for t in (3, 9, 5)]
+    prompts.append(list(prompts[0]))
+    kw = dict(max_length=48, block_size=8, prefill_buckets=(8, 16, 32),
+              prefill_chunk=8, quant="int8")
+
+    def run(e):
+        first = e.generate(prompts[0], 6)
+        return [first] + [s.result() for s in
+                          [e.submit(p, 6) for p in prompts[1:]]]
+
+    with DecodeEngine(m, prefix_cache=False, **kw) as e:
+        ref = run(e)
+    with DecodeEngine(m, **kw) as e:
+        assert run(e) == ref
+        st = e.stats()
+    assert st["prefix_cache"]["full_hits"] >= 1 and st["cow_copies"] >= 1
+    assert e.stats()["blocks"]["allocated"] == 0
+
+
+def test_engine_adapters_through_bgmv_on_gpu(cuda):
+    from paddle_tpu_torch.inference import AdapterPool, DecodeEngine
+
+    m = _tiny_int8(cuda)
+    pool = AdapterPool(m, rank=8, slots=4)
+    g = torch.Generator().manual_seed(1)
+    for name in ("a", "b"):
+        pool.load(name, {k: (torch.randn(i, 8, generator=g) * 0.2,
+                             torch.randn(8, o, generator=g) * 0.2)
+                         for k, (i, o) in pool.layers.items()})
+    prompts = [[1, 2, 3, 4], [5, 6, 7], [8, 9, 10, 11, 12]]
+    tenants = [None, "a", "b"]
+    try:
+        with DecodeEngine(m, max_length=32, block_size=8,
+                          adapters=pool) as e:
+            solo = [e.generate(p, 6, adapter=t)
+                    for p, t in zip(prompts, tenants)]
+            before = tb.lora_delta.launches
+            streams = [e.submit(p, 6, adapter=t)
+                       for p, t in zip(prompts, tenants)]
+            assert [s.result() for s in streams] == solo
+            assert tb.lora_delta.launches > before
+            assert e.stats()["adapters"]["refs"] == 0
+    finally:
+        pool.detach()
+
+
+def test_sampler_rows_do_not_depend_on_the_row_count(cuda):
+    """A row's draw is the same alone, in 3 rows and in 8 (top-p's cumsum
+    runs in fixed row groups; PyTorch's own CUDA cumsum is not
+    row-count-invariant)."""
+    from paddle_tpu_torch.inference import sampling as ts
+
+    g = torch.Generator().manual_seed(2)
+    logits = (torch.randn(8, 32000, generator=g) * 3).to(cuda)
+    for ctr in range(6):
+        pack = {"ctr": torch.full((8,), ctr, dtype=torch.int64),
+                "greedy": torch.tensor([0, 1, 0, 0, 0, 0, 0, 0],
+                                       dtype=torch.int32),
+                "rep": torch.ones(8), "seed": torch.arange(8) * 7 + 1,
+                "temp": torch.full((8,), 0.8), "top_k": torch.tensor(
+                    [0, 0, 50, 0, 10, 0, 0, 5]),
+                "top_p": torch.tensor([0.9, 1.0, 0.9, 0.5, 1.0, 0.95, 0.7,
+                                       0.9])}
+        pack = {k: v.to(cuda) for k, v in pack.items()}
+        full = ts.sample_token(logits, pack)
+        for lo, hi in ((0, 1), (3, 4), (2, 5), (5, 8)):
+            part = ts.sample_token(logits[lo:hi],
+                                   {k: v[lo:hi] for k, v in pack.items()})
+            assert torch.equal(part, full[lo:hi])
+
+
+@pytest.mark.parametrize("width", [768, 4096])
+def test_norm_rows_do_not_depend_on_the_row_count(cuda, width):
+    """The norms' f32 row statistics, and the norms themselves, keep a
+    row's bits at any row count (a plain `mean` over 4096 does not)."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.functional.norm import _row_mean
+
+    g = torch.Generator().manual_seed(6)
+    x = (torch.randn(64, width, generator=g) * 3).to(cuda)
+    w = (torch.rand(width, generator=g) + 0.5).to(cuda)
+    xb = x.to(torch.bfloat16)
+    fns = (_row_mean, lambda t: F.rms_norm(t, w.to(t.dtype)),
+           lambda t: F.layer_norm(t, w, w))
+    for fn in fns:
+        for t in (x, xb):
+            alone = torch.cat([fn(t[i:i + 1]) for i in range(t.shape[0])])
+            for rows in (2, 3, 4, 8, 16, 17, 64):
+                assert torch.equal(fn(t[:rows]), alone[:rows])
+
+
+def test_sampled_stream_same_alone_and_batched_on_gpu(cuda):
+    """With int8 weights every product of a step is row-stable and the
+    sampler is row-count-invariant: a sampled request decodes the same
+    tokens alone (bucket 1) and among batchmates (bucket 4)."""
+    from paddle_tpu_torch.inference import DecodeEngine, SamplingParams
+
+    m = _tiny_int8(cuda)
+    sp = SamplingParams(temperature=1.2, top_k=40, top_p=0.9, seed=11)
+    prompt = [5, 17, 99, 3, 42, 7]
+    with DecodeEngine(m, max_length=48, block_size=8,
+                      prefix_cache=False) as e:
+        alone = e.generate(prompt, 16, sampling=sp)
+        mates = [e.submit([i + 1, i + 2, i + 3], 16,
+                          sampling=SamplingParams(temperature=1.0, seed=i))
+                 for i in range(3)]
+        batched = e.submit(prompt, 16, sampling=sp)
+        assert batched.result() == alone
+        for s in mates:
+            s.result()
+        assert e.stats()["steps"] > 16

@@ -4,7 +4,9 @@ engine tokens against the JAX dense `generate()` and one JAX
 `DecodeEngine` run (float32 and int8 KV), the port's determinism contract
 (a sequence's tokens are the same alone and in a batch), iteration-level
 scheduling, typed deadline / cancel / overload / shutdown semantics, and
-the unported options raising. Runs on the CPU in float32."""
+the engine options (the unported ones raising). Runs on the CPU in
+float32. The prefix cache is on by default, so a quiesced engine holds
+exactly the blocks its cache pins."""
 import time
 
 import numpy as np
@@ -18,8 +20,8 @@ from paddle_tpu.models import generate as jgenerate
 from paddle_tpu.models import gpt as jgpt
 
 from paddle_tpu_torch.convert import load_jax_state
-from paddle_tpu_torch.inference import (DeadlineExceeded, DecodeEngine,
-                                        Overloaded, PoolClosed)
+from paddle_tpu_torch.inference import (AdapterNotLoaded, DeadlineExceeded,
+                                        DecodeEngine, Overloaded, PoolClosed)
 from paddle_tpu_torch.inference.decode.block_pool import (
     BlockKVCache, OutOfBlocks, RESERVED_BLOCKS)
 from paddle_tpu_torch.models import gpt
@@ -62,6 +64,11 @@ def eng(models):
 def _prompt(seed, n=6):
     return np.random.RandomState(seed).randint(
         0, TINY["vocab_size"], (n,)).astype(np.int32)
+
+
+def _quiesced(st):
+    """Blocks held beyond the prefix cache's pins (0 when nothing leaks)."""
+    return st["blocks"]["allocated"] - st["prefix_cache"]["physical_blocks"]
 
 
 def _jax_dense(jm, prompt, new, quant=None):
@@ -195,7 +202,7 @@ def test_late_arrival_joins_running_batch(eng):
     assert not long_s.done(), "late arrival must not wait for a drain"
     assert long_s.result() == long_ref
     st = eng.stats()
-    assert st["occupancy"] > 0 and st["blocks"]["allocated"] == 0
+    assert st["occupancy"] > 0 and _quiesced(st) == 0
     assert st["completed"] - base["completed"] == 4
     assert st["ttft"]["count"] >= 4 and st["ttft"]["p50_s"] > 0
 
@@ -224,9 +231,9 @@ def test_cancel_spares_batchmate(eng):
     st = eng.stats()
     assert st["cancelled"] - base == 1
     deadline = time.monotonic() + 5.0
-    while eng.stats()["blocks"]["allocated"] and time.monotonic() < deadline:
+    while _quiesced(eng.stats()) and time.monotonic() < deadline:
         time.sleep(0.01)
-    assert eng.stats()["blocks"]["allocated"] == 0
+    assert _quiesced(eng.stats()) == 0
 
 
 def test_deadline_typed_and_blocks_freed(eng):
@@ -238,11 +245,11 @@ def test_deadline_typed_and_blocks_freed(eng):
     deadline = time.monotonic() + 5.0
     while time.monotonic() < deadline:
         st = eng.stats()
-        if st["timed_out"] - base == 1 and st["blocks"]["allocated"] == 0:
+        if st["timed_out"] - base == 1 and _quiesced(st) == 0:
             break
         time.sleep(0.01)
     st = eng.stats()
-    assert st["timed_out"] - base == 1 and st["blocks"]["allocated"] == 0
+    assert st["timed_out"] - base == 1 and _quiesced(st) == 0
 
 
 def test_overload_closed_and_drain(models):
@@ -273,18 +280,41 @@ def test_submit_validation(eng):
         eng.submit(_prompt(1), 47)           # beyond max_length
 
 
-@pytest.mark.parametrize("kw", [
-    {"prefix_cache": True}, {"speculate_k": 2, "draft_model": object()},
-    {"adapters": object()}, {"mesh": object()}, {"fault_hook": print},
-    {"compile_cache": object()}])
-def test_unported_engine_options_raise(models, kw):
-    with pytest.raises(NotImplementedError):
+# options: the ported ones take their typed behaviour (a prefix-cache
+# engine runs, a non-pool `adapters` is refused as in JAX, `adapter=`
+# without a pool is `AdapterNotLoaded`, a `sampling` dict is the wire
+# form); the rest still raise NotImplementedError
+_ENGINE_OPTIONS = [
+    ({"prefix_cache": True}, None),
+    ({"speculate_k": 2, "draft_model": object()}, NotImplementedError),
+    ({"adapters": object()}, ValueError),
+    ({"mesh": object()}, NotImplementedError),
+    ({"fault_hook": print}, NotImplementedError),
+    ({"compile_cache": object()}, NotImplementedError)]
+
+
+@pytest.mark.parametrize("kw,error", _ENGINE_OPTIONS,
+                         ids=[f"kw{i}" for i in range(len(_ENGINE_OPTIONS))])
+def test_unported_engine_options_raise(models, kw, error):
+    if error is None:
+        with _engine(models[1], **kw) as e:
+            assert len(e.generate(_prompt(1), 3)) == 3
+            assert e.stats()["prefix_cache"]["enabled"]
+        return
+    with pytest.raises(error):
         _engine(models[1], **kw)
 
 
-@pytest.mark.parametrize("kw", [{"sampling": {"temperature": 0.7}},
-                                {"adapter": "tenant-a"},
-                                {"resume_committed": [1, 2]}])
-def test_unported_submit_options_raise(eng, kw):
-    with pytest.raises(NotImplementedError):
+_SUBMIT_OPTIONS = [({"sampling": {"temperature": 0.7}}, None),
+                   ({"adapter": "tenant-a"}, AdapterNotLoaded),
+                   ({"resume_committed": [1, 2]}, NotImplementedError)]
+
+
+@pytest.mark.parametrize("kw,error", _SUBMIT_OPTIONS,
+                         ids=[f"kw{i}" for i in range(len(_SUBMIT_OPTIONS))])
+def test_unported_submit_options_raise(eng, kw, error):
+    if error is None:
+        assert len(eng.submit(_prompt(1), 4, **kw).result()) == 4
+        return
+    with pytest.raises(error):
         eng.submit(_prompt(1), 4, **kw)

@@ -36,7 +36,7 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("N ")[1].split()[0])
-    assert n >= 15                      # every module was imported
+    assert n >= 33                      # every module was imported
 
 
 def _no_gpu():
@@ -71,14 +71,25 @@ def test_engine_raises_without_gpu_and_checks_model_device():
 def test_kernel_wrappers_have_launch_counters():
     from paddle_tpu_torch.ops import (flash_attention_bwd_dkv,
                                       flash_attention_bwd_dq,
-                                      flash_attention_fwd,
+                                      flash_attention_fwd, lora_delta,
                                       paged_decode_attention,
                                       weight_only_matmul)
 
     for wrapper in (weight_only_matmul, paged_decode_attention,
                     flash_attention_fwd, flash_attention_bwd_dq,
-                    flash_attention_bwd_dkv):
+                    flash_attention_bwd_dkv, lora_delta):
         assert isinstance(wrapper.launches, int)
+
+
+def test_adapter_pool_raises_without_gpu_and_checks_model_device():
+    from paddle_tpu_torch.inference import AdapterPool
+
+    m = gpt("gpt_tiny", device="cpu")
+    with pytest.raises(ValueError, match="model is on"):
+        AdapterPool(m, rank=2, device="meta")
+    _no_gpu()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AdapterPool(m, rank=2)
 
 
 def test_parallelize_trains_where_the_model_lives():
