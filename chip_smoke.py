@@ -20,7 +20,11 @@ Phases (any failure exits non-zero and prints no result line):
    llama2_7b shapes of the decode path (BGMV at the qkv_proj and out_proj
    shapes of a multi-tenant batch); the FlashAttention-2 forward, dq and
    dkv kernels at the gpt_base and llama2_7b training shapes, causal and
-   not, a ragged S, a padded head dim, bf16 and f32;
+   not, a ragged S, a padded head dim, bf16 and f32; the short-attention
+   forward and backward kernels (attention dropout drawn inside them) at
+   the bert_base fine-tune shape (B=128, S=128, H=12, D=64, p=0.1) and
+   beside it p=0, causal, f32, S=512, S=136 and D=40, with the kernel's own
+   keep bits read out against 1 - p and against the plain stream;
 3. serving end to end: llama2_7b at full width (random weights from a
    seed) served by `DecodeEngine` — (a) bf16 weights with a bf16 KV pool,
    (b) int8 weights with an int8 KV pool, (c) int4 weights, one short
@@ -42,7 +46,19 @@ Phases (any failure exits non-zero and prints no result line):
    weights through the kernels and through the plain attention, and a
    torch.profiler window over 3 steps in a child process (device-busy
    share and kernel time by family);
-5. the kernels' JSON line, the nvidia-smi line, then the last line
+5. BERT fine-tuning end to end: bert_base at full width and depth (f32
+   masters, bf16 compute, attention and hidden dropout 0.1 from a seeded
+   CUDA generator) through `distributed.parallelize` with AdamW lr 2e-5 on
+   one fixed [128, 128] batch from `--seed` (bench.py's row) — 20 steps
+   (step ms, sequences/s, MFU over bench.py's matmul parameters, launch
+   counts set to 0 before and read after), a parity run of the same
+   weights and generator seed through the kernels, again through the
+   kernels (bit for bit) and through the plain composed route, in bf16
+   and in f32 compute, with a planted fault (the kernels without their
+   dropout) that the f32 gates must catch, one `eval_batch` with dropout
+   off (the flash forward), and a torch.profiler window over 3 steps in a
+   child process;
+6. the kernels' JSON line, the nvidia-smi line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every float32 product in
@@ -81,6 +97,18 @@ FLASH_CASES = (
 # dtype -> (O max abs error, each gradient's normwise relative error)
 FLASH_TOL = {"bfloat16": (2e-2, 1e-3), "float32": (1e-4, 1e-5)}
 TRAIN_BATCH, TRAIN_SEQ = 16, 1024
+# short-attention checks: (label, B, S, H, D, dtype, causal, p); the first
+# is the bert_base fine-tune shape, the one the kernels' line reports
+SHORT_CASES = (
+    ("bert_base", 128, 128, 12, 64, "bfloat16", False, 0.1),
+    ("bert_base p=0", 128, 128, 12, 64, "bfloat16", False, 0.0),
+    ("bert_base causal", 128, 128, 12, 64, "bfloat16", True, 0.1),
+    ("bert_base f32", 128, 128, 12, 64, "float32", False, 0.1),
+    ("S=512", 16, 512, 12, 64, "bfloat16", False, 0.1),
+    ("S=136", 32, 136, 12, 64, "bfloat16", False, 0.1),
+    ("D=40", 32, 128, 12, 40, "bfloat16", False, 0.1),
+)
+BERT_BATCH, BERT_SEQ = 128, 128     # bench.py's bert_base fine-tune row
 
 
 def log(msg):
@@ -561,6 +589,154 @@ def _time_flash(torch, F, fa, q, k, v, do, lse, delta, causal, iters):
     return res
 
 
+def _short_mod():
+    import importlib
+
+    return importlib.import_module("paddle_tpu_torch.ops.short_attention")
+
+
+def short_counts():
+    sa = _short_mod()
+    return {"short_attention_fwd": sa.short_attention_fwd.launches,
+            "short_attention_bwd": sa.short_attention_bwd.launches}
+
+
+def reset_short_counts():
+    sa = _short_mod()
+    sa.short_attention_fwd.launches = 0
+    sa.short_attention_bwd.launches = 0
+
+
+def kernel_keep_share(torch, B, S, H, p, seed):
+    """The forward kernel's own keep bits, read out exactly: with q = k = 0
+    every probability is 1/S, and with V the identity over D = min(S, 256)
+    columns the output's (i, d) entry is nonzero exactly where (i, d) is
+    kept. Returns (kept share, bits equal to the plain stream's)."""
+    from paddle_tpu_torch.ops import _dropout_rng
+
+    sa = _short_mod()
+    D = min(S, 256)
+    q = torch.zeros(B, S, H, D, device="cuda")
+    v = torch.eye(S, D, device="cuda")[None, :, None, :].expand(
+        B, S, H, D).contiguous()
+    out, _ = sa.short_attention_fwd(q, q, v, seed, p)
+    kept = (out != 0).permute(0, 2, 1, 3)
+    want = _dropout_rng.keep_mask(seed, B, H, S, S, p)[..., :D]
+    return kept.double().mean().item(), bool(torch.equal(kept, want))
+
+
+def check_short_attention(torch, iters):
+    """Forward and backward kernels against the plain versions with the
+    same seed, so the same mask. The backward kernels take the forward
+    kernel's lse, as on the training path; the plain backward the plain
+    forward's. Tolerances as the flash kernels' (FLASH_TOL): O max abs
+    error, each gradient's normwise error ||got - ref|| / ||ref||; lse
+    max abs error <= 1e-2 (bf16) / 1e-4 (f32). q, k, v are views of one [B, S, 3, H, D]
+    tensor, as BERT's fused QKV gives them. For p > 0, the kernel's own
+    keep bits (`kernel_keep_share`) against 1 - p and against the plain
+    stream."""
+    import torch.nn.functional as F
+
+    sa = _short_mod()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for label, B, S, H, D, dt, causal, p in SHORT_CASES:
+        dtype = getattr(torch, dt)
+        qkv = torch.randn(B, S, 3, H, D, device="cuda", generator=g).to(
+            dtype)
+        q, k, v = qkv.unbind(2)
+        do = torch.randn(B, S, H, D, device="cuda", generator=g).to(dtype)
+        seed = torch.randint(0, 2 ** 62, (1,), device="cuda", generator=g)
+        out, lse = sa.short_attention_fwd(q, k, v, seed, p, causal)
+        ref, lse_ref = sa.short_attention_ref(q, k, v, seed, p, causal)
+        grads = sa.short_attention_bwd(q, k, v, do, lse, seed, p, causal)
+        refs = sa.short_attention_bwd_ref(q, k, v, do, lse_ref, seed, p,
+                                          causal)
+        torch.cuda.synchronize()
+        o_tol, grad_tol = FLASH_TOL[dt]
+        lse_tol = 1e-2 if dt == "bfloat16" else 1e-4
+        err = {"fwd": (out.float() - ref.float()).abs().max().item(),
+               "lse": (lse - lse_ref).abs().max().item()}
+        rel = {}
+        for name, a, b in zip(("dq", "dk", "dv"), grads, refs):
+            err[name] = (a.float() - b.float()).abs().max().item()
+            rel[name] = ((a.float() - b.float()).norm()
+                         / b.float().norm()).item()
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (out, lse, *grads))
+        case = (f"{label} {dt} {'causal' if causal else 'full'} p={p} "
+                f"B={B} S={S} H={H} D={D}")
+        row = dict(case=case, dtype=dt, causal=causal, p=p,
+                   max_abs_err=err, grad_norm_rel_err=rel, o_tol=o_tol,
+                   lse_tol=lse_tol, grad_tol=grad_tol)
+        ok = (finite and err["fwd"] <= o_tol and err["lse"] <= lse_tol
+              and max(rel.values()) <= grad_tol)
+        if p > 0:
+            share, same = kernel_keep_share(torch, B, S, H, p, seed)
+            sigma = (p * (1 - p) / (B * H * S * min(S, 256))) ** 0.5
+            row.update(kept_share=share, kept_expected=1 - p,
+                       kept_sigma=sigma, kernel_mask_equals_plain=same)
+            ok = ok and same and abs(share - (1 - p)) <= 4 * sigma
+        if not ok:
+            raise AssertionError(f"short attention {case}: {row}, "
+                                 f"finite={finite}")
+        del ref, lse_ref, refs, grads, out
+        row.update(_time_short(torch, F, sa, q, k, v, do, lse, seed, p,
+                               causal, iters))
+        rows.append(row)
+        log(f"  short attention {case}: err {err} normwise {rel}"
+            + (f" kept {row['kept_share']:.5f}" if p > 0 else "")
+            + "".join(f" {n} {t:.4f}" for n, t in row.items()
+                      if n.endswith("_ms")))
+        del qkv, q, k, v, do, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _time_short(torch, F, sa, q, k, v, do, lse, seed, p, causal, iters):
+    """Kernel, plain and library times with the bounds. Operations: the
+    forward's two products, 4 B H S^2 D (half when causal); the backward
+    2.5x that (the FA-2 count of what the function needs; the kernels
+    also recompute S and dP once more for the row term). Bytes: each
+    input read once, each output written once (forward q, k, v, O and
+    lse; backward q, k, v, dO, lse, dQ, dK, dV)."""
+    B, S, H, D = q.shape
+    tensor = B * S * H * D * q.element_size()
+    rows_f32 = B * H * S * 4
+    fwd_flops = 4.0 * B * H * S * S * D * (0.5 if causal else 1.0)
+    slow = max(3, iters // 4)
+    res = {
+        "fwd_ms": time_ms(torch, lambda: sa.short_attention_fwd(
+            q, k, v, seed, p, causal), iters),
+        "bwd_ms": time_ms(torch, lambda: sa.short_attention_bwd(
+            q, k, v, do, lse, seed, p, causal), iters),
+        "fwd_plain_ms": time_ms(torch, lambda: sa.short_attention_ref(
+            q, k, v, seed, p, causal), slow, warmup=1),
+        "bwd_plain_ms": time_ms(torch, lambda: sa.short_attention_bwd_ref(
+            q, k, v, do, lse, seed, p, causal), slow, warmup=1)}
+    # yardstick: SDPA with the same dropout on [B, H, S, D] views, forward,
+    # and its backward (one autograd call forms dq, dk and dv)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    res["fwd_library_ms"] = time_ms(
+        torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, dropout_p=p, is_causal=causal), iters)
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, dropout_p=p,
+                                             is_causal=causal)
+    dot = do.transpose(1, 2)
+    res["bwd_library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True), iters)
+    for name, nbytes, flops in (
+            ("fwd", 4 * tensor + rows_f32, fwd_flops),
+            ("bwd", 7 * tensor + rows_f32, 2.5 * fwd_flops)):
+        res[f"{name}_bound_ms"], res[f"{name}_bound_by"] = bound(nbytes,
+                                                                 flops)
+    res["fwd_bytes"], res["bwd_bytes"] = (4 * tensor + rows_f32,
+                                          7 * tensor + rows_f32)
+    res["fwd_flops"], res["bwd_flops"] = fwd_flops, 2.5 * fwd_flops
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 3: end to end
 # ---------------------------------------------------------------------------
@@ -685,9 +861,10 @@ def profile_decode(torch, np, model, quant, label, steps=12, pool=None):
                 "sampling": SamplingParams(**SAMPLED, seed=1000 + i)
                 if i % 2 else None}
 
-    # enough new tokens that no sequence finishes inside the window; the
-    # rest is cancelled after it
-    streams = [eng.submit(p, 4 * steps + 16, **opts(i)) for i, p in
+    # enough new tokens that no sequence finishes before the window ends:
+    # the engine's thread decodes on while the profiler starts (seconds on
+    # some hosts); the rest is cancelled after it
+    streams = [eng.submit(p, 20 * steps + 16, **opts(i)) for i, p in
                enumerate(_prompts(np, model.cfg.vocab_size, (300,) * 8))]
     for st in streams:
         next(iter(st))                      # every prompt is prefilled
@@ -699,8 +876,11 @@ def profile_decode(torch, np, model, quant, label, steps=12, pool=None):
         while eng.stats()["steps"] < s0 + steps:
             if time.perf_counter() > give_up or all(st.done()
                                                     for st in streams):
-                raise AssertionError(f"{label}: decode stalled under the "
-                                     f"profiler")
+                raise AssertionError(
+                    f"{label}: decode stalled under the profiler: "
+                    f"{eng.stats()['steps'] - s0} of {steps} steps, "
+                    f"streams {[st.status for st in streams]}, tokens "
+                    f"{[len(st.tokens) for st in streams]}")
             time.sleep(0.0005)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1178,6 +1358,240 @@ def profile_train_child(torch, layers, seed, report):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 5: BERT fine-tuning end to end
+# ---------------------------------------------------------------------------
+
+def _bert_engine(torch, layers, gseed=0, compute_dtype="bfloat16"):
+    """bert_base at full width (f32 masters from seed 0, dropout 0.1 from
+    a CUDA generator seeded `gseed`), 2-class head, AdamW lr 2e-5, bf16
+    compute, bench.py's loss_fn: the JAX package's fine-tune row
+    (bench.py:283-341). `compute_dtype=None` computes in f32."""
+    from paddle_tpu_torch.distributed import parallelize
+    from paddle_tpu_torch.models import bert_for_sequence_classification
+    from paddle_tpu_torch.nn import functional as TF
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(gseed)
+    model = bert_for_sequence_classification(
+        "bert_base", device="cuda", seed=0, generator=gen, num_labels=2,
+        num_hidden_layers=layers)
+    opt = AdamW(learning_rate=2e-5, parameters=model.parameters())
+
+    def loss_fn(m, ids, labels):
+        return TF.cross_entropy(m(ids), labels).mean()
+
+    return model, parallelize(model, opt, loss_fn=loss_fn,
+                              compute_dtype=compute_dtype)
+
+
+def _bert_batch(torch, np, vocab, seed):
+    """One fixed batch as bench.py makes it: ids and 2-class labels from
+    numpy's RandomState(seed)."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (BERT_BATCH, BERT_SEQ)).astype("int32")
+    labels = rng.randint(0, 2, (BERT_BATCH,)).astype("int64")
+    return (torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda())
+
+
+def _bert_steps(torch, eng, batch, steps):
+    losses, norms = [], []
+    for _ in range(steps):
+        losses.append(eng.train_batch(*batch))
+        norms.append(eng.last_grad_norm)
+    return (torch.stack(losses).float().cpu().tolist(),
+            torch.stack(norms).float().cpu().tolist())
+
+
+def bert_throughput(torch, np, layers, steps, seed):
+    """20 steps on one fixed [128, 128] batch after 2 warm-up steps; the
+    short-attention and flash launch counts are set to 0 just before and
+    read just after. MFU counts bench.py's matmul-bearing parameters."""
+    import math
+
+    from paddle_tpu_torch.models.bert import n_matmul_params
+
+    model, eng = _bert_engine(torch, layers)
+    batch = _bert_batch(torch, np, model.cfg.vocab_size, seed)
+    _bert_steps(torch, eng, batch, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_short_counts()
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    losses, norms = _bert_steps(torch, eng, batch, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**short_counts(), **flash_counts()}
+    n_matmul = n_matmul_params(model.cfg)
+    seqs = BERT_BATCH * steps / wall
+    res = {"layers": layers, "batch": BERT_BATCH, "seq": BERT_SEQ,
+           "steps": steps, "step_ms": wall * 1e3 / steps,
+           "sequences_per_s": seqs, "tokens_per_s": seqs * BERT_SEQ,
+           "n_matmul": n_matmul,
+           "mfu": seqs * 6.0 * n_matmul * BERT_SEQ / BF16_FLOPS,
+           "losses": losses, "grad_norms": norms, "launches": launches,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  bert train {json.dumps(res)}")
+    per_run = layers * steps
+    if (launches["short_attention_fwd"] != per_run
+            or launches["short_attention_bwd"] != 2 * per_run
+            or any(launches[k] for k in flash_counts())):
+        raise AssertionError(f"launches {launches}, expected {per_run} "
+                             f"short-attention forward and {2 * per_run} "
+                             f"backward launches ({layers} layers x {steps} "
+                             f"steps) and no flash launch")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"BERT training not finite: losses {losses}")
+    del model, eng
+    return res
+
+
+# (loss, grad norm) relative gates of the kernel-vs-plain BERT parity, by
+# compute dtype
+BERT_PARITY_TOL = {"bfloat16": (1e-2, 5e-2), "float32": (1e-4, 1e-3)}
+
+
+def _bert_route_run(torch, np, layers, seed, steps, compute_dtype, route):
+    """`steps` steps of the parity's weights, batch and generator seed on
+    one attention route: "kernels"; "plain", the composed route (the
+    routing predicate in `nn.functional.attention` admits no shape; the
+    mask is the same stream's); or "mask dropped", a planted fault: the
+    kernels called with p = 0, so neither the keep mask nor the 1/(1-p)
+    scale reaches them. Returns the run, the model and its engine."""
+    from paddle_tpu_torch.nn.functional import attention
+
+    supported, kernel = (attention.short_attention_supported,
+                         attention.short_attention)
+    if route == "plain":
+        attention.short_attention_supported = lambda *a: False
+    elif route == "mask dropped":
+        attention.short_attention = (
+            lambda q, k, v, seed_, p, causal: kernel(q, k, v, seed_, 0.0,
+                                                     causal))
+    try:
+        model, eng = _bert_engine(torch, layers, gseed=seed + 1,
+                                  compute_dtype=compute_dtype)
+        batch = _bert_batch(torch, np, model.cfg.vocab_size, seed)
+        reset_short_counts()
+        losses, norms = _bert_steps(torch, eng, batch, steps)
+    finally:
+        attention.short_attention_supported = supported
+        attention.short_attention = kernel
+    return ({"losses": losses, "grad_norms": norms,
+             "launches": short_counts()}, model, eng, batch)
+
+
+def _rel_gaps(a, b):
+    return (max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                    b["losses"])),
+            max(abs(x - y) / abs(y) for x, y in zip(a["grad_norms"],
+                                                    b["grad_norms"])))
+
+
+def bert_parity(torch, np, layers, seed, steps=3):
+    """The same weights, batch and dropout generator seed through the
+    short-attention kernels and through the plain composed route, in bf16
+    compute and in f32 compute: loss and grad norm within
+    BERT_PARITY_TOL, relative. A second bf16 kernel run must equal the
+    first bit for bit. The planted fault ("mask dropped") must break the
+    f32 gates, which shows they see the dropout inside the kernels; what
+    it reads against the bf16 gates is recorded. Then one `eval_batch` in
+    eval mode (dropout off), which takes the flash forward: one launch a
+    layer."""
+    import math
+
+    res = {"batch": BERT_BATCH, "steps": steps, "tol": BERT_PARITY_TOL}
+    failures = []
+    for dt, cd in (("bfloat16", "bfloat16"), ("float32", None)):
+        routes = (("kernels", "kernels again", "plain", "mask dropped")
+                  if dt == "bfloat16" else
+                  ("kernels", "plain", "mask dropped"))
+        runs = {}
+        for route in routes:
+            runs[route], model, eng, batch = _bert_route_run(
+                torch, np, layers, seed, steps, cd, route)
+            if dt == "bfloat16" and route == "kernels":
+                model.eval()
+                reset_flash_counts()
+                reset_short_counts()
+                eval_loss = float(eng.eval_batch(*batch))
+                eval_launches = {**flash_counts(), **short_counts()}
+                res.update(eval_loss=eval_loss, eval_launches=eval_launches)
+            del model, eng
+        loss_tol, norm_tol = BERT_PARITY_TOL[dt]
+        k, p = runs["kernels"], runs["plain"]
+        loss_rel, norm_rel = _rel_gaps(k, p)
+        fault_loss, fault_norm = _rel_gaps(runs["mask dropped"], p)
+        row = {"runs": runs, "loss_max_rel_err": loss_rel,
+               "grad_norm_max_rel_err": norm_rel,
+               "mask_dropped_loss_rel_err": fault_loss,
+               "mask_dropped_grad_norm_rel_err": fault_norm,
+               "mask_dropped_caught": (fault_loss > loss_tol
+                                       or fault_norm > norm_tol)}
+        if not (loss_rel <= loss_tol and norm_rel <= norm_tol):
+            failures.append(f"{dt}: loss rel err {loss_rel} (tol "
+                            f"{loss_tol}), grad norm rel err {norm_rel} "
+                            f"(tol {norm_tol})")
+        if dt == "bfloat16":
+            row["rerun_bitwise_equal"] = (
+                k["losses"] == runs["kernels again"]["losses"]
+                and k["grad_norms"] == runs["kernels again"]["grad_norms"])
+            if not row["rerun_bitwise_equal"]:
+                failures.append("bf16 kernel rerun not bit-equal")
+        elif not row["mask_dropped_caught"]:
+            failures.append(f"f32 gates miss the planted fault: loss "
+                            f"{fault_loss}, grad norm {fault_norm}")
+        if (min(k["launches"].values()) == 0
+                or any(p["launches"].values())):
+            failures.append(f"{dt} routing: kernel run {k['launches']}, "
+                            f"plain run {p['launches']}")
+        res[dt] = row
+    log(f"  bert parity {json.dumps(res)}")
+    if failures:
+        raise AssertionError("BERT kernel vs plain: " + "; ".join(failures))
+    if (res["eval_launches"]["flash_attention_fwd"] != layers
+            or res["eval_launches"]["short_attention_fwd"]
+            or not math.isfinite(res["eval_loss"])):
+        raise AssertionError(f"eval_batch: launches {res['eval_launches']},"
+                             f" loss {res['eval_loss']}")
+    return res
+
+
+def profile_bert(torch, np, layers, seed, steps=3):
+    """Profile `steps` BERT fine-tune steps (after 2 warm-up steps) under
+    torch.profiler, in a child process of its own (`--profile-bert`):
+    device-busy share and kernel time by family."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model, eng = _bert_engine(torch, layers)
+    batch = _bert_batch(torch, np, model.cfg.vocab_size, seed)
+    _bert_steps(torch, eng, batch, 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _bert_steps(torch, eng, batch, steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fam = kernel_families(prof, (
+        ("short_attention", ("sa_fwd", "sa_dq", "sa_dkv")),
+        ("gemm", GEMM_NAMES),
+        ("optimizer", ("foreach", "multi_tensor")),
+        ("elementwise", ("elementwise",))))
+    busy_ms = sum(fam.values()) / 1e3
+    launches = sum(e.count for e in device_events(prof))
+    return {"layers": layers, "steps": steps, "step_ms": wall_ms / steps,
+            "device_busy_ms_per_step": busy_ms / steps,
+            "device_busy_share": busy_ms / wall_ms,
+            "device_launches_per_step": launches / steps,
+            "kernel_ms_per_step": {k: v / 1e3 / steps
+                                   for k, v in fam.items()},
+            "top_kernels_ms_per_step": top_kernels(prof, steps)}
+
+
 def main(argv):
     import argparse
 
@@ -1193,6 +1607,8 @@ def main(argv):
     ap.add_argument("--profile-train", metavar="OUT",
                     help=argparse.SUPPRESS)
     ap.add_argument("--profile-tenants", metavar="OUT",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--profile-bert", metavar="OUT",
                     help=argparse.SUPPRESS)
     ap.add_argument("--layers", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -1220,6 +1636,11 @@ def main(argv):
         with open(args.profile_tenants, "w") as f:
             json.dump(res, f)
         return 0
+    if args.profile_bert:
+        res = profile_bert(torch, np, args.layers, args.seed)
+        with open(args.profile_bert, "w") as f:
+            json.dump(res, f)
+        return 0
     t_start = time.perf_counter()
     # the report's directory also holds the training profile child's file
     os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
@@ -1243,6 +1664,7 @@ def main(argv):
     pd_rows = check_paged(torch, iters)
     bg_rows = check_bgmv(torch, iters)
     fa_rows = check_flash(torch, iters)
+    sa_rows = check_short_attention(torch, iters)
 
     log("phase 3: llama2_7b end to end through DecodeEngine")
     serve_layers = 2 if args.quick else 32
@@ -1258,6 +1680,22 @@ def main(argv):
              "parity": train_parity(torch, layers, args.seed),
              "profile": profile_train_child(torch, layers, args.seed,
                                             args.report)}
+
+    log("phase 5: bert_base fine-tuning through parallelize")
+    bert_run = {"throughput": bert_throughput(torch, np, layers, 20,
+                                              args.seed),
+                "parity": bert_parity(torch, np, layers, args.seed)}
+    bert_run["profile"] = run_child("--profile-bert", layers, args.seed,
+                                    args.report)
+    # the profiler's own host cost stretches its window's step; the device
+    # time it records against the unprofiled step is the busy share a run
+    # without it sees
+    bert_run["device_busy_share_unprofiled"] = (
+        bert_run["profile"]["device_busy_ms_per_step"]
+        / bert_run["throughput"]["step_ms"])
+    log(f"  bert profile {json.dumps(bert_run['profile'])}; device busy "
+        f"{bert_run['device_busy_share_unprofiled']:.4f} of the unprofiled "
+        f"step")
 
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
@@ -1315,12 +1753,33 @@ def main(argv):
             library_ms=(fa_main["fwd_library_ms"] if part == "fwd"
                         else None),
             case=fa_main["case"], **({} if part == "fwd" else pair)))
+    sa_main = sa_rows[0]
+    for name, line, part in (("short_attention_fwd", 73, "fwd"),
+                             ("short_attention_bwd", 87, "bwd")):
+        errs = [v for r in sa_rows for n, v in r["max_abs_err"].items()
+                if n in (("fwd",) if part == "fwd" else ("dq", "dk", "dv"))]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/csrc/short_attention.cu",
+            replaces=f"paddle_tpu/ops/pallas/short_attention.py:{line}",
+            launches=bert_run["throughput"]["launches"][name],
+            max_abs_err=max(errs), ms=sa_main[f"{part}_ms"],
+            plain_ms=sa_main[f"{part}_plain_ms"],
+            bound_ms=sa_main[f"{part}_bound_ms"],
+            bound_by=sa_main[f"{part}_bound_by"],
+            library_ms=sa_main[f"{part}_library_ms"],
+            case=sa_main["case"],
+            # a backward call is two launches (dQ, then dK/dV); ms is the
+            # call's
+            **({} if part == "fwd" else {"launches_per_call": 2})))
     report = {"device": smi, "quick": args.quick,
               "build": build_rec,
               "weight_only": wo_rows, "paged_decode": pd_rows,
               "bgmv": bg_rows,
               "flash_attention": fa_rows,
+              "short_attention": sa_rows,
               "e2e": runs, "profiles": profiles, "train": train,
+              "bert": bert_run,
               "seconds": time.perf_counter() - t_start}
     with open(args.report, "w") as f:
         json.dump(report, f, indent=1)

@@ -3,8 +3,9 @@
 The names are the same on both sides (``transformer.layers.<i>.attn.
 qkv_proj.weight`` ...). One layout differs: a Paddle/JAX `Linear.weight`
 is ``[in, out]`` while `torch.nn.Linear.weight` is ``[out, in]``, so
-Linear weights — and only those — are transposed. Embeddings (``[V, h]``)
-and norm weights carry over as they are, and so do a quantized layer's
+Linear weights — and only those — are transposed. Embeddings (``[V, h]``:
+GPT's ``wte``/``wpe``, BERT's word, position and token-type tables) and
+norm weights carry over as they are, and so do a quantized layer's
 ``quant_weight`` (already ``[out, in]`` int8 or packed int4) and
 ``quant_scale``.
 
@@ -29,8 +30,10 @@ import torch
 
 __all__ = ["params_from_jax", "load_jax_state", "state_to_jax"]
 
-#: modules whose 2-D `.weight` is an embedding table, not a Linear
-_EMBEDDINGS = ("wte", "wpe")
+#: modules whose 2-D `.weight` is an embedding table, not a Linear: GPT's
+#: and BERT's
+_EMBEDDINGS = ("wte", "wpe", "word_embeddings", "position_embeddings",
+               "token_type_embeddings")
 
 
 def _is_linear_weight(name, arr):

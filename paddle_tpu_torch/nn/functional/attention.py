@@ -1,21 +1,43 @@
 """Attention functionals (counterpart of
 paddle_tpu/nn/functional/attention.py).
 
-Routing follows the JAX package's rule: self-attention on the
-accelerator whose q, k and v share one shape that
-`flash_attention_supported` admits runs the FlashAttention-2 kernels
-(`ops.flash_attention`); every other call — CPU tensors, cross-attention
-or GQA shapes, short sequences — takes the plain version
-(`ops.flash_attention.flash_attention_ref`). The rule is a shape rule: a
-kernel error is raised, never caught.
+Routing follows the JAX package's rules, on the tensors' device:
+
+* training-mode dropout with no mask, self-attention shapes that the
+  short-attention kernels admit (`ops.short_attention.supported` and
+  `supports_p`): the short-attention kernels, dropout drawn inside them
+  (`ops.short_attention`; on a CPU tensor their plain versions). The JAX
+  package gates this route behind an environment switch and a TPU, where
+  XLA's fused composed path was faster; eagerly, the composed path writes
+  [B, H, S, S] scores, probabilities and a mask through device memory in
+  every layer, so here the kernels are the route;
+* any other dropout (a mask, a shape the kernels do not take, p = 1):
+  the composed path (`ops.short_attention.composed_attention`, the
+  kernels' plain version), drawing its mask from the same bit stream
+  (`ops._dropout_rng`);
+* `attn_mask` without dropout: the same composed path with the additive
+  bias;
+* otherwise self-attention whose q, k and v share one shape that
+  `flash_attention_supported` admits runs the FlashAttention-2 kernels on
+  the GPU (`ops.flash_attention`); every other call takes the plain
+  version (`ops.flash_attention.flash_attention_ref`).
+
+Each dropout call draws a new stream seed from the caller's
+`torch.Generator` (torch's default generator of the device when None), as
+the JAX package draws a key per call. The rules are shape rules: a kernel
+error is raised, never caught.
 """
 from __future__ import annotations
 
 import torch
 
+from ...ops import _dropout_rng
 from ...ops.flash_attention import (flash_attention as _flash_kernel,
                                     flash_attention_ref,
                                     flash_attention_supported)
+from ...ops.short_attention import composed_attention, short_attention
+from ...ops.short_attention import supported as short_attention_supported
+from ...ops.short_attention import supports_p
 
 __all__ = ["apply_rotary_pos_emb", "scaled_dot_product_attention",
            "flash_attention"]
@@ -23,22 +45,28 @@ __all__ = ["apply_rotary_pos_emb", "scaled_dot_product_attention",
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True, name=None):
+                                 training=True, name=None, generator=None):
     """Layout [batch, seq, num_heads, head_dim]; k and v may have fewer
-    heads (GQA) or another length (the plain version serves those)."""
+    heads (GQA) or another length (the plain versions serve those).
+    `attn_mask` is an additive float bias broadcast to [B, H, Sq, Sk];
+    `generator` is where a dropout call draws its stream seed."""
+    causal = bool(is_causal)
     if dropout_p > 0.0 and training:
-        raise NotImplementedError(
-            "attention-probability dropout is not ported yet (ROADMAP "
-            "Queue 2 #7, the short-attention kernels); set attention "
-            "dropout to 0")
+        seed = _dropout_rng.draw_seed(generator, query.device)
+        if (attn_mask is None and supports_p(dropout_p)
+                and query.shape == key.shape == value.shape
+                and short_attention_supported(tuple(query.shape), None,
+                                              query.dtype)):
+            return short_attention(query, key, value, seed, dropout_p,
+                                   causal)
+        return composed_attention(query, key, value, attn_mask, causal,
+                                  dropout_p, seed)[0]
     if attn_mask is not None:
-        raise NotImplementedError("scaled_dot_product_attention(attn_mask=)"
-                                  " is not ported yet; pass is_causal")
+        return composed_attention(query, key, value, attn_mask, causal)[0]
     if (query.is_cuda and query.shape == key.shape == value.shape
             and flash_attention_supported(tuple(query.shape), is_causal)):
-        return _flash_kernel(query, key, value, causal=bool(is_causal))
-    return flash_attention_ref(query, key, value,
-                               causal=bool(is_causal))[0]
+        return _flash_kernel(query, key, value, causal=causal)
+    return flash_attention_ref(query, key, value, causal=causal)[0]
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,

@@ -6,6 +6,9 @@ from .flash_attention import (flash_attention, flash_attention_bwd_dkv,
                               flash_attention_bwd_dq, flash_attention_bwd_ref,
                               flash_attention_fwd, flash_attention_ref,
                               flash_attention_supported)
+from .short_attention import (short_attention, short_attention_bwd,
+                              short_attention_bwd_ref, short_attention_fwd,
+                              short_attention_ref)
 from .weight_only import (weight_only_matmul, weight_only_matmul_nd,
                           weight_only_matmul_ref)
 
@@ -14,5 +17,7 @@ __all__ = ["lora_delta", "lora_delta_ref", "paged_decode_attention",
            "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq", "flash_attention_bwd_ref",
            "flash_attention_fwd", "flash_attention_ref",
-           "flash_attention_supported", "weight_only_matmul",
+           "flash_attention_supported", "short_attention",
+           "short_attention_bwd", "short_attention_bwd_ref",
+           "short_attention_fwd", "short_attention_ref", "weight_only_matmul",
            "weight_only_matmul_nd", "weight_only_matmul_ref"]

@@ -127,6 +127,11 @@ def lib():
     # strides (b, s, h) of q, k, v, dout, dtype, scale, causal, stream
     _sig(handle.ptt_flash_attention, I, P, P, P, P, P, P, P, P, P,
          I, I, I, I, *([L] * 12), I, F, I, P)
+    # kind, q, k, v, dout, seed, lse, delta, out0, out1, B, S, H, D,
+    # strides (b, s, h) of q, k, v, dout, dtype, scale, keep scale, keep
+    # threshold, dropout, causal, stream
+    _sig(handle.ptt_short_attention, I, P, P, P, P, P, P, P, P, P,
+         I, I, I, I, *([L] * 12), I, F, F, ctypes.c_uint, I, I, P)
     # x, x strides (b, s), A, B, ids, h scratch, out, batch, s, d_in, r,
     # d_out, slots, x_dtype, stream
     _sig(handle.ptt_bgmv, P, L, L, P, P, P, P, P, I, I, I, I, I, I, I, P)

@@ -1,0 +1,278 @@
+"""Short-sequence attention with attention-probability dropout inside the
+kernels (counterpart of paddle_tpu/ops/pallas/short_attention.py: its
+`short_attention`, `supported` and `supports_p`).
+
+Two kernel wrappers over ``csrc/short_attention.cu``, each with a
+``.launches`` counter:
+
+* `short_attention_fwd` — ``(O, lse)``: replaces the TPU kernel
+  `_fwd_kernel` (short_attention.py:73, through `_fwd_call`);
+* `short_attention_bwd` — ``(dQ, dK, dV)``: replaces `_bwd_kernel`
+  (:87, through `_bwd_rule`). One call is two launches, and its counter
+  counts both: the dQ kernel, which first forms the row term
+  ``D_i = sum_j P Z dP`` and stores it, then the dK/dV kernel, which
+  reads it.
+
+`short_attention` ties them together in a `torch.autograd.Function`. The
+dropout mask is never stored: it is a pure function of ``(seed, b, h, i,
+j)`` (`_dropout_rng`), drawn inside the forward and replayed by the
+backward. The backward keeps q, k, v, the seed and the forward's
+``[B, H, S]`` f32 lse, nothing else. Tensors are ``[B, S, H, D]``, read
+through their strides (a unit stride along D), so the model's fused-QKV
+views reach the kernels without a transpose or a copy.
+
+A CUDA input launches the kernels (bf16 or f32, any S with S % 8 == 0 and
+S <= 512, D % 8 == 0 and D <= 256; anything else raises); a CPU input
+computes the plain versions `short_attention_ref` and
+`short_attention_bwd_ref` — f32 math with the kernels' casts and the same
+mask.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build, _dropout_rng
+
+__all__ = ["short_attention", "short_attention_fwd", "short_attention_bwd",
+           "short_attention_ref", "short_attention_bwd_ref",
+           "composed_attention", "supported", "supports_p"]
+
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+_FWD, _DQ, _DKV = 0, 1, 2
+MAX_S = 512
+MAX_D = 256
+_NEG = -1e30                    # the TPU kernel's causal mask value
+
+
+def supported(q_shape, attn_mask=None, dtype=None) -> bool:
+    """The JAX package's shape rule (S <= 512, S % 8 == 0, D % 8 == 0, no
+    additive mask), plus what the card's kernels take: D <= 256 and, when
+    a dtype is given, f32 or bf16."""
+    B, S, H, D = q_shape
+    return (S <= MAX_S and S % 8 == 0 and D % 8 == 0 and D <= MAX_D
+            and attn_mask is None
+            and (dtype is None or dtype in _KERNEL_DTYPES))
+
+
+def supports_p(p) -> bool:
+    """p = 1 would divide by zero in the keep scale; the composed path
+    takes that case."""
+    return 0.0 <= p < 1.0
+
+
+def _scale(q):
+    return 1.0 / math.sqrt(q.shape[-1])
+
+
+def _z(seed, s, p):
+    """The dropout factor f32 in the shape of the scores `s` (None when
+    p = 0)."""
+    if p == 0.0:
+        return None
+    return _dropout_rng.dropout_mask(seed.to(s.device), *s.shape, p)
+
+
+def _scores(q, k, causal, bias=None):
+    """f32 s = (q . k) * scale [B, H, Sq, Sk], causal entries at -1e30,
+    plus the additive `bias` (broadcast to [B, H, Sq, Sk]) in f32."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * _scale(q)
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool,
+                          device=q.device).tril()
+        s = torch.where(keep, s, torch.full((), _NEG, device=q.device))
+    if bias is not None:
+        if bias.dtype == torch.bool:
+            raise TypeError("attn_mask must be an additive float bias "
+                            "(0 where attended, a large negative value "
+                            "where not), got a bool tensor")
+        s = s + bias.to(device=q.device, dtype=torch.float32)
+    return s
+
+
+def composed_attention(q, k, v, bias=None, causal=False, p=0.0, seed=None):
+    """Plain attention on [B, S, H, D] (the TPU kernel's `_fwd_kernel`,
+    and the JAX package's `_sdpa_dropout` / `_sdpa_mask_impl`): f32
+    scores with the causal mask and the additive `bias`, f32 softmax, the
+    probabilities times the dropout factor of stream `seed` (when p > 0)
+    cast to q's dtype, the product with V accumulated in f32. k and v may
+    have fewer heads (GQA) or another length. Returns (out in q's dtype,
+    lse [B, H, Sq] f32). Differentiable by autograd."""
+    rep = q.shape[2] // k.shape[2]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    s = _scores(q, k, causal, bias)
+    lse = torch.logsumexp(s, dim=-1)
+    probs = torch.softmax(s, dim=-1)
+    z = _z(seed, s, p)
+    if z is not None:
+        probs = probs * z
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype).float(),
+                       v.float())
+    return out.to(q.dtype), lse
+
+
+def short_attention_ref(q, k, v, seed, p=0.0, causal=False):
+    """Plain version of the forward: `composed_attention` with no bias.
+    Returns (out [B, S, H, D] in q's dtype, lse [B, H, S] f32)."""
+    return composed_attention(q, k, v, None, causal, p, seed)
+
+
+def short_attention_bwd_ref(q, k, v, do, lse, seed, p=0.0, causal=False):
+    """Plain version of the backward (the TPU kernel's `_bwd_kernel`, with
+    the probabilities from the forward's lse): dV = (P Z)^T dO, the row
+    term D = rowsum(P Z dP), dS = P (dP Z - D) * scale cast to q's dtype,
+    dQ = dS K, dK = dS^T Q; f32 accumulation, results in q's dtype."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dof = do.to(q.dtype).float()
+    probs = torch.exp(_scores(q, k, causal) - lse[..., None])
+    z = _z(seed, probs, p)
+    pz = probs if z is None else probs * z
+    dv = torch.einsum("bhqk,bqhd->bkhd", pz.to(q.dtype).float(), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    dpz = dp if z is None else dp * z
+    row = (dpz * probs).sum(-1, keepdim=True)
+    ds = (probs * (dpz - row) * _scale(q)).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _check(q, *others):
+    if q.dim() != 4:
+        raise ValueError(f"expected [B, S, H, D], got {tuple(q.shape)}")
+    for t in others:
+        if t.shape != q.shape:
+            raise ValueError(f"shapes differ: {tuple(q.shape)} vs "
+                             f"{tuple(t.shape)}")
+
+
+def _check_p(p):
+    if not supports_p(p):
+        raise ValueError(f"dropout p={p} outside [0, 1)")
+
+
+def _cuda_operands(q, seed, *others):
+    """The launch's checks; returns the operands with a unit stride along
+    D (a copy only where the caller's has none) and the seed as one
+    contiguous int64 on q's device."""
+    if q.device.type != "cuda":
+        raise RuntimeError(f"short attention: no kernel for device "
+                           f"{q.device}")
+    if not supported(tuple(q.shape), None, q.dtype):
+        raise ValueError(
+            f"short attention kernels take f32 or bf16 [B, S, H, D] with "
+            f"S <= {MAX_S}, S % 8 == 0, D % 8 == 0 and D <= {MAX_D}; got "
+            f"{tuple(q.shape)} {q.dtype}")
+    out = []
+    for t in (q, *others):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"operands must share q's device and dtype "
+                             f"({q.device}, {q.dtype}), got {t.device}, "
+                             f"{t.dtype}")
+        out.append(t if t.stride(-1) == 1 else t.contiguous())
+    if seed.device != q.device or seed.dtype != torch.int64 \
+            or seed.numel() != 1:
+        raise ValueError(f"seed must be one int64 on {q.device}, got "
+                         f"{tuple(seed.shape)} {seed.dtype} on "
+                         f"{seed.device}")
+    return out, seed.reshape(1).contiguous()
+
+
+def _launch(kind, q, k, v, dout, seed, lse, delta, out0, out1, p, causal):
+    B, S, H, D = q.shape
+    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *(dout.stride()[:3] if dout is not None else (0, 0, 0))]
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    lib = _build.lib()
+    with torch.cuda.device(q.device):
+        err = lib.ptt_short_attention(
+            kind, ptr(q), ptr(k), ptr(v), ptr(dout), ptr(seed), ptr(lse),
+            ptr(delta), ptr(out0), ptr(out1), B, S, H, D, *strides,
+            _build.dtype_code(q.dtype), _scale(q),
+            _dropout_rng.keep_scale(p), _dropout_rng.keep_threshold(p),
+            int(p > 0.0), int(bool(causal)),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, ("short_attention_fwd", "short_attention_bwd (dq)",
+                       "short_attention_bwd (dkv)")[kind])
+
+
+def short_attention_fwd(q, k, v, seed, p=0.0, causal=False):
+    """q, k, v [B, S, H, D], seed int64 [1] -> (O [B, S, H, D] in q's
+    dtype, lse [B, H, S] f32)."""
+    _check(q, k, v)
+    _check_p(p)
+    if q.device.type == "cpu":
+        return short_attention_ref(q, k, v, seed, p, causal)
+    (q, k, v), seed = _cuda_operands(q, seed, k, v)
+    B, S, H, D = q.shape
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if q.numel() == 0:
+        return out, lse
+    _launch(_FWD, q, k, v, None, seed, lse, None, out, None, p, causal)
+    short_attention_fwd.launches += 1
+    return out, lse
+
+
+def short_attention_bwd(q, k, v, do, lse, seed, p=0.0, causal=False):
+    """(dQ, dK, dV) [B, S, H, D] from the forward's lse [B, H, S] f32 and
+    the same seed (the mask is replayed, not read)."""
+    _check(q, k, v, do)
+    _check_p(p)
+    if q.device.type == "cpu":
+        return short_attention_bwd_ref(q, k, v, do, lse, seed, p, causal)
+    (q, k, v, do), seed = _cuda_operands(q, seed, k, v, do)
+    B, S, H, D = q.shape
+    if tuple(lse.shape) != (B, H, S) or lse.dtype != torch.float32 \
+            or lse.device != q.device:
+        raise ValueError(f"lse must be [B, H, S] float32 on {q.device}, "
+                         f"got {tuple(lse.shape)} {lse.dtype} on "
+                         f"{lse.device}")
+    lse = lse.contiguous()
+    dq, dk, dv = (torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    if q.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    _launch(_DQ, q, k, v, do, seed, lse, delta, dq, None, p, causal)
+    short_attention_bwd.launches += 1
+    _launch(_DKV, q, k, v, do, seed, lse, delta, dk, dv, p, causal)
+    short_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+short_attention_fwd.launches = 0
+short_attention_bwd.launches = 0
+
+
+class _ShortAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, seed, p, causal):
+        out, lse = short_attention_fwd(q, k, v, seed, p, causal)
+        ctx.save_for_backward(q, k, v, seed, lse)
+        ctx.p, ctx.causal = p, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, seed, lse = ctx.saved_tensors
+        dq, dk, dv = short_attention_bwd(q, k, v, do.to(q.dtype), lse, seed,
+                                         ctx.p, ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
+def short_attention(q, k, v, seed, p=0.0, causal=False):
+    """Differentiable short attention on [B, S, H, D] with dropout `p`
+    drawn from the stream `seed` (an int64 tensor of one element; k and
+    v are cast to q's dtype). Returns [B, S, H, D]."""
+    _check(q, k, v)
+    _check_p(p)
+    k, v = k.to(q.dtype), v.to(q.dtype)
+    seed = torch.as_tensor(seed, dtype=torch.int64, device=q.device).reshape(1)
+    return _ShortAttention.apply(q, k, v, seed, float(p), bool(causal))

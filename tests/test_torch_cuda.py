@@ -1,7 +1,8 @@
 """GPU-only tests of the port's hand-written CUDA kernels: each kernel
 against its plain PyTorch version, a tiny model served through the decode
-kernels (with prefix sharing and LoRA adapters through BGMV) and trained
-through the flash-attention kernels.
+kernels (with prefix sharing and LoRA adapters through BGMV), trained
+through the flash-attention kernels, and a tiny BERT fine-tuned through
+the short-attention kernels with attention dropout.
 The kernels have no CPU mode, so every test here skips without a GPU.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -23,6 +24,7 @@ from paddle_tpu_torch.ops import decode_attn as td
 from paddle_tpu_torch.ops import weight_only as tw
 
 tfa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+tsa = importlib.import_module("paddle_tpu_torch.ops.short_attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -468,3 +470,166 @@ def test_sampled_stream_same_alone_and_batched_on_gpu(cuda):
         for s in mates:
             s.result()
         assert e.stats()["steps"] > 16
+
+
+# ---------------------------------------------------------------------------
+# Short attention with in-kernel dropout (BERT)
+# ---------------------------------------------------------------------------
+
+def _sa_case(B, S, H, D, dtype, seed):
+    """q, k, v as views of one [B, S, 3, H, D] tensor (BERT's fused QKV),
+    dO, and a stream seed on the card."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(B, S, 3, H, D, generator=g).to(dtype).cuda()
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(B, S, H, D, generator=g).to(dtype).cuda()
+    return q, k, v, do, torch.tensor([seed * 7919 + 1], device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S,D,p", [(128, 64, 0.1), (128, 64, 0.0),
+                                   (512, 64, 0.1), (136, 64, 0.1),
+                                   (128, 40, 0.1), (64, 256, 0.3),
+                                   (8, 8, 0.5)])
+def test_short_attention_kernels_match_plain(cuda, dtype, causal, S, D, p):
+    """Forward and backward against the plain versions with the same seed,
+    so the same mask: O to FLASH_TOL's max abs error, lse to 1e-2 (bf16)
+    / 1e-4 (f32), each gradient to its normwise error (the backward
+    kernels take the forward kernel's lse, as on the training path, the
+    plain backward the plain forward's). One forward launch, two backward
+    launches (dQ, then dK/dV)."""
+    tol, grad_tol = FLASH_TOL[dtype]
+    q, k, v, do, seed = _sa_case(2, S, 3, D, dtype, seed=S + D)
+    counts = (tsa.short_attention_fwd.launches,
+              tsa.short_attention_bwd.launches)
+    out, lse = tsa.short_attention_fwd(q, k, v, seed, p, causal)
+    ref, lse_ref = tsa.short_attention_ref(q, k, v, seed, p, causal)
+    assert _err(out, ref) <= tol, _err(out, ref)
+    assert (lse - lse_ref).abs().max().item() <= (1e-2 if tol > 1e-3
+                                                  else 1e-4)
+    grads = tsa.short_attention_bwd(q, k, v, do, lse, seed, p, causal)
+    refs = tsa.short_attention_bwd_ref(q, k, v, do, lse_ref, seed, p,
+                                       causal)
+    for name, got, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert torch.isfinite(got).all(), name
+        assert _norm_err(got, r) <= grad_tol, (name, _norm_err(got, r))
+    assert (tsa.short_attention_fwd.launches,
+            tsa.short_attention_bwd.launches) == (counts[0] + 1,
+                                                  counts[1] + 2)
+
+
+@pytest.mark.parametrize("S,p", [(128, 0.1), (136, 0.5)])
+def test_short_attention_kernel_draws_the_plain_mask(cuda, S, p):
+    """The kernel's keep bits, read out exactly: with q = k = 0 every
+    probability is 1/S, and with V the identity over D = S columns the
+    output's (i, d) entry is nonzero exactly where element (i, d) is
+    kept. It must equal the plain stream's mask bit for bit."""
+    B, H = 2, 3
+    D = S if S <= 256 else 256
+    q = torch.zeros(B, S, H, D, device=cuda)
+    v = torch.eye(S, D, device=cuda)[None, :, None, :].expand(
+        B, S, H, D).contiguous()
+    seed = torch.tensor([2024], device=cuda)
+    out, _ = tsa.short_attention_fwd(q, q, v, seed, p)
+    kept = (out != 0).permute(0, 2, 1, 3)
+    from paddle_tpu_torch.ops import _dropout_rng
+
+    want = _dropout_rng.keep_mask(seed, B, H, S, S, p)[..., :D]
+    assert torch.equal(kept, want)
+
+
+def test_short_attention_backward_is_bitwise_reproducible(cuda):
+    """No atomics and a replayed mask: two passes give the same bits."""
+    q, k, v, do, seed = _sa_case(4, 128, 4, 64, torch.bfloat16, seed=9)
+    runs = []
+    for _ in range(2):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = tsa.short_attention(*leaves, seed, 0.1)
+        out.backward(do)
+        runs.append([out, *(x.grad for x in leaves)])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,dtype", [((1, 520, 2, 64), torch.bfloat16),
+                                         ((1, 130, 2, 64), torch.bfloat16),
+                                         ((1, 128, 2, 12), torch.bfloat16),
+                                         ((1, 128, 2, 264), torch.float32),
+                                         ((1, 128, 2, 64), torch.float16)])
+def test_short_attention_wrapper_raises_instead_of_falling_back(
+        cuda, shape, dtype):
+    x = torch.zeros(shape, dtype=dtype, device=cuda)
+    seed = torch.tensor([1], device=cuda)
+    before = tsa.short_attention_fwd.launches
+    with pytest.raises(ValueError, match="short attention kernels"):
+        tsa.short_attention_fwd(x, x, x, seed, 0.1)
+    assert tsa.short_attention_fwd.launches == before
+
+
+def test_sdpa_routes_dropout_to_the_short_attention_kernels(cuda):
+    """Training-mode dropout on a shape the kernels take launches them;
+    eval mode at S = 128 takes the flash forward; a mask or p = 1 takes
+    the composed path (no kernel)."""
+    from paddle_tpu_torch.nn import functional as TF
+
+    x = torch.randn(2, 128, 4, 64, device=cuda, dtype=torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def launches(**kw):
+        before = (tsa.short_attention_fwd.launches,
+                  tfa.flash_attention_fwd.launches)
+        TF.scaled_dot_product_attention(x, x, x, generator=g, **kw)
+        return (tsa.short_attention_fwd.launches - before[0],
+                tfa.flash_attention_fwd.launches - before[1])
+
+    assert launches(dropout_p=0.1) == (1, 0)
+    assert launches(dropout_p=0.1, training=False) == (0, 1)
+    assert launches(dropout_p=0.1,
+                    attn_mask=torch.zeros(2, 1, 1, 128, device=cuda)) \
+        == (0, 0)
+    assert launches(dropout_p=1.0) == (0, 0)
+
+
+def test_parallelize_fine_tunes_bert_tiny_through_short_attention(cuda):
+    """bert_tiny (dropout 0.1) trained 3 steps in bf16 through the kernels
+    and through the composed plain route with the same weights and
+    generator seed: one forward and two backward launches per layer and
+    step on the kernel run, none on the plain run; losses within 1e-2
+    relative (bf16 rounding at other places, the same masks)."""
+    from paddle_tpu_torch.distributed import parallelize
+    from paddle_tpu_torch.models import bert_for_sequence_classification
+    from paddle_tpu_torch.nn import functional as TF
+    from paddle_tpu_torch.nn.functional import attention
+    from paddle_tpu_torch.optimizer import AdamW
+
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, 1024, (4, 64), generator=g)
+    labels = torch.randint(0, 2, (4,), generator=g)
+    runs = {}
+    supported = attention.short_attention_supported
+    for route in ("kernels", "plain"):
+        if route == "plain":
+            attention.short_attention_supported = lambda *a: False
+        try:
+            m = bert_for_sequence_classification(
+                "bert_tiny", device=cuda,
+                generator=torch.Generator(device=cuda).manual_seed(5))
+            eng = parallelize(
+                m, AdamW(learning_rate=1e-3, parameters=m.parameters()),
+                loss_fn=lambda m, x, y: TF.cross_entropy(m(x), y).mean(),
+                compute_dtype="bfloat16")
+            before = (tsa.short_attention_fwd.launches,
+                      tsa.short_attention_bwd.launches)
+            losses = eng.train_batches([(ids, labels)] * 3)
+            runs[route] = (losses.float().cpu(),
+                           (tsa.short_attention_fwd.launches - before[0],
+                            tsa.short_attention_bwd.launches - before[1]))
+        finally:
+            attention.short_attention_supported = supported
+    per = 3 * m.cfg.num_hidden_layers
+    assert runs["kernels"][1] == (per, 2 * per)
+    assert runs["plain"][1] == (0, 0)
+    assert torch.isfinite(runs["kernels"][0]).all()
+    torch.testing.assert_close(runs["kernels"][0], runs["plain"][0],
+                               rtol=1e-2, atol=0)

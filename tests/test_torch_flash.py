@@ -148,20 +148,26 @@ def test_sdpa_routes_cpu_and_odd_shapes_to_plain_version():
 
 
 def test_unported_options_raise():
+    """What is still refused raises; attention dropout and an additive
+    mask compute (dropout through the short-attention route)."""
     x = torch.zeros(1, 128, 2, 16)
-    with pytest.raises(NotImplementedError, match="Queue 2 #7"):
-        TF.scaled_dot_product_attention(x, x, x, dropout_p=0.1)
-    with pytest.raises(NotImplementedError):
-        TF.scaled_dot_product_attention(x, x, x,
-                                        attn_mask=torch.ones(128, 128))
     with pytest.raises(NotImplementedError):
         TF.flash_attention(x, x, x, return_softmax=True)
     with pytest.raises(NotImplementedError):
         TF.cross_entropy(torch.zeros(3, 5), torch.zeros(3, dtype=torch.long),
                          reduction="sum")
-    out = TF.scaled_dot_product_attention(x, x, x, dropout_p=0.1,
+    with pytest.raises(TypeError):
+        TF.scaled_dot_product_attention(
+            x, x, x, attn_mask=torch.ones(128, 128, dtype=torch.bool))
+    y = torch.randn(1, 128, 2, 16, generator=torch.Generator().manual_seed(0))
+    dropped = TF.scaled_dot_product_attention(y, y, y, dropout_p=0.1)
+    masked = TF.scaled_dot_product_attention(y, y, y,
+                                             attn_mask=torch.zeros(128, 128))
+    out = TF.scaled_dot_product_attention(y, y, y, dropout_p=0.1,
                                           training=False)
-    assert out.shape == x.shape
+    assert dropped.shape == masked.shape == out.shape == x.shape
+    assert not torch.equal(dropped, out)
+    torch.testing.assert_close(masked, out, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -36,7 +36,7 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("N ")[1].split()[0])
-    assert n >= 33                      # every module was imported
+    assert n >= 38                      # every module was imported
 
 
 def _no_gpu():
@@ -73,11 +73,14 @@ def test_kernel_wrappers_have_launch_counters():
                                       flash_attention_bwd_dq,
                                       flash_attention_fwd, lora_delta,
                                       paged_decode_attention,
+                                      short_attention_bwd,
+                                      short_attention_fwd,
                                       weight_only_matmul)
 
     for wrapper in (weight_only_matmul, paged_decode_attention,
                     flash_attention_fwd, flash_attention_bwd_dq,
-                    flash_attention_bwd_dkv, lora_delta):
+                    flash_attention_bwd_dkv, lora_delta,
+                    short_attention_fwd, short_attention_bwd):
         assert isinstance(wrapper.launches, int)
 
 
