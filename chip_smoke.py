@@ -24,7 +24,11 @@ Phases (any failure exits non-zero and prints no result line):
    forward and backward kernels (attention dropout drawn inside them) at
    the bert_base fine-tune shape (B=128, S=128, H=12, D=64, p=0.1) and
    beside it p=0, causal, f32, S=512, S=136 and D=40, with the kernel's own
-   keep bits read out against 1 - p and against the plain stream;
+   keep bits read out against 1 - p and against the plain stream; the
+   fused bottleneck forward and backward kernels at ResNet-50's four stage
+   shapes (N=128, bf16) against their plain versions (the backward on the
+   kernels' residuals), timed beside the plain versions and the per-op
+   route of the same block (cuDNN convolutions and batch norm);
 3. serving end to end: llama2_7b at full width (random weights from a
    seed) served by `DecodeEngine` — (a) bf16 weights with a bf16 KV pool,
    (b) int8 weights with an int8 KV pool, (c) int4 weights, one short
@@ -58,7 +62,21 @@ Phases (any failure exits non-zero and prints no result line):
    dropout) that the f32 gates must catch, one `eval_batch` with dropout
    off (the flash forward), and a torch.profiler window over 3 steps in a
    child process;
-6. the kernels' JSON line, the nvidia-smi line, then the last line
+6. ResNet-50 training end to end: resnet50 at full size (1000 classes,
+   NHWC, f32 masters, bf16 compute) through `distributed.parallelize`
+   with Momentum 0.1 / 0.9 on one fixed batch of 128 random 224 px images
+   and labels from `--seed` (bench.py's TPU row) — 20 steps on the per-op
+   route and on the fused route (``PADDLE_TPU_FUSED_RESBLOCK=1``: the 12
+   stride-1 identity blocks through the fused kernels), each with the
+   fused calls set to 0 before and read after (12 + 12 a step, and none),
+   step ms, images/s, MFU, peak memory; a 3-step parity run at B=32 in
+   bf16 and f32 compute, gated on its first step (loss and grad norm
+   against the plain fused route, the whole gradient against the plain
+   backward on the kernels' forward), with a bit-equal rerun, the
+   per-op route's gap, and a planted fault (the BN backward's m2 term
+   dropped) that the f32 gates must catch; a torch.profiler child per
+   route;
+7. the kernels' JSON line, the nvidia-smi line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every float32 product in
@@ -1334,13 +1352,13 @@ def profile_tenants(torch, np, layers):
                           "d: 6 adapters, half sampled, bs 8", pool=pool)
 
 
-def run_child(flag, layers, seed, report):
-    """Run one `--profile-*` phase in a child process; returns its
-    result."""
+def run_child(flag, layers, seed, report, *extra):
+    """Run one `--profile-*` phase in a child process (`extra`: more of
+    its arguments); returns its result."""
     path = f"{report}.{flag.strip('-')}.json"
     proc = subprocess.run(
         [sys.executable, os.path.abspath(__file__), flag, path,
-         "--layers", str(layers), "--seed", str(seed)],
+         "--layers", str(layers), "--seed", str(seed), *extra],
         capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise AssertionError(f"{flag} child failed:\n"
@@ -1592,6 +1610,496 @@ def profile_bert(torch, np, layers, seed, steps=3):
             "top_kernels_ms_per_step": top_kernels(prof, steps)}
 
 
+# ---------------------------------------------------------------------------
+# phase 2 (continued) and phase 6: ResNet-50 training
+# ---------------------------------------------------------------------------
+
+# ResNet-50's stride-1 identity bottleneck blocks at N = 128: (stage, H = W,
+# C, blocks of the stage that take the fused route a step)
+RESNET_STAGES = (("layer1", 56, 64, 2), ("layer2", 28, 128, 3),
+                 ("layer3", 14, 256, 5), ("layer4", 7, 512, 2))
+RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES = 128, 224, 1000
+
+
+def _rb_mod():
+    import importlib
+
+    return importlib.import_module("paddle_tpu_torch.ops.fused_resblock")
+
+
+def resblock_counts():
+    rb = _rb_mod()
+    return {"fused_bottleneck_fwd": rb.fused_bottleneck_fwd.launches,
+            "fused_bottleneck_bwd": rb.fused_bottleneck_bwd.launches}
+
+
+def reset_resblock_counts():
+    rb = _rb_mod()
+    rb.fused_bottleneck_fwd.launches = 0
+    rb.fused_bottleneck_bwd.launches = 0
+
+
+def _block_inputs(torch, N, H, C, g):
+    """x, w1 [4C, C], w2 [3, 3, C, C], w3 [C, 4C] (He-scaled), the BN
+    vectors near 1 / 0, and dy: bf16 activations on the card."""
+    C4 = 4 * C
+    x = torch.randn(N, H, H, C4, device="cuda", generator=g).to(
+        torch.bfloat16)
+    ws = [torch.randn(*s, device="cuda", generator=g) * (2.0 / fan) ** 0.5
+          for s, fan in (((C4, C), C4), ((3, 3, C, C), 9 * C),
+                         ((C, C4), C))]
+    vecs = [1.0 + 0.1 * torch.randn(c, device="cuda", generator=g)
+            if i % 2 == 0 else 0.1 * torch.randn(c, device="cuda",
+                                                 generator=g)
+            for i, c in enumerate((C, C, C, C, C4, C4))]
+    dy = torch.randn(N, H, H, C4, device="cuda", generator=g).to(
+        torch.bfloat16)
+    return [x, *ws, *vecs], dy
+
+
+def _normwise(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def check_fused_resblock(torch, iters):
+    """The fused bottleneck kernels against their plain versions at the
+    four ResNet-50 stage shapes (N = 128, bf16), and timed beside the
+    plain versions and the per-op route of the same block (cuDNN
+    convolutions and batch norm, channels-last; no single PyTorch call
+    computes the block, so there is no library time). Gates: y within 2
+    bf16 ulps of max |y| or 1e-2 abs; r1, r2 and the BN vectors normwise
+    <= 1e-2 and the six statistics <= 1e-3; the backward kernels against
+    the plain backward on the kernels' residuals (as training runs
+    them), each of the ten gradients normwise <= 1e-2. The end-to-end gap
+    (each side on its own residuals) is reported: a residual one bf16 ulp
+    apart flips relu mask elements. Bound: forward x, y, r1, r2 = 10 M C
+    bf16 elements and 34 M C^2 operations; backward dy, y, x, r1, r2, dx =
+    18 M C elements and 68 M C^2 operations."""
+    from paddle_tpu_torch.models.resnet import BottleneckBlock
+
+    rb = _rb_mod()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    names = "dx dw1 dw2 dw3 dg1 dbe1 dg2 dbe2 dg3 dbe3".split()
+    rows = []
+    for stage, H, C, blocks in RESNET_STAGES:
+        N, M = RESNET_BATCH, RESNET_BATCH * H * H
+        args, dy = _block_inputs(torch, N, H, C, g)
+        y, res, stats = rb.fused_bottleneck_fwd(*args)
+        grads = rb.fused_bottleneck_bwd(res, dy)
+        y_ref, res_ref, stats_ref = rb.fused_bottleneck_fwd_ref(*args)
+        same = rb.fused_bottleneck_bwd_ref(res, dy)
+        own = rb.fused_bottleneck_bwd_ref(res_ref, dy)
+        torch.cuda.synchronize()
+        y_tol = max(2 * 2.0 ** -8 * y_ref.float().abs().max().item(), 1e-2)
+        err = {"y": (y.float() - y_ref.float()).abs().max().item(),
+               "dx": (grads[0].float() - same[0].float()).abs().max().item()}
+        resid = {n: _normwise(a, b) for n, a, b in zip(
+            ("r1", "r2", "bn1", "bn2", "bn3"), res[1:3] + res[7:10],
+            res_ref[1:3] + res_ref[7:10])}
+        stat = max(_normwise(a, b) for p, q in zip(stats, stats_ref)
+                   for a, b in zip(p, q))
+        rel = {n: _normwise(a, b) for n, a, b in zip(names, grads, same)}
+        e2e = {n: _normwise(a, b) for n, a, b in zip(names, grads, own)}
+        finite = all(bool(torch.isfinite(t).all()) for t in (y, *grads))
+        case = f"{stage} bf16 N={N} H=W={H} C={C} 4C={4 * C}"
+        row = dict(case=case, stage=stage, blocks_per_step=blocks,
+                   max_abs_err=err, y_tol=y_tol, residuals_normwise=resid,
+                   stats_normwise=stat, grad_normwise=rel,
+                   grad_normwise_end_to_end=e2e, finite=finite)
+        if not (finite and err["y"] <= y_tol and stat <= 1e-3
+                and max(resid.values()) <= 1e-2
+                and max(rel.values()) <= 1e-2):
+            raise AssertionError(f"fused bottleneck {case}: {row}")
+        del y_ref, res_ref, stats_ref, same, own, grads
+        slow = max(3, iters // 4)
+        row["fwd_ms"] = time_ms(torch, lambda: rb.fused_bottleneck_fwd(
+            *args), iters)
+        row["bwd_ms"] = time_ms(torch, lambda: rb.fused_bottleneck_bwd(
+            res, dy), iters)
+        row["fwd_plain_ms"] = time_ms(
+            torch, lambda: rb.fused_bottleneck_fwd_ref(*args), slow,
+            warmup=1)
+        row["bwd_plain_ms"] = time_ms(
+            torch, lambda: rb.fused_bottleneck_bwd_ref(res, dy), slow,
+            warmup=1)
+        # the per-op route of the same block: BottleneckBlock in mode "0"
+        # with the same weights, bf16, channels-last views
+        # with the same weights: f32 masters and buffers, bf16 copies of
+        # the parameters through functional_call, as the engine runs it
+        blk = BottleneckBlock(4 * C, C, data_format="NHWC", device="cuda")
+        with torch.no_grad():
+            blk.conv1.weight.copy_(args[1].t()[:, :, None, None])
+            blk.conv2.weight.copy_(args[2].permute(3, 2, 0, 1))
+            blk.conv3.weight.copy_(args[3].t()[:, :, None, None])
+        params = {n: p.detach().to(torch.bfloat16).requires_grad_()
+                  for n, p in blk.named_parameters()}
+        xin = args[0].detach().requires_grad_()
+        leaves = [xin, *params.values()]
+
+        def per_op():
+            return torch.func.functional_call(blk, params, (xin,))
+
+        with _route(None):
+            row["fwd_per_op_ms"] = time_ms(torch, per_op, iters)
+            out = per_op()
+            row["bwd_per_op_ms"] = time_ms(
+                torch, lambda: torch.autograd.grad(out, leaves, dy,
+                                                   retain_graph=True), iters)
+        del out, blk, xin, params, leaves
+        elems = M * C
+        for part, nbytes, flops in (
+                ("fwd", 10 * elems * 2, 34.0 * M * C * C),
+                ("bwd", 18 * elems * 2, 68.0 * M * C * C)):
+            row[f"{part}_bound_ms"], row[f"{part}_bound_by"] = bound(nbytes,
+                                                                     flops)
+            row[f"{part}_bytes"], row[f"{part}_flops"] = nbytes, flops
+        rows.append(row)
+        log(f"  fused bottleneck {case}: y err {err['y']:.4g} (tol "
+            f"{y_tol:.4g}), stats {stat:.3g}, grads normwise "
+            f"{max(rel.values()):.3g} (end to end {max(e2e.values()):.3g})"
+            + "".join(f" {n} {t:.4f}" for n, t in row.items()
+                      if n.endswith("_ms")))
+        del args, dy, res, y
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _resnet_engine(torch, compute_dtype="bfloat16"):
+    """resnet50 at full size (1000 classes, NHWC, f32 masters from seed 0),
+    Momentum 0.1 / 0.9, hard-label cross-entropy, bf16 compute: the JAX
+    package's TPU row (bench.py:221-280)."""
+    from paddle_tpu_torch.distributed import parallelize
+    from paddle_tpu_torch.models import resnet50
+    from paddle_tpu_torch.nn import functional as TF
+    from paddle_tpu_torch.optimizer import Momentum
+
+    torch.cuda.empty_cache()
+    model = resnet50(num_classes=RESNET_CLASSES, data_format="NHWC",
+                     device="cuda", seed=0)
+    opt = Momentum(learning_rate=0.1, momentum=0.9,
+                   parameters=model.parameters())
+
+    def loss_fn(m, x, y):
+        return TF.cross_entropy(m(x), y).mean()
+
+    return model, parallelize(model, opt, loss_fn=loss_fn,
+                              compute_dtype=compute_dtype)
+
+
+def _resnet_batch(torch, np, seed, batch=RESNET_BATCH):
+    """Random NHWC images and labels from numpy's RandomState(seed)."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(batch, RESNET_SIZE, RESNET_SIZE, 3).astype(np.float32)
+    y = rng.randint(0, RESNET_CLASSES, (batch,)).astype(np.int64)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+
+
+class _route:
+    """PADDLE_TPU_FUSED_RESBLOCK for a with-block ("per-op": unset), put
+    back afterwards."""
+
+    def __init__(self, mode):
+        self.mode = mode
+
+    def __enter__(self):
+        self.prev = os.environ.pop("PADDLE_TPU_FUSED_RESBLOCK", None)
+        if self.mode is not None:
+            os.environ["PADDLE_TPU_FUSED_RESBLOCK"] = self.mode
+
+    def __exit__(self, *exc):
+        os.environ.pop("PADDLE_TPU_FUSED_RESBLOCK", None)
+        if self.prev is not None:
+            os.environ["PADDLE_TPU_FUSED_RESBLOCK"] = self.prev
+
+
+RESNET_ROUTES = {"per-op": None, "fused": "1"}
+
+
+def resnet_throughput(torch, np, steps, seed):
+    """20 steps on each route on one fixed batch after 2 warm-up steps,
+    the fused-kernel counts set to 0 just before and read just after
+    each route's run: ms a step, images/s, MFU (3 x the forward's conv
+    and fc FLOPs a image, 2 per multiply-add, over 989e12), peak memory,
+    losses (they must fall); 12 forward and 12 backward fused calls a step
+    on the fused route, none on the per-op route."""
+    import math
+
+    from paddle_tpu_torch.models import train_flops_per_image
+
+    res = {}
+    for route, mode in RESNET_ROUTES.items():
+        with _route(mode):
+            model, eng = _resnet_engine(torch)
+            batch = _resnet_batch(torch, np, seed)
+            _bert_steps(torch, eng, batch, 2)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_resblock_counts()
+            t0 = time.perf_counter()
+            losses, norms = _bert_steps(torch, eng, batch, steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = resblock_counts()
+        fpi = train_flops_per_image(model, RESNET_SIZE)
+        ips = RESNET_BATCH * steps / wall
+        row = {"route": route, "batch": RESNET_BATCH, "size": RESNET_SIZE,
+               "steps": steps, "step_ms": wall * 1e3 / steps,
+               "images_per_s": ips, "train_flops_per_image": fpi,
+               "mfu": ips * fpi / BF16_FLOPS, "losses": losses,
+               "grad_norms": norms, "launches": launches,
+               "launches_per_step": {k: v / steps
+                                     for k, v in launches.items()},
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"  resnet50 {route} {json.dumps(row)}")
+        want = 12 * steps if route == "fused" else 0
+        if any(v != want for v in launches.values()):
+            raise AssertionError(f"resnet50 {route}: fused launches "
+                                 f"{launches}, expected {want} each")
+        if not all(math.isfinite(v) for v in losses + norms) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError(f"resnet50 {route}: losses {losses}")
+        res[route] = row
+        del model, eng, batch
+    return res
+
+
+# Gates of the ResNet-50 parity, by compute dtype: the first step's loss
+# and grad norm, kernels against the plain fused route (relative), and the
+# first step's whole gradient, kernels against the plain backward on the
+# kernels' own forward (normwise). Set from the first measurement (H100,
+# f32 compute): loss 9.0e-4, grad norm 5.0e-3, gradient 1.01e-2 (the
+# blocks' 1e-3 grown through the backward above them), against 1.02e-1
+# for the planted fault: the gradient gate sits 3x above the noise and
+# 3.4x below the fault.
+RESNET_PARITY_TOL = {"bfloat16": {"loss": 1e-2, "grad_norm": 5e-2,
+                                  "grads": 5e-2},
+                     "float32": {"loss": 5e-3, "grad_norm": 2e-2,
+                                 "grads": 3e-2}}
+
+
+def _resnet_route_run(torch, np, seed, steps, compute_dtype, route):
+    """`steps` steps of the same weights and batch (B = 32) on one route:
+    "kernels" (the fused kernels; mode "1" in bf16, "force" in f32, where
+    the input is f32); "plain" (the fused route through the kernels'
+    plain versions, patched in here and restored); "plain backward" (the
+    forward kernels, then the plain backward on their residuals);
+    "per-op"; or "m2 dropped", a planted fault: the backward kernels with
+    the BN backward's xhat-dependence (m2) set to 0. Returns the losses,
+    grad norms and fused calls, and the first step's gradients."""
+    rb = _rb_mod()
+    fwd, bwd, stats = (rb.fused_bottleneck_fwd, rb.fused_bottleneck_bwd,
+                       rb._Launcher.stats)
+    mode = "force" if compute_dtype is None else "1"
+    if route == "per-op":
+        mode = None
+    if route == "plain":
+        rb.fused_bottleneck_fwd = rb.fused_bottleneck_fwd_ref
+    if route in ("plain", "plain backward"):
+        rb.fused_bottleneck_bwd = rb.fused_bottleneck_bwd_ref
+    elif route == "m2 dropped":
+        def dropped(self, kind, *a, **kw):
+            out = stats(self, kind, *a, **kw)
+            if kind == rb._BN_BWD:
+                out[4].zero_()
+            return out
+        rb._Launcher.stats = dropped
+    try:
+        with _route(mode):
+            model, eng = _resnet_engine(torch, compute_dtype)
+            batch = _resnet_batch(torch, np, seed + 1, 32)
+            reset_resblock_counts()
+            losses, norms = _bert_steps(torch, eng, batch, 1)
+            first = torch.cat([p.grad.float().flatten()
+                               for p in model.parameters()])
+            more = _bert_steps(torch, eng, batch, steps - 1)
+            launches = resblock_counts()
+    finally:
+        rb.fused_bottleneck_fwd, rb.fused_bottleneck_bwd = fwd, bwd
+        rb._Launcher.stats = stats
+    del model, eng
+    return ({"losses": losses + more[0], "grad_norms": norms + more[1],
+             "launches": launches}, first)
+
+
+def resnet_parity(torch, np, seed, steps=3):
+    """resnet50 at B = 32 from the same weights and batch, in bf16 and in
+    f32 compute. Gated (RESNET_PARITY_TOL), on the first step: the fused
+    kernels against the plain fused route, loss and grad norm; and the
+    whole first-step gradient of the kernels against the plain backward
+    on the kernels' own forward, normwise. The planted fault ("m2
+    dropped") must break the f32 gradient gate; a second bf16 kernel run
+    must equal the first bit for bit. Steps 2 and 3 of every route and
+    the per-op route's gap are reported, not gated: at initialisation
+    this network is chaotic — a one-bf16-ulp change of one r1 element
+    grows to gradients that differ by tens of percent normwise (PERF.md's
+    ResNet findings) — so a trajectory's later steps measure that, not the
+    kernels.
+    """
+    res = {"batch": 32, "steps": steps, "tol": RESNET_PARITY_TOL}
+    failures = []
+    for dt, cd in (("bfloat16", "bfloat16"), ("float32", None)):
+        routes = ["kernels", "plain", "plain backward", "per-op"]
+        routes += (["kernels again"] if dt == "bfloat16"
+                   else ["m2 dropped"])
+        runs, grads = {}, {}
+        for r in routes:
+            runs[r], grads[r] = _resnet_route_run(torch, np, seed, steps,
+                                                  cd, r)
+        tol = RESNET_PARITY_TOL[dt]
+        k, p = runs["kernels"], runs["plain"]
+        ref = grads["plain backward"]
+
+        def gap(route):
+            return ((grads[route] - ref).norm() / ref.norm()).item()
+
+        row = {"runs": runs,
+               "loss_rel_err": abs(k["losses"][0] - p["losses"][0])
+               / abs(p["losses"][0]),
+               "grad_norm_rel_err": abs(k["grad_norms"][0]
+                                        - p["grad_norms"][0])
+               / abs(p["grad_norms"][0]),
+               "grads_normwise": gap("kernels"),
+               "grads_normwise_full_plain_route": gap("plain"),
+               "grads_normwise_per_op_route": gap("per-op"),
+               "later_steps_loss_max_rel_err": _rel_gaps(k, p)[0],
+               "per_op_vs_fused_loss_max_rel": _rel_gaps(runs["per-op"],
+                                                         k)[0]}
+        for key, name in (("loss_rel_err", "loss"),
+                          ("grad_norm_rel_err", "grad_norm"),
+                          ("grads_normwise", "grads")):
+            if not row[key] <= tol[name]:
+                failures.append(f"{dt}: {key} {row[key]} (tol "
+                                f"{tol[name]})")
+        if min(k["launches"].values()) == 0 or any(
+                p["launches"].values()) or any(
+                runs["per-op"]["launches"].values()):
+            failures.append(f"{dt} routing: kernel run {k['launches']}, "
+                            f"plain run {p['launches']}, per-op run "
+                            f"{runs['per-op']['launches']}")
+        if dt == "bfloat16":
+            again = runs["kernels again"]
+            row["rerun_bitwise_equal"] = (
+                k["losses"] == again["losses"]
+                and k["grad_norms"] == again["grad_norms"]
+                and torch.equal(grads["kernels"], grads["kernels again"]))
+            if not row["rerun_bitwise_equal"]:
+                failures.append("bf16 kernel rerun not bit-equal")
+        else:
+            row["m2_dropped_grads_normwise"] = gap("m2 dropped")
+            row["m2_dropped_caught"] = (row["m2_dropped_grads_normwise"]
+                                        > tol["grads"])
+            if not row["m2_dropped_caught"]:
+                failures.append(f"f32 gates miss the planted fault: "
+                                f"{row['m2_dropped_grads_normwise']}")
+        res[dt] = row
+        del grads, ref
+        torch.cuda.empty_cache()
+    log(f"  resnet50 parity {json.dumps(res)}")
+    if failures:
+        raise AssertionError("ResNet-50 kernels vs plain: "
+                             + "; ".join(failures))
+    return res
+
+
+TRANSPOSE_NAMES = ("nchwtonhwc", "nhwctonchw", "transpose", "permute")
+
+
+def profile_resnet(torch, np, route, seed, steps=3):
+    """Profile `steps` ResNet-50 steps of one route (after 2 warm-up
+    steps) under torch.profiler, in a child process of its own
+    (`--profile-resnet OUT --route ROUTE`): device-busy share, ms a step
+    by family, launches a step and the layout-transpose kernels a
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with _route(RESNET_ROUTES[route]):
+        model, eng = _resnet_engine(torch)
+        batch = _resnet_batch(torch, np, seed)
+        _bert_steps(torch, eng, batch, 2)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _bert_steps(torch, eng, batch, steps)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    fam = kernel_families(prof, (
+        ("fused_bottleneck", ("rb_gemm", "rb_wgrad", "rb_sum", "rb_bn")),
+        ("batch_norm", ("batch_norm", "bn_fw", "bn_bw", "welford")),
+        ("conv", ("conv", "cudnn", "implicit", "xmma", "fprop", "dgrad",
+                  "wgrad", "nchw", "nhwc", *GEMM_NAMES)),
+        ("optimizer", ("foreach", "multi_tensor")),
+        ("elementwise", ("elementwise", "reduce", "copy", "fill")),
+        ("pool", ("pool",))))
+    busy_ms = sum(fam.values()) / 1e3
+    evts = device_events(prof)
+    transposes = [(e.key[:120], e.count / steps) for e in evts
+                  if any(w in e.key.lower() for w in TRANSPOSE_NAMES)]
+    return {"route": route, "steps": steps, "step_ms": wall_ms / steps,
+            "device_busy_ms_per_step": busy_ms / steps,
+            "device_busy_share": busy_ms / wall_ms,
+            "device_launches_per_step": sum(e.count for e in evts) / steps,
+            "layout_transposes_per_step": sum(c for _, c in transposes),
+            "layout_transpose_kernels": transposes,
+            "kernel_ms_per_step": {k: v / 1e3 / steps
+                                   for k, v in fam.items()},
+            "top_kernels_ms_per_step": top_kernels(prof, steps)}
+
+
+def resnet_phase(torch, np, args):
+    """Phase 6: throughput on both routes, parity, and a profile child per
+    route."""
+    steps = 5 if args.quick else 20
+    run = {"throughput": resnet_throughput(torch, np, steps, args.seed),
+           "parity": resnet_parity(torch, np, args.seed)}
+    run["profile"] = {r: run_child("--profile-resnet", 0, args.seed,
+                                   args.report, "--route", r)
+                      for r in RESNET_ROUTES}
+    for route, prof in run["profile"].items():
+        log(f"  resnet50 profile {json.dumps(prof)}")
+        prof["device_busy_share_unprofiled"] = (
+            prof["device_busy_ms_per_step"]
+            / run["throughput"][route]["step_ms"])
+    return run
+
+
+def resblock_kernel_rows(rows, resnet_run):
+    """The two fused families' entries of the kernels line: times, bounds
+    and per-op times summed over the 12 fused blocks of a ResNet-50 step
+    (each stage's shape times its blocks), launches (calls) from phase
+    6's fused-route run."""
+    fused = resnet_run["throughput"]["fused"]
+    out = []
+    for name, part, line in (("fused_bottleneck_fwd", "fwd", 141),
+                             ("fused_bottleneck_bwd", "bwd", 192)):
+        def step(key):
+            return sum(r[key] * r["blocks_per_step"] for r in rows)
+
+        share = {}
+        for r in rows:
+            share[r[f"{part}_bound_by"]] = share.get(
+                r[f"{part}_bound_by"], 0.0) + (r[f"{part}_bound_ms"]
+                                               * r["blocks_per_step"])
+        out.append(dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/csrc/fused_resblock.cu",
+            replaces=f"paddle_tpu/ops/pallas/fused_resblock.py:{line}",
+            launches=fused["launches"][name],
+            max_abs_err=max(r["max_abs_err"]["y" if part == "fwd" else "dx"]
+                            for r in rows),
+            ms=step(f"{part}_ms"), plain_ms=step(f"{part}_plain_ms"),
+            bound_ms=step(f"{part}_bound_ms"),
+            bound_by=max(share, key=share.get), library_ms=None,
+            per_op_ms=step(f"{part}_per_op_ms"),
+            launches_per_call=7 if part == "fwd" else 14,
+            case="ResNet-50 step: 12 identity blocks at N=128, bf16 "
+                 "(2 x layer1 + 3 x layer2 + 5 x layer3 + 2 x layer4)",
+            by_stage={r["stage"]: {k: r[k] for k in (
+                f"{part}_ms", f"{part}_plain_ms", f"{part}_per_op_ms",
+                f"{part}_bound_ms", f"{part}_bound_by")} for r in rows}))
+    return out
+
+
 def main(argv):
     import argparse
 
@@ -1609,6 +2117,10 @@ def main(argv):
     ap.add_argument("--profile-tenants", metavar="OUT",
                     help=argparse.SUPPRESS)
     ap.add_argument("--profile-bert", metavar="OUT",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--profile-resnet", metavar="OUT",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--route", choices=sorted(RESNET_ROUTES),
                     help=argparse.SUPPRESS)
     ap.add_argument("--layers", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -1641,6 +2153,11 @@ def main(argv):
         with open(args.profile_bert, "w") as f:
             json.dump(res, f)
         return 0
+    if args.profile_resnet:
+        res = profile_resnet(torch, np, args.route, args.seed)
+        with open(args.profile_resnet, "w") as f:
+            json.dump(res, f)
+        return 0
     t_start = time.perf_counter()
     # the report's directory also holds the training profile child's file
     os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
@@ -1665,6 +2182,7 @@ def main(argv):
     bg_rows = check_bgmv(torch, iters)
     fa_rows = check_flash(torch, iters)
     sa_rows = check_short_attention(torch, iters)
+    rb_rows = check_fused_resblock(torch, iters)
 
     log("phase 3: llama2_7b end to end through DecodeEngine")
     serve_layers = 2 if args.quick else 32
@@ -1696,6 +2214,9 @@ def main(argv):
     log(f"  bert profile {json.dumps(bert_run['profile'])}; device busy "
         f"{bert_run['device_busy_share_unprofiled']:.4f} of the unprofiled "
         f"step")
+
+    log("phase 6: resnet50 training through parallelize")
+    resnet_run = resnet_phase(torch, np, args)
 
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
@@ -1772,6 +2293,7 @@ def main(argv):
             # a backward call is two launches (dQ, then dK/dV); ms is the
             # call's
             **({} if part == "fwd" else {"launches_per_call": 2})))
+    kernels.extend(resblock_kernel_rows(rb_rows, resnet_run))
     report = {"device": smi, "quick": args.quick,
               "build": build_rec,
               "weight_only": wo_rows, "paged_decode": pd_rows,
@@ -1780,6 +2302,7 @@ def main(argv):
               "short_attention": sa_rows,
               "e2e": runs, "profiles": profiles, "train": train,
               "bert": bert_run,
+              "fused_resblock": rb_rows, "resnet": resnet_run,
               "seconds": time.perf_counter() - t_start}
     with open(args.report, "w") as f:
         json.dump(report, f, indent=1)

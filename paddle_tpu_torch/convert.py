@@ -7,7 +7,9 @@ Linear weights — and only those — are transposed. Embeddings (``[V, h]``:
 GPT's ``wte``/``wpe``, BERT's word, position and token-type tables) and
 norm weights carry over as they are, and so do a quantized layer's
 ``quant_weight`` (already ``[out, in]`` int8 or packed int4) and
-``quant_scale``.
+``quant_scale``. ResNet's convolution weights are OIHW on both sides
+(4-D, unchanged), its ``fc.weight`` is a Linear (transposed), and its
+BatchNorm weights and ``_mean`` / ``_variance`` buffers carry over.
 
 Usage, with the JAX model's state as numpy arrays::
 

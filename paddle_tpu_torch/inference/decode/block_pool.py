@@ -25,6 +25,8 @@ import threading
 
 import torch
 
+from ... import resolve_device
+
 __all__ = ["BlockKVCache", "OutOfBlocks", "RESERVED_BLOCKS"]
 
 #: block ids below this are never allocated (block 0 = padding sink)
@@ -42,10 +44,11 @@ class BlockKVCache:
     `entry_specs` is one tuple of ``(suffix_shape, dtype)`` pairs per
     layer, in the layer's cache-entry order; each pool tensor is
     ``[num_blocks, block_size, *suffix_shape]``. Models build it through
-    ``init_block_pool``."""
+    ``init_block_pool``. `device`: the GPU by default (raises without
+    one); ``device="cpu"`` on request."""
 
     def __init__(self, num_blocks, block_size, entry_specs, quant=None,
-                 name=None, device="cpu"):
+                 name=None, device=None):
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         if num_blocks < RESERVED_BLOCKS + 1:
@@ -56,7 +59,7 @@ class BlockKVCache:
         self.block_size = int(block_size)
         self.quant = quant
         self.name = name
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.tensors = [
             tuple(torch.zeros((self.num_blocks, self.block_size, *suffix),
                               dtype=dtype, device=self.device)

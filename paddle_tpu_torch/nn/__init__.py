@@ -1,9 +1,14 @@
 """nn surface of the port (counterpart of paddle_tpu/nn): the functionals,
-dropout and norm layers, weight-only quantization and gradient clipping."""
+convolution, pooling, activation, dropout and norm layers, weight-only
+quantization and gradient clipping."""
 from . import functional
 from .clip import ClipGradByGlobalNorm
+from .layer.activation import ReLU
 from .layer.common import Dropout
-from .layer.norm import LayerNorm, RMSNorm
+from .layer.conv import Conv2D
+from .layer.norm import BatchNorm2D, LayerNorm, RMSNorm
+from .layer.pooling import AdaptiveAvgPool2D, MaxPool2D
 
-__all__ = ["functional", "ClipGradByGlobalNorm", "Dropout", "LayerNorm",
-           "RMSNorm"]
+__all__ = ["functional", "ClipGradByGlobalNorm", "ReLU", "Dropout",
+           "Conv2D", "BatchNorm2D", "LayerNorm", "RMSNorm",
+           "AdaptiveAvgPool2D", "MaxPool2D"]

@@ -2,6 +2,9 @@
 version (counterparts of paddle_tpu/ops/pallas)."""
 from .bgmv import lora_delta, lora_delta_ref
 from .decode_attn import paged_decode_attention, paged_decode_attention_ref
+from .fused_resblock import (fused_bottleneck, fused_bottleneck_bwd,
+                             fused_bottleneck_bwd_ref, fused_bottleneck_fwd,
+                             fused_bottleneck_fwd_ref)
 from .flash_attention import (flash_attention, flash_attention_bwd_dkv,
                               flash_attention_bwd_dq, flash_attention_bwd_ref,
                               flash_attention_fwd, flash_attention_ref,
@@ -17,7 +20,10 @@ __all__ = ["lora_delta", "lora_delta_ref", "paged_decode_attention",
            "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq", "flash_attention_bwd_ref",
            "flash_attention_fwd", "flash_attention_ref",
-           "flash_attention_supported", "short_attention",
+           "flash_attention_supported", "fused_bottleneck",
+           "fused_bottleneck_bwd", "fused_bottleneck_bwd_ref",
+           "fused_bottleneck_fwd", "fused_bottleneck_fwd_ref",
+           "short_attention",
            "short_attention_bwd", "short_attention_bwd_ref",
            "short_attention_fwd", "short_attention_ref", "weight_only_matmul",
            "weight_only_matmul_nd", "weight_only_matmul_ref"]

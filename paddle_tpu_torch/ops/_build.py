@@ -135,6 +135,10 @@ def lib():
     # x, x strides (b, s), A, B, ids, h scratch, out, batch, s, d_in, r,
     # d_out, slots, x_dtype, stream
     _sig(handle.ptt_bgmv, P, L, L, P, P, P, P, P, I, I, I, I, I, I, I, P)
+    # kind, &Args (ops/fused_resblock.py _Args), activation dtype, stream
+    _sig(handle.ptt_resblock_gemm, I, P, I, P)
+    # mode, part, T, N, gamma, beta, bn, eps, n, out, stream
+    _sig(handle.ptt_resblock_reduce, I, P, I, I, P, P, P, F, F, P, P)
     _sig(handle.ptt_cuda_error_string, I, ctypes.c_char_p, I)
     _lib = handle
     return _lib

@@ -1,4 +1,4 @@
 """Optimizers of the port (counterpart of paddle_tpu/optimizer)."""
-from .optimizer import AdamW
+from .optimizer import AdamW, Momentum
 
-__all__ = ["AdamW"]
+__all__ = ["AdamW", "Momentum"]

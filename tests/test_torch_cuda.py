@@ -25,6 +25,7 @@ from paddle_tpu_torch.ops import weight_only as tw
 
 tfa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
 tsa = importlib.import_module("paddle_tpu_torch.ops.short_attention")
+trb = importlib.import_module("paddle_tpu_torch.ops.fused_resblock")
 
 pytestmark = pytest.mark.cuda
 
@@ -633,3 +634,179 @@ def test_parallelize_fine_tunes_bert_tiny_through_short_attention(cuda):
     assert torch.isfinite(runs["kernels"][0]).all()
     torch.testing.assert_close(runs["kernels"][0], runs["plain"][0],
                                rtol=1e-2, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# fused bottleneck block (ops/fused_resblock.py, csrc/fused_resblock.cu)
+# ---------------------------------------------------------------------------
+
+def _block_args(N, H, W, C4, C, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(N, H, W, C4, generator=g).to(dtype)
+    ws = [torch.randn(*s, generator=g) * (2.0 / s[-2]) ** 0.5
+          for s in ((C4, C), (3, 3, C, C), (C, C4))]
+    ws[1] = ws[1] / 3.0
+    vecs = [1.0 + 0.1 * torch.randn(C, generator=g),
+            0.1 * torch.randn(C, generator=g),
+            1.0 + 0.1 * torch.randn(C, generator=g),
+            0.1 * torch.randn(C, generator=g),
+            1.0 + 0.1 * torch.randn(C4, generator=g),
+            0.1 * torch.randn(C4, generator=g)]
+    return [t.to(device) for t in (x, *ws, *vecs)]
+
+
+def _normwise(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _y_tol(ref):
+    """2 bf16 ulps of max |y|, or 1e-2 absolute, whichever is larger."""
+    return max(2 * 2.0 ** -8 * ref.float().abs().max().item(), 1e-2)
+
+
+@pytest.mark.parametrize("N,H,W,C4,C,dtype", [
+    (2, 8, 8, 64, 16, torch.bfloat16),      # two images, one row tile
+    (6, 4, 4, 16, 8, torch.bfloat16),       # ragged M = 96, C = 8
+    (3, 5, 7, 256, 64, torch.float32),      # f32 input, bf16 operands
+    (128, 7, 7, 2048, 512, torch.bfloat16),  # ResNet-50 layer4, N = 128
+])
+def test_fused_resblock_kernels_match_plain(cuda, N, H, W, C4, C, dtype):
+    """Forward kernels against the plain forward: y within 2 bf16 ulps of
+    max |y| (or 1e-2 abs) — both round f32 sums of the same bf16 products,
+    summed in another order, to bf16 at r1, r2 and y; r1, r2 and the BN
+    vectors normwise within 1e-2 (readings <= 6e-4). Backward kernels
+    against the plain backward on the kernels' residuals, as training
+    runs them: the ten gradients normwise within 1e-2 (readings <= 1.1e-3:
+    da2, da1 and dx are stored in the activations' dtype). End to end,
+    each side on its own residuals, within 5e-2 (readings <= 2.2e-2: a
+    residual one bf16 ulp apart flips a relu mask element, whose gradient
+    then changes by its full size)."""
+    args = _block_args(N, H, W, C4, C, dtype, cuda)
+    dy = torch.randn(N, H, W, C4, generator=torch.Generator().manual_seed(1)
+                     ).to(dtype).to(cuda)
+    before = (trb.fused_bottleneck_fwd.launches,
+              trb.fused_bottleneck_bwd.launches)
+    y, res, stats = trb.fused_bottleneck_fwd(*args)
+    grads = trb.fused_bottleneck_bwd(res, dy)
+    assert (trb.fused_bottleneck_fwd.launches,
+            trb.fused_bottleneck_bwd.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    y_ref, res_ref, stats_ref = trb.fused_bottleneck_fwd_ref(*args)
+    same_res = trb.fused_bottleneck_bwd_ref(res, dy)
+    own_res = trb.fused_bottleneck_bwd_ref(res_ref, dy)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and grads[0].dtype == dtype
+    assert (y.float() - y_ref.float()).abs().max().item() <= _y_tol(y_ref)
+    for a, b in zip(res[1:3] + res[7:10], res_ref[1:3] + res_ref[7:10]):
+        assert _normwise(a, b) <= 1e-2
+    for pair, pair_ref in zip(stats, stats_ref):
+        for a, b in zip(pair, pair_ref):
+            assert _normwise(a, b) <= 1e-3
+    names = "dx dw1 dw2 dw3 dg1 dbe1 dg2 dbe2 dg3 dbe3".split()
+    for name, a, b, c in zip(names, grads, same_res, own_res):
+        assert a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        assert _normwise(a, b) <= 1e-2, (name, _normwise(a, b))
+        assert _normwise(a, c) <= 5e-2, (name, _normwise(a, c))
+
+
+def test_fused_resblock_kernels_are_bitwise_reproducible(cuda):
+    """No atomics: two runs of the forward and backward are bit-equal."""
+    args = _block_args(4, 14, 14, 256, 64, torch.bfloat16, cuda)
+    dy = torch.randn_like(args[0])
+    runs = []
+    for _ in range(2):
+        y, res, stats = trb.fused_bottleneck_fwd(*args)
+        runs.append((y, *[t for p in stats for t in p],
+                     *trb.fused_bottleneck_bwd(res, dy)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_fused_resblock_kernels_refuse_other_dtypes(cuda, dtype):
+    args = _block_args(2, 4, 4, 32, 8, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        trb.fused_bottleneck_fwd(args[0].to(dtype), *args[1:])
+
+
+def test_fused_resblock_autograd_matches_plain(cuda):
+    """`fused_block_impl` on OIHW conv weights (the model's entry): the
+    kernels' gradients through autograd against the plain versions'."""
+    N, H, W, C4, C = 2, 6, 6, 64, 16
+    x, w1, w2, w3, *vecs = _block_args(N, H, W, C4, C, torch.bfloat16, cuda)
+    cw = [w1.t()[:, :, None, None], w2.permute(3, 2, 0, 1),
+          w3.t()[:, :, None, None]]
+    outs = []
+    for dev in (cuda, "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_()
+                  for t in (x, *cw, *vecs)]
+        y = trb.fused_block_impl(*leaves, eps=1e-5)[0]
+        (y.float() * torch.linspace(-1, 1, y.numel(), device=dev
+                                    ).reshape(y.shape)).sum().backward()
+        outs.append([y] + [t.grad for t in leaves])
+    for a, b in zip(*outs):
+        assert a.shape == b.shape
+        assert _normwise(a.cpu(), b) <= 1e-2
+
+
+def test_bottleneck_block_routes_by_mode(cuda, monkeypatch):
+    """Mode "1" with a bf16 CUDA input: one forward and one backward call
+    of the fused kernels a block call; mode "0": none; an f32 input in
+    mode "1" keeps the per-op route."""
+    from paddle_tpu_torch.models.resnet import BottleneckBlock
+
+    blk = BottleneckBlock(256, 64, data_format="NHWC", device=cuda)
+    x = torch.randn(2, 8, 8, 256, device=cuda)
+    for mode, dtype, want in (("1", torch.bfloat16, 1), ("0", torch.bfloat16,
+                                                          0),
+                              ("1", torch.float32, 0)):
+        monkeypatch.setenv("PADDLE_TPU_FUSED_RESBLOCK", mode)
+        before = (trb.fused_bottleneck_fwd.launches,
+                  trb.fused_bottleneck_bwd.launches)
+        y = blk.to(dtype)(x.to(dtype))
+        y.float().sum().backward()
+        assert (trb.fused_bottleneck_fwd.launches - before[0],
+                trb.fused_bottleneck_bwd.launches - before[1]) == (want,
+                                                                   want)
+        blk.zero_grad()
+
+
+def test_parallelize_trains_tiny_resnet_through_fused_blocks(cuda,
+                                                             monkeypatch):
+    """A tiny ResNet (blocks [2, 1, 1, 1]: one identity block) trained 3
+    steps in bf16 through `parallelize` on each route from the same
+    weights: one fused forward and backward call a step on the fused
+    route, none on the per-op route; finite, falling losses within 2e-2
+    of the first loss of each other (bf16 rounding at other places; by
+    step 3 the loss is a fiftieth of the first, so a relative gate there
+    would measure noise)."""
+    from paddle_tpu_torch.distributed import parallelize
+    from paddle_tpu_torch.models.resnet import BottleneckBlock, ResNet
+    from paddle_tpu_torch.nn import functional as TF
+    from paddle_tpu_torch.optimizer import Momentum
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 32, 32, 3, generator=g)
+    y = torch.randint(0, 10, (8,), generator=g)
+    runs = {}
+    for mode in ("1", "0"):
+        monkeypatch.setenv("PADDLE_TPU_FUSED_RESBLOCK", mode)
+        m = ResNet(BottleneckBlock, [2, 1, 1, 1], num_classes=10,
+                   data_format="NHWC", device=cuda, seed=3)
+        eng = parallelize(
+            m, Momentum(learning_rate=1e-4, momentum=0.9,
+                        parameters=m.parameters()),
+            loss_fn=lambda m, a, b: TF.cross_entropy(m(a), b).mean(),
+            compute_dtype="bfloat16")
+        before = trb.fused_bottleneck_fwd.launches
+        losses = eng.train_batches([(x, y)] * 3).float().cpu()
+        runs[mode] = (losses, trb.fused_bottleneck_fwd.launches - before,
+                      m.layer1[1].bn1._mean.clone())
+    assert runs["1"][1] == 3 and runs["0"][1] == 0
+    for losses, _, mean in runs.values():
+        assert torch.isfinite(losses).all() and losses[-1] < losses[0]
+        assert mean.abs().sum() > 0 and mean.dtype == torch.float32
+    first = runs["0"][0][0].item()
+    torch.testing.assert_close(runs["1"][0], runs["0"][0], rtol=0,
+                               atol=2e-2 * first)

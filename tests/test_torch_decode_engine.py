@@ -87,7 +87,7 @@ def _jax_dense(jm, prompt, new, quant=None):
 
 def _pool(num_blocks=6, block_size=4):
     spec = (((2, 4), torch.float32), ((2, 4), torch.float32))
-    return BlockKVCache(num_blocks, block_size, [spec])
+    return BlockKVCache(num_blocks, block_size, [spec], device="cpu")
 
 
 def test_block_pool_alloc_free_conservation():

@@ -36,7 +36,7 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("N ")[1].split()[0])
-    assert n >= 38                      # every module was imported
+    assert n >= 45                      # every module was imported
 
 
 def _no_gpu():
@@ -59,6 +59,28 @@ def test_model_constructor_raises_without_gpu():
         gpt("gpt_tiny")
 
 
+def test_resnet_constructors_raise_without_gpu():
+    from paddle_tpu_torch.models import BottleneckBlock, ResNet, resnet50
+
+    assert resnet50(num_classes=10, device="cpu").fc.weight.device.type \
+        == "cpu"
+    _no_gpu()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resnet50()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ResNet(BottleneckBlock, [1, 1, 1, 1], num_classes=10)
+
+
+def test_block_pool_raises_without_gpu():
+    from paddle_tpu_torch.inference.decode import BlockKVCache
+
+    spec = (((2, 4), torch.float32),)
+    assert BlockKVCache(4, 4, [spec], device="cpu").device.type == "cpu"
+    _no_gpu()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BlockKVCache(4, 4, [spec])
+
+
 def test_engine_raises_without_gpu_and_checks_model_device():
     m = gpt("gpt_tiny", device="cpu")
     with pytest.raises(ValueError):
@@ -71,7 +93,9 @@ def test_engine_raises_without_gpu_and_checks_model_device():
 def test_kernel_wrappers_have_launch_counters():
     from paddle_tpu_torch.ops import (flash_attention_bwd_dkv,
                                       flash_attention_bwd_dq,
-                                      flash_attention_fwd, lora_delta,
+                                      flash_attention_fwd,
+                                      fused_bottleneck_bwd,
+                                      fused_bottleneck_fwd, lora_delta,
                                       paged_decode_attention,
                                       short_attention_bwd,
                                       short_attention_fwd,
@@ -80,7 +104,8 @@ def test_kernel_wrappers_have_launch_counters():
     for wrapper in (weight_only_matmul, paged_decode_attention,
                     flash_attention_fwd, flash_attention_bwd_dq,
                     flash_attention_bwd_dkv, lora_delta,
-                    short_attention_fwd, short_attention_bwd):
+                    short_attention_fwd, short_attention_bwd,
+                    fused_bottleneck_fwd, fused_bottleneck_bwd):
         assert isinstance(wrapper.launches, int)
 
 
