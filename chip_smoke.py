@@ -5,6 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py            # the full run
     python3 chip_smoke.py --quick    # short: fewer timing repeats, 2 layers
+    python3 chip_smoke.py --cp-only  # phases 1, 2's ring checks, and 7
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -28,14 +29,23 @@ Phases (any failure exits non-zero and prints no result line):
    fused bottleneck forward and backward kernels at ResNet-50's four stage
    shapes (N=128, bf16) against their plain versions (the backward on the
    kernels' residuals), timed beside the plain versions and the per-op
-   route of the same block (cuDNN convolutions and batch norm);
+   route of the same block (cuDNN convolutions and batch norm); the
+   ring-step (position-masked) flash kernels at gpt_base's cp = 2 ring
+   steps (ranks 0 and 1, own and visiting shard), a llama2_7b-width
+   shard, a contiguous shard whose keys all lie in its future, f32 and no
+   mask, timed beside SDPA with the boolean position mask; the serial
+   ring (n = 2, 4 shards in one process through the pos kernels and the
+   merge) against the whole-sequence flash kernels; the row-stable bf16
+   GEMV of the decode buckets at the llama2_7b Linears (rows bit-equal
+   across m, timed beside cuBLAS);
 3. serving end to end: llama2_7b at full width (random weights from a
    seed) served by `DecodeEngine` — (a) bf16 weights with a bf16 KV pool,
    (b) int8 weights with an int8 KV pool, (c) int4 weights, one short
    wave — with launch counts of both kernels set to 0 before and read
    after each run, tokens/s, time to first token, the block-pool
    conservation check, the engine's first decode-step logits against a
-   dense `model.forward` recompute, solo-vs-batched token agreement, and a
+   dense `model.forward` recompute, solo-vs-batched token equality (held:
+   every float decode Linear goes through the row-stable GEMV), and a
    torch.profiler window over decode steps (device-busy time per step
    and kernel time by family); then (d) multi-tenant serving on run (b)'s
    int8 model: LoRA adapters through BGMV, a shared system prompt through
@@ -76,7 +86,20 @@ Phases (any failure exits non-zero and prints no result line):
    per-op route's gap, and a planted fault (the BN backward's m2 term
    dropped) that the f32 gates must catch; a torch.profiler child per
    route;
-7. the kernels' JSON line, the nvidia-smi line, then the last line
+7. context-parallel training: two ranks started by the script
+   (``--cp-rank``) share cuda:0 over gloo, K/V and gradients staged
+   through pinned host memory (NCCL takes one rank per device), and train
+   gpt_base at full width and depth at cp = 2 on one fixed [8, 1024]
+   batch (phase 4's configuration, the sequence zigzag-split): two bf16
+   3-step runs (bit-equal), 20 bf16 steps after 2 warm-up steps (step
+   ms, global tokens/s, MFU over the one card, the exchange's ms and
+   bytes per step, launch counts set to 0 before and read after: 24 of
+   each ring-step kernel per rank per step), 3 f32 steps against the
+   single-device engine on the same weights (loss 1e-4, grad norm 1e-3,
+   the first step's qkv gradient normwise 1e-3), the same with a planted
+   fault (the merge's weight of the visiting partial dropped) that must
+   fail those gates, and one Ulysses step (reported);
+8. the kernels' JSON line, the nvidia-smi line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every float32 product in
@@ -127,10 +150,39 @@ SHORT_CASES = (
     ("D=40", 32, 128, 12, 40, "bfloat16", False, 0.1),
 )
 BERT_BATCH, BERT_SEQ = 128, 128     # bench.py's bert_base fine-tune row
+# context parallelism (phase 7): gpt_base on one fixed [8, 1024] batch,
+# the sequence split over two ranks that share the card
+CP_WORLD, CP_BATCH, CP_SEQ = 2, 8, 1024
+CP_TIMEOUT = 900                    # seconds for the two ranks together
+# ring-step kernel checks: (label, B, H, s, D, dtype, q's rank, k's rank,
+# zigzag, causal, timed) at cp = 2: the first four are the gpt_base ring
+# steps of the main path (the kernels' line reports their mean)
+FLASH_POS_CASES = (
+    ("gpt_base r0 own", 8, 12, 512, 64, "bfloat16", 0, 0, True, True, True),
+    ("gpt_base r0 visiting", 8, 12, 512, 64, "bfloat16", 0, 1, True, True,
+     True),
+    ("gpt_base r1 own", 8, 12, 512, 64, "bfloat16", 1, 1, True, True, True),
+    ("gpt_base r1 visiting", 8, 12, 512, 64, "bfloat16", 1, 0, True, True,
+     True),
+    ("llama2_7b r0 own", 1, 32, 2048, 128, "bfloat16", 0, 0, True, True,
+     True),
+    ("llama2_7b r0 visiting", 1, 32, 2048, 128, "bfloat16", 0, 1, True,
+     True, True),
+    ("gpt_base contiguous r0, keys all in its future", 8, 12, 512, 64,
+     "bfloat16", 0, 1, False, True, False),
+    ("gpt_base r0 visiting", 8, 12, 512, 64, "float32", 0, 1, True, True,
+     False),
+    ("gpt_base r0 visiting", 8, 12, 512, 64, "bfloat16", 0, 1, True, False,
+     False),
+)
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def log_phase(t_start, title):
+    log(f"{title} (at {time.perf_counter() - t_start:.0f} s)")
 
 
 def nvidia_smi_line():
@@ -770,7 +822,7 @@ def _prompts(np, vocab, lens):
 def serve(torch, np, model, quant, lens, new_tokens, label, check_dense):
     from paddle_tpu_torch.inference import DecodeEngine
     from paddle_tpu_torch.ops.decode_attn import paged_decode_attention
-    from paddle_tpu_torch.ops.weight_only import weight_only_matmul
+    from paddle_tpu_torch.ops.weight_only import row_gemv, weight_only_matmul
 
     prompts = _prompts(np, model.cfg.vocab_size, lens)
     eng = DecodeEngine(model, max_length=1024, block_size=16,
@@ -781,6 +833,7 @@ def serve(torch, np, model, quant, lens, new_tokens, label, check_dense):
     eng.generate(prompts[0][:8], 2)
     paged_decode_attention.launches = 0
     weight_only_matmul.launches = 0
+    row_gemv.launches = 0
     half = (len(prompts) + 1) // 2
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -792,7 +845,8 @@ def serve(torch, np, model, quant, lens, new_tokens, label, check_dense):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"paged_decode_attention": paged_decode_attention.launches,
-                "weight_only_matmul": weight_only_matmul.launches}
+                "weight_only_matmul": weight_only_matmul.launches,
+                "row_gemv": row_gemv.launches}
     st = eng.stats()
     ttft = sorted(s.ttft for s in streams)
     res = {"run": label, "tokens": sum(map(len, outs)), "wall_s": wall,
@@ -805,9 +859,15 @@ def serve(torch, np, model, quant, lens, new_tokens, label, check_dense):
             not 0 <= t < model.cfg.vocab_size for o in outs for t in o):
         raise AssertionError(f"{label}: malformed token output")
     if check_dense:
+        # held: every decode row is row-stable (float Linears through the
+        # GEMV), so a sequence decodes the same tokens alone
         solo = [eng.generate(p, new_tokens) for p in prompts]
         res["solo_vs_batched_agree"] = sum(a == b for a, b in zip(solo, outs))
         res["sequences"] = len(outs)
+        if res["solo_vs_batched_agree"] != len(outs):
+            raise AssertionError(
+                f"{label}: {res['solo_vs_batched_agree']} of {len(outs)} "
+                f"sequences decode the same tokens alone as in a batch")
     drained = eng.shutdown()
     blocks = eng.stats()["blocks"]
     res["blocks_after_shutdown"] = {k: blocks[k] for k in
@@ -1159,8 +1219,10 @@ def end_to_end(torch, np, layers, new_tokens):
     model = build()
     r = serve(torch, np, model, None, PROMPT_LENS, new_tokens,
               "a: bf16 weights, bf16 KV", check_dense=True)
-    if r["launches"]["paged_decode_attention"] == 0:
-        raise AssertionError("paged_decode_attention never launched")
+    if r["launches"]["paged_decode_attention"] == 0 \
+            or r["launches"]["row_gemv"] == 0:
+        raise AssertionError(f"run a: a kernel never launched: "
+                             f"{r['launches']}")
     runs.append(r)
     quantize_for_inference(model, "int8")
     torch.cuda.empty_cache()
@@ -1181,7 +1243,7 @@ def end_to_end(torch, np, layers, new_tokens):
     runs.append(r)
     del model
     for r in runs[1:]:
-        if min(r["launches"].values()) == 0:
+        if min(v for k, v in r["launches"].items() if k != "row_gemv") == 0:
             raise AssertionError(f"{r['run']}: a kernel never launched: "
                                  f"{r['launches']}")
     return runs, profiles
@@ -2100,6 +2162,544 @@ def resblock_kernel_rows(rows, resnet_run):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 2 (ring attention): the position-masked kernels, the serial ring
+# and the row-stable GEMV
+# ---------------------------------------------------------------------------
+
+def _cp_mod():
+    import importlib
+
+    return importlib.import_module(
+        "paddle_tpu_torch.distributed.context_parallel")
+
+
+def flash_pos_counts():
+    fa = _flash_mod()
+    return {"flash_fwd_pos": fa.flash_fwd_pos.launches,
+            "flash_dq_pos": fa.flash_bwd_pos_dq.launches,
+            "flash_dkv_pos": fa.flash_bwd_pos_dkv.launches}
+
+
+def reset_flash_pos_counts():
+    fa = _flash_mod()
+    for w in (fa.flash_fwd_pos, fa.flash_bwd_pos_dq, fa.flash_bwd_pos_dkv):
+        w.launches = 0
+
+
+def _errs(torch, got, ref):
+    """max abs error, and normwise ||got - ref|| / ||ref|| (0 when both
+    are all zero; inf when only ref is)."""
+    g, r = got.float(), ref.float()
+    if r.numel() == 0:
+        return 0.0, 0.0
+    abs_err = (g - r).abs().max().item()
+    rn = r.norm().item()
+    if rn == 0:
+        return abs_err, 0.0 if g.abs().max().item() == 0 else float("inf")
+    return abs_err, ((g - r).norm() / rn).item()
+
+
+def check_flash_pos(torch, iters):
+    """flash_fwd_pos, flash_dq_pos and flash_dkv_pos against their plain
+    versions on the same inputs (the backward kernels on the plain
+    forward's lse and delta), at the ring steps of gpt_base at cp = 2
+    (rank 0 and 1, own and visiting shard, zigzag), a llama2_7b-width
+    shard, a contiguous shard whose keys all lie in its future, f32 and
+    no mask. Tolerances are the flash kernels' (FLASH_TOL; the lse of a
+    row that sees a key 1e-2 / 1e-4, as phase 2's flash rows); a row that
+    sees no key must come out O == 0 exactly with lse <= -1e29. The timed
+    cases record kernel, plain and library times (SDPA with the boolean
+    position mask, forward and backward) and the bound of the pairs the
+    mask keeps."""
+    import torch.nn.functional as F
+
+    fa, cpm = _flash_mod(), _cp_mod()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for label, B, H, s, D, dt, rq, rk, zigzag, causal, timed in \
+            FLASH_POS_CASES:
+        dtype = getattr(torch, dt)
+        qp = cpm._local_positions(rq, CP_WORLD, s, zigzag, "cuda")
+        kp = cpm._local_positions(rk, CP_WORLD, s, zigzag, "cuda")
+        q, k, v, do = (torch.randn(B, s, H, D, device="cuda",
+                                   generator=g).to(dtype) for _ in range(4))
+        out, lse = fa.flash_fwd_pos(q, k, v, qp, kp, causal=causal)
+        ref, lse_ref = fa.flash_fwd_pos_ref(q, k, v, qp, kp, causal=causal)
+        keep = qp[:, None].long() >= kp[None, :].long()
+        seen = keep.any(1) if causal else torch.ones_like(keep[:, 0])
+        delta = fa.attention_delta(ref, do)
+        bwd = (q, k, v, do, lse_ref, delta, qp, kp)
+        got = fa.flash_bwd_pos(*bwd, causal=causal)
+        refs = fa.flash_bwd_pos_ref(*bwd, causal=causal)
+        torch.cuda.synchronize()
+        o_tol, grad_tol = FLASH_TOL[dt]
+        lse_tol = 1e-2 if dt == "bfloat16" else 1e-4
+        err = {"fwd": _errs(torch, out[:, seen], ref[:, seen])[0],
+               "lse": _errs(torch, lse[..., seen], lse_ref[..., seen])[0]}
+        rel = {}
+        for name, pairs in (("dq", ((got[0], refs[0]),)),
+                            ("dkv", ((got[1], refs[1]), (got[2], refs[2])))):
+            e = [_errs(torch, a, b) for a, b in pairs]
+            err[name], rel[name] = max(x[0] for x in e), max(x[1] for x in e)
+        masked_ok = bool((out[:, ~seen] == 0).all()) and bool(
+            (lse[..., ~seen] <= -1e29).all())
+        finite = all(bool(torch.isfinite(t).all()) for t in (out, lse, *got))
+        kept = int(keep.sum()) if causal else s * s
+        case = (f"{label} {dt} {'causal' if causal else 'full'} B={B} "
+                f"s={s} H={H} D={D}")
+        row = dict(case=case, dtype=dt, max_abs_err=err,
+                   grad_norm_rel_err=rel, o_tol=o_tol, lse_tol=lse_tol,
+                   grad_tol=grad_tol, rows_seeing_no_key=int((~seen).sum()),
+                   kept_pair_share=kept / (s * s))
+        if not (finite and masked_ok and err["fwd"] <= o_tol
+                and err["lse"] <= lse_tol
+                and rel["dq"] <= grad_tol and rel["dkv"] <= grad_tol):
+            raise AssertionError(
+                f"flash pos {case}: errors {err}, normwise gradient "
+                f"errors {rel}, tolerances {o_tol} / {lse_tol} / "
+                f"{grad_tol}, "
+                f"finite={finite}, masked rows O=0/lse<=-1e29: {masked_ok}")
+        del ref, refs, got, out
+        if timed:
+            row.update(_time_flash_pos(torch, F, fa, q, k, v, do, lse_ref,
+                                       delta, qp, kp, keep, kept, causal,
+                                       iters))
+        rows.append(row)
+        log(f"  flash pos {case}: err {err} normwise {rel} kept "
+            f"{row['kept_pair_share']:.3f}"
+            + ("".join(f" {n} {t:.4f} ms" for n, t in row.items()
+                       if n.endswith("_ms")) if timed else ""))
+        del q, k, v, do, lse, lse_ref, delta
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _time_flash_pos(torch, F, fa, q, k, v, do, lse, delta, qp, kp, keep,
+                    kept, causal, iters):
+    """Times and bounds of the three ring-step kernels. Operations count
+    the pairs the mask keeps (from the positions): forward 4 B H D per
+    pair, dq 1.5x, dkv 2x (as for the whole-sequence kernels); bytes each
+    input read once and each output written once."""
+    B, s, H, D = q.shape
+    tensor = B * s * H * D * q.element_size()
+    rows_f32 = B * H * s * 4
+    fwd_flops = 4.0 * B * H * kept * D
+    kw = dict(causal=causal)
+    bwd = (q, k, v, do, lse, delta, qp, kp)
+    slow = max(3, iters // 4)
+    res = {
+        "fwd_ms": time_ms(torch, lambda: fa.flash_fwd_pos(q, k, v, qp, kp,
+                                                          **kw), iters),
+        "dq_ms": time_ms(torch, lambda: fa.flash_bwd_pos_dq(*bwd, **kw),
+                         iters),
+        "dkv_ms": time_ms(torch, lambda: fa.flash_bwd_pos_dkv(*bwd, **kw),
+                          iters),
+        "fwd_plain_ms": time_ms(torch, lambda: fa.flash_fwd_pos_ref(
+            q, k, v, qp, kp, **kw), slow, warmup=1),
+        "bwd_plain_ms": time_ms(torch, lambda: fa.flash_bwd_pos_ref(
+            *bwd, **kw), slow, warmup=1)}
+    # the plain backward forms dq, dk and dv in one call; each kernel's
+    # plain time is that call's, split in the kernels' operation shares
+    res["dq_plain_ms"] = res["bwd_plain_ms"] * 1.5 / 3.5
+    res["dkv_plain_ms"] = res["bwd_plain_ms"] * 2.0 / 3.5
+    # yardstick: SDPA with the boolean position mask, forward and backward
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    mask = keep if causal else None
+    res["fwd_library_ms"] = time_ms(
+        torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask),
+        iters)
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    dot = do.transpose(1, 2)
+    res["bwd_library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True), iters)
+    for name, nbytes, flops in (
+            ("fwd", 4 * tensor + rows_f32, fwd_flops),
+            ("dq", 5 * tensor + 2 * rows_f32, 1.5 * fwd_flops),
+            ("dkv", 6 * tensor + 2 * rows_f32, 2.0 * fwd_flops),
+            ("bwd", 8 * tensor + 2 * rows_f32, 2.5 * fwd_flops)):
+        res[f"{name}_bound_ms"], res[f"{name}_bound_by"] = bound(nbytes,
+                                                                 flops)
+    return res
+
+
+def check_serial_ring(torch):
+    """The ring's n steps (n = 2, 4) of every rank run in one process
+    through the pos kernels and `_merge_partial` (`ring_serial`) on
+    gpt_base's sequence: against the same ring through the kernels' plain
+    versions to FLASH_TOL (its backward kernels on the plain ring's
+    forward statistics, each held alone), and against the whole-sequence
+    flash kernels —
+    O to FLASH_TOL, gradients normwise to n + 1 roundings of the input
+    dtype (2**-9 for bf16, 2**-24 for f32, at least f32's 1e-5): each
+    step's dq, dk, dv is rounded to the input dtype (the TPU kernel's out
+    dtype) before the f32 sum, where the whole-sequence kernel rounds
+    once. The same ring with a planted fault (the visiting partial's merge
+    weight dropped, `_dropped_weight_merge`) must fail that gate in its
+    gradients, so that the gate still tells a wrong ring from a sound
+    one."""
+    fa, cpm = _flash_mod(), _cp_mod()
+    g = torch.Generator(device="cuda").manual_seed(8)
+    rows = []
+    for n, dt, causal, balanced in ((2, "bfloat16", True, True),
+                                    (4, "bfloat16", True, True),
+                                    (2, "bfloat16", True, False),
+                                    (2, "bfloat16", False, False),
+                                    (2, "float32", True, True)):
+        dtype = getattr(torch, dt)
+        q, k, v, do = (torch.randn(CP_BATCH, CP_SEQ, 12, 64, device="cuda",
+                                   generator=g).to(dtype) for _ in range(4))
+        kw = dict(causal=causal, balanced=balanced)
+        got, _ = cpm.ring_serial(q, k, v, do, n, **kw)
+        plain, stats = cpm.ring_serial(q, k, v, do, n,
+                                       fwd=fa.flash_fwd_pos_ref,
+                                       bwd=fa.flash_bwd_pos_ref, **kw)
+        # the backward kernels on the plain ring's forward statistics, so
+        # that they are held alone (the forward's roundings move delta)
+        alone, _ = cpm.ring_serial(q, k, v, do, n, stats=stats, **kw)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        delta = fa.attention_delta(out, do)
+        want = (out, fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                               causal=causal),
+                *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                            causal=causal))
+        torch.cuda.synchronize()
+        o_tol, grad_tol = FLASH_TOL[dt]
+        ring_tol = max(grad_tol, (n + 1) * 2.0 ** (
+            -9 if dt == "bfloat16" else -24))
+        e = [_errs(torch, got[0], plain[0])] + [
+            _errs(torch, a, b) for a, b in zip(alone[1:], plain[1:])]
+        w = [_errs(torch, a, b) for a, b in zip(got, want)]
+        merge = cpm._merge_partial
+        cpm._merge_partial = _dropped_weight_merge(torch)
+        try:
+            bad, _ = cpm.ring_serial(q, k, v, do, n, **kw)
+        finally:
+            cpm._merge_partial = merge
+        fault = max(_errs(torch, a, b)[1] for a, b in zip(bad[1:], want[1:]))
+        row = {"case": f"n={n} {dt} {'causal' if causal else 'full'} "
+                       f"{'zigzag' if balanced else 'contiguous'} B="
+                       f"{CP_BATCH} S={CP_SEQ} H=12 D=64",
+               "vs_plain_ring": {"out_max_abs_err": e[0][0],
+                                 "grad_norm_rel_err": {
+                                     "dq": e[1][1], "dk": e[2][1],
+                                     "dv": e[3][1]}},
+               "vs_whole_sequence": {"out_max_abs_err": w[0][0],
+                                     "grad_norm_rel_err": {
+                                         "dq": w[1][1], "dk": w[2][1],
+                                         "dv": w[3][1]}},
+               "fault_vs_whole_sequence_grad_norm_rel_err": fault,
+               "tol": {"out": o_tol, "grad_vs_plain": grad_tol,
+                       "grad_vs_whole_sequence": ring_tol}}
+        rows.append(row)
+        log(f"  serial ring {json.dumps(row)}")
+        if not (e[0][0] <= o_tol and max(x[1] for x in e[1:]) <= grad_tol
+                and w[0][0] <= o_tol
+                and max(x[1] for x in w[1:]) <= ring_tol
+                and fault > ring_tol):
+            raise AssertionError(f"serial ring {row['case']}: {row}")
+        del q, k, v, do, got, plain, stats, alone, want, out, lse, delta, bad
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_row_gemv(torch, iters):
+    """The row-stable float GEMV at the llama2_7b decode Linears (bf16
+    weights, m = 1..16): against its plain version (2 bf16 ulps of the
+    largest output), the first rows of a call of 8 equal to calls of 1, 2
+    and 4 bit for bit, and timed (m = 1 and 8) beside cuBLAS
+    (`torch.nn.functional.linear`, the yardstick) and the bound (the
+    weight bytes)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.weight_only import row_gemv, row_gemv_ref
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for lname, (n, k) in LLAMA_LINEARS.items():
+        w = (torch.randn(n, k, device="cuda", generator=g) * 0.02).to(
+            torch.bfloat16)
+        x = torch.randn(16, k, device="cuda", generator=g).to(torch.bfloat16)
+        full = row_gemv(x[:8], w)
+        for m in (1, 2, 4, 8, 16):
+            got = row_gemv(x[:m], w)
+            ref = row_gemv_ref(x[:m], w)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = 2 * 2.0 ** -8 * ref.float().abs().max().item()
+            stable = m > 8 or bool(torch.equal(got, full[:m]))
+            row = dict(case=f"bf16 m={m} {lname} n={n} k={k}", m=m,
+                       layer=lname, max_abs_err=err, tol=tol,
+                       rows_equal_in_batch_of_8=stable)
+            if m in (1, 8):
+                xm = x[:m]
+                row["ms"] = time_ms(torch, lambda: row_gemv(xm, w), iters)
+                row["plain_ms"] = time_ms(torch, lambda: row_gemv_ref(xm, w),
+                                          max(3, iters // 4))
+                row["library_ms"] = time_ms(torch, lambda: F.linear(xm, w),
+                                            iters)
+                row["bound_ms"], row["bound_by"] = bound(
+                    (n * k + m * k + m * n) * 2, 2.0 * m * n * k)
+            rows.append(row)
+            log(f"  row_gemv {json.dumps(row)}")
+            if not (err <= tol and stable and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"row_gemv {row['case']}: {row}")
+        del w, x
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7: gpt_base trains at cp = 2, two ranks on one card over gloo
+# ---------------------------------------------------------------------------
+
+def _dropped_weight_merge(torch):
+    """The planted fault: the ring's merge without the visiting partial's
+    weight exp(lse_blk - lse_new)."""
+    def merge(out, lse, o_blk, lse_blk):
+        lse_new = torch.logaddexp(lse, lse_blk)
+        w_old = torch.exp(lse - lse_new).transpose(1, 2)[..., None]
+        return out * w_old + o_blk.float(), lse_new
+    return merge
+
+
+def _cp_engine(torch, mesh, compute_dtype, mode="ring"):
+    """gpt_base at full width and depth (f32 masters from seed 0), AdamW
+    1e-4 with ClipGradByGlobalNorm(1.0), phase 4's configuration, as this
+    rank's part of a cp mesh (None: one device)."""
+    from paddle_tpu_torch.distributed import parallelize
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.cuda.empty_cache()
+    model = gpt("gpt_base", dtype="float32", device="cuda", seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    return model, parallelize(model, opt, mesh=mesh,
+                              context_parallel=mode,
+                              compute_dtype=compute_dtype)
+
+
+def cp_rank(torch, args):
+    """One rank of phase 7 (`--cp-rank R --cp-dir DIR`): joins the gloo
+    job through DIR's file store, builds its cp mesh on cuda:0 and runs,
+    in order, two bf16 3-step runs (bit-equal), the bf16 throughput run,
+    3 f32 steps (parity), 3 f32 steps with the planted fault, one f32
+    Ulysses step, and on rank 0 the single-device f32 reference; writes
+    DIR/rank{R}.json."""
+    import datetime
+
+    import torch.distributed as dist
+    from paddle_tpu_torch.models import flops_per_token
+    from paddle_tpu_torch.sharding import MeshConfig
+
+    rank, steps = args.cp_rank, (5 if args.quick else 20)
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(args.cp_dir, "store"),
+        rank=rank, world_size=CP_WORLD,
+        timeout=datetime.timedelta(seconds=CP_TIMEOUT))
+    mesh = MeshConfig(cp=CP_WORLD).build(device="cuda:0")
+    tr = mesh.transport
+    cpm = _cp_mod()
+    g = torch.Generator().manual_seed(args.seed)
+    ids = torch.randint(0, 50304, (CP_BATCH, CP_SEQ), generator=g).cuda()
+    res = {"rank": rank, "mesh": repr(mesh), "backend": tr.backend,
+           "staged": tr.staged, "batch": CP_BATCH, "seq": CP_SEQ,
+           "layers": 12}
+
+    def run(compute_dtype, n, mode="ring"):
+        model, eng = _cp_engine(torch, mesh, compute_dtype, mode)
+        out = _run_steps(torch, eng, ids, n)
+        del model, eng
+        return out
+
+    def run_f32(mesh_or_none):
+        """3 f32 steps; also the first step's (clipped) gradient of every
+        layer's qkv_proj weight, flat, kept on the card."""
+        model, eng = _cp_engine(torch, mesh_or_none, None)
+        first = _run_steps(torch, eng, ids, 1)
+        grad = torch.cat([p.grad.reshape(-1) for n_, p in
+                          model.named_parameters() if "qkv_proj.weight" in n_])
+        rest = _run_steps(torch, eng, ids, 2)
+        del model, eng
+        return [first[0] + rest[0], first[1] + rest[1]], grad
+
+    reruns = [run("bfloat16", 3) for _ in range(2)]
+    res["bf16_reruns"] = reruns
+    res["bf16_reruns_bit_equal"] = reruns[0] == reruns[1]
+
+    model, eng = _cp_engine(torch, mesh, "bfloat16")
+    _run_steps(torch, eng, ids, 2)
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_flash_pos_counts()
+    reset_flash_counts()
+    tr.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses, norms = _run_steps(torch, eng, ids, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = CP_BATCH * CP_SEQ * steps
+    fpt = flops_per_token(model.cfg, CP_SEQ)
+    res["throughput"] = {
+        "steps": steps, "step_ms": wall * 1e3 / steps,
+        "global_tokens_per_s": tokens / wall,
+        "mfu_one_card": tokens / wall * fpt / BF16_FLOPS,
+        "losses": losses, "grad_norms": norms,
+        "launches": {**flash_pos_counts(), **flash_counts()},
+        "exchange_per_step": {k: {"bytes": v["bytes"] / steps,
+                                  "ms": v["ms"] / steps,
+                                  "calls": v["calls"] / steps}
+                              for k, v in tr.stats.items()},
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model, eng
+
+    res["f32"], grad = run_f32(mesh)
+    merge = cpm._merge_partial
+    cpm._merge_partial = _dropped_weight_merge(torch)
+    try:
+        res["f32_fault_merge_weight_dropped"], grad_bad = run_f32(mesh)
+    finally:
+        cpm._merge_partial = merge
+    res["f32_ulysses"] = run(None, 1, mode="ulysses")
+    if rank == 0:
+        res["f32_single_device"], ref = run_f32(None)
+        # the gradients are summed over the mesh: every rank holds these
+        res["f32_qkv_grad_rel_err"] = ((grad - ref).norm()
+                                       / ref.norm()).item()
+        res["f32_fault_qkv_grad_rel_err"] = ((grad_bad - ref).norm()
+                                             / ref.norm()).item()
+    del grad, grad_bad
+    dist.barrier()
+    with open(os.path.join(args.cp_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _rel_err(a, b):
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def cp_phase(torch, args):
+    """Phase 7: start the two ranks (`--cp-rank`), each on cuda:0 over
+    gloo with host staging (NCCL takes one rank per device), join them
+    within CP_TIMEOUT (killed on expiry), and hold what they report."""
+    import math
+    import shutil
+
+    # absolute: a file:// store URL takes its first part as a host name
+    cp_dir = os.path.abspath(f"{args.report}.cp")
+    shutil.rmtree(cp_dir, ignore_errors=True)
+    os.makedirs(cp_dir)
+    logs = [open(os.path.join(cp_dir, f"rank{r}.log"), "w")
+            for r in range(CP_WORLD)]
+    extra = ["--quick"] if args.quick else []
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cp-rank", str(r),
+         "--cp-dir", cp_dir, "--seed", str(args.seed), *extra],
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(CP_WORLD)]
+    t0 = time.perf_counter()
+    failed = None
+    for r, p in enumerate(procs):
+        try:
+            p.wait(timeout=max(1.0, CP_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            failed = f"rank {r} still running after {CP_TIMEOUT} s"
+            break
+        if p.returncode != 0:
+            failed = f"rank {r} exited with {p.returncode}"
+            break
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for f in logs:
+        f.close()
+    if failed:
+        tails = []
+        for r in range(CP_WORLD):
+            with open(os.path.join(cp_dir, f"rank{r}.log")) as f:
+                tails.append(f.read()[-3000:])
+        raise AssertionError(f"cp training: {failed}\n" + "\n---\n".join(
+            tails))
+    ranks = []
+    for r in range(CP_WORLD):
+        with open(os.path.join(cp_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(cp_dir, ignore_errors=True)
+    r0 = ranks[0]
+    steps = r0["throughput"]["steps"]
+    single_l, single_n = r0["f32_single_device"]
+    cp_l, cp_n = r0["f32"]
+    bad_l, bad_n = r0["f32_fault_merge_weight_dropped"]
+    # f32 gates: losses, grad norms, and the first step's qkv gradient
+    # normwise (attention is what the ring changes)
+    gate = {"loss_rel": 1e-4, "grad_norm_rel": 1e-3, "qkv_grad_rel": 1e-3}
+    parity = {"loss_rel_err": _rel_err(cp_l, single_l),
+              "grad_norm_rel_err": _rel_err(cp_n, single_n),
+              "qkv_grad_rel_err": r0["f32_qkv_grad_rel_err"]}
+    fault = {"loss_rel_err": _rel_err(bad_l, single_l),
+             "grad_norm_rel_err": _rel_err(bad_n, single_n),
+             "qkv_grad_rel_err": r0["f32_fault_qkv_grad_rel_err"]}
+
+    def passes(x):
+        return (x["loss_rel_err"] <= gate["loss_rel"]
+                and x["grad_norm_rel_err"] <= gate["grad_norm_rel"]
+                and x["qkv_grad_rel_err"] <= gate["qkv_grad_rel"])
+
+    fault["caught"] = not passes(fault)
+    uly = r0["f32_ulysses"][0][0]
+    run = {"ranks": ranks, "gate": gate, "f32_parity": parity,
+           "f32_fault_merge_weight_dropped": fault,
+           "ulysses_step1_loss": uly,
+           "ulysses_step1_loss_rel_err": abs(uly - single_l[0])
+           / abs(single_l[0]),
+           "step_ms": max(x["throughput"]["step_ms"] for x in ranks),
+           "global_tokens_per_s": min(x["throughput"]["global_tokens_per_s"]
+                                      for x in ranks),
+           "mfu_one_card": min(x["throughput"]["mfu_one_card"]
+                               for x in ranks),
+           "launches_per_rank_per_step": [
+               {k: v / steps for k, v in x["throughput"]["launches"].items()}
+               for x in ranks],
+           "exchange_per_step": [x["throughput"]["exchange_per_step"]
+                                 for x in ranks]}
+    log(f"  cp {json.dumps({k: v for k, v in run.items() if k != 'ranks'})}")
+    per_step = 2 * 12          # 12 layers, n = 2 ring steps
+    for x in ranks:
+        launches = x["throughput"]["launches"]
+        want = {k: per_step * steps if k.endswith("_pos") else 0
+                for k in launches}
+        if launches != want:
+            raise AssertionError(f"cp rank {x['rank']}: launches "
+                                 f"{launches}, expected {want}")
+        losses = x["throughput"]["losses"] + x["throughput"]["grad_norms"]
+        if not all(math.isfinite(v) for v in losses) or not (
+                x["throughput"]["losses"][-1] < x["throughput"]["losses"][0]):
+            raise AssertionError(f"cp rank {x['rank']}: training did not "
+                                 f"progress: {x['throughput']['losses']}")
+        if not x["bf16_reruns_bit_equal"]:
+            raise AssertionError(f"cp rank {x['rank']}: bf16 reruns differ: "
+                                 f"{x['bf16_reruns']}")
+    for key in ("f32", "bf16_reruns"):
+        if ranks[0][key] != ranks[1][key]:
+            raise AssertionError(f"cp: the ranks report different {key}: "
+                                 f"{ranks[0][key]} / {ranks[1][key]}")
+    if ranks[0]["throughput"]["losses"] != ranks[1]["throughput"]["losses"]:
+        raise AssertionError("cp: the ranks report different losses")
+    if not passes(parity):
+        raise AssertionError(f"cp f32 parity against one device: {parity} "
+                             f"(gate {gate})")
+    if not fault["caught"]:
+        raise AssertionError(f"cp: the planted fault passed the f32 gate: "
+                             f"{fault}")
+    return run
+
+
 def main(argv):
     import argparse
 
@@ -2122,6 +2722,12 @@ def main(argv):
                     help=argparse.SUPPRESS)
     ap.add_argument("--route", choices=sorted(RESNET_ROUTES),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--cp-only", action="store_true",
+                    help="phases 1, 2's ring-attention and GEMV checks and "
+                         "7 (cp training) only")
+    # internal: one rank of phase 7
+    ap.add_argument("--cp-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--cp-dir", help=argparse.SUPPRESS)
     ap.add_argument("--layers", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "paddle_tpu_torch")):
@@ -2138,6 +2744,8 @@ def main(argv):
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.cp_rank is not None:
+        return cp_rank(torch, args)
     if args.profile_train:
         res = profile_train(torch, args.layers, args.seed)
         with open(args.profile_train, "w") as f:
@@ -2176,7 +2784,17 @@ def main(argv):
         f"(cached={build_rec.get('cached')}; ptxas -v lines in the report)")
 
     iters = 5 if args.quick else 20
-    log("phase 2: kernels vs plain versions")
+    log_phase(t_start, "phase 2: kernels vs plain versions")
+    fp_rows = check_flash_pos(torch, iters)
+    ring_rows = check_serial_ring(torch)
+    gv_rows = check_row_gemv(torch, iters)
+    if args.cp_only:
+        log_phase(t_start, "phase 7: gpt_base training at cp = 2")
+        cp_run = cp_phase(torch, args)
+        return finish(args, torch, smi, build_rec, t_start,
+                      cp_kernel_rows(fp_rows, cp_run) + [gemv_row(gv_rows)],
+                      {"flash_pos": fp_rows, "serial_ring": ring_rows,
+                       "row_gemv": gv_rows, "cp": cp_run})
     wo_rows = check_weight_only(torch, iters)
     pd_rows = check_paged(torch, iters)
     bg_rows = check_bgmv(torch, iters)
@@ -2184,7 +2802,7 @@ def main(argv):
     sa_rows = check_short_attention(torch, iters)
     rb_rows = check_fused_resblock(torch, iters)
 
-    log("phase 3: llama2_7b end to end through DecodeEngine")
+    log_phase(t_start, "phase 3: llama2_7b end to end through DecodeEngine")
     serve_layers = 2 if args.quick else 32
     runs, profiles = end_to_end(torch, np, serve_layers,
                                 8 if args.quick else 32)
@@ -2192,14 +2810,14 @@ def main(argv):
                               args.report))
     log(f"  profile {json.dumps(profiles[-1])}")
 
-    log("phase 4: gpt_base training through parallelize")
+    log_phase(t_start, "phase 4: gpt_base training through parallelize")
     layers = 2 if args.quick else 12
     train = {"throughput": train_throughput(torch, layers, 20, args.seed),
              "parity": train_parity(torch, layers, args.seed),
              "profile": profile_train_child(torch, layers, args.seed,
                                             args.report)}
 
-    log("phase 5: bert_base fine-tuning through parallelize")
+    log_phase(t_start, "phase 5: bert_base fine-tuning through parallelize")
     bert_run = {"throughput": bert_throughput(torch, np, layers, 20,
                                               args.seed),
                 "parity": bert_parity(torch, np, layers, args.seed)}
@@ -2215,10 +2833,14 @@ def main(argv):
         f"{bert_run['device_busy_share_unprofiled']:.4f} of the unprofiled "
         f"step")
 
-    log("phase 6: resnet50 training through parallelize")
+    log_phase(t_start, "phase 6: resnet50 training through parallelize")
     resnet_run = resnet_phase(torch, np, args)
 
-    launches = {k: sum(r["launches"][k] for r in runs)
+    log_phase(t_start, "phase 7: gpt_base training at cp = 2, two ranks "
+                       "on one card")
+    cp_run = cp_phase(torch, args)
+
+    launches = {k: sum(r["launches"].get(k, 0) for r in runs)
                 for k in runs[0]["launches"]}
     tenant_run = next(r for r in runs if "lora_delta" in r["launches"])
     wo_main = next(r for r in wo_rows if r["wdt"] == "int8"
@@ -2294,16 +2916,74 @@ def main(argv):
             # call's
             **({} if part == "fwd" else {"launches_per_call": 2})))
     kernels.extend(resblock_kernel_rows(rb_rows, resnet_run))
-    report = {"device": smi, "quick": args.quick,
-              "build": build_rec,
-              "weight_only": wo_rows, "paged_decode": pd_rows,
-              "bgmv": bg_rows,
-              "flash_attention": fa_rows,
-              "short_attention": sa_rows,
-              "e2e": runs, "profiles": profiles, "train": train,
-              "bert": bert_run,
-              "fused_resblock": rb_rows, "resnet": resnet_run,
-              "seconds": time.perf_counter() - t_start}
+    kernels.extend(cp_kernel_rows(fp_rows, cp_run))
+    kernels.append(gemv_row(gv_rows, runs[0]["launches"]["row_gemv"]))
+    return finish(args, torch, smi, build_rec, t_start, kernels, {
+        "weight_only": wo_rows, "paged_decode": pd_rows, "bgmv": bg_rows,
+        "flash_attention": fa_rows, "short_attention": sa_rows,
+        "e2e": runs, "profiles": profiles, "train": train, "bert": bert_run,
+        "fused_resblock": rb_rows, "resnet": resnet_run,
+        "flash_pos": fp_rows, "serial_ring": ring_rows, "row_gemv": gv_rows,
+        "cp": cp_run})
+
+
+def cp_kernel_rows(fp_rows, cp_run):
+    """The ring-step kernels' entries of the kernels line: the mean of the
+    four gpt_base ring steps of phase 2 (ranks 0 and 1, own and visiting
+    shard), launches summed over both ranks of phase 7's timed steps."""
+    main = fp_rows[:4]
+
+    def mean(key):
+        return sum(r[key] for r in main) / len(main)
+
+    out = []
+    for name, part, line in (("flash_fwd_pos", "fwd", 411),
+                             ("flash_dq_pos", "dq", 499),
+                             ("flash_dkv_pos", "dkv", 531)):
+        out.append(dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/csrc/flash_attention.cu",
+            replaces=f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+            launches=sum(x["throughput"]["launches"][name]
+                         for x in cp_run["ranks"]),
+            max_abs_err=max(r["max_abs_err"][part] for r in fp_rows),
+            ms=mean(f"{part}_ms"), plain_ms=mean(f"{part}_plain_ms"),
+            bound_ms=mean(f"{part}_bound_ms"),
+            bound_by=main[0][f"{part}_bound_by"],
+            library_ms=mean("fwd_library_ms") if part == "fwd" else None,
+            launches_per_rank_per_step=cp_run["launches_per_rank_per_step"][
+                0][name],
+            case="gpt_base cp=2 ring step (B=8, s=512, H=12, D=64, bf16, "
+                 "zigzag), mean of ranks 0-1 x own / visiting shard",
+            **({} if part == "fwd" else dict(
+                pair_ms=mean("dq_ms") + mean("dkv_ms"),
+                pair_library_ms=mean("bwd_library_ms"),
+                pair_bound_ms=mean("bwd_bound_ms")))))
+    return out
+
+
+def gemv_row(gv_rows, launches=None):
+    """The row-stable GEMV's entry: bf16 gate_up at m = 8, launches from
+    run (a)'s decode (None when phase 3 did not run)."""
+    main = next(r for r in gv_rows if r["layer"] == "gate_up"
+                and r["m"] == 8)
+    return dict(name="row_gemv", route="cuda",
+                source="paddle_tpu_torch/csrc/weight_only.cu",
+                replaces="none: not a TPU kernel; keeps the bit-identity "
+                         "across batch sizes of paddle_tpu/inference/decode/"
+                         "engine.py:87 for float weights",
+                launches=launches,
+                max_abs_err=max(r["max_abs_err"] for r in gv_rows),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"], case=main["case"])
+
+
+def finish(args, torch, smi, build_rec, t_start, kernels, parts):
+    """Write the report; print the kernels line, the device line and the
+    result line."""
+    report = {"device": smi, "quick": args.quick, "build": build_rec,
+              **parts, "seconds": time.perf_counter() - t_start}
     with open(args.report, "w") as f:
         json.dump(report, f, indent=1)
     log(f"total {report['seconds']:.1f} s")

@@ -2,7 +2,10 @@
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (the
 // forward, reached through `_fwd`), `_dq_kernel` and `_dkv_kernel` (the
-// backward, reached through `_bwd`).
+// backward, reached through `_bwd`), and the ring-step kernels
+// `_fwd_pos_kernel` (reached through `flash_fwd_pos`), `_dq_pos_kernel`
+// and `_dkv_pos_kernel` (through `flash_bwd_pos`): flash_fwd_pos,
+// flash_dq_pos and flash_dkv_pos here.
 //
 // Per head (b, h), with s = (q . k) * scale and the causal mask on global
 // row/column indices (row >= col):
@@ -41,6 +44,19 @@
 //     so a padded row's garbage statistics cannot leak into dK / dV.
 // Simple first: loads are synchronous (no cp.async/TMA pipeline) and the
 // products are mma.sync, not wgmma.
+//
+// The ring-step (_pos) kernels run the same bodies with the causal test
+// `row >= col` replaced by int32 global positions, q_pos[row] >=
+// k_pos[col], and q and k of their own lengths (Sq, Sk). A zigzag shard's
+// positions are not monotone in the shard, so the index shortcuts above
+// (K blocks bounded by the diagonal) do not apply: every block is
+// visited, and a whole K (or, in dkv, Q) block is skipped only when the
+// positions say that no pair in it is kept — max(q_pos of the CTA's rows)
+// < min(k_pos of the block) — decided by one __syncthreads_or. A row that
+// the mask hides throughout (a visiting shard wholly in its future) keeps
+// m = -1e30 and l = 0 and is written as O = 0, lse = m + log(1e-30), the
+// TPU kernel's l_safe, so the ring's merge gives it weight 0.
+#include <limits.h>
 #include <math.h>
 
 #include <initializer_list>
@@ -61,8 +77,10 @@ struct Params {
   const float* delta;   // [B*H, S]
   void* out0;           // forward: O; dq kernel: dQ; dkv kernel: dK
   void* out1;           // dkv kernel: dV
-  float* lse_out;       // forward: [B*H, S]
-  int S, H, D;
+  float* lse_out;       // forward: [B*H, Sq]
+  const int* qpos;      // _pos kernels: [Sq], [Sk] int32 global positions
+  const int* kpos;
+  int Sq, Sk, H, D;     // q / dO rows Sq; k / v rows Sk (equal unless _pos)
   long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, d_b, d_s, d_h;
   float scale;
   int causal;
@@ -71,8 +89,48 @@ struct Params {
 
 // --- forward -----------------------------------------------------------------
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
+// max (or min) of one int over the CTA's threads
+template <bool MAX>
+__device__ __forceinline__ int cta_reduce(int v) {
+  __shared__ int red[kWarps];
+  v = MAX ? __reduce_max_sync(0xffffffffu, v)
+          : __reduce_min_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int r = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) r = MAX ? max(r, red[w]) : min(r, red[w]);
+  return r;
+}
+
+// The largest position of the CTA's q rows [q0, q0 + kBlock); INT_MIN if
+// it has none.
+__device__ __forceinline__ int cta_qpos_max(const Params& p, int q0) {
+  const int r = q0 + static_cast<int>(threadIdx.x);
+  return cta_reduce<true>(threadIdx.x < kBlock && r < p.Sq ? p.qpos[r]
+                                                           : INT_MIN);
+}
+
+// Barrier of a K-block step of the forward and dQ kernels: whether any key
+// of [k0, k0 + BK) has a position at or below qmax (all threads agree).
+template <int BK>
+__device__ __forceinline__ bool kblock_needed(const Params& p, int k0,
+                                              int qmax) {
+  int lo = INT_MAX;
+  for (int i = threadIdx.x; i < BK; i += kThreads)
+    if (k0 + i < p.Sk) lo = min(lo, p.kpos[k0 + i]);
+  return __syncthreads_or(lo <= qmax) != 0;
+}
+
+// the positions of key columns c0 and c0 + 1 (0 past Sk: masked anyway)
+__device__ __forceinline__ void kpos_pair(const Params& p, int c0,
+                                          int (&kp)[2]) {
+  kp[0] = c0 < p.Sk ? p.kpos[c0] : 0;
+  kp[1] = c0 + 1 < p.Sk ? p.kpos[c0 + 1] : 0;
+}
+
+template <typename T, int DP, bool POS>
+__device__ __forceinline__ void fwd_body(const Params& p) {
   using C = FwdCfg<T, DP>;
   constexpr int BK = C::BK, LD = C::LD, LDP = C::LDP;
   constexpr int NO = DP / 8, NS = BK / 8;
@@ -89,18 +147,31 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
   const T* k = static_cast<const T*>(p.k) + b * p.k_b + h * p.k_h;
   const T* v = static_cast<const T*>(p.v) + b * p.v_b + h * p.v_h;
 
-  load_tile<T, kBlock, DP, LD>(Qs, q, p.q_s, q0, p.S, p.D, p.vec);
+  load_tile<T, kBlock, DP, LD>(Qs, q, p.q_s, q0, p.Sq, p.D, p.vec);
   const int r_lo = q0 + warp * kRows + g, r_hi = r_lo + 8;
+  const bool pos_mask = POS && p.causal;
+  int qp_lo = 0, qp_hi = 0, qmax = 0;
+  if (pos_mask) {
+    qp_lo = r_lo < p.Sq ? p.qpos[r_lo] : 0;
+    qp_hi = r_hi < p.Sq ? p.qpos[r_hi] : 0;
+    qmax = cta_qpos_max(p, q0);
+  }
   float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
   float acc[NO][4];
   zero(acc);
-  const int n_kv = (p.S + BK - 1) / BK;
-  const int hi = p.causal ? min((q0 + kBlock + BK - 1) / BK, n_kv) : n_kv;
+  const int n_kv = (p.Sk + BK - 1) / BK;
+  const int hi = !POS && p.causal ? min((q0 + kBlock + BK - 1) / BK, n_kv)
+                                  : n_kv;
   for (int j = 0; j < hi; ++j) {
     const int k0 = j * BK;
-    __syncthreads();                       // the last step's K/V are read
-    load_tile<T, BK, DP, LD>(Ks, k, p.k_s, k0, p.S, p.D, p.vec);
-    load_tile<T, BK, DP, LD>(Vs, v, p.v_s, k0, p.S, p.D, p.vec);
+    // the barrier: the last step's K/V are read
+    if (pos_mask) {
+      if (!kblock_needed<BK>(p, k0, qmax)) continue;
+    } else {
+      __syncthreads();
+    }
+    load_tile<T, BK, DP, LD>(Ks, k, p.k_s, k0, p.Sk, p.D, p.vec);
+    load_tile<T, BK, DP, LD>(Vs, v, p.v_s, k0, p.Sk, p.D, p.vec);
     __syncthreads();
     float s[NS][4];
     zero(s);
@@ -108,17 +179,22 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
     unsigned ok = 0;
     float mx_lo = kNegInf, mx_hi = kNegInf;
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int n = 0; n < NS; ++n) {
+      int kp[2] = {0, 0};
+      if (pos_mask) kpos_pair(p, k0 + n * 8 + 2 * t, kp);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + n * 8 + 2 * t + (e & 1);
         const int row = e < 2 ? r_lo : r_hi;
-        const bool keep = col < p.S && (!p.causal || row >= col);
+        const bool seen = POS ? (e < 2 ? qp_lo : qp_hi) >= kp[e & 1]
+                              : row >= col;
+        const bool keep = col < p.Sk && (!p.causal || seen);
         ok |= static_cast<unsigned>(keep) << (n * 4 + e);
         s[n][e] = keep ? s[n][e] * p.scale : kNegInf;
         if (e < 2) mx_lo = fmaxf(mx_lo, s[n][e]);
         else mx_hi = fmaxf(mx_hi, s[n][e]);
       }
+    }
     const float mn_lo = fmaxf(m_lo, quad_max(mx_lo));
     const float mn_hi = fmaxf(m_hi, quad_max(mx_hi));
     const float c_lo = __expf(m_lo - mn_lo), c_hi = __expf(m_hi - mn_hi);
@@ -153,19 +229,29 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
   }
   l_lo = fmaxf(quad_sum(l_lo), 1e-30f);
   l_hi = fmaxf(quad_sum(l_hi), 1e-30f);
-  store_rows<T, NO>(static_cast<T*>(p.out0), acc, b, h, r_lo, 0, p.S, p.H,
+  store_rows<T, NO>(static_cast<T*>(p.out0), acc, b, h, r_lo, 0, p.Sq, p.H,
                     p.D, l_lo, l_hi);
   if (t == 0) {
-    float* lse = p.lse_out + static_cast<size_t>(bh) * p.S;
-    if (r_lo < p.S) lse[r_lo] = m_lo + logf(l_lo);
-    if (r_hi < p.S) lse[r_hi] = m_hi + logf(l_hi);
+    float* lse = p.lse_out + static_cast<size_t>(bh) * p.Sq;
+    if (r_lo < p.Sq) lse[r_lo] = m_lo + logf(l_lo);
+    if (r_hi < p.Sq) lse[r_hi] = m_hi + logf(l_hi);
   }
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
+  fwd_body<T, DP, false>(p);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads) flash_fwd_pos(const Params p) {
+  fwd_body<T, DP, true>(p);
 }
 
 // --- backward: dQ -------------------------------------------------------------
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads) flash_dq(const Params p) {
+template <typename T, int DP, bool POS>
+__device__ __forceinline__ void dq_body(const Params& p) {
   using C = DqCfg<T, DP>;
   constexpr int BK = C::BK, LD = C::LD, LDP = C::LDP;
   constexpr int NO = DP / 8, NS = BK / 8;
@@ -184,24 +270,36 @@ __global__ void __launch_bounds__(kThreads) flash_dq(const Params p) {
   const T* v = static_cast<const T*>(p.v) + b * p.v_b + h * p.v_h;
   const T* dout = static_cast<const T*>(p.dout) + b * p.d_b + h * p.d_h;
 
-  load_tile<T, kBlock, DP, LD>(Qs, q, p.q_s, q0, p.S, p.D, p.vec);
-  load_tile<T, kBlock, DP, LD>(dOs, dout, p.d_s, q0, p.S, p.D, p.vec);
+  load_tile<T, kBlock, DP, LD>(Qs, q, p.q_s, q0, p.Sq, p.D, p.vec);
+  load_tile<T, kBlock, DP, LD>(dOs, dout, p.d_s, q0, p.Sq, p.D, p.vec);
   const int r_lo = q0 + warp * kRows + g, r_hi = r_lo + 8;
-  const float* lse = p.lse + static_cast<size_t>(bh) * p.S;
-  const float* delta = p.delta + static_cast<size_t>(bh) * p.S;
-  const float lse_lo = r_lo < p.S ? lse[r_lo] : 0.f;
-  const float lse_hi = r_hi < p.S ? lse[r_hi] : 0.f;
-  const float dl_lo = r_lo < p.S ? delta[r_lo] : 0.f;
-  const float dl_hi = r_hi < p.S ? delta[r_hi] : 0.f;
+  const float* lse = p.lse + static_cast<size_t>(bh) * p.Sq;
+  const float* delta = p.delta + static_cast<size_t>(bh) * p.Sq;
+  const float lse_lo = r_lo < p.Sq ? lse[r_lo] : 0.f;
+  const float lse_hi = r_hi < p.Sq ? lse[r_hi] : 0.f;
+  const float dl_lo = r_lo < p.Sq ? delta[r_lo] : 0.f;
+  const float dl_hi = r_hi < p.Sq ? delta[r_hi] : 0.f;
+  const bool pos_mask = POS && p.causal;
+  int qp_lo = 0, qp_hi = 0, qmax = 0;
+  if (pos_mask) {
+    qp_lo = r_lo < p.Sq ? p.qpos[r_lo] : 0;
+    qp_hi = r_hi < p.Sq ? p.qpos[r_hi] : 0;
+    qmax = cta_qpos_max(p, q0);
+  }
   float acc[NO][4];
   zero(acc);
-  const int n_kv = (p.S + BK - 1) / BK;
-  const int hi = p.causal ? min((q0 + kBlock + BK - 1) / BK, n_kv) : n_kv;
+  const int n_kv = (p.Sk + BK - 1) / BK;
+  const int hi = !POS && p.causal ? min((q0 + kBlock + BK - 1) / BK, n_kv)
+                                  : n_kv;
   for (int j = 0; j < hi; ++j) {
     const int k0 = j * BK;
-    __syncthreads();
-    load_tile<T, BK, DP, LD>(Ks, k, p.k_s, k0, p.S, p.D, p.vec);
-    load_tile<T, BK, DP, LD>(Vs, v, p.v_s, k0, p.S, p.D, p.vec);
+    if (pos_mask) {
+      if (!kblock_needed<BK>(p, k0, qmax)) continue;
+    } else {
+      __syncthreads();
+    }
+    load_tile<T, BK, DP, LD>(Ks, k, p.k_s, k0, p.Sk, p.D, p.vec);
+    load_tile<T, BK, DP, LD>(Vs, v, p.v_s, k0, p.Sk, p.D, p.vec);
     __syncthreads();
     float s[NS][4], dp[NS][4];
     zero(s);
@@ -209,12 +307,16 @@ __global__ void __launch_bounds__(kThreads) flash_dq(const Params p) {
     warp_mma<NS, DP, true>(s, Qs + warp * kRows * LD, LD, Ks, LD);
     warp_mma<NS, DP, true>(dp, dOs + warp * kRows * LD, LD, Vs, LD);
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int n = 0; n < NS; ++n) {
+      int kp[2] = {0, 0};
+      if (pos_mask) kpos_pair(p, k0 + n * 8 + 2 * t, kp);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + n * 8 + 2 * t + (e & 1);
         const int row = e < 2 ? r_lo : r_hi;
-        const bool keep = col < p.S && (!p.causal || row >= col);
+        const bool seen = POS ? (e < 2 ? qp_lo : qp_hi) >= kp[e & 1]
+                              : row >= col;
+        const bool keep = col < p.Sk && (!p.causal || seen);
         const float pv =
             keep ? __expf(s[n][e] * p.scale - (e < 2 ? lse_lo : lse_hi))
                  : 0.f;
@@ -222,18 +324,29 @@ __global__ void __launch_bounds__(kThreads) flash_dq(const Params p) {
         dSs[(g + (e < 2 ? 0 : 8)) * LDP + n * 8 + 2 * t + (e & 1)] =
             from_f<T>(ds);
       }
+    }
     __syncwarp();
     warp_mma<NO, BK, false>(acc, dSs, LDP, Ks, LD);
     __syncwarp();
   }
-  store_rows<T, NO>(static_cast<T*>(p.out0), acc, b, h, r_lo, 0, p.S, p.H,
+  store_rows<T, NO>(static_cast<T*>(p.out0), acc, b, h, r_lo, 0, p.Sq, p.H,
                     p.D, 1.f, 1.f);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads) flash_dq(const Params p) {
+  dq_body<T, DP, false>(p);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads) flash_dq_pos(const Params p) {
+  dq_body<T, DP, true>(p);
 }
 
 // --- backward: dK, dV ----------------------------------------------------------
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads) flash_dkv(const Params p) {
+template <typename T, int DP, bool POS>
+__device__ __forceinline__ void dkv_body(const Params& p) {
   using C = DkvCfg<T, DP>;
   constexpr int BQ = C::BQ, LD = C::LD, LDT = C::LDT;
   constexpr int NC = C::DO / 8, NQ = BQ / 8;
@@ -255,23 +368,40 @@ __global__ void __launch_bounds__(kThreads) flash_dkv(const Params p) {
   const T* k = static_cast<const T*>(p.k) + b * p.k_b + h * p.k_h;
   const T* v = static_cast<const T*>(p.v) + b * p.v_b + h * p.v_h;
   const T* dout = static_cast<const T*>(p.dout) + b * p.d_b + h * p.d_h;
-  const float* lse = p.lse + static_cast<size_t>(bh) * p.S;
-  const float* delta = p.delta + static_cast<size_t>(bh) * p.S;
+  const float* lse = p.lse + static_cast<size_t>(bh) * p.Sq;
+  const float* delta = p.delta + static_cast<size_t>(bh) * p.Sq;
 
-  load_tile<T, kBlock, DP, LD>(Ks, k, p.k_s, k0, p.S, p.D, p.vec);
-  load_tile<T, kBlock, DP, LD>(Vs, v, p.v_s, k0, p.S, p.D, p.vec);
+  load_tile<T, kBlock, DP, LD>(Ks, k, p.k_s, k0, p.Sk, p.D, p.vec);
+  load_tile<T, kBlock, DP, LD>(Vs, v, p.v_s, k0, p.Sk, p.D, p.vec);
   const int kr_lo = k0 + warp * kRows + g, kr_hi = kr_lo + 8;
+  const bool pos_mask = POS && p.causal;
+  int kp_lo = 0, kp_hi = 0, kmin = 0;
+  if (pos_mask) {
+    kp_lo = kr_lo < p.Sk ? p.kpos[kr_lo] : 0;
+    kp_hi = kr_hi < p.Sk ? p.kpos[kr_hi] : 0;
+    const int r = k0 + static_cast<int>(threadIdx.x);
+    kmin = cta_reduce<false>(threadIdx.x < kBlock && r < p.Sk ? p.kpos[r]
+                                                              : INT_MAX);
+  }
   float dk[NC][4], dv[NC][4];
   zero(dk);
   zero(dv);
-  const int n_q = (p.S + BQ - 1) / BQ;
-  for (int i = p.causal ? k0 / BQ : 0; i < n_q; ++i) {
+  const int n_q = (p.Sq + BQ - 1) / BQ;
+  for (int i = !POS && p.causal ? k0 / BQ : 0; i < n_q; ++i) {
     const int qi0 = i * BQ;
-    __syncthreads();
-    load_tile<T, BQ, DP, LD>(Qs, q, p.q_s, qi0, p.S, p.D, p.vec);
-    load_tile<T, BQ, DP, LD>(dOs, dout, p.d_s, qi0, p.S, p.D, p.vec);
+    if (pos_mask) {
+      // skip a Q block none of whose rows sits at or after a key here
+      int hi_q = INT_MIN;
+      for (int r = threadIdx.x; r < BQ; r += kThreads)
+        if (qi0 + r < p.Sq) hi_q = max(hi_q, p.qpos[qi0 + r]);
+      if (!__syncthreads_or(hi_q >= kmin)) continue;
+    } else {
+      __syncthreads();
+    }
+    load_tile<T, BQ, DP, LD>(Qs, q, p.q_s, qi0, p.Sq, p.D, p.vec);
+    load_tile<T, BQ, DP, LD>(dOs, dout, p.d_s, qi0, p.Sq, p.D, p.vec);
     for (int r = threadIdx.x; r < BQ; r += kThreads) {
-      const bool in = qi0 + r < p.S;
+      const bool in = qi0 + r < p.Sq;
       lse_s[r] = in ? lse[qi0 + r] : 0.f;
       dl_s[r] = in ? delta[qi0 + r] : 0.f;
     }
@@ -281,15 +411,24 @@ __global__ void __launch_bounds__(kThreads) flash_dkv(const Params p) {
     zero(pt);
     warp_mma<NQ, DP, true>(pt, Ks + warp * kRows * LD, LD, Qs, LD);
 #pragma unroll
-    for (int n = 0; n < NQ; ++n)
+    for (int n = 0; n < NQ; ++n) {
+      int qp[2] = {0, 0};
+      if (pos_mask) {
+        const int qc0 = qi0 + n * 8 + 2 * t;
+        qp[0] = qc0 < p.Sq ? p.qpos[qc0] : 0;
+        qp[1] = qc0 + 1 < p.Sq ? p.qpos[qc0 + 1] : 0;
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int ql = n * 8 + 2 * t + (e & 1), qc = qi0 + ql;
         const int kr = e < 2 ? kr_lo : kr_hi;
-        const bool keep = qc < p.S && kr < p.S && (!p.causal || qc >= kr);
+        const bool seen = POS ? qp[e & 1] >= (e < 2 ? kp_lo : kp_hi)
+                              : qc >= kr;
+        const bool keep = qc < p.Sq && kr < p.Sk && (!p.causal || seen);
         pt[n][e] = keep ? __expf(pt[n][e] * p.scale - lse_s[ql]) : 0.f;
         Ts[(g + (e < 2 ? 0 : 8)) * LDT + ql] = from_f<T>(pt[n][e]);
       }
+    }
     __syncwarp();
     warp_mma<NC, BQ, false>(dv, Ts, LDT, dOs + c0, LD);
     // dP^T[key][q] = V[key] . dO[q]; dS^T = P^T * (dP^T - delta[q]) * scale
@@ -308,39 +447,83 @@ __global__ void __launch_bounds__(kThreads) flash_dkv(const Params p) {
     __syncwarp();
     warp_mma<NC, BQ, false>(dk, Ts, LDT, Qs + c0, LD);
   }
-  store_rows<T, NC>(static_cast<T*>(p.out0), dk, b, h, kr_lo, c0, p.S, p.H,
+  store_rows<T, NC>(static_cast<T*>(p.out0), dk, b, h, kr_lo, c0, p.Sk, p.H,
                     p.D, 1.f, 1.f);
-  store_rows<T, NC>(static_cast<T*>(p.out1), dv, b, h, kr_lo, c0, p.S, p.H,
+  store_rows<T, NC>(static_cast<T*>(p.out1), dv, b, h, kr_lo, c0, p.Sk, p.H,
                     p.D, 1.f, 1.f);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads) flash_dkv(const Params p) {
+  dkv_body<T, DP, false>(p);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads) flash_dkv_pos(const Params p) {
+  dkv_body<T, DP, true>(p);
 }
 
 // --- launch --------------------------------------------------------------------
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
-template <typename T, int DP>
+using Kernel = void (*)(const Params);
+
+template <typename T, int DP, bool POS>
 int launch(int kind, int BH, const Params& p, cudaStream_t s) {
-  const int nblk = (p.S + kBlock - 1) / kBlock;
+  const int nq = (p.Sq + kBlock - 1) / kBlock;
+  const int nk = (p.Sk + kBlock - 1) / kBlock;
+  Kernel fwd = flash_fwd<T, DP>, dq = flash_dq<T, DP>,
+         dkv = flash_dkv<T, DP>;
+  if (POS) {
+    fwd = flash_fwd_pos<T, DP>;
+    dq = flash_dq_pos<T, DP>;
+    dkv = flash_dkv_pos<T, DP>;
+  }
   switch (kind) {
     case kFwd:
-      return launch_with_smem(flash_fwd<T, DP>, dim3(BH, nblk),
-                              FwdCfg<T, DP>::smem, p, s);
+      return launch_with_smem(fwd, dim3(BH, nq), FwdCfg<T, DP>::smem, p, s);
     case kDq:
-      return launch_with_smem(flash_dq<T, DP>, dim3(BH, nblk),
-                              DqCfg<T, DP>::smem, p, s);
+      return launch_with_smem(dq, dim3(BH, nq), DqCfg<T, DP>::smem, p, s);
     case kDkv:
-      return launch_with_smem(flash_dkv<T, DP>,
-                              dim3(BH, nblk, DP / DkvCfg<T, DP>::DO),
+      return launch_with_smem(dkv, dim3(BH, nk, DP / DkvCfg<T, DP>::DO),
                               DkvCfg<T, DP>::smem, p, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
+template <typename T, bool POS>
 int dispatch_d(int kind, int BH, const Params& p, cudaStream_t s) {
-  if (p.D <= 32) return launch<T, 32>(kind, BH, p, s);
-  if (p.D <= 64) return launch<T, 64>(kind, BH, p, s);
-  if (p.D <= 128) return launch<T, 128>(kind, BH, p, s);
-  return launch<T, 256>(kind, BH, p, s);
+  if (p.D <= 32) return launch<T, 32, POS>(kind, BH, p, s);
+  if (p.D <= 64) return launch<T, 64, POS>(kind, BH, p, s);
+  if (p.D <= 128) return launch<T, 128, POS>(kind, BH, p, s);
+  return launch<T, 256, POS>(kind, BH, p, s);
+}
+
+int run(int kind, Params& p, int BH, int dtype, bool pos, void* stream) {
+  if (p.D < 1 || p.D > 256 || p.Sq < 1 || p.Sk < 1 || BH < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ch = dtype == kF32 ? 4 : 8;    // elements per 16-byte load
+  bool vec = aligned16(p.q) && aligned16(p.k) && aligned16(p.v) &&
+             aligned16(p.dout);
+  for (long long st : {p.q_b, p.q_s, p.q_h, p.k_b, p.k_s, p.k_h, p.v_b,
+                       p.v_s, p.v_h, p.d_b, p.d_s, p.d_h})
+    vec = vec && st % ch == 0;
+  p.vec = vec;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
+  switch (dtype) {
+    case kF32:
+      err = pos ? dispatch_d<float, true>(kind, BH, p, s)
+                : dispatch_d<float, false>(kind, BH, p, s);
+      break;
+    case kBF16:
+      err = pos ? dispatch_d<__nv_bfloat16, true>(kind, BH, p, s)
+                : dispatch_d<__nv_bfloat16, false>(kind, BH, p, s);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != 0) return err;
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -357,25 +540,29 @@ extern "C" int ptt_flash_attention(
     long long v_b, long long v_s, long long v_h, long long d_b,
     long long d_s, long long d_h, int dtype, float scale, int causal,
     void* stream) {
-  if (D < 1 || D > 256 || S < 1 || B * H < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q,   k,   v,   dout, static_cast<const float*>(lse),
+  Params p{q, k, v, dout, static_cast<const float*>(lse),
            static_cast<const float*>(delta), out0, out1,
-           static_cast<float*>(lse_out), S, H, D, q_b, q_s, q_h, k_b, k_s,
-           k_h, v_b, v_s, v_h, d_b, d_s, d_h, scale, causal, 0};
-  const int ch = dtype == kF32 ? 4 : 8;    // elements per 16-byte load
-  bool vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout);
-  for (long long st : {q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, d_b, d_s,
-                       d_h})
-    vec = vec && st % ch == 0;
-  p.vec = vec;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err;
-  switch (dtype) {
-    case kF32: err = dispatch_d<float>(kind, B * H, p, s); break;
-    case kBF16: err = dispatch_d<__nv_bfloat16>(kind, B * H, p, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (err != 0) return err;
-  return static_cast<int>(cudaGetLastError());
+           static_cast<float*>(lse_out), nullptr, nullptr, S, S, H, D, q_b,
+           q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, d_b, d_s, d_h, scale,
+           causal, 0};
+  return run(kind, p, B * H, dtype, false, stream);
+}
+
+// The ring-step kernels: as ptt_flash_attention, with q / dout of Sq rows,
+// k / v of Sk rows (dK, dV [B, Sk, H, D]; lse, delta [B*H, Sq]) and the
+// causal mask qpos[i] >= kpos[j] on int32 positions ([Sq], [Sk]).
+extern "C" int ptt_flash_attention_pos(
+    int kind, const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* out0, void* out1,
+    void* lse_out, const void* qpos, const void* kpos, int B, int Sq, int Sk,
+    int H, int D, long long q_b, long long q_s, long long q_h, long long k_b,
+    long long k_s, long long k_h, long long v_b, long long v_s,
+    long long v_h, long long d_b, long long d_s, long long d_h, int dtype,
+    float scale, int causal, void* stream) {
+  Params p{q, k, v, dout, static_cast<const float*>(lse),
+           static_cast<const float*>(delta), out0, out1,
+           static_cast<float*>(lse_out), static_cast<const int*>(qpos),
+           static_cast<const int*>(kpos), Sq, Sk, H, D, q_b, q_s, q_h, k_b,
+           k_s, k_h, v_b, v_s, v_h, d_b, d_s, d_h, scale, causal, 0};
+  return run(kind, p, B * H, dtype, true, stream);
 }

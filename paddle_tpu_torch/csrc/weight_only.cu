@@ -32,6 +32,9 @@
 //   * any other m > 16 (f32 x, unaligned x, or k not a multiple of 64,
 //     none of which the llama2_7b path produces): the GEMV, row-blocks of 8.
 // Ragged m, n and k are masked in every path.
+//
+// The file also holds `row_gemv`, the float-weight GEMV of the decode
+// buckets (see its note below).
 #include <mma.h>
 #include <string.h>
 
@@ -348,7 +351,142 @@ void dispatch_int4(const void* x, const void* qw, const void* scale,
     dispatch_path<T, false>(x, qw, scale, out, m, n, k, s);
 }
 
+// --- the row-stable float GEMV of the decode buckets --------------------------
+// out[m, n] = x[m, k] . w[n, k]^T (+ bias[n]) for float weights in
+// nn.Linear's [out, in] layout, x, w and bias of one dtype (f32, bf16 or
+// f16): the float Linears of a paged decode step (m <= 16). It is not the
+// port of a TPU kernel. It keeps the JAX engine's promise that a
+// sequence's decode rows are bit-identical whatever batch they sit in,
+// which cuBLAS does not make (it may choose its reduction by m). The
+// pattern is wo_gemv's: a warp owns two output columns and streams their
+// weight rows with 16-byte loads, each lane sums its 16-element chunks in
+// order and a butterfly sums the lanes, so a row's sum has one order
+// whatever m is; the bias is added to the f32 sum before the one rounding.
+// Bound: the weight bytes, n * k * sizeof(T), at 3.35 TB/s.
+template <typename T, bool VEC, int MT>
+__global__ void __launch_bounds__(kGemvWarps * 32)
+    row_gemv(const T* __restrict__ x, const T* __restrict__ w,
+             const T* __restrict__ bias, T* __restrict__ out, int m, int n,
+             int k) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int col0 = (blockIdx.x * kGemvWarps + warp) * kGemvCols;
+  const int row0 = blockIdx.y * MT;
+  if (col0 >= n) return;
+  const T* wrow[kGemvCols];
+#pragma unroll
+  for (int c = 0; c < kGemvCols; ++c)  // a ragged column reads a valid row
+    wrow[c] = w + static_cast<size_t>(min(col0 + c, n - 1)) * k;
+  const T* xrow[MT];
+#pragma unroll
+  for (int r = 0; r < MT; ++r)
+    xrow[r] = x + static_cast<size_t>(min(row0 + r, m - 1)) * k;
+
+  float acc[MT][kGemvCols];
+#pragma unroll
+  for (int r = 0; r < MT; ++r)
+#pragma unroll
+    for (int c = 0; c < kGemvCols; ++c) acc[r][c] = 0.f;
+
+  const int nchunk = k / 16;
+  for (int ch = lane; ch < nchunk; ch += 32) {
+    const int j0 = ch * 16;
+    float wv[kGemvCols][16];
+#pragma unroll
+    for (int c = 0; c < kGemvCols; ++c) load16<T, VEC>(wrow[c] + j0, wv[c]);
+#pragma unroll
+    for (int r = 0; r < MT; ++r) {
+      float xv[16];
+      load16<T, VEC>(xrow[r] + j0, xv);
+#pragma unroll
+      for (int c = 0; c < kGemvCols; ++c)
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          acc[r][c] = fmaf(xv[i], wv[c][i], acc[r][c]);
+    }
+  }
+  // ragged k: the elements past the last full chunk, one per lane
+  for (int j = nchunk * 16 + lane; j < k; j += 32) {
+#pragma unroll
+    for (int c = 0; c < kGemvCols; ++c) {
+      const float wj = to_f(wrow[c][j]);
+#pragma unroll
+      for (int r = 0; r < MT; ++r)
+        acc[r][c] = fmaf(to_f(xrow[r][j]), wj, acc[r][c]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < MT; ++r)
+#pragma unroll
+    for (int c = 0; c < kGemvCols; ++c) {
+      const float v = warp_sum(acc[r][c]);
+      const int row = row0 + r, col = col0 + c;
+      if (lane == 0 && row < m && col < n)
+        out[static_cast<size_t>(row) * n + col] =
+            from_f<T>(bias != nullptr ? v + to_f(bias[col]) : v);
+    }
+}
+
+template <typename T, bool VEC, int MT>
+void launch_row_gemv(const void* x, const void* w, const void* bias,
+                     void* out, int m, int n, int k, cudaStream_t s) {
+  constexpr int cols_per_block = kGemvWarps * kGemvCols;
+  dim3 grid((n + cols_per_block - 1) / cols_per_block, (m + MT - 1) / MT);
+  row_gemv<T, VEC, MT><<<grid, kGemvWarps * 32, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const T*>(bias), static_cast<T*>(out), m, n, k);
+}
+
+template <typename T, bool VEC>
+void row_gemv_mt(const void* x, const void* w, const void* bias, void* out,
+                 int m, int n, int k, cudaStream_t s) {
+  if (m == 1)
+    launch_row_gemv<T, VEC, 1>(x, w, bias, out, m, n, k, s);
+  else if (m == 2)
+    launch_row_gemv<T, VEC, 2>(x, w, bias, out, m, n, k, s);
+  else if (m <= 4)
+    launch_row_gemv<T, VEC, 4>(x, w, bias, out, m, n, k, s);
+  else
+    launch_row_gemv<T, VEC, 8>(x, w, bias, out, m, n, k, s);
+}
+
+template <typename T>
+void row_gemv_dispatch(const void* x, const void* w, const void* bias,
+                       void* out, int m, int n, int k, cudaStream_t s) {
+  // 16-byte loads: 16-byte aligned bases and rows (k % 16 covers every
+  // dtype's row bytes and chunk starts)
+  const bool vec = k % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if (vec)
+    row_gemv_mt<T, true>(x, w, bias, out, m, n, k, s);
+  else
+    row_gemv_mt<T, false>(x, w, bias, out, m, n, k, s);
+}
+
 }  // namespace
+
+// x [m, k], w [n, k], bias [n] (or null), out [m, n]: contiguous, one
+// dtype (x_dtype: 0 f32, 1 bf16, 2 f16).
+extern "C" int ptt_row_gemv(const void* x, const void* w, const void* bias,
+                            void* out, int m, int n, int k, int x_dtype,
+                            void* stream) {
+  if (m < 1 || n < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (x_dtype) {
+    case kF32:
+      row_gemv_dispatch<float>(x, w, bias, out, m, n, k, s);
+      break;
+    case kBF16:
+      row_gemv_dispatch<__nv_bfloat16>(x, w, bias, out, m, n, k, s);
+      break;
+    case kF16:
+      row_gemv_dispatch<__half>(x, w, bias, out, m, n, k, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int ptt_weight_only_matmul(const void* x, const void* qw,
                                       const void* scale, void* out, int m,

@@ -11,11 +11,30 @@ the f32 masters that the optimizer keeps), and float batch inputs are
 cast too. Nothing is moved: the engine trains where the caller built the
 model, and batches are brought to that device.
 
-Only one device is ported: a mesh of more than one device and
-``sharding_stage != 0`` raise `NotImplementedError` (a later slice).
+Context parallelism (``mesh=MeshConfig(cp=n)`` or a built cp `Mesh`,
+``context_parallel="ring"`` by default as in JAX, or ``"ulysses"``) runs
+the step in each of the n ranks of a `torch.distributed` job. JAX keeps
+every global-sequence operation global under GSPMD; per rank the port
+keeps them global by hand:
+
+* every rank is given the same global batch and its model's cp-aware
+  loss takes the rank's rows (`models.gpt.GPTForCausalLM.loss`), embeds
+  them at their global positions, shifts targets globally and divides by
+  the global token count;
+* every attention runs under `context_parallel_guard`: the ring (or
+  Ulysses) across the ranks;
+* the gradients are summed over the mesh before the clip, so every rank
+  clips by the same global norm and applies the same update;
+* the reported loss is the sum of the ranks' shares, the global loss.
+
+A custom `loss_fn` cannot keep those invariants and raises under cp > 1
+(the model's own `loss` is the cp-aware one). Other meshes — more than
+one device in a list, ``dp``/``fsdp``/``tp`` — and ``sharding_stage !=
+0`` raise `NotImplementedError` (a later slice).
 """
 from __future__ import annotations
 
+import contextlib
 import numbers
 
 import numpy as np
@@ -24,6 +43,8 @@ from torch import nn
 from torch.func import functional_call
 
 from ..nn.clip import global_norm
+from ..sharding import Mesh, MeshConfig
+from .context_parallel import context_parallel_guard
 
 __all__ = ["parallelize", "ShardedTrainStep"]
 
@@ -47,6 +68,12 @@ def _mesh_size(mesh):
     return int(size() if callable(size) else len(mesh))
 
 
+def _is_model_loss(loss_fn, model):
+    return (getattr(loss_fn, "__self__", None) is model
+            and getattr(loss_fn, "__func__", None)
+            is getattr(type(model), "loss", None))
+
+
 class _LossOf(nn.Module):
     """`loss_fn(model, *batch)` as a module, so `functional_call` can swap
     the model's parameters for their compute-dtype copies."""
@@ -67,7 +94,23 @@ class ShardedTrainStep:
     step of the last `train_batches`, else None) and `stats`
     (``dispatches``, ``steps``, ``device_puts``)."""
 
-    def __init__(self, model, optimizer, loss_fn=None, compute_dtype=None):
+    def __init__(self, model, optimizer, loss_fn=None, compute_dtype=None,
+                 mesh=None, context_parallel="ring"):
+        self.mesh = mesh
+        self.cp = mesh.size if isinstance(mesh, Mesh) else 1
+        self.context_parallel = context_parallel
+        if self.cp > 1:
+            if context_parallel not in ("ring", "ulysses"):
+                raise ValueError(
+                    f"context_parallel={context_parallel!r} on a cp="
+                    f"{self.cp} mesh: each rank holds a shard of the "
+                    f"sequence, so attention must be 'ring' or 'ulysses'")
+            if loss_fn is not None and not _is_model_loss(loss_fn, model):
+                raise NotImplementedError(
+                    "a custom loss_fn under context parallelism: only the "
+                    "model's own cp-aware loss shifts targets and averages "
+                    "over the global sequence")
+            loss_fn = None
         if loss_fn is None:
             if not hasattr(model, "loss"):
                 raise ValueError("pass loss_fn or give the model a .loss")
@@ -79,6 +122,9 @@ class ShardedTrainStep:
         self._params = {"model." + n: p
                         for n, p in model.named_parameters()}
         self.device = next(iter(self._params.values())).device
+        if self.cp > 1 and self.device != mesh.device:
+            raise ValueError(f"the model is on {self.device}, this rank's "
+                             f"mesh device is {mesh.device}")
         self.last_grad_norm = None
         self.last_grad_norms = None
         self.stats = {"dispatches": 0, "steps": 0, "device_puts": 0}
@@ -97,12 +143,35 @@ class ShardedTrainStep:
         return placed
 
     def _loss(self, batch):
-        if self.compute_dtype is None:
-            return self._loss_of(*batch)
-        cd = self.compute_dtype
-        params = {n: p.to(cd) if p.is_floating_point() else p
-                  for n, p in self._params.items()}
-        return functional_call(self._loss_of, params, tuple(batch))
+        guard = (context_parallel_guard(self.mesh, self.context_parallel)
+                 if self.cp > 1 else contextlib.nullcontext())
+        with guard:
+            if self.compute_dtype is None:
+                return self._loss_of(*batch)
+            cd = self.compute_dtype
+            params = {n: p.to(cd) if p.is_floating_point() else p
+                      for n, p in self._params.items()}
+            return functional_call(self._loss_of, params, tuple(batch))
+
+    def _global_loss(self, loss):
+        """The sum of the ranks' shares (cp > 1), else the loss."""
+        if self.cp == 1:
+            return loss
+        return self.mesh.transport.all_reduce_(loss.detach().float()
+                                               .reshape(1))[0]
+
+    def _sum_grads(self):
+        """Sum every gradient over the cp mesh, coalesced into one f32
+        buffer (the same bits on every rank)."""
+        grads = [p.grad for p in self._params.values() if p.grad is not None]
+        if not grads:
+            return
+        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        self.mesh.transport.all_reduce_(flat)
+        off = 0
+        for g in grads:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
 
     def train_batch(self, *batch):
         """One optimizer step; returns the (device, detached) loss."""
@@ -113,6 +182,8 @@ class ShardedTrainStep:
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._loss(placed)
         loss.backward()
+        if self.cp > 1:
+            self._sum_grads()
         self.optimizer.step()
         # the pre-clip norm the optimizer's clip took; without a clip the
         # step left the gradients as they were, so take it here
@@ -124,7 +195,7 @@ class ShardedTrainStep:
         self.last_grad_norms = None
         self.stats["dispatches"] += 1
         self.stats["steps"] += 1
-        return loss.detach()
+        return self._global_loss(loss.detach())
 
     def train_batches(self, batches, n=None):
         """`train_batch` over each batch (a tuple of arguments or a single
@@ -145,14 +216,23 @@ class ShardedTrainStep:
     def eval_batch(self, *batch):
         """The loss alone: no gradients, no update."""
         self.stats["dispatches"] += 1
-        return self._loss(self._place(batch))
+        return self._global_loss(self._loss(self._place(batch)))
 
 
 def parallelize(model, optimizer=None, loss_fn=None, *, mesh=None,
-                sharding_stage=0, compute_dtype=None):
-    """Counterpart of `paddle_tpu.distributed.parallelize` for one device:
-    returns a `ShardedTrainStep` that trains `model` where it lives."""
-    if mesh is not None and _mesh_size(mesh) > 1:
+                sharding_stage=0, compute_dtype=None,
+                context_parallel="ring"):
+    """Counterpart of `paddle_tpu.distributed.parallelize`: returns a
+    `ShardedTrainStep` that trains `model` where it lives — on one device,
+    or, with ``mesh=MeshConfig(cp=n)`` (or its built `Mesh`), as this
+    rank's part of n-way context parallelism (`context_parallel` "ring"
+    or "ulysses"; a custom `loss_fn` raises there)."""
+    if isinstance(mesh, MeshConfig):
+        mesh = mesh.build(device=next(model.parameters()).device)
+    if isinstance(mesh, Mesh):
+        if mesh.size == 1:
+            mesh = None
+    elif mesh is not None and _mesh_size(mesh) > 1:
         raise NotImplementedError(f"a mesh of {_mesh_size(mesh)} devices "
                                   + _LATER)
     if sharding_stage != 0:
@@ -165,4 +245,5 @@ def parallelize(model, optimizer=None, loss_fn=None, *, mesh=None,
                     f"learning rate {group['lr']!r}: LR schedulers are not "
                     f"ported yet (ROADMAP 'Training still lacks')")
     return ShardedTrainStep(model, optimizer, loss_fn=loss_fn,
-                            compute_dtype=compute_dtype)
+                            compute_dtype=compute_dtype, mesh=mesh,
+                            context_parallel=context_parallel)

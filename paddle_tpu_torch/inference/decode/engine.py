@@ -62,18 +62,19 @@ from a scan over sequences; this port runs the batch as one set of
 batched products instead, and promises this: the hand-written kernels are
 row-stable — each output row is reduced in an order that does not depend
 on how many rows share the launch (the weight-only matmul runs its GEMV
-for every m <= 16, which covers every decode bucket; the paged attention
+for every m <= 16, which covers every decode bucket; a decode step's
+float Linears and vocab projection run the float GEMV `ops.weight_only.
+row_gemv` (cuBLAS may pick its reduction by m); the paged attention
 has one block per (head, sequence); BGMV reduces each row inside one
 CTA), the norms sum each row in two fixed stages and the sampler scans
 top-p's cumsum in fixed-size row groups (PyTorch's own CUDA mean and scan
 pick their order by the row count) — and, in float32 on the
 CPU, a sequence's tokens are the same decoded alone and in a batch
-(tested). The float Linears go through the BLAS library (cuBLAS on the
-GPU), which may pick another reduction for another batch size, so on
-the GPU with float weights the logits of a sequence can differ in the
-last bits between batch sizes and a near-tie can flip a token;
-`chip_smoke.py` reports how many sequences agree, and holds a sampled
-request resubmitted alone to its tokens in a batch (int8 weights).
+(tested). So on the GPU a sequence's decode logits are bit-identical in
+every bucket (tests/test_torch_cuda.py holds the bf16 decode step), and
+`chip_smoke.py` holds every sequence's tokens alone equal to its tokens
+in a batch. Prefill chunks keep cuBLAS: a chunk is one sequence's, of
+the same length alone and in a batch.
 
 Not ported yet (passing them raises `NotImplementedError`): speculative
 decoding, `resume_committed`, tensor-parallel meshes, the `ServingPool`

@@ -22,10 +22,21 @@ Three attention paths:
   (`ops.decode_attn.paged_decode_attention`), reading the pool in place.
   A prefill chunk writes its rows block by block and attends in plain
   PyTorch over the sequence's gathered rows, as the JAX engine does.
+  On the GPU a decode step's float Linears (qkv, out, the MLP's and the
+  vocab projection, tied or not) go through the row-stable GEMV
+  (`ops.weight_only.row_gemv`), so a sequence's logits are bit-identical
+  in every decode bucket; prefill chunks keep cuBLAS.
+
+Under an active context-parallel guard (`distributed.context_parallel`)
+`loss` is the rank's share of the global loss: it takes its rows of the
+global batch, embeds them at their global positions and takes its
+targets from the global next-token shift (see `loss`).
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -34,8 +45,10 @@ from torch import nn
 from .. import resolve_device
 from ..nn import functional as F
 from ..nn.functional import apply_rotary_pos_emb, gelu, silu
+from ..nn.functional.loss import cross_entropy_share
 from ..nn.layer.norm import LayerNorm, RMSNorm
 from ..ops.decode_attn import paged_decode_attention
+from ..ops.weight_only import ROW_GEMV_MAX_M, row_gemv
 
 __all__ = ["GPTConfig", "CONFIGS", "gpt", "GPTAttention", "GPTMLP",
            "GPTBlock", "GPTModel", "GPTForCausalLM", "CacheQuantError",
@@ -103,6 +116,38 @@ class CacheQuantError(ValueError):
 _NO_QUANT = (None, "", "none", "bf16")
 
 
+_DECODE = threading.local()       # .on: inside a paged decode step
+
+
+@contextlib.contextmanager
+def _decode_rows(on):
+    prev = getattr(_DECODE, "on", False)
+    _DECODE.on = bool(on)
+    try:
+        yield
+    finally:
+        _DECODE.on = prev
+
+
+def _row_stable(x, weight):
+    """Whether a product of x with a float weight takes the row-stable
+    GEMV: inside a paged decode step, on the GPU, at the decode buckets'
+    row counts."""
+    return (getattr(_DECODE, "on", False) and x.is_cuda
+            and x.dtype == weight.dtype
+            and x.numel() <= ROW_GEMV_MAX_M * x.shape[-1])
+
+
+class _DecodeLinear(nn.Linear):
+    """`nn.Linear` whose decode-step calls on the GPU go through the
+    row-stable GEMV (forward hooks still see the call)."""
+
+    def forward(self, x):
+        if _row_stable(x, self.weight):
+            return row_gemv(x, self.weight, self.bias)
+        return super().forward(x)
+
+
 class _Init:
     """Seeded initialisation shared by one model's constructors."""
 
@@ -111,8 +156,8 @@ class _Init:
             generator
 
     def linear(self, fan_in, fan_out, bias, std):
-        lin = nn.Linear(fan_in, fan_out, bias=bias, device=self.device,
-                        dtype=self.dtype)
+        lin = _DecodeLinear(fan_in, fan_out, bias=bias, device=self.device,
+                            dtype=self.dtype)
         with torch.no_grad():
             lin.weight.normal_(0.0, std, generator=self.g)
             if bias:
@@ -447,7 +492,10 @@ class GPTForCausalLM(nn.Module):
 
     def _project(self, hidden):
         if self.lm_head is None:
-            return hidden @ self.transformer.wte.weight.t()
+            wte = self.transformer.wte.weight
+            if _row_stable(hidden, wte):
+                return row_gemv(hidden, wte)
+            return hidden @ wte.t()
         return self.lm_head(hidden)
 
     def forward(self, input_ids, position_ids=None):
@@ -456,13 +504,53 @@ class GPTForCausalLM(nn.Module):
     def loss(self, input_ids, labels=None, position_ids=None):
         """Causal LM loss (mean over the shifted tokens). labels default to
         input_ids. The shift slices the hidden states before the vocab
-        projection, so the full [B, S, V] logits are never copied."""
+        projection, so the full [B, S, V] logits are never copied.
+
+        Under an active context-parallel guard with cp > 1 the arguments
+        are the GLOBAL batch (every rank gets the same, as JAX gets global
+        arrays) and the result is this rank's share of the global loss:
+        the rank takes its rows of the sequence (zigzag when S divides by
+        2 cp, else contiguous — the attention's placement rule), embeds
+        them at their global positions, takes each row's target from the
+        global next-token shift (`ignore_index` at the last global
+        position, which has none) and
+        divides its f32 sum by the global count B (S - 1); the engine sums
+        the shares over the mesh."""
         if labels is None:
             labels = input_ids
+        from ..distributed.context_parallel import active_context_parallel
+        cp = active_context_parallel()
+        if cp is not None and cp[0].size > 1:
+            if position_ids is not None:
+                raise NotImplementedError(
+                    "position_ids under context parallelism: the rank's "
+                    "rows take their global positions")
+            return self._cp_loss(input_ids, labels, cp[0])
         hidden = self.transformer(input_ids, position_ids)[:, :-1, :]
         logits = self._project(hidden)
         return F.cross_entropy(logits.reshape(-1, self.cfg.vocab_size),
                                labels[:, 1:].reshape(-1))
+
+    def _cp_loss(self, input_ids, labels, mesh):
+        from ..distributed.context_parallel import (_local_positions,
+                                                    balanced_default)
+        b, s = input_ids.shape
+        n = mesh.size
+        if s % n:
+            raise ValueError(f"seq len {s} must divide the cp axis size "
+                             f"{n}")
+        pos = _local_positions(mesh.rank, n, s // n,
+                               balanced_default(True, n, s),
+                               input_ids.device).long()
+        hidden = self.transformer(input_ids[:, pos],
+                                  pos[None].expand(b, -1))
+        # the global shift: row p's target is token p + 1; the last global
+        # position has none and is ignored
+        targets = labels[:, (pos + 1).clamp_max(s - 1)].masked_fill(
+            pos[None] == s - 1, -100)
+        logits = self._project(hidden)
+        return cross_entropy_share(logits.reshape(-1, self.cfg.vocab_size),
+                                   targets.reshape(-1), b * (s - 1))
 
     def _resolve_cache_quant(self, quant):
         """An explicit `quant=` wins over the model's `cache_quant`
@@ -532,9 +620,10 @@ class GPTForCausalLM(nn.Module):
         (prefill chunk); writes the new K/V rows into `pool_layers` in
         place. Returns logits [B, 1, V]: each decode row's, or the
         prefill chunk's last row (the only one the engine reads)."""
-        hidden = self.transformer.forward_paged(input_ids, pool_layers,
-                                                batch)
-        return self._project(hidden[:, -1:])
+        with _decode_rows(batch.mode == "decode"):
+            hidden = self.transformer.forward_paged(input_ids, pool_layers,
+                                                    batch)
+            return self._project(hidden[:, -1:])
 
 
 def gpt(name="gpt_base", *, device=None, seed=0, **overrides):

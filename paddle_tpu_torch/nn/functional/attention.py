@@ -3,6 +3,13 @@ paddle_tpu/nn/functional/attention.py).
 
 Routing follows the JAX package's rules, on the tensors' device:
 
+* under an active `distributed.context_parallel_guard` whose mesh has a
+  cp axis > 1, self-attention shapes (q, k and v of one shape) go
+  to `distributed.context_parallel.context_parallel_attention` — the
+  flash ring (the position-masked kernels) on CUDA when the shard's shape
+  passes `_ring_flash_shapes_ok`, the plain ring otherwise, or Ulysses;
+  attention dropout in training and any `attn_mask` raise there, as in
+  JAX;
 * training-mode dropout with no mask, self-attention shapes that the
   short-attention kernels admit (`ops.short_attention.supported` and
   `supports_p`): the short-attention kernels, dropout drawn inside them
@@ -51,6 +58,26 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     `attn_mask` is an additive float bias broadcast to [B, H, Sq, Sk];
     `generator` is where a dropout call draws its stream seed."""
     causal = bool(is_causal)
+    from ...distributed.context_parallel import (active_context_parallel,
+                                                 context_parallel_attention)
+    cp = active_context_parallel()
+    if (cp is not None and cp[0].size > 1
+            and query.shape == key.shape == value.shape):
+        # (cross-attention / cache-decode shapes fall through to the dense
+        # paths — ring/Ulysses assume sequence-sharded self-attention)
+        mesh, mode = cp
+        if dropout_p > 0.0 and training:
+            raise NotImplementedError(
+                f"context-parallel attention ({mode}) does not support attention-probability dropout; "
+                "set attention dropout to 0 (residual/hidden dropout is "
+                "unaffected) or disable context_parallel")
+        if attn_mask is not None:
+            raise NotImplementedError(
+                "context-parallel attention supports only causal/full "
+                "masks; arbitrary attn_mask would be silently wrong under "
+                "sequence sharding — pass is_causal instead")
+        return context_parallel_attention(query, key, value, mesh, mode=mode,
+                                          causal=causal)
     if dropout_p > 0.0 and training:
         seed = _dropout_rng.draw_seed(generator, query.device)
         if (attn_mask is None and supports_p(dropout_p)

@@ -11,12 +11,12 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["cross_entropy"]
+__all__ = ["cross_entropy", "cross_entropy_share"]
 
 
 class _CrossEntropyHard(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, logits, label, ignore_index):
+    def forward(ctx, logits, label, ignore_index, denom, out_dtype):
         m = logits.amax(dim=-1, keepdim=True)
         sumexp = torch.exp((logits - m).float()).sum(dim=-1)
         lse = m[..., 0].float() + torch.log(sumexp)
@@ -24,9 +24,12 @@ class _CrossEntropyHard(torch.autograd.Function):
         safe = torch.where(mask, label, torch.zeros_like(label))
         picked = logits.gather(-1, safe[..., None])[..., 0].float()
         loss = torch.where(mask, lse - picked, torch.zeros_like(lse))
-        denom = mask.sum().float().clamp_min(1.0)
+        if denom is None:
+            denom = mask.sum().float().clamp_min(1.0)
+        else:
+            denom = torch.tensor(float(denom), device=logits.device)
         ctx.save_for_backward(logits, safe, mask, lse, denom)
-        return (loss.sum() / denom).to(logits.dtype)
+        return (loss.sum() / denom).to(out_dtype or logits.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -36,7 +39,7 @@ class _CrossEntropyHard(torch.autograd.Function):
         d.scatter_add_(-1, safe[..., None],
                        torch.full_like(lse[..., None], -1.0))
         d.mul_(scale[..., None])
-        return d.to(logits.dtype), None, None
+        return d.to(logits.dtype), None, None, None, None
 
 
 def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
@@ -49,4 +52,14 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
                                   f"is not ported yet; only 'mean' is")
     if label.dim() == input.dim():
         label = label.squeeze(-1)
-    return _CrossEntropyHard.apply(input, label.long(), int(ignore_index))
+    return _CrossEntropyHard.apply(input, label.long(), int(ignore_index),
+                                   None, None)
+
+
+def cross_entropy_share(input, label, denom):
+    """This rank's share of a mean cross entropy taken over more rows than
+    it holds: the sum over its rows divided by `denom` (the global count),
+    in f32, so the shares of all ranks sum to the global mean (the
+    context-parallel loss)."""
+    return _CrossEntropyHard.apply(input, label.long(), -100, denom,
+                                   torch.float32)

@@ -127,6 +127,12 @@ def lib():
     # strides (b, s, h) of q, k, v, dout, dtype, scale, causal, stream
     _sig(handle.ptt_flash_attention, I, P, P, P, P, P, P, P, P, P,
          I, I, I, I, *([L] * 12), I, F, I, P)
+    # the ring-step kernels: as above with qpos, kpos after lse_out and
+    # B, Sq, Sk, H, D
+    _sig(handle.ptt_flash_attention_pos, I, P, P, P, P, P, P, P, P, P, P, P,
+         I, I, I, I, I, *([L] * 12), I, F, I, P)
+    # x, w, bias, out, m, n, k, dtype, stream (the row-stable GEMV)
+    _sig(handle.ptt_row_gemv, P, P, P, P, I, I, I, I, P)
     # kind, q, k, v, dout, seed, lse, delta, out0, out1, B, S, H, D,
     # strides (b, s, h) of q, k, v, dout, dtype, scale, keep scale, keep
     # threshold, dropout, causal, stream

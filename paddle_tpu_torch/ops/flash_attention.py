@@ -10,7 +10,25 @@ a ``.launches`` counter:
 * `flash_attention_bwd_dq` — ``dQ`` over K blocks;
 * `flash_attention_bwd_dkv` — ``(dK, dV)`` over Q blocks.
 
-`flash_attention` ties them together in a `torch.autograd.Function`; the
+Three more kernels serve one step of ring attention
+(`distributed.context_parallel`), the counterparts of the JAX package's
+`flash_fwd_pos` and `flash_bwd_pos`: the causal mask compares explicit
+int32 global positions (``q_pos[i] >= k_pos[j]``) instead of row and
+column indices, because a zigzag shard's rows are not contiguous, and
+``q`` and ``k`` may have different lengths:
+
+* `flash_fwd_pos` — the UNMERGED partial ``(O, lse)`` of the local
+  queries against one visiting K/V shard; a row that the mask hides
+  throughout gives ``O = 0`` and ``lse = -1e30 + log(1e-30)`` (the TPU
+  kernel's ``l_safe = max(l, 1e-30)``), so the merge gives it weight 0;
+* `flash_bwd_pos_dq` and `flash_bwd_pos_dkv` (both in `flash_bwd_pos`) —
+  one step's dQ and dK, dV from the GLOBAL merged lse and delta, each
+  rounded to the input dtype as the TPU kernel's outputs are.
+
+The port keeps its [B, S, H, D] layout with lse [B, H, S] for these too
+(JAX: [bh, s, d] and [bh, s, 1]).
+
+`flash_attention` ties the first three together in a `torch.autograd.Function`; the
 backward's ``delta = rowsum(dO * O)`` is a PyTorch f32 rowsum, as the TPU
 version computes it outside Pallas. Tensors are ``[B, S, H, D]`` and are
 read through their strides (a unit stride along D), so the model's
@@ -19,8 +37,9 @@ D <= 256 are masked inside the kernels instead of padded.
 
 A CUDA input launches the kernels (bf16 or f32; any other dtype raises
 `TypeError`); a CPU input computes the plain versions,
-`flash_attention_ref`, `flash_attention_bwd_dq_ref` and
-`flash_attention_bwd_dkv_ref` — f32 math with the kernels' casts.
+`flash_attention_ref`, `flash_attention_bwd_dq_ref`,
+`flash_attention_bwd_dkv_ref`, `flash_fwd_pos_ref` and
+`flash_bwd_pos_ref` — f32 math with the kernels' casts.
 """
 from __future__ import annotations
 
@@ -34,10 +53,13 @@ __all__ = ["flash_attention", "flash_attention_supported",
            "flash_attention_ref", "flash_attention_bwd_ref",
            "flash_attention_bwd_dq_ref", "flash_attention_bwd_dkv_ref",
            "flash_attention_fwd", "flash_attention_bwd_dq",
-           "flash_attention_bwd_dkv", "attention_delta"]
+           "flash_attention_bwd_dkv", "attention_delta",
+           "flash_fwd_pos", "flash_bwd_pos", "flash_bwd_pos_dq",
+           "flash_bwd_pos_dkv", "flash_fwd_pos_ref", "flash_bwd_pos_ref"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _FWD, _DQ, _DKV = 0, 1, 2
+_NEG_INF = -1e30                 # the TPU kernels' mask value
 
 
 def _ceil_to(x, m):
@@ -85,15 +107,14 @@ def flash_attention_ref(q, k, v, *, causal=True, scale=None):
     return out.to(q.dtype), lse
 
 
-def _bwd_probs(q, k, v, do, lse, delta, causal, scale):
+def _bwd_probs(q, k, v, do, lse, delta, keep, scale):
     """What both backward kernels recompute: P = exp(s - lse) masked
-    after the exp, and dS = P (dP - delta) scale cast to the input
-    dtype; f32 otherwise."""
+    after the exp (`keep` [Sq, Sk] bool or None), and dS = P (dP - delta)
+    scale cast to the input dtype; f32 otherwise."""
     scale = _scale(q, scale)
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     p = torch.exp(s - lse[..., None])
-    keep = _mask(q.shape[1], k.shape[1], causal, q.device)
     if keep is not None:
         p = torch.where(keep, p, torch.zeros((), device=p.device))
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
@@ -105,7 +126,8 @@ def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, *, causal=True,
                                scale=None):
     """Plain version of the dq kernel: dQ = dS K, f32 accumulation,
     in q's dtype. lse, delta [B, H, S] f32."""
-    _, kf, _, _, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
+    keep = _mask(q.shape[1], k.shape[1], causal, q.device)
+    _, kf, _, _, ds = _bwd_probs(q, k, v, do, lse, delta, keep, scale)
     return torch.einsum("bhqk,bkhd->bqhd", ds, kf).to(q.dtype)
 
 
@@ -113,7 +135,12 @@ def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, *, causal=True,
                                 scale=None):
     """Plain version of the dkv kernel: dV = P^T dO with P in the input
     dtype, dK = dS^T Q; f32 accumulation, in q's dtype."""
-    qf, _, dof, p, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
+    keep = _mask(q.shape[1], k.shape[1], causal, q.device)
+    return _dkv_from_probs(q, *_bwd_probs(q, k, v, do, lse, delta, keep,
+                                          scale))
+
+
+def _dkv_from_probs(q, qf, kf, dof, p, ds):
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(), dof)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     return dk.to(q.dtype), dv.to(q.dtype)
@@ -279,3 +306,176 @@ def flash_attention(q, k, v, *, causal=True, scale=None):
     _check(q, k, v)
     k, v = k.to(q.dtype), v.to(q.dtype)
     return _FlashAttention.apply(q, k, v, bool(causal), _scale(q, scale))
+
+
+# --- one ring step: position-masked kernels ----------------------------------
+
+def _pos_keep(q_pos, k_pos, causal):
+    """[Sq, Sk] bool of the keys a query row may see, by global position."""
+    if not causal:
+        return None
+    return q_pos.long()[:, None] >= k_pos.long()[None, :]
+
+
+def flash_fwd_pos_ref(q, k, v, q_pos, k_pos, *, causal=True, scale=None):
+    """Plain version of `flash_fwd_pos`, the TPU kernel's math over one
+    K block: masked scores at -1e30, P = exp(s - max) cast to q's dtype
+    before PV, divided by ``l_safe = max(l, 1e-30)``; lse = max +
+    log(l_safe). Returns (O [B, Sq, H, D] in q's dtype, lse [B, H, Sq]
+    f32)."""
+    scale = _scale(q, scale)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    keep = _pos_keep(q_pos, k_pos, causal)
+    if keep is not None:
+        s = torch.where(keep, s, torch.full((), _NEG_INF, device=s.device))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    if keep is not None:
+        p = torch.where(keep, p, torch.zeros((), device=p.device))
+    l_safe = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bhqk,bkhd->bhqd", p.to(q.dtype).float(), v.float())
+    out = (o / l_safe).transpose(1, 2).to(q.dtype)
+    return out, (m + torch.log(l_safe))[..., 0]
+
+
+def flash_bwd_pos_ref(q, k, v, do, lse, delta, q_pos, k_pos, *, causal=True,
+                      scale=None):
+    """Plain version of `flash_bwd_pos`: (dq, dk, dv) of one step in q's
+    dtype from the global lse and delta ([B, H, Sq] f32)."""
+    keep = _pos_keep(q_pos, k_pos, causal)
+    qf, kf, dof, p, ds = _bwd_probs(q, k, v, do, lse, delta, keep, scale)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf).to(q.dtype)
+    return (dq, *_dkv_from_probs(q, qf, kf, dof, p, ds))
+
+
+def _check_pos(q, k, v, q_pos, k_pos, do=None):
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"expected [B, S, H, D] tensors, got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    if v.shape != k.shape or (k.shape[0], k.shape[2], k.shape[3]) != (
+            q.shape[0], q.shape[2], q.shape[3]):
+        raise ValueError(f"k, v must be [B, Sk, H, D] with q's B, H, D: "
+                         f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if do is not None and do.shape != q.shape:
+        raise ValueError(f"dO {tuple(do.shape)} differs from q "
+                         f"{tuple(q.shape)}")
+    if q.shape[-1] > 256:
+        raise ValueError(f"head dim {q.shape[-1]} > 256 is not supported")
+    for name, pos, n in (("q_pos", q_pos, q.shape[1]),
+                         ("k_pos", k_pos, k.shape[1])):
+        if pos.dim() != 1 or pos.shape[0] != n or pos.is_floating_point():
+            raise ValueError(f"{name} must be [{n}] integers, got "
+                             f"{tuple(pos.shape)} {pos.dtype}")
+
+
+def _cuda_positions(q, *pos):
+    out = []
+    for p in pos:
+        if p.device != q.device:
+            raise ValueError(f"positions on {p.device}, q on {q.device}")
+        out.append(p.to(torch.int32).contiguous())
+    return out
+
+
+def _launch_pos(kind, q, k, v, dout, lse, delta, out0, out1, lse_out, q_pos,
+                k_pos, causal, scale):
+    B, Sq, H, D = q.shape
+    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *(dout.stride()[:3] if dout is not None else (0, 0, 0))]
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    lib = _build.lib()
+    with torch.cuda.device(q.device):
+        err = lib.ptt_flash_attention_pos(
+            kind, ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta),
+            ptr(out0), ptr(out1), ptr(lse_out), q_pos.data_ptr(),
+            k_pos.data_ptr(), B, Sq, k.shape[1], H, D, *strides,
+            _build.dtype_code(q.dtype), scale, int(bool(causal)),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos")[kind])
+
+
+def flash_fwd_pos(q, k, v, q_pos, k_pos, *, causal=True, scale=None):
+    """One ring step's forward: q [B, Sq, H, D] against a visiting k, v
+    [B, Sk, H, D], masked by ``q_pos[i] >= k_pos[j]`` (int [Sq], [Sk];
+    no mask when not causal). Returns the unmerged (O [B, Sq, H, D] in
+    q's dtype, lse [B, H, Sq] f32)."""
+    _check_pos(q, k, v, q_pos, k_pos)
+    scale = _scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_fwd_pos_ref(q, k, v, q_pos, k_pos, causal=causal,
+                                 scale=scale)
+    q, k, v = _cuda_operands(q, k, v)
+    q_pos, k_pos = _cuda_positions(q, q_pos, k_pos)
+    B, Sq, H, D = q.shape
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if q.numel() == 0:
+        return out, lse
+    _launch_pos(_FWD, q, k, v, None, None, None, out, None, lse, q_pos,
+                k_pos, causal, scale)
+    flash_fwd_pos.launches += 1
+    return out, lse
+
+
+def flash_bwd_pos_dq(q, k, v, do, lse, delta, q_pos, k_pos, *, causal=True,
+                     scale=None):
+    """One ring step's dQ [B, Sq, H, D] (q's dtype)."""
+    _check_pos(q, k, v, q_pos, k_pos, do)
+    scale = _scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_bwd_pos_ref(q, k, v, do, lse, delta, q_pos, k_pos,
+                                 causal=causal, scale=scale)[0]
+    q, k, v, do = _cuda_operands(q, k, v, do)
+    q_pos, k_pos = _cuda_positions(q, q_pos, k_pos)
+    lse, delta = _bwd_rows(q, lse, delta)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.numel() == 0:
+        return dq
+    _launch_pos(_DQ, q, k, v, do, lse, delta, dq, None, None, q_pos, k_pos,
+                causal, scale)
+    flash_bwd_pos_dq.launches += 1
+    return dq
+
+
+def flash_bwd_pos_dkv(q, k, v, do, lse, delta, q_pos, k_pos, *, causal=True,
+                      scale=None):
+    """One ring step's (dK, dV) [B, Sk, H, D] (q's dtype)."""
+    _check_pos(q, k, v, q_pos, k_pos, do)
+    scale = _scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_bwd_pos_ref(q, k, v, do, lse, delta, q_pos, k_pos,
+                                 causal=causal, scale=scale)[1:]
+    q, k, v, do = _cuda_operands(q, k, v, do)
+    q_pos, k_pos = _cuda_positions(q, q_pos, k_pos)
+    lse, delta = _bwd_rows(q, lse, delta)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    if k.numel() == 0:
+        return dk, dv
+    _launch_pos(_DKV, q, k, v, do, lse, delta, dk, dv, None, q_pos, k_pos,
+                causal, scale)
+    flash_bwd_pos_dkv.launches += 1
+    return dk, dv
+
+
+def flash_bwd_pos(q, k, v, do, lse, delta, q_pos, k_pos, *, causal=True,
+                  scale=None):
+    """One ring step's (dq, dk, dv) from the global merged lse and
+    delta = rowsum(dO * O_merged), both [B, H, Sq] f32: two launches on
+    the GPU (dQ, then dK/dV)."""
+    kw = dict(causal=causal, scale=scale)
+    if q.device.type == "cpu":
+        _check_pos(q, k, v, q_pos, k_pos, do)
+        return flash_bwd_pos_ref(q, k, v, do, lse, delta, q_pos, k_pos,
+                                 **kw)
+    return (flash_bwd_pos_dq(q, k, v, do, lse, delta, q_pos, k_pos, **kw),
+            *flash_bwd_pos_dkv(q, k, v, do, lse, delta, q_pos, k_pos, **kw))
+
+
+flash_fwd_pos.launches = 0
+flash_bwd_pos_dq.launches = 0
+flash_bwd_pos_dkv.launches = 0

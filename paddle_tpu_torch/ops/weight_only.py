@@ -9,6 +9,13 @@ halves-packed nibbles (`paddle_tpu_torch.nn.quant._pack_int4`).
 `weight_only_matmul` launches ``csrc/weight_only.cu`` for CUDA tensors at
 every ``m`` (the TPU kernel's block-shape cut-offs were VMEM tiling limits
 and do not apply) and computes `weight_only_matmul_ref` for CPU tensors.
+
+`row_gemv` is the float-weight GEMV of the decode buckets (``m <= 16``):
+``x[m, k] . w[n, k]^T + bias`` with x, w and bias of one float dtype, the
+kernel's rows each summed in one order whatever m is, so a decode row is
+bit-identical in every batch (cuBLAS may choose its reduction by m). It
+is not the port of a TPU kernel; it keeps the JAX engine's bit-identity
+across batch sizes. Its plain version is `row_gemv_ref`.
 """
 from __future__ import annotations
 
@@ -17,7 +24,12 @@ import torch
 from . import _build
 
 __all__ = ["weight_only_matmul", "weight_only_matmul_nd",
-           "weight_only_matmul_ref", "unpack_int4"]
+           "weight_only_matmul_ref", "unpack_int4", "row_gemv",
+           "row_gemv_ref", "ROW_GEMV_MAX_M"]
+
+#: the largest m `row_gemv` is for: the decode buckets
+ROW_GEMV_MAX_M = 16
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def unpack_int4(p):
@@ -102,3 +114,56 @@ def weight_only_matmul_nd(x, qweight, scale, weight_dtype="int8"):
     out = weight_only_matmul(x.reshape(-1, x.shape[-1]), qweight, scale,
                              weight_dtype)
     return out.reshape(*lead, qweight.shape[0])
+
+
+def row_gemv_ref(x, weight, bias=None):
+    """Plain version of `row_gemv`: an f32 product plus the bias, rounded
+    once to x's dtype."""
+    out = x.float() @ weight.float().t()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
+def row_gemv(x, weight, bias=None):
+    """x [..., k] and weight [n, k] (bias [n]) of one float dtype ->
+    [..., n]: the row-stable GEMV kernel for CUDA tensors (at most
+    `ROW_GEMV_MAX_M` rows), the plain version for CPU ones."""
+    if x.shape[-1] != weight.shape[-1] or weight.dim() != 2:
+        raise ValueError(f"x {tuple(x.shape)} and weight "
+                         f"{tuple(weight.shape)} do not chain")
+    if bias is not None and tuple(bias.shape) != (weight.shape[0],):
+        raise ValueError(f"bias must be [{weight.shape[0]}], got "
+                         f"{tuple(bias.shape)}")
+    if x.device.type == "cpu":
+        return row_gemv_ref(x, weight, bias)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"row_gemv: no kernel for device {x.device}")
+    for name, t in (("weight", weight), ("bias", bias)):
+        if t is not None and (t.dtype != x.dtype or t.device != x.device):
+            raise ValueError(f"{name} is {t.dtype} on {t.device}, x is "
+                             f"{x.dtype} on {x.device}")
+    if x.dtype not in _FLOATS:
+        raise TypeError(f"row_gemv takes f32/bf16/f16, got {x.dtype}")
+    lead, k = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, k).contiguous()
+    m, n = x2.shape[0], weight.shape[0]
+    if m > ROW_GEMV_MAX_M:
+        raise ValueError(f"row_gemv is for at most {ROW_GEMV_MAX_M} rows, "
+                         f"got {m}")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if out.numel():
+        w = weight.contiguous()
+        b = bias.contiguous() if bias is not None else None
+        with torch.cuda.device(x.device):
+            err = _build.lib().ptt_row_gemv(
+                x2.data_ptr(), w.data_ptr(),
+                b.data_ptr() if b is not None else None, out.data_ptr(), m,
+                n, k, _build.dtype_code(x.dtype),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(err, "row_gemv")
+        row_gemv.launches += 1
+    return out.reshape(*lead, n)
+
+
+row_gemv.launches = 0

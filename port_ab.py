@@ -1,0 +1,149 @@
+#!/usr/bin/env python3
+"""Compare two checkouts of the PyTorch/CUDA port on one GPU, alternating.
+
+    python3 port_ab.py PARENT CHANGE [--what decode,flash] [--rounds 1]
+
+PARENT and CHANGE are the roots of two checkouts (for example a
+`git archive` of each commit unpacked into a git-ignored directory). Both
+trees' kernels are built first, in parallel. Then each measurement runs
+in a child process that imports one tree only, in the order PARENT,
+CHANGE, CHANGE, PARENT for each round, so that a drift of the card's
+clock or power falls on both sides.
+
+Measurements:
+
+* ``decode``: `chip_smoke.py`'s serving run (a) of that tree —
+  llama2_7b at full size, random bf16 weights from seed 0, a bf16 KV
+  pool, `DecodeEngine` with buckets 1-8, the smoke's 8 prompts and 32 new
+  tokens each, no solo pass — served 3 times on one model after a
+  warm-up serve: tokens/s, time to first token p50/p95, wall seconds;
+* ``flash``: the whole-sequence FlashAttention kernels at gpt_base's
+  training shape (B=16, S=1024, H=12, D=64, bf16, causal): median
+  CUDA-event ms of forward, dq and dkv over 50 calls after 5 warm-up
+  calls.
+
+Prints the card's name and power limit (nvidia-smi), then one JSON line
+per measurement, each naming its tree. Every child has a time limit and
+is killed when it passes it; any failure exits non-zero.
+"""
+import argparse
+import importlib
+import json
+import os
+import subprocess
+import sys
+
+CHILD_TIMEOUT_S = 900
+DECODE_SERVES = 3
+
+
+def _time_ms(torch, fn, iters=50, warmup=5):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return sorted(times)[len(times) // 2]
+
+
+def child_flash(tree):
+    import torch
+
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, do = (torch.randn(16, 1024, 12, 64, device="cuda",
+                               generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    delta = fa.attention_delta(out, do)
+    return {"tree": tree, "what": "flash", "fwd_ms": _time_ms(
+                torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
+            "dq_ms": _time_ms(torch, lambda: fa.flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, causal=True)),
+            "dkv_ms": _time_ms(torch, lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, causal=True))}
+
+
+def child_decode(tree):
+    import numpy as np
+    import torch
+
+    smoke = importlib.import_module("chip_smoke")
+    from paddle_tpu_torch.models import gpt
+
+    model = gpt("llama2_7b", dtype="bfloat16", device="cuda", seed=0,
+                num_layers=32)
+    args = (torch, np, model, None, smoke.PROMPT_LENS, 32)
+    smoke.serve(*args, "warm-up", check_dense=False)
+    runs = [smoke.serve(*args, "a: bf16 weights, bf16 KV",
+                        check_dense=False) for _ in range(DECODE_SERVES)]
+    return {"tree": tree, "what": "decode",
+            "tokens_per_s": [r["tokens_per_s"] for r in runs],
+            "ttft_p50_s": [r["ttft_p50_s"] for r in runs],
+            "ttft_p95_s": [r["ttft_p95_s"] for r in runs],
+            "wall_s": [r["wall_s"] for r in runs],
+            "steps": [r["steps"] for r in runs],
+            "launches": runs[-1]["launches"]}
+
+
+def _child(what, tree):
+    tree = os.path.abspath(tree)
+    os.chdir(tree)
+    sys.path.insert(0, tree)
+    res = {"flash": child_flash, "decode": child_decode}[what](tree)
+    print("AB " + json.dumps(res), flush=True)
+
+
+def _run(argv, label):
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, text=True)
+    try:
+        out, _ = proc.communicate(timeout=CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SystemExit(f"{label}: no result in {CHILD_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        raise SystemExit(f"{label}: exit {proc.returncode}")
+    return out
+
+
+def main(argv):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("parent")
+    ap.add_argument("change")
+    ap.add_argument("--what", default="decode,flash")
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        return _child(args.child, args.parent)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=30, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    build = "from paddle_tpu_torch.ops import _build; _build.build()"
+    builds = [subprocess.Popen([sys.executable, "-c", build], cwd=t)
+              for t in (args.parent, args.change)]
+    for t, p in zip((args.parent, args.change), builds):
+        if p.wait(timeout=CHILD_TIMEOUT_S) != 0:
+            raise SystemExit(f"kernel build failed in {t}")
+    for what in args.what.split(","):
+        for _ in range(args.rounds):
+            for tree in (args.parent, args.change, args.change, args.parent):
+                out = _run([sys.executable, os.path.abspath(__file__),
+                            tree, tree, "--child", what], f"{what} {tree}")
+                for line in out.splitlines():
+                    if line.startswith("AB "):
+                        print(line[3:], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -810,3 +810,213 @@ def test_parallelize_trains_tiny_resnet_through_fused_blocks(cuda,
     first = runs["0"][0][0].item()
     torch.testing.assert_close(runs["1"][0], runs["0"][0], rtol=0,
                                atol=2e-2 * first)
+
+
+# --- ring-step (position-masked) flash kernels --------------------------------
+
+def _pos_span(*spans):
+    return torch.cat([torch.arange(lo, hi + 1) for lo, hi in
+                      zip(spans[::2], spans[1::2])]).to(torch.int32)
+
+
+# name -> (q positions, k positions, causal, D): rank 0 of a 2-way zigzag
+# ring (S = 512) on its own and the visiting shard; a contiguous shard
+# whose keys all lie in its future; no mask; ragged lengths with
+# shuffled positions and a padded head dim
+POS_KERNEL_CASES = {
+    "zigzag own": (_pos_span(0, 127, 384, 511), _pos_span(0, 127, 384, 511),
+                   True, 64),
+    "zigzag visiting": (_pos_span(0, 127, 384, 511), _pos_span(128, 383),
+                        True, 64),
+    "fully masked": (_pos_span(0, 255), _pos_span(256, 511), True, 64),
+    "full D=128": (_pos_span(0, 255), _pos_span(256, 511), False, 128),
+    "shuffled ragged D=80": (torch.randperm(
+        400, generator=torch.Generator().manual_seed(1))[:200].int(),
+                             torch.randperm(
+        400, generator=torch.Generator().manual_seed(2))[:136].int(),
+                             True, 80),
+}
+
+
+def _pos_case(q_pos, k_pos, D, dtype, seed, B=2, H=3):
+    g = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn(B, len(q_pos), H, D, generator=g).to(dtype).cuda()
+             for _ in range(2))
+    k, v = (torch.randn(B, len(k_pos), H, D, generator=g).to(dtype).cuda()
+            for _ in range(2))
+    return q, k, v, do, q_pos.cuda(), k_pos.cuda()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(POS_KERNEL_CASES))
+def test_flash_pos_kernels_match_plain(cuda, dtype, case):
+    """flash_fwd_pos, flash_dq_pos and flash_dkv_pos against their plain
+    versions (the backward kernels on the plain forward's lse and delta):
+    O to FLASH_TOL, rows that see no key O == 0 exactly with lse <= -1e29
+    and no NaN, gradients normwise (exactly 0 where no pair is kept)."""
+    q_pos, k_pos, causal, D = POS_KERNEL_CASES[case]
+    tol, grad_tol = FLASH_TOL[dtype]
+    q, k, v, do, qp, kp = _pos_case(q_pos, k_pos, D, dtype, seed=D)
+    counts = (tfa.flash_fwd_pos.launches, tfa.flash_bwd_pos_dq.launches,
+              tfa.flash_bwd_pos_dkv.launches)
+    out, lse = tfa.flash_fwd_pos(q, k, v, qp, kp, causal=causal)
+    ref, lse_ref = tfa.flash_fwd_pos_ref(q, k, v, qp, kp, causal=causal)
+    seen = ((qp[:, None] >= kp[None, :]).any(1) if causal
+            else torch.ones(len(qp), dtype=torch.bool, device=cuda))
+    if seen.any():
+        assert _err(out[:, seen], ref[:, seen]) <= tol
+        assert (lse - lse_ref)[..., seen].abs().max().item() <= (
+            1e-2 if tol > 1e-3 else 1e-4)
+    assert (out[:, ~seen] == 0).all() and torch.isfinite(lse).all()
+    assert (lse[..., ~seen] <= -1e29).all()
+    delta = tfa.attention_delta(ref, do)
+    dq, dk, dv = tfa.flash_bwd_pos(q, k, v, do, lse_ref, delta, qp, kp,
+                                   causal=causal)
+    refs = tfa.flash_bwd_pos_ref(q, k, v, do, lse_ref, delta, qp, kp,
+                                 causal=causal)
+    for name, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert torch.isfinite(got).all(), name
+        if r.abs().max() == 0:
+            assert (got == 0).all(), name
+        else:
+            assert _norm_err(got, r) <= grad_tol, (name, _norm_err(got, r))
+    assert (tfa.flash_fwd_pos.launches, tfa.flash_bwd_pos_dq.launches,
+            tfa.flash_bwd_pos_dkv.launches) == tuple(c + 1 for c in counts)
+
+
+def test_flash_pos_kernels_are_bitwise_reproducible(cuda):
+    q, k, v, do, qp, kp = _pos_case(*POS_KERNEL_CASES["zigzag visiting"][:2],
+                                    64, torch.bfloat16, seed=9)
+    runs = []
+    for _ in range(2):
+        out, lse = tfa.flash_fwd_pos(q, k, v, qp, kp)
+        delta = tfa.attention_delta(out, do)
+        runs.append((out, lse, *tfa.flash_bwd_pos(q, k, v, do, lse, delta,
+                                                  qp, kp)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("causal,balanced", [(True, True), (True, False),
+                                             (False, False)])
+def test_serial_ring_matches_whole_sequence_kernels(cuda, n, causal,
+                                                    balanced):
+    """The ring's n steps run in one process through the pos kernels and
+    the merge (`ring_serial`), bf16. Against the same ring through the
+    kernels' plain versions: O to FLASH_TOL, and the backward kernels on
+    the plain ring's forward statistics (as each kernel is held alone) to
+    FLASH_TOL. Against the whole-sequence flash kernels: O to FLASH_TOL,
+    the gradients normwise to (n + 1) bf16 roundings, 2**-9 each — every
+    step's dq, dk, dv is rounded to bf16 (the TPU kernel's out dtype)
+    before the f32 sum, where the whole-sequence kernel rounds once
+    (readings on an H100 1.2e-3 to 3.0e-3). The same ring with the
+    visiting partial's merge weight dropped must fail that gradient
+    gate."""
+    from paddle_tpu_torch.distributed import context_parallel as cpm
+    from paddle_tpu_torch.distributed.context_parallel import ring_serial
+
+    tol, grad_tol = FLASH_TOL[torch.bfloat16]
+    q, k, v, do = _flash_case(2, 1024, 4, 64, torch.bfloat16, seed=n)
+    kw = dict(causal=causal, balanced=balanced)
+    got, _ = ring_serial(q, k, v, do, n, **kw)
+    plain, stats = ring_serial(q, k, v, do, n, fwd=tfa.flash_fwd_pos_ref,
+                               bwd=tfa.flash_bwd_pos_ref, **kw)
+    bwd_alone, _ = ring_serial(q, k, v, do, n, stats=stats, **kw)
+    assert _err(got[0], plain[0]) <= tol
+    for name, g, w in zip(("dq", "dk", "dv"), bwd_alone[1:], plain[1:]):
+        assert _norm_err(g, w) <= grad_tol, (name, _norm_err(g, w))
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=causal)
+    delta = tfa.attention_delta(out, do)
+    want = (out, tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                            causal=causal),
+            *tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                         causal=causal))
+    assert _err(got[0], want[0]) <= tol
+    for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        assert _norm_err(g, w) <= (n + 1) * 2.0 ** -9, (name,
+                                                         _norm_err(g, w))
+
+    def dropped_weight_merge(out, lse, o_blk, lse_blk):
+        lse_new = torch.logaddexp(lse, lse_blk)
+        w_old = torch.exp(lse - lse_new).transpose(1, 2)[..., None]
+        return out * w_old + o_blk.float(), lse_new
+
+    merge, cpm._merge_partial = cpm._merge_partial, dropped_weight_merge
+    try:
+        bad, _ = ring_serial(q, k, v, do, n, **kw)
+    finally:
+        cpm._merge_partial = merge
+    assert max(_norm_err(g, w) for g, w in zip(bad[1:], want[1:])) > (
+        (n + 1) * 2.0 ** -9)
+
+
+# --- the row-stable float GEMV of the decode buckets ----------------------------
+
+@pytest.mark.parametrize("dtype,k", [(torch.bfloat16, 4096),
+                                     (torch.bfloat16, 550),
+                                     (torch.float32, 768)])
+@pytest.mark.parametrize("bias", [False, True])
+def test_row_gemv_matches_plain_and_is_row_stable(cuda, dtype, k, bias):
+    """Against the plain version (bf16: 2 ulps of the largest output; f32
+    1e-4), at every decode row count; the first rows of a call of 8 equal
+    a call of 1, 2 and 4 bit for bit."""
+    from paddle_tpu_torch.ops.weight_only import row_gemv, row_gemv_ref
+
+    g = torch.Generator().manual_seed(k)
+    n = 333
+    w = (torch.randn(n, k, generator=g) * 0.05).to(dtype).to(cuda)
+    b = (torch.randn(n, generator=g).to(dtype).to(cuda) if bias else None)
+    x = torch.randn(16, k, generator=g).to(dtype).to(cuda)
+    full = row_gemv(x[:8], w, b)
+    for m in (1, 2, 3, 4, 8, 16):
+        before = row_gemv.launches
+        got = row_gemv(x[:m], w, b)
+        assert row_gemv.launches == before + 1
+        ref = row_gemv_ref(x[:m], w, b)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+        else:
+            tol = 2 * 2.0 ** -8 * ref.float().abs().max().item()
+            assert (got.float() - ref.float()).abs().max().item() <= tol
+        if m <= 8:
+            assert torch.equal(got, full[:m]), m
+    with pytest.raises(ValueError):
+        row_gemv(x.repeat(2, 1), w, b)
+
+
+def test_decode_step_logits_equal_across_batch_sizes(cuda):
+    """The bf16 llama-shaped paged decode step: a sequence's logits are
+    the same bits in a batch of n (1, 2, 4) as in a batch of 8 — every
+    float Linear and the untied lm_head through the row-stable GEMV."""
+    from paddle_tpu_torch.models.gpt import PagedBatch
+    from paddle_tpu_torch.ops.weight_only import row_gemv
+
+    model = gpt("llama2_7b", device=cuda, dtype="bfloat16", seed=0,
+                num_layers=2, hidden_size=512, num_heads=8, num_kv_heads=4,
+                intermediate_size=1376, vocab_size=4000)
+    model.eval()
+    bs, nb = 16, 8
+    pool = model.init_block_pool(8 * nb + 1, bs)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for layer in pool.tensors:
+        for t in layer:
+            t.copy_(torch.randn(t.shape, generator=g, device=cuda))
+    tables = (1 + torch.arange(8 * nb, device=cuda, dtype=torch.int32)
+              ).reshape(8, nb)
+    pos = torch.tensor([5, 17, 100, 63, 0, 31, 90, 44], dtype=torch.int32,
+                       device=cuda)
+    ids = torch.randint(0, 4000, (8, 1), generator=g, device=cuda)
+
+    def step(n):
+        layers = [tuple(t.clone() for t in layer) for layer in pool.tensors]
+        with torch.no_grad():
+            return model.decode_step_paged(
+                ids[:n], layers, PagedBatch.decode(tables[:n], pos[:n], bs))
+
+    before = row_gemv.launches
+    full = step(8)
+    # qkv, out, gate_up, down per layer, and the lm_head
+    assert row_gemv.launches - before == 2 * 4 + 1
+    for n in (1, 2, 4):
+        assert torch.equal(step(n), full[:n]), n
