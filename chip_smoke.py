@@ -37,7 +37,14 @@ Phases (any failure exits non-zero and prints no result line):
    ring (n = 2, 4 shards in one process through the pos kernels and the
    merge) against the whole-sequence flash kernels; the row-stable bf16
    GEMV of the decode buckets at the llama2_7b Linears (rows bit-equal
-   across m, timed beside cuBLAS);
+   across m, timed beside cuBLAS); the block-sparse flash kernel on
+   tables of BigBird's pattern ([4*12, 4096, 64] bf16, f32, D = 128, a
+   query block that lists nothing), timed beside SDPA with the dense tile
+   mask; the dense decode kernel at llama2_7b's decode width (B = 8, T =
+   4096, int8 and bf16 caches, pos 4095 and 2000, GQA 4:1, f32 query),
+   beside SDPA with the position mask; the coupled pair of bottleneck
+   blocks at the four stage shapes, beside two one-block calls and the
+   per-op route;
 3. serving end to end: llama2_7b at full width (random weights from a
    seed) served by `DecodeEngine` — (a) bf16 weights with a bf16 KV pool,
    (b) int8 weights with an int8 KV pool, (c) int4 weights, one short
@@ -99,7 +106,19 @@ Phases (any failure exits non-zero and prints no result line):
    the first step's qkv gradient normwise 1e-3), the same with a planted
    fault (the merge's weight of the visiting partial dropped) that must
    fail those gates, and one Ulysses step (reported);
-8. the kernels' JSON line, the nvidia-smi line, then the last line
+8. CSR-pattern attention: `nn.functional.sparse_attention` at
+   BigBird-base's width (H = 12, D = 64, S = 4096) on BigBird's ITC
+   pattern of 128-token blocks (window, two global blocks, three random
+   blocks from `--seed`), the CSR a user passes, in bf16 and f32: forward
+   and backward of sum(out * g) through the block route (the block-sparse
+   launch count set to 0 before and read after: one a forward), forward
+   and backward ms, the output against a dense masked f32 recompute, the
+   gradients against the plain route and the dense recompute, a
+   planted fault (the kernel visits block_cnt - 1 blocks) that the gates
+   must catch; the SDDMM route (S = 1024, a pattern per head, both masks)
+   against the dense recompute; the dense decode kernel and the coupled
+   pair, which no model calls, driven with their counts set to 0;
+9. the kernels' JSON line, the nvidia-smi line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every float32 product in
@@ -1689,16 +1708,17 @@ def _rb_mod():
     return importlib.import_module("paddle_tpu_torch.ops.fused_resblock")
 
 
-def resblock_counts():
+def resblock_counts(what="launches"):
+    """The fused families' kernel launches (or, with "calls", calls)."""
     rb = _rb_mod()
-    return {"fused_bottleneck_fwd": rb.fused_bottleneck_fwd.launches,
-            "fused_bottleneck_bwd": rb.fused_bottleneck_bwd.launches}
+    return {"fused_bottleneck_fwd": getattr(rb.fused_bottleneck_fwd, what),
+            "fused_bottleneck_bwd": getattr(rb.fused_bottleneck_bwd, what)}
 
 
 def reset_resblock_counts():
     rb = _rb_mod()
-    rb.fused_bottleneck_fwd.launches = 0
-    rb.fused_bottleneck_bwd.launches = 0
+    for f in (rb.fused_bottleneck_fwd, rb.fused_bottleneck_bwd):
+        f.launches = f.calls = 0
 
 
 def _block_inputs(torch, N, H, C, g):
@@ -1723,6 +1743,23 @@ def _normwise(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
+def _per_op_block(torch, args, C):
+    """The per-op route of a block with the kernels' weights (args from
+    `_block_inputs`): a BottleneckBlock in mode "0", NHWC through
+    channels-last views, f32 masters and buffers, and bf16 copies of its
+    parameters for functional_call, as the engine runs it."""
+    from paddle_tpu_torch.models.resnet import BottleneckBlock
+
+    blk = BottleneckBlock(4 * C, C, data_format="NHWC", device="cuda")
+    with torch.no_grad():
+        blk.conv1.weight.copy_(args[1].t()[:, :, None, None])
+        blk.conv2.weight.copy_(args[2].permute(3, 2, 0, 1))
+        blk.conv3.weight.copy_(args[3].t()[:, :, None, None])
+    params = {n: p.detach().to(torch.bfloat16).requires_grad_()
+              for n, p in blk.named_parameters()}
+    return blk, params
+
+
 def check_fused_resblock(torch, iters):
     """The fused bottleneck kernels against their plain versions at the
     four ResNet-50 stage shapes (N = 128, bf16), and timed beside the
@@ -1737,8 +1774,6 @@ def check_fused_resblock(torch, iters):
     apart flips relu mask elements. Bound: forward x, y, r1, r2 = 10 M C
     bf16 elements and 34 M C^2 operations; backward dy, y, x, r1, r2, dx =
     18 M C elements and 68 M C^2 operations."""
-    from paddle_tpu_torch.models.resnet import BottleneckBlock
-
     rb = _rb_mod()
     g = torch.Generator(device="cuda").manual_seed(11)
     names = "dx dw1 dw2 dw3 dg1 dbe1 dg2 dbe2 dg3 dbe3".split()
@@ -1784,17 +1819,7 @@ def check_fused_resblock(torch, iters):
         row["bwd_plain_ms"] = time_ms(
             torch, lambda: rb.fused_bottleneck_bwd_ref(res, dy), slow,
             warmup=1)
-        # the per-op route of the same block: BottleneckBlock in mode "0"
-        # with the same weights, bf16, channels-last views
-        # with the same weights: f32 masters and buffers, bf16 copies of
-        # the parameters through functional_call, as the engine runs it
-        blk = BottleneckBlock(4 * C, C, data_format="NHWC", device="cuda")
-        with torch.no_grad():
-            blk.conv1.weight.copy_(args[1].t()[:, :, None, None])
-            blk.conv2.weight.copy_(args[2].permute(3, 2, 0, 1))
-            blk.conv3.weight.copy_(args[3].t()[:, :, None, None])
-        params = {n: p.detach().to(torch.bfloat16).requires_grad_()
-                  for n, p in blk.named_parameters()}
+        blk, params = _per_op_block(torch, args, C)
         xin = args[0].detach().requires_grad_()
         leaves = [xin, *params.values()]
 
@@ -1901,22 +1926,26 @@ def resnet_throughput(torch, np, steps, seed):
             losses, norms = _bert_steps(torch, eng, batch, steps)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = resblock_counts()
+            launches, calls = resblock_counts(), resblock_counts("calls")
         fpi = train_flops_per_image(model, RESNET_SIZE)
         ips = RESNET_BATCH * steps / wall
         row = {"route": route, "batch": RESNET_BATCH, "size": RESNET_SIZE,
                "steps": steps, "step_ms": wall * 1e3 / steps,
                "images_per_s": ips, "train_flops_per_image": fpi,
                "mfu": ips * fpi / BF16_FLOPS, "losses": losses,
-               "grad_norms": norms, "launches": launches,
+               "grad_norms": norms, "launches": launches, "calls": calls,
                "launches_per_step": {k: v / steps
+                                     for k, v in launches.items()},
+               "launches_per_call": {k: v / max(calls[k], 1)
                                      for k, v in launches.items()},
                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
         log(f"  resnet50 {route} {json.dumps(row)}")
         want = 12 * steps if route == "fused" else 0
-        if any(v != want for v in launches.values()):
-            raise AssertionError(f"resnet50 {route}: fused launches "
-                                 f"{launches}, expected {want} each")
+        if any(v != want for v in calls.values()) \
+                or any((v > 0) != (want > 0) for v in launches.values()):
+            raise AssertionError(f"resnet50 {route}: fused calls {calls}, "
+                                 f"launches {launches}, expected {want} "
+                                 f"calls each")
         if not all(math.isfinite(v) for v in losses + norms) \
                 or not losses[-1] < losses[0]:
             raise AssertionError(f"resnet50 {route}: losses {losses}")
@@ -2128,8 +2157,8 @@ def resnet_phase(torch, np, args):
 def resblock_kernel_rows(rows, resnet_run):
     """The two fused families' entries of the kernels line: times, bounds
     and per-op times summed over the 12 fused blocks of a ResNet-50 step
-    (each stage's shape times its blocks), launches (calls) from phase
-    6's fused-route run."""
+    (each stage's shape times its blocks), kernel launches and launches
+    a call from phase 6's fused-route run."""
     fused = resnet_run["throughput"]["fused"]
     out = []
     for name, part, line in (("fused_bottleneck_fwd", "fwd", 141),
@@ -2153,7 +2182,7 @@ def resblock_kernel_rows(rows, resnet_run):
             bound_ms=step(f"{part}_bound_ms"),
             bound_by=max(share, key=share.get), library_ms=None,
             per_op_ms=step(f"{part}_per_op_ms"),
-            launches_per_call=7 if part == "fwd" else 14,
+            launches_per_call=fused["launches_per_call"][name],
             case="ResNet-50 step: 12 identity blocks at N=128, bf16 "
                  "(2 x layer1 + 3 x layer2 + 5 x layer3 + 2 x layer4)",
             by_stage={r["stage"]: {k: r[k] for k in (
@@ -2700,6 +2729,602 @@ def cp_phase(torch, args):
     return run
 
 
+# ---------------------------------------------------------------------------
+# phase 2 (slice 7) and phase 8: block-sparse attention, dense decode
+# attention and the coupled bottleneck pair
+# ---------------------------------------------------------------------------
+
+# BigBird-base's width (google/bigbird-roberta-base: 12 heads of 64) at
+# S = 4096, on the 128-token tiles of the op's block route. BigBird's own
+# blocks are 64 tokens, which are no union of 128 x 128 tiles and would
+# take the SDDMM route.
+BIGBIRD_HEADS, BIGBIRD_D, BIGBIRD_SEQ = 12, 64, 4096
+SPARSE_BLOCK = 128
+BIGBIRD_RANDOM = 3              # random key blocks of a query block
+# O max abs error. A row attending N keys has |O| of about sqrt(e / N),
+# 0.026 to 0.05 here, so the bf16 gate is set from the card's reading
+# (1.95e-3, one bf16 ulp of the largest outputs), not the flash rows'
+# 2e-2; the planted fault reads 0.31.
+BS_TOL = {"bfloat16": 8e-3, "float32": 1e-4}
+# gradients normwise: against the plain route (the backward is its vjp, so
+# this is a route check) and against the dense f32 recompute (bf16 reading
+# 5.3e-3, the bf16 rounding of q, k, v, out and the gradients)
+BS_GRAD_TOL = {"bfloat16": 1e-3, "float32": 1e-5}
+BS_DENSE_GRAD_TOL = {"bfloat16": 1.5e-2, "float32": 1e-4}
+SDDMM_SEQ, SDDMM_DENSITY = 1024, 0.1
+# llama2_7b's decode width: B = 8, H = 32, D = 128, a 4096-token cache
+DECODE_B, DECODE_H, DECODE_D, DECODE_T = 8, 32, 128, 4096
+
+
+def _bs_mod():
+    import importlib
+
+    return importlib.import_module(
+        "paddle_tpu_torch.ops.block_sparse_attention")
+
+
+def bigbird_blocks(np, nb, seed):
+    """BigBird's ITC pattern on nb key blocks, [nb, nb] bool: query block
+    i attends its window {i - 1, i, i + 1}, the global blocks {0, nb - 1}
+    and BIGBIRD_RANDOM other blocks drawn from `seed` (one draw for every
+    head); the global query blocks attend every block."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(nb)
+    bm = np.abs(i[:, None] - i[None, :]) <= 1
+    bm[:, [0, nb - 1]] = True
+    keys = rng.random((nb, nb))
+    keys[bm] = 2.0                      # draw among the blocks not listed
+    bm[i[:, None], np.argsort(keys, axis=1)[:, :BIGBIRD_RANDOM]] = True
+    bm[[0, nb - 1]] = True
+    return bm
+
+
+def block_csr(np, bm, bs):
+    """The token pattern of a block mask and its CSR (offset [S + 1],
+    columns [nnz], int32), by broadcasting: no loop over the nonzeros."""
+    tok = np.repeat(np.repeat(bm, bs, 0), bs, 1)
+    cols = np.nonzero(tok)[1].astype(np.int32)
+    off = np.concatenate([[0], np.cumsum(tok.sum(1))]).astype(np.int32)
+    return tok, off, cols
+
+
+def _block_tables(torch, np, bm):
+    """block_idx, block_cnt on the card, made by the op's own
+    `csr_to_block_tables` from the pattern's CSR."""
+    tok, off, cols = block_csr(np, bm, SPARSE_BLOCK)
+    idx, cnt, exact = _bs_mod().csr_to_block_tables(off, cols, tok.shape[0],
+                                                    SPARSE_BLOCK)
+    if not exact:
+        raise AssertionError("a block pattern's CSR is not exact")
+    return (torch.from_numpy(idx).cuda(), torch.from_numpy(cnt).cuda(),
+            torch.from_numpy(tok).cuda())
+
+
+def check_block_sparse(torch, np, iters, seed):
+    """Row 11: the block-sparse kernel against its plain version on the
+    card, on tables of the BigBird pattern: [B*H = 4*12, 4096, 64] bf16
+    (the kernels line's case) and f32, D = 128, and a table whose query
+    block 5 lists nothing (O = 0 there exactly). O max abs error <= 8e-3
+    (bf16) / 1e-4 (f32), BS_TOL. Timed also with the query blocks
+    permuted longest first on the host (the kernel's own order should
+    match it). Bound:
+    4 BH (listed tiles) 128^2 D operations (over the bf16 or f32 peak), or
+    q, k, v, o once; library: SDPA with the dense boolean tile mask."""
+    import torch.nn.functional as F
+
+    bsa = _bs_mod()
+    nb = BIGBIRD_SEQ // SPARSE_BLOCK
+    bm = bigbird_blocks(np, nb, seed)
+    holed = bm.copy()
+    holed[5] = False
+    g = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for label, B, D, dt, pattern, timed in (
+            ("bigbird_base", 4, BIGBIRD_D, "bfloat16", bm, True),
+            ("bigbird_base", 4, BIGBIRD_D, "float32", bm, True),
+            ("D=128", 1, 128, "bfloat16", bm, True),
+            ("query block 5 lists nothing", 1, BIGBIRD_D, "bfloat16", holed,
+             False)):
+        dtype = getattr(torch, dt)
+        H, S = BIGBIRD_HEADS, BIGBIRD_SEQ
+        BH = B * H
+        idx, cnt, tok = _block_tables(torch, np, pattern)
+        q, k, v = (torch.randn(BH, S, D, device="cuda", generator=g).to(
+            dtype) for _ in range(3))
+        scale = D ** -0.5
+        got = bsa.block_sparse_attention(q, k, v, idx, cnt, scale,
+                                         SPARSE_BLOCK)
+        ref = bsa.block_sparse_attention_ref(q, k, v, idx, cnt, scale,
+                                             SPARSE_BLOCK)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = BS_TOL[dt]
+        rows5 = got[:, 5 * SPARSE_BLOCK:6 * SPARSE_BLOCK]
+        zero = pattern is not holed or not rows5.any().item()
+        finite = bool(torch.isfinite(got).all())
+        case = (f"{label} {dt} B*H={B}*{H} S={S} D={D}, "
+                f"{int(pattern.sum())} of {nb * nb} tiles")
+        row = dict(case=case, dtype=dt, max_abs_err=err, tol=tol,
+                   empty_rows_zero=zero, listed_tiles=int(pattern.sum()),
+                   max_blocks_per_row=int(cnt.max()),
+                   mean_blocks_per_row=float(cnt.float().mean()))
+        if not (finite and err <= tol and zero):
+            raise AssertionError(f"block_sparse {case}: {row}")
+        del ref
+        if timed:
+            elt = q.element_size()
+            flops = 4.0 * BH * int(cnt.sum()) * SPARSE_BLOCK ** 2 * D
+            nbytes = 4 * BH * S * D * elt + 4 * (idx.numel() + cnt.numel())
+            row["bound_ms"], row["bound_by"] = bound(
+                nbytes, flops, BF16_FLOPS if dt == "bfloat16"
+                else F32_FLOPS)
+            row["ms"] = time_ms(torch, lambda: bsa.block_sparse_attention(
+                q, k, v, idx, cnt, scale, SPARSE_BLOCK), iters)
+            # the kernel's own order (longest rows first) against the same
+            # work with the query blocks permuted longest first on the
+            # host (q's row blocks and the tables' rows; the output rows
+            # move with them, bit for bit): the times should agree
+            perm = torch.argsort(cnt, descending=True, stable=True)
+            blocks = (BH, S // SPARSE_BLOCK, SPARSE_BLOCK, D)
+            qp = q.view(blocks)[:, perm].reshape(BH, S, D)
+            idxp, cntp = idx[perm].contiguous(), cnt[perm].contiguous()
+            outp = bsa.block_sparse_attention(qp, k, v, idxp, cntp, scale,
+                                              SPARSE_BLOCK)
+            if not torch.equal(outp.view(blocks), got.view(blocks)[:, perm]):
+                raise AssertionError(f"block_sparse {case}: the permuted "
+                                     f"query blocks' output differs")
+            row["longest_first_ms"] = time_ms(
+                torch, lambda: bsa.block_sparse_attention(
+                    qp, k, v, idxp, cntp, scale, SPARSE_BLOCK), iters)
+            del qp, outp
+            row["plain_ms"] = time_ms(
+                torch, lambda: bsa.block_sparse_attention_ref(
+                    q, k, v, idx, cnt, scale, SPARSE_BLOCK),
+                max(3, iters // 4), warmup=1)
+            q4, k4, v4 = (t.view(B, H, S, D) for t in (q, k, v))
+            row["library_ms"] = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=tok, scale=scale), iters)
+            row["bytes"], row["flops"] = nbytes, flops
+        rows.append(row)
+        log(f"  block_sparse {case}: err {err:.3g} (tol {tol})"
+            + "".join(f" {n} {t:.4f}" for n, t in row.items()
+                      if n.endswith("_ms")))
+        del q, k, v, idx, cnt, tok, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _decode_cache(torch, g, H, Hkv, pos, cache):
+    """q [B, 1, H, D] and a contiguous [B, Hkv, T, D] cache (int8 with its
+    per-row scales, or float with unit scales); rows past pos hold 1e4, so
+    a read past pos shows."""
+    from paddle_tpu_torch.models.gpt import _quant_kv
+
+    B, D, T = DECODE_B, DECODE_D, DECODE_T
+    q = torch.randn(B, 1, H, D, device="cuda", generator=g)
+    kv = []
+    for _ in range(2):
+        t = torch.randn(B, Hkv, T, D, device="cuda", generator=g)
+        t[:, :, pos + 1:] = 1e4
+        if cache == "int8":
+            tq, ts = _quant_kv(t)
+            kv.append((tq, ts[..., None]))
+        else:
+            kv.append((t.to(getattr(torch, cache)),
+                       torch.ones(B, Hkv, T, 1, device="cuda")))
+    return q, kv
+
+
+def check_decode_attention(torch, iters):
+    """Row 3: the dense decode kernel (the paged kernel, table b -> b)
+    against `decode_attention_ref` at llama2_7b's decode width, B = 8,
+    H = 32, D = 128, T = 4096: int8 and bf16 caches at pos 4095 and 2000,
+    GQA 4:1, and an f32 query. Gates: 2e-3 abs with a bf16 query (|O| is
+    about 0.03 at 4096 keys; the card read 2.4e-4, one bf16 ulp of the
+    largest outputs), 1e-5 with an f32 query. Bound: the bytes of the
+    rows <= pos (K, V
+    and their f32 scales, read once) and q, out. Library: SDPA with the
+    boolean position mask on a float cache; "dequant + SDPA" for int8 (no
+    single call takes the int8 cache)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.decode_attn import (decode_attention,
+                                                  decode_attention_ref)
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    B, D, T = DECODE_B, DECODE_D, DECODE_T
+    H = DECODE_H
+    rows = []
+    for label, Hkv, pos, cache, qdt in (
+            ("int8 MHA", H, T - 1, "int8", "bfloat16"),
+            ("int8 MHA", H, 2000, "int8", "bfloat16"),
+            ("bf16 MHA", H, T - 1, "bfloat16", "bfloat16"),
+            ("bf16 MHA", H, 2000, "bfloat16", "bfloat16"),
+            ("int8 GQA 4:1", H // 4, T - 1, "int8", "bfloat16"),
+            ("bf16 GQA 4:1", H // 4, T - 1, "bfloat16", "bfloat16"),
+            ("int8 MHA, f32 query", H, T - 1, "int8", "float32"),
+            ("f32 GQA 4:1, f32 query", H // 4, 2000, "float32",
+             "float32")):
+        q, ((kq, ks), (vq, vs)) = _decode_cache(torch, g, H, Hkv, pos, cache)
+        q = q.to(getattr(torch, qdt))
+        args = (q, kq, ks, vq, vs)
+        got = decode_attention(*args, pos)
+        ref = decode_attention_ref(*args, pos)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = 2e-3 if qdt == "bfloat16" else 1e-5
+        finite = bool(torch.isfinite(got).all())
+        case = (f"{label} {cache} cache B={B} H={H} Hkv={Hkv} D={D} T={T} "
+                f"pos={pos} q {qdt}")
+        row = dict(case=case, max_abs_err=err, tol=tol, finite=finite)
+        if not (finite and err <= tol):
+            raise AssertionError(f"decode_attention {case}: {row}")
+        del ref
+        row["ms"] = time_ms(torch, lambda: decode_attention(*args, pos),
+                            iters)
+        row["plain_ms"] = time_ms(
+            torch, lambda: decode_attention_ref(*args, pos),
+            max(3, iters // 4), warmup=1)
+        live = (torch.arange(T, device="cuda") <= pos)[None, None, None]
+        qd = q.transpose(1, 2)
+        if cache == "int8":
+            def lib():
+                kd = (kq.float() * ks).to(q.dtype)
+                vd = (vq.float() * vs).to(q.dtype)
+                return F.scaled_dot_product_attention(
+                    qd, kd, vd, attn_mask=live, enable_gqa=Hkv != H)
+            row["library_kind"] = "dequant + SDPA (boolean position mask)"
+        else:
+            kd, vd = kq.to(q.dtype), vq.to(q.dtype)
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qd, kd, vd, attn_mask=live, enable_gqa=Hkv != H)
+            row["library_kind"] = "SDPA (boolean position mask)"
+        row["library_ms"] = time_ms(torch, lib, iters)
+        rows_live = (min(pos, T - 1) + 1) * B * Hkv
+        nbytes = (2 * rows_live * D * kq.element_size() + 2 * rows_live * 4
+                  + 2 * q.numel() * q.element_size())
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, 4.0 * B * H * (pos + 1) * D, F32_FLOPS)
+        row["bytes"] = nbytes
+        rows.append(row)
+        log(f"  decode_attention {case}: err {err:.3g} (tol {tol})"
+            + "".join(f" {n} {t:.4f}" for n, t in row.items()
+                      if n.endswith("_ms")))
+        del args, q, kq, ks, vq, vs, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_fused_pair(torch, iters):
+    """Row 12c: two chained identity blocks with block 1's k4 and block
+    2's k1 in the coupled kernel, at ResNet-50's four stage shapes (N =
+    128, bf16), against the plain version: y2 within 2 bf16 ulps of
+    max |y2| or 1e-2 abs (row 12a's gate); its difference from two chained
+    row-12a calls is reported. Timed beside those two calls (the question
+    the reference left open: does the coupling win?), the plain version
+    and the per-op route of the two blocks (cuDNN convolutions and batch
+    norm; no single PyTorch call computes them). Bound: x read once and
+    y2 written once, 8 M C bf16 elements, and 68 M C^2 operations."""
+    rb = _rb_mod()
+    g = torch.Generator(device="cuda").manual_seed(19)
+    rows = []
+    for stage, H, C, _ in RESNET_STAGES:
+        N, M = RESNET_BATCH, RESNET_BATCH * H * H
+        a1, _ = _block_inputs(torch, N, H, C, g)
+        a2, _ = _block_inputs(torch, N, H, C, g)
+        x, p1, p2 = a1[0], a1[1:], a2[1:]
+        y2 = rb.fused_bottleneck2_fwd(x, p1, p2)
+        ref = rb.fused_bottleneck2_fwd_ref(x, p1, p2)
+
+        def chained():
+            return rb.fused_bottleneck_fwd(
+                rb.fused_bottleneck_fwd(x, *p1)[0], *p2)[0]
+
+        two = chained()
+        again = rb.fused_bottleneck2_fwd(x, p1, p2)
+        torch.cuda.synchronize()
+        tol = max(2 * 2.0 ** -8 * ref.float().abs().max().item(), 1e-2)
+        err = (y2.float() - ref.float()).abs().max().item()
+        case = f"{stage} bf16 N={N} H=W={H} C={C} 4C={4 * C}"
+        row = dict(case=case, stage=stage, max_abs_err=err, tol=tol,
+                   rerun_bit_equal=torch.equal(y2, again),
+                   vs_two_12a_max_abs=(y2.float() - two.float()).abs().max()
+                   .item(), vs_two_12a_normwise=_normwise(y2, two))
+        if not (bool(torch.isfinite(y2).all()) and err <= tol
+                and row["rerun_bit_equal"]):
+            raise AssertionError(f"fused pair {case}: {row}")
+        del ref, two, again, y2
+        row["ms"] = time_ms(torch, lambda: rb.fused_bottleneck2_fwd(
+            x, p1, p2), iters)
+        row["two_12a_ms"] = time_ms(torch, chained, iters)
+        row["plain_ms"] = time_ms(
+            torch, lambda: rb.fused_bottleneck2_fwd_ref(x, p1, p2),
+            max(3, iters // 4), warmup=1)
+        (b1, q1), (b2, q2) = (_per_op_block(torch, a, C) for a in (a1, a2))
+
+        def per_op():
+            with torch.no_grad():
+                y = torch.func.functional_call(b1, q1, (x,))
+                return torch.func.functional_call(b2, q2, (y,))
+
+        with _route(None):
+            row["per_op_ms"] = time_ms(torch, per_op, iters)
+        row["bound_ms"], row["bound_by"] = bound(8 * M * C * 2,
+                                                 68.0 * M * C * C)
+        rows.append(row)
+        log(f"  fused pair {case}: err {err:.4g} (tol {tol:.4g}), vs two "
+            f"12a calls {row['vs_two_12a_max_abs']:.4g}"
+            + "".join(f" {n} {t:.4f}" for n, t in row.items()
+                      if n.endswith("_ms")))
+        del a1, a2, x, p1, p2, b1, b2, q1, q2
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _dense_masked(torch, q, k, v, keep, gout, bias=None):
+    """The dense f32 recompute in plain matmuls: softmax over the kept
+    keys of q k^T / sqrt(D) (+ bias), times V; with gout also the
+    gradients of sum(out * gout). Returns (out, [dq, dk, dv])."""
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    s = leaves[0] @ leaves[1].transpose(-1, -2) * q.shape[-1] ** -0.5
+    if bias is not None:
+        s = s + bias
+    p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
+    out = p @ leaves[2]
+    (out * gout.float()).sum().backward()
+    return out.detach(), [t.grad for t in leaves]
+
+
+def _fault_fewer_blocks(bsa):
+    """The planted fault: the kernel visits block_cnt - 1 blocks."""
+    launch = bsa._launch
+
+    def faulty(q, k, v, idx, cnt, scale, block_size):
+        return launch(q, k, v, idx, (cnt - 1).clamp_min(0), scale,
+                      block_size)
+    return launch, faulty
+
+
+def _sparse_route(torch, bsa, dt, offset, columns, tables, keep, g, steps,
+                  iters):
+    """One dtype of phase 8's block route: `steps` forward and backward
+    calls of the public op (loss sum(out * gout)), launches counted from
+    0, then the gates, the planted fault and the kernel's own time on
+    these tables."""
+    from paddle_tpu_torch.nn.functional import sparse_attention
+
+    dtype = getattr(torch, dt)
+    H, S, D = BIGBIRD_HEADS, BIGBIRD_SEQ, BIGBIRD_D
+    q, k, v, gout = (torch.randn(1, H, S, D, device="cuda", generator=g).to(
+        dtype) for _ in range(4))
+    dense, dense_grads = _dense_masked(torch, q, k, v, keep, gout)
+    fwd, bwd = [], []
+    bsa.block_sparse_attention.launches = 0
+    for _ in range(steps):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sparse_attention(*leaves, offset, columns)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        (out.float() * gout.float()).sum().backward()
+        torch.cuda.synchronize()
+        fwd.append((t1 - t0) * 1e3)
+        bwd.append((time.perf_counter() - t1) * 1e3)
+    launches = bsa.block_sparse_attention.launches
+    grads = [t.grad for t in leaves]
+    # the plain route: the block-sparse plain version, autograd
+    idx, cnt = tables
+    plain = [t.detach().requires_grad_() for t in (q, k, v)]
+    po = bsa.block_sparse_attention_ref(
+        *(t.view(H, S, D) for t in plain), idx, cnt, D ** -0.5,
+        SPARSE_BLOCK)
+    (po.float() * gout.view(H, S, D).float()).sum().backward()
+    err = (out.float() - dense).abs().max().item()
+    plain_err = (out.float() - po.float().view(1, H, S, D)).abs().max().item()
+    rel_plain = max(_normwise(a, b.grad) for a, b in zip(grads, plain))
+    rel_dense = max(_normwise(a, b) for a, b in zip(grads, dense_grads))
+    kern, faulty = _fault_fewer_blocks(bsa)
+    bsa._launch = faulty
+    try:
+        bad = sparse_attention(q, k, v, offset, columns)
+    finally:
+        bsa._launch = kern
+    fault_err = (bad.float() - dense).abs().max().item()
+    fwd.sort()
+    bwd.sort()
+    qf, kf, vf = (t.view(H, S, D) for t in (q, k, v))
+    kernel_ms = time_ms(torch, lambda: bsa.block_sparse_attention(
+        qf, kf, vf, idx, cnt, D ** -0.5, SPARSE_BLOCK), iters)
+    res = dict(dtype=dt, steps=steps, launches=launches, kernel_ms=kernel_ms,
+               max_abs_err_vs_dense=err, max_abs_err_vs_plain=plain_err,
+               tol=BS_TOL[dt], grad_normwise_vs_plain=rel_plain,
+               grad_tol=BS_GRAD_TOL[dt], grad_normwise_vs_dense=rel_dense,
+               dense_grad_tol=BS_DENSE_GRAD_TOL[dt],
+               fault_max_abs_err=fault_err, fault_caught=fault_err > BS_TOL[
+                   dt], fwd_ms=fwd[len(fwd) // 2], bwd_ms=bwd[len(bwd) // 2],
+               finite=bool(torch.isfinite(out).all()
+                           and all(torch.isfinite(t).all() for t in grads)))
+    ok = (res["finite"] and launches == steps and err <= BS_TOL[dt]
+          and rel_plain <= BS_GRAD_TOL[dt] and res["fault_caught"]
+          and rel_dense <= BS_DENSE_GRAD_TOL[dt])
+    if not ok:
+        raise AssertionError(f"sparse_attention block route {dt}: {res}")
+    return res
+
+
+def _sddmm_route(torch, np, seed, g):
+    """The SDDMM route at S = 1024, H = 12, D = 64, f32: a random pattern
+    per head (about 10 % dense, the diagonal always), a key_padding_mask
+    and an attn_mask, against the dense f32 recompute (out 1e-4 abs,
+    gradients 1e-4 normwise); no block-sparse launch."""
+    from paddle_tpu_torch.nn.functional import sparse_attention
+
+    bsa = _bs_mod()
+    H, S, D = BIGBIRD_HEADS, SDDMM_SEQ, BIGBIRD_D
+    rng = np.random.default_rng(seed + 1)
+    pat = rng.random((H, S, S)) < SDDMM_DENSITY
+    pat |= np.eye(S, dtype=bool)
+    counts = pat.sum(2)
+    per_head = counts.sum(1)
+    offset = np.concatenate([np.zeros((H, 1), np.int64),
+                             np.cumsum(counts, 1)], 1)[None]
+    hh, _, cc = np.nonzero(pat)
+    start = np.concatenate([[0], np.cumsum(per_head)[:-1]])
+    columns = np.zeros((1, H, int(per_head.max())), np.int64)
+    columns[0, hh, np.arange(hh.size) - start[hh]] = cc
+    kpm = np.where(rng.random((1, S)) < 0.1, -1e4, 0.0).astype(np.float32)
+    am = (0.5 * rng.standard_normal((S, S))).astype(np.float32)
+    kpm_t, am_t = torch.from_numpy(kpm).cuda(), torch.from_numpy(am).cuda()
+    q, k, v, gout = (torch.randn(1, H, S, D, device="cuda", generator=g)
+                     for _ in range(4))
+    dense, dense_grads = _dense_masked(
+        torch, q, k, v, torch.from_numpy(pat).cuda()[None], gout,
+        bias=kpm_t[:, None, None, :] + am_t)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = bsa.block_sparse_attention.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sparse_attention(*leaves, torch.from_numpy(offset),
+                           torch.from_numpy(columns), key_padding_mask=kpm_t,
+                           attn_mask=am_t)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    (out * gout).sum().backward()
+    torch.cuda.synchronize()
+    res = dict(case=f"f32 B=1 H={H} S={S} D={D}, {int(per_head.sum())} "
+                    f"pairs ({per_head.sum() / (H * S * S):.4f} dense), "
+                    "key_padding_mask and attn_mask",
+               max_abs_err_vs_dense=(out - dense).abs().max().item(),
+               grad_normwise_vs_dense=max(
+                   _normwise(t.grad, d) for t, d in zip(leaves, dense_grads)),
+               block_launches=bsa.block_sparse_attention.launches - before,
+               fwd_ms=(t1 - t0) * 1e3,
+               bwd_ms=(time.perf_counter() - t1) * 1e3)
+    if not (res["max_abs_err_vs_dense"] <= 1e-4
+            and res["grad_normwise_vs_dense"] <= 1e-4
+            and res["block_launches"] == 0):
+        raise AssertionError(f"sparse_attention SDDMM route: {res}")
+    return res
+
+
+def _drive_unwired(torch, steps):
+    """Rows 3 and 12c, which no model calls in the reference either, each
+    driven as a caller would drive it, its count set to 0 before and read
+    after: `decode_attention` for `steps` decode steps (pos 4064 on) over
+    one llama2_7b layer's contiguous int8 cache at B = 8; and
+    `fused_bottleneck2_fwd` as tools/bench_resstage.py runs it, `steps`
+    calls at layer3 (N = 128, 14 x 14, C = 256)."""
+    from paddle_tpu_torch.ops.decode_attn import decode_attention
+
+    rb = _rb_mod()
+    g = torch.Generator(device="cuda").manual_seed(23)
+    q, ((kq, ks), (vq, vs)) = _decode_cache(torch, g, DECODE_H, DECODE_H,
+                                            DECODE_T - 1, "int8")
+    q = q.to(torch.bfloat16)
+    decode_attention.launches = 0
+    for i in range(steps):
+        decode_attention(q, kq, ks, vq, vs, DECODE_T - steps + i)
+    torch.cuda.synchronize()
+    dec = decode_attention.launches
+    del q, kq, ks, vq, vs
+    args, _ = _block_inputs(torch, RESNET_BATCH, 14, 256, g)
+    a2, _ = _block_inputs(torch, RESNET_BATCH, 14, 256, g)
+    pair = rb.fused_bottleneck2_fwd
+    pair.launches = pair.calls = 0
+    for _ in range(steps):
+        pair(args[0], args[1:], a2[1:])
+    torch.cuda.synchronize()
+    run = {"decode_attention": dec, "fused_bottleneck2_fwd": pair.launches,
+           "fused_bottleneck2_fwd_calls": pair.calls}
+    if dec != steps or pair.calls != steps or pair.launches < steps:
+        raise AssertionError(f"rows 3 and 12c driven {steps} calls each: "
+                             f"{run}")
+    return run
+
+
+def sparse_phase(torch, np, args):
+    """Phase 8: `nn.functional.sparse_attention` at BigBird-base's width
+    (B = 1, H = 12, S = 4096, D = 64) on its ITC pattern from `--seed`,
+    through the public op with the CSR a user passes ([1, 12, 5.0M] int32
+    columns), in bf16 and f32: the block route (one block-sparse launch a
+    forward), forward and backward ms, the output against the dense
+    masked f32 recompute, gradients against the plain route and the dense
+    recompute, and the planted fault; then the SDDMM route; then
+    rows 3 and 12c driven (`_drive_unwired`)."""
+    bsa = _bs_mod()
+    H, S = BIGBIRD_HEADS, BIGBIRD_SEQ
+    nb = S // SPARSE_BLOCK
+    steps = 3 if args.quick else 5
+    bm = bigbird_blocks(np, nb, args.seed)
+    tok, off, cols = block_csr(np, bm, SPARSE_BLOCK)
+    offset = torch.from_numpy(off).expand(1, H, -1)
+    columns = torch.from_numpy(cols).expand(1, H, -1)
+    t0 = time.perf_counter()
+    idx, cnt, _ = bsa.csr_to_block_tables(off, cols, S, SPARSE_BLOCK)
+    tables_ms = (time.perf_counter() - t0) * 1e3
+    tables = (torch.from_numpy(idx).cuda(), torch.from_numpy(cnt).cuda())
+    keep = torch.from_numpy(tok).cuda()
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    run = {"pattern": dict(blocks=nb, listed_tiles=int(bm.sum()),
+                           blocks_per_row=cnt.tolist(),
+                           nnz_per_head=int(cols.size),
+                           columns_bytes=int(cols.size) * 4 * H),
+           "tables_ms": tables_ms}
+    for dt in ("bfloat16", "float32"):
+        run[dt] = _sparse_route(torch, bsa, dt, offset, columns, tables,
+                                keep, g, steps, 5 if args.quick else 20)
+        log(f"  sparse_attention block route {json.dumps(run[dt])}")
+    run["launches"] = {"block_sparse_attention": run["bfloat16"]["launches"]}
+    run["sddmm"] = _sddmm_route(torch, np, args.seed, g)
+    log(f"  sparse_attention SDDMM route {json.dumps(run['sddmm'])}")
+    run["unwired_launches"] = _drive_unwired(torch, 32)
+    log(f"  unwired kernels driven: {run['unwired_launches']}")
+    return run
+
+
+def slice7_kernel_rows(bs_rows, dec_rows, pair_rows, sparse_run):
+    """The kernels line's entries of rows 11, 3 and 12c. Row 11's launches
+    are phase 8's bf16 block route (one a forward); rows 3 and 12c, which
+    no model calls, count phase 8's driven runs."""
+    bs_main, dec_main = bs_rows[0], dec_rows[0]
+    pair_main = next(r for r in pair_rows if r["stage"] == "layer3")
+    unwired = sparse_run["unwired_launches"]
+
+    def pick(row, *keys):
+        return {k: row[k] for k in keys}
+
+    common = ("ms", "plain_ms", "bound_ms", "bound_by", "case")
+    return [
+        dict(name="block_sparse_attention", route="cuda",
+             source="paddle_tpu_torch/csrc/block_sparse_attention.cu",
+             replaces="paddle_tpu/ops/pallas/block_sparse_attention.py:101",
+             launches=sparse_run["launches"]["block_sparse_attention"],
+             max_abs_err=max(r["max_abs_err"] for r in bs_rows),
+             library_ms=bs_main["library_ms"], **pick(bs_main, *common)),
+        dict(name="decode_attention", route="cuda",
+             source="paddle_tpu_torch/csrc/paged_decode_attn.cu",
+             replaces="paddle_tpu/ops/pallas/decode_attn.py:50",
+             launches=unwired["decode_attention"],
+             max_abs_err=max(r["max_abs_err"] for r in dec_rows),
+             library_ms=dec_main["library_ms"],
+             library_kind=dec_main["library_kind"],
+             **pick(dec_main, *common)),
+        dict(name="fused_bottleneck2_fwd", route="cuda",
+             source="paddle_tpu_torch/csrc/fused_resblock.cu",
+             replaces="paddle_tpu/ops/pallas/fused_resblock.py:593",
+             launches=unwired["fused_bottleneck2_fwd"],
+             max_abs_err=max(r["max_abs_err"] for r in pair_rows),
+             library_ms=None, two_12a_ms=pair_main["two_12a_ms"],
+             per_op_ms=pair_main["per_op_ms"],
+             launches_per_call=(unwired["fused_bottleneck2_fwd"]
+                                / unwired["fused_bottleneck2_fwd_calls"]),
+             **pick(pair_main, *common)),
+    ]
+
+
 def main(argv):
     import argparse
 
@@ -2801,6 +3426,9 @@ def main(argv):
     fa_rows = check_flash(torch, iters)
     sa_rows = check_short_attention(torch, iters)
     rb_rows = check_fused_resblock(torch, iters)
+    bs_rows = check_block_sparse(torch, np, iters, args.seed)
+    dec_rows = check_decode_attention(torch, iters)
+    pair_rows = check_fused_pair(torch, iters)
 
     log_phase(t_start, "phase 3: llama2_7b end to end through DecodeEngine")
     serve_layers = 2 if args.quick else 32
@@ -2839,6 +3467,9 @@ def main(argv):
     log_phase(t_start, "phase 7: gpt_base training at cp = 2, two ranks "
                        "on one card")
     cp_run = cp_phase(torch, args)
+
+    log_phase(t_start, "phase 8: sparse attention at bigbird_base width")
+    sparse_run = sparse_phase(torch, np, args)
 
     launches = {k: sum(r["launches"].get(k, 0) for r in runs)
                 for k in runs[0]["launches"]}
@@ -2911,20 +3542,22 @@ def main(argv):
             bound_ms=sa_main[f"{part}_bound_ms"],
             bound_by=sa_main[f"{part}_bound_by"],
             library_ms=sa_main[f"{part}_library_ms"],
-            case=sa_main["case"],
-            # a backward call is two launches (dQ, then dK/dV); ms is the
-            # call's
-            **({} if part == "fwd" else {"launches_per_call": 2})))
+            # a backward call is two launches (dQ, then dK/dV), both
+            # counted; ms is the call's
+            case=sa_main["case"]))
     kernels.extend(resblock_kernel_rows(rb_rows, resnet_run))
     kernels.extend(cp_kernel_rows(fp_rows, cp_run))
     kernels.append(gemv_row(gv_rows, runs[0]["launches"]["row_gemv"]))
+    kernels.extend(slice7_kernel_rows(bs_rows, dec_rows, pair_rows,
+                                      sparse_run))
     return finish(args, torch, smi, build_rec, t_start, kernels, {
         "weight_only": wo_rows, "paged_decode": pd_rows, "bgmv": bg_rows,
         "flash_attention": fa_rows, "short_attention": sa_rows,
         "e2e": runs, "profiles": profiles, "train": train, "bert": bert_run,
         "fused_resblock": rb_rows, "resnet": resnet_run,
         "flash_pos": fp_rows, "serial_ring": ring_rows, "row_gemv": gv_rows,
-        "cp": cp_run})
+        "cp": cp_run, "block_sparse": bs_rows, "decode_attention": dec_rows,
+        "fused_pair": pair_rows, "sparse": sparse_run})
 
 
 def cp_kernel_rows(fp_rows, cp_run):

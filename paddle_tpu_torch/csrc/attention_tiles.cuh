@@ -134,14 +134,15 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // rows [row0, row0 + ROWS) of one (b, h) slice (element stride `rs`
 // between sequence rows, unit stride along D) into a shared tile
-// [ROWS][LD]; rows >= S and columns >= D are zero
-template <typename T, int ROWS, int DP, int LD>
+// [ROWS][LD]; rows >= S and columns >= D are zero. NTH threads share the
+// copy.
+template <typename T, int ROWS, int DP, int LD, int NTH = kThreads>
 __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
                                           long long rs, int row0, int S,
                                           int D, int vec) {
   constexpr int kCh = 16 / sizeof(T);
   constexpr int kPerRow = DP / kCh;
-  for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
+  for (int i = threadIdx.x; i < ROWS * kPerRow; i += NTH) {
     const int r = i / kPerRow, c = (i % kPerRow) * kCh;
     const int gr = row0 + r;
     T* d = dst + r * LD + c;

@@ -4,8 +4,9 @@
 //
 // Replaces paddle_tpu/ops/pallas/fused_resblock.py `_k1`..`_k4` (the
 // forward, through `_call` from `fused_bottleneck_fwd`) and `_b1`..`_b4`
-// (the backward, from `fused_bottleneck_bwd`). What they compute is
-// ops/fused_resblock.py's plain versions: bf16 operands, f32
+// (the backward, from `fused_bottleneck_bwd`); and `_k41` (from
+// `fused_bottleneck2_fwd`, two chained blocks): rb_k41 below. What they
+// compute is ops/fused_resblock.py's plain versions: bf16 operands, f32
 // accumulation, r1 and r2 stored in bf16, every BN's sums taken from the
 // f32 accumulator before the store, r3 never stored (recomputed).
 //
@@ -65,6 +66,8 @@ struct Args {
   void* out;         // [M, N]
   float* part;       // per-tile sums [tiles, 2, N] or chunks [splits, K, N]
   int M, H, W, N, splits, rows_per_split;
+  const void* w_next;  // kF41: the next block's w1 [N, C] bf16
+  void* out_next;      // kF41: the next block's r1 [M, C] bf16
 };
 
 }  // namespace rb
@@ -502,8 +505,214 @@ __global__ void rb_bn(int mode, const float* __restrict__ part, int T, int N,
   }
 }
 
+// --- two blocks' boundary: block 1's k4 coupled with block 2's k1 -----------
+// A CTA owns BMR rows. Pass 1, over the 4C columns of y in steps of BN:
+// r3 = relu(bn2(r2)) . w3 (the tile's f2 rows re-formed per step), y =
+// relu(r3 * s3 + b3 + bf16(x)) stored in T (block 2's residual) and, as
+// bf16, into shared memory Ys [BMR][4C]. Pass 2, over the C columns of
+// block 2's r1: Ys . w1_next, r1 stored in bf16, each column's sums of the
+// f32 products (block 2's bn1) per tile into part [tiles, 2, C], as
+// eStoreStats does. y never leaves the CTA between the two products; it
+// is written once, as the TPU kernel writes it.
+// Shared memory: BMR x 4C bf16 for Ys, which at 64 rows is 128 KB at
+// layer3 (4C = 1024) and 256 KB at layer4 (4C = 2048), over the 227 KB a
+// CTA may hold. So the row tile follows 4C (k41_rows): 64 rows up to
+// 4C = 1024, 32 up to 2048, 16 up to 4096. The 4 warps sit as BMR / 16
+// row groups x 64 / BMR column groups over a 64-column step.
+constexpr int kK41MaxC4 = 4096;
+
+__host__ __device__ constexpr int k41_rows(int C4) {
+  return C4 <= 1024 ? 64 : (C4 <= 2048 ? 32 : 16);
+}
+
+template <int BMR>
+struct K41Cfg {
+  static constexpr int WR = BMR / kRows;      // row groups of warps
+  static constexpr int WC = kWarps / WR;      // column groups
+  static constexpr int NTW = BN / WC / 8;     // n-tiles of a warp
+};
+
+template <int BMR>
+size_t k41_smem(int C4) {
+  return sizeof(bf16) * (static_cast<size_t>(BMR) * (C4 + 8) + BMR * LDA +
+                         BK * LDB) +
+         sizeof(float) * 2 * kWarps * BN;
+}
+
+template <int BMR, typename T>
+__global__ void __launch_bounds__(kThreads) rb_k41(Args p) {
+  using Cfg = K41Cfg<BMR>;
+  constexpr int NTW = Cfg::NTW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int C = p.a.C, C4 = p.N, LDY = C4 + 8;
+  bf16* Ys = reinterpret_cast<bf16*>(smem_raw);
+  bf16* As = Ys + BMR * LDY;
+  bf16* Bs = As + BMR * LDA;
+  float* red = reinterpret_cast<float*>(Bs + BK * LDB);  // [2][WR][BN]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp % Cfg::WR, wc = warp / Cfg::WR;
+  const int m0 = blockIdx.x * BMR;
+  const int r_lo = m0 + wr * kRows + g;        // this thread's rows
+  const int c_w = wc * NTW * 8;                // its columns in a step
+  const bf16* w3 = static_cast<const bf16*>(p.w);
+  const bf16* w1n = static_cast<const bf16*>(p.w_next);
+
+  // pass 1: y over the 4C columns
+  for (int n0 = 0; n0 < C4; n0 += BN) {
+    float acc[NTW][4];
+    zero(acc);
+    for (int k0 = 0; k0 < C; k0 += BK) {
+      for (int i = threadIdx.x; i < BMR * BK / 8; i += kThreads) {
+        const int r = i / (BK / 8), kc = (i % (BK / 8)) * 8;
+        int c = 0;
+        const long long src = src_row<false>(p, C, m0 + r, k0 + kc, c);
+        *reinterpret_cast<uint4*>(As + r * LDA + kc) =
+            opnd8<kRelu, T>(p.a, src, c);
+      }
+      for (int i = threadIdx.x; i < BK * BN / 8; i += kThreads) {
+        const int r = i / (BN / 8), nc = (i % (BN / 8)) * 8;
+        const int k = k0 + r, n = n0 + nc;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (k < C && n < C4)
+          v = *reinterpret_cast<const uint4*>(
+              w3 + static_cast<long long>(k) * C4 + n);
+        *reinterpret_cast<uint4*>(Bs + r * LDB + nc) = v;
+      }
+      __syncthreads();
+      warp_mma<NTW, BK, false>(acc, As + wr * kRows * LDA, LDA, Bs + c_w,
+                               LDB);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt) {
+      const int col = n0 + c_w + nt * 8 + 2 * t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r_lo + 8 * half;
+        if (col >= C4) continue;
+        float y[2] = {0.f, 0.f};
+        if (row < p.M) {
+          const long long off = static_cast<long long>(row) * C4 + col;
+          const float2 x2 = load2(static_cast<const T*>(p.e0), off);
+          const float xs[2] = {x2.x, x2.y};
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float xb = __bfloat162float(__float2bfloat16_rn(xs[j]));
+            const float z = __fadd_rn(
+                __fadd_rn(__fmul_rn(acc[nt][2 * half + j],
+                                    p.ebn[kScale * C4 + col + j]),
+                          p.ebn[kBias * C4 + col + j]),
+                xb);
+            y[j] = fmaxf(z, 0.f);
+          }
+          store2(static_cast<T*>(p.out), off, y[0], y[1]);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(
+            Ys + (row - m0) * LDY + col) = __floats2bfloat162_rn(y[0], y[1]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // pass 2: block 2's r1 = bf16(y) . w1_next over the C columns, with sums
+  for (int n0 = 0; n0 < C; n0 += BN) {
+    float acc[NTW][4];
+    zero(acc);
+    for (int k0 = 0; k0 < C4; k0 += BK) {
+      for (int i = threadIdx.x; i < BK * BN / 8; i += kThreads) {
+        const int r = i / (BN / 8), nc = (i % (BN / 8)) * 8;
+        const int k = k0 + r, n = n0 + nc;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (k < C4 && n < C)
+          v = *reinterpret_cast<const uint4*>(
+              w1n + static_cast<long long>(k) * C + n);
+        *reinterpret_cast<uint4*>(Bs + r * LDB + nc) = v;
+      }
+      __syncthreads();
+      warp_mma<NTW, BK, false>(acc, Ys + wr * kRows * LDY + k0, LDY,
+                               Bs + c_w, LDB);
+      __syncthreads();
+    }
+    float s0[NTW][2], s1[NTW][2];
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt) {
+      s0[nt][0] = s0[nt][1] = s1[nt][0] = s1[nt][1] = 0.f;
+      const int col = n0 + c_w + nt * 8 + 2 * t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r_lo + 8 * half;
+        if (row >= p.M || col >= C) continue;
+        const float v0 = acc[nt][2 * half], v1 = acc[nt][2 * half + 1];
+        store2(static_cast<bf16*>(p.out_next),
+               static_cast<long long>(row) * C + col, v0, v1);
+        s0[nt][0] += v0;
+        s0[nt][1] += v1;
+        s1[nt][0] += v0 * v0;
+        s1[nt][1] += v1 * v1;
+      }
+    }
+    // column sums: the 8 lanes of a column (g), then the row groups in
+    // order
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          s0[nt][j] += __shfl_xor_sync(0xffffffffu, s0[nt][j], o);
+          s1[nt][j] += __shfl_xor_sync(0xffffffffu, s1[nt][j], o);
+        }
+    if (g == 0) {
+#pragma unroll
+      for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = c_w + nt * 8 + 2 * t + j;
+          red[(0 * Cfg::WR + wr) * BN + c] = s0[nt][j];
+          red[(1 * Cfg::WR + wr) * BN + c] = s1[nt][j];
+        }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < 2 * BN; i += kThreads) {
+      const int which = i / BN, c = i % BN;
+      if (n0 + c >= C) continue;
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < Cfg::WR; ++w)
+        sum += red[(which * Cfg::WR + w) * BN + c];
+      p.part[(static_cast<long long>(blockIdx.x) * 2 + which) * C + n0 + c] =
+          sum;
+    }
+    __syncthreads();  // red is rewritten by the next column step
+  }
+}
+
+template <int BMR, typename T>
+int k41_launch(const Args& p, cudaStream_t s) {
+  const size_t smem = k41_smem<BMR>(p.N);
+  const cudaError_t e = cudaFuncSetAttribute(
+      rb_k41<BMR, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rb_k41<BMR, T><<<(p.M + BMR - 1) / BMR, kThreads, smem, s>>>(p);
+  return 0;
+}
+
+template <typename T>
+int k41(const Args& p, cudaStream_t s) {
+  if (p.N > kK41MaxC4 || !p.w_next || !p.out_next)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (k41_rows(p.N)) {
+    case 64: return k41_launch<64, T>(p, s);
+    case 32: return k41_launch<32, T>(p, s);
+    default: return k41_launch<16, T>(p, s);
+  }
+}
+
 // --- launch -----------------------------------------------------------------
-enum Kind { kF1 = 0, kF2, kF3, kF4, kB1, kB2A, kB2B, kB3, kB4, kW3, kW2, kW1 };
+enum Kind { kF1 = 0, kF2, kF3, kF4, kB1, kB2A, kB2B, kB3, kB4, kW3, kW2, kW1,
+            kF41 };
 
 template <int AM, bool CONV, int EPI, typename T>
 int row_gemm(const Args& p, cudaStream_t s) {
@@ -535,6 +744,7 @@ int dispatch(int kind, const Args& p, cudaStream_t s) {
     case kW3: return wgrad<kRelu, false, kBf16, T>(p, s);
     case kW2: return wgrad<kRelu, true, kBnBwd, T>(p, s);
     case kW1: return wgrad<kCastT, false, kBnBwd, T>(p, s);
+    case kF41: return k41<T>(p, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -549,7 +759,8 @@ extern "C" int ptt_resblock_gemm(int kind, const ptt::rb::Args* args,
                                  int dtype, void* stream) {
   const ptt::rb::Args& p = *args;
   if (p.M < 1 || p.N < 1 || p.N % 8 || p.a.C < 1 || p.a.C % 8 ||
-      (kind >= kW3 && (p.splits < 1 || p.rows_per_split < 1)))
+      (kind >= kW3 && kind <= kW1 &&
+       (p.splits < 1 || p.rows_per_split < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
@@ -584,4 +795,10 @@ extern "C" int ptt_resblock_reduce(int mode, const void* part, int T, int N,
         n, o);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// rows of a kF41 tile for 4C = C4 (the per-tile sums' count is
+// ceil(M / rows)); 0 where the coupled kernel does not take C4
+extern "C" int ptt_resblock_k41_rows(int C4) {
+  return C4 <= kK41MaxC4 ? k41_rows(C4) : 0;
 }

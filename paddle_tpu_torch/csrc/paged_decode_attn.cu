@@ -2,14 +2,17 @@
 // own KV blocks, read in place through the block table.
 //
 // Replaces paddle_tpu/ops/pallas/decode_attn.py `_paged_kernel` (reached
-// through `paged_decode_attention`).
+// through `paged_decode_attention`) and `_kernel` (reached through
+// `decode_attention`): a contiguous cache [B, Hkv, T, D] is the pool with
+// one block of T rows a sequence, passed with no table (sequence b reads
+// block b).
 //
 // For sequence b and query head h (KV head hk = h / (H / Hkv)):
 //   s_t = (q . k_t) * ks_t * scale          for t = 0 .. pos[b]
 //   out = sum_t softmax(s)_t * vs_t * v_t
-// where k_t / v_t live in pool block tables[b, t / BS], row t % BS, and
-// ks / vs are the per-row f32 dequant scales of an int8 pool (absent for
-// a float pool: 1). Softmax is online in f32: (m, l, acc) carried across
+// where k_t / v_t live in pool block tables[b, t / BS] (b with no table),
+// row t % BS, and ks / vs are the per-row f32 dequant scales of an int8
+// pool (absent for a float pool: 1). Softmax is online in f32: (m, l, acc) carried across
 // the sequence's tokens, exactly as the TPU kernel carries them across its
 // sequential grid.
 //
@@ -89,7 +92,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode(
     const int cnt = min(kChunk, t_end - c0);
     if (tid < cnt) {
       const int gt = c0 + tid;
-      const long long blk = tab[gt / BS];
+      const long long blk = tables != nullptr ? tab[gt / BS] : b;
       const int t = gt % BS;
       row_s[tid] = blk * kv_sn + t * kv_st;
       sco_s[tid] = blk * sc_sn + hk * sc_sh + t * sc_st;

@@ -1,5 +1,7 @@
-"""Paged single-query decode attention (counterpart of the paged half of
-paddle_tpu/ops/pallas/decode_attn.py).
+"""Single-query decode attention (counterpart of
+paddle_tpu/ops/pallas/decode_attn.py): the paged kernel of the decode
+engine and, at the end of this module, `decode_attention` over a
+contiguous cache.
 
 The decode engine keeps each layer's KV cache as a pool of fixed-size
 blocks and gives every sequence a block table: position ``p`` of sequence
@@ -22,7 +24,8 @@ import torch
 
 from . import _build
 
-__all__ = ["paged_decode_attention", "paged_decode_attention_ref"]
+__all__ = ["paged_decode_attention", "paged_decode_attention_ref",
+           "decode_attention", "decode_attention_ref"]
 
 
 def _scales_3d(s):
@@ -95,6 +98,30 @@ def paged_decode_attention_ref(q, kq, ks, vq, vs, tables, pos):
     return out.transpose(1, 2).to(q.dtype)
 
 
+def _check_cuda_cache(q, kq, ks, vq, vs, *others):
+    """What the CUDA kernel takes of a cache (pool or contiguous): every
+    tensor on q's device, K and V of one dtype sharing strides with a unit
+    stride along D, f32 scales (3-D views, or None) sharing strides, and
+    D <= 512."""
+    for name, t in (("kq", kq), ("vq", vq), ("ks", ks), ("vs", vs),
+                    *others):
+        if t is not None and t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if kq.dtype != vq.dtype:
+        raise TypeError(f"kq {kq.dtype} and vq {vq.dtype} differ")
+    if kq.stride() != vq.stride() or kq.stride(-1) != 1:
+        raise ValueError(
+            f"kq/vq must share strides with a unit stride along D, got "
+            f"{kq.stride()} / {vq.stride()}")
+    if ks is not None:
+        if ks.dtype != torch.float32 or vs.dtype != torch.float32:
+            raise TypeError("scales must be float32")
+        if ks.stride() != vs.stride():
+            raise ValueError("ks/vs must share strides")
+    if q.shape[-1] > 512:
+        raise ValueError(f"head dim {q.shape[-1]} > 512 is not supported")
+
+
 def paged_decode_attention(q, kq, ks, vq, vs, tables, pos):
     """q [B, 1, H, D]; kq/vq [N, Hkv, BS, D] pool views (int8 or float;
     any strides, unit stride along D); ks/vs [N, Hkv, BS(, 1)] f32 dequant
@@ -109,33 +136,26 @@ def paged_decode_attention(q, kq, ks, vq, vs, tables, pos):
     if q.device.type != "cuda":
         raise RuntimeError(f"paged_decode_attention: no kernel for device "
                            f"{q.device}")
-    for name, t in (("kq", kq), ("vq", vq), ("ks", ks), ("vs", vs),
-                    ("tables", tables), ("pos", pos)):
-        if t is not None and t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    if kq.dtype != vq.dtype:
-        raise TypeError(f"kq {kq.dtype} and vq {vq.dtype} differ")
-    if kq.stride() != vq.stride() or kq.stride(-1) != 1:
-        raise ValueError(
-            f"kq/vq must share strides with a unit stride along D, got "
-            f"{kq.stride()} / {vq.stride()}")
+    _check_cuda_cache(q, kq, ks, vq, vs, ("tables", tables), ("pos", pos))
     if (kq.dtype == torch.int8) != (ks is not None):
         raise ValueError("an int8 pool needs scales; a float pool takes "
                          "none")
-    if ks is not None:
-        if ks.dtype != torch.float32 or vs.dtype != torch.float32:
-            raise TypeError("scales must be float32")
-        if ks.stride() != vs.stride():
-            raise ValueError("ks/vs must share strides")
-        sc_strides = ks.stride()
-    else:
-        sc_strides = (0, 0, 0)
     if tables.dtype != torch.int32 or pos.dtype != torch.int32:
         raise TypeError("tables and pos must be int32")
-    if D > 512:
-        raise ValueError(f"head dim {D} > 512 is not supported")
+    return _launch_paged(q, kq, ks, vq, vs, tables, pos,
+                         paged_decode_attention)
+
+
+def _launch_paged(q, kq, ks, vq, vs, tables, pos, wrapper):
+    """One launch of csrc/paged_decode_attn.cu on checked CUDA operands,
+    counted on `wrapper` (none for an empty batch). tables None: sequence
+    b reads block b (a contiguous cache)."""
+    B, _, H, D = q.shape
+    Hkv, BS = kq.shape[1], kq.shape[2]
+    NB = 1 if tables is None else tables.shape[1]
+    sc_strides = ks.stride() if ks is not None else (0, 0, 0)
     q = q.contiguous()
-    tables = tables.contiguous()
+    tables = None if tables is None else tables.contiguous()
     pos = pos.contiguous()
     out = torch.empty_like(q)
     if B == 0:
@@ -149,15 +169,97 @@ def paged_decode_attention(q, kq, ks, vq, vs, tables, pos):
             q.data_ptr(), kq.data_ptr(),
             ks.data_ptr() if ks is not None else None,
             vq.data_ptr(), vs.data_ptr() if vs is not None else None,
-            tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            None if tables is None else tables.data_ptr(), pos.data_ptr(),
+            out.data_ptr(),
             B, H, Hkv, D, BS, NB, *kq.stride()[:3], *sc_strides,
             _build.dtype_code(q.dtype), _build.dtype_code(kq.dtype),
             1.0 / D ** 0.5,
             partial.data_ptr() if partial is not None else None,
             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    _build.check(err, wrapper.__name__)
+    wrapper.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# dense (contiguous-cache) decode attention
+# ---------------------------------------------------------------------------
+#
+# `decode_attention` is the reference's single-position kernel over a
+# contiguous cache in its "kernel layout": kq / vq [B, Hkv, T, D] (int8 or
+# float) with f32 scales [B, Hkv, T, 1] (ones for a float cache; always
+# applied), one position `pos` for every sequence (keys past it masked).
+# The reference wires it into no model: only its tests call it. The cache
+# is the paged pool with one block of T rows a sequence, so a CUDA q
+# launches the paged kernel with no table (sequence b reads block b) and
+# pos in every slot (reading stops at pos, where the TPU kernel reads all
+# T rows and masks); a CPU q computes `decode_attention_ref`.
+
+
+def _check_dense(q, kq, ks, vq, vs, pos):
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B, 1, H, D], got {tuple(q.shape)}")
+    B, s, H, D = q.shape
+    if s != 1:
+        raise ValueError("decode_attention handles q_len == 1 only")
+    if kq.dim() != 4 or kq.shape != vq.shape or kq.shape[0] != B \
+            or kq.shape[3] != D:
+        raise ValueError(f"kq/vq must be equal [B={B}, Hkv, T, D={D}], got "
+                         f"{tuple(kq.shape)} / {tuple(vq.shape)}")
+    Hkv, T = kq.shape[1], kq.shape[2]
+    if H % Hkv:
+        raise ValueError(
+            f"num_heads {H} must be a multiple of kv heads {Hkv} (an "
+            "uneven ratio has no query-to-KV head mapping)")
+    for name, t in (("ks", ks), ("vs", vs)):
+        if tuple(t.shape) not in ((B, Hkv, T, 1), (B, Hkv, T)):
+            raise ValueError(f"{name} must be [B, Hkv, T, 1], got "
+                             f"{tuple(t.shape)}")
+    pos = int(pos)
+    if pos < 0:
+        raise ValueError(f"pos must be >= 0, got {pos}")
+    return B, H, D, Hkv, T, pos
+
+
+def decode_attention_ref(q, kq, ks, vq, vs, pos):
+    """Plain version: f32 throughout — scores q . k * ks * scale, keys past
+    pos at -inf, softmax, PV with the probabilities times vs; query head h
+    reads KV head h // (H / Hkv). Returns [B, 1, H, D] in q's dtype."""
+    B, H, D, Hkv, T, pos = _check_dense(q, kq, ks, vq, vs, pos)
+    rep = H // Hkv
+    qf = q[:, 0].to(torch.float32)                           # [B, H, D]
+    kf = kq.to(torch.float32).repeat_interleave(rep, dim=1)  # [B, H, T, D]
+    vf = vq.to(torch.float32).repeat_interleave(rep, dim=1)
+    ksf = ks.reshape(B, Hkv, T).to(torch.float32).repeat_interleave(rep, 1)
+    vsf = vs.reshape(B, Hkv, T).to(torch.float32).repeat_interleave(rep, 1)
+    scores = (kf @ qf[..., None])[..., 0] * ksf * (1.0 / D ** 0.5)
+    live = torch.arange(T, device=q.device) <= pos
+    scores = scores.masked_fill(~live, float("-inf"))
+    p = torch.softmax(scores, dim=-1)                        # [B, H, T]
+    out = ((p * vsf)[:, :, None, :] @ vf)[:, :, 0]           # [B, H, D]
+    return out[:, None].to(q.dtype)
+
+
+def decode_attention(q, kq, ks, vq, vs, pos):
+    """q [B, 1, H, D]; kq/vq [B, Hkv, T, D] (int8 or float; any strides
+    with a unit stride along D); ks/vs [B, Hkv, T, 1] f32 scales (ones for
+    a float cache); pos an int (or a 0-d tensor), the query's position.
+    Returns [B, 1, H, D] in q's dtype."""
+    B, H, D, Hkv, T, pos = _check_dense(q, kq, ks, vq, vs, pos)
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, kq, ks, vq, vs, pos)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"decode_attention: no kernel for device "
+                           f"{q.device}")
+    ks3, vs3 = ks.reshape(B, Hkv, T), vs.reshape(B, Hkv, T)
+    _check_cuda_cache(q, kq, ks3, vq, vs3)
+    # the cache is the pool with one block of T rows a sequence, block b
+    # for sequence b (no table)
+    pos = torch.full((B,), pos, dtype=torch.int32, device=q.device)
+    return _launch_paged(q, kq, ks3, vq, vs3, None, pos, decode_attention)
+
+
+decode_attention.launches = 0

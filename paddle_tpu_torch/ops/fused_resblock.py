@@ -11,9 +11,9 @@ on flat NHWC rows ``[M = N*H*W, channels]``::
     r3 = relu(bn2(r2)) @ w3             bn3 stats; r3 is never stored
     y  = relu(bn3(r3) + x)              r3 recomputed
 
-Two kernel wrappers over ``csrc/fused_resblock.cu``, each with a
-``.launches`` counter that counts calls (one call is a family of
-launches):
+Three kernel wrappers over ``csrc/fused_resblock.cu``; one call is a
+family of launches, and each wrapper counts both: ``.launches`` the
+kernel launches (at each launch), ``.calls`` the calls on CUDA inputs:
 
 * `fused_bottleneck_fwd` replaces the TPU kernels `_k1`..`_k4`
   (fused_resblock.py:141-188, through `_call` :321 from
@@ -22,7 +22,14 @@ launches):
 * `fused_bottleneck_bwd` replaces `_b1`..`_b4` (:192-287, from
   `fused_bottleneck_bwd` :404): the full BN backward, fourteen launches
   (six products with fused edges, three weight-gradient products, five
-  reductions).
+  reductions);
+* `fused_bottleneck2_fwd` replaces the two-block chain of
+  `fused_bottleneck2_fwd` (:612) with its coupled `_k41` (:593): block
+  1's k4 and block 2's k1 in one kernel (`rb_k41`), so y1 reaches block
+  2's first product from shared memory; the other six products are the
+  kernels above, thirteen launches. The reference wires it into no model
+  (only `tools/bench_resstage.py` and its test call it): it measures
+  whether the coupling pays.
 
 Arithmetic, as the TPU kernels do it: matmul operands in `MATMUL_DTYPE`
 (bf16) with f32 accumulation; r1 and r2 stored in bf16; each BN's sums
@@ -50,6 +57,7 @@ from . import _build
 
 __all__ = ["MATMUL_DTYPE", "fused_bottleneck_fwd", "fused_bottleneck_bwd",
            "fused_bottleneck_fwd_ref", "fused_bottleneck_bwd_ref",
+           "fused_bottleneck2_fwd", "fused_bottleneck2_fwd_ref",
            "bottleneck_reference", "fused_bottleneck",
            "fused_bottleneck_auto", "fused_block_impl", "flip_transpose_w2"]
 
@@ -136,18 +144,11 @@ def _residuals(x, r1, r2, y, w1c, w2c, w3c, bn1, bn2, bn3, g1, g2, g3,
     return (x, r1, r2, y, w1c, w2c, w3c, bn1, bn2, bn3, g1, g2, g3, eps)
 
 
-def fused_bottleneck_fwd_ref(x, w1, w2, w3, g1, be1, g2, be2, g3, be3,
-                             eps=1e-5):
-    """Plain version of the forward: x [N, H, W, 4C]; w1 [4C, C],
-    w2 [3, 3, C, C] (HWIO), w3 [C, 4C]; the BN vectors. Returns (y
-    [N, H, W, 4C] in x's dtype, residuals, ((mean, var) of each BN))."""
-    N, H, W, C4 = x.shape
-    M, md = N * H * W, MATMUL_DTYPE
-    n = float(M)
-    w1c, w2c, w3c = (w.to(md) for w in (w1, w2, w3))
-    g1, be1, g2, be2, g3, be3 = (_vec(v) for v in (g1, be1, g2, be2, g3,
-                                                   be3))
-    xb = x.reshape(M, C4).to(md)
+def _block_ref(xb, w1c, w2c, w3c, g1, be1, g2, be2, g3, be3, eps, N, H, W):
+    """The kernels' k1..k3 of one block on its bf16 input rows xb [M, 4C]:
+    (r1, r2 in MATMUL_DTYPE, r3 in f32, bn1, bn2, bn3)."""
+    n = float(xb.shape[0])
+    md = MATMUL_DTYPE
     acc1 = _mm(xb, w1c)
     bn1 = _stats(acc1, n, g1, be1, eps)
     r1 = acc1.to(md)
@@ -156,7 +157,28 @@ def fused_bottleneck_fwd_ref(x, w1, w2, w3, g1, be1, g2, be2, g3, be3,
     r2 = acc2.to(md)
     r3 = _mm(_affine_relu(r2, bn2).to(md), w3c)
     bn3 = _stats(r3, n, g3, be3, eps)
-    y = torch.relu(r3 * bn3[_SCALE] + bn3[_BIAS] + xb.float()).to(x.dtype)
+    return r1, r2, r3, bn1, bn2, bn3
+
+
+def _y_f32(r3, bn3, xb):
+    """relu(bn3(r3) + x) in f32, the residual x in bf16 rows."""
+    return torch.relu(r3 * bn3[_SCALE] + bn3[_BIAS] + xb.float())
+
+
+def fused_bottleneck_fwd_ref(x, w1, w2, w3, g1, be1, g2, be2, g3, be3,
+                             eps=1e-5):
+    """Plain version of the forward: x [N, H, W, 4C]; w1 [4C, C],
+    w2 [3, 3, C, C] (HWIO), w3 [C, 4C]; the BN vectors. Returns (y
+    [N, H, W, 4C] in x's dtype, residuals, ((mean, var) of each BN))."""
+    N, H, W, C4 = x.shape
+    M, md = N * H * W, MATMUL_DTYPE
+    w1c, w2c, w3c = (w.to(md) for w in (w1, w2, w3))
+    g1, be1, g2, be2, g3, be3 = (_vec(v) for v in (g1, be1, g2, be2, g3,
+                                                   be3))
+    xb = x.reshape(M, C4).to(md)
+    r1, r2, r3, bn1, bn2, bn3 = _block_ref(xb, w1c, w2c, w3c, g1, be1, g2,
+                                           be2, g3, be3, eps, N, H, W)
+    y = _y_f32(r3, bn3, xb).to(x.dtype)
     res = _residuals(x, r1, r2, y, w1c, w2c, w3c, bn1, bn2, bn3, g1, g2, g3,
                      eps)
     stats = tuple((bn[_MEAN], bn[_VAR]) for bn in (bn1, bn2, bn3))
@@ -207,6 +229,31 @@ def fused_bottleneck_bwd_ref(res, dy4):
             dg3, dbe3)
 
 
+def fused_bottleneck2_fwd_ref(x, params1, params2, eps=1e-5):
+    """Plain version of two chained stride-1 blocks with the k4 -> k1
+    coupling: params_i = (w1, w2, w3, g1, be1, g2, be2, g3, be3) in the
+    layout of `fused_bottleneck_fwd`. The reference's roundings: block
+    1's y is stored in x's dtype; block 2's first product takes block 1's
+    in-register f32 y rounded to MATMUL_DTYPE; block 2's residual reads
+    the stored y cast to MATMUL_DTYPE. Returns block 2's y [N, H, W, 4C]
+    in x's dtype (only: the reference returns no residuals or
+    statistics)."""
+    N, H, W, C4 = x.shape
+    M, md = N * H * W, MATMUL_DTYPE
+    blocks = []
+    for prm in (params1, params2):
+        _check_shapes(x, *prm[:3])
+        blocks.append([w.to(md) for w in prm[:3]]
+                      + [_vec(v) for v in prm[3:]])
+    xb = x.reshape(M, C4).to(md)
+    *_, r3, _, _, bn3 = _block_ref(xb, *blocks[0], eps, N, H, W)
+    y1f = _y_f32(r3, bn3, xb)
+    y1 = y1f.to(x.dtype)
+    *_, r3b, _, _, bn3b = _block_ref(y1f.to(md), *blocks[1], eps, N, H, W)
+    y2 = _y_f32(r3b, bn3b, y1.to(md)).to(x.dtype)
+    return y2.reshape(N, H, W, C4)
+
+
 def bottleneck_reference(x, w1, w2, w3, g1, be1, g2, be2, g3, be3,
                          eps=1e-5):
     """The train-mode bottleneck in f32 throughout, as the module
@@ -233,7 +280,8 @@ def bottleneck_reference(x, w1, w2, w3, g1, be1, g2, be2, g3, be3,
 # ------------------------------------------------------------------ kernels
 
 # product kinds of ptt_resblock_gemm (csrc/fused_resblock.cu `Kind`)
-_F1, _F2, _F3, _F4, _B1, _B2A, _B2B, _B3, _B4, _W3, _W2, _W1 = range(12)
+_F1, _F2, _F3, _F4, _B1, _B2A, _B2B, _B3, _B4, _W3, _W2, _W1, _F41 = \
+    range(13)
 # reduction modes of ptt_resblock_reduce
 _SUM, _BN_FWD, _BN_BWD = range(3)
 _ROWS = 64          # rows of a product's tile (the per-tile sums' count)
@@ -254,7 +302,8 @@ class _Args(ctypes.Structure):
                 ("out", ctypes.c_void_p), ("part", ctypes.c_void_p),
                 ("M", ctypes.c_int), ("H", ctypes.c_int),
                 ("W", ctypes.c_int), ("N", ctypes.c_int),
-                ("splits", ctypes.c_int), ("rows_per_split", ctypes.c_int)]
+                ("splits", ctypes.c_int), ("rows_per_split", ctypes.c_int),
+                ("w_next", ctypes.c_void_p), ("out_next", ctypes.c_void_p)]
 
 
 def _ptr(t):
@@ -277,23 +326,27 @@ def _splits(M, tiles):
 
 
 class _Launcher:
-    """One call's launches on x's device and current stream."""
+    """One call's launches on x's device and current stream, each counted
+    on `wrapper.launches` where it is made."""
 
-    def __init__(self, x, M, H, W):
+    def __init__(self, wrapper, x, M, H, W):
+        self.wrapper = wrapper
         self.dev, self.M, self.H, self.W = x.device, M, H, W
         self.dtype = _build.dtype_code(x.dtype)
         self.lib = _build.lib()
         self.stream = torch.cuda.current_stream(x.device).cuda_stream
 
     def gemm(self, kind, what, a, N, w=None, d=None, e0=None, e1=None,
-             ebn=None, ebw=None, out=None, part=None, splits=1, rows=0):
+             ebn=None, ebw=None, out=None, part=None, splits=1, rows=0,
+             w_next=None, out_next=None):
         args = _Args(a, d or _Opnd(), _ptr(w), _ptr(e0), _ptr(e1), _ptr(ebn),
                      _ptr(ebw), _ptr(out), _ptr(part), self.M, self.H,
-                     self.W, N, splits, rows)
+                     self.W, N, splits, rows, _ptr(w_next), _ptr(out_next))
         with torch.cuda.device(self.dev):
             err = self.lib.ptt_resblock_gemm(kind, ctypes.byref(args),
                                              self.dtype, self.stream)
         _build.check(err, what)
+        self.wrapper.launches += 1
 
     def reduce(self, mode, what, part, T, N, out, gamma=None, beta=None,
                bn=None, eps=0.0, n=1.0):
@@ -302,6 +355,7 @@ class _Launcher:
                 mode, part.data_ptr(), T, N, _ptr(gamma), _ptr(beta),
                 _ptr(bn), float(eps), float(n), out.data_ptr(), self.stream)
         _build.check(err, what)
+        self.wrapper.launches += 1
 
     def stats(self, mode, what, part, N, gamma, beta=None, bn=None, eps=0.0):
         """[5, N] f32 BN vectors from the products' per-tile sums."""
@@ -362,37 +416,57 @@ def _check_shapes(x, w1, w2, w3):
     return N, H, W, C4, C
 
 
-def _fwd_cuda(x, w1, w2, w3, g1, be1, g2, be2, g3, be3, eps):
-    N, H, W, C4, C = _check_shapes(x, w1, w2, w3)
-    _cuda_checks(x, w1, w2, w3, g1, be1, g2, be2, g3, be3)
+def _cuda_operands(prm):
+    """A block's weights in MATMUL_DTYPE and BN vectors in f32, aligned."""
+    return ([_aligned(w.to(MATMUL_DTYPE)) for w in prm[:3]]
+            + [_aligned(_vec(v)) for v in prm[3:]])
+
+
+def _check_channels(C4, C):
     if C % 8 or C4 % 8:
         raise ValueError(f"the kernels take channel counts that are "
                          f"multiples of 8, got C={C}, 4C={C4}")
-    M, md = N * H * W, MATMUL_DTYPE
-    x = _aligned(x)
-    w1c, w2c, w3c = (_aligned(w.to(md)) for w in (w1, w2, w3))
-    g1, be1, g2, be2, g3, be3 = (_aligned(_vec(v)) for v in
-                                 (g1, be1, g2, be2, g3, be3))
-    L = _Launcher(x, M, H, W)
-    r1, r2 = L.empty(M, C, md), L.empty(M, C, md)
-    y = L.empty(M, C4, x.dtype)
+
+
+def _block_head_cuda(L, what, xop, C4, C, w1c, w2c, w3c, g1, be1, g2, be2,
+                     g3, be3, eps, r1=None):
+    """k1 (skipped when r1 and its bn1 come in: the coupled kernel made
+    them), k2 and k3 of a block: (r1, r2, bn1, bn2, bn3)."""
+    M, md = L.M, MATMUL_DTYPE
+    if r1 is None:
+        r1 = L.empty(M, C, md)
+        part = L.sums(C)
+        L.gemm(_F1, f"{what} (k1)", xop, C, w=w1c, out=r1, part=part)
+        bn1 = L.stats(_BN_FWD, f"{what} (bn1)", part, C, g1, be1, eps=eps)
+    else:
+        r1, bn1 = r1
+    r2 = L.empty(M, C, md)
     part = L.sums(C)
-    L.gemm(_F1, "fused_bottleneck_fwd (k1)", _opnd(x, C=C4), C, w=w1c,
-           out=r1, part=part)
-    bn1 = L.stats(_BN_FWD, "fused_bottleneck_fwd (bn1)", part, C, g1, be1,
-                  eps=eps)
-    part = L.sums(C)
-    L.gemm(_F2, "fused_bottleneck_fwd (k2)", _opnd(r1, bn=bn1, C=C), C,
-           w=w2c, out=r2, part=part)
-    bn2 = L.stats(_BN_FWD, "fused_bottleneck_fwd (bn2)", part, C, g2, be2,
-                  eps=eps)
+    L.gemm(_F2, f"{what} (k2)", _opnd(r1, bn=bn1, C=C), C, w=w2c, out=r2,
+           part=part)
+    bn2 = L.stats(_BN_FWD, f"{what} (bn2)", part, C, g2, be2, eps=eps)
     part = L.sums(C4)
-    f2 = _opnd(r2, bn=bn2, C=C)
-    L.gemm(_F3, "fused_bottleneck_fwd (k3)", f2, C4, w=w3c, part=part)
-    bn3 = L.stats(_BN_FWD, "fused_bottleneck_fwd (bn3)", part, C4, g3, be3,
-                  eps=eps)
-    L.gemm(_F4, "fused_bottleneck_fwd (k4)", f2, C4, w=w3c, e0=x, ebn=bn3,
-           out=y)
+    L.gemm(_F3, f"{what} (k3)", _opnd(r2, bn=bn2, C=C), C4, w=w3c,
+           part=part)
+    bn3 = L.stats(_BN_FWD, f"{what} (bn3)", part, C4, g3, be3, eps=eps)
+    return r1, r2, bn1, bn2, bn3
+
+
+def _fwd_cuda(x, w1, w2, w3, g1, be1, g2, be2, g3, be3, eps):
+    N, H, W, C4, C = _check_shapes(x, w1, w2, w3)
+    _cuda_checks(x, w1, w2, w3, g1, be1, g2, be2, g3, be3)
+    _check_channels(C4, C)
+    M = N * H * W
+    x = _aligned(x)
+    w1c, w2c, w3c, g1, be1, g2, be2, g3, be3 = _cuda_operands(
+        (w1, w2, w3, g1, be1, g2, be2, g3, be3))
+    L = _Launcher(fused_bottleneck_fwd, x, M, H, W)
+    r1, r2, bn1, bn2, bn3 = _block_head_cuda(
+        L, "fused_bottleneck_fwd", _opnd(x, C=C4), C4, C, w1c, w2c, w3c, g1,
+        be1, g2, be2, g3, be3, eps)
+    y = L.empty(M, C4, x.dtype)
+    L.gemm(_F4, "fused_bottleneck_fwd (k4)", _opnd(r2, bn=bn2, C=C), C4,
+           w=w3c, e0=x, ebn=bn3, out=y)
     res = _residuals(x, r1, r2, y, w1c, w2c, w3c, bn1, bn2, bn3, g1, g2, g3,
                      eps)
     stats = tuple((bn[_MEAN], bn[_VAR]) for bn in (bn1, bn2, bn3))
@@ -409,7 +483,7 @@ def _bwd_cuda(res, dy4):
     _cuda_checks(x, dy4)
     M, md = N * H * W, MATMUL_DTYPE
     dy = _aligned(dy4)
-    L = _Launcher(x, M, H, W)
+    L = _Launcher(fused_bottleneck_bwd, x, M, H, W)
     f2 = _opnd(r2, bn=bn2, C=C)
     # B1: dz = dy [y > 0], bn3's sums with r3 recomputed
     dz = L.empty(M, C4, x.dtype)
@@ -453,6 +527,55 @@ def _bwd_cuda(res, dy4):
             bw2[0], bw3[1], bw3[0])
 
 
+def _fwd2_cuda(x, params1, params2, eps):
+    what = "fused_bottleneck2_fwd"
+    N, H, W, C4, C = _check_shapes(x, *params1[:3])
+    _check_shapes(x, *params2[:3])
+    _cuda_checks(x, *params1, *params2)
+    _check_channels(C4, C)
+    M, md = N * H * W, MATMUL_DTYPE
+    rows = _build.lib().ptt_resblock_k41_rows(C4)
+    if rows == 0:
+        raise ValueError(f"the coupled kernel takes 4C <= 4096, got {C4}")
+    x = _aligned(x)
+    p1, p2 = _cuda_operands(params1), _cuda_operands(params2)
+    L = _Launcher(fused_bottleneck2_fwd, x, M, H, W)
+    _, r2, _, bn2, bn3 = _block_head_cuda(L, what + " block 1",
+                                          _opnd(x, C=C4), C4, C, *p1, eps)
+    # block 1's k4 coupled with block 2's k1: y1, r1 of block 2, its sums
+    y1, r1b = L.empty(M, C4, x.dtype), L.empty(M, C, md)
+    part = torch.empty((-(-M // rows), 2, C), dtype=torch.float32,
+                       device=x.device)
+    L.gemm(_F41, what + " (k4 + k1)", _opnd(r2, bn=bn2, C=C), C4, w=p1[2],
+           e0=x, ebn=bn3, out=y1, part=part, w_next=p2[0], out_next=r1b)
+    bn1b = L.stats(_BN_FWD, what + " block 2 (bn1)", part, C, p2[3], p2[4],
+                   eps=eps)
+    _, r2b, _, bn2b, bn3b = _block_head_cuda(
+        L, what + " block 2", None, C4, C, *p2, eps, r1=(r1b, bn1b))
+    # block 2's k4: its residual y1 is read rounded to bf16, as the
+    # reference's y1.astype(MATMUL_DTYPE)
+    y2 = L.empty(M, C4, x.dtype)
+    L.gemm(_F4, what + " block 2 (k4)", _opnd(r2b, bn=bn2b, C=C), C4,
+           w=p2[2], e0=y1, ebn=bn3b, out=y2)
+    return y2.reshape(N, H, W, C4)
+
+
+def fused_bottleneck2_fwd(x, params1, params2, eps=1e-5):
+    """Two chained stride-1 identity blocks, forward only (the reference's
+    stage probe): x [N, H, W, 4C]; params_i = (w1 [4C, C], w2 [3, 3, C, C],
+    w3 [C, 4C], g1, be1, g2, be2, g3, be3). Returns block 2's y in x's
+    dtype — the kernels for a CUDA x (block 1's k4 and block 2's k1 in the
+    coupled kernel), the plain version for a CPU one."""
+    if x.device.type == "cpu":
+        return fused_bottleneck2_fwd_ref(x, params1, params2, eps)
+    out = _fwd2_cuda(x, tuple(params1), tuple(params2), eps)
+    fused_bottleneck2_fwd.calls += 1
+    return out
+
+
+fused_bottleneck2_fwd.launches = fused_bottleneck2_fwd.calls = 0
+
+
 def fused_bottleneck_fwd(x, w1, w2, w3, g1, be1, g2, be2, g3, be3,
                          eps=1e-5):
     """x [N, H, W, 4C] NHWC (f32 or bf16); w1 [4C, C], w2 [3, 3, C, C],
@@ -464,7 +587,7 @@ def fused_bottleneck_fwd(x, w1, w2, w3, g1, be1, g2, be2, g3, be3,
         return fused_bottleneck_fwd_ref(x, w1, w2, w3, g1, be1, g2, be2, g3,
                                         be3, eps)
     out = _fwd_cuda(x, w1, w2, w3, g1, be1, g2, be2, g3, be3, eps)
-    fused_bottleneck_fwd.launches += 1
+    fused_bottleneck_fwd.calls += 1
     return out
 
 
@@ -474,12 +597,12 @@ def fused_bottleneck_bwd(res, dy):
     if dy.device.type == "cpu":
         return fused_bottleneck_bwd_ref(res, dy)
     out = _bwd_cuda(res, dy)
-    fused_bottleneck_bwd.launches += 1
+    fused_bottleneck_bwd.calls += 1
     return out
 
 
-fused_bottleneck_fwd.launches = 0
-fused_bottleneck_bwd.launches = 0
+fused_bottleneck_fwd.launches = fused_bottleneck_fwd.calls = 0
+fused_bottleneck_bwd.launches = fused_bottleneck_bwd.calls = 0
 
 
 # ------------------------------------------------------------------ autograd

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Compare two checkouts of the PyTorch/CUDA port on one GPU, alternating.
 
-    python3 port_ab.py PARENT CHANGE [--what decode,flash] [--rounds 1]
+    python3 port_ab.py PARENT CHANGE [--what decode,flash,dense_decode,sparse]
+                       [--rounds 1]
 
 PARENT and CHANGE are the roots of two checkouts (for example a
 `git archive` of each commit unpacked into a git-ignored directory). Both
@@ -20,7 +21,13 @@ Measurements:
 * ``flash``: the whole-sequence FlashAttention kernels at gpt_base's
   training shape (B=16, S=1024, H=12, D=64, bf16, causal): median
   CUDA-event ms of forward, dq and dkv over 50 calls after 5 warm-up
-  calls.
+  calls;
+* ``dense_decode``: `decode_attention` at llama2_7b's decode width (B=8,
+  H=32, D=128, T=4096; `chip_smoke.py`'s caches) on int8 and bf16 caches
+  at pos 4095 and 2000: median ms over 50 calls;
+* ``sparse``: the block-sparse kernel on `chip_smoke.py`'s BigBird tables
+  (seed 0) at [4*12, 4096, 64] and [12, 4096, 128] bf16: median ms over
+  50 calls.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 per measurement, each naming its tree. Every child has a time limit and
@@ -71,6 +78,46 @@ def child_flash(tree):
                 q, k, v, do, lse, delta, causal=True))}
 
 
+def child_dense_decode(tree):
+    import torch
+
+    smoke = importlib.import_module("chip_smoke")
+    from paddle_tpu_torch.ops.decode_attn import decode_attention
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    res = {"tree": tree, "what": "dense_decode"}
+    for cache in ("int8", "bfloat16"):
+        for pos in (smoke.DECODE_T - 1, 2000):
+            q, ((kq, ks), (vq, vs)) = smoke._decode_cache(
+                torch, g, smoke.DECODE_H, smoke.DECODE_H, pos, cache)
+            q = q.to(torch.bfloat16)
+            res[f"{cache}_pos{pos}_ms"] = _time_ms(
+                torch, lambda: decode_attention(q, kq, ks, vq, vs, pos))
+    return res
+
+
+def child_sparse(tree):
+    import numpy as np
+    import torch
+
+    smoke = importlib.import_module("chip_smoke")
+    bsa = importlib.import_module(
+        "paddle_tpu_torch.ops.block_sparse_attention")
+    nb = smoke.BIGBIRD_SEQ // smoke.SPARSE_BLOCK
+    idx, cnt, _ = smoke._block_tables(torch, np,
+                                      smoke.bigbird_blocks(np, nb, 0))
+    g = torch.Generator(device="cuda").manual_seed(13)
+    res = {"tree": tree, "what": "sparse"}
+    for BH, D in ((48, 64), (12, 128)):
+        q, k, v = (torch.randn(BH, smoke.BIGBIRD_SEQ, D, device="cuda",
+                               generator=g).to(torch.bfloat16)
+                   for _ in range(3))
+        res[f"bh{BH}_d{D}_ms"] = _time_ms(
+            torch, lambda: bsa.block_sparse_attention(
+                q, k, v, idx, cnt, D ** -0.5, smoke.SPARSE_BLOCK))
+    return res
+
+
 def child_decode(tree):
     import numpy as np
     import torch
@@ -97,7 +144,9 @@ def _child(what, tree):
     tree = os.path.abspath(tree)
     os.chdir(tree)
     sys.path.insert(0, tree)
-    res = {"flash": child_flash, "decode": child_decode}[what](tree)
+    res = {"flash": child_flash, "decode": child_decode,
+           "dense_decode": child_dense_decode,
+           "sparse": child_sparse}[what](tree)
     print("AB " + json.dumps(res), flush=True)
 
 

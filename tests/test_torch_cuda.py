@@ -1,8 +1,9 @@
 """GPU-only tests of the port's hand-written CUDA kernels: each kernel
 against its plain PyTorch version, a tiny model served through the decode
 kernels (with prefix sharing and LoRA adapters through BGMV), trained
-through the flash-attention kernels, and a tiny BERT fine-tuned through
-the short-attention kernels with attention dropout.
+through the flash-attention kernels, a tiny BERT fine-tuned through
+the short-attention kernels with attention dropout, and CSR-pattern
+attention through the block-sparse kernel.
 The kernels have no CPU mode, so every test here skips without a GPU.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -23,6 +24,7 @@ from paddle_tpu_torch.ops import bgmv as tb
 from paddle_tpu_torch.ops import decode_attn as td
 from paddle_tpu_torch.ops import weight_only as tw
 
+tbs = importlib.import_module("paddle_tpu_torch.ops.block_sparse_attention")
 tfa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
 tsa = importlib.import_module("paddle_tpu_torch.ops.short_attention")
 trb = importlib.import_module("paddle_tpu_torch.ops.fused_resblock")
@@ -674,7 +676,8 @@ def test_fused_resblock_kernels_match_plain(cuda, N, H, W, C4, C, dtype):
     """Forward kernels against the plain forward: y within 2 bf16 ulps of
     max |y| (or 1e-2 abs) — both round f32 sums of the same bf16 products,
     summed in another order, to bf16 at r1, r2 and y; r1, r2 and the BN
-    vectors normwise within 1e-2 (readings <= 6e-4). Backward kernels
+    vectors normwise within 1e-2 (readings <= 6e-4); one call each, seven
+    and fourteen launches counted at the launches. Backward kernels
     against the plain backward on the kernels' residuals, as training
     runs them: the ten gradients normwise within 1e-2 (readings <= 1.1e-3:
     da2, da1 and dx are stored in the activations' dtype). End to end,
@@ -684,13 +687,13 @@ def test_fused_resblock_kernels_match_plain(cuda, N, H, W, C4, C, dtype):
     args = _block_args(N, H, W, C4, C, dtype, cuda)
     dy = torch.randn(N, H, W, C4, generator=torch.Generator().manual_seed(1)
                      ).to(dtype).to(cuda)
-    before = (trb.fused_bottleneck_fwd.launches,
-              trb.fused_bottleneck_bwd.launches)
+    before = [(f.calls, f.launches) for f in (trb.fused_bottleneck_fwd,
+                                              trb.fused_bottleneck_bwd)]
     y, res, stats = trb.fused_bottleneck_fwd(*args)
     grads = trb.fused_bottleneck_bwd(res, dy)
-    assert (trb.fused_bottleneck_fwd.launches,
-            trb.fused_bottleneck_bwd.launches) == (before[0] + 1,
-                                                   before[1] + 1)
+    assert [(f.calls - c, f.launches - n) for f, (c, n) in zip(
+        (trb.fused_bottleneck_fwd, trb.fused_bottleneck_bwd), before)] == [
+            (1, 7), (1, 14)]
     y_ref, res_ref, stats_ref = trb.fused_bottleneck_fwd_ref(*args)
     same_res = trb.fused_bottleneck_bwd_ref(res, dy)
     own_res = trb.fused_bottleneck_bwd_ref(res_ref, dy)
@@ -762,13 +765,12 @@ def test_bottleneck_block_routes_by_mode(cuda, monkeypatch):
                                                           0),
                               ("1", torch.float32, 0)):
         monkeypatch.setenv("PADDLE_TPU_FUSED_RESBLOCK", mode)
-        before = (trb.fused_bottleneck_fwd.launches,
-                  trb.fused_bottleneck_bwd.launches)
+        before = (trb.fused_bottleneck_fwd.calls,
+                  trb.fused_bottleneck_bwd.calls)
         y = blk.to(dtype)(x.to(dtype))
         y.float().sum().backward()
-        assert (trb.fused_bottleneck_fwd.launches - before[0],
-                trb.fused_bottleneck_bwd.launches - before[1]) == (want,
-                                                                   want)
+        assert (trb.fused_bottleneck_fwd.calls - before[0],
+                trb.fused_bottleneck_bwd.calls - before[1]) == (want, want)
         blk.zero_grad()
 
 
@@ -799,9 +801,9 @@ def test_parallelize_trains_tiny_resnet_through_fused_blocks(cuda,
                         parameters=m.parameters()),
             loss_fn=lambda m, a, b: TF.cross_entropy(m(a), b).mean(),
             compute_dtype="bfloat16")
-        before = trb.fused_bottleneck_fwd.launches
+        before = trb.fused_bottleneck_fwd.calls
         losses = eng.train_batches([(x, y)] * 3).float().cpu()
-        runs[mode] = (losses, trb.fused_bottleneck_fwd.launches - before,
+        runs[mode] = (losses, trb.fused_bottleneck_fwd.calls - before,
                       m.layer1[1].bn1._mean.clone())
     assert runs["1"][1] == 3 and runs["0"][1] == 0
     for losses, _, mean in runs.values():
@@ -1020,3 +1022,198 @@ def test_decode_step_logits_equal_across_batch_sizes(cuda):
     assert row_gemv.launches - before == 2 * 4 + 1
     for n in (1, 2, 4):
         assert torch.equal(step(n), full[:n]), n
+
+
+# ------------------------------------------------ block-sparse attention
+
+def _bs_tables(nq, seed, empty=()):
+    """A BigBird-like block pattern (window, first/last global blocks, two
+    random blocks a row) as csr_to_block_tables returns it; the query
+    blocks in `empty` list nothing."""
+    g = torch.Generator().manual_seed(seed)
+    bm = torch.zeros(nq, nq, dtype=torch.bool)
+    for i in range(nq):
+        for j in (i - 1, i, i + 1, 0, nq - 1):
+            if 0 <= j < nq:
+                bm[i, j] = True
+        bm[i, torch.randint(0, nq, (2,), generator=g)] = True
+    bm[0] = bm[-1] = True
+    for i in empty:
+        bm[i] = False
+    cnt = bm.sum(1).to(torch.int32)
+    idx = torch.zeros(nq, max(int(cnt.max()), 1), dtype=torch.int32)
+    for i in range(nq):
+        cols = torch.nonzero(bm[i]).flatten()
+        idx[i, :len(cols)] = cols.to(torch.int32)
+    return idx, cnt
+
+
+BS_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("BH,S,D", [(3, 1024, 64), (2, 512, 128),
+                                    (2, 384, 40), (1, 256, 256)])
+def test_block_sparse_kernel_matches_plain(cuda, dtype, BH, S, D):
+    """O max abs error 2e-2 (bf16) / 1e-4 (f32), the flash rows' gates: the
+    kernel casts unnormalised p to bf16 and divides at the end, the plain
+    version normalises first. A query block that lists nothing gives 0."""
+    nq = S // 128
+    idx, cnt = _bs_tables(nq, seed=S + D, empty=(1,))
+    g = torch.Generator().manual_seed(D)
+    q, k, v = (torch.randn(BH, S, D, generator=g).to(dtype).to(cuda)
+               for _ in range(3))
+    idx, cnt = idx.to(cuda), cnt.to(cuda)
+    before = tbs.block_sparse_attention.launches
+    got = tbs.block_sparse_attention(q, k, v, idx, cnt, D ** -0.5, 128)
+    assert tbs.block_sparse_attention.launches == before + 1
+    ref = tbs.block_sparse_attention_ref(q, k, v, idx, cnt, D ** -0.5, 128)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert (got.float() - ref.float()).abs().max().item() <= BS_TOL[dtype]
+    assert torch.equal(got[:, 128:256], torch.zeros_like(got[:, 128:256]))
+
+
+def test_block_sparse_kernel_planted_fault_fails_the_gate(cuda):
+    """The kernel run over block_cnt - 1 blocks must break the bf16 gate."""
+    idx, cnt = _bs_tables(8, seed=1)
+    g = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn(4, 1024, 64, generator=g).to(torch.bfloat16
+                                                         ).to(cuda)
+               for _ in range(3))
+    idx, cnt = idx.to(cuda), cnt.to(cuda)
+    ref = tbs.block_sparse_attention_ref(q, k, v, idx, cnt, 0.125, 128)
+    bad = tbs._launch(q, k, v, idx, (cnt - 1).clamp_min(0), 0.125, 128)
+    assert (bad.float() - ref.float()).abs().max().item() > 10 * BS_TOL[
+        torch.bfloat16]
+
+
+def test_block_sparse_kernel_refuses_what_it_cannot_take(cuda):
+    idx, cnt = (t.to(cuda) for t in _bs_tables(2, seed=0))
+    q = torch.zeros(1, 256, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        tbs.block_sparse_attention(q, q, q, idx, cnt, 1.0, 128)
+    q = torch.zeros(1, 256, 320, device=cuda)
+    with pytest.raises(ValueError):
+        tbs.block_sparse_attention(q, q, q, idx, cnt, 1.0, 128)
+    q = torch.zeros(1, 256, 64, device=cuda)
+    idx4 = torch.zeros(4, 1, dtype=torch.int32, device=cuda)
+    cnt4 = torch.ones(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        tbs.block_sparse_attention(q, q, q, idx4, cnt4, 1.0, 64)
+
+
+def test_sparse_attention_routes_through_the_kernel(cuda):
+    """A shared exact 128-tile CSR: one kernel launch per forward; the
+    gradients are the plain route's (the backward is autograd through the
+    plain version on the saved inputs, as the reference's)."""
+    from paddle_tpu_torch.nn.functional import sparse_attention
+
+    B, H, S, D = 1, 2, 512, 64
+    idx, cnt = _bs_tables(S // 128, seed=4)
+    mask = torch.zeros(S, S, dtype=torch.bool)
+    for i in range(S // 128):
+        for j in idx[i, :cnt[i]].tolist():
+            mask[i * 128:(i + 1) * 128, j * 128:(j + 1) * 128] = True
+    offset = torch.cat([torch.zeros(1, dtype=torch.long),
+                        mask.sum(1).cumsum(0)]).expand(B, H, S + 1)
+    columns = torch.nonzero(mask)[:, 1].expand(B, H, -1)
+    g = torch.Generator().manual_seed(5)
+    leaves = [torch.randn(B, H, S, D, generator=g).to(cuda).requires_grad_()
+              for _ in range(3)]
+    before = tbs.block_sparse_attention.launches
+    out = sparse_attention(*leaves, offset, columns)
+    assert tbs.block_sparse_attention.launches == before + 1
+    out.sum().backward()
+    ref = tbs.block_sparse_attention_ref(
+        *(t.detach().reshape(B * H, S, D) for t in leaves), idx.to(cuda),
+        cnt.to(cuda), D ** -0.5, 128).reshape(B, H, S, D)
+    assert (out.detach() - ref).abs().max().item() <= 1e-4
+    plain = [t.detach().clone().requires_grad_() for t in leaves]
+    tbs.block_sparse_attention_ref(
+        *(t.reshape(B * H, S, D) for t in plain), idx.to(cuda),
+        cnt.to(cuda), D ** -0.5, 128).sum().backward()
+    for a, b in zip(leaves, plain):
+        assert torch.equal(a.grad, b.grad)
+
+
+# ------------------------------------------- dense (contiguous-cache) decode
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("H,Hkv", [(8, 8), (8, 2)])
+@pytest.mark.parametrize("T,pos", [(300, 299), (300, 17), (4096, 2000)])
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_kernel_matches_plain(cuda, int8, H, Hkv, T, pos,
+                                           qdtype):
+    """The paged kernel (the cache as one block a sequence) against
+    `decode_attention_ref`: f32 1e-5 abs (online and split softmax against
+    a two-pass softmax, all in f32), bf16 output 1e-2 (one bf16 rounding
+    of |O| <~ 2). Keys past pos are poisoned and must not count."""
+    from paddle_tpu_torch.ops.decode_attn import (decode_attention,
+                                                  decode_attention_ref)
+
+    g = torch.Generator().manual_seed(T + pos + H)
+    B, D = 3, 128
+    q = torch.randn(B, 1, H, D, generator=g).to(qdtype)
+    k = torch.randn(B, Hkv, T, D, generator=g)
+    v = torch.randn(B, Hkv, T, D, generator=g)
+    k[:, :, pos + 1:] = 1e4
+    v[:, :, pos + 1:] = 1e4
+    if int8:
+        (kq, ks), (vq, vs) = _quant_kv(k), _quant_kv(v)
+        ks, vs = ks[..., None], vs[..., None]
+    else:
+        kq, vq = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        ks = vs = torch.ones(B, Hkv, T, 1)
+    args = [t.to(cuda) for t in (q, kq, ks, vq, vs)]
+    before = decode_attention.launches
+    got = decode_attention(*args, pos)
+    assert decode_attention.launches == before + 1
+    ref = decode_attention_ref(*args, pos)
+    torch.cuda.synchronize()
+    tol = 1e-5 if qdtype == torch.float32 else 1e-2
+    assert got.dtype == qdtype
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+    assert got.float().abs().max().item() < 100.0
+
+
+def test_dense_decode_kernel_refuses_what_it_cannot_take(cuda):
+    from paddle_tpu_torch.ops.decode_attn import decode_attention
+
+    q = torch.zeros(1, 1, 4, 64, device=cuda)
+    kv = torch.zeros(1, 4, 16, 64, device=cuda)
+    ones = torch.ones(1, 4, 16, 1, device=cuda)
+    with pytest.raises(TypeError):                  # bf16 scales
+        decode_attention(q, kv, ones.bfloat16(), kv, ones.bfloat16(), 3)
+    with pytest.raises(ValueError):                 # K and V strides differ
+        decode_attention(q, kv, ones, kv.transpose(2, 3).contiguous(
+        ).transpose(2, 3), ones, 3)
+
+
+# ------------------------------------------- two blocks, k4 -> k1 coupled
+
+@pytest.mark.parametrize("N,H,W,C4,C,dtype", [
+    (2, 8, 8, 64, 16, torch.bfloat16),       # 64-row tiles
+    (6, 4, 4, 16, 8, torch.bfloat16),        # ragged M = 96, C = 8
+    (3, 5, 7, 256, 64, torch.float32),       # f32 input, bf16 operands
+    (8, 7, 7, 2048, 512, torch.bfloat16),    # layer4: 32-row tiles
+])
+def test_fused_pair_kernel_matches_plain(cuda, N, H, W, C4, C, dtype):
+    """y2 within 2 bf16 ulps of max |y2| (or 1e-2 abs), as the one-block
+    forward; one call a pair, thirteen launches counted at the launches;
+    bit-equal reruns (fixed-order sums)."""
+    a1 = _block_args(N, H, W, C4, C, dtype, cuda, seed=1)
+    a2 = _block_args(N, H, W, C4, C, dtype, cuda, seed=2)
+    x, p1, p2 = a1[0], a1[1:], a2[1:]
+    before = (trb.fused_bottleneck2_fwd.calls,
+              trb.fused_bottleneck2_fwd.launches)
+    y2 = trb.fused_bottleneck2_fwd(x, p1, p2)
+    assert (trb.fused_bottleneck2_fwd.calls,
+            trb.fused_bottleneck2_fwd.launches) == (before[0] + 1,
+                                                    before[1] + 13)
+    ref = trb.fused_bottleneck2_fwd_ref(x, p1, p2)
+    again = trb.fused_bottleneck2_fwd(x, p1, p2)
+    torch.cuda.synchronize()
+    assert y2.dtype == dtype and y2.shape == x.shape
+    assert (y2.float() - ref.float()).abs().max().item() <= _y_tol(ref)
+    assert torch.equal(y2, again)

@@ -1,10 +1,12 @@
-"""Port parity: paged single-query decode attention
+"""Port parity: single-query decode attention
 (`paddle_tpu_torch.ops.decode_attn`) against the JAX package's
 `paged_decode_attention` — its Pallas kernel in interpret mode and its XLA
 gather path — on the cases of tests/test_decode_attn.py: MHA and GQA,
 float and int8 pools, positions mid-block and in the first block, table
-tails at block 0, garbage in every block. The port runs on the CPU (the
-plain version); the CUDA kernel is compared with it in
+tails at block 0, garbage in every block; and its dense
+`decode_attention` (Pallas kernel in interpret mode) on that file's MHA,
+GQA, float-cache, uneven-ratio and future-mask cases. The port runs on
+the CPU (the plain versions); the CUDA kernels are compared with them in
 tests/test_torch_cuda.py.
 """
 import numpy as np
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from paddle_tpu.ops.pallas.decode_attn import decode_attention as jda
 from paddle_tpu.ops.pallas.decode_attn import paged_decode_attention as jpda
 
 from paddle_tpu_torch.models.gpt import _quant_kv
@@ -127,3 +130,78 @@ def test_validation_errors():
     with pytest.raises(ValueError):                    # H % Hkv
         td.paged_decode_attention(q[:, :, :3], kq, None, vq, None, tables,
                                   pos)
+
+
+# ------------------------------------------------- dense (contiguous cache)
+
+def _quant(x):
+    """tests/test_decode_attn.py's per-row int8 quantisation."""
+    amax = np.abs(x).max(-1, keepdims=True)
+    s = np.maximum(amax, 1e-8) / 127.0
+    return (np.clip(np.round(x / s), -127, 127).astype(np.int8),
+            s.astype(np.float32))
+
+
+def _dense_case(B, T, H, Hkv, D, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, 1, H, D).astype(np.float32),
+            rng.randn(B, Hkv, T, D).astype(np.float32),
+            rng.randn(B, Hkv, T, D).astype(np.float32))
+
+
+DENSE_CASES = {   # tests/test_decode_attn.py: (B, T, H, Hkv, D, pos, int8)
+    "int8_mha": (2, 32, 4, 4, 8, 20, True),
+    "int8_gqa": (2, 16, 8, 2, 8, 9, True),
+    "float_cache": (1, 16, 2, 2, 8, 5, False),
+    "float_gqa_last_row": (2, 24, 6, 3, 16, 23, False),
+}
+
+
+def _dense_both(q, kq, ks, vq, vs, pos):
+    want = np.asarray(jda(*(jnp.asarray(a) for a in (q, kq, ks, vq, vs)),
+                          pos, interpret=True))
+    got = td.decode_attention(*(torch.from_numpy(a)
+                                for a in (q, kq, ks, vq, vs)), pos)
+    return got.numpy(), want
+
+
+@pytest.mark.parametrize("name", sorted(DENSE_CASES))
+def test_dense_decode_attention_matches_jax(name):
+    B, T, H, Hkv, D, pos, int8 = DENSE_CASES[name]
+    q, k, v = _dense_case(B, T, H, Hkv, D)
+    if int8:
+        (kq, ks), (vq, vs) = _quant(k), _quant(v)
+    else:
+        kq, vq = k, v
+        ks = vs = np.ones(k.shape[:-1] + (1,), np.float32)
+    before = td.decode_attention.launches
+    got, want = _dense_both(q, kq, ks, vq, vs, pos)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    assert td.decode_attention.launches == before      # CPU: no kernel
+
+
+def test_dense_decode_attention_mask_excludes_future():
+    q, k, v = _dense_case(1, 12, 2, 2, 8)
+    k[:, :, 5:] = 100.0
+    v[:, :, 5:] = 100.0
+    ones = np.ones(k.shape[:-1] + (1,), np.float32)
+    got, want = _dense_both(q, k, ones, v, ones, 4)
+    assert np.abs(got).max() < 50.0
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_dense_decode_attention_refuses_what_jax_refuses():
+    q, k, v = _dense_case(1, 8, 6, 4, 8)          # 6 heads over 4 kv heads
+    ones = torch.ones(1, 4, 8, 1)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    with pytest.raises(ValueError):
+        td.decode_attention(t[0], t[1], ones, t[2], ones, 3)
+    with pytest.raises(ValueError):
+        jda(*(jnp.asarray(a) for a in (q, k, ones.numpy(), v,
+                                       ones.numpy())), 3, interpret=True)
+    q2 = torch.zeros(1, 2, 4, 8)                    # q_len 2
+    kv = torch.zeros(1, 4, 8, 8)
+    with pytest.raises(ValueError):
+        td.decode_attention(q2, kv, ones, kv, ones, 3)
+    with pytest.raises(ValueError):                 # scales of another shape
+        td.decode_attention(q2[:, :1], kv, ones[:, :, :4], kv, ones, 3)

@@ -16,6 +16,10 @@ runs them), on the same numpy inputs.
 * The port's plain kernels against the port's f32 `bottleneck_reference`
   (and autograd through it), f32: y atol 2e-5, statistics atol 1e-5,
   gradients relative 1e-4.
+* Two chained blocks with the k4 -> k1 coupling (`fused_bottleneck2_fwd`)
+  against the JAX chain in interpret mode: MATMUL_DTYPE f32, y2 atol and
+  rtol 2e-4 (tests/test_fused_resblock.py:127's tolerance); bf16 operands
+  with x in f32 and in bf16, y2 within 4 bf16 ulps of max |y2|.
 """
 import numpy as np
 import pytest
@@ -176,3 +180,68 @@ def test_cpu_wrappers_take_the_plain_versions_and_count_nothing():
             tfr.fused_bottleneck_bwd.launches) == before
     with pytest.raises(ValueError):
         tfr.fused_bottleneck_fwd(args[0], args[1].t(), *args[2:])
+
+
+# ------------------------------------------------ two blocks, k4 -> k1 coupled
+
+def _pair_args(x_dtype="float32", **shape):
+    a1 = _args(seed=1, **shape)
+    a2 = _args(seed=2, **shape)
+    x = np.array(jnp.asarray(a1[0]).astype(getattr(jnp, x_dtype)
+                                             ).astype(jnp.float32))
+    return x, a1[1:], a2[1:]
+
+
+def _pair_jax(x, p1, p2, x_dtype):
+    xj = jnp.asarray(x).astype(getattr(jnp, x_dtype))
+    with jax.default_matmul_precision("highest"):
+        y = jfr.fused_bottleneck2_fwd(xj, tuple(map(jnp.asarray, p1)),
+                                      tuple(map(jnp.asarray, p2)),
+                                      interpret=True)
+    return np.asarray(y, dtype=np.float32)
+
+
+def _pair_port(x, p1, p2, x_dtype):
+    xt = torch.from_numpy(x).to(getattr(torch, x_dtype))
+    y = tfr.fused_bottleneck2_fwd(xt, [torch.from_numpy(a) for a in p1],
+                                  [torch.from_numpy(a) for a in p2])
+    assert y.dtype == xt.dtype and y.shape == xt.shape
+    return y.float().numpy()
+
+
+@pytest.mark.parametrize("matmul_dtype", ["float32"], indirect=True)
+@pytest.mark.parametrize("shape", [dict(), dict(N=6, H=4, W=4, C4=16, C=8)])
+def test_coupled_pair_matches_jax_f32(matmul_dtype, shape):
+    x, p1, p2 = _pair_args(**shape)
+    want = _pair_jax(x, p1, p2, "float32")
+    before = tfr.fused_bottleneck2_fwd.launches
+    got = _pair_port(x, p1, p2, "float32")
+    assert tfr.fused_bottleneck2_fwd.launches == before   # CPU: no kernel
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("matmul_dtype", ["bfloat16"], indirect=True)
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_coupled_pair_matches_jax_bf16(matmul_dtype, x_dtype):
+    x, p1, p2 = _pair_args(x_dtype, N=2, H=8, W=8, C4=64, C=16)
+    want = _pair_jax(x, p1, p2, x_dtype)
+    got = _pair_port(x, p1, p2, x_dtype)
+    ulp = 2.0 ** -8 * np.max(np.abs(want))
+    assert np.max(np.abs(got - want)) <= 4 * ulp
+
+
+def test_coupled_pair_is_two_chained_blocks():
+    """f32 operands: the pair equals two `fused_bottleneck_fwd_ref` calls
+    (the coupling changes no rounding when nothing is rounded)."""
+    x, p1, p2 = (torch.from_numpy(a) if isinstance(a, np.ndarray)
+                 else [torch.from_numpy(t) for t in a]
+                 for a in _pair_args())
+    old = tfr.MATMUL_DTYPE
+    tfr.MATMUL_DTYPE = torch.float32
+    try:
+        y1 = tfr.fused_bottleneck_fwd_ref(x, *p1)[0]
+        y2 = tfr.fused_bottleneck_fwd_ref(y1, *p2)[0]
+        pair = tfr.fused_bottleneck2_fwd(x, p1, p2)
+    finally:
+        tfr.MATMUL_DTYPE = old
+    torch.testing.assert_close(pair, y2, atol=1e-6, rtol=1e-6)
