@@ -18,10 +18,17 @@ Phases (any failure exits non-zero and prints no result line):
    it) and the bound: the larger of bytes moved / 3.35 TB/s and
    operations / 989 TFLOP/s (H100 SXM bf16 dense; 67 TFLOP/s, the f32
    non-tensor peak, for BGMV's f32 work). Serving kernels at the
-   llama2_7b shapes of the decode path (BGMV at the qkv_proj and out_proj
-   shapes of a multi-tenant batch); the FlashAttention-2 forward, dq and
-   dkv kernels at the gpt_base and llama2_7b training shapes, causal and
-   not, a ragged S, a padded head dim, bf16 and f32; the short-attention
+   llama2_7b shapes of the decode path (the weight-only matmul at every
+   decode bucket and two prefill chunks, each case naming the route it
+   launched (the wrapper's route counts) — the main path's int8 gate_up
+   at m = 8 and 256 held to the decode GEMV and the wgmma GEMM — and the
+   decode rows bit-equal across m; BGMV at the qkv_proj and out_proj
+   shapes of a multi-tenant batch); the FlashAttention-2 forward (the
+   route it launched named, the gpt_base case held to the Hopper body,
+   each causal Hopper case launched hundreds of times in one CUDA graph
+   and held bit-equal to its eager launch), dq and dkv kernels at the gpt_base and llama2_7b
+   training shapes, causal and not, a ragged S, a padded head dim, bf16
+   and f32; the short-attention
    forward and backward kernels (attention dropout drawn inside them) at
    the bert_base fine-tune shape (B=128, S=128, H=12, D=64, p=0.1) and
    beside it p=0, causal, f32, S=512, S=136 and D=40, with the kernel's own
@@ -232,6 +239,30 @@ def time_ms(torch, fn, iters, warmup=3):
     return times[len(times) // 2]
 
 
+def graph_mismatches(torch, fn, ref, budget=2 << 30, reps=3):
+    """`fn`'s launches back to back in one CUDA graph, as many as `budget`
+    bytes of outputs hold (at most 256), the graph replayed `reps` times:
+    (launches, launches whose outputs differ from the tensors `ref` bit for
+    bit). A kernel whose CTAs race shows it here first."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    calls = max(8, min(256, budget // sum(t.nbytes for t in ref)))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn() for _ in range(calls)]
+    bad = 0
+    for _ in range(reps):
+        graph.replay()
+        torch.cuda.synchronize()
+        bad += sum(not all(torch.equal(a, b) for a, b in zip(o, ref))
+                   for o in outs)
+    del graph, outs
+    return calls * reps, bad
+
+
 def time_graph_ms(torch, fns, calls=32, reps=7):
     """Device time of one call, host overhead left out: `calls` calls
     (cycling through `fns`) captured in one CUDA graph, the graph replayed
@@ -310,7 +341,35 @@ def top_kernels(prof, steps, n=15):
              / steps) for e in evts[:n]]
 
 
+WO_ROUTE_NAMES = {0: "gemv (CUDA cores)", 1: "decode (mma.sync GEMV)",
+                  2: "prefill (wgmma)"}
+
+
+def zero_routes(wrapper):
+    """Set each route's launch count of `wrapper` (`.routes`) to 0."""
+    for r in wrapper.routes:
+        wrapper.routes[r] = 0
+
+
+def launched_route(wrapper, names):
+    """The name of the one route `wrapper` launched since its counts were
+    set to 0 (`zero_routes`); fails unless it made exactly one launch."""
+    took = {r: c for r, c in wrapper.routes.items() if c}
+    if sum(took.values()) != 1:
+        raise AssertionError(f"{wrapper.__name__}: route launches "
+                             f"{wrapper.routes}, expected one")
+    return names[next(iter(took))]
+
+
 def check_weight_only(torch, iters):
+    """Every llama2_7b Linear in int8 and int4 at every decode bucket and
+    two prefill chunks (a ragged one and a full one), each against the
+    plain version (2 bf16 ulps of the largest output), timed beside the
+    plain version and `torch.matmul` on the dequantized bf16 weight; each
+    row names the kernel route it launched, read from the wrapper's route
+    counts around the checked call. The decode rows of one weight come
+    from the first rows of one x, so a row computed at m < 16 must equal
+    the m = 16 call's bit for bit (the row-stable contract)."""
     from paddle_tpu_torch.nn.quant import weight_quantize
     from paddle_tpu_torch.ops.weight_only import (
         unpack_int4, weight_only_matmul, weight_only_matmul_ref)
@@ -323,12 +382,14 @@ def check_weight_only(torch, iters):
             qw, sc = weight_quantize(w.t(), f"weight_only_{wdt}")
             q_full = unpack_int4(qw) if wdt == "int4" else qw
             w_deq = (q_full.float() * sc[:, None]).to(torch.bfloat16)
-            # every decode bucket (GEMV row-blocks of 1, 2, 4, 8 and two
-            # of 8), a ragged prefill chunk and a full one (tensor cores)
+            X = torch.randn(max(WO_ROWS), k, device="cuda",
+                            generator=g).to(torch.bfloat16)
+            decode = {}
             for m in WO_ROWS:
-                x = torch.randn(m, k, device="cuda", generator=g).to(
-                    torch.bfloat16)
+                x = X[:m]
+                zero_routes(weight_only_matmul)
                 got = weight_only_matmul(x, qw, sc, wdt)
+                route = launched_route(weight_only_matmul, WO_ROUTE_NAMES)
                 ref = weight_only_matmul_ref(x, qw, sc, wdt)
                 torch.cuda.synchronize()
                 err = (got.float() - ref.float()).abs().max().item()
@@ -336,6 +397,8 @@ def check_weight_only(torch, iters):
                 # largest |output| covers rounding plus summation order
                 tol = 2 * 2.0 ** -8 * ref.float().abs().max().item()
                 ok = err <= tol and bool(torch.isfinite(got).all())
+                if m <= 16:
+                    decode[m] = got
                 ms = time_ms(torch, lambda: weight_only_matmul(
                     x, qw, sc, wdt), iters)
                 plain = time_ms(torch, lambda: weight_only_matmul_ref(
@@ -346,16 +409,22 @@ def check_weight_only(torch, iters):
                     + m * n * 2
                 bms, by = bound(nbytes, 2.0 * m * n * k)
                 row = dict(case=f"{wdt} m={m} {lname} n={n} k={k}",
-                           wdt=wdt, m=m, layer=lname, max_abs_err=err,
-                           tol=tol, ms=ms, plain_ms=plain, library_ms=lib,
-                           bound_ms=bms, bound_by=by)
+                           wdt=wdt, m=m, layer=lname, route=route,
+                           max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
+                           library_ms=lib, bound_ms=bms, bound_by=by)
                 rows.append(row)
-                log(f"  weight_only {row['case']}: err {err:.3g} (tol "
-                    f"{tol:.3g}) kernel {ms:.4f} ms plain {plain:.4f} ms "
-                    f"library {lib:.4f} ms bound {bms:.4f} ms ({by})")
+                log(f"  weight_only {row['case']} [{route}]: err {err:.3g} "
+                    f"(tol {tol:.3g}) kernel {ms:.4f} ms plain {plain:.4f} "
+                    f"ms library {lib:.4f} ms bound {bms:.4f} ms ({by})")
                 if not ok:
                     raise AssertionError(f"weight_only {row['case']}: "
                                          f"max abs err {err} > {tol}")
+            top = max(decode)
+            for m, out in decode.items():
+                if not torch.equal(out, decode[top][:m]):
+                    raise AssertionError(
+                        f"weight_only {wdt} {lname}: the rows of m={m} "
+                        f"differ from the first rows of m={top}")
         del w
     return rows
 
@@ -552,6 +621,10 @@ def reset_flash_counts():
     for w in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
               fa.flash_attention_bwd_dkv):
         w.launches = 0
+    zero_routes(fa.flash_attention_fwd)
+
+
+FLASH_ROUTE_NAMES = {0: "mma.sync body", 3: "Hopper body (TMA + wgmma)"}
 
 
 def check_flash(torch, iters):
@@ -575,7 +648,9 @@ def check_flash(torch, iters):
             dtype)
         q, k, v = qkv.unbind(2)
         do = torch.randn(B, S, H, D, device="cuda", generator=g).to(dtype)
+        zero_routes(fa.flash_attention_fwd)
         out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        route = launched_route(fa.flash_attention_fwd, FLASH_ROUTE_NAMES)
         ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal)
         delta = fa.attention_delta(ref, do)
         bwd_args = (q, k, v, do, lse_ref, delta)
@@ -604,20 +679,31 @@ def check_flash(torch, iters):
                      for t in (out, lse, dq, dk, dv))
         case = (f"{label} {dt} {'causal' if causal else 'full'} B={B} "
                 f"S={S} H={H} D={D}")
-        row = dict(case=case, dtype=dt, causal=causal, max_abs_err=err,
-                   grad_norm_rel_err=rel, grad_err_of_max=of_max,
-                   o_tol=o_tol, grad_tol=grad_tol)
+        row = dict(case=case, dtype=dt, causal=causal, route=route,
+                   max_abs_err=err, grad_norm_rel_err=rel,
+                   grad_err_of_max=of_max, o_tol=o_tol, grad_tol=grad_tol)
         if not (finite and err["fwd"] <= o_tol and rel["dq"] <= grad_tol
                 and rel["dkv"] <= grad_tol):
             raise AssertionError(f"flash {case}: errors {err}, normwise "
                                  f"gradient errors {rel}, tolerances "
                                  f"{o_tol} / {grad_tol}, finite={finite}")
+        if route == FLASH_ROUTE_NAMES[3] and causal:
+            # the Hopper body's causal skips, launch after launch
+            row["graph_launches"], row["graph_mismatches"] = \
+                graph_mismatches(torch, lambda: fa.flash_attention_fwd(
+                    q, k, v, causal=True), (out, lse))
+            if row["graph_mismatches"]:
+                raise AssertionError(
+                    f"flash {case}: {row['graph_mismatches']} of "
+                    f"{row['graph_launches']} forwards in a CUDA graph "
+                    f"differ from the eager launch")
         del ref, lse_ref, rdq, rdk, rdv, dq, dk, dv, out
         if timed:
             row.update(_time_flash(torch, F, fa, q, k, v, do, lse, delta,
                                    causal, iters))
         rows.append(row)
-        log(f"  flash {case}: err {err} normwise {rel} of max {of_max} "
+        log(f"  flash {case} [forward: {route}]: err {err} normwise {rel} "
+            f"of max {of_max} "
             f"(tol {o_tol} / {grad_tol})"
             + ("".join(f" {n} {t:.4f} ms" for n, t in row.items()
                        if n.endswith("_ms")) if timed else ""))
@@ -852,6 +938,7 @@ def serve(torch, np, model, quant, lens, new_tokens, label, check_dense):
     eng.generate(prompts[0][:8], 2)
     paged_decode_attention.launches = 0
     weight_only_matmul.launches = 0
+    zero_routes(weight_only_matmul)
     row_gemv.launches = 0
     half = (len(prompts) + 1) // 2
     torch.cuda.synchronize()
@@ -866,6 +953,8 @@ def serve(torch, np, model, quant, lens, new_tokens, label, check_dense):
     launches = {"paged_decode_attention": paged_decode_attention.launches,
                 "weight_only_matmul": weight_only_matmul.launches,
                 "row_gemv": row_gemv.launches}
+    wo_routes = {WO_ROUTE_NAMES[r]: c
+                 for r, c in weight_only_matmul.routes.items()}
     st = eng.stats()
     ttft = sorted(s.ttft for s in streams)
     res = {"run": label, "tokens": sum(map(len, outs)), "wall_s": wall,
@@ -873,7 +962,8 @@ def serve(torch, np, model, quant, lens, new_tokens, label, check_dense):
            "ttft_p50_s": ttft[len(ttft) // 2],
            "ttft_p95_s": ttft[min(len(ttft) - 1, int(0.95 * len(ttft)))],
            "steps": st["steps"], "prefill_chunks": st["prefill_chunks"],
-           "occupancy": st["occupancy"], "launches": launches}
+           "occupancy": st["occupancy"], "launches": launches,
+           "weight_only_routes": wo_routes}
     if any(len(o) != new_tokens for o in outs) or any(
             not 0 <= t < model.cfg.vocab_size for o in outs for t in o):
         raise AssertionError(f"{label}: malformed token output")
@@ -987,7 +1077,7 @@ def profile_decode(torch, np, model, quant, label, steps=12, pool=None):
     eng.shutdown()
     fam = kernel_families(prof, (
         ("paged_decode_attention", ("paged_decode", "merge_splits")),
-        ("weight_only_matmul", ("wo_gemv", "wo_wmma")),
+        ("weight_only_matmul", ("wo_gemv", "wo_mma_gemv", "wo_wgmma")),
         ("bgmv", ("bgmv_",)),
         ("library_gemm", GEMM_NAMES)))
     busy_ms = sum(fam.values()) / 1e3 / done
@@ -1305,7 +1395,9 @@ def _run_steps(torch, eng, ids, steps):
 
 def train_throughput(torch, layers, steps, seed):
     """20 steps on one fixed [16, 1024] batch after 2 warm-up steps; the
-    flash launch counts are set to 0 just before and read just after."""
+    flash launch counts (the forward's by route too) are set to 0 just
+    before and read just after, and every forward must have launched the
+    Hopper body."""
     import math
 
     from paddle_tpu_torch.models import flops_per_token
@@ -1321,6 +1413,8 @@ def train_throughput(torch, layers, steps, seed):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = flash_counts()
+    fwd_routes = {FLASH_ROUTE_NAMES[r]: c for r, c in
+                  _flash_mod().flash_attention_fwd.routes.items()}
     tokens = TRAIN_BATCH * TRAIN_SEQ * steps
     fpt = flops_per_token(model.cfg, TRAIN_SEQ)
     res = {"layers": layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
@@ -1329,7 +1423,7 @@ def train_throughput(torch, layers, steps, seed):
            "mfu": tokens / wall * fpt / BF16_FLOPS,
            "ideal_step_ms": TRAIN_BATCH * TRAIN_SEQ * fpt / BF16_FLOPS * 1e3,
            "flops_per_token": fpt, "losses": losses, "grad_norms": norms,
-           "launches": launches,
+           "launches": launches, "fwd_routes": fwd_routes,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(f"  train {json.dumps(res)}")
     per_run = layers * steps
@@ -1337,6 +1431,9 @@ def train_throughput(torch, layers, steps, seed):
         raise AssertionError(f"flash launches {launches}, expected "
                              f"{per_run} each ({layers} layers x {steps} "
                              f"steps)")
+    if fwd_routes[FLASH_ROUTE_NAMES[3]] != per_run:
+        raise AssertionError(f"flash forward routes {fwd_routes}: expected "
+                             f"all {per_run} on the Hopper body")
     if not all(math.isfinite(x) for x in losses + norms) \
             or not losses[-1] < losses[0]:
         raise AssertionError(f"training did not progress: losses {losses}")
@@ -3474,8 +3571,7 @@ def main(argv):
     launches = {k: sum(r["launches"].get(k, 0) for r in runs)
                 for k in runs[0]["launches"]}
     tenant_run = next(r for r in runs if "lora_delta" in r["launches"])
-    wo_main = next(r for r in wo_rows if r["wdt"] == "int8"
-                   and r["m"] == 8 and r["layer"] == "gate_up")
+    wo_main, wo_prefill = main_route_rows(wo_rows, fa_rows)
     pd_main = pd_rows[0]
     kernels = [
         dict(name="weight_only_matmul", route="cuda",
@@ -3485,7 +3581,16 @@ def main(argv):
              max_abs_err=max(r["max_abs_err"] for r in wo_rows),
              ms=wo_main["ms"], plain_ms=wo_main["plain_ms"],
              bound_ms=wo_main["bound_ms"], bound_by=wo_main["bound_by"],
-             library_ms=wo_main["library_ms"], case=wo_main["case"]),
+             library_ms=wo_main["library_ms"], case=wo_main["case"],
+             path=wo_main["route"],
+             # the prefill chunk of the same serving path, on its own route
+             prefill_ms=wo_prefill["ms"],
+             prefill_plain_ms=wo_prefill["plain_ms"],
+             prefill_library_ms=wo_prefill["library_ms"],
+             prefill_bound_ms=wo_prefill["bound_ms"],
+             prefill_bound_by=wo_prefill["bound_by"],
+             prefill_case=wo_prefill["case"],
+             prefill_path=wo_prefill["route"]),
         dict(name="paged_decode_attention", route="cuda",
              source="paddle_tpu_torch/csrc/paged_decode_attn.cu",
              replaces="paddle_tpu/ops/pallas/decode_attn.py:133",
@@ -3526,7 +3631,8 @@ def main(argv):
             bound_by=fa_main[f"{part}_bound_by"],
             library_ms=(fa_main["fwd_library_ms"] if part == "fwd"
                         else None),
-            case=fa_main["case"], **({} if part == "fwd" else pair)))
+            case=fa_main["case"],
+            **(dict(path=fa_main["route"]) if part == "fwd" else pair)))
     sa_main = sa_rows[0]
     for name, line, part in (("short_attention_fwd", 73, "fwd"),
                              ("short_attention_bwd", 87, "bwd")):
@@ -3558,6 +3664,27 @@ def main(argv):
         "flash_pos": fp_rows, "serial_ring": ring_rows, "row_gemv": gv_rows,
         "cp": cp_run, "block_sparse": bs_rows, "decode_attention": dec_rows,
         "fused_pair": pair_rows, "sparse": sparse_run})
+
+
+def main_route_rows(wo_rows, fa_rows):
+    """The main-path rows of the two kernels this slice redesigned, each
+    held to its new route (the route each row's checked call launched,
+    from the wrappers' route counts): int8 gate_up at m = 8 (a decode step at bs 8)
+    on the decode GEMV and at m = 256 (a prefill chunk) on the wgmma GEMM;
+    the gpt_base causal forward on the Hopper body. Returns the two
+    weight-only rows (decode, prefill)."""
+    picked = []
+    for m, want in ((8, WO_ROUTE_NAMES[1]), (256, WO_ROUTE_NAMES[2])):
+        row = next(r for r in wo_rows if r["wdt"] == "int8" and r["m"] == m
+                   and r["layer"] == "gate_up")
+        if row["route"] != want:
+            raise AssertionError(f"weight_only {row['case']} took "
+                                 f"{row['route']}, not {want}")
+        picked.append(row)
+    if fa_rows[0]["route"] != FLASH_ROUTE_NAMES[3]:
+        raise AssertionError(f"flash {fa_rows[0]['case']} took "
+                             f"{fa_rows[0]['route']}")
+    return picked
 
 
 def cp_kernel_rows(fp_rows, cp_run):

@@ -42,8 +42,13 @@
 //     summed in a fixed order, so a backward is bitwise reproducible;
 //   * masked entries are selected to 0 after the exp, never multiplied,
 //     so a padded row's garbage statistics cannot leak into dK / dV.
-// Simple first: loads are synchronous (no cp.async/TMA pipeline) and the
-// products are mma.sync, not wgmma.
+// These bodies load synchronously and multiply with mma.sync. The bf16
+// forward at head-dim tiles 64 and 128 (32 < D <= 128, D % 8 == 0, every
+// q/k/v stride a multiple of 8 elements, 16-byte aligned bases) has a
+// Hopper body of its own, `flash_fwd_sm90` (see its note): the caller asks
+// for it as kind 3, and an entry asked for a kind its inputs do not admit
+// returns cudaErrorInvalidValue. f32 inputs, head-dim tiles 32 and 256 and
+// the ring-step forward keep `fwd_body` (kind 0).
 //
 // The ring-step (_pos) kernels run the same bodies with the causal test
 // `row >= col` replaced by int32 global positions, q_pos[row] >=
@@ -59,14 +64,17 @@
 #include <limits.h>
 #include <math.h>
 
+#include <algorithm>
 #include <initializer_list>
 
 #include "attention_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace ptt;
 using namespace ptt::attn;
+using namespace ptt::sm90;
 
 struct Params {
   const void* q;
@@ -246,6 +254,387 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads) flash_fwd_pos(const Params p) {
   fwd_body<T, DP, true>(p);
+}
+
+// --- forward on Hopper: TMA-fed wgmma, P in registers (bf16, D tiles 64/128) ---
+// A persistent CTA per multiprocessor walks a static list of query tiles.
+// Consumer warpgroups own 64 query rows each; a producer keeps Q (double-
+// buffered, so the next tile's Q lands while this one finishes) and a ring
+// of K and V blocks loaded by TMA through 4-D tensor maps over the
+// caller's [B, S, H, D] strides (rows past S and columns past D load as
+// zeros), K and V on barriers of their own so S = QK^T starts before V
+// lands. A warpgroup computes S by wgmma from shared memory (A = its 64 Q
+// rows, B = the K block, K-major, 128-byte swizzle), runs the online
+// softmax on the accumulator layout in f32 registers (log2 domain, masked
+// entries selected to 0 after the exp), casts P to bf16 in registers and
+// feeds it to the P.V wgmma as its register A operand, with V from shared
+// memory MN-major (the descriptor's transpose bit). P never touches
+// shared memory. A head's tiles run side by side, so its K and V come
+// from device memory once.
+// Two consumer warpgroups (128 query rows a tile). D = 64: blocks of 64
+// keys and a producer warp, about 90 registers a thread, two CTAs an SM
+// (four warpgroups hide each other's loads and softmax); D = 128: blocks
+// of 128 keys and a producer warpgroup (one thread issues the loads) that
+// hands its registers to the consumers (232 each: S, P and O take 160),
+// one CTA an SM. Persistent CTAs (their number a multiple of the SMs); Q
+// is double-buffered so the next tile's Q lands while this one finishes.
+template <int DP>
+struct HopCfg {
+  static constexpr int NSUB = DP / 64;          // 64-column sub-tiles
+  static constexpr int NWG = 2;                 // consumer warpgroups
+  static constexpr int ROWS = 64 * NWG;         // query rows a tile
+  static constexpr int BK = DP == 64 ? 64 : 128;  // keys per block
+  static constexpr int STAGES = DP == 64 ? 4 : 2; // K/V ring depth
+  static constexpr int CTAS = DP == 64 ? 2 : 1;   // per multiprocessor
+  static constexpr int THREADS = DP == 64 ? 128 * NWG + 32 : 128 * NWG + 128;
+  static constexpr int kQSub = ROWS * 128;      // one [ROWS][64] Q sub-tile
+  static constexpr int kQ = NSUB * kQSub;       // one Q buffer
+  static constexpr int kSub = BK * 128;         // one [BK][64] sub-tile
+  static constexpr int kKV = NSUB * kSub;       // one K or V block
+  static constexpr size_t smem = 1024 + 2 * kQ + 2 * STAGES * kKV +
+                                 (4 + 4 * STAGES) * sizeof(uint64_t);
+};
+
+// The work of the persistent grid: units of one or two query tiles of one
+// head, handed out statically (unit u to CTA u % grid). Causal rows see
+// more keys the later they sit, so a unit pairs tile n - 1 - i with tile i:
+// every unit then holds about the same number of key blocks, and a head's
+// units run side by side (its K and V stay in L2). Without the mask a
+// unit is one tile, the longest first.
+struct Units {
+  int n_qt, per_head, count;
+  bool causal;
+  __host__ __device__ Units(int nqt, int heads, bool c)
+      : n_qt(nqt), per_head(c ? (nqt + 1) / 2 : nqt),
+        count(heads * (c ? (nqt + 1) / 2 : nqt)), causal(c) {}
+  // unit u -> its head and its tiles (returns 1 or 2)
+  __device__ int tiles(int u, int& bh, int (&qt)[2]) const {
+    bh = u / per_head;
+    const int i = u % per_head;
+    qt[0] = n_qt - 1 - i;
+    qt[1] = i;
+    return causal && qt[1] != qt[0] ? 2 : 1;
+  }
+};
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S (raw scores of one block of BK keys) -> P in place, with the
+// online-softmax update of the rows' max m (log2 domain) and per-lane sum
+// l, and the factor c that rescales O: p = 2^(s * sl2 - m), one FFMA and
+// one ex2 an entry (sl2 = scale * log2(e) > 0, so the max is taken on the
+// raw scores). MASK: the block crosses the causal diagonal or the end of
+// the keys; a masked entry is selected to 0 after the exp.
+template <int BK, bool MASK>
+__device__ __forceinline__ void hop_softmax(float (&s)[BK / 2],
+                                            float (&m)[2], float (&l)[2],
+                                            float (&c)[2], const Params& p,
+                                            int k0, int row_lo, float sl2) {
+  constexpr int NC = BK / 8;            // n8 chunks
+  const int t = threadIdx.x & 3;
+  float mx[2] = {kNegInf, kNegInf};
+  uint64_t keep = ~0ull;
+#pragma unroll
+  for (int i = 0; i < NC; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (MASK) {
+        const int col = k0 + 8 * i + 2 * t + (e & 1);
+        const int row = row_lo + (e < 2 ? 0 : 8);
+        if (!(col < p.Sk && (!p.causal || row >= col))) {
+          keep &= ~(1ull << (4 * i + e));
+          s[4 * i + e] = kNegInf;
+        }
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * i + e]);
+    }
+  float mn[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mn[h] = fmaxf(m[h], quad_max(mx[h]) * sl2);
+    c[h] = fast_exp2(m[h] - mn[h]);
+    m[h] = mn[h];
+  }
+#pragma unroll
+  for (int i = 0; i < NC; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pv = (!MASK || ((keep >> (4 * i + e)) & 1))
+                           ? fast_exp2(fmaf(s[4 * i + e], sl2, -mn[e >> 1]))
+                           : 0.f;
+      rs[e >> 1] += pv;
+      s[4 * i + e] = pv;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * c[h] + rs[h];
+}
+
+// P (f32, in the S accumulator layout) -> the bf16 A fragments of P.V:
+// 16 keys a k16 slice, n8 chunks 2kk (a[0], a[1]) and 2kk + 1 (a[2], a[3])
+template <int BK>
+__device__ __forceinline__ void pack_p(const float (&s)[BK / 2],
+                                       uint32_t (&pa)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = pack2<__nv_bfloat16>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(HopCfg<DP>::THREADS, HopCfg<DP>::CTAS)
+    flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const Params p,
+                   const Units units) {
+  using C = HopCfg<DP>;
+  constexpr int NS = C::STAGES, BK = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align1024(smem_raw);    // [2] buffers
+  uint8_t* Ks = Qs + 2 * C::kQ;
+  uint8_t* Vs = Ks + NS * C::kKV;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + NS * C::kKV);  // [2]
+  uint64_t* q_empty = q_full + 2;       // [2]
+  uint64_t* k_full = q_full + 4;        // [NS] each
+  uint64_t* v_full = k_full + NS;
+  uint64_t* k_empty = v_full + NS;
+  uint64_t* v_empty = k_empty + NS;
+  const int n_kv = (p.Sk + BK - 1) / BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], C::NWG);   // one arrival per warpgroup
+    }
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], C::NWG);
+      mbar_init(&v_empty[s], C::NWG);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * C::NWG) {             // producer
+    if constexpr (C::CTAS == 1) regs_dealloc<40>();
+    if (warp == 4 * C::NWG && lane == 0) {
+      int jj = 0, tt = 0;               // blocks and tiles loaded so far
+      for (int u = blockIdx.x; u < units.count; u += gridDim.x) {
+        int bh, qts[2];
+        const int nt = units.tiles(u, bh, qts);
+        const int b = bh / p.H, h = bh % p.H;
+        for (int i = 0; i < nt; ++i, ++tt) {
+          const int q0 = qts[i] * C::ROWS;
+          const int hi = p.causal
+                             ? min((q0 + C::ROWS + BK - 1) / BK, n_kv)
+                             : n_kv;
+          const int qb = tt & 1;
+          mbar_wait(&q_empty[qb], ((tt >> 1) & 1) ^ 1);
+          mbar_expect_tx(&q_full[qb], C::kQ);
+          for (int sub = 0; sub < C::NSUB; ++sub)
+            tma_load_4d(Qs + qb * C::kQ + sub * C::kQSub, &tq, &q_full[qb],
+                        sub * 64, h, q0, b);
+          for (int j = 0; j < hi; ++j, ++jj) {
+            const int s = jj % NS;
+            const uint32_t free_ph = ((jj / NS) & 1) ^ 1;
+            mbar_wait(&k_empty[s], free_ph);
+            mbar_expect_tx(&k_full[s], C::kKV);
+            for (int sub = 0; sub < C::NSUB; ++sub)
+              tma_load_4d(Ks + s * C::kKV + sub * C::kSub, &tk, &k_full[s],
+                          sub * 64, h, j * BK, b);
+            mbar_wait(&v_empty[s], free_ph);
+            mbar_expect_tx(&v_full[s], C::kKV);
+            for (int sub = 0; sub < C::NSUB; ++sub)
+              tma_load_4d(Vs + s * C::kKV + sub * C::kSub, &tv, &v_full[s],
+                          sub * 64, h, j * BK, b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  if constexpr (C::CTAS == 1) regs_alloc<232>();
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const bool leader = (threadIdx.x & 127) == 0;
+  const float sl2 = p.scale * 1.4426950408889634f;   // scale * log2(e)
+  int jj = 0, tt = 0;
+  for (int u = blockIdx.x; u < units.count; u += gridDim.x) {
+    int bh, qts[2];
+    const int nt = units.tiles(u, bh, qts);
+    const int b = bh / p.H, h = bh % p.H;
+    for (int it = 0; it < nt; ++it, ++tt) {
+      const int q0 = qts[it] * C::ROWS;
+      const int hi =
+          p.causal ? min((q0 + C::ROWS + BK - 1) / BK, n_kv) : n_kv;
+      // causal: a block wholly past this warpgroup's last row holds no key
+      // it sees (at BK = 64 the last block of warpgroup 0): taken in its
+      // turn (waited for, so each release lands in its own phase) and
+      // released unread
+      // and a warpgroup whose rows all lie past S (a ragged last tile)
+      // computes nothing
+      const int hi_wg =
+          q0 + wg * 64 >= p.Sq
+              ? 0
+              : p.causal ? min((q0 + wg * 64 + 64 + BK - 1) / BK, hi) : hi;
+      const int row_lo = q0 + wg * 64 + (warp & 3) * 16 + g;
+      const uint8_t* Qb = Qs + (tt & 1) * C::kQ;
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+      float o[C::NSUB][32];
+#pragma unroll
+      for (int sub = 0; sub < C::NSUB; ++sub)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[sub][i] = 0.f;
+      mbar_wait(&q_full[tt & 1], (tt >> 1) & 1);
+      __syncwarp();
+      for (int j = 0; j < hi; ++j, ++jj) {
+        const int s = jj % NS;
+        const uint32_t ph = (jj / NS) & 1;
+        mbar_wait(&k_full[s], ph);
+        __syncwarp();                   // converged for the .aligned wgmma
+        if (j >= hi_wg) {
+          mbar_wait(&v_full[s], ph);
+          // every warp of the warpgroup is past both waits before the
+          // leader releases the stage (no wgmma orders them here): a
+          // lagging warp would otherwise find the stage refilled and wait
+          // on the parity of a phase two ahead
+          bar_sync(1 + wg, 128);
+          if (leader) {
+            mbar_arrive(&k_empty[s]);
+            mbar_arrive(&v_empty[s]);
+          }
+          continue;
+        }
+        float sc[BK / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < DP / 16; ++ks)
+          wgmma_ss_bf16<BK, 0, 0>(
+              sc,
+              make_desc(Qb + (ks >> 2) * C::kQSub + wg * 64 * 128 +
+                            (ks & 3) * 32,
+                        16, 1024, kSW128),
+              make_desc(Ks + s * C::kKV + (ks >> 2) * C::kSub +
+                            (ks & 3) * 32,
+                        16, 1024, kSW128),
+              ks > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(sc);
+        if (leader) mbar_arrive(&k_empty[s]);   // K is read
+        const int k0 = j * BK;
+        uint32_t pa[BK / 16][4];
+        float c[2];
+        if (k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > q0 + wg * 64))
+          hop_softmax<BK, true>(sc, m, l, c, p, k0, row_lo, sl2);
+        else
+          hop_softmax<BK, false>(sc, m, l, c, p, k0, row_lo, sl2);
+        pack_p<BK>(sc, pa);
+#pragma unroll
+        for (int sub = 0; sub < C::NSUB; ++sub)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) o[sub][i] *= c[(i >> 1) & 1];
+        mbar_wait(&v_full[s], ph);
+        __syncwarp();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) reg_fence(pa[kk]);
+#pragma unroll
+        for (int sub = 0; sub < C::NSUB; ++sub) reg_fence(o[sub]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int sub = 0; sub < C::NSUB; ++sub)
+            // V rows 16kk.. of sub-tile sub: 8-key groups 1024 bytes apart
+            // (one 64-column atom: the other offset is unused)
+            wgmma_rs_bf16_n64<1>(
+                o[sub], pa[kk],
+                make_desc(Vs + s * C::kKV + sub * C::kSub + kk * 2048, 1024,
+                          1024, kSW128),
+                1);
+        wgmma_commit();
+        // closed before the next S batch: no wgmma is in flight while its
+        // accumulators are defined (ptxas serializes the batches otherwise;
+        // issuing the next S before this P.V, as FA-3 does, measured
+        // slower on the H100: C7518 serialization and spills at D = 64)
+        wgmma_wait<0>();
+#pragma unroll
+        for (int sub = 0; sub < C::NSUB; ++sub) reg_fence(o[sub]);
+        if (leader) mbar_arrive(&v_empty[s]);   // V is read
+      }
+      if (leader) mbar_arrive(&q_empty[tt & 1]);  // Q is read
+
+      float lq[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) lq[hh] = fmaxf(quad_sum(l[hh]), 1e-30f);
+      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out0);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = row_lo + 8 * hh;
+        if (r >= p.Sq) continue;
+        __nv_bfloat16* orow =
+            out + ((static_cast<size_t>(b) * p.Sq + r) * p.H + h) * p.D;
+#pragma unroll
+        for (int sub = 0; sub < C::NSUB; ++sub)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int col = sub * 64 + 8 * i + 2 * t;   // D % 8 == 0: pairs
+            if (col < p.D)
+              *reinterpret_cast<uint32_t*>(orow + col) =
+                  pack2<__nv_bfloat16>(o[sub][4 * i + 2 * hh] / lq[hh],
+                                       o[sub][4 * i + 2 * hh + 1] / lq[hh]);
+          }
+        if (t == 0)
+          p.lse_out[static_cast<size_t>(bh) * p.Sq + r] =
+              m[hh] * 0.6931471805599453f + logf(lq[hh]);
+      }
+    }
+  }
+}
+
+// q, k, v as 4-D tensor maps (D, H, S, B) over the caller's strides, boxes
+// of [128 rows][64 columns] with the 128-byte swizzle
+int launch_fwd_sm90(const Params& p, int B, cudaStream_t s) {
+  CUtensorMap maps[3];
+  const void* bases[3] = {p.q, p.k, p.v};
+  const long long strides[3][3] = {{p.q_h, p.q_s, p.q_b},
+                                   {p.k_h, p.k_s, p.k_b},
+                                   {p.v_h, p.v_s, p.v_b}};
+  const uint64_t dims[4] = {static_cast<uint64_t>(p.D),
+                            static_cast<uint64_t>(p.H),
+                            static_cast<uint64_t>(p.Sq),
+                            static_cast<uint64_t>(B)};
+  // Q boxes of a CTA's rows, K and V of one block of keys
+  const bool d64 = p.D <= 64;
+  const uint32_t rows = d64 ? HopCfg<64>::ROWS : HopCfg<128>::ROWS;
+  const uint32_t bk = d64 ? HopCfg<64>::BK : HopCfg<128>::BK;
+  for (int i = 0; i < 3; ++i) {
+    const uint32_t box[4] = {64, 1, i == 0 ? rows : bk, 1};
+    const uint64_t st[3] = {static_cast<uint64_t>(strides[i][0]) * 2,
+                            static_cast<uint64_t>(strides[i][1]) * 2,
+                            static_cast<uint64_t>(strides[i][2]) * 2};
+    if (!make_tmap<4>(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, bases[i],
+                      dims, st, box, CU_TENSOR_MAP_SWIZZLE_128B))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Units units((p.Sq + rows - 1) / rows, B * p.H, p.causal != 0);
+  const int ctas = d64 ? HopCfg<64>::CTAS : HopCfg<128>::CTAS;
+  const dim3 grid(std::min(units.count, ctas * sm_count()));
+  auto run = [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    constexpr size_t smem = HopCfg<DP>::smem;
+    if (const int e = smem_opt_in<flash_fwd_sm90<DP>>(smem)) return e;
+    flash_fwd_sm90<DP><<<grid, HopCfg<DP>::THREADS, smem, s>>>(
+        maps[0], maps[1], maps[2], p, units);
+    return 0;
+  };
+  return d64 ? run(std::integral_constant<int, 64>())
+             : run(std::integral_constant<int, 128>());
 }
 
 // --- backward: dQ -------------------------------------------------------------
@@ -464,7 +853,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_pos(const Params p) {
 }
 
 // --- launch --------------------------------------------------------------------
-enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
+enum Kind { kFwd = 0, kDq = 1, kDkv = 2, kFwdSm90 = 3 };
 
 using Kernel = void (*)(const Params);
 
@@ -510,6 +899,13 @@ int run(int kind, Params& p, int BH, int dtype, bool pos, void* stream) {
     vec = vec && st % ch == 0;
   p.vec = vec;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kind == kFwdSm90) {
+    if (dtype != kBF16 || pos || !vec || p.D <= 32 || p.D > 128 ||
+        p.D % 8 != 0 || !(p.scale > 0.f))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int err = launch_fwd_sm90(p, BH / p.H, s);
+    return err != 0 ? err : static_cast<int>(cudaGetLastError());
+  }
   int err;
   switch (dtype) {
     case kF32:
@@ -529,28 +925,35 @@ int run(int kind, Params& p, int BH, int dtype, bool pos, void* stream) {
 }  // namespace
 
 // kind: 0 forward (q, k, v -> out0 = O, lse_out), 1 dQ (q, k, v, dout,
-// lse, delta -> out0), 2 dK, dV (-> out0, out1). q, k, v, dout are
-// [B, S, H, D] with element strides (b, s, h) and a unit stride along D;
-// outputs are contiguous [B, S, H, D]; lse / delta are [B*H, S] f32.
-extern "C" int ptt_flash_attention(
-    int kind, const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* out0, void* out1,
-    void* lse_out, int B, int S, int H, int D, long long q_b, long long q_s,
-    long long q_h, long long k_b, long long k_s, long long k_h,
-    long long v_b, long long v_s, long long v_h, long long d_b,
-    long long d_s, long long d_h, int dtype, float scale, int causal,
-    void* stream) {
+// lse, delta -> out0), 2 dK, dV (-> out0, out1), 3 the forward on the
+// Hopper body (bf16, 32 < D <= 128; as kind 0). dims = {B, S, H, D, then
+// the (b, s, h) element strides of q, k, v and dout} (dout's are 0 for a
+// forward): q, k, v, dout are [B, S, H, D] with a unit stride along D;
+// outputs are contiguous [B, S, H, D]; lse / delta are [B*H, S] f32. The
+// sizes travel packed, as one pointer, because a call's host time is part
+// of its cost.
+extern "C" int ptt_flash_attention(int kind, const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const void* lse, const void* delta,
+                                   void* out0, void* out1, void* lse_out,
+                                   const long long* dims, int dtype,
+                                   float scale, int causal, void* stream) {
+  const long long* st = dims + 4;
   Params p{q, k, v, dout, static_cast<const float*>(lse),
            static_cast<const float*>(delta), out0, out1,
-           static_cast<float*>(lse_out), nullptr, nullptr, S, S, H, D, q_b,
-           q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, d_b, d_s, d_h, scale,
-           causal, 0};
-  return run(kind, p, B * H, dtype, false, stream);
+           static_cast<float*>(lse_out), nullptr, nullptr,
+           static_cast<int>(dims[1]), static_cast<int>(dims[1]),
+           static_cast<int>(dims[2]), static_cast<int>(dims[3]), st[0], st[1],
+           st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
+           st[11], scale, causal, 0};
+  return run(kind, p, static_cast<int>(dims[0] * dims[2]), dtype, false,
+             stream);
 }
 
-// The ring-step kernels: as ptt_flash_attention, with q / dout of Sq rows,
-// k / v of Sk rows (dK, dV [B, Sk, H, D]; lse, delta [B*H, Sq]) and the
-// causal mask qpos[i] >= kpos[j] on int32 positions ([Sq], [Sk]).
+// The ring-step kernels: kinds 0-2 of ptt_flash_attention, sizes and
+// strides as arguments, with q / dout of Sq rows, k / v of Sk rows (dK, dV
+// [B, Sk, H, D]; lse, delta [B*H, Sq]) and the causal mask qpos[i] >=
+// kpos[j] on int32 positions ([Sq], [Sk]).
 extern "C" int ptt_flash_attention_pos(
     int kind, const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* out0, void* out1,

@@ -10,6 +10,7 @@ are linked once.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -27,7 +28,8 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _lib = None
 #: what the last build did: {"seconds", "cached", "ptxas"} (ptxas -v
-#: register, shared-memory and spill lines)
+#: register, shared-memory and spill lines, its warnings and its notes
+#: on wgmma serialization)
 build_info = {}
 
 
@@ -89,14 +91,16 @@ def build():
                 lambda so: _run([nvcc, *flags, "-c", so[0], "-o", so[1]]),
                 zip(cus, objs)))
         tmp = lib_path + f".tmp{os.getpid()}"
-        _run([nvcc, ARCH, "-shared", "-o", tmp, *objs])
+        # -ldl: the tensor-map encoder is looked up in libcuda with dlopen
+        _run([nvcc, ARCH, "-shared", "-o", tmp, *objs, "-ldl"])
         os.replace(tmp, lib_path)
         with open(stamp, "w") as f:
             f.write(digest)
         ptxas = [ln.strip() for log in logs for ln in log.splitlines()
                  if ("ptxas info" in ln and ("registers" in ln
                                              or "Compiling" in ln))
-                 or "spill" in ln]
+                 or "spill" in ln or "warning" in ln
+                 or "Performance" in ln]
         build_info.update(seconds=time.perf_counter() - t0, cached=False,
                           ptxas=ptxas)
         return lib_path
@@ -115,20 +119,22 @@ def lib():
     handle = ctypes.CDLL(build())
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
-    # x, qweight, scale, out, m, n, k, x_dtype, int4, stream
-    _sig(handle.ptt_weight_only_matmul, P, P, P, P, I, I, I, I, I, P)
+    # x, qweight, scale, out, m, n, k, x_dtype, int4, route, stream
+    _sig(handle.ptt_weight_only_matmul, P, P, P, P, I, I, I, I, I, I, P)
     # q, kq, ks, vq, vs, tables, pos, out, B, H, Hkv, D, BS, NB,
     # kv strides (n, h, t), scale strides (n, h, t), q_dtype, kv_dtype,
     # softmax scale, split scratch, stream
     _sig(handle.ptt_paged_decode_attention, P, P, P, P, P, P, P, P,
          I, I, I, I, I, I, L, L, L, L, L, L, I, I, F, P, P)
     _sig(handle.ptt_paged_decode_splits, I, I)
-    # kind, q, k, v, dout, lse, delta, out0, out1, lse_out, B, S, H, D,
-    # strides (b, s, h) of q, k, v, dout, dtype, scale, causal, stream
+    # kind, q, k, v, dout, lse, delta, out0, out1, lse_out, dims (16
+    # int64: B, S, H, D, strides (b, s, h) of q, k, v, dout), dtype, scale,
+    # causal, stream
     _sig(handle.ptt_flash_attention, I, P, P, P, P, P, P, P, P, P,
-         I, I, I, I, *([L] * 12), I, F, I, P)
-    # the ring-step kernels: as above with qpos, kpos after lse_out and
-    # B, Sq, Sk, H, D
+         ctypes.c_char_p, I, F, I, P)
+    # the ring-step kernels: kind, the ten pointers as above, qpos, kpos,
+    # B, Sq, Sk, H, D, strides (b, s, h) of q, k, v, dout, dtype, scale,
+    # causal, stream
     _sig(handle.ptt_flash_attention_pos, I, P, P, P, P, P, P, P, P, P, P, P,
          I, I, I, I, I, *([L] * 12), I, F, I, P)
     # x, w, bias, out, m, n, k, dtype, stream (the row-stable GEMV)
@@ -165,12 +171,34 @@ def check(err, what):
                            f"{buf.value.decode(errors='replace')}")
 
 
-#: dtype codes shared with the C entry points
-def dtype_code(dtype):
+_CURRENT = contextlib.nullcontext()
+
+
+def launch_on(device):
+    """(context, stream) for a launch on CUDA `device`, as every wrapper
+    makes it: a context that makes the device current (nothing to do when
+    it already is) and its current stream as an int. Both cheap —
+    torch.cuda.current_stream builds a Stream object and torch.cuda.device
+    switches twice, microseconds each that every call of a kernel would
+    pay on the host."""
     import torch
 
-    codes = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
-             torch.int8: 3}
-    if dtype not in codes:
+    ctx = (_CURRENT if torch._C._cuda_getDevice() == device.index
+           else torch.cuda.device(device))
+    return ctx, torch._C._cuda_getCurrentRawStream(device.index)
+
+
+_CODES = {}
+
+
+#: dtype codes shared with the C entry points
+def dtype_code(dtype):
+    if not _CODES:
+        import torch
+
+        _CODES.update({torch.float32: 0, torch.bfloat16: 1,
+                       torch.float16: 2, torch.int8: 3})
+    code = _CODES.get(dtype)
+    if code is None:
         raise TypeError(f"unsupported dtype {dtype} for the CUDA kernels")
-    return codes[dtype]
+    return code

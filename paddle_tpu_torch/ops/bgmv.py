@@ -85,12 +85,12 @@ def lora_delta(x, A, B, ids):
         return out
     h = torch.empty((bsz, s, r), dtype=torch.float32, device=x.device)
     lib = _build.lib()
-    with torch.cuda.device(x.device):
+    ctx, stream = _build.launch_on(x.device)
+    with ctx:
         err = lib.ptt_bgmv(
             x.data_ptr(), x.stride(0), x.stride(1), A.data_ptr(),
             B.data_ptr(), ids.data_ptr(), h.data_ptr(), out.data_ptr(), bsz,
-            s, d_in, r, d_out, slots, _build.dtype_code(x.dtype),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            s, d_in, r, d_out, slots, _build.dtype_code(x.dtype), stream)
     _build.check(err, "lora_delta")
     lora_delta.launches += 1
     return out

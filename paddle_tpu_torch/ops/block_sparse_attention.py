@@ -140,12 +140,12 @@ def _launch(q, k, v, block_idx, block_cnt, scale, block_size):
     out = torch.empty_like(q)
     if BH == 0:
         return out
-    with torch.cuda.device(q.device):
+    ctx, stream = _build.launch_on(q.device)
+    with ctx:
         err = _build.lib().ptt_block_sparse_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
             cnt.data_ptr(), out.data_ptr(), BH, S, D, idx.shape[1],
-            _build.dtype_code(q.dtype), ctypes.c_float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            _build.dtype_code(q.dtype), ctypes.c_float(scale), stream)
     _build.check(err, "block_sparse_attention")
     block_sparse_attention.launches += 1
     return out

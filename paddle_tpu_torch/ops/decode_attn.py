@@ -164,7 +164,8 @@ def _launch_paged(q, kq, ks, vq, vs, tables, pos, wrapper):
     splits = lib.ptt_paged_decode_splits(NB, BS)
     partial = torch.empty((B, H, splits, D + 2), dtype=torch.float32,
                           device=q.device) if splits > 1 else None
-    with torch.cuda.device(q.device):
+    ctx, stream = _build.launch_on(q.device)
+    with ctx:
         err = lib.ptt_paged_decode_attention(
             q.data_ptr(), kq.data_ptr(),
             ks.data_ptr() if ks is not None else None,
@@ -174,8 +175,7 @@ def _launch_paged(q, kq, ks, vq, vs, tables, pos, wrapper):
             B, H, Hkv, D, BS, NB, *kq.stride()[:3], *sc_strides,
             _build.dtype_code(q.dtype), _build.dtype_code(kq.dtype),
             1.0 / D ** 0.5,
-            partial.data_ptr() if partial is not None else None,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            partial.data_ptr() if partial is not None else None, stream)
     _build.check(err, wrapper.__name__)
     wrapper.launches += 1
     return out

@@ -6,7 +6,9 @@ Three kernels in ``csrc/flash_attention.cu``, each behind a wrapper with
 a ``.launches`` counter:
 
 * `flash_attention_fwd` — ``(O, lse)``: online softmax in f32, P cast to
-  the input dtype before PV, lse ``[B, H, S]`` f32 for the backward;
+  the input dtype before PV, lse ``[B, H, S]`` f32 for the backward; bf16
+  inputs with 32 < D <= 128 take the Hopper body (TMA-fed wgmma, P in
+  registers), the rest the mma.sync body — `flash_fwd_route` decides;
 * `flash_attention_bwd_dq` — ``dQ`` over K blocks;
 * `flash_attention_bwd_dkv` — ``(dK, dV)`` over Q blocks.
 
@@ -44,12 +46,14 @@ A CUDA input launches the kernels (bf16 or f32; any other dtype raises
 from __future__ import annotations
 
 import math
+import struct
 
 import torch
 
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_supported",
+           "flash_fwd_route", "FWD_MMA", "FWD_WGMMA",
            "flash_attention_ref", "flash_attention_bwd_ref",
            "flash_attention_bwd_dq_ref", "flash_attention_bwd_dkv_ref",
            "flash_attention_fwd", "flash_attention_bwd_dq",
@@ -59,6 +63,8 @@ __all__ = ["flash_attention", "flash_attention_supported",
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _FWD, _DQ, _DKV = 0, 1, 2
+#: the forward's two bodies, as kinds of ``csrc/flash_attention.cu``
+FWD_MMA, FWD_WGMMA = _FWD, 3
 _NEG_INF = -1e30                 # the TPU kernels' mask value
 
 
@@ -184,24 +190,47 @@ def _cuda_operands(q, *others):
     return out
 
 
+def flash_fwd_route(q, k, v, scale=1.0):
+    """The body a CUDA call of `flash_attention_fwd` runs: FWD_WGMMA (the
+    Hopper body: TMA tensor maps over the strides, wgmma) for bf16 q, k, v
+    with 32 < D <= 128, D % 8 == 0, a positive scale, unit stride along D,
+    every other stride a multiple of 8 elements and 16-byte aligned bases;
+    FWD_MMA (the mma.sync body) otherwise: f32, head-dim tiles 32 and 256,
+    and views TMA cannot describe."""
+    d = q.shape[-1]
+    if (q.dtype != torch.bfloat16 or not 32 < d <= 128 or d % 8
+            or not scale > 0):
+        return FWD_MMA
+    for t in (q, k, v):
+        st = t.stride()
+        if (t.dtype != q.dtype or st[3] != 1 or st[0] % 8 or st[1] % 8
+                or st[2] % 8 or t.data_ptr() % 16):
+            return FWD_MMA
+    return FWD_WGMMA
+
+
+_DIMS = struct.Struct("<16q")     # ptt_flash_attention's dims
+
+
 def _launch(kind, q, k, v, dout, lse, delta, out0, out1, lse_out, causal,
             scale):
-    B, S, H, D = q.shape
-    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-               *(dout.stride()[:3] if dout is not None else (0, 0, 0))]
+    dims = _DIMS.pack(*q.shape, *q.stride()[:3], *k.stride()[:3],
+                      *v.stride()[:3],
+                      *(dout.stride()[:3] if dout is not None else (0, 0, 0)))
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
     lib = _build.lib()
-    with torch.cuda.device(q.device):
+    ctx, stream = _build.launch_on(q.device)
+    with ctx:
         err = lib.ptt_flash_attention(
             kind, ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta),
-            ptr(out0), ptr(out1), ptr(lse_out), B, S, H, D, *strides,
-            _build.dtype_code(q.dtype), scale, int(bool(causal)),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            ptr(out0), ptr(out1), ptr(lse_out), dims,
+            _build.dtype_code(q.dtype), scale, int(bool(causal)), stream)
     _build.check(err, ("flash_attention_fwd", "flash_attention_bwd_dq",
-                       "flash_attention_bwd_dkv")[kind])
+                       "flash_attention_bwd_dkv",
+                       "flash_attention_fwd")[kind])
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, scale=None):
@@ -217,8 +246,10 @@ def flash_attention_fwd(q, k, v, *, causal=True, scale=None):
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return out, lse
-    _launch(_FWD, q, k, v, None, None, None, out, None, lse, causal, scale)
+    route = flash_fwd_route(q, k, v, scale)
+    _launch(route, q, k, v, None, None, None, out, None, lse, causal, scale)
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.routes[route] += 1
     return out, lse
 
 
@@ -272,6 +303,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
 
 
 flash_attention_fwd.launches = 0
+#: launches of each body (`flash_fwd_route`'s codes)
+flash_attention_fwd.routes = {FWD_MMA: 0, FWD_WGMMA: 0}
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
 
@@ -388,13 +421,13 @@ def _launch_pos(kind, q, k, v, dout, lse, delta, out0, out1, lse_out, q_pos,
         return t.data_ptr() if t is not None else None
 
     lib = _build.lib()
-    with torch.cuda.device(q.device):
+    ctx, stream = _build.launch_on(q.device)
+    with ctx:
         err = lib.ptt_flash_attention_pos(
             kind, ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta),
             ptr(out0), ptr(out1), ptr(lse_out), q_pos.data_ptr(),
             k_pos.data_ptr(), B, Sq, k.shape[1], H, D, *strides,
-            _build.dtype_code(q.dtype), scale, int(bool(causal)),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            _build.dtype_code(q.dtype), scale, int(bool(causal)), stream)
     _build.check(err, ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos")[kind])
 
 

@@ -334,7 +334,7 @@ class _Launcher:
         self.dev, self.M, self.H, self.W = x.device, M, H, W
         self.dtype = _build.dtype_code(x.dtype)
         self.lib = _build.lib()
-        self.stream = torch.cuda.current_stream(x.device).cuda_stream
+        self.ctx, self.stream = _build.launch_on(x.device)
 
     def gemm(self, kind, what, a, N, w=None, d=None, e0=None, e1=None,
              ebn=None, ebw=None, out=None, part=None, splits=1, rows=0,
@@ -342,7 +342,7 @@ class _Launcher:
         args = _Args(a, d or _Opnd(), _ptr(w), _ptr(e0), _ptr(e1), _ptr(ebn),
                      _ptr(ebw), _ptr(out), _ptr(part), self.M, self.H,
                      self.W, N, splits, rows, _ptr(w_next), _ptr(out_next))
-        with torch.cuda.device(self.dev):
+        with self.ctx:
             err = self.lib.ptt_resblock_gemm(kind, ctypes.byref(args),
                                              self.dtype, self.stream)
         _build.check(err, what)
@@ -350,7 +350,7 @@ class _Launcher:
 
     def reduce(self, mode, what, part, T, N, out, gamma=None, beta=None,
                bn=None, eps=0.0, n=1.0):
-        with torch.cuda.device(self.dev):
+        with self.ctx:
             err = self.lib.ptt_resblock_reduce(
                 mode, part.data_ptr(), T, N, _ptr(gamma), _ptr(beta),
                 _ptr(bn), float(eps), float(n), out.data_ptr(), self.stream)

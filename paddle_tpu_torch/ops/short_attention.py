@@ -190,14 +190,14 @@ def _launch(kind, q, k, v, dout, seed, lse, delta, out0, out1, p, causal):
         return t.data_ptr() if t is not None else None
 
     lib = _build.lib()
-    with torch.cuda.device(q.device):
+    ctx, stream = _build.launch_on(q.device)
+    with ctx:
         err = lib.ptt_short_attention(
             kind, ptr(q), ptr(k), ptr(v), ptr(dout), ptr(seed), ptr(lse),
             ptr(delta), ptr(out0), ptr(out1), B, S, H, D, *strides,
             _build.dtype_code(q.dtype), _scale(q),
             _dropout_rng.keep_scale(p), _dropout_rng.keep_threshold(p),
-            int(p > 0.0), int(bool(causal)),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            int(p > 0.0), int(bool(causal)), stream)
     _build.check(err, ("short_attention_fwd", "short_attention_bwd (dq)",
                        "short_attention_bwd (dkv)")[kind])
 

@@ -9,6 +9,10 @@ halves-packed nibbles (`paddle_tpu_torch.nn.quant._pack_int4`).
 `weight_only_matmul` launches ``csrc/weight_only.cu`` for CUDA tensors at
 every ``m`` (the TPU kernel's block-shape cut-offs were VMEM tiling limits
 and do not apply) and computes `weight_only_matmul_ref` for CPU tensors.
+`weight_only_route` names the kernel a CUDA call takes: the wgmma GEMM of
+prefill chunks (m > 16), the row-stable tensor-core GEMV of the decode
+buckets (m <= 16), or, for what neither admits (f32 x, unaligned x,
+k % 64 != 0), the CUDA-core GEMV.
 
 `row_gemv` is the float-weight GEMV of the decode buckets (``m <= 16``):
 ``x[m, k] . w[n, k]^T + bias`` with x, w and bias of one float dtype, the
@@ -24,12 +28,28 @@ import torch
 from . import _build
 
 __all__ = ["weight_only_matmul", "weight_only_matmul_nd",
-           "weight_only_matmul_ref", "unpack_int4", "row_gemv",
-           "row_gemv_ref", "ROW_GEMV_MAX_M"]
+           "weight_only_matmul_ref", "weight_only_route", "unpack_int4",
+           "row_gemv", "row_gemv_ref", "ROW_GEMV_MAX_M", "ROUTE_GEMV",
+           "ROUTE_DECODE", "ROUTE_PREFILL"]
 
 #: the largest m `row_gemv` is for: the decode buckets
 ROW_GEMV_MAX_M = 16
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+#: route codes of ``csrc/weight_only.cu``'s entry
+ROUTE_GEMV, ROUTE_DECODE, ROUTE_PREFILL = 0, 1, 2
+
+
+def weight_only_route(m, k, dtype, aligned=True):
+    """The kernel a CUDA call of `weight_only_matmul` takes for x of
+    ``m`` rows, ``k`` columns and `dtype`, with ``aligned`` telling whether
+    x and qweight start on 16 bytes: ROUTE_PREFILL (the wgmma GEMM) for
+    m > 16 and ROUTE_DECODE (the row-stable tensor-core GEMV) for m <= 16
+    when x is bf16 or f16, aligned and k % 64 == 0; ROUTE_GEMV (the
+    CUDA-core GEMV) otherwise. The decision never depends on m within the
+    decode buckets, so their rows stay bit-identical across batch sizes."""
+    if dtype in (torch.bfloat16, torch.float16) and aligned and k % 64 == 0:
+        return ROUTE_DECODE if m <= ROW_GEMV_MAX_M else ROUTE_PREFILL
+    return ROUTE_GEMV
 
 
 def unpack_int4(p):
@@ -75,37 +95,42 @@ def weight_only_matmul(x, qweight, scale, weight_dtype="int8"):
     scale [n] f32 -> [m, n] in x's dtype. A CPU input takes the plain
     version; a CUDA input launches the kernel (or raises)."""
     m, n, k = _check(x, qweight, scale, weight_dtype)
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return weight_only_matmul_ref(x, qweight, scale, weight_dtype)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"weight_only_matmul: no kernel for device "
-                           f"{x.device}")
-    for name, t in (("qweight", qweight), ("scale", scale)):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if dev.type != "cuda":
+        raise RuntimeError(f"weight_only_matmul: no kernel for device {dev}")
+    if qweight.device != dev or scale.device != dev:
+        raise ValueError(f"qweight is on {qweight.device} and scale on "
+                         f"{scale.device}, x on {dev}")
     if scale.dtype != torch.float32:
         raise TypeError(f"scale must be float32, got {scale.dtype}")
-    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+    if x.dtype not in _FLOATS:
         raise TypeError(f"x must be f32/bf16/f16, got {x.dtype}")
     x = x.contiguous()
     if not (qweight.is_contiguous() and scale.is_contiguous()):
         raise ValueError("qweight and scale must be contiguous")
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    out = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0 or n == 0:
         return out
+    xp, wp = x.data_ptr(), qweight.data_ptr()
+    route = weight_only_route(m, k, x.dtype, xp % 16 == 0 and wp % 16 == 0)
     lib = _build.lib()
-    with torch.cuda.device(x.device):
+    ctx, stream = _build.launch_on(dev)
+    with ctx:
         err = lib.ptt_weight_only_matmul(
-            x.data_ptr(), qweight.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), m, n, k, _build.dtype_code(x.dtype),
-            int(weight_dtype == "int4"),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            xp, wp, scale.data_ptr(), out.data_ptr(), m, n, k,
+            _build.dtype_code(x.dtype), int(weight_dtype == "int4"), route,
+            stream)
     _build.check(err, "weight_only_matmul")
     weight_only_matmul.launches += 1
+    weight_only_matmul.routes[route] += 1
     return out
 
 
 weight_only_matmul.launches = 0
+#: launches of each route (`weight_only_route`'s codes)
+weight_only_matmul.routes = {ROUTE_GEMV: 0, ROUTE_DECODE: 0, ROUTE_PREFILL: 0}
 
 
 def weight_only_matmul_nd(x, qweight, scale, weight_dtype="int8"):
@@ -155,12 +180,12 @@ def row_gemv(x, weight, bias=None):
     if out.numel():
         w = weight.contiguous()
         b = bias.contiguous() if bias is not None else None
-        with torch.cuda.device(x.device):
+        ctx, stream = _build.launch_on(x.device)
+        with ctx:
             err = _build.lib().ptt_row_gemv(
                 x2.data_ptr(), w.data_ptr(),
                 b.data_ptr() if b is not None else None, out.data_ptr(), m,
-                n, k, _build.dtype_code(x.dtype),
-                torch.cuda.current_stream(x.device).cuda_stream)
+                n, k, _build.dtype_code(x.dtype), stream)
         _build.check(err, "row_gemv")
         row_gemv.launches += 1
     return out.reshape(*lead, n)

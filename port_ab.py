@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Compare two checkouts of the PyTorch/CUDA port on one GPU, alternating.
 
-    python3 port_ab.py PARENT CHANGE [--what decode,flash,dense_decode,sparse]
-                       [--rounds 1]
+    python3 port_ab.py PARENT CHANGE
+        [--what decode,flash,weight_only,dense_decode,sparse] [--rounds 1]
 
 PARENT and CHANGE are the roots of two checkouts (for example a
 `git archive` of each commit unpacked into a git-ignored directory). Both
@@ -19,9 +19,19 @@ Measurements:
   tokens each, no solo pass — served 3 times on one model after a
   warm-up serve: tokens/s, time to first token p50/p95, wall seconds;
 * ``flash``: the whole-sequence FlashAttention kernels at gpt_base's
-  training shape (B=16, S=1024, H=12, D=64, bf16, causal): median
-  CUDA-event ms of forward, dq and dkv over 50 calls after 5 warm-up
-  calls;
+  training shape (B=16, S=1024, H=12, D=64, bf16, causal) and at
+  llama2_7b's (B=4, S=2048, H=32, D=128), q, k, v views of one fused QKV
+  tensor as the models give them: median CUDA-event ms of forward, dq and
+  dkv over 50 calls after 5 warm-up calls, and each one's device time
+  (``_dev_ms``: 32 calls in one CUDA graph, median of 7 replays);
+* ``weight_only``: `weight_only_matmul` on llama2_7b's gate_up (n=22016,
+  k=4096) and down (n=4096, k=11008) weights quantized from one seeded
+  random weight, int8 and int4, at m = 1, 8 (decode) and 256 (a prefill
+  chunk), bf16 x: median CUDA-event ms over 50 calls (``_ms``: a call as
+  a caller sees it, its host time included) and the device time of a
+  call (``_dev_ms``: 32 calls in one CUDA graph cycling through 4 copies
+  of the weight, so that each call reads it from HBM as a decode step's
+  layer after layer does; median of 7 replays);
 * ``dense_decode``: `decode_attention` at llama2_7b's decode width (B=8,
   H=32, D=128, T=4096; `chip_smoke.py`'s caches) on int8 and bf16 caches
   at pos 4095 and 2000: median ms over 50 calls;
@@ -60,22 +70,88 @@ def _time_ms(torch, fn, iters=50, warmup=5):
     return sorted(times)[len(times) // 2]
 
 
+def _graph_ms(torch, fns, calls=32, reps=7):
+    """Device time of one call: `calls` calls cycling through `fns`
+    captured in one CUDA graph, the median of `reps` replays over
+    `calls`."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fns[i % len(fns)]()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / calls)
+    return sorted(times)[len(times) // 2]
+
+
+FLASH_SHAPES = (("gpt_base", 16, 1024, 12, 64), ("llama2_7b", 4, 2048, 32, 128))
+WO_LAYERS = (("gate_up", 22016, 4096), ("down", 4096, 11008))
+
+
 def child_flash(tree):
     import torch
 
     fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
-    g = torch.Generator(device="cuda").manual_seed(3)
-    q, k, v, do = (torch.randn(16, 1024, 12, 64, device="cuda",
-                               generator=g).to(torch.bfloat16)
-                   for _ in range(4))
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
-    delta = fa.attention_delta(out, do)
-    return {"tree": tree, "what": "flash", "fwd_ms": _time_ms(
-                torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
-            "dq_ms": _time_ms(torch, lambda: fa.flash_attention_bwd_dq(
-                q, k, v, do, lse, delta, causal=True)),
-            "dkv_ms": _time_ms(torch, lambda: fa.flash_attention_bwd_dkv(
-                q, k, v, do, lse, delta, causal=True))}
+    res = {"tree": tree, "what": "flash"}
+    for name, B, S, H, D in FLASH_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(3)
+        qkv = torch.randn(B, S, 3, H, D, device="cuda", generator=g).to(
+            torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        do = torch.randn(B, S, H, D, device="cuda", generator=g).to(
+            torch.bfloat16)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        delta = fa.attention_delta(out, do)
+        calls = {
+            "fwd": lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+            "dq": lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                    causal=True),
+            "dkv": lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                      delta, causal=True)}
+        for part, fn in calls.items():
+            res[f"{name}_{part}_ms"] = _time_ms(torch, fn)
+            res[f"{name}_{part}_dev_ms"] = _graph_ms(torch, [fn])
+        del qkv, q, k, v, do, out, lse, delta
+    return res
+
+
+def child_weight_only(tree):
+    import torch
+
+    from paddle_tpu_torch.nn.quant import weight_quantize
+    from paddle_tpu_torch.ops.weight_only import weight_only_matmul
+
+    res = {"tree": tree, "what": "weight_only"}
+    for name, n, k in WO_LAYERS:
+        g = torch.Generator(device="cuda").manual_seed(1)
+        w = torch.randn(n, k, device="cuda", generator=g) * 0.02
+        for wdt in ("int8", "int4"):
+            qw, sc = weight_quantize(w.t(), f"weight_only_{wdt}")
+            copies = [qw] + [qw.clone() for _ in range(3)]
+            for m in (1, 8, 256):
+                x = torch.randn(m, k, device="cuda", generator=g).to(
+                    torch.bfloat16)
+                res[f"{wdt}_{name}_m{m}_ms"] = _time_ms(
+                    torch, lambda: weight_only_matmul(x, qw, sc, wdt))
+                res[f"{wdt}_{name}_m{m}_dev_ms"] = _graph_ms(
+                    torch, [lambda c=c: weight_only_matmul(x, c, sc, wdt)
+                            for c in copies])
+            del copies
+        del w
+    return res
 
 
 def child_dense_decode(tree):
@@ -145,6 +221,7 @@ def _child(what, tree):
     os.chdir(tree)
     sys.path.insert(0, tree)
     res = {"flash": child_flash, "decode": child_decode,
+           "weight_only": child_weight_only,
            "dense_decode": child_dense_decode,
            "sparse": child_sparse}[what](tree)
     print("AB " + json.dumps(res), flush=True)

@@ -41,16 +41,21 @@ def cuda():
 
 @pytest.mark.parametrize("dtype,k", [(torch.float32, 550),
                                      (torch.bfloat16, 576),
-                                     (torch.bfloat16, 552)])
+                                     (torch.bfloat16, 552),
+                                     (torch.bfloat16, 512),
+                                     (torch.bfloat16, 4096),
+                                     (torch.float16, 4096)])
 @pytest.mark.parametrize("wdt", ["int8", "int4"])
-@pytest.mark.parametrize("m", [1, 2, 3, 8, 16, 17, 70])
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 16, 17, 64, 70, 100, 256, 300])
 def test_weight_only_kernel_matches_plain(cuda, dtype, k, wdt, m):
-    """Every path: GEMV row-blocks of 1, 2, 4 and 8 (m <= 16, and m > 16
-    for f32 or k % 64 != 0; 16-byte loads when k % 32 == 0, element loads
-    and a ragged tail otherwise), tensor cores (m > 16, bf16,
-    k % 64 == 0), ragged m and n.
-    f32: 1e-4 relative (summation order); bf16: both round an f32 sum to
-    bf16, so 2 bf16 ulps of the largest output."""
+    """Every route: the decode tensor-core GEMV (m <= 16, bf16/f16,
+    k % 64 == 0), the prefill wgmma GEMM (m > 16, the same rules; 128 or
+    256 rows of x a CTA, and m = 300 over two x tiles), and the CUDA-core
+    GEMV for the rest (f32 or k % 64 != 0; row-blocks of 1, 2, 4 and 8,
+    16-byte loads when k % 32 == 0, element loads and a ragged tail
+    otherwise); ragged m and n.
+    f32: 1e-4 relative (summation order); bf16/f16: both round an f32 sum
+    to x's type, so 2 bf16 ulps of the largest output."""
     g = torch.Generator().manual_seed(m)
     n = 333
     w = torch.randn(k, n, generator=g) * 0.05
@@ -58,13 +63,38 @@ def test_weight_only_kernel_matches_plain(cuda, dtype, k, wdt, m):
     x = torch.randn(m, k, generator=g).to(dtype)
     ref = tw.weight_only_matmul_ref(x, qw, sc, wdt)
     before = tw.weight_only_matmul.launches
+    routes = dict(tw.weight_only_matmul.routes)
     got = tw.weight_only_matmul(x.to(cuda), qw.to(cuda), sc.to(cuda), wdt)
     assert tw.weight_only_matmul.launches == before + 1
+    want = tw.ROUTE_GEMV
+    if dtype != torch.float32 and k % 64 == 0:
+        want = tw.ROUTE_DECODE if m <= 16 else tw.ROUTE_PREFILL
+    routes[want] += 1
+    assert tw.weight_only_matmul.routes == routes
     if dtype == torch.float32:
         torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)
     else:
         tol = 2 * 2.0 ** -8 * ref.float().abs().max().item()
         assert (got.cpu().float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("wdt", ["int8", "int4"])
+@pytest.mark.parametrize("k", [4096, 576])
+def test_weight_only_rows_bit_equal_across_m(cuda, dtype, wdt, k):
+    """The decode route is row-stable: a row's output is the same bits
+    whether it is computed at m = 1, 2, 3, 4, 8 or 16 (the decode
+    buckets), for an n whose CTAs split k over 8, 2 and no warps."""
+    g = torch.Generator(device=cuda).manual_seed(k)
+    for n in (333, 22016, 34000):
+        w = torch.randn(k, n, generator=g, device=cuda) * 0.05
+        qw, sc = tq.weight_quantize(w, f"weight_only_{wdt}")
+        x = torch.randn(16, k, generator=g, device=cuda).to(dtype)
+        assert tw.weight_only_route(16, k, dtype) == tw.ROUTE_DECODE
+        full = tw.weight_only_matmul(x, qw, sc, wdt)
+        for m in (1, 2, 3, 4, 8):
+            assert torch.equal(tw.weight_only_matmul(x[:m], qw, sc, wdt),
+                               full[:m]), (n, m)
 
 
 def _paged_case(B, H, Hkv, D, BS, NB, N, pos, seed):
@@ -216,6 +246,89 @@ def test_flash_backward_is_bitwise_reproducible(cuda):
         grads.append([x.grad for x in leaves])
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [1024, 1000, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_forward_hopper_body_matches_plain(cuda, D, S, causal):
+    """The bf16 forward's Hopper body (TMA-fed wgmma, P in registers) on
+    fused-QKV views, block-aligned, ragged and long S: O to FLASH_TOL's
+    2e-2 max abs error, lse to 1e-2."""
+    q, k, v, _ = _flash_case(2, S, 3, D, torch.bfloat16, seed=S + D,
+                             fused=True)
+    before = tfa.flash_attention_fwd.routes[tfa.FWD_WGMMA]
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=causal)
+    assert tfa.flash_attention_fwd.routes[tfa.FWD_WGMMA] == before + 1
+    ref, lse_ref = tfa.flash_attention_ref(q, k, v, causal=causal)
+    assert torch.isfinite(out).all()
+    assert _err(out, ref) <= FLASH_TOL[torch.bfloat16][0]
+    assert (lse - lse_ref).abs().max().item() <= 1e-2
+
+
+def test_flash_forward_is_bitwise_reproducible(cuda):
+    """Two calls of the Hopper forward give the same bits."""
+    q, k, v, _ = _flash_case(2, 1000, 4, 128, torch.bfloat16, seed=7,
+                             fused=True)
+    assert tfa.flash_fwd_route(q, k, v) == tfa.FWD_WGMMA
+    a = tfa.flash_attention_fwd(q, k, v, causal=True)
+    b = tfa.flash_attention_fwd(q, k, v, causal=True)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("S", [1024, 1000])
+def test_flash_forward_bit_stable_in_a_cuda_graph(cuda, S):
+    """Hundreds of causal Hopper forwards back to back in one CUDA graph,
+    at D = 64 (64-key blocks, so warpgroup 0 skips the last K block of its
+    tile before warpgroup 1 is done with the stage), block-aligned and
+    ragged S: every launch of every replay gives the eager launch's O and
+    lse bit for bit. A warpgroup that hands a skipped block's stage back
+    too early lets a lagging warp wait on the wrong phase, which traps
+    (the launch fails) or reads the next block's K/V."""
+    q, k, v, _ = _flash_case(4, S, 12, 64, torch.bfloat16, seed=S,
+                             fused=True)
+    calls = 256
+    o0, l0 = tfa.flash_attention_fwd(q, k, v, causal=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tfa.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.current_stream().wait_stream(side)
+    tfa.flash_attention_fwd.routes[tfa.FWD_WGMMA] = 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [tfa.flash_attention_fwd(q, k, v, causal=True)
+                for _ in range(calls)]
+    assert tfa.flash_attention_fwd.routes[tfa.FWD_WGMMA] == calls
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        bad = [i for i, (o, l) in enumerate(outs)
+               if not (torch.equal(o, o0) and torch.equal(l, l0))]
+        assert not bad, f"{len(bad)} of {calls} launches differ"
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_backward_reads_the_hopper_forward_lse(cuda, D):
+    """Training's path: the dq / dkv kernels run on the Hopper forward's
+    lse (and delta from its O) and match the plain backward given the same
+    lse and delta (normwise, FLASH_TOL); the autograd Function, which
+    hands them exactly these, gives the same gradients bit for bit."""
+    q, k, v, do = _flash_case(2, 1000, 3, D, torch.bfloat16, seed=D,
+                              fused=True)
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    assert tfa.flash_fwd_route(q, k, v) == tfa.FWD_WGMMA
+    delta = tfa.attention_delta(out, do)
+    grads = (tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True),
+             *tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                          causal=True))
+    refs = tfa.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal=True)
+    for name, got, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert _norm_err(got, r) <= FLASH_TOL[torch.bfloat16][1], name
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    tfa.flash_attention(*leaves, causal=True).backward(do)
+    for name, x, got in zip(("dq", "dk", "dv"), leaves, grads):
+        assert torch.equal(x.grad, got), name
 
 
 def test_sdpa_routes_by_the_shape_predicate_alone(cuda):

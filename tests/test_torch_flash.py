@@ -196,3 +196,55 @@ def test_cross_entropy_matches_jax(dtype):
                                np.asarray(g.astype(jnp.float32)),
                                rtol=tol, atol=tol)
     assert not tx.grad[[3, 9, 20]].any()
+
+
+def _meta_qkv(B, S, H, D, dtype=torch.bfloat16, fused=True):
+    """q, k, v of a model's shapes without memory: meta tensors keep the
+    shapes, the strides and the byte offsets of the views."""
+    if fused:
+        return torch.empty(B, S, 3, H, D, dtype=dtype, device="meta").unbind(2)
+    return [torch.empty(B, S, H, D, dtype=dtype, device="meta")
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("case,shape,dtype,fused,route", [
+    ("gpt_base", (16, 1024, 12, 64), "bfloat16", True, "wgmma"),
+    ("bert_base", (128, 128, 12, 64), "bfloat16", True, "wgmma"),
+    ("llama2_7b", (4, 2048, 32, 128), "bfloat16", False, "wgmma"),
+    ("padded D = 80", (2, 1024, 8, 80), "bfloat16", True, "wgmma"),
+    ("D = 40", (32, 128, 12, 40), "bfloat16", True, "wgmma"),
+    ("gpt_base f32", (16, 1024, 12, 64), "float32", True, "mma"),
+    ("D = 256", (1, 256, 2, 256), "bfloat16", False, "mma"),
+    ("D = 32", (1, 256, 2, 32), "bfloat16", True, "mma"),
+    ("D = 36", (1, 256, 2, 36), "bfloat16", False, "mma"),
+])
+def test_fwd_route_predicate_on_the_slices_shapes(case, shape, dtype, fused,
+                                                  route):
+    q, k, v = _meta_qkv(*shape, dtype=_TDT[dtype], fused=fused)
+    want = {"wgmma": tfa.FWD_WGMMA, "mma": tfa.FWD_MMA}[route]
+    assert tfa.flash_fwd_route(q, k, v) == want, case
+
+
+def test_fwd_route_predicate_refuses_what_tma_cannot_describe():
+    q, k, v = _meta_qkv(2, 256, 4, 64)
+    assert tfa.flash_fwd_route(q, k, v) == tfa.FWD_WGMMA
+    # a stride along D, and a base off 16 bytes
+    assert tfa.flash_fwd_route(q[..., ::2], k[..., ::2], v[..., ::2]) \
+        == tfa.FWD_MMA
+    base = torch.empty(2 * 256 * 4 * 64 + 4, dtype=torch.bfloat16,
+                       device="meta")
+    odd = base[4:].view(2, 256, 4, 64)
+    assert tfa.flash_fwd_route(odd, k, v) == tfa.FWD_MMA
+
+
+def test_fwd_route_counts_name_both_bodies_and_a_cpu_call_counts_none():
+    """`flash_attention_fwd.routes` counts launches by body where the
+    kernel is launched; the plain version on the CPU launches none."""
+    assert set(tfa.flash_attention_fwd.routes) == {tfa.FWD_MMA,
+                                                   tfa.FWD_WGMMA}
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(1, 128, 2, 64, generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    before = dict(tfa.flash_attention_fwd.routes)
+    tfa.flash_attention_fwd(q, k, v, causal=True)
+    assert tfa.flash_attention_fwd.routes == before

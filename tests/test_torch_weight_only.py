@@ -141,3 +141,45 @@ def test_cpu_dispatch_takes_plain_version_and_validates():
         tw.weight_only_matmul(x, qw, sc, "int4")      # width mismatch
     with pytest.raises(ValueError):
         tw.weight_only_matmul(x, qw, sc[:5])
+
+
+# (n, k) of the llama2_7b serving path's Linears
+LLAMA_LINEARS = {"qkv": (12288, 4096), "o_proj": (4096, 4096),
+                 "gate_up": (22016, 4096), "down": (4096, 11008),
+                 "lm_head": (32000, 4096)}
+
+
+@pytest.mark.parametrize("layer", sorted(LLAMA_LINEARS))
+def test_route_predicate_on_llama2_7b_linears(layer):
+    """Every decode bucket (m = 1..16) of a bf16/f16 serving step takes the
+    row-stable tensor-core GEMV, a prefill chunk the wgmma GEMM; f32 x and
+    unaligned x take the CUDA-core GEMV at any m."""
+    _, k = LLAMA_LINEARS[layer]
+    for dt in (torch.bfloat16, torch.float16):
+        for m in range(1, 17):
+            assert tw.weight_only_route(m, k, dt) == tw.ROUTE_DECODE
+        for m in (17, 100, 256, 300):
+            assert tw.weight_only_route(m, k, dt) == tw.ROUTE_PREFILL
+        for m in (8, 256):
+            assert tw.weight_only_route(m, k, dt, aligned=False) \
+                == tw.ROUTE_GEMV
+    for m in (1, 8, 256):
+        assert tw.weight_only_route(m, k, torch.float32) == tw.ROUTE_GEMV
+
+
+@pytest.mark.parametrize("k", [550, 552, 576 + 32, 4096 + 8])
+def test_route_predicate_sends_k_not_a_multiple_of_64_to_the_gemv(k):
+    for m in (1, 16, 17, 256):
+        assert tw.weight_only_route(m, k, torch.bfloat16) == tw.ROUTE_GEMV
+
+
+def test_route_counts_name_every_route_and_a_cpu_call_counts_none():
+    """`weight_only_matmul.routes` counts launches by route code where the
+    kernel is launched; the plain version on the CPU launches none."""
+    assert set(tw.weight_only_matmul.routes) == {
+        tw.ROUTE_GEMV, tw.ROUTE_DECODE, tw.ROUTE_PREFILL}
+    qw, sc = tq.weight_quantize(torch.from_numpy(_w(3, k=64, n=32)))
+    before = dict(tw.weight_only_matmul.routes)
+    for m in (1, 17):
+        tw.weight_only_matmul(torch.randn(m, 64).to(torch.bfloat16), qw, sc)
+    assert tw.weight_only_matmul.routes == before
