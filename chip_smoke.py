@@ -621,10 +621,27 @@ def reset_flash_counts():
     for w in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
               fa.flash_attention_bwd_dkv):
         w.launches = 0
-    zero_routes(fa.flash_attention_fwd)
+        zero_routes(w)
 
 
 FLASH_ROUTE_NAMES = {0: "mma.sync body", 3: "Hopper body (TMA + wgmma)"}
+# the backward's bodies (`flash_bwd_route`'s codes), dQ and dK/dV alike
+FLASH_BWD_ROUTE_NAMES = {0: "mma.sync body", 1: "Hopper body (TMA + wgmma)"}
+# the cases whose forward and backward must take the Hopper bodies: the
+# main paths' shapes
+FLASH_HOPPER_CASES = ("gpt_base", "llama2_7b")
+
+
+def flash_route_counts():
+    """Launches by route name of the three flash wrappers since their
+    counts were set to 0."""
+    fa = _flash_mod()
+    return {"fwd": {FLASH_ROUTE_NAMES[r]: c for r, c in
+                    fa.flash_attention_fwd.routes.items()},
+            "dq": {FLASH_BWD_ROUTE_NAMES[r]: c for r, c in
+                   fa.flash_attention_bwd_dq.routes.items()},
+            "dkv": {FLASH_BWD_ROUTE_NAMES[r]: c for r, c in
+                    fa.flash_attention_bwd_dkv.routes.items()}}
 
 
 def check_flash(torch, iters):
@@ -636,7 +653,11 @@ def check_flash(torch, iters):
     in bf16, 1e-5 in f32 (about 5x and 25x the largest readings on an
     H100: 1.9e-4 and 3.9e-7). The largest error relative to max |grad|
     is reported beside it. q, k, v are views of one [B, S, 3, H, D] tensor,
-    as the model's fused QKV gives them."""
+    as the model's fused QKV gives them. Each case names the forward's and
+    the backward's route (the dQ and dK/dV wrappers' route counts); the
+    bf16 cases of FLASH_HOPPER_CASES must take the Hopper bodies, and each
+    causal case on a Hopper body is replayed in a CUDA graph
+    (`graph_mismatches`), forward and backward alike."""
     import torch.nn.functional as F
 
     fa = _flash_mod()
@@ -654,8 +675,16 @@ def check_flash(torch, iters):
         ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal)
         delta = fa.attention_delta(ref, do)
         bwd_args = (q, k, v, do, lse_ref, delta)
+        zero_routes(fa.flash_attention_bwd_dq)
+        zero_routes(fa.flash_attention_bwd_dkv)
         dq = fa.flash_attention_bwd_dq(*bwd_args, causal=causal)
         dk, dv = fa.flash_attention_bwd_dkv(*bwd_args, causal=causal)
+        bwd_route = launched_route(fa.flash_attention_bwd_dq,
+                                   FLASH_BWD_ROUTE_NAMES)
+        if launched_route(fa.flash_attention_bwd_dkv,
+                          FLASH_BWD_ROUTE_NAMES) != bwd_route:
+            raise AssertionError(f"flash dq and dkv took different routes: "
+                                 f"{fa.flash_attention_bwd_dkv.routes}")
         rdq, rdk, rdv = fa.flash_attention_bwd_ref(*bwd_args, causal=causal)
         torch.cuda.synchronize()
         o_tol, grad_tol = FLASH_TOL[dt]
@@ -680,14 +709,20 @@ def check_flash(torch, iters):
         case = (f"{label} {dt} {'causal' if causal else 'full'} B={B} "
                 f"S={S} H={H} D={D}")
         row = dict(case=case, dtype=dt, causal=causal, route=route,
-                   max_abs_err=err, grad_norm_rel_err=rel,
+                   bwd_route=bwd_route, max_abs_err=err, grad_norm_rel_err=rel,
                    grad_err_of_max=of_max, o_tol=o_tol, grad_tol=grad_tol)
         if not (finite and err["fwd"] <= o_tol and rel["dq"] <= grad_tol
                 and rel["dkv"] <= grad_tol):
             raise AssertionError(f"flash {case}: errors {err}, normwise "
                                  f"gradient errors {rel}, tolerances "
                                  f"{o_tol} / {grad_tol}, finite={finite}")
-        if route == FLASH_ROUTE_NAMES[3] and causal:
+        hopper = FLASH_ROUTE_NAMES[3]
+        if (label in FLASH_HOPPER_CASES and dt == "bfloat16"
+                and (route, bwd_route) != (hopper, hopper)):
+            raise AssertionError(f"flash {case}: forward on {route}, "
+                                 f"backward on {bwd_route}; expected the "
+                                 f"Hopper bodies")
+        if route == hopper and causal:
             # the Hopper body's causal skips, launch after launch
             row["graph_launches"], row["graph_mismatches"] = \
                 graph_mismatches(torch, lambda: fa.flash_attention_fwd(
@@ -697,12 +732,24 @@ def check_flash(torch, iters):
                     f"flash {case}: {row['graph_mismatches']} of "
                     f"{row['graph_launches']} forwards in a CUDA graph "
                     f"differ from the eager launch")
+        if bwd_route == hopper and causal:
+            row["bwd_graph_launches"], row["bwd_graph_mismatches"] = \
+                graph_mismatches(torch, lambda: (
+                    fa.flash_attention_bwd_dq(*bwd_args, causal=True),
+                    *fa.flash_attention_bwd_dkv(*bwd_args, causal=True)),
+                    (dq, dk, dv))
+            if row["bwd_graph_mismatches"]:
+                raise AssertionError(
+                    f"flash {case}: {row['bwd_graph_mismatches']} of "
+                    f"{row['bwd_graph_launches']} backward calls in a CUDA "
+                    f"graph differ from the eager launches")
         del ref, lse_ref, rdq, rdk, rdv, dq, dk, dv, out
         if timed:
             row.update(_time_flash(torch, F, fa, q, k, v, do, lse, delta,
                                    causal, iters))
         rows.append(row)
-        log(f"  flash {case} [forward: {route}]: err {err} normwise {rel} "
+        log(f"  flash {case} [forward: {route}; backward: {bwd_route}]: "
+            f"err {err} normwise {rel} "
             f"of max {of_max} "
             f"(tol {o_tol} / {grad_tol})"
             + ("".join(f" {n} {t:.4f} ms" for n, t in row.items()
@@ -713,8 +760,8 @@ def check_flash(torch, iters):
 
 
 def _time_flash(torch, F, fa, q, k, v, do, lse, delta, causal, iters):
-    """Kernel, plain and library times with the bounds of the three
-    kernels. Operations: the forward's two products, 4 B H S^2 D (half
+    """Kernel (a call, and its device time from a CUDA graph), plain and
+    library times with the bounds of the three kernels. Operations: the forward's two products, 4 B H S^2 D (half
     when causal); dq recomputes S and dP and forms dQ (3 products, 1.5x),
     dkv recomputes S and dP and forms dK and dV (4 products, 2x); the
     FA-2 count of the backward as a whole is 2.5x. Bytes: each input read
@@ -742,6 +789,12 @@ def _time_flash(torch, F, fa, q, k, v, do, lse, delta, causal, iters):
             *bwd, **kw), slow, warmup=1),
         "dkv_plain_ms": time_ms(torch, lambda: fa.flash_attention_bwd_dkv_ref(
             *bwd, **kw), slow, warmup=1)}
+    # device time, host work left out: calls in one CUDA graph
+    for part in ("fwd", "dq", "dkv"):
+        fn = {"fwd": lambda: fa.flash_attention_fwd(q, k, v, **kw),
+              "dq": lambda: fa.flash_attention_bwd_dq(*bwd, **kw),
+              "dkv": lambda: fa.flash_attention_bwd_dkv(*bwd, **kw)}[part]
+        res[f"{part}_dev_ms"] = time_graph_ms(torch, [fn], calls=16, reps=5)
     # yardstick: SDPA on [B, H, S, D] views, forward, and its backward
     # (one autograd call that forms dq, dk and dv together)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -780,24 +833,54 @@ def reset_short_counts():
     sa = _short_mod()
     sa.short_attention_fwd.launches = 0
     sa.short_attention_bwd.launches = 0
+    zero_routes(sa.short_attention_fwd)
 
 
-def kernel_keep_share(torch, B, S, H, p, seed):
-    """The forward kernel's own keep bits, read out exactly: with q = k = 0
-    every probability is 1/S, and with V the identity over D = min(S, 256)
-    columns the output's (i, d) entry is nonzero exactly where (i, d) is
-    kept. Returns (kept share, bits equal to the plain stream's)."""
+SHORT_ROUTE_NAMES = {0: "mma.sync body",
+                     3: "Hopper body (TMA + wgmma, dropout drawn inside)"}
+
+
+def short_route_counts():
+    """Forward launches by route name since the counts were set to 0."""
+    return {SHORT_ROUTE_NAMES[r]: c
+            for r, c in _short_mod().short_attention_fwd.routes.items()}
+
+
+def kernel_keep_share(torch, B, S, H, p, seed, dtype):
+    """The forward kernel's own keep bits, read out exactly for every key:
+    with q = k = 0 every probability is 1/S, and with V[j, j - c] = 1 for
+    the keys j in [c, c + D) the output's (i, d) entry is nonzero exactly
+    where (i, c + d) is kept; one call per D keys. In the case's dtype, so
+    the bits come from the bodies its forward takes: in bf16 both
+    instantiations of the Hopper body, D = 64 (64-key blocks, one keep
+    word a draw, two CTAs an SM: BERT's) and D = 128 (128-key blocks, two
+    words); in f32 the mma.sync body at D = 256. Returns (kept share of
+    each D's readout, bits equal to the plain stream's at every D, the
+    routes launched, the widths D)."""
     from paddle_tpu_torch.ops import _dropout_rng
 
     sa = _short_mod()
-    D = min(S, 256)
-    q = torch.zeros(B, S, H, D, device="cuda")
-    v = torch.eye(S, D, device="cuda")[None, :, None, :].expand(
-        B, S, H, D).contiguous()
-    out, _ = sa.short_attention_fwd(q, q, v, seed, p)
-    kept = (out != 0).permute(0, 2, 1, 3)
-    want = _dropout_rng.keep_mask(seed, B, H, S, S, p)[..., :D]
-    return kept.double().mean().item(), bool(torch.equal(kept, want))
+    widths = (64, 128) if dtype == torch.bfloat16 else (256,)
+    want = _dropout_rng.keep_mask(seed, B, H, S, S, p)
+    shares, same, routes = [], True, set()
+    for D in widths:
+        q = torch.zeros(B, S, H, D, device="cuda", dtype=dtype)
+        kept = torch.empty(B, H, S, S, dtype=torch.bool, device="cuda")
+        for c in range(0, S, D):
+            w = min(D, S - c)
+            v = torch.zeros(S, D, device="cuda", dtype=dtype)
+            v[c:c + w, :w] = torch.eye(w, device="cuda", dtype=dtype)
+            v = v[None, :, None, :].expand(B, S, H, D).contiguous()
+            zero_routes(sa.short_attention_fwd)
+            out, _ = sa.short_attention_fwd(q, q, v, seed, p)
+            routes.add(launched_route(sa.short_attention_fwd,
+                                      SHORT_ROUTE_NAMES))
+            kept[..., c:c + w] = (out[..., :w] != 0).permute(0, 2, 1, 3)
+            del out, v
+        shares.append(kept.double().mean().item())
+        same = same and bool(torch.equal(kept, want))
+        del q, kept
+    return shares, same, sorted(routes), widths
 
 
 def check_short_attention(torch, iters):
@@ -808,8 +891,9 @@ def check_short_attention(torch, iters):
     error, each gradient's normwise error ||got - ref|| / ||ref||; lse
     max abs error <= 1e-2 (bf16) / 1e-4 (f32). q, k, v are views of one [B, S, 3, H, D]
     tensor, as BERT's fused QKV gives them. For p > 0, the kernel's own
-    keep bits (`kernel_keep_share`) against 1 - p and against the plain
-    stream."""
+    keep bits (`kernel_keep_share`, on the case's route) against 1 - p
+    and against the plain stream. Each case names the forward's route;
+    the bf16 bert_base and S=512 cases must take the Hopper body."""
     import torch.nn.functional as F
 
     sa = _short_mod()
@@ -822,7 +906,14 @@ def check_short_attention(torch, iters):
         q, k, v = qkv.unbind(2)
         do = torch.randn(B, S, H, D, device="cuda", generator=g).to(dtype)
         seed = torch.randint(0, 2 ** 62, (1,), device="cuda", generator=g)
+        zero_routes(sa.short_attention_fwd)
         out, lse = sa.short_attention_fwd(q, k, v, seed, p, causal)
+        route = launched_route(sa.short_attention_fwd, SHORT_ROUTE_NAMES)
+        if (dt == "bfloat16" and (label.startswith("bert_base")
+                                  or label == "S=512")
+                and route != SHORT_ROUTE_NAMES[3]):
+            raise AssertionError(f"short attention {label}: forward on "
+                                 f"{route}, expected the Hopper body")
         ref, lse_ref = sa.short_attention_ref(q, k, v, seed, p, causal)
         grads = sa.short_attention_bwd(q, k, v, do, lse, seed, p, causal)
         refs = sa.short_attention_bwd_ref(q, k, v, do, lse_ref, seed, p,
@@ -841,17 +932,23 @@ def check_short_attention(torch, iters):
                      for t in (out, lse, *grads))
         case = (f"{label} {dt} {'causal' if causal else 'full'} p={p} "
                 f"B={B} S={S} H={H} D={D}")
-        row = dict(case=case, dtype=dt, causal=causal, p=p,
+        row = dict(case=case, dtype=dt, causal=causal, p=p, route=route,
                    max_abs_err=err, grad_norm_rel_err=rel, o_tol=o_tol,
                    lse_tol=lse_tol, grad_tol=grad_tol)
         ok = (finite and err["fwd"] <= o_tol and err["lse"] <= lse_tol
               and max(rel.values()) <= grad_tol)
         if p > 0:
-            share, same = kernel_keep_share(torch, B, S, H, p, seed)
-            sigma = (p * (1 - p) / (B * H * S * min(S, 256))) ** 0.5
-            row.update(kept_share=share, kept_expected=1 - p,
-                       kept_sigma=sigma, kernel_mask_equals_plain=same)
-            ok = ok and same and abs(share - (1 - p)) <= 4 * sigma
+            shares, same, keep_routes, widths = kernel_keep_share(
+                torch, B, S, H, p, seed, dtype)
+            sigma = (p * (1 - p) / (B * H * S * S)) ** 0.5
+            row.update(kept_share=shares[0], kept_shares=shares,
+                       kept_widths=widths, kept_expected=1 - p,
+                       kept_sigma=sigma, kernel_mask_equals_plain=same,
+                       kept_route=keep_routes)
+            ok = (ok and same
+                  and all(abs(x - (1 - p)) <= 4 * sigma for x in shares)
+                  and (dt != "bfloat16"
+                       or keep_routes == [SHORT_ROUTE_NAMES[3]]))
         if not ok:
             raise AssertionError(f"short attention {case}: {row}, "
                                  f"finite={finite}")
@@ -859,7 +956,8 @@ def check_short_attention(torch, iters):
         row.update(_time_short(torch, F, sa, q, k, v, do, lse, seed, p,
                                causal, iters))
         rows.append(row)
-        log(f"  short attention {case}: err {err} normwise {rel}"
+        log(f"  short attention {case} [forward: {route}]: err {err} "
+            f"normwise {rel}"
             + (f" kept {row['kept_share']:.5f}" if p > 0 else "")
             + "".join(f" {n} {t:.4f}" for n, t in row.items()
                       if n.endswith("_ms")))
@@ -869,12 +967,13 @@ def check_short_attention(torch, iters):
 
 
 def _time_short(torch, F, sa, q, k, v, do, lse, seed, p, causal, iters):
-    """Kernel, plain and library times with the bounds. Operations: the
-    forward's two products, 4 B H S^2 D (half when causal); the backward
-    2.5x that (the FA-2 count of what the function needs; the kernels
-    also recompute S and dP once more for the row term). Bytes: each
-    input read once, each output written once (forward q, k, v, O and
-    lse; backward q, k, v, dO, lse, dQ, dK, dV)."""
+    """Kernel (a call, and its device time from a CUDA graph), plain and
+    library times with the bounds. Operations: the forward's two
+    products, 4 B H S^2 D (half when causal); the backward 2.5x that (the
+    FA-2 count of what the function needs; the kernels also recompute S
+    and dP once more for the row term). Bytes: each input read once, each
+    output written once (forward q, k, v, O and lse; backward q, k, v,
+    dO, lse, dQ, dK, dV)."""
     B, S, H, D = q.shape
     tensor = B * S * H * D * q.element_size()
     rows_f32 = B * H * S * 4
@@ -888,7 +987,12 @@ def _time_short(torch, F, sa, q, k, v, do, lse, seed, p, causal, iters):
         "fwd_plain_ms": time_ms(torch, lambda: sa.short_attention_ref(
             q, k, v, seed, p, causal), slow, warmup=1),
         "bwd_plain_ms": time_ms(torch, lambda: sa.short_attention_bwd_ref(
-            q, k, v, do, lse, seed, p, causal), slow, warmup=1)}
+            q, k, v, do, lse, seed, p, causal), slow, warmup=1),
+        # device time, host work left out: calls in one CUDA graph
+        "fwd_dev_ms": time_graph_ms(torch, [lambda: sa.short_attention_fwd(
+            q, k, v, seed, p, causal)], calls=16, reps=5),
+        "bwd_dev_ms": time_graph_ms(torch, [lambda: sa.short_attention_bwd(
+            q, k, v, do, lse, seed, p, causal)], calls=16, reps=5)}
     # yardstick: SDPA with the same dropout on [B, H, S, D] views, forward,
     # and its backward (one autograd call forms dq, dk and dv)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -1395,9 +1499,9 @@ def _run_steps(torch, eng, ids, steps):
 
 def train_throughput(torch, layers, steps, seed):
     """20 steps on one fixed [16, 1024] batch after 2 warm-up steps; the
-    flash launch counts (the forward's by route too) are set to 0 just
-    before and read just after, and every forward must have launched the
-    Hopper body."""
+    flash launch counts (each wrapper's by route too) are set to 0 just
+    before and read just after, and every forward, dQ and dK/dV launch
+    must have been on its Hopper body."""
     import math
 
     from paddle_tpu_torch.models import flops_per_token
@@ -1413,8 +1517,7 @@ def train_throughput(torch, layers, steps, seed):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = flash_counts()
-    fwd_routes = {FLASH_ROUTE_NAMES[r]: c for r, c in
-                  _flash_mod().flash_attention_fwd.routes.items()}
+    routes = flash_route_counts()
     tokens = TRAIN_BATCH * TRAIN_SEQ * steps
     fpt = flops_per_token(model.cfg, TRAIN_SEQ)
     res = {"layers": layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
@@ -1423,7 +1526,7 @@ def train_throughput(torch, layers, steps, seed):
            "mfu": tokens / wall * fpt / BF16_FLOPS,
            "ideal_step_ms": TRAIN_BATCH * TRAIN_SEQ * fpt / BF16_FLOPS * 1e3,
            "flops_per_token": fpt, "losses": losses, "grad_norms": norms,
-           "launches": launches, "fwd_routes": fwd_routes,
+           "launches": launches, "routes": routes,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(f"  train {json.dumps(res)}")
     per_run = layers * steps
@@ -1431,9 +1534,10 @@ def train_throughput(torch, layers, steps, seed):
         raise AssertionError(f"flash launches {launches}, expected "
                              f"{per_run} each ({layers} layers x {steps} "
                              f"steps)")
-    if fwd_routes[FLASH_ROUTE_NAMES[3]] != per_run:
-        raise AssertionError(f"flash forward routes {fwd_routes}: expected "
-                             f"all {per_run} on the Hopper body")
+    if any(r[FLASH_ROUTE_NAMES[3]] != per_run for r in routes.values()):
+        raise AssertionError(f"flash routes {routes}: expected all "
+                             f"{per_run} launches of each kernel on its "
+                             f"Hopper body")
     if not all(math.isfinite(x) for x in losses + norms) \
             or not losses[-1] < losses[0]:
         raise AssertionError(f"training did not progress: losses {losses}")
@@ -1603,8 +1707,10 @@ def _bert_steps(torch, eng, batch, steps):
 
 def bert_throughput(torch, np, layers, steps, seed):
     """20 steps on one fixed [128, 128] batch after 2 warm-up steps; the
-    short-attention and flash launch counts are set to 0 just before and
-    read just after. MFU counts bench.py's matmul-bearing parameters."""
+    short-attention and flash launch counts (the short forward's by route
+    too) are set to 0 just before and read just after: every forward must
+    have launched the Hopper body. MFU counts bench.py's matmul-bearing
+    parameters."""
     import math
 
     from paddle_tpu_torch.models.bert import n_matmul_params
@@ -1621,6 +1727,7 @@ def bert_throughput(torch, np, layers, steps, seed):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {**short_counts(), **flash_counts()}
+    fwd_routes = short_route_counts()
     n_matmul = n_matmul_params(model.cfg)
     seqs = BERT_BATCH * steps / wall
     res = {"layers": layers, "batch": BERT_BATCH, "seq": BERT_SEQ,
@@ -1629,6 +1736,7 @@ def bert_throughput(torch, np, layers, steps, seed):
            "n_matmul": n_matmul,
            "mfu": seqs * 6.0 * n_matmul * BERT_SEQ / BF16_FLOPS,
            "losses": losses, "grad_norms": norms, "launches": launches,
+           "fwd_routes": fwd_routes,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(f"  bert train {json.dumps(res)}")
     per_run = layers * steps
@@ -1639,6 +1747,9 @@ def bert_throughput(torch, np, layers, steps, seed):
                              f"short-attention forward and {2 * per_run} "
                              f"backward launches ({layers} layers x {steps} "
                              f"steps) and no flash launch")
+    if fwd_routes[SHORT_ROUTE_NAMES[3]] != per_run:
+        raise AssertionError(f"short-attention forward routes {fwd_routes}:"
+                             f" expected all {per_run} on the Hopper body")
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"BERT training not finite: losses {losses}")
     del model, eng
@@ -3631,8 +3742,12 @@ def main(argv):
             bound_by=fa_main[f"{part}_bound_by"],
             library_ms=(fa_main["fwd_library_ms"] if part == "fwd"
                         else None),
-            case=fa_main["case"],
-            **(dict(path=fa_main["route"]) if part == "fwd" else pair)))
+            case=fa_main["case"], device_ms=fa_main[f"{part}_dev_ms"],
+            # the body the checked call took, and the training run's
+            # launches by body
+            path=fa_main["route" if part == "fwd" else "bwd_route"],
+            routes=train["throughput"]["routes"][part],
+            **({} if part == "fwd" else pair)))
     sa_main = sa_rows[0]
     for name, line, part in (("short_attention_fwd", 73, "fwd"),
                              ("short_attention_bwd", 87, "bwd")):
@@ -3650,7 +3765,10 @@ def main(argv):
             library_ms=sa_main[f"{part}_library_ms"],
             # a backward call is two launches (dQ, then dK/dV), both
             # counted; ms is the call's
-            case=sa_main["case"]))
+            case=sa_main["case"], device_ms=sa_main[f"{part}_dev_ms"],
+            **(dict(path=sa_main["route"],
+                    routes=bert_run["throughput"]["fwd_routes"])
+               if part == "fwd" else {})))
     kernels.extend(resblock_kernel_rows(rb_rows, resnet_run))
     kernels.extend(cp_kernel_rows(fp_rows, cp_run))
     kernels.append(gemv_row(gv_rows, runs[0]["launches"]["row_gemv"]))
@@ -3671,8 +3789,8 @@ def main_route_rows(wo_rows, fa_rows):
     held to its new route (the route each row's checked call launched,
     from the wrappers' route counts): int8 gate_up at m = 8 (a decode step at bs 8)
     on the decode GEMV and at m = 256 (a prefill chunk) on the wgmma GEMM;
-    the gpt_base causal forward on the Hopper body. Returns the two
-    weight-only rows (decode, prefill)."""
+    the gpt_base causal forward and backward on the Hopper bodies. Returns
+    the two weight-only rows (decode, prefill)."""
     picked = []
     for m, want in ((8, WO_ROUTE_NAMES[1]), (256, WO_ROUTE_NAMES[2])):
         row = next(r for r in wo_rows if r["wdt"] == "int8" and r["m"] == m
@@ -3681,9 +3799,11 @@ def main_route_rows(wo_rows, fa_rows):
             raise AssertionError(f"weight_only {row['case']} took "
                                  f"{row['route']}, not {want}")
         picked.append(row)
-    if fa_rows[0]["route"] != FLASH_ROUTE_NAMES[3]:
+    if (fa_rows[0]["route"], fa_rows[0]["bwd_route"]) != (
+            FLASH_ROUTE_NAMES[3], FLASH_BWD_ROUTE_NAMES[1]):
         raise AssertionError(f"flash {fa_rows[0]['case']} took "
-                             f"{fa_rows[0]['route']}")
+                             f"{fa_rows[0]['route']} / "
+                             f"{fa_rows[0]['bwd_route']}")
     return picked
 
 

@@ -42,13 +42,15 @@
 //     summed in a fixed order, so a backward is bitwise reproducible;
 //   * masked entries are selected to 0 after the exp, never multiplied,
 //     so a padded row's garbage statistics cannot leak into dK / dV.
-// These bodies load synchronously and multiply with mma.sync. The bf16
-// forward at head-dim tiles 64 and 128 (32 < D <= 128, D % 8 == 0, every
-// q/k/v stride a multiple of 8 elements, 16-byte aligned bases) has a
-// Hopper body of its own, `flash_fwd_sm90` (see its note): the caller asks
-// for it as kind 3, and an entry asked for a kind its inputs do not admit
-// returns cudaErrorInvalidValue. f32 inputs, head-dim tiles 32 and 256 and
-// the ring-step forward keep `fwd_body` (kind 0).
+// These bodies load synchronously and multiply with mma.sync. For bf16
+// at head-dim tiles 64 and 128 (32 < D <= 128, D % 8 == 0, every stride a
+// multiple of 8 elements, 16-byte aligned bases) the forward, dQ and
+// dK/dV kernels have Hopper bodies (TMA-fed wgmma, P and dS in
+// registers): `flash_fwd_sm90` (attention_sm90.cuh's body, see its note),
+// `flash_dq_sm90` and `flash_dkv_sm90` (see theirs). The caller asks for
+// them as kinds 3, 4 and 5, and an entry asked for a kind its inputs do
+// not admit returns cudaErrorInvalidValue. f32 inputs, head-dim tiles 32
+// and 256 and the ring steps keep the mma.sync bodies (kinds 0-2).
 //
 // The ring-step (_pos) kernels run the same bodies with the causal test
 // `row >= col` replaced by int32 global positions, q_pos[row] >=
@@ -67,14 +69,14 @@
 #include <algorithm>
 #include <initializer_list>
 
-#include "attention_tiles.cuh"
-#include "hopper.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
 using namespace ptt;
 using namespace ptt::attn;
 using namespace ptt::sm90;
+using namespace ptt::attn90;
 
 struct Params {
   const void* q;
@@ -256,385 +258,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_pos(const Params p) {
   fwd_body<T, DP, true>(p);
 }
 
-// --- forward on Hopper: TMA-fed wgmma, P in registers (bf16, D tiles 64/128) ---
-// A persistent CTA per multiprocessor walks a static list of query tiles.
-// Consumer warpgroups own 64 query rows each; a producer keeps Q (double-
-// buffered, so the next tile's Q lands while this one finishes) and a ring
-// of K and V blocks loaded by TMA through 4-D tensor maps over the
-// caller's [B, S, H, D] strides (rows past S and columns past D load as
-// zeros), K and V on barriers of their own so S = QK^T starts before V
-// lands. A warpgroup computes S by wgmma from shared memory (A = its 64 Q
-// rows, B = the K block, K-major, 128-byte swizzle), runs the online
-// softmax on the accumulator layout in f32 registers (log2 domain, masked
-// entries selected to 0 after the exp), casts P to bf16 in registers and
-// feeds it to the P.V wgmma as its register A operand, with V from shared
-// memory MN-major (the descriptor's transpose bit). P never touches
-// shared memory. A head's tiles run side by side, so its K and V come
-// from device memory once.
-// Two consumer warpgroups (128 query rows a tile). D = 64: blocks of 64
-// keys and a producer warp, about 90 registers a thread, two CTAs an SM
-// (four warpgroups hide each other's loads and softmax); D = 128: blocks
-// of 128 keys and a producer warpgroup (one thread issues the loads) that
-// hands its registers to the consumers (232 each: S, P and O take 160),
-// one CTA an SM. Persistent CTAs (their number a multiple of the SMs); Q
-// is double-buffered so the next tile's Q lands while this one finishes.
-template <int DP>
-struct HopCfg {
-  static constexpr int NSUB = DP / 64;          // 64-column sub-tiles
-  static constexpr int NWG = 2;                 // consumer warpgroups
-  static constexpr int ROWS = 64 * NWG;         // query rows a tile
-  static constexpr int BK = DP == 64 ? 64 : 128;  // keys per block
-  static constexpr int STAGES = DP == 64 ? 4 : 2; // K/V ring depth
-  static constexpr int CTAS = DP == 64 ? 2 : 1;   // per multiprocessor
-  static constexpr int THREADS = DP == 64 ? 128 * NWG + 32 : 128 * NWG + 128;
-  static constexpr int kQSub = ROWS * 128;      // one [ROWS][64] Q sub-tile
-  static constexpr int kQ = NSUB * kQSub;       // one Q buffer
-  static constexpr int kSub = BK * 128;         // one [BK][64] sub-tile
-  static constexpr int kKV = NSUB * kSub;       // one K or V block
-  static constexpr size_t smem = 1024 + 2 * kQ + 2 * STAGES * kKV +
-                                 (4 + 4 * STAGES) * sizeof(uint64_t);
-};
-
-// The work of the persistent grid: units of one or two query tiles of one
-// head, handed out statically (unit u to CTA u % grid). Causal rows see
-// more keys the later they sit, so a unit pairs tile n - 1 - i with tile i:
-// every unit then holds about the same number of key blocks, and a head's
-// units run side by side (its K and V stay in L2). Without the mask a
-// unit is one tile, the longest first.
-struct Units {
-  int n_qt, per_head, count;
-  bool causal;
-  __host__ __device__ Units(int nqt, int heads, bool c)
-      : n_qt(nqt), per_head(c ? (nqt + 1) / 2 : nqt),
-        count(heads * (c ? (nqt + 1) / 2 : nqt)), causal(c) {}
-  // unit u -> its head and its tiles (returns 1 or 2)
-  __device__ int tiles(int u, int& bh, int (&qt)[2]) const {
-    bh = u / per_head;
-    const int i = u % per_head;
-    qt[0] = n_qt - 1 - i;
-    qt[1] = i;
-    return causal && qt[1] != qt[0] ? 2 : 1;
-  }
-};
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// S (raw scores of one block of BK keys) -> P in place, with the
-// online-softmax update of the rows' max m (log2 domain) and per-lane sum
-// l, and the factor c that rescales O: p = 2^(s * sl2 - m), one FFMA and
-// one ex2 an entry (sl2 = scale * log2(e) > 0, so the max is taken on the
-// raw scores). MASK: the block crosses the causal diagonal or the end of
-// the keys; a masked entry is selected to 0 after the exp.
-template <int BK, bool MASK>
-__device__ __forceinline__ void hop_softmax(float (&s)[BK / 2],
-                                            float (&m)[2], float (&l)[2],
-                                            float (&c)[2], const Params& p,
-                                            int k0, int row_lo, float sl2) {
-  constexpr int NC = BK / 8;            // n8 chunks
-  const int t = threadIdx.x & 3;
-  float mx[2] = {kNegInf, kNegInf};
-  uint64_t keep = ~0ull;
-#pragma unroll
-  for (int i = 0; i < NC; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (MASK) {
-        const int col = k0 + 8 * i + 2 * t + (e & 1);
-        const int row = row_lo + (e < 2 ? 0 : 8);
-        if (!(col < p.Sk && (!p.causal || row >= col))) {
-          keep &= ~(1ull << (4 * i + e));
-          s[4 * i + e] = kNegInf;
-        }
-      }
-      mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * i + e]);
-    }
-  float mn[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mn[h] = fmaxf(m[h], quad_max(mx[h]) * sl2);
-    c[h] = fast_exp2(m[h] - mn[h]);
-    m[h] = mn[h];
-  }
-#pragma unroll
-  for (int i = 0; i < NC; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float pv = (!MASK || ((keep >> (4 * i + e)) & 1))
-                           ? fast_exp2(fmaf(s[4 * i + e], sl2, -mn[e >> 1]))
-                           : 0.f;
-      rs[e >> 1] += pv;
-      s[4 * i + e] = pv;
-    }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) l[h] = l[h] * c[h] + rs[h];
-}
-
-// P (f32, in the S accumulator layout) -> the bf16 A fragments of P.V:
-// 16 keys a k16 slice, n8 chunks 2kk (a[0], a[1]) and 2kk + 1 (a[2], a[3])
-template <int BK>
-__device__ __forceinline__ void pack_p(const float (&s)[BK / 2],
-                                       uint32_t (&pa)[BK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      pa[kk][r] = pack2<__nv_bfloat16>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-}
-
+// --- forward on Hopper: the shared body of attention_sm90.cuh, no dropout ---
 template <int DP>
 __global__ void __launch_bounds__(HopCfg<DP>::THREADS, HopCfg<DP>::CTAS)
     flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
-                   const __grid_constant__ CUtensorMap tv, const Params p,
+                   const __grid_constant__ CUtensorMap tv, const FwdArgs a,
                    const Units units) {
-  using C = HopCfg<DP>;
-  constexpr int NS = C::STAGES, BK = C::BK;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* Qs = align1024(smem_raw);    // [2] buffers
-  uint8_t* Ks = Qs + 2 * C::kQ;
-  uint8_t* Vs = Ks + NS * C::kKV;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + NS * C::kKV);  // [2]
-  uint64_t* q_empty = q_full + 2;       // [2]
-  uint64_t* k_full = q_full + 4;        // [NS] each
-  uint64_t* v_full = k_full + NS;
-  uint64_t* k_empty = v_full + NS;
-  uint64_t* v_empty = k_empty + NS;
-  const int n_kv = (p.Sk + BK - 1) / BK;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
-      mbar_init(&q_full[i], 1);
-      mbar_init(&q_empty[i], C::NWG);   // one arrival per warpgroup
-    }
-    for (int s = 0; s < NS; ++s) {
-      mbar_init(&k_full[s], 1);
-      mbar_init(&v_full[s], 1);
-      mbar_init(&k_empty[s], C::NWG);
-      mbar_init(&v_empty[s], C::NWG);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (warp >= 4 * C::NWG) {             // producer
-    if constexpr (C::CTAS == 1) regs_dealloc<40>();
-    if (warp == 4 * C::NWG && lane == 0) {
-      int jj = 0, tt = 0;               // blocks and tiles loaded so far
-      for (int u = blockIdx.x; u < units.count; u += gridDim.x) {
-        int bh, qts[2];
-        const int nt = units.tiles(u, bh, qts);
-        const int b = bh / p.H, h = bh % p.H;
-        for (int i = 0; i < nt; ++i, ++tt) {
-          const int q0 = qts[i] * C::ROWS;
-          const int hi = p.causal
-                             ? min((q0 + C::ROWS + BK - 1) / BK, n_kv)
-                             : n_kv;
-          const int qb = tt & 1;
-          mbar_wait(&q_empty[qb], ((tt >> 1) & 1) ^ 1);
-          mbar_expect_tx(&q_full[qb], C::kQ);
-          for (int sub = 0; sub < C::NSUB; ++sub)
-            tma_load_4d(Qs + qb * C::kQ + sub * C::kQSub, &tq, &q_full[qb],
-                        sub * 64, h, q0, b);
-          for (int j = 0; j < hi; ++j, ++jj) {
-            const int s = jj % NS;
-            const uint32_t free_ph = ((jj / NS) & 1) ^ 1;
-            mbar_wait(&k_empty[s], free_ph);
-            mbar_expect_tx(&k_full[s], C::kKV);
-            for (int sub = 0; sub < C::NSUB; ++sub)
-              tma_load_4d(Ks + s * C::kKV + sub * C::kSub, &tk, &k_full[s],
-                          sub * 64, h, j * BK, b);
-            mbar_wait(&v_empty[s], free_ph);
-            mbar_expect_tx(&v_full[s], C::kKV);
-            for (int sub = 0; sub < C::NSUB; ++sub)
-              tma_load_4d(Vs + s * C::kKV + sub * C::kSub, &tv, &v_full[s],
-                          sub * 64, h, j * BK, b);
-          }
-        }
-      }
-    }
-    return;
-  }
-
-  if constexpr (C::CTAS == 1) regs_alloc<232>();
-  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
-  const bool leader = (threadIdx.x & 127) == 0;
-  const float sl2 = p.scale * 1.4426950408889634f;   // scale * log2(e)
-  int jj = 0, tt = 0;
-  for (int u = blockIdx.x; u < units.count; u += gridDim.x) {
-    int bh, qts[2];
-    const int nt = units.tiles(u, bh, qts);
-    const int b = bh / p.H, h = bh % p.H;
-    for (int it = 0; it < nt; ++it, ++tt) {
-      const int q0 = qts[it] * C::ROWS;
-      const int hi =
-          p.causal ? min((q0 + C::ROWS + BK - 1) / BK, n_kv) : n_kv;
-      // causal: a block wholly past this warpgroup's last row holds no key
-      // it sees (at BK = 64 the last block of warpgroup 0): taken in its
-      // turn (waited for, so each release lands in its own phase) and
-      // released unread
-      // and a warpgroup whose rows all lie past S (a ragged last tile)
-      // computes nothing
-      const int hi_wg =
-          q0 + wg * 64 >= p.Sq
-              ? 0
-              : p.causal ? min((q0 + wg * 64 + 64 + BK - 1) / BK, hi) : hi;
-      const int row_lo = q0 + wg * 64 + (warp & 3) * 16 + g;
-      const uint8_t* Qb = Qs + (tt & 1) * C::kQ;
-      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-      float o[C::NSUB][32];
-#pragma unroll
-      for (int sub = 0; sub < C::NSUB; ++sub)
-#pragma unroll
-        for (int i = 0; i < 32; ++i) o[sub][i] = 0.f;
-      mbar_wait(&q_full[tt & 1], (tt >> 1) & 1);
-      __syncwarp();
-      for (int j = 0; j < hi; ++j, ++jj) {
-        const int s = jj % NS;
-        const uint32_t ph = (jj / NS) & 1;
-        mbar_wait(&k_full[s], ph);
-        __syncwarp();                   // converged for the .aligned wgmma
-        if (j >= hi_wg) {
-          mbar_wait(&v_full[s], ph);
-          // every warp of the warpgroup is past both waits before the
-          // leader releases the stage (no wgmma orders them here): a
-          // lagging warp would otherwise find the stage refilled and wait
-          // on the parity of a phase two ahead
-          bar_sync(1 + wg, 128);
-          if (leader) {
-            mbar_arrive(&k_empty[s]);
-            mbar_arrive(&v_empty[s]);
-          }
-          continue;
-        }
-        float sc[BK / 2];
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < DP / 16; ++ks)
-          wgmma_ss_bf16<BK, 0, 0>(
-              sc,
-              make_desc(Qb + (ks >> 2) * C::kQSub + wg * 64 * 128 +
-                            (ks & 3) * 32,
-                        16, 1024, kSW128),
-              make_desc(Ks + s * C::kKV + (ks >> 2) * C::kSub +
-                            (ks & 3) * 32,
-                        16, 1024, kSW128),
-              ks > 0);
-        wgmma_commit();
-        wgmma_wait<0>();
-        reg_fence(sc);
-        if (leader) mbar_arrive(&k_empty[s]);   // K is read
-        const int k0 = j * BK;
-        uint32_t pa[BK / 16][4];
-        float c[2];
-        if (k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > q0 + wg * 64))
-          hop_softmax<BK, true>(sc, m, l, c, p, k0, row_lo, sl2);
-        else
-          hop_softmax<BK, false>(sc, m, l, c, p, k0, row_lo, sl2);
-        pack_p<BK>(sc, pa);
-#pragma unroll
-        for (int sub = 0; sub < C::NSUB; ++sub)
-#pragma unroll
-          for (int i = 0; i < 32; ++i) o[sub][i] *= c[(i >> 1) & 1];
-        mbar_wait(&v_full[s], ph);
-        __syncwarp();
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) reg_fence(pa[kk]);
-#pragma unroll
-        for (int sub = 0; sub < C::NSUB; ++sub) reg_fence(o[sub]);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-          for (int sub = 0; sub < C::NSUB; ++sub)
-            // V rows 16kk.. of sub-tile sub: 8-key groups 1024 bytes apart
-            // (one 64-column atom: the other offset is unused)
-            wgmma_rs_bf16_n64<1>(
-                o[sub], pa[kk],
-                make_desc(Vs + s * C::kKV + sub * C::kSub + kk * 2048, 1024,
-                          1024, kSW128),
-                1);
-        wgmma_commit();
-        // closed before the next S batch: no wgmma is in flight while its
-        // accumulators are defined (ptxas serializes the batches otherwise;
-        // issuing the next S before this P.V, as FA-3 does, measured
-        // slower on the H100: C7518 serialization and spills at D = 64)
-        wgmma_wait<0>();
-#pragma unroll
-        for (int sub = 0; sub < C::NSUB; ++sub) reg_fence(o[sub]);
-        if (leader) mbar_arrive(&v_empty[s]);   // V is read
-      }
-      if (leader) mbar_arrive(&q_empty[tt & 1]);  // Q is read
-
-      float lq[2];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) lq[hh] = fmaxf(quad_sum(l[hh]), 1e-30f);
-      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out0);
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = row_lo + 8 * hh;
-        if (r >= p.Sq) continue;
-        __nv_bfloat16* orow =
-            out + ((static_cast<size_t>(b) * p.Sq + r) * p.H + h) * p.D;
-#pragma unroll
-        for (int sub = 0; sub < C::NSUB; ++sub)
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int col = sub * 64 + 8 * i + 2 * t;   // D % 8 == 0: pairs
-            if (col < p.D)
-              *reinterpret_cast<uint32_t*>(orow + col) =
-                  pack2<__nv_bfloat16>(o[sub][4 * i + 2 * hh] / lq[hh],
-                                       o[sub][4 * i + 2 * hh + 1] / lq[hh]);
-          }
-        if (t == 0)
-          p.lse_out[static_cast<size_t>(bh) * p.Sq + r] =
-              m[hh] * 0.6931471805599453f + logf(lq[hh]);
-      }
-    }
-  }
-}
-
-// q, k, v as 4-D tensor maps (D, H, S, B) over the caller's strides, boxes
-// of [128 rows][64 columns] with the 128-byte swizzle
-int launch_fwd_sm90(const Params& p, int B, cudaStream_t s) {
-  CUtensorMap maps[3];
-  const void* bases[3] = {p.q, p.k, p.v};
-  const long long strides[3][3] = {{p.q_h, p.q_s, p.q_b},
-                                   {p.k_h, p.k_s, p.k_b},
-                                   {p.v_h, p.v_s, p.v_b}};
-  const uint64_t dims[4] = {static_cast<uint64_t>(p.D),
-                            static_cast<uint64_t>(p.H),
-                            static_cast<uint64_t>(p.Sq),
-                            static_cast<uint64_t>(B)};
-  // Q boxes of a CTA's rows, K and V of one block of keys
-  const bool d64 = p.D <= 64;
-  const uint32_t rows = d64 ? HopCfg<64>::ROWS : HopCfg<128>::ROWS;
-  const uint32_t bk = d64 ? HopCfg<64>::BK : HopCfg<128>::BK;
-  for (int i = 0; i < 3; ++i) {
-    const uint32_t box[4] = {64, 1, i == 0 ? rows : bk, 1};
-    const uint64_t st[3] = {static_cast<uint64_t>(strides[i][0]) * 2,
-                            static_cast<uint64_t>(strides[i][1]) * 2,
-                            static_cast<uint64_t>(strides[i][2]) * 2};
-    if (!make_tmap<4>(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, bases[i],
-                      dims, st, box, CU_TENSOR_MAP_SWIZZLE_128B))
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Units units((p.Sq + rows - 1) / rows, B * p.H, p.causal != 0);
-  const int ctas = d64 ? HopCfg<64>::CTAS : HopCfg<128>::CTAS;
-  const dim3 grid(std::min(units.count, ctas * sm_count()));
-  auto run = [&](auto dp) {
-    constexpr int DP = decltype(dp)::value;
-    constexpr size_t smem = HopCfg<DP>::smem;
-    if (const int e = smem_opt_in<flash_fwd_sm90<DP>>(smem)) return e;
-    flash_fwd_sm90<DP><<<grid, HopCfg<DP>::THREADS, smem, s>>>(
-        maps[0], maps[1], maps[2], p, units);
-    return 0;
-  };
-  return d64 ? run(std::integral_constant<int, 64>())
-             : run(std::integral_constant<int, 128>());
+  fwd_sm90_body<DP>(tq, tk, tv, a, units, NoDropout());
 }
 
 // --- backward: dQ -------------------------------------------------------------
@@ -852,8 +483,530 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_pos(const Params p) {
   dkv_body<T, DP, true>(p);
 }
 
+// --- backward on Hopper: TMA-fed wgmma, dS and P^T in registers ---------------
+// Two kernels, as the mma.sync bodies: each output has one owning CTA and
+// is summed in a fixed order (no atomics), so the backward stays bitwise
+// reproducible. A persistent CTA per multiprocessor walks `Units` of
+// 128-row tiles; two consumer warpgroups own 64 rows each, and a producer
+// warp keeps the tile's two resident operands (double-buffered) and a ring
+// of blocks of the two streamed ones, loaded by TMA through the caller's
+// strides (rows past S and columns past D load as zeros; D = 80 runs in
+// the 128-column tiles).
+//   dQ     a tile of 128 query rows: Q and dO resident, K and V streamed
+//          in blocks of 64 keys. Per block S = Q K^T and dP = dO V^T (ss,
+//          both K-major), P = 2^(s sl2 - lse log2 e) masked to 0 after the
+//          exp, dS = P (dP - delta) scale packed to bf16 A fragments, and
+//          dQ += dS K (rs, K MN-major through the transpose bit, as V in
+//          the forward). dS never touches shared memory. Causal: blocks
+//          up to the diagonal.
+//   dK/dV  a tile of keys: K and V resident, Q and dO streamed in blocks
+//          of 64 query rows with their lse (times log2 e) and delta, which
+//          the producer warp's lanes copy beside them. Per block S^T =
+//          K Q^T (ss), P^T in registers, dV += P^T dO (rs, dO MN-major),
+//          dP^T = V dO^T (ss), dS^T = P^T (dP^T - delta) scale, dK +=
+//          dS^T Q (rs, Q MN-major). Causal: blocks from the diagonal.
+//          D = 64: a tile of 128 keys, each warpgroup all four products
+//          of its 64 keys (dK, dV, P^T, dP^T: 128 f32 registers).
+//          D = 128: dK and dV alone take 128 registers a thread, and
+//          ptxas caps these 288-thread kernels at 168 (whatever setmaxnreg
+//          asks); holding P^T and dP^T beside them spilled 736 bytes. So
+//          the two warpgroups share a tile of 64 keys: warpgroup 0 forms
+//          S^T, P^T and dV, and hands P^T in f32 to warpgroup 1 through a
+//          double-buffered shared-memory tile (each thread's entries
+//          stored where the same thread of warpgroup 1 reads them, on
+//          mbarriers); warpgroup 1 forms dP^T, dS^T and dK. The same four
+//          products, none recomputed, 112 and 144 live f32 registers.
+// Each product closes (wgmma_wait<0>) before the registers of the next
+// are defined (ptxas serializes wgmma otherwise: C7513), and the two
+// warpgroups take turns on the tensor cores. The causal units pair a long
+// tile with a short one (`Units`). 288 threads, one CTA an SM.
+template <int DP, bool DKV>
+struct BwdCfg {
+  static constexpr int NSUB = DP / 64;          // 64-column sub-tiles
+  static constexpr int NWG = 2;                 // consumer warpgroups
+  // dK/dV at D = 128: both warpgroups on one 64-key tile (see above)
+  static constexpr bool SPLIT = DKV && DP == 128;
+  static constexpr int ROWS = SPLIT ? 64 : 64 * NWG;  // resident rows a tile
+  static constexpr int BN = 64;                 // streamed rows a block
+  static constexpr int STAGES = DP == 64 ? 4 : SPLIT ? 3 : 2;
+  static constexpr int THREADS = 128 * NWG + 32;
+  static constexpr int kRSub = ROWS * 128;      // one [ROWS][64] sub-tile
+  static constexpr int kR = NSUB * kRSub;       // one resident operand
+  static constexpr int kSub = BN * 128;         // one [BN][64] sub-tile
+  static constexpr int kB = NSUB * kSub;        // one streamed operand
+  static constexpr int kPT = SPLIT ? 64 * 64 * 4 : 0;  // one f32 P^T tile
+  static constexpr size_t smem = 1024 + 4 * kR + 2 * STAGES * kB + 2 * kPT +
+                                 2 * STAGES * BN * sizeof(float) +
+                                 (8 + 2 * STAGES) * sizeof(uint64_t);
+};
+
+// shared memory of a backward CTA: [2 buffers][2] resident tiles, [STAGES]
+// [2] streamed blocks, [2] P^T tiles (SPLIT), [STAGES][2][BN] f32 rows
+// (dK/dV: lse log2 e, delta), then the barriers; thread 0 initialises them
+// (s_full takes `s_arrivals` arrivals a phase, the P^T hand-over one from
+// each of a warpgroup's four warps)
+template <int DP, bool DKV>
+struct BwdSmem {
+  using C = BwdCfg<DP, DKV>;
+  uint8_t *R, *S;
+  float *PT, *F;
+  uint64_t *r_full, *r_empty, *s_full, *s_empty, *pt_full, *pt_empty;
+  __device__ BwdSmem(uint8_t* raw, int s_arrivals) {
+    R = align1024(raw);
+    S = R + 4 * C::kR;
+    PT = reinterpret_cast<float*>(S + 2 * C::STAGES * C::kB);
+    F = PT + 2 * C::kPT / 4;
+    r_full = reinterpret_cast<uint64_t*>(F + 2 * C::STAGES * C::BN);
+    r_empty = r_full + 2;
+    pt_full = r_full + 4;
+    pt_empty = r_full + 6;
+    s_full = r_full + 8;
+    s_empty = s_full + C::STAGES;
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < 2; ++i) {
+        mbar_init(&r_full[i], 1);
+        mbar_init(&r_empty[i], C::NWG);
+        mbar_init(&pt_full[i], 4);
+        mbar_init(&pt_empty[i], 4);
+      }
+      for (int s = 0; s < C::STAGES; ++s) {
+        mbar_init(&s_full[s], s_arrivals);
+        mbar_init(&s_empty[s], C::NWG);
+      }
+      fence_barrier_init();
+    }
+    __syncthreads();
+  }
+  __device__ uint8_t* res(int buf, int x) const { return R + (2 * buf + x) * C::kR; }
+  __device__ uint8_t* blk(int s, int y) const { return S + (2 * s + y) * C::kB; }
+};
+
+// the streamed blocks [lo, hi) of the tile whose first resident row is r0:
+// dQ (DKV false) key blocks up to the diagonal when causal, dK/dV query
+// blocks from it
+template <int BN, bool DKV>
+__device__ __forceinline__ void bwd_range(const Params& p, int r0, int rows,
+                                          int& lo, int& hi) {
+  const int n = (p.Sq + BN - 1) / BN;
+  if (DKV) {
+    lo = p.causal ? r0 / BN : 0;
+    hi = n;
+  } else {
+    lo = 0;
+    hi = p.causal ? min((r0 + rows + BN - 1) / BN, n) : n;
+  }
+}
+
+template <int DP, bool DKV>
+__device__ __forceinline__ void bwd_producer(const BwdSmem<DP, DKV>& sm,
+                                             const CUtensorMap& r0m,
+                                             const CUtensorMap& r1m,
+                                             const CUtensorMap& b0m,
+                                             const CUtensorMap& b1m,
+                                             const Params& p,
+                                             const Units& units) {
+  using C = BwdCfg<DP, DKV>;
+  constexpr int NS = C::STAGES, BN = C::BN;
+  const int lane = threadIdx.x & 31;
+  if (!DKV && lane != 0) return;        // dQ: one thread issues the loads
+  int jj = 0, tt = 0;                   // blocks and tiles loaded so far
+  for (int u = blockIdx.x; u < units.count; u += gridDim.x) {
+    int bh, tiles[2];
+    const int nt = units.tiles(u, bh, tiles);
+    const int b = bh / p.H, h = bh % p.H;
+    for (int i = 0; i < nt; ++i, ++tt) {
+      const int r0 = tiles[i] * C::ROWS;
+      int lo, hi;
+      bwd_range<BN, DKV>(p, r0, C::ROWS, lo, hi);
+      const int rb = tt & 1;
+      if (lane == 0) {
+        mbar_wait(&sm.r_empty[rb], ((tt >> 1) & 1) ^ 1);
+        mbar_expect_tx(&sm.r_full[rb], 2 * C::kR);
+        for (int sub = 0; sub < C::NSUB; ++sub) {
+          tma_load_4d(sm.res(rb, 0) + sub * C::kRSub, &r0m, &sm.r_full[rb],
+                      sub * 64, h, r0, b);
+          tma_load_4d(sm.res(rb, 1) + sub * C::kRSub, &r1m, &sm.r_full[rb],
+                      sub * 64, h, r0, b);
+        }
+      }
+      for (int j = lo; j < hi; ++j, ++jj) {
+        const int s = jj % NS;
+        mbar_wait(&sm.s_empty[s], ((jj / NS) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&sm.s_full[s], 2 * C::kB);
+          for (int sub = 0; sub < C::NSUB; ++sub) {
+            tma_load_4d(sm.blk(s, 0) + sub * C::kSub, &b0m, &sm.s_full[s],
+                        sub * 64, h, j * BN, b);
+            tma_load_4d(sm.blk(s, 1) + sub * C::kSub, &b1m, &sm.s_full[s],
+                        sub * 64, h, j * BN, b);
+          }
+        }
+        if constexpr (DKV) {
+          // the block's lse (log2 domain) and delta, 0 past S; the
+          // stage's second arrival once every lane's stores are done
+          const float* lse = p.lse + static_cast<size_t>(bh) * p.Sq;
+          const float* delta = p.delta + static_cast<size_t>(bh) * p.Sq;
+          float* f = sm.F + 2 * s * BN;
+          for (int r = lane; r < BN; r += 32) {
+            const int q = j * BN + r;
+            const bool in = q < p.Sq;
+            f[r] = in ? lse[q] * 1.4426950408889634f : 0.f;
+            f[BN + r] = in ? delta[q] : 0.f;
+          }
+          __threadfence_block();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&sm.s_full[s]);
+        }
+      }
+    }
+  }
+}
+
+// an accumulator tile's two rows (row_lo and row_lo + 8, below S) into a
+// contiguous [B, S, H, D] bf16 output
+template <int NSUB>
+__device__ __forceinline__ void store_tile_rows(void* outp,
+                                                const float (&acc)[NSUB][32],
+                                                const Params& p, int b,
+                                                int h, int row_lo) {
+  const int t = threadIdx.x & 3;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(outp);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row_lo + 8 * hh;
+    if (r >= p.Sq) continue;
+    __nv_bfloat16* orow =
+        out + ((static_cast<size_t>(b) * p.Sq + r) * p.H + h) * p.D;
+#pragma unroll
+    for (int sub = 0; sub < NSUB; ++sub)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = sub * 64 + 8 * i + 2 * t;   // D % 8 == 0: pairs
+        if (col < p.D)
+          *reinterpret_cast<uint32_t*>(orow + col) = pack2<__nv_bfloat16>(
+              acc[sub][4 * i + 2 * hh], acc[sub][4 * i + 2 * hh + 1]);
+      }
+  }
+}
+
+// A[64 rows of warpgroup wg][DP] (+)= ... : the K-major descriptors of k16
+// slice ks of a [rows][64]-sub-tiled operand whose sub-tiles are `sub`
+// bytes apart, starting at row `row0`
+__device__ __forceinline__ uint64_t kdesc(const uint8_t* base, int sub,
+                                          int row0, int ks) {
+  return make_desc(base + (ks >> 2) * sub + row0 * 128 + (ks & 3) * 32, 16,
+                   1024, kSW128);
+}
+
+// d[64 x 64] = A B^T over DP columns, both operands K-major
+template <int DP>
+__device__ __forceinline__ void wg_ss(float (&d)[32], const uint8_t* a,
+                                      int a_sub, int a_row0,
+                                      const uint8_t* bm, int b_sub) {
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks)
+    wgmma_ss_bf16<64, 0, 0>(d, kdesc(a, a_sub, a_row0, ks),
+                            kdesc(bm, b_sub, 0, ks), ks > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(d);
+}
+
+// acc[64 x DP] += A[64 x 64] (bf16 fragments) . B[64 rows x DP], B from a
+// [64][64]-sub-tiled block read MN-major
+template <int NSUB>
+__device__ __forceinline__ void wg_rs(float (&acc)[NSUB][32],
+                                      uint32_t (&pa)[4][4],
+                                      const uint8_t* bm, int b_sub) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) reg_fence(pa[kk]);
+#pragma unroll
+  for (int sub = 0; sub < NSUB; ++sub) reg_fence(acc[sub]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int sub = 0; sub < NSUB; ++sub)
+      wgmma_rs_bf16_n64<1>(
+          acc[sub], pa[kk],
+          make_desc(bm + sub * b_sub + kk * 2048, 1024, 1024, kSW128), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int sub = 0; sub < NSUB; ++sub) reg_fence(acc[sub]);
+}
+
+// dQ's dS of one block: P = 2^(s sl2 - lse2) (0 where masked: MASK, the
+// block crosses the causal diagonal or the end of the keys), dS = P (dP -
+// delta) scale, packed to the A fragments of dS K
+template <bool MASK>
+__device__ __forceinline__ void dq_ds(const float (&sc)[32],
+                                      const float (&dp)[32],
+                                      uint32_t (&pa)[4][4], const Params& p,
+                                      int k0, int row_lo,
+                                      const float (&lse2)[2],
+                                      const float (&dl)[2], float sl2) {
+  const int t = threadIdx.x & 3;
+  float ds[32];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = k0 + 8 * i + 2 * t + (e & 1);
+      const int row = row_lo + (e < 2 ? 0 : 8);
+      const bool keep = !MASK || (col < p.Sk && (!p.causal || row >= col));
+      const float pv =
+          keep ? fast_exp2(fmaf(sc[4 * i + e], sl2, -lse2[e >> 1])) : 0.f;
+      ds[4 * i + e] = pv * (dp[4 * i + e] - dl[e >> 1]) * p.scale;
+    }
+  pack_p<64>(ds, pa);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(BwdCfg<DP, false>::THREADS, 1)
+    flash_dq_sm90(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, const Params p,
+                  const Units units) {
+  using C = BwdCfg<DP, false>;
+  constexpr int NS = C::STAGES, BN = C::BN;
+  extern __shared__ uint8_t smem_raw[];
+  const BwdSmem<DP, false> sm(smem_raw, 1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= 4 * C::NWG) {
+    bwd_producer<DP, false>(sm, tq, tdo, tk, tv, p, units);
+    return;
+  }
+  const int wg = warp >> 2, g = lane >> 2;
+  const bool leader = (threadIdx.x & 127) == 0;
+  const float sl2 = p.scale * 1.4426950408889634f;
+  int jj = 0, tt = 0;
+  for (int u = blockIdx.x; u < units.count; u += gridDim.x) {
+    int bh, tiles[2];
+    const int nt = units.tiles(u, bh, tiles);
+    const int b = bh / p.H, h = bh % p.H;
+    for (int it = 0; it < nt; ++it, ++tt) {
+      const int q0 = tiles[it] * C::ROWS;
+      int lo, hi;
+      bwd_range<BN, false>(p, q0, C::ROWS, lo, hi);
+      // key blocks wholly past this warpgroup's last row (causal), or all
+      // of them when its rows lie past S: taken in turn, released unread
+      const int hi_wg =
+          q0 + wg * 64 >= p.Sq
+              ? 0
+              : p.causal ? min((q0 + wg * 64 + 64 + BN - 1) / BN, hi) : hi;
+      const int row_lo = q0 + wg * 64 + (warp & 3) * 16 + g;
+      float lse2[2], dl[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = row_lo + 8 * hh;
+        const size_t at = static_cast<size_t>(bh) * p.Sq + r;
+        lse2[hh] = r < p.Sq ? p.lse[at] * 1.4426950408889634f : 0.f;
+        dl[hh] = r < p.Sq ? p.delta[at] : 0.f;
+      }
+      const uint8_t* Qb = sm.res(tt & 1, 0);
+      const uint8_t* dOb = sm.res(tt & 1, 1);
+      float dq[C::NSUB][32];
+#pragma unroll
+      for (int sub = 0; sub < C::NSUB; ++sub)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dq[sub][i] = 0.f;
+      mbar_wait(&sm.r_full[tt & 1], (tt >> 1) & 1);
+      __syncwarp();
+      for (int j = lo; j < hi; ++j, ++jj) {
+        const int s = jj % NS;
+        mbar_wait(&sm.s_full[s], (jj / NS) & 1);
+        __syncwarp();                   // converged for the .aligned wgmma
+        if (j >= hi_wg) {
+          // every warp is past its wait before the leader releases the
+          // stage (no wgmma orders them here)
+          bar_sync(1 + wg, 128);
+          if (leader) mbar_arrive(&sm.s_empty[s]);
+          continue;
+        }
+        const uint8_t* Kb = sm.blk(s, 0);
+        const uint8_t* Vb = sm.blk(s, 1);
+        float sc[32], dp[32];
+        wg_ss<DP>(sc, Qb, C::kRSub, wg * 64, Kb, C::kSub);
+        wg_ss<DP>(dp, dOb, C::kRSub, wg * 64, Vb, C::kSub);
+        const int k0 = j * BN;
+        uint32_t pa[4][4];
+        if (k0 + BN > p.Sk || (p.causal && k0 + BN - 1 > q0 + wg * 64))
+          dq_ds<true>(sc, dp, pa, p, k0, row_lo, lse2, dl, sl2);
+        else
+          dq_ds<false>(sc, dp, pa, p, k0, row_lo, lse2, dl, sl2);
+        wg_rs<C::NSUB>(dq, pa, Kb, C::kSub);
+        if (leader) mbar_arrive(&sm.s_empty[s]);   // K and V are read
+      }
+      if (leader) mbar_arrive(&sm.r_empty[tt & 1]);  // Q and dO are read
+      store_tile_rows<C::NSUB>(p.out0, dq, p, b, h, row_lo);
+    }
+  }
+}
+
+// dK/dV's P^T of one block in place: rows are keys (krow_lo, + 8), columns
+// query rows qi0 + ..., masked (MASK) past S and above the diagonal
+template <bool MASK>
+__device__ __forceinline__ void dkv_p(float (&st)[32], const Params& p,
+                                      int qi0, int krow_lo,
+                                      const float* lse2, float sl2) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ql = 8 * i + 2 * t + (e & 1), qc = qi0 + ql;
+      const int kr = krow_lo + (e < 2 ? 0 : 8);
+      const bool keep =
+          !MASK || (qc < p.Sq && kr < p.Sk && (!p.causal || qc >= kr));
+      st[4 * i + e] =
+          keep ? fast_exp2(fmaf(st[4 * i + e], sl2, -lse2[ql])) : 0.f;
+    }
+}
+
+// dS^T = P^T (dP^T - delta) scale over one block, in place of dP^T
+__device__ __forceinline__ void dkv_ds(float (&dpt)[32], const float (&pt)[32],
+                                       const float* dl, float scale) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dpt[4 * n + e] =
+          pt[4 * n + e] * (dpt[4 * n + e] - dl[8 * n + 2 * t + (e & 1)]) *
+          scale;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(BwdCfg<DP, true>::THREADS, 1)
+    flash_dkv_sm90(const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo, const Params p,
+                   const Units units) {
+  using C = BwdCfg<DP, true>;
+  constexpr int NS = C::STAGES, BN = C::BN;
+  extern __shared__ uint8_t smem_raw[];
+  const BwdSmem<DP, true> sm(smem_raw, 2);  // TMA bytes + the lanes' rows
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= 4 * C::NWG) {
+    bwd_producer<DP, true>(sm, tk, tv, tq, tdo, p, units);
+    return;
+  }
+  const int wg = warp >> 2, g = lane >> 2;
+  const bool leader = (threadIdx.x & 127) == 0;
+  const float sl2 = p.scale * 1.4426950408889634f;
+  // SPLIT: warpgroup 0 forms dV, 1 dK, of the same 64 keys; else each
+  // warpgroup both, of its own 64 keys
+  const int wrow = C::SPLIT ? 0 : wg * 64;  // its rows in the resident tile
+  int jj = 0, tt = 0, pc = 0;             // blocks, tiles, P^T hand-overs
+  for (int u = blockIdx.x; u < units.count; u += gridDim.x) {
+    int bh, tiles[2];
+    const int nt = units.tiles(u, bh, tiles);
+    const int b = bh / p.H, h = bh % p.H;
+    for (int it = 0; it < nt; ++it, ++tt) {
+      const int k0 = tiles[it] * C::ROWS;
+      int lo, hi;
+      bwd_range<BN, true>(p, k0, C::ROWS, lo, hi);
+      const int kw = k0 + wrow;          // this warpgroup's first key
+      const int krow_lo = kw + (warp & 3) * 16 + g;
+      const uint8_t* Kb = sm.res(tt & 1, 0);
+      const uint8_t* Vb = sm.res(tt & 1, 1);
+      float acc[2][C::NSUB][32];         // dK, dV (SPLIT: this one's)
+      constexpr int NACC = C::SPLIT ? 1 : 2;
+#pragma unroll
+      for (int a = 0; a < NACC; ++a)
+#pragma unroll
+        for (int sub = 0; sub < C::NSUB; ++sub)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[a][sub][i] = 0.f;
+      mbar_wait(&sm.r_full[tt & 1], (tt >> 1) & 1);
+      __syncwarp();
+      for (int i = lo; i < hi; ++i, ++jj) {
+        const int s = jj % NS;
+        mbar_wait(&sm.s_full[s], (jj / NS) & 1);
+        __syncwarp();
+        const int qi0 = i * BN;
+        // no key of this warpgroup (a ragged last tile), or every query
+        // row of the block before its first key (causal): released unread
+        if (kw >= p.Sk || (p.causal && qi0 + BN - 1 < kw)) {
+          bar_sync(1 + wg, 128);
+          if (leader) mbar_arrive(&sm.s_empty[s]);
+          continue;
+        }
+        const uint8_t* Qb = sm.blk(s, 0);
+        const uint8_t* dOb = sm.blk(s, 1);
+        const float* lse2 = sm.F + 2 * s * BN;
+        const float* dl = lse2 + BN;
+        const bool mask = qi0 + BN > p.Sq || kw + 64 > p.Sk ||
+                          (p.causal && qi0 < kw + 63);
+        uint32_t pa[4][4];
+        float st[32];
+        if (!C::SPLIT || wg == 0) {
+          wg_ss<DP>(st, Kb, C::kRSub, wrow, Qb, C::kSub);
+          if (mask)
+            dkv_p<true>(st, p, qi0, krow_lo, lse2, sl2);
+          else
+            dkv_p<false>(st, p, qi0, krow_lo, lse2, sl2);
+          if constexpr (C::SPLIT) {
+            // P^T to warpgroup 1: entry k of thread x at [k][x]
+            const int pb = pc & 1;
+            mbar_wait(&sm.pt_empty[pb], ((pc >> 1) & 1) ^ 1);
+            float4* dst = reinterpret_cast<float4*>(sm.PT + pb * 64 * 64) +
+                          (threadIdx.x & 127);
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+              dst[k * 128] = make_float4(st[4 * k], st[4 * k + 1],
+                                         st[4 * k + 2], st[4 * k + 3]);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&sm.pt_full[pb]);
+          }
+          pack_p<64>(st, pa);
+          wg_rs<C::NSUB>(acc[NACC - 1], pa, dOb, C::kSub);   // dV
+        }
+        if (!C::SPLIT || wg == 1) {
+          float dpt[32];
+          wg_ss<DP>(dpt, Vb, C::kRSub, wrow, dOb, C::kSub);
+          if constexpr (C::SPLIT) {
+            const int pb = pc & 1;
+            mbar_wait(&sm.pt_full[pb], (pc >> 1) & 1);
+            const float4* src =
+                reinterpret_cast<const float4*>(sm.PT + pb * 64 * 64) +
+                (threadIdx.x & 127);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              const float4 v4 = src[k * 128];
+              st[4 * k] = v4.x;
+              st[4 * k + 1] = v4.y;
+              st[4 * k + 2] = v4.z;
+              st[4 * k + 3] = v4.w;
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&sm.pt_empty[pb]);
+          }
+          dkv_ds(dpt, st, dl, p.scale);
+          pack_p<64>(dpt, pa);
+          wg_rs<C::NSUB>(acc[0], pa, Qb, C::kSub);           // dK
+        }
+        ++pc;
+        if (leader) mbar_arrive(&sm.s_empty[s]);   // Q, dO and rows read
+      }
+      if (leader) mbar_arrive(&sm.r_empty[tt & 1]);  // K and V are read
+      if (!C::SPLIT || wg == 1)
+        store_tile_rows<C::NSUB>(p.out0, acc[0], p, b, h, krow_lo);
+      if (!C::SPLIT || wg == 0)
+        store_tile_rows<C::NSUB>(p.out1, acc[NACC - 1], p, b, h, krow_lo);
+    }
+  }
+}
+
 // --- launch --------------------------------------------------------------------
-enum Kind { kFwd = 0, kDq = 1, kDkv = 2, kFwdSm90 = 3 };
+enum Kind {
+  kFwd = 0, kDq = 1, kDkv = 2,            // the mma.sync bodies
+  kFwdSm90 = 3, kDqSm90 = 4, kDkvSm90 = 5  // the Hopper bodies
+};
 
 using Kernel = void (*)(const Params);
 
@@ -888,6 +1041,62 @@ int dispatch_d(int kind, int BH, const Params& p, cudaStream_t s) {
   return launch<T, 256, POS>(kind, BH, p, s);
 }
 
+// The Hopper bodies: the forward (kind 3), dQ (4) and dK/dV (5) on q, k,
+// v (and dout) as 4-D tensor maps over the caller's strides; tiles of 128
+// rows, blocks of 64 (the forward's as HopCfg says)
+int launch_sm90(int kind, const Params& p, int B, cudaStream_t s) {
+  const void* bases[4] = {p.q, p.k, p.v, p.dout};
+  const long long st[4][3] = {{p.q_b, p.q_s, p.q_h},
+                              {p.k_b, p.k_s, p.k_h},
+                              {p.v_b, p.v_s, p.v_h},
+                              {p.d_b, p.d_s, p.d_h}};
+  if (kind == kFwdSm90) {
+    const FwdArgs a{p.out0, p.lse_out, p.Sq, p.H, p.D, p.scale, p.causal};
+    const void* const qkv[3] = {p.q, p.k, p.v};
+    const long long qkv_st[3][3] = {{st[0][0], st[0][1], st[0][2]},
+                                    {st[1][0], st[1][1], st[1][2]},
+                                    {st[2][0], st[2][1], st[2][2]}};
+    return launch_fwd_sm90<flash_fwd_sm90<64>, flash_fwd_sm90<128>>(
+        qkv, qkv_st, B, a, s);
+  }
+  // resident operands first (dQ: q, dout; dK/dV: k, v), then the streamed
+  const bool dkv = kind == kDkvSm90;
+  const int order[4] = {dkv ? 1 : 0, dkv ? 2 : 3, dkv ? 0 : 1, dkv ? 3 : 2};
+  const int rows = !dkv                ? BwdCfg<64, false>::ROWS
+                   : p.D <= 64 ? BwdCfg<64, true>::ROWS
+                               : BwdCfg<128, true>::ROWS;
+  CUtensorMap maps[4];
+  for (int i = 0; i < 4; ++i) {
+    const int o = order[i];
+    if (!attn_tmap(&maps[i], bases[o], B, p.Sq, p.H, p.D, st[o][0],
+                   st[o][1], st[o][2], i < 2 ? rows : BwdCfg<64, true>::BN))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Units units((p.Sq + rows - 1) / rows, B * p.H, p.causal != 0);
+  const dim3 grid(std::min(units.count, sm_count()));
+  auto go = [&](auto kernel, auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    constexpr auto K = decltype(kernel)::value;
+    using C = std::conditional_t<K == flash_dkv_sm90<DP>,
+                                 BwdCfg<DP, true>, BwdCfg<DP, false>>;
+    if (const int e = smem_opt_in<K>(C::smem)) return e;
+    K<<<grid, C::THREADS, C::smem, s>>>(maps[0], maps[1], maps[2], maps[3],
+                                         p, units);
+    return 0;
+  };
+  using I64 = std::integral_constant<int, 64>;
+  using I128 = std::integral_constant<int, 128>;
+  if (p.D <= 64)
+    return dkv ? go(std::integral_constant<decltype(&flash_dkv_sm90<64>),
+                                           flash_dkv_sm90<64>>(), I64())
+               : go(std::integral_constant<decltype(&flash_dq_sm90<64>),
+                                           flash_dq_sm90<64>>(), I64());
+  return dkv ? go(std::integral_constant<decltype(&flash_dkv_sm90<128>),
+                                         flash_dkv_sm90<128>>(), I128())
+             : go(std::integral_constant<decltype(&flash_dq_sm90<128>),
+                                         flash_dq_sm90<128>>(), I128());
+}
+
 int run(int kind, Params& p, int BH, int dtype, bool pos, void* stream) {
   if (p.D < 1 || p.D > 256 || p.Sq < 1 || p.Sk < 1 || BH < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -899,11 +1108,13 @@ int run(int kind, Params& p, int BH, int dtype, bool pos, void* stream) {
     vec = vec && st % ch == 0;
   p.vec = vec;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind == kFwdSm90) {
-    if (dtype != kBF16 || pos || !vec || p.D <= 32 || p.D > 128 ||
-        p.D % 8 != 0 || !(p.scale > 0.f))
+  if (kind >= kFwdSm90) {
+    // what the Hopper bodies admit; asked for anything else, the entry
+    // refuses rather than run another body
+    if (kind > kDkvSm90 || dtype != kBF16 || pos || !vec || p.D <= 32 ||
+        p.D > 128 || p.D % 8 != 0 || !(p.scale > 0.f))
       return static_cast<int>(cudaErrorInvalidValue);
-    const int err = launch_fwd_sm90(p, BH / p.H, s);
+    const int err = launch_sm90(kind, p, BH / p.H, s);
     return err != 0 ? err : static_cast<int>(cudaGetLastError());
   }
   int err;
@@ -925,8 +1136,8 @@ int run(int kind, Params& p, int BH, int dtype, bool pos, void* stream) {
 }  // namespace
 
 // kind: 0 forward (q, k, v -> out0 = O, lse_out), 1 dQ (q, k, v, dout,
-// lse, delta -> out0), 2 dK, dV (-> out0, out1), 3 the forward on the
-// Hopper body (bf16, 32 < D <= 128; as kind 0). dims = {B, S, H, D, then
+// lse, delta -> out0), 2 dK, dV (-> out0, out1); 3, 4, 5 the same on the
+// Hopper bodies (bf16, 32 < D <= 128, TMA-describable strides). dims = {B, S, H, D, then
 // the (b, s, h) element strides of q, k, v and dout} (dout's are 0 for a
 // forward): q, k, v, dout are [B, S, H, D] with a unit stride along D;
 // outputs are contiguous [B, S, H, D]; lse / delta are [B*H, S] f32. The

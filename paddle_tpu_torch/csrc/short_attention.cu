@@ -37,17 +37,22 @@
 // D = 64) the bytes — q, k, v, O read or written once are 4 x 25 MB, while
 // the products, 4 * S^2 * D per head, take a fifth of that time at the
 // tensor-core peak; the in-kernel Philox adds ~100 integer operations per
-// four probabilities. Simple first: synchronous loads, mma.sync.
+// four probabilities. Simple first: synchronous loads, mma.sync. The
+// forward has a Hopper body for bf16 at 32 < D <= 128 (`sa_fwd_sm90`,
+// below): TMA-fed wgmma with P in registers, each block's Philox draw made
+// just before its S product is issued, while the other warpgroups'
+// products run (attention_sm90.cuh's note says why not during its own);
+// it is what the integer work bounds there (~0.6 G integer instructions
+// at BERT-base's shape).
 #include <math.h>
 
-#include <initializer_list>
-
-#include "attention_tiles.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
 using namespace ptt;
 using namespace ptt::attn;
+using namespace ptt::attn90;
 
 struct Params {
   const void* q;
@@ -102,10 +107,13 @@ __device__ __forceinline__ Stream stream_of(const Params& p, int b, int h) {
 
 // Keep bits of a score tile in the accumulator layout, bit 4n + e for
 // element [n][e]; word 2u + v of a call holds element (i + 8u, j + 8v).
+// `thresh` is taken by reference: in sa_dq it then stays an operand of
+// the kernel's parameter space, where a value copy cost 36 registers
+// (164 against 128 at bf16, D = 64, and 6 % of the backward's time).
 // Rows are queries (forward, dQ): rows i_lo, i_lo + 8 by e < 2, columns
 // j0 + 8n + 2t + (e & 1). i_lo and j0 have bit 3 clear.
 template <int NT>
-__device__ __forceinline__ unsigned keep_rows_q(const Params& p,
+__device__ __forceinline__ unsigned keep_rows_q(const unsigned& thresh,
                                                 const Stream& st, int i_lo,
                                                 int j0) {
   const int t = threadIdx.x & 3;
@@ -116,10 +124,10 @@ __device__ __forceinline__ unsigned keep_rows_q(const Params& p,
     for (int ec = 0; ec < 2; ++ec) {
       const uint4 w = philox(j0 + n * 8 + 2 * t + ec, i_lo, st.h, st.b,
                              st.k0, st.k1);
-      bits |= static_cast<unsigned>(w.x >= p.thresh) << (n * 4 + ec);
-      bits |= static_cast<unsigned>(w.y >= p.thresh) << ((n + 1) * 4 + ec);
-      bits |= static_cast<unsigned>(w.z >= p.thresh) << (n * 4 + 2 + ec);
-      bits |= static_cast<unsigned>(w.w >= p.thresh)
+      bits |= static_cast<unsigned>(w.x >= thresh) << (n * 4 + ec);
+      bits |= static_cast<unsigned>(w.y >= thresh) << ((n + 1) * 4 + ec);
+      bits |= static_cast<unsigned>(w.z >= thresh) << (n * 4 + 2 + ec);
+      bits |= static_cast<unsigned>(w.w >= thresh)
               << ((n + 1) * 4 + 2 + ec);
     }
   return bits;
@@ -128,7 +136,7 @@ __device__ __forceinline__ unsigned keep_rows_q(const Params& p,
 // The transposed tile (dK/dV): rows are keys j_lo, j_lo + 8 by e < 2,
 // columns queries i0 + 8n + 2t + (e & 1).
 template <int NT>
-__device__ __forceinline__ unsigned keep_rows_k(const Params& p,
+__device__ __forceinline__ unsigned keep_rows_k(const unsigned& thresh,
                                                 const Stream& st, int j_lo,
                                                 int i0) {
   const int t = threadIdx.x & 3;
@@ -139,10 +147,10 @@ __device__ __forceinline__ unsigned keep_rows_k(const Params& p,
     for (int ec = 0; ec < 2; ++ec) {
       const uint4 w = philox(j_lo, i0 + n * 8 + 2 * t + ec, st.h, st.b,
                              st.k0, st.k1);
-      bits |= static_cast<unsigned>(w.x >= p.thresh) << (n * 4 + ec);
-      bits |= static_cast<unsigned>(w.y >= p.thresh) << (n * 4 + 2 + ec);
-      bits |= static_cast<unsigned>(w.z >= p.thresh) << ((n + 1) * 4 + ec);
-      bits |= static_cast<unsigned>(w.w >= p.thresh)
+      bits |= static_cast<unsigned>(w.x >= thresh) << (n * 4 + ec);
+      bits |= static_cast<unsigned>(w.y >= thresh) << (n * 4 + 2 + ec);
+      bits |= static_cast<unsigned>(w.z >= thresh) << ((n + 1) * 4 + ec);
+      bits |= static_cast<unsigned>(w.w >= thresh)
               << ((n + 1) * 4 + 2 + ec);
     }
   return bits;
@@ -185,7 +193,8 @@ __global__ void __launch_bounds__(kThreads) sa_fwd(const Params p) {
     zero(s);
     warp_mma<NS, DP, true>(s, Qs + warp * kRows * LD, LD, Ks, LD);
     const unsigned keep =
-        p.dropout ? keep_rows_q<NS>(p, st, q0 + warp * kRows + g, k0) : ~0u;
+        p.dropout ? keep_rows_q<NS>(p.thresh, st, q0 + warp * kRows + g, k0)
+                  : ~0u;
     unsigned ok = 0;
     float mx_lo = kNegInf, mx_hi = kNegInf;
 #pragma unroll
@@ -246,6 +255,50 @@ __global__ void __launch_bounds__(kThreads) sa_fwd(const Params p) {
   }
 }
 
+// --- forward on Hopper: attention_sm90.cuh's body with the dropout drawn --
+// The bf16 forward at head-dim tiles 64 and 128 (32 < D <= 128, D % 8 ==
+// 0, TMA-describable strides; kind 3) runs the flash forward's Hopper
+// body with this policy: keep_rows_q on the m64nBK accumulator, whose warp
+// slices have the m16n8 layout it assumes (rows 16 (warp in warpgroup) +
+// g and + 8), drawn just before the block's S wgmma is issued, while the
+// other warpgroups' products run (see attention_sm90.cuh's note on the
+// dropout policy). At BERT's S = 128 a head is
+// one 128-row tile over two 64-key blocks, so its K and V are read once.
+struct PhiloxDropout {
+  static constexpr bool kOn = true;
+  const long long* seed;  // [1] on the device
+  float ks;               // 1 / (1 - p)
+  unsigned thresh;
+  int drop;               // p > 0
+  uint32_t k0, k1;        // the key, from the seed (init)
+  __device__ void init() {
+    const unsigned long long sd =
+        drop ? static_cast<unsigned long long>(*seed) : 0ull;
+    k0 = static_cast<uint32_t>(sd);
+    k1 = static_cast<uint32_t>(sd >> 32);
+  }
+  __device__ bool on() const { return drop != 0; }
+  template <int BK>
+  __device__ void draw(uint32_t (&bits)[BK / 64], int b, int h, int row_lo,
+                       int c0) const {
+    const Stream st{k0, k1, static_cast<uint32_t>(b),
+                    static_cast<uint32_t>(h)};
+#pragma unroll
+    for (int w = 0; w < BK / 64; ++w)
+      bits[w] = keep_rows_q<8>(thresh, st, row_lo, c0 + 64 * w);
+  }
+  __device__ float keep_scale() const { return ks; }
+};
+
+template <int DP>
+__global__ void __launch_bounds__(HopCfg<DP>::THREADS, HopCfg<DP>::CTAS)
+    sa_fwd_sm90(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const FwdArgs a,
+                const Units units, const PhiloxDropout drop) {
+  fwd_sm90_body<DP>(tq, tk, tv, a, units, drop);
+}
+
 // --- backward: D, then dQ ------------------------------------------------------
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads) sa_dq(const Params p) {
@@ -293,7 +346,7 @@ __global__ void __launch_bounds__(kThreads) sa_dq(const Params p) {
       warp_mma<NS, DP, true>(s, Qs + warp * kRows * LD, LD, Ks, LD);
       warp_mma<NS, DP, true>(dp, dOs + warp * kRows * LD, LD, Vs, LD);
       const unsigned keep =
-          p.dropout ? keep_rows_q<NS>(p, st, q0 + warp * kRows + g, k0)
+          p.dropout ? keep_rows_q<NS>(p.thresh, st, q0 + warp * kRows + g, k0)
                     : ~0u;
 #pragma unroll
       for (int n = 0; n < NS; ++n)
@@ -386,8 +439,8 @@ __global__ void __launch_bounds__(kThreads) sa_dkv(const Params p) {
     float pt[NQ][4];
     zero(pt);
     warp_mma<NQ, DP, true>(pt, Ks + warp * kRows * LD, LD, Qs, LD);
-    const unsigned keep = p.dropout ? keep_rows_k<NQ>(p, st, kr_lo, qi0)
-                                    : ~0u;
+    const unsigned keep =
+        p.dropout ? keep_rows_k<NQ>(p.thresh, st, kr_lo, qi0) : ~0u;
 #pragma unroll
     for (int n = 0; n < NQ; ++n)
 #pragma unroll
@@ -425,7 +478,7 @@ __global__ void __launch_bounds__(kThreads) sa_dkv(const Params p) {
 }
 
 // --- launch --------------------------------------------------------------------
-enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
+enum Kind { kFwd = 0, kDq = 1, kDkv = 2, kFwdSm90 = 3 };
 
 template <typename T, int DP>
 int launch(int kind, int BH, const Params& p, cudaStream_t s) {
@@ -453,41 +506,62 @@ int dispatch_d(int kind, int BH, const Params& p, cudaStream_t s) {
   return launch<T, 256>(kind, BH, p, s);
 }
 
+int launch_fwd_hopper(const Params& p, int B, cudaStream_t s) {
+  const void* const bases[3] = {p.q, p.k, p.v};
+  const long long st[3][3] = {{p.q_b, p.q_s, p.q_h},
+                              {p.k_b, p.k_s, p.k_h},
+                              {p.v_b, p.v_s, p.v_h}};
+  const FwdArgs a{p.out0, p.lse, p.S, p.H, p.D, p.scale, p.causal};
+  const PhiloxDropout drop{p.seed, p.keep_scale, p.thresh, p.dropout, 0u,
+                           0u};
+  return launch_fwd_sm90<sa_fwd_sm90<64>, sa_fwd_sm90<128>>(bases, st, B, a,
+                                                            s, drop);
+}
+
 }  // namespace
 
 // kind: 0 forward (q, k, v -> out0 = O, lse), 1 the row term and dQ (q, k,
 // v, dout, lse -> delta, out0 = dQ), 2 dK, dV (q, k, v, dout, lse, delta
-// -> out0, out1). q, k, v, dout are [B, S, H, D] with element strides
-// (b, s, h) and a unit stride along D; outputs are contiguous
-// [B, S, H, D]; lse / delta are [B*H, S] f32; seed is one int64 on the
-// device, read only when dropout is set.
+// -> out0, out1), 3 the forward on the Hopper body (bf16, 32 < D <= 128,
+// TMA-describable strides; as kind 0; refused otherwise). dims = {B, S, H,
+// D, then the (b, s, h) element strides of q, k, v and dout} (dout's are 0
+// for a forward): q, k, v, dout are [B, S, H, D] with a unit stride along
+// D; outputs are contiguous [B, S, H, D]; lse / delta are [B*H, S] f32;
+// seed is one int64 on the device, read only when dropout is set. The
+// sizes travel packed, as one pointer, because a call's host time is part
+// of its cost.
 extern "C" int ptt_short_attention(
     int kind, const void* q, const void* k, const void* v, const void* dout,
-    const void* seed, void* lse, void* delta, void* out0, void* out1, int B,
-    int S, int H, int D, long long q_b, long long q_s, long long q_h,
-    long long k_b, long long k_s, long long k_h, long long v_b,
-    long long v_s, long long v_h, long long d_b, long long d_s,
-    long long d_h, int dtype, float scale, float keep_scale,
+    const void* seed, void* lse, void* delta, void* out0, void* out1,
+    const long long* dims, int dtype, float scale, float keep_scale,
     unsigned thresh, int dropout, int causal, void* stream) {
+  const int B = static_cast<int>(dims[0]), S = static_cast<int>(dims[1]);
+  const int H = static_cast<int>(dims[2]), D = static_cast<int>(dims[3]);
+  const long long* st = dims + 4;
   if (D < 1 || D > 256 || S < 1 || B * H < 1 || (dropout && !seed))
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q,   k,   v,   dout, static_cast<const long long*>(seed),
+  Params p{q,     k,     v,     dout,  static_cast<const long long*>(seed),
            static_cast<float*>(lse), static_cast<float*>(delta), out0,
-           out1, S,   H,   D,   q_b,  q_s, q_h, k_b, k_s, k_h, v_b, v_s,
-           v_h, d_b, d_s, d_h, scale, keep_scale, thresh, dropout, causal,
-           0};
+           out1,  S,     H,     D,     st[0], st[1], st[2], st[3], st[4],
+           st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale,
+           keep_scale, thresh, dropout, causal, 0};
   const int ch = dtype == kF32 ? 4 : 8;    // elements per 16-byte load
   bool vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout);
-  for (long long st : {q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, d_b, d_s,
-                       d_h})
-    vec = vec && st % ch == 0;
+  for (int i = 0; i < 12; ++i) vec = vec && st[i] % ch == 0;
   p.vec = vec;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
-  switch (dtype) {
-    case kF32: err = dispatch_d<float>(kind, B * H, p, s); break;
-    case kBF16: err = dispatch_d<__nv_bfloat16>(kind, B * H, p, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (kind == kFwdSm90) {
+    if (dtype != kBF16 || !vec || D <= 32 || D > 128 || D % 8 != 0 ||
+        !(scale > 0.f))
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = launch_fwd_hopper(p, B, s);
+  } else {
+    switch (dtype) {
+      case kF32: err = dispatch_d<float>(kind, B * H, p, s); break;
+      case kBF16: err = dispatch_d<__nv_bfloat16>(kind, B * H, p, s); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());

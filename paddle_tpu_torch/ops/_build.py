@@ -7,6 +7,10 @@ happens at first use (never at import), writes into
 hash of the sources, so an edited kernel is rebuilt and an unchanged one is
 loaded as it is. The sources compile in parallel, one ``nvcc`` each, and
 are linked once.
+
+It also holds what the attention wrappers share between their launches:
+the operands' views (`attention_views`), the test of whether the Hopper
+bodies take them (`hopper_plan`) and the packed sizes (`attention_dims`).
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import fcntl
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -139,11 +144,11 @@ def lib():
          I, I, I, I, I, *([L] * 12), I, F, I, P)
     # x, w, bias, out, m, n, k, dtype, stream (the row-stable GEMV)
     _sig(handle.ptt_row_gemv, P, P, P, P, I, I, I, I, P)
-    # kind, q, k, v, dout, seed, lse, delta, out0, out1, B, S, H, D,
-    # strides (b, s, h) of q, k, v, dout, dtype, scale, keep scale, keep
-    # threshold, dropout, causal, stream
+    # kind, q, k, v, dout, seed, lse, delta, out0, out1, dims (16 int64:
+    # B, S, H, D, strides (b, s, h) of q, k, v, dout), dtype, scale, keep
+    # scale, keep threshold, dropout, causal, stream
     _sig(handle.ptt_short_attention, I, P, P, P, P, P, P, P, P, P,
-         I, I, I, I, *([L] * 12), I, F, F, ctypes.c_uint, I, I, P)
+         ctypes.c_char_p, I, F, F, ctypes.c_uint, I, I, P)
     # x, x strides (b, s), A, B, ids, h scratch, out, batch, s, d_in, r,
     # d_out, slots, x_dtype, stream
     _sig(handle.ptt_bgmv, P, L, L, P, P, P, P, P, I, I, I, I, I, I, I, P)
@@ -202,3 +207,45 @@ def dtype_code(dtype):
     if code is None:
         raise TypeError(f"unsupported dtype {dtype} for the CUDA kernels")
     return code
+
+
+# --- attention operands ------------------------------------------------------
+
+def attention_views(ops):
+    """The attention operands [B, S, H, D] as a launch reads them: each with
+    a unit stride along D (a copy only where the caller's has none), with
+    its data pointer and (b, s, h, d) element strides, fetched once a
+    call. Returns (ops, ptrs, strides)."""
+    ops = [t if t.stride(-1) == 1 else t.contiguous() for t in ops]
+    return ops, [t.data_ptr() for t in ops], [t.stride() for t in ops]
+
+
+def hopper_plan(ops, scale):
+    """`attention_views` of `ops` (q, k, v and dout where there is one),
+    and whether the Hopper attention bodies take them: bf16 throughout,
+    head dim 32 < D <= 128 with D % 8 == 0, a positive scale, and views
+    TMA can describe (every stride but D's a multiple of 8 elements,
+    16-byte aligned bases). Returns (hopper, ops, ptrs, strides)."""
+    import torch
+
+    ops, ptrs, strides = attention_views(ops)
+    d = ops[0].shape[-1]
+    if not (32 < d <= 128 and not d % 8 and scale > 0):
+        return False, ops, ptrs, strides
+    hopper = all(t.dtype == torch.bfloat16 and not (
+        st[0] % 8 or st[1] % 8 or st[2] % 8 or ptr % 16)
+        for t, ptr, st in zip(ops, ptrs, strides))
+    return hopper, ops, ptrs, strides
+
+
+_DIMS = struct.Struct("<16q")
+_NO_DOUT = (0, 0, 0)
+
+
+def attention_dims(shape, strides):
+    """The packed sizes of an attention launch, as `ptt_flash_attention`
+    and `ptt_short_attention` take them: B, S, H, D, then the (b, s, h)
+    element strides of q, k, v and dout (0 without one)."""
+    return _DIMS.pack(*shape, *strides[0][:3], *strides[1][:3],
+                      *strides[2][:3],
+                      *(strides[3][:3] if len(strides) > 3 else _NO_DOUT))

@@ -10,7 +10,10 @@ a ``.launches`` counter:
   inputs with 32 < D <= 128 take the Hopper body (TMA-fed wgmma, P in
   registers), the rest the mma.sync body — `flash_fwd_route` decides;
 * `flash_attention_bwd_dq` — ``dQ`` over K blocks;
-* `flash_attention_bwd_dkv` — ``(dK, dV)`` over Q blocks.
+* `flash_attention_bwd_dkv` — ``(dK, dV)`` over Q blocks; on the same
+  inputs as the forward's Hopper body, both run Hopper bodies of their own
+  (dS and P^T in registers) — `flash_bwd_route` decides, and the
+  wrappers' ``.routes`` count launches by body.
 
 Three more kernels serve one step of ring attention
 (`distributed.context_parallel`), the counterparts of the JAX package's
@@ -46,14 +49,14 @@ A CUDA input launches the kernels (bf16 or f32; any other dtype raises
 from __future__ import annotations
 
 import math
-import struct
 
 import torch
 
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_supported",
-           "flash_fwd_route", "FWD_MMA", "FWD_WGMMA",
+           "flash_fwd_route", "FWD_MMA", "FWD_WGMMA", "flash_bwd_route",
+           "BWD_MMA", "BWD_WGMMA",
            "flash_attention_ref", "flash_attention_bwd_ref",
            "flash_attention_bwd_dq_ref", "flash_attention_bwd_dkv_ref",
            "flash_attention_fwd", "flash_attention_bwd_dq",
@@ -65,6 +68,10 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _FWD, _DQ, _DKV = 0, 1, 2
 #: the forward's two bodies, as kinds of ``csrc/flash_attention.cu``
 FWD_MMA, FWD_WGMMA = _FWD, 3
+#: the backward's two bodies (`flash_bwd_route`); the kinds they launch
+BWD_MMA, BWD_WGMMA = 0, 1
+_DQ_KIND = (_DQ, 4)
+_DKV_KIND = (_DKV, 5)
 _NEG_INF = -1e30                 # the TPU kernels' mask value
 
 
@@ -171,52 +178,56 @@ def _check(q, *others):
         raise ValueError(f"head dim {q.shape[-1]} > 256 is not supported")
 
 
-def _cuda_operands(q, *others):
-    """Device / dtype checks of a kernel launch; returns the operands with
-    a unit stride along D (a copy only where the caller's has none)."""
+def _check_cuda(q, *others):
+    """Device / dtype checks of a kernel launch."""
     if q.device.type != "cuda":
         raise RuntimeError(f"flash attention: no kernel for device "
                            f"{q.device}")
     if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"flash attention kernels take float32 or bfloat16, "
                         f"got {q.dtype}")
-    out = []
-    for t in (q, *others):
-        if t.device != q.device or t.dtype != q.dtype:
+    dev, dt = q.device, q.dtype
+    for t in others:
+        if t.device != dev or t.dtype != dt:
             raise ValueError(f"operands must share q's device and dtype "
-                             f"({q.device}, {q.dtype}), got {t.device}, "
-                             f"{t.dtype}")
-        out.append(t if t.stride(-1) == 1 else t.contiguous())
-    return out
+                             f"({dev}, {dt}), got {t.device}, {t.dtype}")
+
+
+def _cuda_operands(q, *others):
+    """`_check_cuda`, then the operands with a unit stride along D (a copy
+    only where the caller's has none)."""
+    _check_cuda(q, *others)
+    return _build.attention_views((q, *others))[0]
 
 
 def flash_fwd_route(q, k, v, scale=1.0):
-    """The body a CUDA call of `flash_attention_fwd` runs: FWD_WGMMA (the
-    Hopper body: TMA tensor maps over the strides, wgmma) for bf16 q, k, v
-    with 32 < D <= 128, D % 8 == 0, a positive scale, unit stride along D,
-    every other stride a multiple of 8 elements and 16-byte aligned bases;
-    FWD_MMA (the mma.sync body) otherwise: f32, head-dim tiles 32 and 256,
-    and views TMA cannot describe."""
-    d = q.shape[-1]
-    if (q.dtype != torch.bfloat16 or not 32 < d <= 128 or d % 8
-            or not scale > 0):
-        return FWD_MMA
-    for t in (q, k, v):
-        st = t.stride()
-        if (t.dtype != q.dtype or st[3] != 1 or st[0] % 8 or st[1] % 8
-                or st[2] % 8 or t.data_ptr() % 16):
-            return FWD_MMA
-    return FWD_WGMMA
+    """How a CUDA call of `flash_attention_fwd` launches on q, k, v; the
+    wrapper launches exactly what this returns: (route, ops, ptrs,
+    strides). The route is FWD_WGMMA (the Hopper body: TMA tensor maps
+    over the strides, wgmma) where `_build.hopper_plan` admits the
+    operands, FWD_MMA (the mma.sync body) otherwise: f32, head-dim tiles
+    32 and 256, and views TMA cannot describe. ops, ptrs and strides are
+    the operands as launched (`_build.attention_views`)."""
+    hopper, *views = _build.hopper_plan((q, k, v), scale)
+    return (FWD_WGMMA if hopper else FWD_MMA, *views)
 
 
-_DIMS = struct.Struct("<16q")     # ptt_flash_attention's dims
+def flash_bwd_route(q, k, v, do, scale=1.0):
+    """How a CUDA call of `flash_attention_bwd_dq` or
+    `flash_attention_bwd_dkv` launches on q, k, v and dO; the wrappers
+    launch exactly what this returns: (route, ops, ptrs, strides), the
+    route BWD_WGMMA (their Hopper bodies) where `_build.hopper_plan`
+    admits the four operands (the forward's conditions), BWD_MMA (the
+    mma.sync bodies) otherwise."""
+    hopper, *views = _build.hopper_plan((q, k, v, do), scale)
+    return (BWD_WGMMA if hopper else BWD_MMA, *views)
 
 
-def _launch(kind, q, k, v, dout, lse, delta, out0, out1, lse_out, causal,
+def _launch(kind, q, ptrs, strides, lse, delta, out0, out1, lse_out, causal,
             scale):
-    dims = _DIMS.pack(*q.shape, *q.stride()[:3], *k.stride()[:3],
-                      *v.stride()[:3],
-                      *(dout.stride()[:3] if dout is not None else (0, 0, 0)))
+    """One launch on the operands q, k, v (and dout for a backward) whose
+    pointers and strides `_build.attention_views` fetched."""
+    dims = _build.attention_dims(q.shape, strides)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -225,12 +236,12 @@ def _launch(kind, q, k, v, dout, lse, delta, out0, out1, lse_out, causal,
     ctx, stream = _build.launch_on(q.device)
     with ctx:
         err = lib.ptt_flash_attention(
-            kind, ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta),
-            ptr(out0), ptr(out1), ptr(lse_out), dims,
-            _build.dtype_code(q.dtype), scale, int(bool(causal)), stream)
+            kind, ptrs[0], ptrs[1], ptrs[2], ptrs[3] if len(ptrs) > 3
+            else None, ptr(lse), ptr(delta), ptr(out0), ptr(out1),
+            ptr(lse_out), dims, _build.dtype_code(q.dtype), scale,
+            int(bool(causal)), stream)
     _build.check(err, ("flash_attention_fwd", "flash_attention_bwd_dq",
-                       "flash_attention_bwd_dkv",
-                       "flash_attention_fwd")[kind])
+                       "flash_attention_bwd_dkv")[kind % 3])
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, scale=None):
@@ -240,14 +251,15 @@ def flash_attention_fwd(q, k, v, *, causal=True, scale=None):
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, scale=scale)
-    q, k, v = _cuda_operands(q, k, v)
+    _check_cuda(q, k, v)
     B, S, H, D = q.shape
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return out, lse
-    route = flash_fwd_route(q, k, v, scale)
-    _launch(route, q, k, v, None, None, None, out, None, lse, causal, scale)
+    route, ops, ptrs, strides = flash_fwd_route(q, k, v, scale)
+    _launch(route, ops[0], ptrs, strides, None, None, out, None, lse, causal,
+            scale)
     flash_attention_fwd.launches += 1
     flash_attention_fwd.routes[route] += 1
     return out, lse
@@ -273,13 +285,16 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True,
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
                                           causal=causal, scale=scale)
-    q, k, v, do = _cuda_operands(q, k, v, do)
+    _check_cuda(q, k, v, do)
     lse, delta = _bwd_rows(q, lse, delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.numel() == 0:
         return dq
-    _launch(_DQ, q, k, v, do, lse, delta, dq, None, None, causal, scale)
+    route, ops, ptrs, strides = flash_bwd_route(q, k, v, do, scale)
+    _launch(_DQ_KIND[route], ops[0], ptrs, strides, lse, delta, dq, None, None,
+            causal, scale)
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.routes[route] += 1
     return dq
 
 
@@ -291,14 +306,17 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
                                            causal=causal, scale=scale)
-    q, k, v, do = _cuda_operands(q, k, v, do)
+    _check_cuda(q, k, v, do)
     lse, delta = _bwd_rows(q, lse, delta)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.numel() == 0:
         return dk, dv
-    _launch(_DKV, q, k, v, do, lse, delta, dk, dv, None, causal, scale)
+    route, ops, ptrs, strides = flash_bwd_route(q, k, v, do, scale)
+    _launch(_DKV_KIND[route], ops[0], ptrs, strides, lse, delta, dk, dv, None,
+            causal, scale)
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.routes[route] += 1
     return dk, dv
 
 
@@ -307,6 +325,9 @@ flash_attention_fwd.launches = 0
 flash_attention_fwd.routes = {FWD_MMA: 0, FWD_WGMMA: 0}
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+#: launches of each backward body (`flash_bwd_route`'s codes)
+flash_attention_bwd_dq.routes = {BWD_MMA: 0, BWD_WGMMA: 0}
+flash_attention_bwd_dkv.routes = {BWD_MMA: 0, BWD_WGMMA: 0}
 
 
 def attention_delta(o, do):

@@ -6,7 +6,10 @@ Two kernel wrappers over ``csrc/short_attention.cu``, each with a
 ``.launches`` counter:
 
 * `short_attention_fwd` — ``(O, lse)``: replaces the TPU kernel
-  `_fwd_kernel` (short_attention.py:73, through `_fwd_call`);
+  `_fwd_kernel` (short_attention.py:73, through `_fwd_call`); bf16 inputs
+  that the flash forward's Hopper body takes (32 < D <= 128, views TMA
+  can describe) run that body with the dropout drawn inside, the rest the
+  mma.sync body — `short_fwd_route` decides, ``.routes`` counts;
 * `short_attention_bwd` — ``(dQ, dK, dV)``: replaces `_bwd_kernel`
   (:87, through `_bwd_rule`). One call is two launches, and its counter
   counts both: the dQ kernel, which first forms the row term
@@ -37,10 +40,13 @@ from . import _build, _dropout_rng
 
 __all__ = ["short_attention", "short_attention_fwd", "short_attention_bwd",
            "short_attention_ref", "short_attention_bwd_ref",
-           "composed_attention", "supported", "supports_p"]
+           "composed_attention", "supported", "supports_p",
+           "short_fwd_route", "FWD_MMA", "FWD_WGMMA"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _FWD, _DQ, _DKV = 0, 1, 2
+#: the forward's two bodies, as kinds of ``csrc/short_attention.cu``
+FWD_MMA, FWD_WGMMA = _FWD, 3
 MAX_S = 512
 MAX_D = 256
 _NEG = -1e30                    # the TPU kernel's causal mask value
@@ -154,37 +160,47 @@ def _check_p(p):
         raise ValueError(f"dropout p={p} outside [0, 1)")
 
 
-def _cuda_operands(q, seed, *others):
-    """The launch's checks; returns the operands with a unit stride along
-    D (a copy only where the caller's has none) and the seed as one
-    contiguous int64 on q's device."""
+def _check_cuda(q, seed, *others):
+    """The launch's checks of the operands and of the seed (one int64 on
+    q's device: contiguous in any shape)."""
     if q.device.type != "cuda":
         raise RuntimeError(f"short attention: no kernel for device "
                            f"{q.device}")
-    if not supported(tuple(q.shape), None, q.dtype):
+    dev, dt = q.device, q.dtype
+    if not supported(q.shape, None, dt):
         raise ValueError(
             f"short attention kernels take f32 or bf16 [B, S, H, D] with "
             f"S <= {MAX_S}, S % 8 == 0, D % 8 == 0 and D <= {MAX_D}; got "
-            f"{tuple(q.shape)} {q.dtype}")
-    out = []
-    for t in (q, *others):
-        if t.device != q.device or t.dtype != q.dtype:
+            f"{tuple(q.shape)} {dt}")
+    for t in others:
+        if t.device != dev or t.dtype != dt:
             raise ValueError(f"operands must share q's device and dtype "
-                             f"({q.device}, {q.dtype}), got {t.device}, "
-                             f"{t.dtype}")
-        out.append(t if t.stride(-1) == 1 else t.contiguous())
-    if seed.device != q.device or seed.dtype != torch.int64 \
+                             f"({dev}, {dt}), got {t.device}, {t.dtype}")
+    if seed.device != dev or seed.dtype != torch.int64 \
             or seed.numel() != 1:
         raise ValueError(f"seed must be one int64 on {q.device}, got "
                          f"{tuple(seed.shape)} {seed.dtype} on "
                          f"{seed.device}")
-    return out, seed.reshape(1).contiguous()
 
 
-def _launch(kind, q, k, v, dout, seed, lse, delta, out0, out1, p, causal):
-    B, S, H, D = q.shape
-    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-               *(dout.stride()[:3] if dout is not None else (0, 0, 0))]
+def short_fwd_route(q, k, v):
+    """How a CUDA call of `short_attention_fwd` launches on q, k, v; the
+    wrapper launches exactly what this returns: (route, ops, ptrs,
+    strides). The route is FWD_WGMMA (the flash forward's Hopper body
+    with the dropout drawn inside) where `_build.hopper_plan` admits the
+    operands (bf16, 32 < D <= 128, D % 8 == 0, TMA-describable views) and
+    S <= 512, FWD_MMA (the mma.sync body) otherwise. ops, ptrs and strides
+    are the operands as launched (`_build.attention_views`)."""
+    hopper, *views = _build.hopper_plan((q, k, v), _scale(q))
+    return (FWD_WGMMA if hopper and q.shape[1] <= MAX_S else FWD_MMA,
+            *views)
+
+
+def _launch(kind, q, ptrs, strides, seed, lse, delta, out0, out1, p, causal,
+            scale):
+    """One launch on the operands q, k, v (and dout for a backward) whose
+    pointers and strides `_build.attention_views` fetched."""
+    dims = _build.attention_dims(q.shape, strides)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -193,13 +209,13 @@ def _launch(kind, q, k, v, dout, seed, lse, delta, out0, out1, p, causal):
     ctx, stream = _build.launch_on(q.device)
     with ctx:
         err = lib.ptt_short_attention(
-            kind, ptr(q), ptr(k), ptr(v), ptr(dout), ptr(seed), ptr(lse),
-            ptr(delta), ptr(out0), ptr(out1), B, S, H, D, *strides,
-            _build.dtype_code(q.dtype), _scale(q),
+            kind, ptrs[0], ptrs[1], ptrs[2], ptrs[3] if len(ptrs) > 3
+            else None, seed.data_ptr(), ptr(lse), ptr(delta), ptr(out0),
+            ptr(out1), dims, _build.dtype_code(q.dtype), scale,
             _dropout_rng.keep_scale(p), _dropout_rng.keep_threshold(p),
             int(p > 0.0), int(bool(causal)), stream)
     _build.check(err, ("short_attention_fwd", "short_attention_bwd (dq)",
-                       "short_attention_bwd (dkv)")[kind])
+                       "short_attention_bwd (dkv)")[kind % 3])
 
 
 def short_attention_fwd(q, k, v, seed, p=0.0, causal=False):
@@ -209,14 +225,17 @@ def short_attention_fwd(q, k, v, seed, p=0.0, causal=False):
     _check_p(p)
     if q.device.type == "cpu":
         return short_attention_ref(q, k, v, seed, p, causal)
-    (q, k, v), seed = _cuda_operands(q, seed, k, v)
+    _check_cuda(q, seed, k, v)
     B, S, H, D = q.shape
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return out, lse
-    _launch(_FWD, q, k, v, None, seed, lse, None, out, None, p, causal)
+    route, ops, ptrs, strides = short_fwd_route(q, k, v)
+    _launch(route, ops[0], ptrs, strides, seed, lse, None, out, None, p,
+            causal, _scale(q))
     short_attention_fwd.launches += 1
+    short_attention_fwd.routes[route] += 1
     return out, lse
 
 
@@ -227,7 +246,7 @@ def short_attention_bwd(q, k, v, do, lse, seed, p=0.0, causal=False):
     _check_p(p)
     if q.device.type == "cpu":
         return short_attention_bwd_ref(q, k, v, do, lse, seed, p, causal)
-    (q, k, v, do), seed = _cuda_operands(q, seed, k, v, do)
+    _check_cuda(q, seed, k, v, do)
     B, S, H, D = q.shape
     if tuple(lse.shape) != (B, H, S) or lse.dtype != torch.float32 \
             or lse.device != q.device:
@@ -240,14 +259,20 @@ def short_attention_bwd(q, k, v, do, lse, seed, p=0.0, causal=False):
     if q.numel() == 0:
         return dq, dk, dv
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    _launch(_DQ, q, k, v, do, seed, lse, delta, dq, None, p, causal)
+    ops, ptrs, strides = _build.attention_views((q, k, v, do))
+    scale = _scale(q)
+    _launch(_DQ, ops[0], ptrs, strides, seed, lse, delta, dq, None, p,
+            causal, scale)
     short_attention_bwd.launches += 1
-    _launch(_DKV, q, k, v, do, seed, lse, delta, dk, dv, p, causal)
+    _launch(_DKV, ops[0], ptrs, strides, seed, lse, delta, dk, dv, p,
+            causal, scale)
     short_attention_bwd.launches += 1
     return dq, dk, dv
 
 
 short_attention_fwd.launches = 0
+#: launches of each forward body (`short_fwd_route`'s codes)
+short_attention_fwd.routes = {FWD_MMA: 0, FWD_WGMMA: 0}
 short_attention_bwd.launches = 0
 
 

@@ -2,7 +2,8 @@
 """Compare two checkouts of the PyTorch/CUDA port on one GPU, alternating.
 
     python3 port_ab.py PARENT CHANGE
-        [--what decode,flash,weight_only,dense_decode,sparse] [--rounds 1]
+        [--what decode,flash,short,weight_only,dense_decode,sparse]
+        [--rounds 1]
 
 PARENT and CHANGE are the roots of two checkouts (for example a
 `git archive` of each commit unpacked into a git-ignored directory). Both
@@ -24,6 +25,12 @@ Measurements:
   tensor as the models give them: median CUDA-event ms of forward, dq and
   dkv over 50 calls after 5 warm-up calls, and each one's device time
   (``_dev_ms``: 32 calls in one CUDA graph, median of 7 replays);
+* ``short``: the short-attention kernels with attention dropout inside
+  at bert_base's fine-tune shape (B=128, S=128, H=12, D=64, bf16, p=0.1)
+  and at S=512 (B=16), q, k, v views of one fused QKV tensor as BERT
+  gives them: median CUDA-event ms of the forward and of the backward
+  call (its dQ and dK/dV launches) over 50 calls after 5 warm-up calls,
+  and each one's device time (``_dev_ms``, as for ``flash``);
 * ``weight_only``: `weight_only_matmul` on llama2_7b's gate_up (n=22016,
   k=4096) and down (n=4096, k=11008) weights quantized from one seeded
   random weight, int8 and int4, at m = 1, 8 (decode) and 256 (a prefill
@@ -99,6 +106,8 @@ def _graph_ms(torch, fns, calls=32, reps=7):
 
 FLASH_SHAPES = (("gpt_base", 16, 1024, 12, 64), ("llama2_7b", 4, 2048, 32, 128))
 WO_LAYERS = (("gate_up", 22016, 4096), ("down", 4096, 11008))
+SHORT_SHAPES = (("bert_base", 128, 128, 12, 64), ("s512", 16, 512, 12, 64))
+SHORT_P = 0.1
 
 
 def child_flash(tree):
@@ -125,6 +134,31 @@ def child_flash(tree):
             res[f"{name}_{part}_ms"] = _time_ms(torch, fn)
             res[f"{name}_{part}_dev_ms"] = _graph_ms(torch, [fn])
         del qkv, q, k, v, do, out, lse, delta
+    return res
+
+
+def child_short(tree):
+    import torch
+
+    sa = importlib.import_module("paddle_tpu_torch.ops.short_attention")
+    res = {"tree": tree, "what": "short", "p": SHORT_P}
+    for name, B, S, H, D in SHORT_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(5)
+        qkv = torch.randn(B, S, 3, H, D, device="cuda", generator=g).to(
+            torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        do = torch.randn(B, S, H, D, device="cuda", generator=g).to(
+            torch.bfloat16)
+        seed = torch.tensor([1234], device="cuda")
+        _, lse = sa.short_attention_fwd(q, k, v, seed, SHORT_P)
+        calls = {
+            "fwd": lambda: sa.short_attention_fwd(q, k, v, seed, SHORT_P),
+            "bwd": lambda: sa.short_attention_bwd(q, k, v, do, lse, seed,
+                                                  SHORT_P)}
+        for part, fn in calls.items():
+            res[f"{name}_{part}_ms"] = _time_ms(torch, fn)
+            res[f"{name}_{part}_dev_ms"] = _graph_ms(torch, [fn])
+        del qkv, q, k, v, do, lse
     return res
 
 
@@ -221,6 +255,7 @@ def _child(what, tree):
     os.chdir(tree)
     sys.path.insert(0, tree)
     res = {"flash": child_flash, "decode": child_decode,
+           "short": child_short,
            "weight_only": child_weight_only,
            "dense_decode": child_dense_decode,
            "sparse": child_sparse}[what](tree)

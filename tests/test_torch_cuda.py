@@ -20,6 +20,7 @@ import torch
 from paddle_tpu_torch.models import gpt
 from paddle_tpu_torch.models.gpt import _quant_kv
 from paddle_tpu_torch.nn import quant as tq
+from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import bgmv as tb
 from paddle_tpu_torch.ops import decode_attn as td
 from paddle_tpu_torch.ops import weight_only as tw
@@ -236,9 +237,12 @@ def test_flash_kernels_match_plain(cuda, dtype, causal, S, D, fused):
                 c + 1 for c in counts)
 
 
-def test_flash_backward_is_bitwise_reproducible(cuda):
-    """No atomics: two backward passes give the same bits."""
-    q, k, v, do = _flash_case(2, 1000, 4, 64, torch.bfloat16, seed=5)
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_backward_is_bitwise_reproducible(cuda, D):
+    """No atomics: two backward passes give the same bits (on the Hopper
+    bodies: each output has one owner that sums it in a fixed order)."""
+    q, k, v, do = _flash_case(2, 1000, 4, D, torch.bfloat16, seed=5)
+    assert tfa.flash_bwd_route(q, k, v, do)[0] == tfa.BWD_WGMMA
     grads = []
     for _ in range(2):
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -270,7 +274,7 @@ def test_flash_forward_is_bitwise_reproducible(cuda):
     """Two calls of the Hopper forward give the same bits."""
     q, k, v, _ = _flash_case(2, 1000, 4, 128, torch.bfloat16, seed=7,
                              fused=True)
-    assert tfa.flash_fwd_route(q, k, v) == tfa.FWD_WGMMA
+    assert tfa.flash_fwd_route(q, k, v)[0] == tfa.FWD_WGMMA
     a = tfa.flash_attention_fwd(q, k, v, causal=True)
     b = tfa.flash_attention_fwd(q, k, v, causal=True)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
@@ -317,7 +321,7 @@ def test_flash_backward_reads_the_hopper_forward_lse(cuda, D):
     q, k, v, do = _flash_case(2, 1000, 3, D, torch.bfloat16, seed=D,
                               fused=True)
     out, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
-    assert tfa.flash_fwd_route(q, k, v) == tfa.FWD_WGMMA
+    assert tfa.flash_fwd_route(q, k, v)[0] == tfa.FWD_WGMMA
     delta = tfa.attention_delta(out, do)
     grads = (tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True),
              *tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
@@ -329,6 +333,91 @@ def test_flash_backward_reads_the_hopper_forward_lse(cuda, D):
     tfa.flash_attention(*leaves, causal=True).backward(do)
     for name, x, got in zip(("dq", "dk", "dv"), leaves, grads):
         assert torch.equal(x.grad, got), name
+
+
+@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("S", [1024, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_hopper_bodies_match_plain(cuda, D, S, causal):
+    """The dQ and dK/dV Hopper bodies (TMA-fed wgmma, dS and P^T in
+    registers; at D = 128 the two warpgroups share a 64-key tile) on
+    fused-QKV views, block-aligned and ragged S, D padded to the 128-column
+    tile at 80: each gradient to FLASH_TOL's normwise 1e-3 against the
+    plain backward on the same lse and delta, one launch of each on its
+    Hopper route."""
+    q, k, v, do = _flash_case(2, S, 3, D, torch.bfloat16, seed=S + D + 1,
+                              fused=True)
+    ref, lse = tfa.flash_attention_ref(q, k, v, causal=causal)
+    delta = tfa.attention_delta(ref, do)
+    assert tfa.flash_bwd_route(q, k, v, do)[0] == tfa.BWD_WGMMA
+    before = (dict(tfa.flash_attention_bwd_dq.routes),
+              dict(tfa.flash_attention_bwd_dkv.routes))
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                         causal=causal)
+    for w, b in zip((tfa.flash_attention_bwd_dq,
+                     tfa.flash_attention_bwd_dkv), before):
+        assert w.routes == {**b, tfa.BWD_WGMMA: b[tfa.BWD_WGMMA] + 1}
+    refs = tfa.flash_attention_bwd_ref(q, k, v, do, lse, delta,
+                                       causal=causal)
+    for name, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert torch.isfinite(got).all(), name
+        assert _norm_err(got, r) <= FLASH_TOL[torch.bfloat16][1], (
+            name, _norm_err(got, r))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [1024, 1000])
+def test_flash_backward_bit_stable_in_a_cuda_graph(cuda, D, S):
+    """Hundreds of causal Hopper dQ and dK/dV launches back to back in one
+    CUDA graph, replayed 3 times: every launch gives the eager launch's
+    gradients bit for bit. The causal loops skip blocks in turn (dQ: a
+    warpgroup's blocks past its last row; dK/dV: blocks before its first
+    key), and a stage released before every warp has passed its wait lets
+    a lagging warp wait on the wrong phase: the launch traps or reads the
+    next block."""
+    q, k, v, do = _flash_case(2, S, 12, D, torch.bfloat16, seed=S + D,
+                              fused=True)
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    delta = tfa.attention_delta(out, do)
+
+    def bwd():
+        return (tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+                *tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+
+    ref = bwd()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bwd()
+    torch.cuda.current_stream().wait_stream(side)
+    calls = 128
+    tfa.flash_attention_bwd_dq.routes[tfa.BWD_WGMMA] = 0
+    tfa.flash_attention_bwd_dkv.routes[tfa.BWD_WGMMA] = 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [bwd() for _ in range(calls)]
+    assert tfa.flash_attention_bwd_dq.routes[tfa.BWD_WGMMA] == calls
+    assert tfa.flash_attention_bwd_dkv.routes[tfa.BWD_WGMMA] == calls
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        bad = [i for i, o in enumerate(outs)
+               if not all(torch.equal(a, b) for a, b in zip(o, ref))]
+        assert not bad, f"{len(bad)} of {calls} calls differ"
+
+
+@pytest.mark.parametrize("kind", [3, 4, 5])
+def test_flash_hopper_kinds_refuse_what_they_do_not_admit(cuda, kind):
+    """Asked for a Hopper body on f32 operands, the C entry refuses
+    (cudaErrorInvalidValue) instead of running another body."""
+    q, k, v, do = _flash_case(1, 256, 2, 64, torch.float32, seed=3)
+    lse = torch.zeros(1, 2, 256, device=cuda)
+    _, ptrs, strides = _build.attention_views((q, k, v, do))
+    out = torch.empty_like(q)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tfa._launch(kind, q, ptrs, strides, lse, lse, out, out, lse, True,
+                    0.125)
 
 
 def test_sdpa_routes_by_the_shape_predicate_alone(cuda):
@@ -605,7 +694,8 @@ def _sa_case(B, S, H, D, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("S,D,p", [(128, 64, 0.1), (128, 64, 0.0),
-                                   (512, 64, 0.1), (136, 64, 0.1),
+                                   (512, 64, 0.1), (512, 64, 0.0),
+                                   (136, 64, 0.1), (136, 64, 0.0),
                                    (128, 40, 0.1), (64, 256, 0.3),
                                    (8, 8, 0.5)])
 def test_short_attention_kernels_match_plain(cuda, dtype, causal, S, D, p):
@@ -613,13 +703,21 @@ def test_short_attention_kernels_match_plain(cuda, dtype, causal, S, D, p):
     so the same mask: O to FLASH_TOL's max abs error, lse to 1e-2 (bf16)
     / 1e-4 (f32), each gradient to its normwise error (the backward
     kernels take the forward kernel's lse, as on the training path, the
-    plain backward the plain forward's). One forward launch, two backward
-    launches (dQ, then dK/dV)."""
+    plain backward the plain forward's). One forward launch, on the
+    Hopper body for bf16 at 32 < D <= 128 (the flash forward's body with
+    the keep bits drawn inside), two backward launches (dQ, then
+    dK/dV)."""
     tol, grad_tol = FLASH_TOL[dtype]
     q, k, v, do, seed = _sa_case(2, S, 3, D, dtype, seed=S + D)
     counts = (tsa.short_attention_fwd.launches,
               tsa.short_attention_bwd.launches)
+    route = (tsa.FWD_WGMMA if dtype == torch.bfloat16 and 32 < D <= 128
+             else tsa.FWD_MMA)
+    assert tsa.short_fwd_route(q, k, v)[0] == route
+    routes = dict(tsa.short_attention_fwd.routes)
     out, lse = tsa.short_attention_fwd(q, k, v, seed, p, causal)
+    assert tsa.short_attention_fwd.routes == {**routes,
+                                              route: routes[route] + 1}
     ref, lse_ref = tsa.short_attention_ref(q, k, v, seed, p, causal)
     assert _err(out, ref) <= tol, _err(out, ref)
     assert (lse - lse_ref).abs().max().item() <= (1e-2 if tol > 1e-3
@@ -635,24 +733,48 @@ def test_short_attention_kernels_match_plain(cuda, dtype, causal, S, D, p):
                                                   counts[1] + 2)
 
 
-@pytest.mark.parametrize("S,p", [(128, 0.1), (136, 0.5)])
-def test_short_attention_kernel_draws_the_plain_mask(cuda, S, p):
-    """The kernel's keep bits, read out exactly: with q = k = 0 every
-    probability is 1/S, and with V the identity over D = S columns the
-    output's (i, d) entry is nonzero exactly where element (i, d) is
-    kept. It must equal the plain stream's mask bit for bit."""
-    B, H = 2, 3
-    D = S if S <= 256 else 256
-    q = torch.zeros(B, S, H, D, device=cuda)
-    v = torch.eye(S, D, device=cuda)[None, :, None, :].expand(
-        B, S, H, D).contiguous()
-    seed = torch.tensor([2024], device=cuda)
-    out, _ = tsa.short_attention_fwd(q, q, v, seed, p)
-    kept = (out != 0).permute(0, 2, 1, 3)
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 256),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 128)])
+@pytest.mark.parametrize("S,p", [(128, 0.1), (136, 0.5), (512, 0.1)])
+def test_short_attention_kernel_draws_the_plain_mask(cuda, dtype, D, S, p):
+    """The kernel's keep bits, read out exactly for every key: with
+    q = k = 0 every probability is 1/S, and with V[j, j - c] = 1 for the
+    keys j in [c, c + D) the output's (i, d) entry is nonzero exactly
+    where element (i, c + d) is kept; one call per D keys. It must equal
+    the plain stream's mask bit for bit. f32 runs the mma.sync body; bf16
+    the Hopper body's two instantiations: 64-key blocks and one keep word
+    a draw at D = 64 (BERT's), 128-key blocks and two at D = 128."""
     from paddle_tpu_torch.ops import _dropout_rng
 
-    want = _dropout_rng.keep_mask(seed, B, H, S, S, p)[..., :D]
-    assert torch.equal(kept, want)
+    B, H = 2, 3
+    q = torch.zeros(B, S, H, D, device=cuda, dtype=dtype)
+    seed = torch.tensor([2024], device=cuda)
+    route = tsa.FWD_WGMMA if dtype == torch.bfloat16 else tsa.FWD_MMA
+    assert tsa.short_fwd_route(q, q, q)[0] == route
+    kept = torch.empty(B, H, S, S, dtype=torch.bool, device=cuda)
+    for c in range(0, S, D):
+        w = min(D, S - c)
+        v = torch.zeros(S, D, device=cuda, dtype=dtype)
+        v[c:c + w, :w] = torch.eye(w, device=cuda, dtype=dtype)
+        v = v[None, :, None, :].expand(B, S, H, D).contiguous()
+        before = tsa.short_attention_fwd.routes[route]
+        out, _ = tsa.short_attention_fwd(q, q, v, seed, p)
+        assert tsa.short_attention_fwd.routes[route] == before + 1
+        kept[..., c:c + w] = (out[..., :w] != 0).permute(0, 2, 1, 3)
+    assert torch.equal(kept, _dropout_rng.keep_mask(seed, B, H, S, S, p))
+
+
+def test_short_attention_hopper_kind_refuses_what_it_does_not_admit(cuda):
+    """Asked for the Hopper forward on f32 operands, the C entry refuses
+    (cudaErrorInvalidValue) instead of running the mma.sync body."""
+    q, k, v, _, seed = _sa_case(1, 128, 2, 64, torch.float32, seed=2)
+    _, ptrs, strides = _build.attention_views((q, k, v))
+    out = torch.empty_like(q)
+    lse = torch.empty(1, 2, 128, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tsa._launch(tsa.FWD_WGMMA, q, ptrs, strides, seed, lse, None, out,
+                    None, 0.1, False, 0.125)
 
 
 def test_short_attention_backward_is_bitwise_reproducible(cuda):

@@ -222,19 +222,26 @@ def test_fwd_route_predicate_on_the_slices_shapes(case, shape, dtype, fused,
                                                   route):
     q, k, v = _meta_qkv(*shape, dtype=_TDT[dtype], fused=fused)
     want = {"wgmma": tfa.FWD_WGMMA, "mma": tfa.FWD_MMA}[route]
-    assert tfa.flash_fwd_route(q, k, v) == want, case
+    assert tfa.flash_fwd_route(q, k, v)[0] == want, case
 
 
 def test_fwd_route_predicate_refuses_what_tma_cannot_describe():
+    """A base off 16 bytes keeps the mma.sync body; a stride along D is
+    no refusal: the wrapper launches on a unit-stride copy, which the
+    route returns and the Hopper body takes."""
     q, k, v = _meta_qkv(2, 256, 4, 64)
-    assert tfa.flash_fwd_route(q, k, v) == tfa.FWD_WGMMA
-    # a stride along D, and a base off 16 bytes
-    assert tfa.flash_fwd_route(q[..., ::2], k[..., ::2], v[..., ::2]) \
-        == tfa.FWD_MMA
+    route, ops, _, strides = tfa.flash_fwd_route(q, k, v)
+    assert route == tfa.FWD_WGMMA
+    assert all(a is b for a, b in zip(ops, (q, k, v)))
+    strided = torch.empty(2, 256, 4, 128, dtype=torch.bfloat16,
+                          device="meta")[..., ::2]
+    route, ops, _, strides = tfa.flash_fwd_route(strided, k, v)
+    assert route == tfa.FWD_WGMMA
+    assert ops[0] is not strided and strides[0] == (65536, 256, 64, 1)
     base = torch.empty(2 * 256 * 4 * 64 + 4, dtype=torch.bfloat16,
                        device="meta")
     odd = base[4:].view(2, 256, 4, 64)
-    assert tfa.flash_fwd_route(odd, k, v) == tfa.FWD_MMA
+    assert tfa.flash_fwd_route(odd, k, v)[0] == tfa.FWD_MMA
 
 
 def test_fwd_route_counts_name_both_bodies_and_a_cpu_call_counts_none():
@@ -248,3 +255,69 @@ def test_fwd_route_counts_name_both_bodies_and_a_cpu_call_counts_none():
     before = dict(tfa.flash_attention_fwd.routes)
     tfa.flash_attention_fwd(q, k, v, causal=True)
     assert tfa.flash_attention_fwd.routes == before
+
+
+@pytest.mark.parametrize("case,shape,dtype,fused,route", [
+    ("gpt_base", (16, 1024, 12, 64), "bfloat16", True, "wgmma"),
+    ("llama2_7b", (4, 2048, 32, 128), "bfloat16", False, "wgmma"),
+    ("ragged S", (4, 1000, 12, 64), "bfloat16", True, "wgmma"),
+    ("padded D = 80", (2, 1024, 8, 80), "bfloat16", True, "wgmma"),
+    ("gpt_base f32", (16, 1024, 12, 64), "float32", True, "mma"),
+    ("D = 256", (1, 256, 2, 256), "bfloat16", False, "mma"),
+    ("D = 32", (1, 256, 2, 32), "bfloat16", True, "mma"),
+    ("D = 36", (1, 256, 2, 36), "bfloat16", False, "mma"),
+])
+def test_bwd_route_predicate_on_the_slices_shapes(case, shape, dtype, fused,
+                                                  route):
+    """The backward takes its Hopper bodies on the forward's conditions,
+    with dO held to them too."""
+    q, k, v = _meta_qkv(*shape, dtype=_TDT[dtype], fused=fused)
+    do = torch.empty(shape, dtype=_TDT[dtype], device="meta")
+    want = {"wgmma": tfa.BWD_WGMMA, "mma": tfa.BWD_MMA}[route]
+    assert tfa.flash_bwd_route(q, k, v, do)[0] == want, case
+    assert (want == tfa.BWD_WGMMA) == (
+        tfa.flash_fwd_route(q, k, v)[0] == tfa.FWD_WGMMA), case
+
+
+def test_bwd_route_predicate_refuses_what_tma_cannot_describe():
+    """dO with a base off 16 bytes, or a stride that is not a multiple of
+    8 elements, keeps the mma.sync bodies, as do a scale that is not
+    positive and an f32 dO. A dO with a stride along D is launched as a
+    unit-stride copy, which the Hopper bodies take: the route returns the
+    copy the wrappers launch on."""
+    q, k, v = _meta_qkv(2, 256, 4, 64)
+    do = torch.empty(2, 256, 4, 64, dtype=torch.bfloat16, device="meta")
+    assert tfa.flash_bwd_route(q, k, v, do)[0] == tfa.BWD_WGMMA
+    strided = torch.empty(2, 256, 4, 128, dtype=torch.bfloat16,
+                          device="meta")[..., ::2]
+    route, ops, _, strides = tfa.flash_bwd_route(q, k, v, strided)
+    assert route == tfa.BWD_WGMMA
+    assert ops[3] is not strided and strides[3] == (65536, 256, 64, 1)
+    base = torch.empty(2 * 256 * 4 * 64 + 4, dtype=torch.bfloat16,
+                       device="meta")
+    assert tfa.flash_bwd_route(q, k, v, base[4:].view(2, 256, 4, 64))[0] \
+        == tfa.BWD_MMA
+    wide = torch.empty(2, 256, 4, 68, dtype=torch.bfloat16,
+                       device="meta")[..., :64]
+    assert tfa.flash_bwd_route(q, k, v, wide)[0] == tfa.BWD_MMA
+    assert tfa.flash_bwd_route(q, k, v, do, scale=0.0)[0] == tfa.BWD_MMA
+    assert tfa.flash_bwd_route(q, k, v, do.to(torch.float32))[0] \
+        == tfa.BWD_MMA
+
+
+def test_bwd_route_counts_name_both_bodies_and_a_cpu_call_counts_none():
+    """`flash_attention_bwd_dq.routes` and `flash_attention_bwd_dkv.routes`
+    count launches by body where the kernels are launched; the plain
+    versions on the CPU launch none."""
+    for w in (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv):
+        assert set(w.routes) == {tfa.BWD_MMA, tfa.BWD_WGMMA}
+    g = torch.Generator().manual_seed(6)
+    q, k, v, do = (torch.randn(1, 128, 2, 64, generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    lse = torch.zeros(1, 2, 128)
+    before = [dict(w.routes) for w in (tfa.flash_attention_bwd_dq,
+                                       tfa.flash_attention_bwd_dkv)]
+    tfa.flash_attention_bwd_dq(q, k, v, do, lse, lse, causal=True)
+    tfa.flash_attention_bwd_dkv(q, k, v, do, lse, lse, causal=True)
+    assert [dict(w.routes) for w in (tfa.flash_attention_bwd_dq,
+                                     tfa.flash_attention_bwd_dkv)] == before

@@ -236,3 +236,54 @@ def test_sdpa_composed_paths_match_jax():
         TF.scaled_dot_product_attention(tq, tk, tv,
                                         attn_mask=torch.ones(B, 1, 1, S,
                                                              dtype=bool))
+
+
+def _meta_qkv(B, S, H, D, dtype=torch.bfloat16):
+    """q, k, v as views of one fused [B, S, 3, H, D] tensor (BERT's QKV)
+    without memory: meta tensors keep the shapes, strides and offsets."""
+    return torch.empty(B, S, 3, H, D, dtype=dtype, device="meta").unbind(2)
+
+
+@pytest.mark.parametrize("case,shape,dtype,route", [
+    ("bert_base", (128, 128, 12, 64), torch.bfloat16, "wgmma"),
+    ("S = 512", (16, 512, 12, 64), torch.bfloat16, "wgmma"),
+    ("S = 136", (32, 136, 12, 64), torch.bfloat16, "wgmma"),
+    ("D = 128", (8, 128, 4, 128), torch.bfloat16, "wgmma"),
+    ("bert_base f32", (128, 128, 12, 64), torch.float32, "mma"),
+    ("D = 256", (2, 64, 3, 256), torch.bfloat16, "mma"),
+    ("D = 32", (2, 128, 3, 32), torch.bfloat16, "mma"),
+    ("S = 520", (1, 520, 2, 64), torch.bfloat16, "mma"),
+])
+def test_fwd_route_predicate_on_the_slices_shapes(case, shape, dtype, route):
+    q, k, v = _meta_qkv(*shape, dtype=dtype)
+    want = {"wgmma": tsa.FWD_WGMMA, "mma": tsa.FWD_MMA}[route]
+    assert tsa.short_fwd_route(q, k, v)[0] == want, case
+
+
+def test_fwd_route_predicate_refuses_what_tma_cannot_describe():
+    """A base off 16 bytes keeps the mma.sync body; views with a stride
+    along D are launched as unit-stride copies, which the route returns
+    and the Hopper body takes."""
+    q, k, v = _meta_qkv(2, 128, 4, 64)
+    assert tsa.short_fwd_route(q, k, v)[0] == tsa.FWD_WGMMA
+    strided = torch.empty(2, 128, 4, 128, dtype=torch.bfloat16,
+                          device="meta")[..., ::2]
+    route, ops, _, strides = tsa.short_fwd_route(strided, k, v)
+    assert route == tsa.FWD_WGMMA
+    assert ops[0] is not strided and strides[0] == (32768, 256, 64, 1)
+    base = torch.empty(2 * 128 * 4 * 64 + 4, dtype=torch.bfloat16,
+                       device="meta")
+    assert tsa.short_fwd_route(base[4:].view(2, 128, 4, 64), k, v)[0] \
+        == tsa.FWD_MMA
+
+
+def test_fwd_route_counts_name_both_bodies_and_a_cpu_call_counts_none():
+    """`short_attention_fwd.routes` counts launches by body where the
+    kernel is launched; the plain version on the CPU launches none."""
+    assert set(tsa.short_attention_fwd.routes) == {tsa.FWD_MMA,
+                                                   tsa.FWD_WGMMA}
+    q, k, v, _ = _qkv(1, 32, 2, 64, seed=12)
+    tq, tk, tv = (_t(x).to(torch.bfloat16) for x in (q, k, v))
+    before = dict(tsa.short_attention_fwd.routes)
+    tsa.short_attention_fwd(tq, tk, tv, _seed(3), 0.1)
+    assert tsa.short_attention_fwd.routes == before
