@@ -32,7 +32,11 @@ Phases (any failure exits non-zero and prints no result line):
    forward and backward kernels (attention dropout drawn inside them) at
    the bert_base fine-tune shape (B=128, S=128, H=12, D=64, p=0.1) and
    beside it p=0, causal, f32, S=512, S=136 and D=40, with the kernel's own
-   keep bits read out against 1 - p and against the plain stream; the
+   keep bits read out against 1 - p and against the plain stream, each
+   case naming its forward and backward routes (the bf16 bert_base and
+   S=512 cases held to the Hopper bodies); the paged decode kernel at the
+   decode path's shapes (B = 8, BS = 16, ragged positions) on bf16 and
+   int8 pools, held to the ring body, beside the first body; the
    fused bottleneck forward and backward kernels at ResNet-50's four stage
    shapes (N=128, bf16) against their plain versions (the backward on the
    kernels' residuals), timed beside the plain versions and the per-op
@@ -49,14 +53,16 @@ Phases (any failure exits non-zero and prints no result line):
    query block that lists nothing), timed beside SDPA with the dense tile
    mask; the dense decode kernel at llama2_7b's decode width (B = 8, T =
    4096, int8 and bf16 caches, pos 4095 and 2000, GQA 4:1, f32 query),
-   beside SDPA with the position mask; the coupled pair of bottleneck
+   beside SDPA with the position mask and the first body, and what a
+   one-entry block table costs each body; the coupled pair of bottleneck
    blocks at the four stage shapes, beside two one-block calls and the
    per-op route;
 3. serving end to end: llama2_7b at full width (random weights from a
    seed) served by `DecodeEngine` — (a) bf16 weights with a bf16 KV pool,
    (b) int8 weights with an int8 KV pool, (c) int4 weights, one short
    wave — with launch counts of both kernels set to 0 before and read
-   after each run, tokens/s, time to first token, the block-pool
+   after each run (every paged launch on the ring body), tokens/s, time
+   to first token, the block-pool
    conservation check, the engine's first decode-step logits against a
    dense `model.forward` recompute, solo-vs-batched token equality (held:
    every float decode Linear goes through the row-stable GEMV), and a
@@ -79,7 +85,9 @@ Phases (any failure exits non-zero and prints no result line):
    CUDA generator) through `distributed.parallelize` with AdamW lr 2e-5 on
    one fixed [128, 128] batch from `--seed` (bench.py's row) — 20 steps
    (step ms, sequences/s, MFU over bench.py's matmul parameters, launch
-   counts set to 0 before and read after), a parity run of the same
+   counts set to 0 before and read after, every forward on its Hopper
+   body and every backward launch on the Hopper bodies), a parity run of
+   the same
    weights and generator seed through the kernels, again through the
    kernels (bit for bit) and through the plain composed route, in bf16
    and in f32 compute, with a planted fault (the kernels without their
@@ -457,8 +465,20 @@ def _paged_case(torch, g, B, H, Hkv, D, BS, pos, int8):
                                                 device="cuda")
 
 
+PAGED_ROUTE_NAMES = {0: "first body (paged_decode)",
+                     1: "ring body (paged_decode_ring)"}
+
+
 def check_paged(torch, iters):
+    """The paged kernel at llama2_7b's decode width (B = 8, H = 32, D =
+    128, BS = 16, ragged positions 0..2000) on bf16 and int8 pools, MHA
+    and GQA 4:1, against its plain version (1e-2 abs, bf16 output): the
+    route each case launched (the main path's pools must take the ring
+    body), a call's time, its device time from a CUDA graph, and beside
+    them the first body on the same inputs, the plain version, SDPA over
+    the gathered cache and the bound."""
     import torch.nn.functional as F
+    from paddle_tpu_torch.ops import decode_attn as da
     from paddle_tpu_torch.ops.decode_attn import (
         paged_decode_attention, paged_decode_attention_ref)
 
@@ -476,7 +496,9 @@ def check_paged(torch, iters):
                 None if ksp is None else ksp.permute(0, 2, 1),
                 vp.permute(0, 2, 1, 3),
                 None if vsp is None else vsp.permute(0, 2, 1), tables, pos_t)
+        zero_routes(paged_decode_attention)
         got = paged_decode_attention(*args)
+        route = launched_route(paged_decode_attention, PAGED_ROUTE_NAMES)
         ref = paged_decode_attention_ref(*args)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
@@ -485,7 +507,18 @@ def check_paged(torch, iters):
         if not (err <= tol and bool(torch.isfinite(got).all())):
             raise AssertionError(f"paged_decode {name}: max abs err {err} "
                                  f"> {tol}")
+        if route != PAGED_ROUTE_NAMES[1]:
+            raise AssertionError(f"paged_decode {name}: took {route}, not "
+                                 f"the ring body")
         ms = time_ms(torch, lambda: paged_decode_attention(*args), iters)
+        dev = time_graph_ms(torch, [lambda: paged_decode_attention(*args)])
+
+        def first():
+            return da._launch_paged(*args, paged_decode_attention,
+                                    da.PAGED_SCALAR)
+        first_err = (first().float() - ref.float()).abs().max().item()
+        first_ms = time_ms(torch, first, iters)
+        first_dev = time_graph_ms(torch, [first])
         plain = time_ms(torch, lambda: paged_decode_attention_ref(*args),
                         max(3, iters // 4))
         # yardstick: SDPA over the cache gathered (and dequantized) ahead
@@ -512,12 +545,15 @@ def check_paged(torch, iters):
         bms, by = bound(nbytes, 4.0 * H * D * toks)
         row = dict(case=f"{name} B={B} H={H} Hkv={Hkv} D={D} BS={BS} "
                         f"pos={pos[0]}..{pos[-1]}", max_abs_err=err, tol=tol,
-                   ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                   bound_by=by)
+                   route=route, ms=ms, device_ms=dev, plain_ms=plain,
+                   library_ms=lib, bound_ms=bms, bound_by=by,
+                   first_body_ms=first_ms, first_body_device_ms=first_dev,
+                   first_body_max_abs_err=first_err)
         rows.append(row)
-        log(f"  paged_decode {row['case']}: err {err:.3g} (tol {tol}) "
-            f"kernel {ms:.4f} ms plain {plain:.4f} ms library {lib:.4f} ms "
-            f"bound {bms:.4f} ms ({by})")
+        log(f"  paged_decode {row['case']} [{route}]: err {err:.3g} (tol "
+            f"{tol}) kernel {ms:.4f} ms device {dev:.4f} ms (first body "
+            f"{first_ms:.4f} / {first_dev:.4f}) plain {plain:.4f} ms "
+            f"library {lib:.4f} ms bound {bms:.4f} ms ({by})")
     return rows
 
 
@@ -834,16 +870,28 @@ def reset_short_counts():
     sa.short_attention_fwd.launches = 0
     sa.short_attention_bwd.launches = 0
     zero_routes(sa.short_attention_fwd)
+    zero_routes(sa.short_attention_bwd)
 
 
 SHORT_ROUTE_NAMES = {0: "mma.sync body",
                      3: "Hopper body (TMA + wgmma, dropout drawn inside)"}
+SHORT_BWD_ROUTE_NAMES = {
+    0: "mma.sync bodies (sa_dq, sa_dkv)",
+    1: "Hopper bodies (sa_dq_sm90, sa_dkv_sm90: TMA + wgmma, dropout "
+       "replayed inside)"}
 
 
 def short_route_counts():
     """Forward launches by route name since the counts were set to 0."""
     return {SHORT_ROUTE_NAMES[r]: c
             for r, c in _short_mod().short_attention_fwd.routes.items()}
+
+
+def short_bwd_route_counts():
+    """Backward launches (two a call) by route name since the counts were
+    set to 0."""
+    return {SHORT_BWD_ROUTE_NAMES[r]: c
+            for r, c in _short_mod().short_attention_bwd.routes.items()}
 
 
 def kernel_keep_share(torch, B, S, H, p, seed, dtype):
@@ -892,8 +940,9 @@ def check_short_attention(torch, iters):
     max abs error <= 1e-2 (bf16) / 1e-4 (f32). q, k, v are views of one [B, S, 3, H, D]
     tensor, as BERT's fused QKV gives them. For p > 0, the kernel's own
     keep bits (`kernel_keep_share`, on the case's route) against 1 - p
-    and against the plain stream. Each case names the forward's route;
-    the bf16 bert_base and S=512 cases must take the Hopper body."""
+    and against the plain stream. Each case names the forward's and the
+    backward's routes; the bf16 bert_base and S=512 cases must take the
+    Hopper bodies, forward and backward."""
     import torch.nn.functional as F
 
     sa = _short_mod()
@@ -915,7 +964,19 @@ def check_short_attention(torch, iters):
             raise AssertionError(f"short attention {label}: forward on "
                                  f"{route}, expected the Hopper body")
         ref, lse_ref = sa.short_attention_ref(q, k, v, seed, p, causal)
+        zero_routes(sa.short_attention_bwd)
         grads = sa.short_attention_bwd(q, k, v, do, lse, seed, p, causal)
+        took = {r: c for r, c in sa.short_attention_bwd.routes.items() if c}
+        if list(took.values()) != [2]:
+            raise AssertionError(f"short attention {label}: backward "
+                                 f"launches {took}, expected two of one "
+                                 f"route")
+        bwd_route = SHORT_BWD_ROUTE_NAMES[next(iter(took))]
+        if (dt == "bfloat16" and (label.startswith("bert_base")
+                                  or label == "S=512")
+                and bwd_route != SHORT_BWD_ROUTE_NAMES[1]):
+            raise AssertionError(f"short attention {label}: backward on "
+                                 f"{bwd_route}, expected the Hopper bodies")
         refs = sa.short_attention_bwd_ref(q, k, v, do, lse_ref, seed, p,
                                           causal)
         torch.cuda.synchronize()
@@ -933,6 +994,7 @@ def check_short_attention(torch, iters):
         case = (f"{label} {dt} {'causal' if causal else 'full'} p={p} "
                 f"B={B} S={S} H={H} D={D}")
         row = dict(case=case, dtype=dt, causal=causal, p=p, route=route,
+                   bwd_route=bwd_route,
                    max_abs_err=err, grad_norm_rel_err=rel, o_tol=o_tol,
                    lse_tol=lse_tol, grad_tol=grad_tol)
         ok = (finite and err["fwd"] <= o_tol and err["lse"] <= lse_tol
@@ -956,7 +1018,8 @@ def check_short_attention(torch, iters):
         row.update(_time_short(torch, F, sa, q, k, v, do, lse, seed, p,
                                causal, iters))
         rows.append(row)
-        log(f"  short attention {case} [forward: {route}]: err {err} "
+        log(f"  short attention {case} [forward: {route}; backward: "
+            f"{bwd_route}]: err {err} "
             f"normwise {rel}"
             + (f" kept {row['kept_share']:.5f}" if p > 0 else "")
             + "".join(f" {n} {t:.4f}" for n, t in row.items()
@@ -1041,6 +1104,7 @@ def serve(torch, np, model, quant, lens, new_tokens, label, check_dense):
     # warm-up: one short request, outside the measured window
     eng.generate(prompts[0][:8], 2)
     paged_decode_attention.launches = 0
+    zero_routes(paged_decode_attention)
     weight_only_matmul.launches = 0
     zero_routes(weight_only_matmul)
     row_gemv.launches = 0
@@ -1059,6 +1123,8 @@ def serve(torch, np, model, quant, lens, new_tokens, label, check_dense):
                 "row_gemv": row_gemv.launches}
     wo_routes = {WO_ROUTE_NAMES[r]: c
                  for r, c in weight_only_matmul.routes.items()}
+    paged_routes = {PAGED_ROUTE_NAMES[r]: c
+                    for r, c in paged_decode_attention.routes.items()}
     st = eng.stats()
     ttft = sorted(s.ttft for s in streams)
     res = {"run": label, "tokens": sum(map(len, outs)), "wall_s": wall,
@@ -1067,7 +1133,7 @@ def serve(torch, np, model, quant, lens, new_tokens, label, check_dense):
            "ttft_p95_s": ttft[min(len(ttft) - 1, int(0.95 * len(ttft)))],
            "steps": st["steps"], "prefill_chunks": st["prefill_chunks"],
            "occupancy": st["occupancy"], "launches": launches,
-           "weight_only_routes": wo_routes}
+           "weight_only_routes": wo_routes, "paged_routes": paged_routes}
     if any(len(o) != new_tokens for o in outs) or any(
             not 0 <= t < model.cfg.vocab_size for o in outs for t in o):
         raise AssertionError(f"{label}: malformed token output")
@@ -1459,6 +1525,14 @@ def end_to_end(torch, np, layers, new_tokens):
         if min(v for k, v in r["launches"].items() if k != "row_gemv") == 0:
             raise AssertionError(f"{r['run']}: a kernel never launched: "
                                  f"{r['launches']}")
+    for r in (r for r in runs if "paged_routes" in r):
+        # llama2_7b's bf16 and int8 pools (D = 128) are the ring body's
+        if r["paged_routes"][PAGED_ROUTE_NAMES[1]] \
+                != r["launches"]["paged_decode_attention"]:
+            raise AssertionError(f"{r['run']}: paged launches "
+                                 f"{r['paged_routes']}, expected all "
+                                 f"{r['launches']['paged_decode_attention']}"
+                                 f" on the ring body")
     return runs, profiles
 
 
@@ -1707,10 +1781,11 @@ def _bert_steps(torch, eng, batch, steps):
 
 def bert_throughput(torch, np, layers, steps, seed):
     """20 steps on one fixed [128, 128] batch after 2 warm-up steps; the
-    short-attention and flash launch counts (the short forward's by route
-    too) are set to 0 just before and read just after: every forward must
-    have launched the Hopper body. MFU counts bench.py's matmul-bearing
-    parameters."""
+    short-attention and flash launch counts (the short forward's and
+    backward's by route too) are set to 0 just before and read just after:
+    every forward must have launched the Hopper body and every backward
+    launch (dQ, dK/dV) the Hopper bodies. MFU counts bench.py's
+    matmul-bearing parameters."""
     import math
 
     from paddle_tpu_torch.models.bert import n_matmul_params
@@ -1728,6 +1803,7 @@ def bert_throughput(torch, np, layers, steps, seed):
     wall = time.perf_counter() - t0
     launches = {**short_counts(), **flash_counts()}
     fwd_routes = short_route_counts()
+    bwd_routes = short_bwd_route_counts()
     n_matmul = n_matmul_params(model.cfg)
     seqs = BERT_BATCH * steps / wall
     res = {"layers": layers, "batch": BERT_BATCH, "seq": BERT_SEQ,
@@ -1736,7 +1812,7 @@ def bert_throughput(torch, np, layers, steps, seed):
            "n_matmul": n_matmul,
            "mfu": seqs * 6.0 * n_matmul * BERT_SEQ / BF16_FLOPS,
            "losses": losses, "grad_norms": norms, "launches": launches,
-           "fwd_routes": fwd_routes,
+           "fwd_routes": fwd_routes, "bwd_routes": bwd_routes,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(f"  bert train {json.dumps(res)}")
     per_run = layers * steps
@@ -1750,6 +1826,10 @@ def bert_throughput(torch, np, layers, steps, seed):
     if fwd_routes[SHORT_ROUTE_NAMES[3]] != per_run:
         raise AssertionError(f"short-attention forward routes {fwd_routes}:"
                              f" expected all {per_run} on the Hopper body")
+    if bwd_routes[SHORT_BWD_ROUTE_NAMES[1]] != 2 * per_run:
+        raise AssertionError(f"short-attention backward routes "
+                             f"{bwd_routes}: expected all {2 * per_run} on "
+                             f"the Hopper bodies")
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"BERT training not finite: losses {losses}")
     del model, eng
@@ -3134,8 +3214,11 @@ def check_decode_attention(torch, iters):
     rows <= pos (K, V
     and their f32 scales, read once) and q, out. Library: SDPA with the
     boolean position mask on a float cache; "dequant + SDPA" for int8 (no
-    single call takes the int8 cache)."""
+    single call takes the int8 cache). Each case names its route (every
+    case here is the ring body's), a call's time and its device time (a
+    CUDA graph), and the first body's on the same inputs."""
     import torch.nn.functional as F
+    from paddle_tpu_torch.ops import decode_attn as da
     from paddle_tpu_torch.ops.decode_attn import (decode_attention,
                                                   decode_attention_ref)
 
@@ -3156,7 +3239,9 @@ def check_decode_attention(torch, iters):
         q, ((kq, ks), (vq, vs)) = _decode_cache(torch, g, H, Hkv, pos, cache)
         q = q.to(getattr(torch, qdt))
         args = (q, kq, ks, vq, vs)
+        zero_routes(decode_attention)
         got = decode_attention(*args, pos)
+        route = launched_route(decode_attention, PAGED_ROUTE_NAMES)
         ref = decode_attention_ref(*args, pos)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
@@ -3164,12 +3249,22 @@ def check_decode_attention(torch, iters):
         finite = bool(torch.isfinite(got).all())
         case = (f"{label} {cache} cache B={B} H={H} Hkv={Hkv} D={D} T={T} "
                 f"pos={pos} q {qdt}")
-        row = dict(case=case, max_abs_err=err, tol=tol, finite=finite)
-        if not (finite and err <= tol):
+        row = dict(case=case, max_abs_err=err, tol=tol, finite=finite,
+                   route=route)
+        if not (finite and err <= tol and route == PAGED_ROUTE_NAMES[1]):
             raise AssertionError(f"decode_attention {case}: {row}")
         del ref
         row["ms"] = time_ms(torch, lambda: decode_attention(*args, pos),
                             iters)
+        row["device_ms"] = time_graph_ms(
+            torch, [lambda: decode_attention(*args, pos)])
+        ks3, vs3 = (x.reshape(B, Hkv, T) for x in (ks, vs))
+
+        def first():
+            return da._launch_paged(q, kq, ks3, vq, vs3, None, pos,
+                                    decode_attention, da.PAGED_SCALAR)
+        row["first_body_ms"] = time_ms(torch, first, iters)
+        row["first_body_device_ms"] = time_graph_ms(torch, [first])
         row["plain_ms"] = time_ms(
             torch, lambda: decode_attention_ref(*args, pos),
             max(3, iters // 4), warmup=1)
@@ -3203,6 +3298,47 @@ def check_decode_attention(torch, iters):
         del args, q, kq, ks, vq, vs, got
         torch.cuda.empty_cache()
     return rows
+
+
+def decode_table_cost(torch):
+    """What a block table costs the decode kernel: row 3's bf16 case (B =
+    8, H = 32, D = 128, T = 4096, pos 4095) launched with no table
+    (sequence b reads block b) and with a one-entry table b -> b (the
+    same rows, found through the table), on the ring body (which stages
+    the split's table entries in shared memory) and on the first body
+    (which reads the table per token): device times from CUDA graphs.
+    Within a body the outputs must be bit-equal."""
+    from paddle_tpu_torch.ops import decode_attn as da
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    B, H, T, pos = DECODE_B, DECODE_H, DECODE_T, DECODE_T - 1
+    q, ((kq, ks), (vq, vs)) = _decode_cache(torch, g, H, H, pos, "bfloat16")
+    q = q.to(torch.bfloat16)
+    ks3, vs3 = ks.reshape(B, H, T), vs.reshape(B, H, T)
+    table = torch.arange(B, dtype=torch.int32, device="cuda")[:, None]
+    pos_t = torch.full((B,), pos, dtype=torch.int32, device="cuda")
+
+    def call(tab, route):
+        return da._launch_paged(q, kq, ks3, vq, vs3, tab,
+                                pos if tab is None else pos_t,
+                                da.decode_attention, route)
+
+    res = {"case": f"bf16 MHA B={B} H={H} D={DECODE_D} T={T} pos={pos}"}
+    for label, route, tab in (
+            ("ring, no table", da.PAGED_RING, None),
+            ("ring, table staged", da.PAGED_RING, table),
+            ("first body, no table", da.PAGED_SCALAR, None),
+            ("first body, table read per token", da.PAGED_SCALAR, table)):
+        out = call(tab, route)
+        if tab is None:
+            base = out
+        elif not torch.equal(out, base):
+            raise AssertionError(f"decode table cost: {label} differs from "
+                                 f"the same body without a table")
+        res[f"{label} device_ms"] = time_graph_ms(
+            torch, [lambda tab=tab, route=route: call(tab, route)])
+    log(f"  decode table cost {json.dumps(res)}")
+    return res
 
 
 def check_fused_pair(torch, iters):
@@ -3493,7 +3629,8 @@ def sparse_phase(torch, np, args):
     return run
 
 
-def slice7_kernel_rows(bs_rows, dec_rows, pair_rows, sparse_run):
+def slice7_kernel_rows(bs_rows, dec_rows, pair_rows, sparse_run,
+                       table_cost):
     """The kernels line's entries of rows 11, 3 and 12c. Row 11's launches
     are phase 8's bf16 block route (one a forward); rows 3 and 12c, which
     no model calls, count phase 8's driven runs."""
@@ -3519,7 +3656,11 @@ def slice7_kernel_rows(bs_rows, dec_rows, pair_rows, sparse_run):
              max_abs_err=max(r["max_abs_err"] for r in dec_rows),
              library_ms=dec_main["library_ms"],
              library_kind=dec_main["library_kind"],
-             **pick(dec_main, *common)),
+             device_ms=dec_main["device_ms"], path=dec_main["route"],
+             cuda_kernels=["paged_decode_ring", "merge_splits"],
+             first_body_ms=dec_main["first_body_ms"],
+             first_body_device_ms=dec_main["first_body_device_ms"],
+             table_cost=table_cost, **pick(dec_main, *common)),
         dict(name="fused_bottleneck2_fwd", route="cuda",
              source="paddle_tpu_torch/csrc/fused_resblock.cu",
              replaces="paddle_tpu/ops/pallas/fused_resblock.py:593",
@@ -3636,6 +3777,7 @@ def main(argv):
     rb_rows = check_fused_resblock(torch, iters)
     bs_rows = check_block_sparse(torch, np, iters, args.seed)
     dec_rows = check_decode_attention(torch, iters)
+    table_cost = decode_table_cost(torch)
     pair_rows = check_fused_pair(torch, iters)
 
     log_phase(t_start, "phase 3: llama2_7b end to end through DecodeEngine")
@@ -3709,7 +3851,12 @@ def main(argv):
              max_abs_err=max(r["max_abs_err"] for r in pd_rows),
              ms=pd_main["ms"], plain_ms=pd_main["plain_ms"],
              bound_ms=pd_main["bound_ms"], bound_by=pd_main["bound_by"],
-             library_ms=pd_main["library_ms"], case=pd_main["case"]),
+             library_ms=pd_main["library_ms"], case=pd_main["case"],
+             device_ms=pd_main["device_ms"], path=pd_main["route"],
+             cuda_kernels=["paged_decode_ring", "merge_splits"],
+             routes=runs[1]["paged_routes"],
+             first_body_ms=pd_main["first_body_ms"],
+             first_body_device_ms=pd_main["first_body_device_ms"]),
     ]
     bg_main = bg_rows[0]
     kernels.append(dict(
@@ -3766,14 +3913,17 @@ def main(argv):
             # a backward call is two launches (dQ, then dK/dV), both
             # counted; ms is the call's
             case=sa_main["case"], device_ms=sa_main[f"{part}_dev_ms"],
-            **(dict(path=sa_main["route"],
+            **(dict(path=sa_main["route"], cuda_kernels=["sa_fwd_sm90"],
                     routes=bert_run["throughput"]["fwd_routes"])
-               if part == "fwd" else {})))
+               if part == "fwd" else
+               dict(path=sa_main["bwd_route"],
+                    cuda_kernels=["sa_dq_sm90", "sa_dkv_sm90"],
+                    routes=bert_run["throughput"]["bwd_routes"]))))
     kernels.extend(resblock_kernel_rows(rb_rows, resnet_run))
     kernels.extend(cp_kernel_rows(fp_rows, cp_run))
     kernels.append(gemv_row(gv_rows, runs[0]["launches"]["row_gemv"]))
     kernels.extend(slice7_kernel_rows(bs_rows, dec_rows, pair_rows,
-                                      sparse_run))
+                                      sparse_run, table_cost))
     return finish(args, torch, smi, build_rec, t_start, kernels, {
         "weight_only": wo_rows, "paged_decode": pd_rows, "bgmv": bg_rows,
         "flash_attention": fa_rows, "short_attention": sa_rows,
@@ -3781,6 +3931,7 @@ def main(argv):
         "fused_resblock": rb_rows, "resnet": resnet_run,
         "flash_pos": fp_rows, "serial_ring": ring_rows, "row_gemv": gv_rows,
         "cp": cp_run, "block_sparse": bs_rows, "decode_attention": dec_rows,
+        "decode_table_cost": table_cost,
         "fused_pair": pair_rows, "sparse": sparse_run})
 
 

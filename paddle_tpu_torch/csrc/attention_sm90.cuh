@@ -1,8 +1,10 @@
-// The Hopper (sm_90a) attention forward shared by flash_attention.cu
-// (`flash_fwd_sm90`, no dropout) and short_attention.cu (`sa_fwd_sm90`,
-// attention-probability dropout drawn inside), with the pieces the
-// backward bodies of flash_attention.cu reuse: the persistent grid's work
-// list (`Units`), ex2, and the P -> bf16 A-fragment packing.
+// The Hopper (sm_90a) attention bodies shared by flash_attention.cu (no
+// dropout: `flash_fwd_sm90`, `flash_dq_sm90`, `flash_dkv_sm90`) and
+// short_attention.cu (attention-probability dropout drawn inside:
+// `sa_fwd_sm90`, `sa_dq_sm90`, `sa_dkv_sm90`): the forward below, the
+// backward's dQ and dK/dV bodies after it (see their note), and what they
+// share: the persistent grid's work list (`Units`), ex2, and the P -> bf16
+// A-fragment packing.
 //
 // A persistent CTA per multiprocessor walks a static list of query tiles.
 // Consumer warpgroups own 64 query rows each; a producer keeps Q (double-
@@ -45,6 +47,13 @@
 //                           block: word w, bit 4n + e for the entry
 //                           s[32w + 4n + e] (row row_lo + 8 (e >= 2),
 //                           column k0 + 64w + 8n + 2t + (e & 1));
+//   draw_t<BN>(bits, b, h, krow_lo, q0)
+//                           the same bits in the transposed accumulator
+//                           of the dK/dV body (S^T: rows are keys, columns
+//                           queries): bit 4n + e of word w for the entry
+//                           of key krow_lo + 8 (e >= 2) and query q0 + 64w
+//                           + 8n + 2t + (e & 1); the bit of a (b, h, query,
+//                           key) is the one draw gives it;
 //   keep_scale()            1 / (1 - p).
 #pragma once
 
@@ -181,13 +190,15 @@ __device__ __forceinline__ void pack_p(const float (&s)[BK / 2],
       pa[kk][r] = pack2<__nv_bfloat16>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
 
-// no dropout (the flash forward)
+// no dropout (the flash attention bodies)
 struct NoDropout {
   static constexpr bool kOn = false;
   __device__ void init() {}
   __device__ bool on() const { return false; }
   template <int BK>
   __device__ void draw(uint32_t (&)[BK / 64], int, int, int, int) const {}
+  template <int BN>
+  __device__ void draw_t(uint32_t (&)[BN / 64], int, int, int, int) const {}
   __device__ float keep_scale() const { return 1.f; }
 };
 
@@ -421,6 +432,734 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tq,
   }
 }
 
+// --- backward: TMA-fed wgmma, dS and P^T in registers -----------------------
+// Two kernels: each output has one owning CTA and is summed in a fixed
+// order (no atomics), so the backward stays bitwise reproducible. A
+// persistent CTA per multiprocessor walks `Units` of 128-row tiles; two
+// consumer warpgroups own 64 rows each, and a producer warp keeps the
+// tile's two resident operands (double-buffered) and a ring of blocks of
+// the two streamed ones, loaded by TMA through the caller's strides (rows
+// past S and columns past D load as zeros; D = 80 runs in the 128-column
+// tiles).
+//   dQ     a tile of 128 query rows: Q and dO resident, K and V streamed
+//          in blocks of 64 keys. Per block S = Q K^T and dP = dO V^T (ss,
+//          both K-major), P = 2^(s sl2 - lse log2 e) masked to 0 after the
+//          exp, dS = P (dP Z - delta) scale packed to bf16 A fragments, and
+//          dQ += dS K (rs, K MN-major through the transpose bit, as V in
+//          the forward). dS never touches shared memory. Causal: blocks
+//          up to the diagonal. ROW (the short-attention backward, which
+//          keeps no O): the row term delta_i = sum_j P Z dP is formed
+//          first, in f32 from P, Z and dP as the reference forms it, by a
+//          sweep of its own over the key blocks (S and dP only; the
+//          producer streams the blocks twice, the second time from L2),
+//          stored for the dK/dV kernel, then the sweep above runs on it.
+//          The keep words of the first sweep wait in shared memory for the
+//          second (one a thread a block: S <= 512, 8 blocks).
+//   dK/dV  a tile of keys: K and V resident, Q and dO streamed in blocks
+//          of 64 query rows with their lse (times log2 e) and delta, which
+//          the producer warp's lanes copy beside them. Per block S^T =
+//          K Q^T (ss), P^T in registers, dV += (P^T Z) dO (rs, dO
+//          MN-major), dP^T = V dO^T (ss), dS^T = P^T (dP^T Z - delta)
+//          scale, dK += dS^T Q (rs, Q MN-major). Causal: blocks from the
+//          diagonal.
+//          D = 64: a tile of 128 keys, each warpgroup all four products
+//          of its 64 keys (dK, dV, P^T, dP^T: 128 f32 registers).
+//          D = 128: dK and dV alone take 128 registers a thread, and
+//          ptxas caps these 288-thread kernels at 168 (whatever setmaxnreg
+//          asks); holding P^T and dP^T beside them spilled 736 bytes. So
+//          the two warpgroups share a tile of 64 keys: warpgroup 0 forms
+//          S^T, P^T and dV, and hands P^T in f32 to warpgroup 1 through a
+//          double-buffered shared-memory tile (each thread's entries
+//          stored where the same thread of warpgroup 1 reads them, on
+//          mbarriers); warpgroup 1 forms dP^T, dS^T and dK. The same four
+//          products, none recomputed, 112 and 144 live f32 registers.
+//          With dropout warpgroup 0 draws the keep bits and hands each
+//          over as the sign of its P^T entry (P >= 0; a dropped one goes
+//          negated), so warpgroup 1 draws nothing.
+// Z is the dropout factor (keep ? 1 / (1 - p) : 0) of the policy DROP
+// (attention_sm90.cuh's contract above; the dK/dV body asks for the
+// transposed draw, draw_t); NoDropout has none, and its bodies are the
+// flash backward's (Z = 1 compiled out). Each product closes
+// (wgmma_wait<0>) before the registers of the next are defined (ptxas
+// serializes wgmma otherwise: C7513), and the two warpgroups take turns
+// on the tensor cores. The causal units pair a long tile with a short one
+// (`Units`). 288 threads, one CTA an SM.
+
+// what the backward bodies read besides their tensor maps (their argument
+// type A has these members; the flash backward passes its own Params,
+// the kernel argument it always had): lse and delta [B*H, S] f32 (delta
+// written by a ROW dQ body, read otherwise), the outputs (dQ; dK, dV) as
+// contiguous [B, S, H, D] bf16, S as the query count Sq and the key count
+// Sk (equal here), heads, head dim, softmax scale, causal
+struct BwdArgs {
+  const float* lse;
+  float* delta;
+  void* out0;
+  void* out1;
+  int Sq, Sk, H, D;
+  float scale;
+  int causal;
+};
+
+template <int DP, bool DKV, bool ROW = false>
+struct BwdCfg {
+  static constexpr int NSUB = DP / 64;          // 64-column sub-tiles
+  static constexpr int NWG = 2;                 // consumer warpgroups
+  // dK/dV at D = 128: both warpgroups on one 64-key tile (see above)
+  static constexpr bool SPLIT = DKV && DP == 128;
+  static constexpr int ROWS = SPLIT ? 64 : 64 * NWG;  // resident rows a tile
+  static constexpr int BN = 64;                 // streamed rows a block
+  static constexpr int STAGES = DP == 64 ? 4 : SPLIT ? 3 : 2;
+  static constexpr int THREADS = 128 * NWG + 32;
+  static constexpr int kRSub = ROWS * 128;      // one [ROWS][64] sub-tile
+  static constexpr int kR = NSUB * kRSub;       // one resident operand
+  static constexpr int kSub = BN * 128;         // one [BN][64] sub-tile
+  static constexpr int kB = NSUB * kSub;        // one streamed operand
+  static constexpr int kPT = SPLIT ? 64 * 64 * 4 : 0;  // one f32 P^T tile
+  // ROW: the first sweep's keep words, [blocks][consumer thread]
+  static constexpr int kMaxBlocks = 8;          // S <= 512
+  static constexpr int kKB = ROW ? kMaxBlocks * 128 * NWG * 4 : 0;
+  static constexpr size_t smem = 1024 + 4 * kR + 2 * STAGES * kB + 2 * kPT +
+                                 2 * STAGES * BN * sizeof(float) + kKB +
+                                 (8 + 2 * STAGES) * sizeof(uint64_t);
+};
+
+// shared memory of a backward CTA: [2 buffers][2] resident tiles, [STAGES]
+// [2] streamed blocks, [2] P^T tiles (SPLIT), [STAGES][2][BN] f32 rows
+// (dK/dV: lse log2 e, delta), the keep words (ROW), then the barriers;
+// thread 0 initialises them (s_full takes `s_arrivals` arrivals a phase,
+// the P^T hand-over one from each of a warpgroup's four warps)
+template <int DP, bool DKV, bool ROW = false>
+struct BwdSmem {
+  using C = BwdCfg<DP, DKV, ROW>;
+  uint8_t *R, *S;
+  float *PT, *F;
+  uint64_t *r_full, *r_empty, *s_full, *s_empty, *pt_full, *pt_empty;
+  __device__ BwdSmem(uint8_t* raw, int s_arrivals) {
+    R = align1024(raw);
+    S = R + 4 * C::kR;
+    PT = reinterpret_cast<float*>(S + 2 * C::STAGES * C::kB);
+    F = PT + 2 * C::kPT / 4;
+    r_full = reinterpret_cast<uint64_t*>(
+        reinterpret_cast<uint8_t*>(F + 2 * C::STAGES * C::BN) + C::kKB);
+    r_empty = r_full + 2;
+    pt_full = r_full + 4;
+    pt_empty = r_full + 6;
+    s_full = r_full + 8;
+    s_empty = s_full + C::STAGES;
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < 2; ++i) {
+        mbar_init(&r_full[i], 1);
+        mbar_init(&r_empty[i], C::NWG);
+        mbar_init(&pt_full[i], 4);
+        mbar_init(&pt_empty[i], 4);
+      }
+      for (int s = 0; s < C::STAGES; ++s) {
+        mbar_init(&s_full[s], s_arrivals);
+        mbar_init(&s_empty[s], C::NWG);
+      }
+      fence_barrier_init();
+    }
+    __syncthreads();
+  }
+  __device__ uint8_t* res(int buf, int x) const { return R + (2 * buf + x) * C::kR; }
+  __device__ uint8_t* blk(int s, int y) const { return S + (2 * s + y) * C::kB; }
+  // ROW: keep word of block j (from the tile's first) of consumer thread x
+  __device__ uint32_t& kb(int j, int x) const {
+    return reinterpret_cast<uint32_t*>(F + 2 * C::STAGES * C::BN)
+        [j * 128 * C::NWG + x];
+  }
+};
+
+// the streamed blocks [lo, hi) of the tile whose first resident row is r0:
+// dQ (DKV false) key blocks up to the diagonal when causal, dK/dV query
+// blocks from it
+template <int BN, bool DKV, class A>
+__device__ __forceinline__ void bwd_range(const A& a, int r0, int rows,
+                                          int& lo, int& hi) {
+  const int n = (a.Sq + BN - 1) / BN;
+  if (DKV) {
+    lo = a.causal ? r0 / BN : 0;
+    hi = n;
+  } else {
+    lo = 0;
+    hi = a.causal ? min((r0 + rows + BN - 1) / BN, n) : n;
+  }
+}
+
+// the producer warp: each tile's resident pair, then its streamed blocks
+// (twice for a ROW dQ body: one sweep for the row term, one for dQ)
+template <int DP, bool DKV, bool ROW, class A>
+__device__ __forceinline__ void bwd_producer(
+    const BwdSmem<DP, DKV, ROW>& sm, const CUtensorMap& r0m,
+    const CUtensorMap& r1m, const CUtensorMap& b0m, const CUtensorMap& b1m,
+    const A& a, const Units& units) {
+  using C = BwdCfg<DP, DKV, ROW>;
+  constexpr int NS = C::STAGES, BN = C::BN;
+  const int lane = threadIdx.x & 31;
+  if (!DKV && lane != 0) return;        // dQ: one thread issues the loads
+  int jj = 0, tt = 0;                   // blocks and tiles loaded so far
+  for (int u = blockIdx.x; u < units.count; u += gridDim.x) {
+    int bh, tiles[2];
+    const int nt = units.tiles(u, bh, tiles);
+    const int b = bh / a.H, h = bh % a.H;
+    for (int i = 0; i < nt; ++i, ++tt) {
+      const int r0 = tiles[i] * C::ROWS;
+      int lo, hi;
+      bwd_range<BN, DKV>(a, r0, C::ROWS, lo, hi);
+      const int rb = tt & 1;
+      if (lane == 0) {
+        mbar_wait(&sm.r_empty[rb], ((tt >> 1) & 1) ^ 1);
+        mbar_expect_tx(&sm.r_full[rb], 2 * C::kR);
+        for (int sub = 0; sub < C::NSUB; ++sub) {
+          tma_load_4d(sm.res(rb, 0) + sub * C::kRSub, &r0m, &sm.r_full[rb],
+                      sub * 64, h, r0, b);
+          tma_load_4d(sm.res(rb, 1) + sub * C::kRSub, &r1m, &sm.r_full[rb],
+                      sub * 64, h, r0, b);
+        }
+      }
+      auto stream = [&] {
+        for (int j = lo; j < hi; ++j, ++jj) {
+          const int s = jj % NS;
+          mbar_wait(&sm.s_empty[s], ((jj / NS) & 1) ^ 1);
+          if (lane == 0) {
+            mbar_expect_tx(&sm.s_full[s], 2 * C::kB);
+            for (int sub = 0; sub < C::NSUB; ++sub) {
+              tma_load_4d(sm.blk(s, 0) + sub * C::kSub, &b0m, &sm.s_full[s],
+                          sub * 64, h, j * BN, b);
+              tma_load_4d(sm.blk(s, 1) + sub * C::kSub, &b1m, &sm.s_full[s],
+                          sub * 64, h, j * BN, b);
+            }
+          }
+          if constexpr (DKV) {
+            // the block's lse (log2 domain) and delta, 0 past S; the
+            // stage's second arrival once every lane's stores are done
+            const float* lse = a.lse + static_cast<size_t>(bh) * a.Sq;
+            const float* delta = a.delta + static_cast<size_t>(bh) * a.Sq;
+            float* f = sm.F + 2 * s * BN;
+            for (int r = lane; r < BN; r += 32) {
+              const int q = j * BN + r;
+              const bool in = q < a.Sq;
+              f[r] = in ? lse[q] * 1.4426950408889634f : 0.f;
+              f[BN + r] = in ? delta[q] : 0.f;
+            }
+            __threadfence_block();
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&sm.s_full[s]);
+          }
+        }
+      };
+      stream();
+      if constexpr (ROW) stream();
+    }
+  }
+}
+
+// an accumulator tile's two rows (row_lo and row_lo + 8, below S) into a
+// contiguous [B, S, H, D] bf16 output
+template <int NSUB, class A>
+__device__ __forceinline__ void store_tile_rows(void* outp,
+                                                const float (&acc)[NSUB][32],
+                                                const A& a, int b,
+                                                int h, int row_lo) {
+  const int t = threadIdx.x & 3;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(outp);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row_lo + 8 * hh;
+    if (r >= a.Sq) continue;
+    __nv_bfloat16* orow =
+        out + ((static_cast<size_t>(b) * a.Sq + r) * a.H + h) * a.D;
+#pragma unroll
+    for (int sub = 0; sub < NSUB; ++sub)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = sub * 64 + 8 * i + 2 * t;   // D % 8 == 0: pairs
+        if (col < a.D)
+          *reinterpret_cast<uint32_t*>(orow + col) = pack2<__nv_bfloat16>(
+              acc[sub][4 * i + 2 * hh], acc[sub][4 * i + 2 * hh + 1]);
+      }
+  }
+}
+
+// A[64 rows of warpgroup wg][DP] (+)= ... : the K-major descriptors of k16
+// slice ks of a [rows][64]-sub-tiled operand whose sub-tiles are `sub`
+// bytes apart, starting at row `row0`
+__device__ __forceinline__ uint64_t kdesc(const uint8_t* base, int sub,
+                                          int row0, int ks) {
+  return make_desc(base + (ks >> 2) * sub + row0 * 128 + (ks & 3) * 32, 16,
+                   1024, kSW128);
+}
+
+// d[64 x 64] = A B^T over DP columns, both operands K-major: issued and
+// committed (wg_ss_issue), or also waited for (wg_ss)
+template <int DP>
+__device__ __forceinline__ void wg_ss_issue(float (&d)[32], const uint8_t* a,
+                                            int a_sub, int a_row0,
+                                            const uint8_t* bm, int b_sub) {
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks)
+    wgmma_ss_bf16<64, 0, 0>(d, kdesc(a, a_sub, a_row0, ks),
+                            kdesc(bm, b_sub, 0, ks), ks > 0);
+  wgmma_commit();
+}
+
+template <int DP>
+__device__ __forceinline__ void wg_ss(float (&d)[32], const uint8_t* a,
+                                      int a_sub, int a_row0,
+                                      const uint8_t* bm, int b_sub) {
+  wg_ss_issue<DP>(d, a, a_sub, a_row0, bm, b_sub);
+  wgmma_wait<0>();
+  reg_fence(d);
+}
+
+// acc[64 x DP] += A[64 x 64] (bf16 fragments) . B[64 rows x DP], B from a
+// [64][64]-sub-tiled block read MN-major
+template <int NSUB>
+__device__ __forceinline__ void wg_rs(float (&acc)[NSUB][32],
+                                      uint32_t (&pa)[4][4],
+                                      const uint8_t* bm, int b_sub) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) reg_fence(pa[kk]);
+#pragma unroll
+  for (int sub = 0; sub < NSUB; ++sub) reg_fence(acc[sub]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int sub = 0; sub < NSUB; ++sub)
+      wgmma_rs_bf16_n64<1>(
+          acc[sub], pa[kk],
+          make_desc(bm + sub * b_sub + kk * 2048, 1024, 1024, kSW128), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int sub = 0; sub < NSUB; ++sub) reg_fence(acc[sub]);
+}
+
+// the dropout factor of entry i of an accumulator whose keep word is `keep`
+__device__ __forceinline__ float keep_z(uint32_t keep, int i, float ks) {
+  return (keep >> i) & 1u ? ks : 0.f;
+}
+
+// P o Z (f32, the m64n64 accumulator layout) -> bf16 A fragments, as
+// `pack_p` (Z scaled in before the cast, as the forward does)
+__device__ __forceinline__ void pack_pz(const float (&s)[32], uint32_t keep,
+                                        float ks, uint32_t (&pa)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = 8 * kk + 2 * r;
+      pa[kk][r] = pack2<__nv_bfloat16>(s[i] * keep_z(keep, i, ks),
+                                       s[i + 1] * keep_z(keep, i + 1, ks));
+    }
+}
+
+// P of one dQ block: 2^(s sl2 - lse2), 0 where masked (MASK: the block
+// crosses the causal diagonal or the end of the keys)
+template <bool MASK, class A>
+__device__ __forceinline__ float dq_prob(const float (&sc)[32], int i, int e,
+                                         const A& a, int k0,
+                                         int row_lo, const float (&lse2)[2],
+                                         float sl2) {
+  const int t = threadIdx.x & 3;
+  const int col = k0 + 8 * i + 2 * t + (e & 1);
+  const int row = row_lo + (e < 2 ? 0 : 8);
+  const bool keep = !MASK || (col < a.Sk && (!a.causal || row >= col));
+  return keep ? fast_exp2(fmaf(sc[4 * i + e], sl2, -lse2[e >> 1])) : 0.f;
+}
+
+// dQ's dS of one block: dS = P (dP Z - delta) scale (Z compiled out: ZON
+// false), packed to the A fragments of dS K
+template <bool MASK, bool ZON, class A>
+__device__ __forceinline__ void dq_ds(const float (&sc)[32],
+                                      const float (&dp)[32],
+                                      uint32_t (&pa)[4][4], const A& a,
+                                      int k0, int row_lo,
+                                      const float (&lse2)[2],
+                                      const float (&dl)[2], float sl2,
+                                      uint32_t keep, float ks) {
+  const int t = threadIdx.x & 3;
+  float ds[32];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = k0 + 8 * i + 2 * t + (e & 1);
+      const int row = row_lo + (e < 2 ? 0 : 8);
+      const bool in = !MASK || (col < a.Sk && (!a.causal || row >= col));
+      const float pv =
+          in ? fast_exp2(fmaf(sc[4 * i + e], sl2, -lse2[e >> 1])) : 0.f;
+      if constexpr (ZON)
+        ds[4 * i + e] =
+            pv * (dp[4 * i + e] * keep_z(keep, 4 * i + e, ks) - dl[e >> 1]) *
+            a.scale;
+      else
+        ds[4 * i + e] = pv * (dp[4 * i + e] - dl[e >> 1]) * a.scale;
+    }
+  pack_p<64>(ds, pa);
+}
+
+// the row term's share of one block: dl += P Z dP (this thread's entries)
+template <bool MASK, class A>
+__device__ __forceinline__ void dq_row(const float (&sc)[32],
+                                       const float (&dp)[32],
+                                       const A& a, int k0, int row_lo,
+                                       const float (&lse2)[2], float (&dl)[2],
+                                       float sl2, uint32_t keep, float ks) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pv = dq_prob<MASK>(sc, i, e, a, k0, row_lo, lse2, sl2);
+      dl[e >> 1] += pv * keep_z(keep, 4 * i + e, ks) * dp[4 * i + e];
+    }
+}
+
+template <int DP, bool ROW, class A, class DROP>
+__device__ __forceinline__ void dq_sm90_body(const CUtensorMap& tq,
+                                             const CUtensorMap& tdo,
+                                             const CUtensorMap& tk,
+                                             const CUtensorMap& tv,
+                                             const A& a,
+                                             const Units& units, DROP drop) {
+  using C = BwdCfg<DP, false, ROW>;
+  constexpr int NS = C::STAGES, BN = C::BN;
+  constexpr bool ZON = DROP::kOn;       // Z is applied (the short backward)
+  static_assert(ROW || !ZON, "a dropout dQ body forms its row term");
+  extern __shared__ uint8_t smem_raw[];
+  const BwdSmem<DP, false, ROW> sm(smem_raw, 1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= 4 * C::NWG) {
+    bwd_producer<DP, false, ROW>(sm, tq, tdo, tk, tv, a, units);
+    return;
+  }
+  if constexpr (ZON) drop.init();
+  const int wg = warp >> 2, g = lane >> 2;
+  const bool leader = (threadIdx.x & 127) == 0;
+  const float sl2 = a.scale * 1.4426950408889634f;
+  [[maybe_unused]] const float ks = drop.keep_scale();
+  int jj = 0, tt = 0;
+  for (int u = blockIdx.x; u < units.count; u += gridDim.x) {
+    int bh, tiles[2];
+    const int nt = units.tiles(u, bh, tiles);
+    const int b = bh / a.H, h = bh % a.H;
+    for (int it = 0; it < nt; ++it, ++tt) {
+      const int q0 = tiles[it] * C::ROWS;
+      int lo, hi;
+      bwd_range<BN, false>(a, q0, C::ROWS, lo, hi);
+      // key blocks wholly past this warpgroup's last row (causal), or all
+      // of them when its rows lie past S: taken in turn, released unread
+      const int hi_wg =
+          q0 + wg * 64 >= a.Sq
+              ? 0
+              : a.causal ? min((q0 + wg * 64 + 64 + BN - 1) / BN, hi) : hi;
+      const int row_lo = q0 + wg * 64 + (warp & 3) * 16 + g;
+      float lse2[2], dl[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = row_lo + 8 * hh;
+        const size_t at = static_cast<size_t>(bh) * a.Sq + r;
+        lse2[hh] = r < a.Sq ? a.lse[at] * 1.4426950408889634f : 0.f;
+        dl[hh] = !ROW && r < a.Sq ? a.delta[at] : 0.f;
+      }
+      const uint8_t* Qb = sm.res(tt & 1, 0);
+      const uint8_t* dOb = sm.res(tt & 1, 1);
+      mbar_wait(&sm.r_full[tt & 1], (tt >> 1) & 1);
+      __syncwarp();
+      if constexpr (ROW) {
+        // the first sweep: delta_i = sum_j P Z dP
+        for (int j = lo; j < hi; ++j, ++jj) {
+          const int s = jj % NS;
+          mbar_wait(&sm.s_full[s], (jj / NS) & 1);
+          __syncwarp();
+          if (j >= hi_wg) {
+            bar_sync(1 + wg, 128);
+            if (leader) mbar_arrive(&sm.s_empty[s]);
+            continue;
+          }
+          const int k0 = j * BN;
+          // S and dP in flight while the keep bits are drawn (kept for
+          // the second sweep): no accumulator is touched meanwhile, and
+          // the draw's registers fit beside the two (64 of them)
+          float sc[32], dp[32];
+          wg_ss_issue<DP>(sc, Qb, C::kRSub, wg * 64, sm.blk(s, 0), C::kSub);
+          wg_ss_issue<DP>(dp, dOb, C::kRSub, wg * 64, sm.blk(s, 1), C::kSub);
+          uint32_t keep = ~0u;
+          if constexpr (ZON)
+            if (drop.on()) {
+              uint32_t kw[1];
+              drop.template draw<BN>(kw, b, h, row_lo, k0);
+              keep = kw[0];
+            }
+          sm.kb(j - lo, threadIdx.x) = keep;
+          wgmma_wait<0>();
+          reg_fence(sc);
+          reg_fence(dp);
+          if (leader) mbar_arrive(&sm.s_empty[s]);   // K and V are read
+          if (k0 + BN > a.Sk || (a.causal && k0 + BN - 1 > q0 + wg * 64))
+            dq_row<true>(sc, dp, a, k0, row_lo, lse2, dl, sl2, keep, ks);
+          else
+            dq_row<false>(sc, dp, a, k0, row_lo, lse2, dl, sl2, keep, ks);
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          dl[hh] = quad_sum(dl[hh]);
+          const int r = row_lo + 8 * hh;
+          if ((lane & 3) == 0 && r < a.Sq)
+            a.delta[static_cast<size_t>(bh) * a.Sq + r] = dl[hh];
+        }
+      }
+      float dq[C::NSUB][32];
+#pragma unroll
+      for (int sub = 0; sub < C::NSUB; ++sub)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dq[sub][i] = 0.f;
+      for (int j = lo; j < hi; ++j, ++jj) {
+        const int s = jj % NS;
+        mbar_wait(&sm.s_full[s], (jj / NS) & 1);
+        __syncwarp();                   // converged for the .aligned wgmma
+        if (j >= hi_wg) {
+          // every warp is past its wait before the leader releases the
+          // stage (no wgmma orders them here)
+          bar_sync(1 + wg, 128);
+          if (leader) mbar_arrive(&sm.s_empty[s]);
+          continue;
+        }
+        [[maybe_unused]] uint32_t keep = ~0u;
+        if constexpr (ZON) keep = sm.kb(j - lo, threadIdx.x);
+        const uint8_t* Kb = sm.blk(s, 0);
+        const uint8_t* Vb = sm.blk(s, 1);
+        float sc[32], dp[32];
+        if constexpr (ROW) {
+          // the two products in flight together (one wait)
+          wg_ss_issue<DP>(sc, Qb, C::kRSub, wg * 64, Kb, C::kSub);
+          wg_ss_issue<DP>(dp, dOb, C::kRSub, wg * 64, Vb, C::kSub);
+          wgmma_wait<0>();
+          reg_fence(sc);
+          reg_fence(dp);
+        } else {
+          wg_ss<DP>(sc, Qb, C::kRSub, wg * 64, Kb, C::kSub);
+          wg_ss<DP>(dp, dOb, C::kRSub, wg * 64, Vb, C::kSub);
+        }
+        const int k0 = j * BN;
+        uint32_t pa[4][4];
+        if (k0 + BN > a.Sk || (a.causal && k0 + BN - 1 > q0 + wg * 64))
+          dq_ds<true, ZON>(sc, dp, pa, a, k0, row_lo, lse2, dl, sl2, keep,
+                           ks);
+        else
+          dq_ds<false, ZON>(sc, dp, pa, a, k0, row_lo, lse2, dl, sl2, keep,
+                            ks);
+        wg_rs<C::NSUB>(dq, pa, Kb, C::kSub);
+        if (leader) mbar_arrive(&sm.s_empty[s]);   // K and V are read
+      }
+      if (leader) mbar_arrive(&sm.r_empty[tt & 1]);  // Q and dO are read
+      store_tile_rows<C::NSUB>(a.out0, dq, a, b, h, row_lo);
+    }
+  }
+}
+
+// dK/dV's P^T of one block in place: rows are keys (krow_lo, + 8), columns
+// query rows qi0 + ..., masked (MASK) past S and above the diagonal
+template <bool MASK, class A>
+__device__ __forceinline__ void dkv_p(float (&st)[32], const A& a,
+                                      int qi0, int krow_lo,
+                                      const float* lse2, float sl2) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ql = 8 * i + 2 * t + (e & 1), qc = qi0 + ql;
+      const int kr = krow_lo + (e < 2 ? 0 : 8);
+      const bool keep =
+          !MASK || (qc < a.Sq && kr < a.Sk && (!a.causal || qc >= kr));
+      st[4 * i + e] =
+          keep ? fast_exp2(fmaf(st[4 * i + e], sl2, -lse2[ql])) : 0.f;
+    }
+}
+
+// dS^T = P^T (dP^T Z - delta) scale over one block, in place of dP^T (Z
+// compiled out: ZON false)
+template <bool ZON>
+__device__ __forceinline__ void dkv_ds(float (&dpt)[32], const float (&pt)[32],
+                                       const float* dl, float scale,
+                                       uint32_t keep, float ks) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * n + e;
+      if constexpr (ZON)
+        dpt[i] = pt[i] * (dpt[i] * keep_z(keep, i, ks) -
+                          dl[8 * n + 2 * t + (e & 1)]) * scale;
+      else
+        dpt[i] = pt[i] * (dpt[i] - dl[8 * n + 2 * t + (e & 1)]) * scale;
+    }
+}
+
+template <int DP, class A, class DROP>
+__device__ __forceinline__ void dkv_sm90_body(const CUtensorMap& tk,
+                                              const CUtensorMap& tv,
+                                              const CUtensorMap& tq,
+                                              const CUtensorMap& tdo,
+                                              const A& a,
+                                              const Units& units, DROP drop) {
+  using C = BwdCfg<DP, true>;
+  constexpr int NS = C::STAGES, BN = C::BN;
+  constexpr bool ZON = DROP::kOn;
+  extern __shared__ uint8_t smem_raw[];
+  const BwdSmem<DP, true> sm(smem_raw, 2);  // TMA bytes + the lanes' rows
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= 4 * C::NWG) {
+    bwd_producer<DP, true, false>(sm, tk, tv, tq, tdo, a, units);
+    return;
+  }
+  if constexpr (ZON) drop.init();
+  const int wg = warp >> 2, g = lane >> 2;
+  const bool leader = (threadIdx.x & 127) == 0;
+  const float sl2 = a.scale * 1.4426950408889634f;
+  [[maybe_unused]] const float ks = drop.keep_scale();
+  // SPLIT: warpgroup 0 forms dV, 1 dK, of the same 64 keys; else each
+  // warpgroup both, of its own 64 keys
+  const int wrow = C::SPLIT ? 0 : wg * 64;  // its rows in the resident tile
+  int jj = 0, tt = 0, pc = 0;             // blocks, tiles, P^T hand-overs
+  for (int u = blockIdx.x; u < units.count; u += gridDim.x) {
+    int bh, tiles[2];
+    const int nt = units.tiles(u, bh, tiles);
+    const int b = bh / a.H, h = bh % a.H;
+    for (int it = 0; it < nt; ++it, ++tt) {
+      const int k0 = tiles[it] * C::ROWS;
+      int lo, hi;
+      bwd_range<BN, true>(a, k0, C::ROWS, lo, hi);
+      const int kw = k0 + wrow;          // this warpgroup's first key
+      const int krow_lo = kw + (warp & 3) * 16 + g;
+      const uint8_t* Kb = sm.res(tt & 1, 0);
+      const uint8_t* Vb = sm.res(tt & 1, 1);
+      float acc[2][C::NSUB][32];         // dK, dV (SPLIT: this one's)
+      constexpr int NACC = C::SPLIT ? 1 : 2;
+#pragma unroll
+      for (int x = 0; x < NACC; ++x)
+#pragma unroll
+        for (int sub = 0; sub < C::NSUB; ++sub)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[x][sub][i] = 0.f;
+      mbar_wait(&sm.r_full[tt & 1], (tt >> 1) & 1);
+      __syncwarp();
+      for (int i = lo; i < hi; ++i, ++jj) {
+        const int s = jj % NS;
+        mbar_wait(&sm.s_full[s], (jj / NS) & 1);
+        __syncwarp();
+        const int qi0 = i * BN;
+        // no key of this warpgroup (a ragged last tile), or every query
+        // row of the block before its first key (causal): released unread
+        if (kw >= a.Sk || (a.causal && qi0 + BN - 1 < kw)) {
+          bar_sync(1 + wg, 128);
+          if (leader) mbar_arrive(&sm.s_empty[s]);
+          continue;
+        }
+        const uint8_t* Qb = sm.blk(s, 0);
+        const uint8_t* dOb = sm.blk(s, 1);
+        const float* lse2 = sm.F + 2 * s * BN;
+        const float* dl = lse2 + BN;
+        const bool mask = qi0 + BN > a.Sq || kw + 64 > a.Sk ||
+                          (a.causal && qi0 < kw + 63);
+        uint32_t pa[4][4];
+        float st[32];
+        [[maybe_unused]] uint32_t keep = ~0u;
+        if (!C::SPLIT || wg == 0) {
+          // the keep bits of S^T's entries (the transposed draw), before
+          // the product is issued: drawn while it was in flight, the
+          // kernel ran slower at BERT's shape (D = 64, at the 168-register
+          // cap beside dK's and dV's 64 accumulators)
+          if constexpr (ZON)
+            if (drop.on()) {
+              uint32_t kw2[1];
+              drop.template draw_t<BN>(kw2, b, h, krow_lo, qi0);
+              keep = kw2[0];
+            }
+          wg_ss<DP>(st, Kb, C::kRSub, wrow, Qb, C::kSub);
+          if (mask)
+            dkv_p<true>(st, a, qi0, krow_lo, lse2, sl2);
+          else
+            dkv_p<false>(st, a, qi0, krow_lo, lse2, sl2);
+          if constexpr (C::SPLIT) {
+            // P^T to warpgroup 1: entry k of thread x at [k][x]; a
+            // dropped entry negated (its keep bit as the sign)
+            const int pb = pc & 1;
+            mbar_wait(&sm.pt_empty[pb], ((pc >> 1) & 1) ^ 1);
+            float4* dst = reinterpret_cast<float4*>(sm.PT + pb * 64 * 64) +
+                          (threadIdx.x & 127);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              if constexpr (ZON) {
+                float v[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  v[e] = (keep >> (4 * k + e)) & 1u ? st[4 * k + e]
+                                                    : -st[4 * k + e];
+                dst[k * 128] = make_float4(v[0], v[1], v[2], v[3]);
+              } else {
+                dst[k * 128] = make_float4(st[4 * k], st[4 * k + 1],
+                                           st[4 * k + 2], st[4 * k + 3]);
+              }
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&sm.pt_full[pb]);
+          }
+          if constexpr (ZON)
+            pack_pz(st, keep, ks, pa);
+          else
+            pack_p<64>(st, pa);
+          wg_rs<C::NSUB>(acc[NACC - 1], pa, dOb, C::kSub);   // dV
+        }
+        if (!C::SPLIT || wg == 1) {
+          float dpt[32];
+          wg_ss<DP>(dpt, Vb, C::kRSub, wrow, dOb, C::kSub);
+          if constexpr (C::SPLIT) {
+            const int pb = pc & 1;
+            mbar_wait(&sm.pt_full[pb], (pc >> 1) & 1);
+            const float4* src =
+                reinterpret_cast<const float4*>(sm.PT + pb * 64 * 64) +
+                (threadIdx.x & 127);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              const float4 v4 = src[k * 128];
+              st[4 * k] = v4.x;
+              st[4 * k + 1] = v4.y;
+              st[4 * k + 2] = v4.z;
+              st[4 * k + 3] = v4.w;
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&sm.pt_empty[pb]);
+            if constexpr (ZON) {
+              keep = 0u;
+#pragma unroll
+              for (int x = 0; x < 32; ++x) {
+                keep |= (~__float_as_uint(st[x]) >> 31) << x;
+                st[x] = fabsf(st[x]);
+              }
+            }
+          }
+          dkv_ds<ZON>(dpt, st, dl, a.scale, keep, ks);
+          pack_p<64>(dpt, pa);
+          wg_rs<C::NSUB>(acc[0], pa, Qb, C::kSub);           // dK
+        }
+        ++pc;
+        if (leader) mbar_arrive(&sm.s_empty[s]);   // Q, dO and rows read
+      }
+      if (leader) mbar_arrive(&sm.r_empty[tt & 1]);  // K and V are read
+      if (!C::SPLIT || wg == 1)
+        store_tile_rows<C::NSUB>(a.out0, acc[0], a, b, h, krow_lo);
+      if (!C::SPLIT || wg == 0)
+        store_tile_rows<C::NSUB>(a.out1, acc[NACC - 1], a, b, h, krow_lo);
+    }
+  }
+}
+
 // --- host --------------------------------------------------------------------------
 // A 4-D bf16 tensor map (D, H, S, B) over a [B, S, H, D] tensor's element
 // strides (b, s, h; unit stride along D), boxes of [rows][64 columns] with
@@ -472,6 +1211,45 @@ int launch_fwd_sm90(const void* const (&bases)[3],
                    std::integral_constant<int, 64>())
              : run(std::integral_constant<decltype(K128), K128>(),
                    std::integral_constant<int, 128>());
+}
+
+// Launches a backward kernel, dQ (DKV false; ROW: the body that forms the
+// row term) or dK/dV: K64 (D <= 64) or K128 (64 < D <= 128) on q, k, v and
+// dout ([B, S, H, D] bf16, element strides {b, s, h} each, in that order)
+// with the kernel's trailing arguments `extra` (its dropout policy).
+template <auto K64, auto K128, bool DKV, bool ROW, class A, class... EXTRA>
+int launch_bwd_sm90(const void* const (&bases)[4],
+                    const long long (&strides)[4][3], int B, const A& a,
+                    cudaStream_t s, const EXTRA&... extra) {
+  // resident operands first (dQ: q, dout; dK/dV: k, v), then the streamed
+  const int order[4] = {DKV ? 1 : 0, DKV ? 2 : 3, DKV ? 0 : 1, DKV ? 3 : 2};
+  const bool d64 = a.D <= 64;
+  const int rows = !DKV ? BwdCfg<64, false>::ROWS
+                   : d64 ? BwdCfg<64, true>::ROWS
+                         : BwdCfg<128, true>::ROWS;
+  CUtensorMap maps[4];
+  for (int i = 0; i < 4; ++i) {
+    const int o = order[i];
+    if (!attn_tmap(&maps[i], bases[o], B, a.Sq, a.H, a.D, strides[o][0],
+                   strides[o][1], strides[o][2],
+                   i < 2 ? rows : BwdCfg<64, true>::BN))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Units units((a.Sq + rows - 1) / rows, B * a.H, a.causal != 0);
+  const dim3 grid(std::min(units.count, sm_count()));
+  auto go = [&](auto kernel, auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    constexpr auto K = decltype(kernel)::value;
+    using C = BwdCfg<DP, DKV, ROW>;
+    if (const int e = smem_opt_in<K>(C::smem)) return e;
+    K<<<grid, C::THREADS, C::smem, s>>>(maps[0], maps[1], maps[2], maps[3],
+                                         a, units, extra...);
+    return 0;
+  };
+  return d64 ? go(std::integral_constant<decltype(K64), K64>(),
+                  std::integral_constant<int, 64>())
+             : go(std::integral_constant<decltype(K128), K128>(),
+                  std::integral_constant<int, 128>());
 }
 
 }  // namespace attn90

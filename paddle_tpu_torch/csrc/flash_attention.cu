@@ -46,8 +46,8 @@
 // at head-dim tiles 64 and 128 (32 < D <= 128, D % 8 == 0, every stride a
 // multiple of 8 elements, 16-byte aligned bases) the forward, dQ and
 // dK/dV kernels have Hopper bodies (TMA-fed wgmma, P and dS in
-// registers): `flash_fwd_sm90` (attention_sm90.cuh's body, see its note),
-// `flash_dq_sm90` and `flash_dkv_sm90` (see theirs). The caller asks for
+// registers): `flash_fwd_sm90`, `flash_dq_sm90` and `flash_dkv_sm90`
+// (attention_sm90.cuh's bodies, see their notes). The caller asks for
 // them as kinds 3, 4 and 5, and an entry asked for a kind its inputs do
 // not admit returns cudaErrorInvalidValue. f32 inputs, head-dim tiles 32
 // and 256 and the ring steps keep the mma.sync bodies (kinds 0-2).
@@ -483,286 +483,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_pos(const Params p) {
   dkv_body<T, DP, true>(p);
 }
 
-// --- backward on Hopper: TMA-fed wgmma, dS and P^T in registers ---------------
-// Two kernels, as the mma.sync bodies: each output has one owning CTA and
-// is summed in a fixed order (no atomics), so the backward stays bitwise
-// reproducible. A persistent CTA per multiprocessor walks `Units` of
-// 128-row tiles; two consumer warpgroups own 64 rows each, and a producer
-// warp keeps the tile's two resident operands (double-buffered) and a ring
-// of blocks of the two streamed ones, loaded by TMA through the caller's
-// strides (rows past S and columns past D load as zeros; D = 80 runs in
-// the 128-column tiles).
-//   dQ     a tile of 128 query rows: Q and dO resident, K and V streamed
-//          in blocks of 64 keys. Per block S = Q K^T and dP = dO V^T (ss,
-//          both K-major), P = 2^(s sl2 - lse log2 e) masked to 0 after the
-//          exp, dS = P (dP - delta) scale packed to bf16 A fragments, and
-//          dQ += dS K (rs, K MN-major through the transpose bit, as V in
-//          the forward). dS never touches shared memory. Causal: blocks
-//          up to the diagonal.
-//   dK/dV  a tile of keys: K and V resident, Q and dO streamed in blocks
-//          of 64 query rows with their lse (times log2 e) and delta, which
-//          the producer warp's lanes copy beside them. Per block S^T =
-//          K Q^T (ss), P^T in registers, dV += P^T dO (rs, dO MN-major),
-//          dP^T = V dO^T (ss), dS^T = P^T (dP^T - delta) scale, dK +=
-//          dS^T Q (rs, Q MN-major). Causal: blocks from the diagonal.
-//          D = 64: a tile of 128 keys, each warpgroup all four products
-//          of its 64 keys (dK, dV, P^T, dP^T: 128 f32 registers).
-//          D = 128: dK and dV alone take 128 registers a thread, and
-//          ptxas caps these 288-thread kernels at 168 (whatever setmaxnreg
-//          asks); holding P^T and dP^T beside them spilled 736 bytes. So
-//          the two warpgroups share a tile of 64 keys: warpgroup 0 forms
-//          S^T, P^T and dV, and hands P^T in f32 to warpgroup 1 through a
-//          double-buffered shared-memory tile (each thread's entries
-//          stored where the same thread of warpgroup 1 reads them, on
-//          mbarriers); warpgroup 1 forms dP^T, dS^T and dK. The same four
-//          products, none recomputed, 112 and 144 live f32 registers.
-// Each product closes (wgmma_wait<0>) before the registers of the next
-// are defined (ptxas serializes wgmma otherwise: C7513), and the two
-// warpgroups take turns on the tensor cores. The causal units pair a long
-// tile with a short one (`Units`). 288 threads, one CTA an SM.
-template <int DP, bool DKV>
-struct BwdCfg {
-  static constexpr int NSUB = DP / 64;          // 64-column sub-tiles
-  static constexpr int NWG = 2;                 // consumer warpgroups
-  // dK/dV at D = 128: both warpgroups on one 64-key tile (see above)
-  static constexpr bool SPLIT = DKV && DP == 128;
-  static constexpr int ROWS = SPLIT ? 64 : 64 * NWG;  // resident rows a tile
-  static constexpr int BN = 64;                 // streamed rows a block
-  static constexpr int STAGES = DP == 64 ? 4 : SPLIT ? 3 : 2;
-  static constexpr int THREADS = 128 * NWG + 32;
-  static constexpr int kRSub = ROWS * 128;      // one [ROWS][64] sub-tile
-  static constexpr int kR = NSUB * kRSub;       // one resident operand
-  static constexpr int kSub = BN * 128;         // one [BN][64] sub-tile
-  static constexpr int kB = NSUB * kSub;        // one streamed operand
-  static constexpr int kPT = SPLIT ? 64 * 64 * 4 : 0;  // one f32 P^T tile
-  static constexpr size_t smem = 1024 + 4 * kR + 2 * STAGES * kB + 2 * kPT +
-                                 2 * STAGES * BN * sizeof(float) +
-                                 (8 + 2 * STAGES) * sizeof(uint64_t);
-};
-
-// shared memory of a backward CTA: [2 buffers][2] resident tiles, [STAGES]
-// [2] streamed blocks, [2] P^T tiles (SPLIT), [STAGES][2][BN] f32 rows
-// (dK/dV: lse log2 e, delta), then the barriers; thread 0 initialises them
-// (s_full takes `s_arrivals` arrivals a phase, the P^T hand-over one from
-// each of a warpgroup's four warps)
-template <int DP, bool DKV>
-struct BwdSmem {
-  using C = BwdCfg<DP, DKV>;
-  uint8_t *R, *S;
-  float *PT, *F;
-  uint64_t *r_full, *r_empty, *s_full, *s_empty, *pt_full, *pt_empty;
-  __device__ BwdSmem(uint8_t* raw, int s_arrivals) {
-    R = align1024(raw);
-    S = R + 4 * C::kR;
-    PT = reinterpret_cast<float*>(S + 2 * C::STAGES * C::kB);
-    F = PT + 2 * C::kPT / 4;
-    r_full = reinterpret_cast<uint64_t*>(F + 2 * C::STAGES * C::BN);
-    r_empty = r_full + 2;
-    pt_full = r_full + 4;
-    pt_empty = r_full + 6;
-    s_full = r_full + 8;
-    s_empty = s_full + C::STAGES;
-    if (threadIdx.x == 0) {
-      for (int i = 0; i < 2; ++i) {
-        mbar_init(&r_full[i], 1);
-        mbar_init(&r_empty[i], C::NWG);
-        mbar_init(&pt_full[i], 4);
-        mbar_init(&pt_empty[i], 4);
-      }
-      for (int s = 0; s < C::STAGES; ++s) {
-        mbar_init(&s_full[s], s_arrivals);
-        mbar_init(&s_empty[s], C::NWG);
-      }
-      fence_barrier_init();
-    }
-    __syncthreads();
-  }
-  __device__ uint8_t* res(int buf, int x) const { return R + (2 * buf + x) * C::kR; }
-  __device__ uint8_t* blk(int s, int y) const { return S + (2 * s + y) * C::kB; }
-};
-
-// the streamed blocks [lo, hi) of the tile whose first resident row is r0:
-// dQ (DKV false) key blocks up to the diagonal when causal, dK/dV query
-// blocks from it
-template <int BN, bool DKV>
-__device__ __forceinline__ void bwd_range(const Params& p, int r0, int rows,
-                                          int& lo, int& hi) {
-  const int n = (p.Sq + BN - 1) / BN;
-  if (DKV) {
-    lo = p.causal ? r0 / BN : 0;
-    hi = n;
-  } else {
-    lo = 0;
-    hi = p.causal ? min((r0 + rows + BN - 1) / BN, n) : n;
-  }
-}
-
-template <int DP, bool DKV>
-__device__ __forceinline__ void bwd_producer(const BwdSmem<DP, DKV>& sm,
-                                             const CUtensorMap& r0m,
-                                             const CUtensorMap& r1m,
-                                             const CUtensorMap& b0m,
-                                             const CUtensorMap& b1m,
-                                             const Params& p,
-                                             const Units& units) {
-  using C = BwdCfg<DP, DKV>;
-  constexpr int NS = C::STAGES, BN = C::BN;
-  const int lane = threadIdx.x & 31;
-  if (!DKV && lane != 0) return;        // dQ: one thread issues the loads
-  int jj = 0, tt = 0;                   // blocks and tiles loaded so far
-  for (int u = blockIdx.x; u < units.count; u += gridDim.x) {
-    int bh, tiles[2];
-    const int nt = units.tiles(u, bh, tiles);
-    const int b = bh / p.H, h = bh % p.H;
-    for (int i = 0; i < nt; ++i, ++tt) {
-      const int r0 = tiles[i] * C::ROWS;
-      int lo, hi;
-      bwd_range<BN, DKV>(p, r0, C::ROWS, lo, hi);
-      const int rb = tt & 1;
-      if (lane == 0) {
-        mbar_wait(&sm.r_empty[rb], ((tt >> 1) & 1) ^ 1);
-        mbar_expect_tx(&sm.r_full[rb], 2 * C::kR);
-        for (int sub = 0; sub < C::NSUB; ++sub) {
-          tma_load_4d(sm.res(rb, 0) + sub * C::kRSub, &r0m, &sm.r_full[rb],
-                      sub * 64, h, r0, b);
-          tma_load_4d(sm.res(rb, 1) + sub * C::kRSub, &r1m, &sm.r_full[rb],
-                      sub * 64, h, r0, b);
-        }
-      }
-      for (int j = lo; j < hi; ++j, ++jj) {
-        const int s = jj % NS;
-        mbar_wait(&sm.s_empty[s], ((jj / NS) & 1) ^ 1);
-        if (lane == 0) {
-          mbar_expect_tx(&sm.s_full[s], 2 * C::kB);
-          for (int sub = 0; sub < C::NSUB; ++sub) {
-            tma_load_4d(sm.blk(s, 0) + sub * C::kSub, &b0m, &sm.s_full[s],
-                        sub * 64, h, j * BN, b);
-            tma_load_4d(sm.blk(s, 1) + sub * C::kSub, &b1m, &sm.s_full[s],
-                        sub * 64, h, j * BN, b);
-          }
-        }
-        if constexpr (DKV) {
-          // the block's lse (log2 domain) and delta, 0 past S; the
-          // stage's second arrival once every lane's stores are done
-          const float* lse = p.lse + static_cast<size_t>(bh) * p.Sq;
-          const float* delta = p.delta + static_cast<size_t>(bh) * p.Sq;
-          float* f = sm.F + 2 * s * BN;
-          for (int r = lane; r < BN; r += 32) {
-            const int q = j * BN + r;
-            const bool in = q < p.Sq;
-            f[r] = in ? lse[q] * 1.4426950408889634f : 0.f;
-            f[BN + r] = in ? delta[q] : 0.f;
-          }
-          __threadfence_block();
-          __syncwarp();
-          if (lane == 0) mbar_arrive(&sm.s_full[s]);
-        }
-      }
-    }
-  }
-}
-
-// an accumulator tile's two rows (row_lo and row_lo + 8, below S) into a
-// contiguous [B, S, H, D] bf16 output
-template <int NSUB>
-__device__ __forceinline__ void store_tile_rows(void* outp,
-                                                const float (&acc)[NSUB][32],
-                                                const Params& p, int b,
-                                                int h, int row_lo) {
-  const int t = threadIdx.x & 3;
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(outp);
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = row_lo + 8 * hh;
-    if (r >= p.Sq) continue;
-    __nv_bfloat16* orow =
-        out + ((static_cast<size_t>(b) * p.Sq + r) * p.H + h) * p.D;
-#pragma unroll
-    for (int sub = 0; sub < NSUB; ++sub)
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int col = sub * 64 + 8 * i + 2 * t;   // D % 8 == 0: pairs
-        if (col < p.D)
-          *reinterpret_cast<uint32_t*>(orow + col) = pack2<__nv_bfloat16>(
-              acc[sub][4 * i + 2 * hh], acc[sub][4 * i + 2 * hh + 1]);
-      }
-  }
-}
-
-// A[64 rows of warpgroup wg][DP] (+)= ... : the K-major descriptors of k16
-// slice ks of a [rows][64]-sub-tiled operand whose sub-tiles are `sub`
-// bytes apart, starting at row `row0`
-__device__ __forceinline__ uint64_t kdesc(const uint8_t* base, int sub,
-                                          int row0, int ks) {
-  return make_desc(base + (ks >> 2) * sub + row0 * 128 + (ks & 3) * 32, 16,
-                   1024, kSW128);
-}
-
-// d[64 x 64] = A B^T over DP columns, both operands K-major
-template <int DP>
-__device__ __forceinline__ void wg_ss(float (&d)[32], const uint8_t* a,
-                                      int a_sub, int a_row0,
-                                      const uint8_t* bm, int b_sub) {
-  wgmma_fence();
-#pragma unroll
-  for (int ks = 0; ks < DP / 16; ++ks)
-    wgmma_ss_bf16<64, 0, 0>(d, kdesc(a, a_sub, a_row0, ks),
-                            kdesc(bm, b_sub, 0, ks), ks > 0);
-  wgmma_commit();
-  wgmma_wait<0>();
-  reg_fence(d);
-}
-
-// acc[64 x DP] += A[64 x 64] (bf16 fragments) . B[64 rows x DP], B from a
-// [64][64]-sub-tiled block read MN-major
-template <int NSUB>
-__device__ __forceinline__ void wg_rs(float (&acc)[NSUB][32],
-                                      uint32_t (&pa)[4][4],
-                                      const uint8_t* bm, int b_sub) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) reg_fence(pa[kk]);
-#pragma unroll
-  for (int sub = 0; sub < NSUB; ++sub) reg_fence(acc[sub]);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int sub = 0; sub < NSUB; ++sub)
-      wgmma_rs_bf16_n64<1>(
-          acc[sub], pa[kk],
-          make_desc(bm + sub * b_sub + kk * 2048, 1024, 1024, kSW128), 1);
-  wgmma_commit();
-  wgmma_wait<0>();
-#pragma unroll
-  for (int sub = 0; sub < NSUB; ++sub) reg_fence(acc[sub]);
-}
-
-// dQ's dS of one block: P = 2^(s sl2 - lse2) (0 where masked: MASK, the
-// block crosses the causal diagonal or the end of the keys), dS = P (dP -
-// delta) scale, packed to the A fragments of dS K
-template <bool MASK>
-__device__ __forceinline__ void dq_ds(const float (&sc)[32],
-                                      const float (&dp)[32],
-                                      uint32_t (&pa)[4][4], const Params& p,
-                                      int k0, int row_lo,
-                                      const float (&lse2)[2],
-                                      const float (&dl)[2], float sl2) {
-  const int t = threadIdx.x & 3;
-  float ds[32];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = k0 + 8 * i + 2 * t + (e & 1);
-      const int row = row_lo + (e < 2 ? 0 : 8);
-      const bool keep = !MASK || (col < p.Sk && (!p.causal || row >= col));
-      const float pv =
-          keep ? fast_exp2(fmaf(sc[4 * i + e], sl2, -lse2[e >> 1])) : 0.f;
-      ds[4 * i + e] = pv * (dp[4 * i + e] - dl[e >> 1]) * p.scale;
-    }
-  pack_p<64>(ds, pa);
-}
-
+// --- backward on Hopper: attention_sm90.cuh's bodies, no dropout ----------
+// dQ and dK/dV for bf16 at head-dim tiles 64 and 128 (kinds 4 and 5): the
+// bodies and their note are in attention_sm90.cuh (shared with the
+// short-attention backward, which adds the dropout and its own row term);
+// here they run with NoDropout, the caller's delta and this file's Params.
 template <int DP>
 __global__ void __launch_bounds__(BwdCfg<DP, false>::THREADS, 1)
     flash_dq_sm90(const __grid_constant__ CUtensorMap tq,
@@ -770,113 +495,7 @@ __global__ void __launch_bounds__(BwdCfg<DP, false>::THREADS, 1)
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, const Params p,
                   const Units units) {
-  using C = BwdCfg<DP, false>;
-  constexpr int NS = C::STAGES, BN = C::BN;
-  extern __shared__ uint8_t smem_raw[];
-  const BwdSmem<DP, false> sm(smem_raw, 1);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp >= 4 * C::NWG) {
-    bwd_producer<DP, false>(sm, tq, tdo, tk, tv, p, units);
-    return;
-  }
-  const int wg = warp >> 2, g = lane >> 2;
-  const bool leader = (threadIdx.x & 127) == 0;
-  const float sl2 = p.scale * 1.4426950408889634f;
-  int jj = 0, tt = 0;
-  for (int u = blockIdx.x; u < units.count; u += gridDim.x) {
-    int bh, tiles[2];
-    const int nt = units.tiles(u, bh, tiles);
-    const int b = bh / p.H, h = bh % p.H;
-    for (int it = 0; it < nt; ++it, ++tt) {
-      const int q0 = tiles[it] * C::ROWS;
-      int lo, hi;
-      bwd_range<BN, false>(p, q0, C::ROWS, lo, hi);
-      // key blocks wholly past this warpgroup's last row (causal), or all
-      // of them when its rows lie past S: taken in turn, released unread
-      const int hi_wg =
-          q0 + wg * 64 >= p.Sq
-              ? 0
-              : p.causal ? min((q0 + wg * 64 + 64 + BN - 1) / BN, hi) : hi;
-      const int row_lo = q0 + wg * 64 + (warp & 3) * 16 + g;
-      float lse2[2], dl[2];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = row_lo + 8 * hh;
-        const size_t at = static_cast<size_t>(bh) * p.Sq + r;
-        lse2[hh] = r < p.Sq ? p.lse[at] * 1.4426950408889634f : 0.f;
-        dl[hh] = r < p.Sq ? p.delta[at] : 0.f;
-      }
-      const uint8_t* Qb = sm.res(tt & 1, 0);
-      const uint8_t* dOb = sm.res(tt & 1, 1);
-      float dq[C::NSUB][32];
-#pragma unroll
-      for (int sub = 0; sub < C::NSUB; ++sub)
-#pragma unroll
-        for (int i = 0; i < 32; ++i) dq[sub][i] = 0.f;
-      mbar_wait(&sm.r_full[tt & 1], (tt >> 1) & 1);
-      __syncwarp();
-      for (int j = lo; j < hi; ++j, ++jj) {
-        const int s = jj % NS;
-        mbar_wait(&sm.s_full[s], (jj / NS) & 1);
-        __syncwarp();                   // converged for the .aligned wgmma
-        if (j >= hi_wg) {
-          // every warp is past its wait before the leader releases the
-          // stage (no wgmma orders them here)
-          bar_sync(1 + wg, 128);
-          if (leader) mbar_arrive(&sm.s_empty[s]);
-          continue;
-        }
-        const uint8_t* Kb = sm.blk(s, 0);
-        const uint8_t* Vb = sm.blk(s, 1);
-        float sc[32], dp[32];
-        wg_ss<DP>(sc, Qb, C::kRSub, wg * 64, Kb, C::kSub);
-        wg_ss<DP>(dp, dOb, C::kRSub, wg * 64, Vb, C::kSub);
-        const int k0 = j * BN;
-        uint32_t pa[4][4];
-        if (k0 + BN > p.Sk || (p.causal && k0 + BN - 1 > q0 + wg * 64))
-          dq_ds<true>(sc, dp, pa, p, k0, row_lo, lse2, dl, sl2);
-        else
-          dq_ds<false>(sc, dp, pa, p, k0, row_lo, lse2, dl, sl2);
-        wg_rs<C::NSUB>(dq, pa, Kb, C::kSub);
-        if (leader) mbar_arrive(&sm.s_empty[s]);   // K and V are read
-      }
-      if (leader) mbar_arrive(&sm.r_empty[tt & 1]);  // Q and dO are read
-      store_tile_rows<C::NSUB>(p.out0, dq, p, b, h, row_lo);
-    }
-  }
-}
-
-// dK/dV's P^T of one block in place: rows are keys (krow_lo, + 8), columns
-// query rows qi0 + ..., masked (MASK) past S and above the diagonal
-template <bool MASK>
-__device__ __forceinline__ void dkv_p(float (&st)[32], const Params& p,
-                                      int qi0, int krow_lo,
-                                      const float* lse2, float sl2) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int ql = 8 * i + 2 * t + (e & 1), qc = qi0 + ql;
-      const int kr = krow_lo + (e < 2 ? 0 : 8);
-      const bool keep =
-          !MASK || (qc < p.Sq && kr < p.Sk && (!p.causal || qc >= kr));
-      st[4 * i + e] =
-          keep ? fast_exp2(fmaf(st[4 * i + e], sl2, -lse2[ql])) : 0.f;
-    }
-}
-
-// dS^T = P^T (dP^T - delta) scale over one block, in place of dP^T
-__device__ __forceinline__ void dkv_ds(float (&dpt)[32], const float (&pt)[32],
-                                       const float* dl, float scale) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      dpt[4 * n + e] =
-          pt[4 * n + e] * (dpt[4 * n + e] - dl[8 * n + 2 * t + (e & 1)]) *
-          scale;
+  dq_sm90_body<DP, false>(tq, tdo, tk, tv, p, units, NoDropout{});
 }
 
 template <int DP>
@@ -886,120 +505,7 @@ __global__ void __launch_bounds__(BwdCfg<DP, true>::THREADS, 1)
                    const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tdo, const Params p,
                    const Units units) {
-  using C = BwdCfg<DP, true>;
-  constexpr int NS = C::STAGES, BN = C::BN;
-  extern __shared__ uint8_t smem_raw[];
-  const BwdSmem<DP, true> sm(smem_raw, 2);  // TMA bytes + the lanes' rows
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp >= 4 * C::NWG) {
-    bwd_producer<DP, true>(sm, tk, tv, tq, tdo, p, units);
-    return;
-  }
-  const int wg = warp >> 2, g = lane >> 2;
-  const bool leader = (threadIdx.x & 127) == 0;
-  const float sl2 = p.scale * 1.4426950408889634f;
-  // SPLIT: warpgroup 0 forms dV, 1 dK, of the same 64 keys; else each
-  // warpgroup both, of its own 64 keys
-  const int wrow = C::SPLIT ? 0 : wg * 64;  // its rows in the resident tile
-  int jj = 0, tt = 0, pc = 0;             // blocks, tiles, P^T hand-overs
-  for (int u = blockIdx.x; u < units.count; u += gridDim.x) {
-    int bh, tiles[2];
-    const int nt = units.tiles(u, bh, tiles);
-    const int b = bh / p.H, h = bh % p.H;
-    for (int it = 0; it < nt; ++it, ++tt) {
-      const int k0 = tiles[it] * C::ROWS;
-      int lo, hi;
-      bwd_range<BN, true>(p, k0, C::ROWS, lo, hi);
-      const int kw = k0 + wrow;          // this warpgroup's first key
-      const int krow_lo = kw + (warp & 3) * 16 + g;
-      const uint8_t* Kb = sm.res(tt & 1, 0);
-      const uint8_t* Vb = sm.res(tt & 1, 1);
-      float acc[2][C::NSUB][32];         // dK, dV (SPLIT: this one's)
-      constexpr int NACC = C::SPLIT ? 1 : 2;
-#pragma unroll
-      for (int a = 0; a < NACC; ++a)
-#pragma unroll
-        for (int sub = 0; sub < C::NSUB; ++sub)
-#pragma unroll
-          for (int i = 0; i < 32; ++i) acc[a][sub][i] = 0.f;
-      mbar_wait(&sm.r_full[tt & 1], (tt >> 1) & 1);
-      __syncwarp();
-      for (int i = lo; i < hi; ++i, ++jj) {
-        const int s = jj % NS;
-        mbar_wait(&sm.s_full[s], (jj / NS) & 1);
-        __syncwarp();
-        const int qi0 = i * BN;
-        // no key of this warpgroup (a ragged last tile), or every query
-        // row of the block before its first key (causal): released unread
-        if (kw >= p.Sk || (p.causal && qi0 + BN - 1 < kw)) {
-          bar_sync(1 + wg, 128);
-          if (leader) mbar_arrive(&sm.s_empty[s]);
-          continue;
-        }
-        const uint8_t* Qb = sm.blk(s, 0);
-        const uint8_t* dOb = sm.blk(s, 1);
-        const float* lse2 = sm.F + 2 * s * BN;
-        const float* dl = lse2 + BN;
-        const bool mask = qi0 + BN > p.Sq || kw + 64 > p.Sk ||
-                          (p.causal && qi0 < kw + 63);
-        uint32_t pa[4][4];
-        float st[32];
-        if (!C::SPLIT || wg == 0) {
-          wg_ss<DP>(st, Kb, C::kRSub, wrow, Qb, C::kSub);
-          if (mask)
-            dkv_p<true>(st, p, qi0, krow_lo, lse2, sl2);
-          else
-            dkv_p<false>(st, p, qi0, krow_lo, lse2, sl2);
-          if constexpr (C::SPLIT) {
-            // P^T to warpgroup 1: entry k of thread x at [k][x]
-            const int pb = pc & 1;
-            mbar_wait(&sm.pt_empty[pb], ((pc >> 1) & 1) ^ 1);
-            float4* dst = reinterpret_cast<float4*>(sm.PT + pb * 64 * 64) +
-                          (threadIdx.x & 127);
-#pragma unroll
-            for (int k = 0; k < 8; ++k)
-              dst[k * 128] = make_float4(st[4 * k], st[4 * k + 1],
-                                         st[4 * k + 2], st[4 * k + 3]);
-            __syncwarp();
-            if (lane == 0) mbar_arrive(&sm.pt_full[pb]);
-          }
-          pack_p<64>(st, pa);
-          wg_rs<C::NSUB>(acc[NACC - 1], pa, dOb, C::kSub);   // dV
-        }
-        if (!C::SPLIT || wg == 1) {
-          float dpt[32];
-          wg_ss<DP>(dpt, Vb, C::kRSub, wrow, dOb, C::kSub);
-          if constexpr (C::SPLIT) {
-            const int pb = pc & 1;
-            mbar_wait(&sm.pt_full[pb], (pc >> 1) & 1);
-            const float4* src =
-                reinterpret_cast<const float4*>(sm.PT + pb * 64 * 64) +
-                (threadIdx.x & 127);
-#pragma unroll
-            for (int k = 0; k < 8; ++k) {
-              const float4 v4 = src[k * 128];
-              st[4 * k] = v4.x;
-              st[4 * k + 1] = v4.y;
-              st[4 * k + 2] = v4.z;
-              st[4 * k + 3] = v4.w;
-            }
-            __syncwarp();
-            if (lane == 0) mbar_arrive(&sm.pt_empty[pb]);
-          }
-          dkv_ds(dpt, st, dl, p.scale);
-          pack_p<64>(dpt, pa);
-          wg_rs<C::NSUB>(acc[0], pa, Qb, C::kSub);           // dK
-        }
-        ++pc;
-        if (leader) mbar_arrive(&sm.s_empty[s]);   // Q, dO and rows read
-      }
-      if (leader) mbar_arrive(&sm.r_empty[tt & 1]);  // K and V are read
-      if (!C::SPLIT || wg == 1)
-        store_tile_rows<C::NSUB>(p.out0, acc[0], p, b, h, krow_lo);
-      if (!C::SPLIT || wg == 0)
-        store_tile_rows<C::NSUB>(p.out1, acc[NACC - 1], p, b, h, krow_lo);
-    }
-  }
+  dkv_sm90_body<DP>(tk, tv, tq, tdo, p, units, NoDropout{});
 }
 
 // --- launch --------------------------------------------------------------------
@@ -1059,42 +565,11 @@ int launch_sm90(int kind, const Params& p, int B, cudaStream_t s) {
     return launch_fwd_sm90<flash_fwd_sm90<64>, flash_fwd_sm90<128>>(
         qkv, qkv_st, B, a, s);
   }
-  // resident operands first (dQ: q, dout; dK/dV: k, v), then the streamed
-  const bool dkv = kind == kDkvSm90;
-  const int order[4] = {dkv ? 1 : 0, dkv ? 2 : 3, dkv ? 0 : 1, dkv ? 3 : 2};
-  const int rows = !dkv                ? BwdCfg<64, false>::ROWS
-                   : p.D <= 64 ? BwdCfg<64, true>::ROWS
-                               : BwdCfg<128, true>::ROWS;
-  CUtensorMap maps[4];
-  for (int i = 0; i < 4; ++i) {
-    const int o = order[i];
-    if (!attn_tmap(&maps[i], bases[o], B, p.Sq, p.H, p.D, st[o][0],
-                   st[o][1], st[o][2], i < 2 ? rows : BwdCfg<64, true>::BN))
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Units units((p.Sq + rows - 1) / rows, B * p.H, p.causal != 0);
-  const dim3 grid(std::min(units.count, sm_count()));
-  auto go = [&](auto kernel, auto dp) {
-    constexpr int DP = decltype(dp)::value;
-    constexpr auto K = decltype(kernel)::value;
-    using C = std::conditional_t<K == flash_dkv_sm90<DP>,
-                                 BwdCfg<DP, true>, BwdCfg<DP, false>>;
-    if (const int e = smem_opt_in<K>(C::smem)) return e;
-    K<<<grid, C::THREADS, C::smem, s>>>(maps[0], maps[1], maps[2], maps[3],
-                                         p, units);
-    return 0;
-  };
-  using I64 = std::integral_constant<int, 64>;
-  using I128 = std::integral_constant<int, 128>;
-  if (p.D <= 64)
-    return dkv ? go(std::integral_constant<decltype(&flash_dkv_sm90<64>),
-                                           flash_dkv_sm90<64>>(), I64())
-               : go(std::integral_constant<decltype(&flash_dq_sm90<64>),
-                                           flash_dq_sm90<64>>(), I64());
-  return dkv ? go(std::integral_constant<decltype(&flash_dkv_sm90<128>),
-                                         flash_dkv_sm90<128>>(), I128())
-             : go(std::integral_constant<decltype(&flash_dq_sm90<128>),
-                                         flash_dq_sm90<128>>(), I128());
+  if (kind == kDkvSm90)
+    return launch_bwd_sm90<flash_dkv_sm90<64>, flash_dkv_sm90<128>, true,
+                           false>(bases, st, B, p, s);
+  return launch_bwd_sm90<flash_dq_sm90<64>, flash_dq_sm90<128>, false,
+                         false>(bases, st, B, p, s);
 }
 
 int run(int kind, Params& p, int BH, int dtype, bool pos, void* stream) {

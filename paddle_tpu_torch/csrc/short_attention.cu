@@ -37,13 +37,19 @@
 // D = 64) the bytes — q, k, v, O read or written once are 4 x 25 MB, while
 // the products, 4 * S^2 * D per head, take a fifth of that time at the
 // tensor-core peak; the in-kernel Philox adds ~100 integer operations per
-// four probabilities. Simple first: synchronous loads, mma.sync. The
-// forward has a Hopper body for bf16 at 32 < D <= 128 (`sa_fwd_sm90`,
-// below): TMA-fed wgmma with P in registers, each block's Philox draw made
+// four probabilities. The mma.sync bodies load synchronously. For bf16 at
+// 32 < D <= 128 the forward and the backward have Hopper bodies, the
+// flash bodies of attention_sm90.cuh with this file's dropout policy:
+// `sa_fwd_sm90`, `sa_dq_sm90` and `sa_dkv_sm90` (below): TMA-fed wgmma
+// with P and dS in registers. The forward draws a block's Philox bits
 // just before its S product is issued, while the other warpgroups'
 // products run (attention_sm90.cuh's note says why not during its own);
-// it is what the integer work bounds there (~0.6 G integer instructions
-// at BERT-base's shape).
+// the backward's dQ kernel draws while its own S and dP products run, its
+// dK/dV kernel just before S^T is issued (drawn in flight, it ran slower
+// beside dK's and dV's accumulators). The integer work bounds the forward
+// (~0.6 G integer instructions a draw at BERT-base's shape); the backward
+// draws twice (dQ's first sweep, whose words its second sweep reuses, and
+// dK/dV).
 #include <math.h>
 
 #include "attention_sm90.cuh"
@@ -287,6 +293,17 @@ struct PhiloxDropout {
     for (int w = 0; w < BK / 64; ++w)
       bits[w] = keep_rows_q<8>(thresh, st, row_lo, c0 + 64 * w);
   }
+  // the dK/dV body's S^T accumulator: keep_rows_k's layout, the same
+  // Philox words as `draw`, so the same bit for each (b, h, i, j)
+  template <int BN>
+  __device__ void draw_t(uint32_t (&bits)[BN / 64], int b, int h,
+                         int krow_lo, int q0) const {
+    const Stream st{k0, k1, static_cast<uint32_t>(b),
+                    static_cast<uint32_t>(h)};
+#pragma unroll
+    for (int w = 0; w < BN / 64; ++w)
+      bits[w] = keep_rows_k<8>(thresh, st, krow_lo, q0 + 64 * w);
+  }
   __device__ float keep_scale() const { return ks; }
 };
 
@@ -297,6 +314,37 @@ __global__ void __launch_bounds__(HopCfg<DP>::THREADS, HopCfg<DP>::CTAS)
                 const __grid_constant__ CUtensorMap tv, const FwdArgs a,
                 const Units units, const PhiloxDropout drop) {
   fwd_sm90_body<DP>(tq, tk, tv, a, units, drop);
+}
+
+// --- backward on Hopper: attention_sm90.cuh's bodies with the dropout -----
+// The bf16 backward at head-dim tiles 64 and 128 (32 < D <= 128, D % 8 ==
+// 0, S <= 512, TMA-describable strides; kinds 4 and 5) runs the flash
+// backward's Hopper bodies with this policy. dQ (ROW): a first sweep over
+// the key blocks forms the row term D_i = sum_j P Z dP in f32 (the keep
+// words, drawn while S and dP are in flight, wait in shared memory),
+// stores it in `delta`, and a second forms dS = P (dP Z - D) scale and
+// dQ. dK/dV: the keep bits drawn transposed (`draw_t`) for S^T's
+// accumulator just before S^T is issued; dV takes P o Z cast to bf16, dK
+// dS^T.
+// At BERT's S = 128 a head is one 128-row tile over two 64-key blocks.
+template <int DP>
+__global__ void __launch_bounds__(BwdCfg<DP, false, true>::THREADS, 1)
+    sa_dq_sm90(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tdo,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const BwdArgs a,
+               const Units units, const PhiloxDropout drop) {
+  dq_sm90_body<DP, true>(tq, tdo, tk, tv, a, units, drop);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(BwdCfg<DP, true>::THREADS, 1)
+    sa_dkv_sm90(const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tdo, const BwdArgs a,
+                const Units units, const PhiloxDropout drop) {
+  dkv_sm90_body<DP>(tk, tv, tq, tdo, a, units, drop);
 }
 
 // --- backward: D, then dQ ------------------------------------------------------
@@ -478,7 +526,11 @@ __global__ void __launch_bounds__(kThreads) sa_dkv(const Params p) {
 }
 
 // --- launch --------------------------------------------------------------------
-enum Kind { kFwd = 0, kDq = 1, kDkv = 2, kFwdSm90 = 3 };
+enum Kind {
+  kFwd = 0, kDq = 1, kDkv = 2,              // the mma.sync bodies
+  kFwdSm90 = 3, kDqSm90 = 4, kDkvSm90 = 5,  // the Hopper bodies
+  kBwd = 6, kBwdSm90 = 7                    // dQ then dK/dV, one call
+};
 
 template <typename T, int DP>
 int launch(int kind, int BH, const Params& p, cudaStream_t s) {
@@ -518,18 +570,63 @@ int launch_fwd_hopper(const Params& p, int B, cudaStream_t s) {
                                                             s, drop);
 }
 
+int launch_bwd_hopper(int kind, const Params& p, int B, cudaStream_t s) {
+  const void* const bases[4] = {p.q, p.k, p.v, p.dout};
+  const long long st[4][3] = {{p.q_b, p.q_s, p.q_h},
+                              {p.k_b, p.k_s, p.k_h},
+                              {p.v_b, p.v_s, p.v_h},
+                              {p.d_b, p.d_s, p.d_h}};
+  const BwdArgs a{p.lse, p.delta, p.out0, p.out1, p.S, p.S, p.H, p.D,
+                  p.scale, p.causal};
+  const PhiloxDropout drop{p.seed, p.keep_scale, p.thresh, p.dropout, 0u,
+                           0u};
+  if (kind == kDkvSm90)
+    return launch_bwd_sm90<sa_dkv_sm90<64>, sa_dkv_sm90<128>, true, false>(
+        bases, st, B, a, s, drop);
+  return launch_bwd_sm90<sa_dq_sm90<64>, sa_dq_sm90<128>, false, true>(
+      bases, st, B, a, s, drop);
+}
+
+// One launch of `kind` (0-5: the entry's kinds 0 and 3, and the two
+// launches of its backward kinds 6 and 7) on checked sizes.
+int run(int kind, const Params& p, int B, int dtype, cudaStream_t s) {
+  int err;
+  if (kind >= kFwdSm90) {
+    // what the Hopper bodies admit; asked for anything else, the entry
+    // refuses rather than run another body (the backward's row-term sweep
+    // keeps a keep word a block: S <= 512)
+    if (kind > kDkvSm90 || dtype != kBF16 || !p.vec || p.D <= 32 ||
+        p.D > 128 || p.D % 8 != 0 || !(p.scale > 0.f) ||
+        (kind != kFwdSm90 && p.S > 64 * BwdCfg<64, false, true>::kMaxBlocks))
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = kind == kFwdSm90 ? launch_fwd_hopper(p, B, s)
+                           : launch_bwd_hopper(kind, p, B, s);
+  } else {
+    switch (dtype) {
+      case kF32: err = dispatch_d<float>(kind, B * p.H, p, s); break;
+      case kBF16: err = dispatch_d<__nv_bfloat16>(kind, B * p.H, p, s); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (err != 0) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// kind: 0 forward (q, k, v -> out0 = O, lse), 1 the row term and dQ (q, k,
-// v, dout, lse -> delta, out0 = dQ), 2 dK, dV (q, k, v, dout, lse, delta
-// -> out0, out1), 3 the forward on the Hopper body (bf16, 32 < D <= 128,
-// TMA-describable strides; as kind 0; refused otherwise). dims = {B, S, H,
-// D, then the (b, s, h) element strides of q, k, v and dout} (dout's are 0
-// for a forward): q, k, v, dout are [B, S, H, D] with a unit stride along
-// D; outputs are contiguous [B, S, H, D]; lse / delta are [B*H, S] f32;
-// seed is one int64 on the device, read only when dropout is set. The
-// sizes travel packed, as one pointer, because a call's host time is part
-// of its cost.
+// kind: 0 forward (q, k, v -> out0 = O, lse), 3 the same on the Hopper
+// body, 6 the backward (q, k, v, dout, lse -> delta, then out0 = [3, B, S,
+// H, D]: dQ, dK, dV): the row term and dQ (`run`'s kind 1), then dK and dV
+// from delta (kind 2), 7 the same on the Hopper bodies (kinds 4 and 5).
+// The Hopper kinds take bf16, 32 < D <= 128, TMA-describable strides, and
+// S <= 512 for 7; the entry refuses anything else, kinds 1, 2, 4 and 5
+// included. dims = {B, S, H, D, then the (b, s, h) element strides of q,
+// k, v and dout} (dout's are 0 for a forward): q, k, v, dout are
+// [B, S, H, D] with a unit stride along D;
+// outputs are contiguous [B, S, H, D]; lse / delta are [B*H, S] f32; seed
+// is one int64 on the device, read only when dropout is set. The sizes
+// travel packed, as one pointer, because a call's host time is part of
+// its cost.
 extern "C" int ptt_short_attention(
     int kind, const void* q, const void* k, const void* v, const void* dout,
     const void* seed, void* lse, void* delta, void* out0, void* out1,
@@ -538,7 +635,8 @@ extern "C" int ptt_short_attention(
   const int B = static_cast<int>(dims[0]), S = static_cast<int>(dims[1]);
   const int H = static_cast<int>(dims[2]), D = static_cast<int>(dims[3]);
   const long long* st = dims + 4;
-  if (D < 1 || D > 256 || S < 1 || B * H < 1 || (dropout && !seed))
+  if (D < 1 || D > 256 || S < 1 || B * H < 1 || (dropout && !seed) ||
+      (kind != kFwd && kind != kFwdSm90 && kind != kBwd && kind != kBwdSm90))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{q,     k,     v,     dout,  static_cast<const long long*>(seed),
            static_cast<float*>(lse), static_cast<float*>(delta), out0,
@@ -550,19 +648,14 @@ extern "C" int ptt_short_attention(
   for (int i = 0; i < 12; ++i) vec = vec && st[i] % ch == 0;
   p.vec = vec;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err;
-  if (kind == kFwdSm90) {
-    if (dtype != kBF16 || !vec || D <= 32 || D > 128 || D % 8 != 0 ||
-        !(scale > 0.f))
-      return static_cast<int>(cudaErrorInvalidValue);
-    err = launch_fwd_hopper(p, B, s);
-  } else {
-    switch (dtype) {
-      case kF32: err = dispatch_d<float>(kind, B * H, p, s); break;
-      case kBF16: err = dispatch_d<__nv_bfloat16>(kind, B * H, p, s); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  if (err != 0) return err;
-  return static_cast<int>(cudaGetLastError());
+  if (kind < kBwd) return run(kind, p, B, dtype, s);
+  // dQ (which stores the row term), then dK/dV (which reads it)
+  const size_t n = static_cast<size_t>(B) * S * H * D *
+                   (dtype == kF32 ? 4 : 2);
+  uint8_t* grads = static_cast<uint8_t*>(out0);
+  const int dq = kind == kBwd ? kDq : kDqSm90;
+  if (const int err = run(dq, p, B, dtype, s)) return err;
+  p.out0 = grads + n;
+  p.out1 = grads + 2 * n;
+  return run(dq + 1, p, B, dtype, s);
 }

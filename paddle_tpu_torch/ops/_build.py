@@ -126,11 +126,11 @@ def lib():
         ctypes.c_float
     # x, qweight, scale, out, m, n, k, x_dtype, int4, route, stream
     _sig(handle.ptt_weight_only_matmul, P, P, P, P, I, I, I, I, I, I, P)
-    # q, kq, ks, vq, vs, tables, pos, out, B, H, Hkv, D, BS, NB,
-    # kv strides (n, h, t), scale strides (n, h, t), q_dtype, kv_dtype,
-    # softmax scale, split scratch, stream
-    _sig(handle.ptt_paged_decode_attention, P, P, P, P, P, P, P, P,
-         I, I, I, I, I, I, L, L, L, L, L, L, I, I, F, P, P)
+    # q, kq, ks, vq, vs, tables, pos, out, split scratch, dims (16 int64:
+    # B, H, Hkv, D, BS, NB, kv strides (n, h, t), scale strides (n, h, t),
+    # q dtype, kv dtype, route, pos_all), softmax scale, stream
+    _sig(handle.ptt_paged_decode_attention, P, P, P, P, P, P, P, P, P,
+         ctypes.c_char_p, F, P)
     _sig(handle.ptt_paged_decode_splits, I, I)
     # kind, q, k, v, dout, lse, delta, out0, out1, lse_out, dims (16
     # int64: B, S, H, D, strides (b, s, h) of q, k, v, dout), dtype, scale,

@@ -16,16 +16,43 @@ a view, and the kernel addresses it by strides — the pool is never copied.
 
 A CUDA input launches ``csrc/paged_decode_attn.cu``; a CPU input computes
 `paged_decode_attention_ref` (gather, f32 masked softmax, PV — the JAX
-package's XLA path).
+package's XLA path). The kernel file has two bodies: the ring body
+(``PAGED_RING``: a CTA per sequence, KV head and token split computes all
+the KV head's query heads, rows streamed by cp.async through per-warp
+rings) for rows of 64-512 bytes on 16-byte boundaries, and the first body
+(``PAGED_SCALAR``) for the rest; `paged_route` decides, and each
+wrapper's ``.routes`` counts launches by body.
 """
 from __future__ import annotations
+
+import struct
 
 import torch
 
 from . import _build
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_ref",
-           "decode_attention", "decode_attention_ref"]
+           "decode_attention", "decode_attention_ref", "paged_route",
+           "PAGED_SCALAR", "PAGED_RING"]
+
+#: the kernel's bodies, as ``ptt_paged_decode_attention``'s routes: the
+#: first (scalar) body and the ring body
+PAGED_SCALAR, PAGED_RING = 0, 1
+_RING_ROW_BYTES = (64, 128, 256, 512)
+
+
+def paged_route(kq, vq):
+    """The body a CUDA call launches on the cache kq / vq (pool views or a
+    contiguous cache, any strides with a unit stride along D): PAGED_RING
+    where a row is 64, 128, 256 or 512 bytes (256 at most for int8: bf16
+    D = 32-256, int8 D = 64-256, f32 D = 16-128) and every row starts on a
+    16-byte boundary (aligned bases, strides whole 16-byte multiples),
+    PAGED_SCALAR otherwise."""
+    elt = kq.element_size()
+    ok = (kq.shape[-1] * elt in _RING_ROW_BYTES[:4 if elt > 1 else 3]
+          and not (kq.data_ptr() % 16 or vq.data_ptr() % 16)
+          and all(st * elt % 16 == 0 for st in kq.stride()[:3]))
+    return PAGED_RING if ok else PAGED_SCALAR
 
 
 def _scales_3d(s):
@@ -146,42 +173,58 @@ def paged_decode_attention(q, kq, ks, vq, vs, tables, pos):
                          paged_decode_attention)
 
 
-def _launch_paged(q, kq, ks, vq, vs, tables, pos, wrapper):
+#: the kernel's split count by (table width, block size), asked once
+_SPLITS = {}
+#: the packed sizes of a launch (`ptt_paged_decode_attention`'s dims)
+_DIMS = struct.Struct("<16q")
+
+
+def _launch_paged(q, kq, ks, vq, vs, tables, pos, wrapper, route=None):
     """One launch of csrc/paged_decode_attn.cu on checked CUDA operands,
-    counted on `wrapper` (none for an empty batch). tables None: sequence
-    b reads block b (a contiguous cache)."""
+    counted on `wrapper` (none for an empty batch) by route (`paged_route`
+    unless one is given). tables None: sequence b reads block b (a
+    contiguous cache); pos an int: every sequence's position."""
     B, _, H, D = q.shape
     Hkv, BS = kq.shape[1], kq.shape[2]
     NB = 1 if tables is None else tables.shape[1]
     sc_strides = ks.stride() if ks is not None else (0, 0, 0)
     q = q.contiguous()
     tables = None if tables is None else tables.contiguous()
-    pos = pos.contiguous()
+    pos_all = pos if isinstance(pos, int) else 0
+    pos = None if isinstance(pos, int) else pos.contiguous()
     out = torch.empty_like(q)
     if B == 0:
         return out
+    if route is None:
+        route = paged_route(kq, vq)
     lib = _build.lib()
-    splits = lib.ptt_paged_decode_splits(NB, BS)
+    splits = _SPLITS.get((NB, BS))
+    if splits is None:
+        splits = _SPLITS[NB, BS] = lib.ptt_paged_decode_splits(NB, BS)
     partial = torch.empty((B, H, splits, D + 2), dtype=torch.float32,
                           device=q.device) if splits > 1 else None
+    dims = _DIMS.pack(B, H, Hkv, D, BS, NB, *kq.stride()[:3], *sc_strides,
+                      _build.dtype_code(q.dtype), _build.dtype_code(kq.dtype),
+                      route, pos_all)
     ctx, stream = _build.launch_on(q.device)
     with ctx:
         err = lib.ptt_paged_decode_attention(
             q.data_ptr(), kq.data_ptr(),
             ks.data_ptr() if ks is not None else None,
             vq.data_ptr(), vs.data_ptr() if vs is not None else None,
-            None if tables is None else tables.data_ptr(), pos.data_ptr(),
-            out.data_ptr(),
-            B, H, Hkv, D, BS, NB, *kq.stride()[:3], *sc_strides,
-            _build.dtype_code(q.dtype), _build.dtype_code(kq.dtype),
-            1.0 / D ** 0.5,
-            partial.data_ptr() if partial is not None else None, stream)
+            None if tables is None else tables.data_ptr(),
+            None if pos is None else pos.data_ptr(), out.data_ptr(),
+            partial.data_ptr() if partial is not None else None, dims,
+            1.0 / D ** 0.5, stream)
     _build.check(err, wrapper.__name__)
     wrapper.launches += 1
+    wrapper.routes[route] += 1
     return out
 
 
 paged_decode_attention.launches = 0
+#: launches of each body (`paged_route`'s codes)
+paged_decode_attention.routes = {PAGED_SCALAR: 0, PAGED_RING: 0}
 
 
 # ---------------------------------------------------------------------------
@@ -195,8 +238,9 @@ paged_decode_attention.launches = 0
 # The reference wires it into no model: only its tests call it. The cache
 # is the paged pool with one block of T rows a sequence, so a CUDA q
 # launches the paged kernel with no table (sequence b reads block b) and
-# pos in every slot (reading stops at pos, where the TPU kernel reads all
-# T rows and masks); a CPU q computes `decode_attention_ref`.
+# pos as one scalar argument for every sequence (reading stops at pos,
+# where the TPU kernel reads all T rows and masks); a CPU q computes
+# `decode_attention_ref`.
 
 
 def _check_dense(q, kq, ks, vq, vs, pos):
@@ -257,9 +301,10 @@ def decode_attention(q, kq, ks, vq, vs, pos):
     ks3, vs3 = ks.reshape(B, Hkv, T), vs.reshape(B, Hkv, T)
     _check_cuda_cache(q, kq, ks3, vq, vs3)
     # the cache is the pool with one block of T rows a sequence, block b
-    # for sequence b (no table)
-    pos = torch.full((B,), pos, dtype=torch.int32, device=q.device)
+    # for sequence b (no table), pos for every sequence
     return _launch_paged(q, kq, ks3, vq, vs3, None, pos, decode_attention)
 
 
 decode_attention.launches = 0
+#: launches of each body (`paged_route`'s codes)
+decode_attention.routes = {PAGED_SCALAR: 0, PAGED_RING: 0}

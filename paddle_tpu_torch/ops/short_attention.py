@@ -14,7 +14,10 @@ Two kernel wrappers over ``csrc/short_attention.cu``, each with a
   (:87, through `_bwd_rule`). One call is two launches, and its counter
   counts both: the dQ kernel, which first forms the row term
   ``D_i = sum_j P Z dP`` and stores it, then the dK/dV kernel, which
-  reads it.
+  reads it. The inputs the forward's Hopper body takes (and S <= 512)
+  run the flash backward's Hopper bodies with the dropout replayed
+  inside, the rest the mma.sync bodies — `short_bwd_route` decides,
+  ``.routes`` counts launches by body.
 
 `short_attention` ties them together in a `torch.autograd.Function`. The
 dropout mask is never stored: it is a pure function of ``(seed, b, h, i,
@@ -41,12 +44,19 @@ from . import _build, _dropout_rng
 __all__ = ["short_attention", "short_attention_fwd", "short_attention_bwd",
            "short_attention_ref", "short_attention_bwd_ref",
            "composed_attention", "supported", "supports_p",
-           "short_fwd_route", "FWD_MMA", "FWD_WGMMA"]
+           "short_fwd_route", "FWD_MMA", "FWD_WGMMA", "short_bwd_route",
+           "BWD_MMA", "BWD_WGMMA"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-_FWD, _DQ, _DKV = 0, 1, 2
+_FWD = 0
 #: the forward's two bodies, as kinds of ``csrc/short_attention.cu``
 FWD_MMA, FWD_WGMMA = _FWD, 3
+#: the backward's two bodies (`short_bwd_route`); the kinds that launch
+#: each body's dQ then dK/dV kernels in one call
+BWD_MMA, BWD_WGMMA = 0, 1
+_BWD_KIND = (6, 7)
+_KIND_NAMES = {0: "short_attention_fwd", 3: "short_attention_fwd",
+               6: "short_attention_bwd", 7: "short_attention_bwd"}
 MAX_S = 512
 MAX_D = 256
 _NEG = -1e30                    # the TPU kernel's causal mask value
@@ -196,10 +206,26 @@ def short_fwd_route(q, k, v):
             *views)
 
 
+def short_bwd_route(q, k, v, do):
+    """How a CUDA call of `short_attention_bwd` launches on q, k, v and
+    dO; the wrapper launches exactly what this returns: (route, ops, ptrs,
+    strides). The route is BWD_WGMMA (the flash backward's Hopper bodies
+    with the keep bits replayed inside and the row term formed by the dQ
+    kernel) where `_build.hopper_plan` admits the four operands (bf16,
+    32 < D <= 128, D % 8 == 0, TMA-describable views) and S <= 512,
+    BWD_MMA (the mma.sync bodies) otherwise: f32, D <= 32, D > 128 and
+    views TMA cannot describe."""
+    hopper, *views = _build.hopper_plan((q, k, v, do), _scale(q))
+    return (BWD_WGMMA if hopper and q.shape[1] <= MAX_S else BWD_MMA,
+            *views)
+
+
 def _launch(kind, q, ptrs, strides, seed, lse, delta, out0, out1, p, causal,
             scale):
-    """One launch on the operands q, k, v (and dout for a backward) whose
-    pointers and strides `_build.attention_views` fetched."""
+    """One call on the operands q, k, v (and dout for a backward) whose
+    pointers and strides `_build.attention_views` fetched: one launch, or
+    the backward's two (kinds 6 and 7: dQ, dK and dV into out0, a
+    [3, B, S, H, D] tensor)."""
     dims = _build.attention_dims(q.shape, strides)
 
     def ptr(t):
@@ -214,8 +240,7 @@ def _launch(kind, q, ptrs, strides, seed, lse, delta, out0, out1, p, causal,
             ptr(out1), dims, _build.dtype_code(q.dtype), scale,
             _dropout_rng.keep_scale(p), _dropout_rng.keep_threshold(p),
             int(p > 0.0), int(bool(causal)), stream)
-    _build.check(err, ("short_attention_fwd", "short_attention_bwd (dq)",
-                       "short_attention_bwd (dkv)")[kind % 3])
+    _build.check(err, _KIND_NAMES.get(kind, f"short attention kind {kind}"))
 
 
 def short_attention_fwd(q, k, v, seed, p=0.0, causal=False):
@@ -254,26 +279,25 @@ def short_attention_bwd(q, k, v, do, lse, seed, p=0.0, causal=False):
                          f"got {tuple(lse.shape)} {lse.dtype} on "
                          f"{lse.device}")
     lse = lse.contiguous()
-    dq, dk, dv = (torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-                  for _ in range(3))
+    grads = torch.empty((3, B, S, H, D), dtype=q.dtype, device=q.device)
     if q.numel() == 0:
-        return dq, dk, dv
+        return grads.unbind(0)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    ops, ptrs, strides = _build.attention_views((q, k, v, do))
-    scale = _scale(q)
-    _launch(_DQ, ops[0], ptrs, strides, seed, lse, delta, dq, None, p,
-            causal, scale)
-    short_attention_bwd.launches += 1
-    _launch(_DKV, ops[0], ptrs, strides, seed, lse, delta, dk, dv, p,
-            causal, scale)
-    short_attention_bwd.launches += 1
-    return dq, dk, dv
+    route, ops, ptrs, strides = short_bwd_route(q, k, v, do)
+    # one call launches dQ (which stores the row term), then dK/dV
+    _launch(_BWD_KIND[route], ops[0], ptrs, strides, seed, lse, delta, grads,
+            None, p, causal, _scale(q))
+    short_attention_bwd.launches += 2
+    short_attention_bwd.routes[route] += 2
+    return grads.unbind(0)
 
 
 short_attention_fwd.launches = 0
 #: launches of each forward body (`short_fwd_route`'s codes)
 short_attention_fwd.routes = {FWD_MMA: 0, FWD_WGMMA: 0}
 short_attention_bwd.launches = 0
+#: launches of each backward body (`short_bwd_route`'s codes; two a call)
+short_attention_bwd.routes = {BWD_MMA: 0, BWD_WGMMA: 0}
 
 
 class _ShortAttention(torch.autograd.Function):

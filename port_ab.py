@@ -14,7 +14,11 @@ clock or power falls on both sides.
 
 Measurements:
 
-* ``decode``: `chip_smoke.py`'s serving run (a) of that tree —
+* ``decode``: first the paged decode kernel alone at
+  `chip_smoke.py`'s row-2 cases (B=8, H=32, D=128, BS=16, positions
+  0..2000; bf16 MHA, int8 MHA, bf16 GQA 4:1): median CUDA-event ms over
+  50 calls and the device time of a call (``_dev_ms``, as for
+  ``flash``); then `chip_smoke.py`'s serving run (a) of that tree —
   llama2_7b at full size, random bf16 weights from seed 0, a bf16 KV
   pool, `DecodeEngine` with buckets 1-8, the smoke's 8 prompts and 32 new
   tokens each, no solo pass — served 3 times on one model after a
@@ -41,7 +45,8 @@ Measurements:
   layer after layer does; median of 7 replays);
 * ``dense_decode``: `decode_attention` at llama2_7b's decode width (B=8,
   H=32, D=128, T=4096; `chip_smoke.py`'s caches) on int8 and bf16 caches
-  at pos 4095 and 2000: median ms over 50 calls;
+  at pos 4095 and 2000, MHA, and at pos 4095 GQA 4:1 (8 KV heads):
+  median ms over 50 calls and the device time of a call (``_dev_ms``);
 * ``sparse``: the block-sparse kernel on `chip_smoke.py`'s BigBird tables
   (seed 0) at [4*12, 4096, 64] and [12, 4096, 128] bf16: median ms over
   50 calls.
@@ -196,13 +201,20 @@ def child_dense_decode(tree):
 
     g = torch.Generator(device="cuda").manual_seed(17)
     res = {"tree": tree, "what": "dense_decode"}
+    H = smoke.DECODE_H
     for cache in ("int8", "bfloat16"):
-        for pos in (smoke.DECODE_T - 1, 2000):
+        for hkv, pos in ((H, smoke.DECODE_T - 1), (H, 2000),
+                         (H // 4, smoke.DECODE_T - 1)):
             q, ((kq, ks), (vq, vs)) = smoke._decode_cache(
-                torch, g, smoke.DECODE_H, smoke.DECODE_H, pos, cache)
+                torch, g, H, hkv, pos, cache)
             q = q.to(torch.bfloat16)
-            res[f"{cache}_pos{pos}_ms"] = _time_ms(
-                torch, lambda: decode_attention(q, kq, ks, vq, vs, pos))
+            name = f"{cache}_hkv{hkv}_pos{pos}"
+
+            def fn():
+                return decode_attention(q, kq, ks, vq, vs, pos)
+            res[f"{name}_ms"] = _time_ms(torch, fn)
+            res[f"{name}_dev_ms"] = _graph_ms(torch, [fn])
+            del q, kq, ks, vq, vs
     return res
 
 
@@ -234,6 +246,26 @@ def child_decode(tree):
 
     smoke = importlib.import_module("chip_smoke")
     from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.decode_attn import paged_decode_attention
+
+    kernel = {}
+    g = torch.Generator(device="cuda").manual_seed(2)
+    pos = [0, 7, 150, 511, 900, 1333, 1700, 2000]
+    for name, H, Hkv, int8 in (("bf16_mha", 32, 32, False),
+                               ("int8_mha", 32, 32, True),
+                               ("bf16_gqa", 32, 8, False)):
+        q, (kp, ksp, vp, vsp), tables, pos_t = smoke._paged_case(
+            torch, g, 8, H, Hkv, 128, 16, pos, int8)
+        args = (q, kp.permute(0, 2, 1, 3),
+                None if ksp is None else ksp.permute(0, 2, 1),
+                vp.permute(0, 2, 1, 3),
+                None if vsp is None else vsp.permute(0, 2, 1), tables, pos_t)
+
+        def fn():
+            return paged_decode_attention(*args)
+        kernel[f"paged_{name}_ms"] = _time_ms(torch, fn)
+        kernel[f"paged_{name}_dev_ms"] = _graph_ms(torch, [fn])
+        del args, q, kp, ksp, vp, vsp
 
     model = gpt("llama2_7b", dtype="bfloat16", device="cuda", seed=0,
                 num_layers=32)
@@ -241,7 +273,7 @@ def child_decode(tree):
     smoke.serve(*args, "warm-up", check_dense=False)
     runs = [smoke.serve(*args, "a: bf16 weights, bf16 KV",
                         check_dense=False) for _ in range(DECODE_SERVES)]
-    return {"tree": tree, "what": "decode",
+    return {"tree": tree, "what": "decode", **kernel,
             "tokens_per_s": [r["tokens_per_s"] for r in runs],
             "ttft_p50_s": [r["ttft_p50_s"] for r in runs],
             "ttft_p95_s": [r["ttft_p95_s"] for r in runs],

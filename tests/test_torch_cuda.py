@@ -13,6 +13,7 @@ machine that has only PyTorch; there, skip the repository's conftest
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 import importlib
+import math
 
 import pytest
 import torch
@@ -1452,3 +1453,351 @@ def test_fused_pair_kernel_matches_plain(cuda, N, H, W, C4, C, dtype):
     assert y2.dtype == dtype and y2.shape == x.shape
     assert (y2.float() - ref.float()).abs().max().item() <= _y_tol(ref)
     assert torch.equal(y2, again)
+
+
+# ----------------------------- short-attention backward on the Hopper bodies
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [128, 136, 512])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_short_attention_hopper_backward_matches_plain(cuda, D, S, causal,
+                                                       p):
+    """The dQ body with its own row term and the dK/dV body with the
+    transposed draw (`sa_dq_sm90`, `sa_dkv_sm90`) on fused-QKV views,
+    against the plain backward on the same lse and seed: each gradient to
+    FLASH_TOL's normwise 1e-3; two launches, both on the Hopper route."""
+    q, k, v, do, seed = _sa_case(2, S, 3, D, torch.bfloat16, seed=S + D + 3)
+    assert tsa.short_bwd_route(q, k, v, do)[0] == tsa.BWD_WGMMA
+    _, lse = tsa.short_attention_fwd(q, k, v, seed, p, causal)
+    before = dict(tsa.short_attention_bwd.routes)
+    grads = tsa.short_attention_bwd(q, k, v, do, lse, seed, p, causal)
+    assert tsa.short_attention_bwd.routes == {
+        **before, tsa.BWD_WGMMA: before[tsa.BWD_WGMMA] + 2}
+    refs = tsa.short_attention_bwd_ref(q, k, v, do, lse, seed, p, causal)
+    for name, got, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert torch.isfinite(got).all(), name
+        assert _norm_err(got, r) <= FLASH_TOL[torch.bfloat16][1], (
+            name, _norm_err(got, r))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S,p", [(128, 0.1), (136, 0.5)])
+def test_short_attention_hopper_backward_replays_the_plain_mask(cuda, D, S,
+                                                                p):
+    """Both backward kernels' keep bits, read out exactly. With q = 0
+    every probability is 1/S. dK/dV: with dO[i, i - c] = 1 for the queries
+    i in [c, c + D), dV[j, d] = Z[c + d, j] / S, nonzero exactly where
+    (c + d, j) is kept (the transposed draw). dQ: with V and dO all e_0
+    (dP = 1) and K[j, j - c] = 1, dQ[i, d] S / scale = Z[i, c + d] - D_i,
+    D_i = mean_j Z[i, j] ~ 1: >= 0 where kept, ~ -1 where dropped (the
+    forward-layout draw and the row term). Both must equal the plain
+    stream's mask bit for bit."""
+    from paddle_tpu_torch.ops import _dropout_rng
+
+    B, H = 2, 3
+    dt = torch.bfloat16
+    seed = torch.tensor([77], device=cuda)
+    want = _dropout_rng.keep_mask(seed, B, H, S, S, p)
+    zero = torch.zeros(B, S, H, D, device=cuda, dtype=dt)
+    lse = torch.full((B, H, S), math.log(S), device=cuda)
+    e0 = torch.zeros(B, S, H, D, device=cuda, dtype=dt)
+    e0[..., 0] = 1
+    kept_t = torch.empty(B, H, S, S, dtype=torch.bool, device=cuda)
+    kept_q = torch.empty(B, H, S, S, dtype=torch.bool, device=cuda)
+    for c in range(0, S, D):
+        w = min(D, S - c)
+        eye = torch.zeros(S, D, device=cuda, dtype=dt)
+        eye[c:c + w, :w] = torch.eye(w, device=cuda, dtype=dt)
+        eye = eye[None, :, None, :].expand(B, S, H, D).contiguous()
+        before = tsa.short_attention_bwd.routes[tsa.BWD_WGMMA]
+        _, _, dv = tsa.short_attention_bwd(zero, zero, zero, eye, lse, seed,
+                                           p)
+        dq, _, _ = tsa.short_attention_bwd(zero, eye, e0, e0, lse, seed, p)
+        assert tsa.short_attention_bwd.routes[tsa.BWD_WGMMA] == before + 4
+        # dv [B, S(keys j), H, D(d)] -> kept[b, h, c + d, j]
+        kept_t[:, :, c:c + w, :] = (dv[..., :w] != 0).permute(0, 2, 3, 1)
+        z = dq[..., :w].float() * S * math.sqrt(D)
+        kept_q[..., c:c + w] = (z > -0.5).permute(0, 2, 1, 3)
+    assert torch.equal(kept_t, want)
+    assert torch.equal(kept_q, want)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S,causal", [(128, False), (136, True),
+                                      (512, False)])
+def test_short_attention_backward_bit_stable_in_a_cuda_graph(cuda, D, S,
+                                                             causal):
+    """64 Hopper backward calls (dQ with its row-term sweep, then dK/dV)
+    back to back in one CUDA graph, replayed 3 times: every call gives the
+    eager call's gradients bit for bit (one owner per output, a fixed
+    order, the keep words of dQ's first sweep reread by its second)."""
+    q, k, v, do, seed = _sa_case(8, S, 12, D, torch.bfloat16, seed=S + 5)
+    _, lse = tsa.short_attention_fwd(q, k, v, seed, 0.1, causal)
+
+    def bwd():
+        return tsa.short_attention_bwd(q, k, v, do, lse, seed, 0.1, causal)
+
+    ref = bwd()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bwd()
+    torch.cuda.current_stream().wait_stream(side)
+    calls = 64
+    before = tsa.short_attention_bwd.routes[tsa.BWD_WGMMA]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [bwd() for _ in range(calls)]
+    assert tsa.short_attention_bwd.routes[tsa.BWD_WGMMA] == before + 2 * calls
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        bad = [i for i, o in enumerate(outs)
+               if not all(torch.equal(a, b) for a, b in zip(o, ref))]
+        assert not bad, f"{len(bad)} of {calls} calls differ"
+
+
+def test_short_attention_hopper_backward_refuses_what_it_does_not_admit(
+        cuda):
+    """Asked for the Hopper backward (kind 7) on f32 operands, or at
+    S > 512 (the dQ body keeps a keep word a 64-key block, 8 at most), the
+    C entry refuses (cudaErrorInvalidValue) instead of running another
+    body."""
+    for S, dtype in ((128, torch.float32), (520, torch.bfloat16)):
+        q, k, v, do, seed = _sa_case(1, S, 2, 64, dtype, seed=4)
+        _, ptrs, strides = _build.attention_views((q, k, v, do))
+        lse = torch.zeros(1, 2, S, device=cuda)
+        grads = torch.empty((3, *q.shape), dtype=dtype, device=cuda)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            tsa._launch(tsa._BWD_KIND[tsa.BWD_WGMMA], q, ptrs, strides, seed,
+                        lse, lse.clone(), grads, None, 0.1, False, 0.125)
+
+
+@pytest.mark.parametrize("kind", [1, 2, 4, 5])
+def test_short_attention_entry_refuses_the_separate_backward_kinds(cuda,
+                                                                    kind):
+    """The C entry takes the forward kinds (0, 3) and the one-call
+    backward kinds (6, 7) only: asked for one backward kernel alone, on
+    operands kind 7 takes, it refuses (cudaErrorInvalidValue)."""
+    q, k, v, do, seed = _sa_case(1, 128, 2, 64, torch.bfloat16, seed=4)
+    _, ptrs, strides = _build.attention_views((q, k, v, do))
+    lse = torch.zeros(1, 2, 128, device=cuda)
+    out = torch.empty_like(q)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tsa._launch(kind, q, ptrs, strides, seed, lse, lse.clone(), out,
+                    out.clone(), 0.1, False, 0.125)
+
+
+# sha256 (first 16 hex digits) of the bf16 dQ, dK and dV bytes of
+# `_flash_bwd_digest`'s cases, recorded on an H100 from the Hopper
+# backward bodies as they stood in flash_attention.cu before they moved to
+# attention_sm90.cuh
+FLASH_BWD_DIGESTS = {
+    (64, 1024, True): "1236fb8f7d06f905",
+    (64, 1024, False): "b2bf620a80b1d8f9",
+    (64, 1000, True): "11223e05a8895f65",
+    (64, 1000, False): "8a2ffb026430b8de",
+    (128, 1024, True): "3a1832f4b01f996e",
+    (128, 1024, False): "7f67401517f27d02",
+    (128, 1000, True): "e6f1a09289a3e691",
+    (128, 1000, False): "8a9e9484f217138f"}
+
+
+def _flash_bwd_digest(D, S, causal):
+    import hashlib
+
+    import numpy as np
+
+    rs = np.random.RandomState(S + D + causal)
+
+    def mk():
+        return torch.from_numpy(rs.standard_normal((2, S, 4, D)).astype(
+            np.float32)).to(torch.bfloat16).cuda()
+
+    q, k, v, do = (mk() for _ in range(4))
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=causal)
+    delta = tfa.attention_delta(out, do)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                         causal=causal)
+    h = hashlib.sha256()
+    for t in (dq, dk, dv):
+        h.update(t.view(torch.int16).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [1024, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_bits_are_the_recorded_ones(cuda, D, S, causal):
+    """The flash backward's Hopper bodies, now shared with the short
+    attention (NoDropout, the caller's delta), give the gradients the
+    bodies gave before the move, bit for bit."""
+    before = dict(tfa.flash_attention_bwd_dq.routes)
+    got = _flash_bwd_digest(D, S, causal)
+    assert tfa.flash_attention_bwd_dq.routes[tfa.BWD_WGMMA] \
+        == before[tfa.BWD_WGMMA] + 1
+    assert got == FLASH_BWD_DIGESTS[(D, S, causal)]
+
+
+# ------------------------------------------------- decode: the ring body
+
+DECODE_CACHE_DTYPES = [torch.float32, torch.bfloat16, torch.float16,
+                       torch.int8]
+
+
+def _ring_pool(cache, B, H, Hkv, D, BS, pos, seed, qdtype=torch.float32):
+    """q and a [N, BS, Hkv, D] pool (garbage in every block, block 0
+    included) in `cache`'s dtype with its scales (int8) as the engine's
+    permuted views, random distinct tables whose tails point at block 0."""
+    q, k, v, tables, pos_t = _paged_case(B, H, Hkv, D, BS,
+                                         max(p // BS + 1 for p in pos),
+                                         sum(p // BS + 1 for p in pos) + 1,
+                                         pos, seed)
+    k, v = k.cuda(), v.cuda()
+    if cache == torch.int8:
+        (k, ks), (v, vs) = _quant_kv(k), _quant_kv(v)
+        ks, vs = ks.permute(0, 2, 1), vs.permute(0, 2, 1)
+    else:
+        k, v = k.to(cache), v.to(cache)
+        ks = vs = None
+    return (q.to(qdtype).cuda(), k.permute(0, 2, 1, 3), ks,
+            v.permute(0, 2, 1, 3), vs, tables.cuda(), pos_t.cuda())
+
+
+@pytest.mark.parametrize("cache", DECODE_CACHE_DTYPES)
+@pytest.mark.parametrize("H,Hkv", [(32, 32), (32, 8)])
+def test_ring_paged_kernel_matches_plain(cuda, cache, H, Hkv):
+    """The ring body (all G query heads of a KV head in one CTA, rows
+    through per-warp cp.async rings, int8 dequantised in registers) on
+    BS = 16 pools against `paged_decode_attention_ref`, MHA and GQA 4:1,
+    at pos 0, at block boundaries (15, 16, 31) and ragged: f32 query,
+    1e-4 (online and split softmax against a two-pass softmax, in f32)."""
+    pos = [0, 15, 16, 31, 700, 2047]
+    args = _ring_pool(cache, len(pos), H, Hkv, 128, 16, pos, seed=H + Hkv)
+    assert td.paged_route(args[1], args[3]) == td.PAGED_RING
+    before = dict(td.paged_decode_attention.routes)
+    got = td.paged_decode_attention(*args)
+    assert td.paged_decode_attention.routes == {
+        **before, td.PAGED_RING: before[td.PAGED_RING] + 1}
+    torch.testing.assert_close(got, td.paged_decode_attention_ref(*args),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("cache", DECODE_CACHE_DTYPES)
+@pytest.mark.parametrize("H,Hkv", [(32, 32), (32, 8)])
+@pytest.mark.parametrize("pos", [0, 15, 16, 2000, 4095])
+def test_ring_dense_kernel_matches_plain(cuda, cache, H, Hkv, pos):
+    """The ring body on a contiguous [B, Hkv, 4096, D] cache (no table,
+    pos one scalar for every sequence) against `decode_attention_ref`:
+    f32 query, 1e-5 abs; keys past pos hold 1e4 and must not count."""
+    from paddle_tpu_torch.ops.decode_attn import (decode_attention,
+                                                  decode_attention_ref)
+
+    g = torch.Generator().manual_seed(pos + H + Hkv)
+    B, D, T = 2, 128, 4096
+    q = torch.randn(B, 1, H, D, generator=g)
+    k = torch.randn(B, Hkv, T, D, generator=g)
+    v = torch.randn(B, Hkv, T, D, generator=g)
+    k[:, :, pos + 1:] = 1e4
+    v[:, :, pos + 1:] = 1e4
+    if cache == torch.int8:
+        (kq, ks), (vq, vs) = _quant_kv(k), _quant_kv(v)
+        ks, vs = ks[..., None], vs[..., None]
+    else:
+        kq, vq = k.to(cache), v.to(cache)
+        ks = vs = torch.ones(B, Hkv, T, 1)
+    args = [t.to(cuda) for t in (q, kq, ks, vq, vs)]
+    before = dict(decode_attention.routes)
+    got = decode_attention(*args, pos)
+    assert decode_attention.routes == {
+        **before, td.PAGED_RING: before[td.PAGED_RING] + 1}
+    ref = decode_attention_ref(*args, pos)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= 1e-5
+    assert got.abs().max().item() < 100.0
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16,
+                                    torch.float16])
+def test_ring_kernel_takes_every_query_dtype(cuda, qdtype):
+    """Query and output in f32, bf16 or f16 over a bf16 pool: the output
+    in the query's dtype, within one rounding of it of the plain
+    version."""
+    args = _ring_pool(torch.bfloat16, 3, 8, 2, 64, 16, [3, 40, 130],
+                      seed=11, qdtype=qdtype)
+    got = td.paged_decode_attention(*args)
+    assert got.dtype == qdtype
+    tol = 1e-4 if qdtype == torch.float32 else 1e-2
+    assert (got.float() - td.paged_decode_attention_ref(*args).float()
+            ).abs().max().item() <= tol
+
+
+def test_ring_kernel_table_changes_no_bit(cuda):
+    """The ring body reading the pool through a staged block table gives
+    the bits it gives on the same rows gathered into a contiguous cache
+    (no table: sequence b reads block b, the same split length); the first
+    body agrees within f32 rounding."""
+    args = _ring_pool(torch.bfloat16, 4, 16, 4, 128, 16, [0, 17, 600, 2047],
+                      seed=5)
+    q, kq, ks, vq, vs, tables, pos = args
+    B, NB = tables.shape
+    Hkv, BS, D = kq.shape[1:]
+
+    def gathered(pool):                  # -> [B, Hkv, NB * BS, D]
+        return pool[tables.long()].transpose(1, 2).reshape(B, Hkv, NB * BS,
+                                                           D)
+
+    staged = td._launch_paged(q, kq, ks, vq, vs, tables, pos,
+                              td.paged_decode_attention, td.PAGED_RING)
+    no_table = td._launch_paged(q, gathered(kq), None, gathered(vq), None,
+                                None, pos, td.paged_decode_attention,
+                                td.PAGED_RING)
+    scalar = td._launch_paged(q, kq, ks, vq, vs, tables, pos,
+                              td.paged_decode_attention, td.PAGED_SCALAR)
+    assert torch.equal(staged, no_table)
+    torch.testing.assert_close(staged, scalar, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("H,Hkv", [(8, 4), (32, 4)])
+def test_ring_kernel_takes_gqa_ratios_other_than_four(cuda, H, Hkv):
+    """At G = H / Hkv = 2 (one query head a CTA) and G = 8 (four a CTA,
+    two CTAs a KV head) the route is the ring body and the result holds
+    against the plain version at the f32 query's 1e-4."""
+    args = _ring_pool(torch.bfloat16, 4, H, Hkv, 128, 16, [0, 16, 700, 2047],
+                      seed=H + Hkv)
+    assert td.paged_route(args[1], args[3]) == td.PAGED_RING
+    before = dict(td.paged_decode_attention.routes)
+    got = td.paged_decode_attention(*args)
+    assert td.paged_decode_attention.routes == {
+        **before, td.PAGED_RING: before[td.PAGED_RING] + 1}
+    torch.testing.assert_close(got, td.paged_decode_attention_ref(*args),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_ring_kernel_row_stable_across_batch_gqa(cuda):
+    """With four query heads a CTA (GQA 4:1) and an int8 pool, a
+    sequence's output bits do not depend on its batchmates."""
+    args = _ring_pool(torch.int8, 4, 16, 4, 128, 16, [5, 700, 1500, 33],
+                      seed=8, qdtype=torch.bfloat16)
+    q, kq, ks, vq, vs, tables, pos = args
+    full = td.paged_decode_attention(*args)
+    one = td.paged_decode_attention(q[2:3], kq, ks, vq, vs, tables[2:3],
+                                    pos[2:3])
+    assert torch.equal(full[2:3], one)
+
+
+def test_ring_kernel_refuses_rows_it_cannot_read(cuda):
+    """Asked for the ring body on 160-byte rows (bf16 D = 80), the C entry
+    refuses (cudaErrorInvalidValue); the route gives the first body, which
+    takes them."""
+    args = _ring_pool(torch.bfloat16, 2, 4, 2, 80, 16, [3, 40], seed=2)
+    q, kq, ks, vq, vs, tables, pos = args
+    assert td.paged_route(kq, vq) == td.PAGED_SCALAR
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        td._launch_paged(q, kq, ks, vq, vs, tables, pos,
+                         td.paged_decode_attention, td.PAGED_RING)
+    torch.testing.assert_close(td.paged_decode_attention(*args),
+                               td.paged_decode_attention_ref(*args),
+                               rtol=1e-4, atol=1e-4)

@@ -205,3 +205,88 @@ def test_dense_decode_attention_refuses_what_jax_refuses():
         td.decode_attention(q2, kv, ones, kv, ones, 3)
     with pytest.raises(ValueError):                 # scales of another shape
         td.decode_attention(q2[:, :1], kv, ones[:, :, :4], kv, ones, 3)
+
+
+def _meta_pool(N, BS, Hkv, D, dtype, offset=0):
+    """The engine's [N, BS, Hkv, D] pool as the kernel layout's view
+    (permuted, no copy), on the meta device: shapes, strides and offsets
+    without memory."""
+    flat = torch.empty(N * BS * Hkv * D + offset, dtype=dtype, device="meta")
+    return flat[offset:].view(N, BS, Hkv, D).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("case,D,dtype,route", [
+    ("llama2_7b bf16", 128, torch.bfloat16, "ring"),
+    ("llama2_7b int8", 128, torch.int8, "ring"),
+    ("gpt_base bf16", 64, torch.bfloat16, "ring"),
+    ("int8 D = 64", 64, torch.int8, "ring"),
+    ("f32 D = 64", 64, torch.float32, "ring"),
+    ("f32 D = 128", 128, torch.float32, "ring"),
+    ("bf16 D = 256", 256, torch.bfloat16, "ring"),
+    ("bf16 D = 80: 160-byte rows", 80, torch.bfloat16, "scalar"),
+    ("bf16 D = 16: 32-byte rows", 16, torch.bfloat16, "scalar"),
+    ("f32 D = 256: 1 KB rows", 256, torch.float32, "scalar"),
+    ("int8 D = 32: 32-byte rows", 32, torch.int8, "scalar"),
+    ("int8 D = 512: 64 lanes of 8 bytes", 512, torch.int8, "scalar"),
+    ("int8 D = 256", 256, torch.int8, "ring"),
+])
+def test_paged_route_predicate_on_row_widths(case, D, dtype, route):
+    """The ring body takes rows of 64, 128, 256 or 512 bytes that 4 to 32
+    lanes read (16 bytes a lane; 8 of an int8 row, so int8 rows stop at
+    256 bytes); the first body the rest."""
+    pool = _meta_pool(9, 16, 4, D, dtype)
+    want = {"ring": td.PAGED_RING, "scalar": td.PAGED_SCALAR}[route]
+    assert td.paged_route(pool, pool) == want, case
+
+
+def test_paged_route_predicate_needs_16_byte_rows():
+    """A base or a stride off 16 bytes keeps the first body; a contiguous
+    [B, Hkv, T, D] cache (the dense decode) takes the ring body."""
+    assert td.paged_route(_meta_pool(9, 16, 4, 128, torch.bfloat16, 4),
+                          _meta_pool(9, 16, 4, 128, torch.bfloat16)) \
+        == td.PAGED_SCALAR
+    odd = torch.empty(9, 16, 4, 136, dtype=torch.bfloat16,
+                      device="meta")[..., :128].permute(0, 2, 1, 3)
+    assert odd.stride(-1) == 1
+    assert td.paged_route(odd, odd) == td.PAGED_RING      # 272-byte rows
+    odd = torch.empty(9, 16, 4, 132, dtype=torch.bfloat16,
+                      device="meta")[..., :128].permute(0, 2, 1, 3)
+    assert td.paged_route(odd, odd) == td.PAGED_SCALAR    # 264-byte rows
+    dense = torch.empty(8, 32, 4096, 128, dtype=torch.int8, device="meta")
+    assert td.paged_route(dense, dense) == td.PAGED_RING
+
+
+def test_route_counts_name_every_body_and_a_cpu_call_counts_none():
+    """Both wrappers count launches by body where the kernel is launched;
+    their plain versions on the CPU launch none."""
+    for w in (td.paged_decode_attention, td.decode_attention):
+        assert set(w.routes) == {td.PAGED_SCALAR, td.PAGED_RING}
+    c = CASES["mha_ragged"]
+    q, kq, vq, tables, pos = _case(**c)
+    before = (dict(td.paged_decode_attention.routes),
+              dict(td.decode_attention.routes))
+    _port(q, kq, None, vq, None, tables, pos)
+    dq, dk, dv = _dense_case(1, 16, 2, 2, 8)
+    ones = torch.ones(1, 2, 16, 1)
+    td.decode_attention(*(torch.from_numpy(a) for a in (dq, dk)), ones,
+                        torch.from_numpy(dv), ones, 5)
+    assert (td.paged_decode_attention.routes,
+            td.decode_attention.routes) == before
+
+
+@pytest.mark.parametrize("form", ["int", "numpy int32", "0-d tensor"])
+def test_dense_decode_attention_takes_pos_as_a_scalar(form):
+    """The dense wrapper reads pos as one scalar for every sequence (an
+    int, a numpy integer or a 0-d tensor: on the card it is passed as a
+    launch argument, with no [B] tensor made); each form gives what the
+    JAX kernel gives at that position."""
+    B, T, H, Hkv, D, pos, _ = DENSE_CASES["float_gqa_last_row"]
+    q, k, v = _dense_case(B, T, H, Hkv, D, seed=4)
+    ones = np.ones(k.shape[:-1] + (1,), np.float32)
+    p = {"int": 11, "numpy int32": np.int32(11),
+         "0-d tensor": torch.tensor(11)}[form]
+    want = np.asarray(jda(*(jnp.asarray(a) for a in (q, k, ones, v, ones)),
+                          11, interpret=True))
+    got = td.decode_attention(*(torch.from_numpy(a)
+                                for a in (q, k, ones, v, ones)), p)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)

@@ -287,3 +287,61 @@ def test_fwd_route_counts_name_both_bodies_and_a_cpu_call_counts_none():
     before = dict(tsa.short_attention_fwd.routes)
     tsa.short_attention_fwd(tq, tk, tv, _seed(3), 0.1)
     assert tsa.short_attention_fwd.routes == before
+
+
+@pytest.mark.parametrize("case,shape,dtype,route", [
+    ("bert_base", (128, 128, 12, 64), torch.bfloat16, "wgmma"),
+    ("S = 512", (16, 512, 12, 64), torch.bfloat16, "wgmma"),
+    ("S = 136", (32, 136, 12, 64), torch.bfloat16, "wgmma"),
+    ("D = 128", (8, 128, 4, 128), torch.bfloat16, "wgmma"),
+    ("D = 40", (32, 128, 12, 40), torch.bfloat16, "wgmma"),
+    ("bert_base f32", (128, 128, 12, 64), torch.float32, "mma"),
+    ("D = 256", (2, 64, 3, 256), torch.bfloat16, "mma"),
+    ("D = 32", (2, 128, 3, 32), torch.bfloat16, "mma"),
+    ("S = 520", (1, 520, 2, 64), torch.bfloat16, "mma"),
+])
+def test_bwd_route_predicate_on_the_slices_shapes(case, shape, dtype, route):
+    """`short_bwd_route` takes the Hopper bodies where the forward's
+    Hopper body is taken (bf16, 32 < D <= 128, TMA-describable views,
+    S <= 512) and the mma.sync bodies elsewhere."""
+    q, k, v = _meta_qkv(*shape, dtype=dtype)
+    do = torch.empty(shape, dtype=dtype, device="meta")
+    want = {"wgmma": tsa.BWD_WGMMA, "mma": tsa.BWD_MMA}[route]
+    assert tsa.short_bwd_route(q, k, v, do)[0] == want, case
+    assert (tsa.short_bwd_route(q, k, v, do)[0] == tsa.BWD_WGMMA) \
+        == (tsa.short_fwd_route(q, k, v)[0] == tsa.FWD_WGMMA), case
+
+
+def test_bwd_route_predicate_refuses_what_tma_cannot_describe():
+    """The route looks at dO as well: a dO off 16 bytes or of another
+    dtype keeps the mma.sync bodies; a dO with a stride along D is
+    launched as a unit-stride copy, which the route returns."""
+    q, k, v = _meta_qkv(2, 128, 4, 64)
+    do = torch.empty(2, 128, 4, 64, dtype=torch.bfloat16, device="meta")
+    assert tsa.short_bwd_route(q, k, v, do)[0] == tsa.BWD_WGMMA
+    base = torch.empty(2 * 128 * 4 * 64 + 4, dtype=torch.bfloat16,
+                       device="meta")
+    assert tsa.short_bwd_route(q, k, v, base[4:].view(2, 128, 4, 64))[0] \
+        == tsa.BWD_MMA
+    assert tsa.short_bwd_route(q, k, v, do.float())[0] == tsa.BWD_MMA
+    strided = torch.empty(2, 128, 4, 128, dtype=torch.bfloat16,
+                          device="meta")[..., ::2]
+    route, ops, _, strides = tsa.short_bwd_route(q, k, v, strided)
+    assert route == tsa.BWD_WGMMA
+    assert ops[3] is not strided and strides[3] == (32768, 256, 64, 1)
+
+
+def test_bwd_route_counts_name_both_bodies_and_a_cpu_call_counts_none():
+    """`short_attention_bwd.routes` counts launches by body (two a call)
+    where the kernels are launched; the plain version on the CPU launches
+    none."""
+    assert set(tsa.short_attention_bwd.routes) == {tsa.BWD_MMA,
+                                                   tsa.BWD_WGMMA}
+    q, k, v, do = _qkv(1, 32, 2, 64, seed=13)
+    tq, tk, tv, tdo = (_t(x).to(torch.bfloat16) for x in (q, k, v, do))
+    before = (dict(tsa.short_attention_bwd.routes),
+              tsa.short_attention_bwd.launches)
+    _, lse = tsa.short_attention_fwd(tq, tk, tv, _seed(3), 0.1)
+    tsa.short_attention_bwd(tq, tk, tv, tdo, lse, _seed(3), 0.1)
+    assert (tsa.short_attention_bwd.routes,
+            tsa.short_attention_bwd.launches) == before
