@@ -204,6 +204,12 @@ FLASH_POS_CASES = (
      True, True),
     ("gpt_base contiguous r0, keys all in its future", 8, 12, 512, 64,
      "bfloat16", 0, 1, False, True, False),
+    # zigzag runs of 192 (S = 768): the middle 128-row tile holds rows
+    # that see no key of the visiting shard beside rows that see them all
+    ("gpt_base-width r0 visiting, runs of 192", 8, 12, 384, 64, "bfloat16",
+     0, 1, True, True, False),
+    ("llama2_7b-width r0 visiting, runs of 192", 1, 32, 384, 128,
+     "bfloat16", 0, 1, True, True, False),
     ("gpt_base r0 visiting", 8, 12, 512, 64, "float32", 0, 1, True, True,
      False),
     ("gpt_base r0 visiting", 8, 12, 512, 64, "bfloat16", 0, 1, True, False,
@@ -1097,7 +1103,8 @@ def serve(torch, np, model, quant, lens, new_tokens, label, check_dense):
     from paddle_tpu_torch.ops.weight_only import row_gemv, weight_only_matmul
 
     prompts = _prompts(np, model.cfg.vocab_size, lens)
-    eng = DecodeEngine(model, max_length=1024, block_size=16,
+    max_length = 4096 if model.cfg.num_layers <= 2 else 1024
+    eng = DecodeEngine(model, max_length=max_length, block_size=16,
                        decode_buckets=(1, 2, 4, 8), prefill_chunk=256,
                        quant=quant, default_timeout=600.0,
                        device=model.device)
@@ -1197,16 +1204,20 @@ def dense_check(torch, np, model, prompt, first_token, eng_logits):
 def profile_decode(torch, np, model, quant, label, steps=12, pool=None):
     """Where a decode step's time goes: 8 sequences of 300 prompt tokens
     are prefilled, then `steps` batched decode steps run under
-    torch.profiler. Reports the host-clock step time, the device-busy time
-    per step (the sum of kernel times; the rest is the GPU idling on the
-    eager host loop) and the kernel time by family. With an adapter
+    torch.profiler. The sequences may grow to max_length 1024 (4096 for a
+    model of 2 layers or fewer, `--quick`'s, whose steps are fast enough
+    to finish 700 tokens while the profiler starts). Reports the
+    host-clock step time, the device-busy time per step (the sum of
+    kernel times; the rest is the GPU idling on the eager host loop) and
+    the kernel time by family. With an adapter
     `pool`, the sequences go round-robin over {none, a1..a6} and the odd
     ones are sampled, as in run (d)."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.inference import DecodeEngine, SamplingParams
 
-    eng = DecodeEngine(model, max_length=1024, block_size=16,
+    max_length = 4096 if model.cfg.num_layers <= 2 else 1024
+    eng = DecodeEngine(model, max_length=max_length, block_size=16,
                        decode_buckets=(1, 2, 4, 8), prefill_chunk=256,
                        quant=quant, default_timeout=600.0, adapters=pool,
                        device=model.device)
@@ -1218,10 +1229,11 @@ def profile_decode(torch, np, model, quant, label, steps=12, pool=None):
                 "sampling": SamplingParams(**SAMPLED, seed=1000 + i)
                 if i % 2 else None}
 
-    # enough new tokens that no sequence finishes before the window ends:
-    # the engine's thread decodes on while the profiler starts (seconds on
-    # some hosts); the rest is cancelled after it
-    streams = [eng.submit(p, 20 * steps + 16, **opts(i)) for i, p in
+    # as many new tokens as max_length allows, so that no sequence
+    # finishes before the window ends: the engine's thread decodes on
+    # while the profiler starts (seconds on some hosts); the rest is
+    # cancelled after it
+    streams = [eng.submit(p, max_length - 300, **opts(i)) for i, p in
                enumerate(_prompts(np, model.cfg.vocab_size, (300,) * 8))]
     for st in streams:
         next(iter(st))                      # every prompt is prefilled
@@ -2427,9 +2439,9 @@ def profile_resnet(torch, np, route, seed, steps=3):
 
 def resnet_phase(torch, np, args):
     """Phase 6: throughput on both routes, parity, and a profile child per
-    route."""
-    steps = 5 if args.quick else 20
-    run = {"throughput": resnet_throughput(torch, np, steps, args.seed),
+    route. 20 steps on each route, `--quick` too: the loss gate was set
+    for 20 (five steps at lr 0.1 do not lower the loss)."""
+    run = {"throughput": resnet_throughput(torch, np, 20, args.seed),
            "parity": resnet_parity(torch, np, args.seed)}
     run["profile"] = {r: run_child("--profile-resnet", 0, args.seed,
                                    args.report, "--route", r)
@@ -2491,17 +2503,30 @@ def _cp_mod():
         "paddle_tpu_torch.distributed.context_parallel")
 
 
-def flash_pos_counts():
+def _pos_wrappers():
     fa = _flash_mod()
-    return {"flash_fwd_pos": fa.flash_fwd_pos.launches,
-            "flash_dq_pos": fa.flash_bwd_pos_dq.launches,
-            "flash_dkv_pos": fa.flash_bwd_pos_dkv.launches}
+    return {"flash_fwd_pos": fa.flash_fwd_pos,
+            "flash_dq_pos": fa.flash_bwd_pos_dq,
+            "flash_dkv_pos": fa.flash_bwd_pos_dkv}
+
+
+def flash_pos_counts():
+    return {n: w.launches for n, w in _pos_wrappers().items()}
+
+
+def flash_pos_route_counts():
+    """Launches by route name of the three ring-step wrappers since their
+    counts were set to 0 (`flash_pos_route`'s codes)."""
+    return {n: {(FLASH_ROUTE_NAMES if n == "flash_fwd_pos"
+                 else FLASH_BWD_ROUTE_NAMES)[r]: c
+                for r, c in w.routes.items()}
+            for n, w in _pos_wrappers().items()}
 
 
 def reset_flash_pos_counts():
-    fa = _flash_mod()
-    for w in (fa.flash_fwd_pos, fa.flash_bwd_pos_dq, fa.flash_bwd_pos_dkv):
+    for w in _pos_wrappers().values():
         w.launches = 0
+        zero_routes(w)
 
 
 def _errs(torch, got, ref):
@@ -2517,6 +2542,16 @@ def _errs(torch, got, ref):
     return abs_err, ((g - r).norm() / rn).item()
 
 
+def _pos_fwd_errs(torch, out, lse, ref, lse_ref, seen):
+    """The forward's errors on the rows that see a key, and whether every
+    row that sees none came out O == 0 exactly with lse <= -1e29."""
+    err = {"fwd": _errs(torch, out[:, seen], ref[:, seen])[0],
+           "lse": _errs(torch, lse[..., seen], lse_ref[..., seen])[0]}
+    masked_ok = bool((out[:, ~seen] == 0).all()) and bool(
+        (lse[..., ~seen] <= -1e29).all())
+    return err, masked_ok
+
+
 def check_flash_pos(torch, iters):
     """flash_fwd_pos, flash_dq_pos and flash_dkv_pos against their plain
     versions on the same inputs (the backward kernels on the plain
@@ -2525,14 +2560,20 @@ def check_flash_pos(torch, iters):
     shard, a contiguous shard whose keys all lie in its future, f32 and
     no mask. Tolerances are the flash kernels' (FLASH_TOL; the lse of a
     row that sees a key 1e-2 / 1e-4, as phase 2's flash rows); a row that
-    sees no key must come out O == 0 exactly with lse <= -1e29. The timed
-    cases record kernel, plain and library times (SDPA with the boolean
-    position mask, forward and backward) and the bound of the pairs the
-    mask keeps."""
+    sees no key must come out O == 0 exactly with lse <= -1e29. Each case
+    names the forward's and the backward's route (the wrappers' route
+    counts); the bf16 cases must take the Hopper bodies, and each causal
+    case on them is replayed in a CUDA graph (`graph_mismatches`),
+    forward and backward. A planted fault must fail the forward's gate on
+    each timed case: the Hopper forward handed k_pos shifted by one key
+    block. The timed cases record kernel, plain and library times (SDPA
+    with the boolean position mask, forward and backward), device times
+    and the bound of the pairs the mask keeps."""
     import torch.nn.functional as F
 
     fa, cpm = _flash_mod(), _cp_mod()
     g = torch.Generator(device="cuda").manual_seed(6)
+    hopper = FLASH_ROUTE_NAMES[3]
     rows = []
     for label, B, H, s, D, dt, rq, rk, zigzag, causal, timed in \
             FLASH_POS_CASES:
@@ -2541,50 +2582,90 @@ def check_flash_pos(torch, iters):
         kp = cpm._local_positions(rk, CP_WORLD, s, zigzag, "cuda")
         q, k, v, do = (torch.randn(B, s, H, D, device="cuda",
                                    generator=g).to(dtype) for _ in range(4))
+        reset_flash_pos_counts()
         out, lse = fa.flash_fwd_pos(q, k, v, qp, kp, causal=causal)
+        route = launched_route(fa.flash_fwd_pos, FLASH_ROUTE_NAMES)
         ref, lse_ref = fa.flash_fwd_pos_ref(q, k, v, qp, kp, causal=causal)
         keep = qp[:, None].long() >= kp[None, :].long()
         seen = keep.any(1) if causal else torch.ones_like(keep[:, 0])
         delta = fa.attention_delta(ref, do)
         bwd = (q, k, v, do, lse_ref, delta, qp, kp)
         got = fa.flash_bwd_pos(*bwd, causal=causal)
+        bwd_route = launched_route(fa.flash_bwd_pos_dq, FLASH_BWD_ROUTE_NAMES)
+        if launched_route(fa.flash_bwd_pos_dkv,
+                          FLASH_BWD_ROUTE_NAMES) != bwd_route:
+            raise AssertionError(f"flash pos dq and dkv took different "
+                                 f"routes: {fa.flash_bwd_pos_dkv.routes}")
         refs = fa.flash_bwd_pos_ref(*bwd, causal=causal)
         torch.cuda.synchronize()
         o_tol, grad_tol = FLASH_TOL[dt]
         lse_tol = 1e-2 if dt == "bfloat16" else 1e-4
-        err = {"fwd": _errs(torch, out[:, seen], ref[:, seen])[0],
-               "lse": _errs(torch, lse[..., seen], lse_ref[..., seen])[0]}
+        err, masked_ok = _pos_fwd_errs(torch, out, lse, ref, lse_ref, seen)
         rel = {}
         for name, pairs in (("dq", ((got[0], refs[0]),)),
                             ("dkv", ((got[1], refs[1]), (got[2], refs[2])))):
             e = [_errs(torch, a, b) for a, b in pairs]
             err[name], rel[name] = max(x[0] for x in e), max(x[1] for x in e)
-        masked_ok = bool((out[:, ~seen] == 0).all()) and bool(
-            (lse[..., ~seen] <= -1e29).all())
         finite = all(bool(torch.isfinite(t).all()) for t in (out, lse, *got))
         kept = int(keep.sum()) if causal else s * s
         case = (f"{label} {dt} {'causal' if causal else 'full'} B={B} "
                 f"s={s} H={H} D={D}")
-        row = dict(case=case, dtype=dt, max_abs_err=err,
-                   grad_norm_rel_err=rel, o_tol=o_tol, lse_tol=lse_tol,
-                   grad_tol=grad_tol, rows_seeing_no_key=int((~seen).sum()),
+        row = dict(case=case, dtype=dt, route=route, bwd_route=bwd_route,
+                   max_abs_err=err, grad_norm_rel_err=rel, o_tol=o_tol,
+                   lse_tol=lse_tol, grad_tol=grad_tol,
+                   rows_seeing_no_key=int((~seen).sum()),
                    kept_pair_share=kept / (s * s))
         if not (finite and masked_ok and err["fwd"] <= o_tol
                 and err["lse"] <= lse_tol
                 and rel["dq"] <= grad_tol and rel["dkv"] <= grad_tol):
             raise AssertionError(
-                f"flash pos {case}: errors {err}, normwise gradient "
-                f"errors {rel}, tolerances {o_tol} / {lse_tol} / "
-                f"{grad_tol}, "
-                f"finite={finite}, masked rows O=0/lse<=-1e29: {masked_ok}")
+                f"flash pos {case} [{route} / {bwd_route}]: errors {err}, "
+                f"normwise gradient errors {rel}, tolerances {o_tol} / "
+                f"{lse_tol} / {grad_tol}, finite={finite}, masked rows "
+                f"O=0/lse<=-1e29: {masked_ok}")
+        if dt == "bfloat16" and (route, bwd_route) != (hopper, hopper):
+            raise AssertionError(f"flash pos {case}: forward on {route}, "
+                                 f"backward on {bwd_route}; expected the "
+                                 f"Hopper bodies")
+        if route == hopper and causal:
+            row["graph_launches"], row["graph_mismatches"] = \
+                graph_mismatches(torch, lambda: fa.flash_fwd_pos(
+                    q, k, v, qp, kp), (out, lse))
+            row["bwd_graph_launches"], row["bwd_graph_mismatches"] = \
+                graph_mismatches(torch, lambda: fa.flash_bwd_pos(*bwd),
+                                 got)
+            if row["graph_mismatches"] or row["bwd_graph_mismatches"]:
+                raise AssertionError(
+                    f"flash pos {case}: {row['graph_mismatches']} of "
+                    f"{row['graph_launches']} forwards and "
+                    f"{row['bwd_graph_mismatches']} of "
+                    f"{row['bwd_graph_launches']} backward calls in a CUDA "
+                    f"graph differ from the eager launches")
+        if timed and route == hopper:
+            # the planted fault: k_pos shifted by one key block
+            block = 64 if D <= 64 else 128
+            zero_routes(fa.flash_fwd_pos)
+            bad, bad_lse = fa.flash_fwd_pos(q, k, v, qp, kp + block)
+            if launched_route(fa.flash_fwd_pos, FLASH_ROUTE_NAMES) != hopper:
+                raise AssertionError(f"flash pos {case}: the fault's "
+                                     f"forward left the Hopper body")
+            bad_err, bad_masked = _pos_fwd_errs(torch, bad, bad_lse, ref,
+                                                lse_ref, seen)
+            row["fault_k_pos_shifted_err"] = bad_err
+            if (bad_masked and bad_err["fwd"] <= o_tol
+                    and bad_err["lse"] <= lse_tol):
+                raise AssertionError(f"flash pos {case}: the planted fault "
+                                     f"(k_pos shifted by {block}) passed the "
+                                     f"gate: {bad_err}")
+            del bad, bad_lse
         del ref, refs, got, out
         if timed:
             row.update(_time_flash_pos(torch, F, fa, q, k, v, do, lse_ref,
                                        delta, qp, kp, keep, kept, causal,
                                        iters))
         rows.append(row)
-        log(f"  flash pos {case}: err {err} normwise {rel} kept "
-            f"{row['kept_pair_share']:.3f}"
+        log(f"  flash pos {case} [forward: {route}; backward: {bwd_route}]: "
+            f"err {err} normwise {rel} kept {row['kept_pair_share']:.3f}"
             + ("".join(f" {n} {t:.4f} ms" for n, t in row.items()
                        if n.endswith("_ms")) if timed else ""))
         del q, k, v, do, lse, lse_ref, delta
@@ -2624,14 +2705,35 @@ def _time_flash_pos(torch, F, fa, q, k, v, do, lse, delta, qp, kp, keep,
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     mask = keep if causal else None
-    res["fwd_library_ms"] = time_ms(
-        torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                      attn_mask=mask),
-        iters)
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    lib = {"fwd": lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         attn_mask=mask)}
+    res["fwd_library_ms"] = time_ms(torch, lib["fwd"], iters)
+    lib_out = lib["fwd"]()
     dot = do.transpose(1, 2)
-    res["bwd_library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
-        lib_out, (qt, kt, vt), dot, retain_graph=True), iters)
+    lib["bwd"] = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                             retain_graph=True)
+    res["bwd_library_ms"] = time_ms(torch, lib["bwd"], iters)
+    # device times, host work left out: calls in one CUDA graph, the
+    # kernels' and SDPA's alike. SDPA's backward is captured with its
+    # forward, on leaves of its own (autograd runs a backward on its
+    # forward's stream and accumulates on the leaves' first one, which a
+    # capture cannot join), and its device time is the pair's less the
+    # forward's.
+    qg, kg, vg = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+
+    def lib_pair():
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+        return torch.autograd.grad(out, (qg, kg, vg), dot)
+
+    for part, fn in (
+            ("fwd", lambda: fa.flash_fwd_pos(q, k, v, qp, kp, **kw)),
+            ("dq", lambda: fa.flash_bwd_pos_dq(*bwd, **kw)),
+            ("dkv", lambda: fa.flash_bwd_pos_dkv(*bwd, **kw)),
+            ("fwd_library", lib["fwd"]), ("fwd_bwd_library", lib_pair)):
+        res[f"{part}_dev_ms"] = time_graph_ms(torch, [fn], calls=16, reps=5)
+    res["bwd_library_dev_ms"] = (res["fwd_bwd_library_dev_ms"]
+                                 - res["fwd_library_dev_ms"])
     for name, nbytes, flops in (
             ("fwd", 4 * tensor + rows_f32, fwd_flops),
             ("dq", 5 * tensor + 2 * rows_f32, 1.5 * fwd_flops),
@@ -2867,6 +2969,7 @@ def cp_rank(torch, args):
         "mfu_one_card": tokens / wall * fpt / BF16_FLOPS,
         "losses": losses, "grad_norms": norms,
         "launches": {**flash_pos_counts(), **flash_counts()},
+        "routes": flash_pos_route_counts(),
         "exchange_per_step": {k: {"bytes": v["bytes"] / steps,
                                   "ms": v["ms"] / steps,
                                   "calls": v["calls"] / steps}
@@ -2983,10 +3086,12 @@ def cp_phase(torch, args):
            "launches_per_rank_per_step": [
                {k: v / steps for k, v in x["throughput"]["launches"].items()}
                for x in ranks],
+           "routes_per_rank": [x["throughput"]["routes"] for x in ranks],
            "exchange_per_step": [x["throughput"]["exchange_per_step"]
                                  for x in ranks]}
     log(f"  cp {json.dumps({k: v for k, v in run.items() if k != 'ranks'})}")
     per_step = 2 * 12          # 12 layers, n = 2 ring steps
+    hopper = FLASH_ROUTE_NAMES[3]
     for x in ranks:
         launches = x["throughput"]["launches"]
         want = {k: per_step * steps if k.endswith("_pos") else 0
@@ -2994,6 +3099,13 @@ def cp_phase(torch, args):
         if launches != want:
             raise AssertionError(f"cp rank {x['rank']}: launches "
                                  f"{launches}, expected {want}")
+        # every ring-step launch on the Hopper bodies (bf16, D = 64)
+        for name, routes in x["throughput"]["routes"].items():
+            if {r: c for r, c in routes.items() if c} != {
+                    hopper: per_step * steps}:
+                raise AssertionError(f"cp rank {x['rank']}: {name} "
+                                     f"launches by route {routes}, expected "
+                                     f"all {per_step * steps} on {hopper}")
         losses = x["throughput"]["losses"] + x["throughput"]["grad_norms"]
         if not all(math.isfinite(v) for v in losses) or not (
                 x["throughput"]["losses"][-1] < x["throughput"]["losses"][0]):
@@ -3961,7 +4073,9 @@ def main_route_rows(wo_rows, fa_rows):
 def cp_kernel_rows(fp_rows, cp_run):
     """The ring-step kernels' entries of the kernels line: the mean of the
     four gpt_base ring steps of phase 2 (ranks 0 and 1, own and visiting
-    shard), launches summed over both ranks of phase 7's timed steps."""
+    shard), launches summed over both ranks of phase 7's timed steps, the
+    body the checked calls took (`path`) and phase 7's launches by body
+    (`routes`, both ranks)."""
     main = fp_rows[:4]
 
     def mean(key):
@@ -3971,6 +4085,10 @@ def cp_kernel_rows(fp_rows, cp_run):
     for name, part, line in (("flash_fwd_pos", "fwd", 411),
                              ("flash_dq_pos", "dq", 499),
                              ("flash_dkv_pos", "dkv", 531)):
+        routes = {}
+        for x in cp_run["ranks"]:
+            for r, c in x["throughput"]["routes"][name].items():
+                routes[r] = routes.get(r, 0) + c
         out.append(dict(
             name=name, route="cuda",
             source="paddle_tpu_torch/csrc/flash_attention.cu",
@@ -3982,13 +4100,20 @@ def cp_kernel_rows(fp_rows, cp_run):
             bound_ms=mean(f"{part}_bound_ms"),
             bound_by=main[0][f"{part}_bound_by"],
             library_ms=mean("fwd_library_ms") if part == "fwd" else None,
+            device_ms=mean(f"{part}_dev_ms"),
+            library_device_ms=(mean("fwd_library_dev_ms") if part == "fwd"
+                               else None),
+            path=main[0]["route" if part == "fwd" else "bwd_route"],
+            routes=routes,
             launches_per_rank_per_step=cp_run["launches_per_rank_per_step"][
                 0][name],
             case="gpt_base cp=2 ring step (B=8, s=512, H=12, D=64, bf16, "
                  "zigzag), mean of ranks 0-1 x own / visiting shard",
             **({} if part == "fwd" else dict(
                 pair_ms=mean("dq_ms") + mean("dkv_ms"),
+                pair_device_ms=mean("dq_dev_ms") + mean("dkv_dev_ms"),
                 pair_library_ms=mean("bwd_library_ms"),
+                pair_library_device_ms=mean("bwd_library_dev_ms"),
                 pair_bound_ms=mean("bwd_bound_ms")))))
     return out
 

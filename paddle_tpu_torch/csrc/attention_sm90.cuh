@@ -55,7 +55,39 @@
 //                           + 8n + 2t + (e & 1); the bit of a (b, h, query,
 //                           key) is the one draw gives it;
 //   keep_scale()            1 / (1 - p).
+//
+// The mask policy (template parameter MP, after DROP) says what the causal
+// mask compares. IndexMask: the rows' and columns' indices, row >= col
+// (the whole-sequence bodies). PosMask: one ring step of context
+// parallelism (`flash_fwd_pos_sm90`, `flash_dq_pos_sm90`,
+// `flash_dkv_pos_sm90`), int32 global positions, q_pos[row] >= k_pos[col],
+// always causal (a ring step without the mask runs the IndexMask body
+// with causal off), queries and keys of one length. A zigzag shard's
+// positions are two runs, and a 128-row tile may straddle both, so no
+// index shortcut holds: the producer warp classifies each (tile, block)
+// pair from position bounds and streams only the blocks some row of the
+// tile sees (max q_pos >= min k_pos), having counted them first, and
+// decides per (consumer warpgroup, block) from the bounds of the
+// warpgroup's 64 rows and the block's: skip (max q_pos < min k_pos:
+// waited for and released unread, as the causal skip), whole (min q_pos
+// >= max k_pos: the MASK = false path, no compare) or mask per entry
+// with the positions from shared memory (past S: INT_MIN for a query,
+// INT_MAX for a key, which no compare passes). It publishes, beside the
+// tile's resident operand, the tile's record (that count, every row's
+// position) on the resident barrier, and beside each stage the block's
+// (its index, the two modes, every position) on the stage's full
+// barrier, which then takes one more arrival, after the lanes' stores.
+// Consumers read the decisions there and compute none. The pairing of
+// `Units` still balances a zigzag shard:
+// the own shard's work grows with the tile index as the causal mask's
+// does (a diagonal tile pairs with a full one), and the visiting shard's
+// tiles see all keys or none by run (a tile that sees nothing pairs with
+// one that sees everything). A forward row that sees no key keeps l = 0
+// and is written O = 0, lse = -1e30 + log(1e-30) (the TPU kernel's l_safe;
+// its m would otherwise be the log2-domain max of masked scores).
 #pragma once
+
+#include <climits>
 
 #include <algorithm>
 #include <type_traits>
@@ -81,7 +113,128 @@ struct FwdArgs {
   int causal;
 };
 
-template <int DP>
+// the mask policies (see the note above)
+struct IndexMask {
+  static constexpr bool kOn = false;
+};
+struct PosMask {
+  static constexpr bool kOn = true;
+  const int* qpos;   // [S] int32 global positions of the queries
+  const int* kpos;   // [S] of the keys
+};
+
+// a record the producer publishes under PosMask: a tile's (N = its
+// resident rows; n the blocks streamed for it) or a block's (N = its rows;
+// n its index, mode[w] what consumer warpgroup w does with it), with the
+// rows' positions
+template <int N>
+struct PosRec {
+  int n;
+  int mode[2];
+  int pos[N];
+};
+
+// what a consumer warpgroup does with a block: skip it (no query of its
+// rows sees a key of the pair: waited for and released unread), take it
+// whole (every query sees every key: the MASK = false path) or mask it
+// per entry
+enum PosMode { kSkip = 0, kWhole = 1, kMask = 2 };
+
+// the mode of a (query group, key group) pair from their [min, max]
+// positions (an empty group: lo = INT_MAX, hi = INT_MIN); ragged: one of
+// them runs past S, so it is masked at least
+__device__ __forceinline__ int pos_mode(int qlo, int qhi, int klo, int khi,
+                                        bool ragged) {
+  return qhi < klo ? kSkip : !ragged && qlo >= khi ? kWhole : kMask;
+}
+
+// N (64 or 128) positions [start, start + N) of one warp, N / 32 a lane
+// (entry lane + 32 i; at or past S `past` stands in), and, once bounds()
+// has run, the [min, max] of each 64-entry group's valid ones (an empty
+// group: lo = INT_MAX, hi = INT_MIN). load() only issues the loads, so
+// that the producer can wait on a barrier while they are in flight.
+template <int N>
+struct LanePos {
+  static constexpr int G = N / 64;
+  int v[N / 32];
+  int lo[G], hi[G];
+  __device__ __forceinline__ void load(const int* pos, int start, int S,
+                                       int past) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int i = 0; i < N / 32; ++i) {
+      const int x = start + lane + 32 * i;
+      v[i] = x < S ? pos[x] : past;
+    }
+  }
+  __device__ __forceinline__ void bounds(int start, int S) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      lo[g] = INT_MAX;
+      hi[g] = INT_MIN;
+    }
+#pragma unroll
+    for (int i = 0; i < N / 32; ++i)
+      if (start + lane + 32 * i < S) {
+        lo[i / 2] = min(lo[i / 2], v[i]);
+        hi[i / 2] = max(hi[i / 2], v[i]);
+      }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      lo[g] = __reduce_min_sync(0xffffffffu, lo[g]);
+      hi[g] = __reduce_max_sync(0xffffffffu, hi[g]);
+    }
+  }
+  __device__ __forceinline__ int min_all() const {
+    return G == 1 ? lo[0] : min(lo[0], lo[G - 1]);
+  }
+  __device__ __forceinline__ int max_all() const {
+    return G == 1 ? hi[0] : max(hi[0], hi[G - 1]);
+  }
+  // the positions into `r`, n into r.n (lane 0) and, for a block, the
+  // consumer warpgroups' modes
+  __device__ __forceinline__ void publish(PosRec<N>& r, int n, int mode0 = 0,
+                                          int mode1 = 0) const {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int i = 0; i < N / 32; ++i) r.pos[lane + 32 * i] = v[i];
+    if (lane == 0) {
+      r.n = n;
+      r.mode[0] = mode0;
+      r.mode[1] = mode1;
+    }
+  }
+};
+
+// Which of the 32 blocks j0 .. j0 + 31 of N positions each (S in all)
+// meet a tile: as keys (KEYS), the blocks holding a position at most
+// `bound` (the tile's largest query position); as queries, at least
+// `bound` (the tile's smallest key position). Bit l for block j0 + l, the
+// same in every lane. One warp reads the positions coalesced, 16 loads in
+// flight a lane; the producer counts a tile's blocks and streams them by
+// the same masks, so the two agree.
+template <int N, bool KEYS>
+__device__ __forceinline__ uint32_t meet_mask(const int* pos, int S, int j0,
+                                              int bound) {
+  const int start = j0 * N, end = min(S, start + 32 * N);
+  uint32_t m = 0;
+#pragma unroll 16
+  for (int x = start + (threadIdx.x & 31); x < end; x += 32) {
+    const int v = pos[x];
+    if (KEYS ? v <= bound : v >= bound) m |= 1u << ((x - start) / N);
+  }
+  return __reduce_or_sync(0xffffffffu, m);
+}
+
+// the lanes' stores of a record before lane 0's arrival on its barrier
+__device__ __forceinline__ void publish_arrive(uint64_t* bar) {
+  __threadfence_block();
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+template <int DP, bool POS = false>
 struct HopCfg {
   static constexpr int NSUB = DP / 64;          // 64-column sub-tiles
   static constexpr int NWG = 2;                 // consumer warpgroups
@@ -94,8 +247,12 @@ struct HopCfg {
   static constexpr int kQ = NSUB * kQSub;       // one Q buffer
   static constexpr int kSub = BK * 128;         // one [BK][64] sub-tile
   static constexpr int kKV = NSUB * kSub;       // one K or V block
+  // PosMask: the [2] tiles' and [STAGES] blocks' records, after the
+  // barriers
+  static constexpr int kPos =
+      POS ? 2 * sizeof(PosRec<ROWS>) + STAGES * sizeof(PosRec<BK>) : 0;
   static constexpr size_t smem = 1024 + 2 * kQ + 2 * STAGES * kKV +
-                                 (4 + 4 * STAGES) * sizeof(uint64_t);
+                                 (4 + 4 * STAGES) * sizeof(uint64_t) + kPos;
 };
 
 // The work of a persistent grid: units of one or two 128-row tiles of one
@@ -132,21 +289,35 @@ __device__ __forceinline__ float fast_exp2(float x) {
 // l, and the factor c that rescales O: p = 2^(s * sl2 - m), one FFMA and
 // one ex2 an entry (sl2 = scale * log2(e) > 0, so the max is taken on the
 // raw scores). MASK: the block crosses the causal diagonal or the end of
-// the keys; a masked entry is selected to 0 after the exp.
-template <int BK, bool MASK>
+// the keys; a masked entry is selected to 0 after the exp. Under PosMask
+// (POS) the compare is qrow[0 or 8] >= kcol[column in the block]: the
+// positions of the thread's rows and of the block's keys in shared memory.
+template <int BK, bool MASK, bool POS = false>
 __device__ __forceinline__ void hop_softmax(float (&s)[BK / 2],
                                             float (&m)[2], float (&l)[2],
                                             float (&c)[2], const FwdArgs& a,
-                                            int k0, int row_lo, float sl2) {
+                                            int k0, int row_lo, float sl2,
+                                            const int* qrow = nullptr,
+                                            const int* kcol = nullptr) {
   constexpr int NC = BK / 8;            // n8 chunks
   const int t = threadIdx.x & 3;
   float mx[2] = {kNegInf, kNegInf};
   uint64_t keep = ~0ull;
+  [[maybe_unused]] int qv[2];
+  if constexpr (POS && MASK) {
+    qv[0] = qrow[0];
+    qv[1] = qrow[8];
+  }
 #pragma unroll
   for (int i = 0; i < NC; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      if (MASK) {
+      if constexpr (POS && MASK) {
+        if (!(qv[e >> 1] >= kcol[8 * i + 2 * t + (e & 1)])) {
+          keep &= ~(1ull << (4 * i + e));
+          s[4 * i + e] = kNegInf;
+        }
+      } else if (MASK) {
         const int col = k0 + 8 * i + 2 * t + (e & 1);
         const int row = row_lo + (e < 2 ? 0 : 8);
         if (!(col < a.S && (!a.causal || row >= col))) {
@@ -202,13 +373,14 @@ struct NoDropout {
   __device__ float keep_scale() const { return 1.f; }
 };
 
-template <int DP, class DROP>
+template <int DP, class DROP, class MP = IndexMask>
 __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tq,
                                               const CUtensorMap& tk,
                                               const CUtensorMap& tv,
                                               const FwdArgs& a,
-                                              const Units& units, DROP drop) {
-  using C = HopCfg<DP>;
+                                              const Units& units, DROP drop,
+                                              MP mp = {}) {
+  using C = HopCfg<DP, MP::kOn>;
   constexpr int NS = C::STAGES, BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1024(smem_raw);    // [2] buffers
@@ -220,15 +392,22 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tq,
   uint64_t* v_full = k_full + NS;
   uint64_t* k_empty = v_full + NS;
   uint64_t* v_empty = k_empty + NS;
+  // PosMask: the [2] tiles' records (beside the Q buffers), then the [NS]
+  // blocks' (beside the stages)
+  [[maybe_unused]] PosRec<C::ROWS>* tile_recs =
+      reinterpret_cast<PosRec<C::ROWS>*>(v_empty + NS);
+  [[maybe_unused]] PosRec<BK>* blk_recs =
+      reinterpret_cast<PosRec<BK>*>(tile_recs + 2);
   const int n_kv = (a.S + BK - 1) / BK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
+    // PosMask: Q's and K's full barriers take the record's arrival too
     for (int i = 0; i < 2; ++i) {
-      mbar_init(&q_full[i], 1);
+      mbar_init(&q_full[i], MP::kOn ? 2 : 1);
       mbar_init(&q_empty[i], C::NWG);   // one arrival per warpgroup
     }
     for (int s = 0; s < NS; ++s) {
-      mbar_init(&k_full[s], 1);
+      mbar_init(&k_full[s], MP::kOn ? 2 : 1);
       mbar_init(&v_full[s], 1);
       mbar_init(&k_empty[s], C::NWG);
       mbar_init(&v_empty[s], C::NWG);
@@ -239,7 +418,72 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tq,
 
   if (warp >= 4 * C::NWG) {             // producer
     if constexpr (C::CTAS == 1) regs_dealloc<40>();
-    if (warp == 4 * C::NWG && lane == 0) {
+    if constexpr (MP::kOn) {
+      // the whole warp: lane 0 issues the loads, the lanes classify and
+      // publish (see the note above)
+      if (warp == 4 * C::NWG) {
+        int jj = 0, tt = 0;
+        for (int u = blockIdx.x; u < units.count; u += gridDim.x) {
+          int bh, qts[2];
+          const int nt = units.tiles(u, bh, qts);
+          const int b = bh / a.H, h = bh % a.H;
+          for (int i = 0; i < nt; ++i, ++tt) {
+            const int q0 = qts[i] * C::ROWS;
+            const int qb = tt & 1;
+            mbar_wait(&q_empty[qb], ((tt >> 1) & 1) ^ 1);
+            if (lane == 0) {
+              mbar_expect_tx(&q_full[qb], C::kQ);
+              for (int sub = 0; sub < C::NSUB; ++sub)
+                tma_load_4d(Qs + qb * C::kQ + sub * C::kQSub, &tq,
+                            &q_full[qb], sub * 64, h, q0, b);
+            }
+            LanePos<C::ROWS> qp;
+            qp.load(mp.qpos, q0, a.S, INT_MIN);
+            qp.bounds(q0, a.S);
+            const int q_hi = qp.max_all();
+            int n = 0;                  // blocks some row of the tile sees
+            for (int j0 = 0; j0 < n_kv; j0 += 32)
+              n += __popc(meet_mask<BK, true>(mp.kpos, a.S, j0, q_hi));
+            qp.publish(tile_recs[qb], n);
+            publish_arrive(&q_full[qb]);
+            const int qlo[2] = {qp.lo[0], qp.lo[1]};
+            const int qhi[2] = {qp.hi[0], qp.hi[1]};
+            for (int j0 = 0; j0 < n_kv; j0 += 32)
+              for (uint32_t mk = meet_mask<BK, true>(mp.kpos, a.S, j0, q_hi);
+                   mk; mk &= mk - 1, ++jj) {
+                const int j = j0 + __ffs(mk) - 1;
+                LanePos<BK> kp;
+                kp.load(mp.kpos, j * BK, a.S, INT_MAX);
+                const int s = jj % NS;
+                const uint32_t free_ph = ((jj / NS) & 1) ^ 1;
+                mbar_wait(&k_empty[s], free_ph);
+                if (lane == 0) {
+                  mbar_expect_tx(&k_full[s], C::kKV);
+                  for (int sub = 0; sub < C::NSUB; ++sub)
+                    tma_load_4d(Ks + s * C::kKV + sub * C::kSub, &tk,
+                                &k_full[s], sub * 64, h, j * BK, b);
+                }
+                mbar_wait(&v_empty[s], free_ph);
+                if (lane == 0) {
+                  mbar_expect_tx(&v_full[s], C::kKV);
+                  for (int sub = 0; sub < C::NSUB; ++sub)
+                    tma_load_4d(Vs + s * C::kKV + sub * C::kSub, &tv,
+                                &v_full[s], sub * 64, h, j * BK, b);
+                }
+                // the record after V's release: its last reader, the
+                // softmax, is done with the stage's previous block
+                kp.bounds(j * BK, a.S);
+                const int klo = kp.min_all(), khi = kp.max_all();
+                const bool ragged = (j + 1) * BK > a.S;
+                kp.publish(blk_recs[s], j,
+                           pos_mode(qlo[0], qhi[0], klo, khi, ragged),
+                           pos_mode(qlo[1], qhi[1], klo, khi, ragged));
+                publish_arrive(&k_full[s]);
+              }
+          }
+        }
+      }
+    } else if (warp == 4 * C::NWG && lane == 0) {
       int jj = 0, tt = 0;               // blocks and tiles loaded so far
       for (int u = blockIdx.x; u < units.count; u += gridDim.x) {
         int bh, qts[2];
@@ -310,12 +554,27 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tq,
         for (int i = 0; i < 32; ++i) o[sub][i] = 0.f;
       mbar_wait(&q_full[tt & 1], (tt >> 1) & 1);
       __syncwarp();
-      for (int j = 0; j < hi; ++j, ++jj) {
+      // PosMask: the blocks streamed for the tile, from its record
+      int nblk = hi;
+      [[maybe_unused]] const PosRec<C::ROWS>* tr = tile_recs + (tt & 1);
+      if constexpr (MP::kOn) nblk = tr->n;
+      for (int x = 0; x < nblk; ++x, ++jj) {
         const int s = jj % NS;
         const uint32_t ph = (jj / NS) & 1;
         mbar_wait(&k_full[s], ph);
         __syncwarp();                   // converged for the .aligned wgmma
-        if (j >= hi_wg) {
+        // the block and whether this warpgroup skips it (PosMask: no row
+        // of it sees a key of the block)
+        int j = x;
+        bool skip = x >= hi_wg;
+        // (the mode is read again where it is used: a register held across
+        // the S batch costs the D = 128 body, at its register cap)
+        [[maybe_unused]] const PosRec<BK>* br = blk_recs + s;
+        if constexpr (MP::kOn) {
+          j = br->n;
+          skip = br->mode[wg] == kSkip;
+        }
+        if (skip) {
           mbar_wait(&v_full[s], ph);
           // every warp of the warpgroup is past both waits before the
           // leader releases the stage (no wgmma orders them here): a
@@ -354,10 +613,18 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tq,
         const int k0 = j * BK;
         uint32_t pa[BK / 16][4];
         float c[2];
-        if (k0 + BK > a.S || (a.causal && k0 + BK - 1 > q0 + wg * 64))
+        if constexpr (MP::kOn) {
+          if (br->mode[wg] == kMask)
+            hop_softmax<BK, true, true>(sc, m, l, c, a, k0, row_lo, sl2,
+                                        tr->pos + (row_lo - q0), br->pos);
+          else
+            hop_softmax<BK, false>(sc, m, l, c, a, k0, row_lo, sl2);
+        } else if (k0 + BK > a.S ||
+                   (a.causal && k0 + BK - 1 > q0 + wg * 64)) {
           hop_softmax<BK, true>(sc, m, l, c, a, k0, row_lo, sl2);
-        else
+        } else {
           hop_softmax<BK, false>(sc, m, l, c, a, k0, row_lo, sl2);
+        }
         if constexpr (DROP::kOn) {
           // l keeps every probability; only kept ones, times 1 / (1 - p),
           // meet V (scaled before the cast, as the TPU kernel casts
@@ -424,9 +691,13 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tq,
                   pack2<__nv_bfloat16>(o[sub][4 * i + 2 * hh] / lq[hh],
                                        o[sub][4 * i + 2 * hh + 1] / lq[hh]);
           }
-        if (t == 0)
-          a.lse[static_cast<size_t>(bh) * a.S + r] =
-              m[hh] * 0.6931471805599453f + logf(lq[hh]);
+        if (t == 0) {
+          float lse = m[hh] * 0.6931471805599453f + logf(lq[hh]);
+          // PosMask: a row that saw no key (l = 0; l >= 1 otherwise)
+          if constexpr (MP::kOn)
+            if (lq[hh] == 1e-30f) lse = kNegInf + logf(1e-30f);
+          a.lse[static_cast<size_t>(bh) * a.S + r] = lse;
+        }
       }
     }
   }
@@ -501,7 +772,7 @@ struct BwdArgs {
   int causal;
 };
 
-template <int DP, bool DKV, bool ROW = false>
+template <int DP, bool DKV, bool ROW = false, bool POS = false>
 struct BwdCfg {
   static constexpr int NSUB = DP / 64;          // 64-column sub-tiles
   static constexpr int NWG = 2;                 // consumer warpgroups
@@ -519,19 +790,24 @@ struct BwdCfg {
   // ROW: the first sweep's keep words, [blocks][consumer thread]
   static constexpr int kMaxBlocks = 8;          // S <= 512
   static constexpr int kKB = ROW ? kMaxBlocks * 128 * NWG * 4 : 0;
+  // PosMask: the [2] tiles' and [STAGES] blocks' records, after the
+  // barriers
+  static constexpr int kPos =
+      POS ? 2 * sizeof(PosRec<ROWS>) + STAGES * sizeof(PosRec<BN>) : 0;
   static constexpr size_t smem = 1024 + 4 * kR + 2 * STAGES * kB + 2 * kPT +
                                  2 * STAGES * BN * sizeof(float) + kKB +
-                                 (8 + 2 * STAGES) * sizeof(uint64_t);
+                                 (8 + 2 * STAGES) * sizeof(uint64_t) + kPos;
 };
 
 // shared memory of a backward CTA: [2 buffers][2] resident tiles, [STAGES]
 // [2] streamed blocks, [2] P^T tiles (SPLIT), [STAGES][2][BN] f32 rows
-// (dK/dV: lse log2 e, delta), the keep words (ROW), then the barriers;
-// thread 0 initialises them (s_full takes `s_arrivals` arrivals a phase,
+// (dK/dV: lse log2 e, delta), the keep words (ROW), the barriers, then
+// the records (POS); thread 0 initialises the barriers (s_full takes
+// `s_arrivals` arrivals a phase, r_full one more under POS: the record's,
 // the P^T hand-over one from each of a warpgroup's four warps)
-template <int DP, bool DKV, bool ROW = false>
+template <int DP, bool DKV, bool ROW = false, bool POS = false>
 struct BwdSmem {
-  using C = BwdCfg<DP, DKV, ROW>;
+  using C = BwdCfg<DP, DKV, ROW, POS>;
   uint8_t *R, *S;
   float *PT, *F;
   uint64_t *r_full, *r_empty, *s_full, *s_empty, *pt_full, *pt_empty;
@@ -549,7 +825,7 @@ struct BwdSmem {
     s_empty = s_full + C::STAGES;
     if (threadIdx.x == 0) {
       for (int i = 0; i < 2; ++i) {
-        mbar_init(&r_full[i], 1);
+        mbar_init(&r_full[i], POS ? 2 : 1);
         mbar_init(&r_empty[i], C::NWG);
         mbar_init(&pt_full[i], 4);
         mbar_init(&pt_empty[i], 4);
@@ -569,6 +845,13 @@ struct BwdSmem {
     return reinterpret_cast<uint32_t*>(F + 2 * C::STAGES * C::BN)
         [j * 128 * C::NWG + x];
   }
+  // POS: the record of resident buffer `buf`, of stage `s`
+  __device__ PosRec<C::ROWS>* tile_rec(int buf) const {
+    return reinterpret_cast<PosRec<C::ROWS>*>(s_empty + C::STAGES) + buf;
+  }
+  __device__ PosRec<C::BN>* blk_rec(int s) const {
+    return reinterpret_cast<PosRec<C::BN>*>(tile_rec(2)) + s;
+  }
 };
 
 // the streamed blocks [lo, hi) of the tile whose first resident row is r0:
@@ -584,6 +867,22 @@ __device__ __forceinline__ void bwd_range(const A& a, int r0, int rows,
   } else {
     lo = 0;
     hi = a.causal ? min((r0 + rows + BN - 1) / BN, n) : n;
+  }
+}
+
+// dK/dV: query block j's lse (log2 domain) and delta rows, 0 past S, into
+// f ([2][BN]), by the producer warp's lanes
+template <int BN, class A>
+__device__ __forceinline__ void bwd_rows(float* f, const A& a, int bh,
+                                         int j) {
+  const int lane = threadIdx.x & 31;
+  const float* lse = a.lse + static_cast<size_t>(bh) * a.Sq;
+  const float* delta = a.delta + static_cast<size_t>(bh) * a.Sq;
+  for (int r = lane; r < BN; r += 32) {
+    const int q = j * BN + r;
+    const bool in = q < a.Sq;
+    f[r] = in ? lse[q] * 1.4426950408889634f : 0.f;
+    f[BN + r] = in ? delta[q] : 0.f;
   }
 }
 
@@ -632,17 +931,8 @@ __device__ __forceinline__ void bwd_producer(
             }
           }
           if constexpr (DKV) {
-            // the block's lse (log2 domain) and delta, 0 past S; the
-            // stage's second arrival once every lane's stores are done
-            const float* lse = a.lse + static_cast<size_t>(bh) * a.Sq;
-            const float* delta = a.delta + static_cast<size_t>(bh) * a.Sq;
-            float* f = sm.F + 2 * s * BN;
-            for (int r = lane; r < BN; r += 32) {
-              const int q = j * BN + r;
-              const bool in = q < a.Sq;
-              f[r] = in ? lse[q] * 1.4426950408889634f : 0.f;
-              f[BN + r] = in ? delta[q] : 0.f;
-            }
+            // the stage's second arrival once every lane's stores are done
+            bwd_rows<BN>(sm.F + 2 * s * BN, a, bh, j);
             __threadfence_block();
             __syncwarp();
             if (lane == 0) mbar_arrive(&sm.s_full[s]);
@@ -651,6 +941,103 @@ __device__ __forceinline__ void bwd_producer(
       };
       stream();
       if constexpr (ROW) stream();
+    }
+  }
+}
+
+// the producer warp under PosMask, every lane (see the note at the top):
+// each tile's resident pair and its record, then the blocks it meets,
+// each with its record (and, dK/dV, its lse and delta rows). dQ: queries
+// resident, key blocks streamed, a pair meets where the tile's largest
+// query position reaches the block's smallest key position; dK/dV the
+// other way round.
+template <int DP, bool DKV, class A>
+__device__ __forceinline__ void bwd_pos_producer(
+    const BwdSmem<DP, DKV, false, true>& sm, const CUtensorMap& r0m,
+    const CUtensorMap& r1m, const CUtensorMap& b0m, const CUtensorMap& b1m,
+    const A& a, const Units& units, const PosMask& mp) {
+  using C = BwdCfg<DP, DKV, false, true>;
+  constexpr int NS = C::STAGES, BN = C::BN;
+  const int lane = threadIdx.x & 31;
+  // positions of the resident and the streamed rows, each with the
+  // sentinel past S that no compare passes
+  const int* rpos = DKV ? mp.kpos : mp.qpos;
+  const int* spos = DKV ? mp.qpos : mp.kpos;
+  const int r_past = DKV ? INT_MAX : INT_MIN;
+  const int s_past = DKV ? INT_MIN : INT_MAX;
+  const int n_blk = (a.Sq + BN - 1) / BN;
+  int jj = 0, tt = 0;                   // blocks and tiles loaded so far
+  for (int u = blockIdx.x; u < units.count; u += gridDim.x) {
+    int bh, tiles[2];
+    const int nt = units.tiles(u, bh, tiles);
+    const int b = bh / a.H, h = bh % a.H;
+    for (int i = 0; i < nt; ++i, ++tt) {
+      const int r0 = tiles[i] * C::ROWS;
+      const int rb = tt & 1;
+      mbar_wait(&sm.r_empty[rb], ((tt >> 1) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(&sm.r_full[rb], 2 * C::kR);
+        for (int sub = 0; sub < C::NSUB; ++sub) {
+          tma_load_4d(sm.res(rb, 0) + sub * C::kRSub, &r0m, &sm.r_full[rb],
+                      sub * 64, h, r0, b);
+          tma_load_4d(sm.res(rb, 1) + sub * C::kRSub, &r1m, &sm.r_full[rb],
+                      sub * 64, h, r0, b);
+        }
+      }
+      // the bounds of the tile's 64-row groups (SPLIT: one group, both
+      // consumer warpgroups'), and the bound a streamed block is held to:
+      // the tile's largest query position (dQ) or its smallest key
+      // position (dK/dV)
+      int glo[2], ghi[2], bound;
+      {
+        LanePos<C::ROWS> rp;
+        rp.load(rpos, r0, a.Sq, r_past);
+        rp.bounds(r0, a.Sq);
+        for (int w = 0; w < 2; ++w) {
+          glo[w] = rp.lo[C::SPLIT ? 0 : w];
+          ghi[w] = rp.hi[C::SPLIT ? 0 : w];
+        }
+        bound = DKV ? rp.min_all() : rp.max_all();
+        int n = 0;
+        for (int j0 = 0; j0 < n_blk; j0 += 32)
+          n += __popc(meet_mask<BN, !DKV>(spos, a.Sq, j0, bound));
+        rp.publish(*sm.tile_rec(rb), n);
+      }
+      publish_arrive(&sm.r_full[rb]);
+      for (int j0 = 0; j0 < n_blk; j0 += 32)
+        for (uint32_t mk = meet_mask<BN, !DKV>(spos, a.Sq, j0, bound); mk;
+             mk &= mk - 1, ++jj) {
+          const int j = j0 + __ffs(mk) - 1;
+          LanePos<BN> sp;
+          sp.load(spos, j * BN, a.Sq, s_past);
+          const int s = jj % NS;
+          mbar_wait(&sm.s_empty[s], ((jj / NS) & 1) ^ 1);
+          if (lane == 0) {
+            mbar_expect_tx(&sm.s_full[s], 2 * C::kB);
+            for (int sub = 0; sub < C::NSUB; ++sub) {
+              tma_load_4d(sm.blk(s, 0) + sub * C::kSub, &b0m, &sm.s_full[s],
+                          sub * 64, h, j * BN, b);
+              tma_load_4d(sm.blk(s, 1) + sub * C::kSub, &b1m, &sm.s_full[s],
+                          sub * 64, h, j * BN, b);
+            }
+          }
+          if constexpr (DKV) bwd_rows<BN>(sm.F + 2 * s * BN, a, bh, j);
+          sp.bounds(j * BN, a.Sq);
+          // each consumer warpgroup's mode: its 64 resident rows against
+          // the block (dK/dV: its keys, ragged where they run past S)
+          int mode[2];
+          for (int w = 0; w < 2; ++w) {
+            const bool ragged =
+                (j + 1) * BN > a.Sq ||
+                (DKV && r0 + (C::SPLIT ? 0 : 64 * w) + 64 > a.Sk);
+            mode[w] = DKV ? pos_mode(sp.min_all(), sp.max_all(), glo[w],
+                                     ghi[w], ragged)
+                          : pos_mode(glo[w], ghi[w], sp.min_all(),
+                                     sp.max_all(), ragged);
+          }
+          sp.publish(*sm.blk_rec(s), j, mode[0], mode[1]);
+          publish_arrive(&sm.s_full[s]);
+        }
     }
   }
 }
@@ -772,24 +1159,37 @@ __device__ __forceinline__ float dq_prob(const float (&sc)[32], int i, int e,
 }
 
 // dQ's dS of one block: dS = P (dP Z - delta) scale (Z compiled out: ZON
-// false), packed to the A fragments of dS K
-template <bool MASK, bool ZON, class A>
+// false), packed to the A fragments of dS K. POS: the compare is on the
+// positions of the thread's rows (qrow[0 or 8]) and of the block's keys
+// (kcol), in shared memory.
+template <bool MASK, bool ZON, bool POS = false, class A>
 __device__ __forceinline__ void dq_ds(const float (&sc)[32],
                                       const float (&dp)[32],
                                       uint32_t (&pa)[4][4], const A& a,
                                       int k0, int row_lo,
                                       const float (&lse2)[2],
                                       const float (&dl)[2], float sl2,
-                                      uint32_t keep, float ks) {
+                                      uint32_t keep, float ks,
+                                      const int* qrow = nullptr,
+                                      const int* kcol = nullptr) {
   const int t = threadIdx.x & 3;
   float ds[32];
+  [[maybe_unused]] int qv[2];
+  if constexpr (POS && MASK) {
+    qv[0] = qrow[0];
+    qv[1] = qrow[8];
+  }
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = k0 + 8 * i + 2 * t + (e & 1);
       const int row = row_lo + (e < 2 ? 0 : 8);
-      const bool in = !MASK || (col < a.Sk && (!a.causal || row >= col));
+      bool in;
+      if constexpr (POS && MASK)
+        in = qv[e >> 1] >= kcol[8 * i + 2 * t + (e & 1)];
+      else
+        in = !MASK || (col < a.Sk && (!a.causal || row >= col));
       const float pv =
           in ? fast_exp2(fmaf(sc[4 * i + e], sl2, -lse2[e >> 1])) : 0.f;
       if constexpr (ZON)
@@ -818,22 +1218,29 @@ __device__ __forceinline__ void dq_row(const float (&sc)[32],
     }
 }
 
-template <int DP, bool ROW, class A, class DROP>
+template <int DP, bool ROW, class A, class DROP, class MP = IndexMask>
 __device__ __forceinline__ void dq_sm90_body(const CUtensorMap& tq,
                                              const CUtensorMap& tdo,
                                              const CUtensorMap& tk,
                                              const CUtensorMap& tv,
                                              const A& a,
-                                             const Units& units, DROP drop) {
-  using C = BwdCfg<DP, false, ROW>;
+                                             const Units& units, DROP drop,
+                                             MP mp = {}) {
+  constexpr bool POS = MP::kOn;
+  using C = BwdCfg<DP, false, ROW, POS>;
   constexpr int NS = C::STAGES, BN = C::BN;
   constexpr bool ZON = DROP::kOn;       // Z is applied (the short backward)
   static_assert(ROW || !ZON, "a dropout dQ body forms its row term");
+  static_assert(!(POS && ROW), "a ring step takes the caller's delta");
   extern __shared__ uint8_t smem_raw[];
-  const BwdSmem<DP, false, ROW> sm(smem_raw, 1);
+  // POS: a stage also takes the lanes' arrival after the block's record
+  const BwdSmem<DP, false, ROW, POS> sm(smem_raw, POS ? 2 : 1);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp >= 4 * C::NWG) {
-    bwd_producer<DP, false, ROW>(sm, tq, tdo, tk, tv, a, units);
+    if constexpr (POS)
+      bwd_pos_producer<DP, false>(sm, tq, tdo, tk, tv, a, units, mp);
+    else
+      bwd_producer<DP, false, ROW>(sm, tq, tdo, tk, tv, a, units);
     return;
   }
   if constexpr (ZON) drop.init();
@@ -917,11 +1324,27 @@ __device__ __forceinline__ void dq_sm90_body(const CUtensorMap& tq,
       for (int sub = 0; sub < C::NSUB; ++sub)
 #pragma unroll
         for (int i = 0; i < 32; ++i) dq[sub][i] = 0.f;
-      for (int j = lo; j < hi; ++j, ++jj) {
+      // POS: the blocks streamed for the tile, from its record
+      [[maybe_unused]] const PosRec<C::ROWS>* tr = sm.tile_rec(tt & 1);
+      if constexpr (POS) {
+        lo = 0;
+        hi = tr->n;
+      }
+      for (int x = lo; x < hi; ++x, ++jj) {
         const int s = jj % NS;
         mbar_wait(&sm.s_full[s], (jj / NS) & 1);
         __syncwarp();                   // converged for the .aligned wgmma
-        if (j >= hi_wg) {
+        // the block, and whether this warpgroup skips it (POS: no row of
+        // it sees a key of the block)
+        int j = x;
+        bool skip = x >= hi_wg;
+        // (the mode is read again where it is used, as in the forward)
+        [[maybe_unused]] const PosRec<BN>* br = sm.blk_rec(s);
+        if constexpr (POS) {
+          j = br->n;
+          skip = br->mode[wg] == kSkip;
+        }
+        if (skip) {
           // every warp is past its wait before the leader releases the
           // stage (no wgmma orders them here)
           bar_sync(1 + wg, 128);
@@ -946,12 +1369,22 @@ __device__ __forceinline__ void dq_sm90_body(const CUtensorMap& tq,
         }
         const int k0 = j * BN;
         uint32_t pa[4][4];
-        if (k0 + BN > a.Sk || (a.causal && k0 + BN - 1 > q0 + wg * 64))
+        if constexpr (POS) {
+          if (br->mode[wg] == kMask)
+            dq_ds<true, ZON, true>(sc, dp, pa, a, k0, row_lo, lse2, dl, sl2,
+                                   keep, ks, tr->pos + (row_lo - q0),
+                                   br->pos);
+          else
+            dq_ds<false, ZON>(sc, dp, pa, a, k0, row_lo, lse2, dl, sl2, keep,
+                              ks);
+        } else if (k0 + BN > a.Sk ||
+                   (a.causal && k0 + BN - 1 > q0 + wg * 64)) {
           dq_ds<true, ZON>(sc, dp, pa, a, k0, row_lo, lse2, dl, sl2, keep,
                            ks);
-        else
+        } else {
           dq_ds<false, ZON>(sc, dp, pa, a, k0, row_lo, lse2, dl, sl2, keep,
                             ks);
+        }
         wg_rs<C::NSUB>(dq, pa, Kb, C::kSub);
         if (leader) mbar_arrive(&sm.s_empty[s]);   // K and V are read
       }
@@ -962,20 +1395,32 @@ __device__ __forceinline__ void dq_sm90_body(const CUtensorMap& tq,
 }
 
 // dK/dV's P^T of one block in place: rows are keys (krow_lo, + 8), columns
-// query rows qi0 + ..., masked (MASK) past S and above the diagonal
-template <bool MASK, class A>
+// query rows qi0 + ..., masked (MASK) past S and above the diagonal; POS:
+// by the positions of the block's queries (qcol) and of the thread's keys
+// (krow[0 or 8]), in shared memory
+template <bool MASK, bool POS = false, class A>
 __device__ __forceinline__ void dkv_p(float (&st)[32], const A& a,
                                       int qi0, int krow_lo,
-                                      const float* lse2, float sl2) {
+                                      const float* lse2, float sl2,
+                                      const int* qcol = nullptr,
+                                      const int* krow = nullptr) {
   const int t = threadIdx.x & 3;
+  [[maybe_unused]] int kv[2];
+  if constexpr (POS && MASK) {
+    kv[0] = krow[0];
+    kv[1] = krow[8];
+  }
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int ql = 8 * i + 2 * t + (e & 1), qc = qi0 + ql;
       const int kr = krow_lo + (e < 2 ? 0 : 8);
-      const bool keep =
-          !MASK || (qc < a.Sq && kr < a.Sk && (!a.causal || qc >= kr));
+      bool keep;
+      if constexpr (POS && MASK)
+        keep = qcol[ql] >= kv[e >> 1];
+      else
+        keep = !MASK || (qc < a.Sq && kr < a.Sk && (!a.causal || qc >= kr));
       st[4 * i + e] =
           keep ? fast_exp2(fmaf(st[4 * i + e], sl2, -lse2[ql])) : 0.f;
     }
@@ -1001,21 +1446,27 @@ __device__ __forceinline__ void dkv_ds(float (&dpt)[32], const float (&pt)[32],
     }
 }
 
-template <int DP, class A, class DROP>
+template <int DP, class A, class DROP, class MP = IndexMask>
 __device__ __forceinline__ void dkv_sm90_body(const CUtensorMap& tk,
                                               const CUtensorMap& tv,
                                               const CUtensorMap& tq,
                                               const CUtensorMap& tdo,
                                               const A& a,
-                                              const Units& units, DROP drop) {
-  using C = BwdCfg<DP, true>;
+                                              const Units& units, DROP drop,
+                                              MP mp = {}) {
+  constexpr bool POS = MP::kOn;
+  using C = BwdCfg<DP, true, false, POS>;
   constexpr int NS = C::STAGES, BN = C::BN;
   constexpr bool ZON = DROP::kOn;
   extern __shared__ uint8_t smem_raw[];
-  const BwdSmem<DP, true> sm(smem_raw, 2);  // TMA bytes + the lanes' rows
+  // TMA bytes + the lanes' rows (and, POS, the block's record)
+  const BwdSmem<DP, true, false, POS> sm(smem_raw, 2);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp >= 4 * C::NWG) {
-    bwd_producer<DP, true, false>(sm, tk, tv, tq, tdo, a, units);
+    if constexpr (POS)
+      bwd_pos_producer<DP, true>(sm, tk, tv, tq, tdo, a, units, mp);
+    else
+      bwd_producer<DP, true, false>(sm, tk, tv, tq, tdo, a, units);
     return;
   }
   if constexpr (ZON) drop.init();
@@ -1049,14 +1500,30 @@ __device__ __forceinline__ void dkv_sm90_body(const CUtensorMap& tk,
           for (int i = 0; i < 32; ++i) acc[x][sub][i] = 0.f;
       mbar_wait(&sm.r_full[tt & 1], (tt >> 1) & 1);
       __syncwarp();
-      for (int i = lo; i < hi; ++i, ++jj) {
+      // POS: the blocks streamed for the tile, from its record
+      [[maybe_unused]] const PosRec<C::ROWS>* tr = sm.tile_rec(tt & 1);
+      if constexpr (POS) {
+        lo = 0;
+        hi = tr->n;
+      }
+      for (int x = lo; x < hi; ++x, ++jj) {
         const int s = jj % NS;
         mbar_wait(&sm.s_full[s], (jj / NS) & 1);
         __syncwarp();
+        int i = x;
+        [[maybe_unused]] const PosRec<BN>* br = sm.blk_rec(s);
+        [[maybe_unused]] int mode = kMask;
+        if constexpr (POS) {
+          i = br->n;
+          mode = br->mode[wg];
+        }
         const int qi0 = i * BN;
         // no key of this warpgroup (a ragged last tile), or every query
-        // row of the block before its first key (causal): released unread
-        if (kw >= a.Sk || (a.causal && qi0 + BN - 1 < kw)) {
+        // row of the block before its first key (causal; POS: no query of
+        // the block sees a key of the warpgroup): released unread
+        bool skip = kw >= a.Sk || (a.causal && qi0 + BN - 1 < kw);
+        if constexpr (POS) skip = mode == kSkip;
+        if (skip) {
           bar_sync(1 + wg, 128);
           if (leader) mbar_arrive(&sm.s_empty[s]);
           continue;
@@ -1065,8 +1532,9 @@ __device__ __forceinline__ void dkv_sm90_body(const CUtensorMap& tk,
         const uint8_t* dOb = sm.blk(s, 1);
         const float* lse2 = sm.F + 2 * s * BN;
         const float* dl = lse2 + BN;
-        const bool mask = qi0 + BN > a.Sq || kw + 64 > a.Sk ||
-                          (a.causal && qi0 < kw + 63);
+        bool mask = qi0 + BN > a.Sq || kw + 64 > a.Sk ||
+                    (a.causal && qi0 < kw + 63);
+        if constexpr (POS) mask = mode == kMask;
         uint32_t pa[4][4];
         float st[32];
         [[maybe_unused]] uint32_t keep = ~0u;
@@ -1082,10 +1550,15 @@ __device__ __forceinline__ void dkv_sm90_body(const CUtensorMap& tk,
               keep = kw2[0];
             }
           wg_ss<DP>(st, Kb, C::kRSub, wrow, Qb, C::kSub);
-          if (mask)
-            dkv_p<true>(st, a, qi0, krow_lo, lse2, sl2);
-          else
+          if (mask) {
+            if constexpr (POS)
+              dkv_p<true, true>(st, a, qi0, krow_lo, lse2, sl2, br->pos,
+                                tr->pos + (krow_lo - k0));
+            else
+              dkv_p<true>(st, a, qi0, krow_lo, lse2, sl2);
+          } else {
             dkv_p<false>(st, a, qi0, krow_lo, lse2, sl2);
+          }
           if constexpr (C::SPLIT) {
             // P^T to warpgroup 1: entry k of thread x at [k][x]; a
             // dropped entry negated (its keep bit as the sign)
@@ -1181,8 +1654,10 @@ inline bool attn_tmap(CUtensorMap* map, const void* base, int B, int S,
 
 // Launches the forward kernel K64 (D <= 64) or K128 (64 < D <= 128) on
 // q, k, v ([B, S, H, D] bf16, element strides {b, s, h} each) with the
-// kernel's trailing arguments `extra` (its dropout policy).
-template <auto K64, auto K128, class... EXTRA>
+// kernel's trailing arguments `extra` (its dropout policy, or its
+// positions: POS, whose kernels run PosMask). The tensor maps take S rows
+// for q, k and v alike: a ring step's shards are of one length.
+template <auto K64, auto K128, bool POS = false, class... EXTRA>
 int launch_fwd_sm90(const void* const (&bases)[3],
                     const long long (&strides)[3][3], int B,
                     const FwdArgs& a, cudaStream_t s, const EXTRA&... extra) {
@@ -1201,7 +1676,7 @@ int launch_fwd_sm90(const void* const (&bases)[3],
   auto run = [&](auto kernel, auto dp) {
     constexpr int DP = decltype(dp)::value;
     constexpr auto K = decltype(kernel)::value;
-    constexpr size_t smem = HopCfg<DP>::smem;
+    constexpr size_t smem = HopCfg<DP, POS>::smem;
     if (const int e = smem_opt_in<K>(smem)) return e;
     K<<<grid, HopCfg<DP>::THREADS, smem, s>>>(maps[0], maps[1], maps[2], a,
                                               units, extra...);
@@ -1216,8 +1691,10 @@ int launch_fwd_sm90(const void* const (&bases)[3],
 // Launches a backward kernel, dQ (DKV false; ROW: the body that forms the
 // row term) or dK/dV: K64 (D <= 64) or K128 (64 < D <= 128) on q, k, v and
 // dout ([B, S, H, D] bf16, element strides {b, s, h} each, in that order)
-// with the kernel's trailing arguments `extra` (its dropout policy).
-template <auto K64, auto K128, bool DKV, bool ROW, class A, class... EXTRA>
+// with the kernel's trailing arguments `extra` (its dropout policy, or its
+// positions: POS). The tensor maps take Sq rows for all four: Sq == Sk.
+template <auto K64, auto K128, bool DKV, bool ROW, bool POS = false, class A,
+          class... EXTRA>
 int launch_bwd_sm90(const void* const (&bases)[4],
                     const long long (&strides)[4][3], int B, const A& a,
                     cudaStream_t s, const EXTRA&... extra) {
@@ -1240,7 +1717,7 @@ int launch_bwd_sm90(const void* const (&bases)[4],
   auto go = [&](auto kernel, auto dp) {
     constexpr int DP = decltype(dp)::value;
     constexpr auto K = decltype(kernel)::value;
-    using C = BwdCfg<DP, DKV, ROW>;
+    using C = BwdCfg<DP, DKV, ROW, POS>;
     if (const int e = smem_opt_in<K>(C::smem)) return e;
     K<<<grid, C::THREADS, C::smem, s>>>(maps[0], maps[1], maps[2], maps[3],
                                          a, units, extra...);

@@ -49,20 +49,27 @@
 // registers): `flash_fwd_sm90`, `flash_dq_sm90` and `flash_dkv_sm90`
 // (attention_sm90.cuh's bodies, see their notes). The caller asks for
 // them as kinds 3, 4 and 5, and an entry asked for a kind its inputs do
-// not admit returns cudaErrorInvalidValue. f32 inputs, head-dim tiles 32
-// and 256 and the ring steps keep the mma.sync bodies (kinds 0-2).
+// not admit returns cudaErrorInvalidValue. f32 inputs and head-dim tiles
+// 32 and 256 keep the mma.sync bodies (kinds 0-2).
 //
-// The ring-step (_pos) kernels run the same bodies with the causal test
-// `row >= col` replaced by int32 global positions, q_pos[row] >=
-// k_pos[col], and q and k of their own lengths (Sq, Sk). A zigzag shard's
-// positions are not monotone in the shard, so the index shortcuts above
-// (K blocks bounded by the diagonal) do not apply: every block is
-// visited, and a whole K (or, in dkv, Q) block is skipped only when the
-// positions say that no pair in it is kept — max(q_pos of the CTA's rows)
-// < min(k_pos of the block) — decided by one __syncthreads_or. A row that
-// the mask hides throughout (a visiting shard wholly in its future) keeps
-// m = -1e30 and l = 0 and is written as O = 0, lse = m + log(1e-30), the
-// TPU kernel's l_safe, so the ring's merge gives it weight 0.
+// The ring-step (_pos) kernels run with the causal test `row >= col`
+// replaced by int32 global positions, q_pos[row] >= k_pos[col]. Where the
+// Hopper bodies admit the operands and the shards are of one length (Sq
+// == Sk, the ring's own case) they run those bodies under the PosMask
+// policy (`flash_fwd_pos_sm90`, `flash_dq_pos_sm90`, `flash_dkv_pos_sm90`,
+// kinds 3-5 of `ptt_flash_attention_pos`; see attention_sm90.cuh's note;
+// without the mask, the whole-sequence Hopper kernels with causal off).
+// Otherwise they run the mma.sync bodies (kinds 0-2), with q and k of
+// their own lengths (Sq, Sk). A zigzag shard's positions are not monotone
+// in the shard, so the index shortcuts above (K blocks bounded by the
+// diagonal) do not apply: every block is visited, and a whole K (or, in
+// dkv, Q) block is skipped only when the positions say that no pair in it
+// is kept — max(q_pos of the CTA's rows) < min(k_pos of the block) —
+// decided by one __syncthreads_or. A row that the mask hides throughout
+// (a visiting shard wholly in its future) keeps m = -1e30 and l = 0 and
+// is written as O = 0, lse = m + log(1e-30), the TPU kernel's l_safe, so
+// the ring's merge gives it weight 0 (the Hopper forward writes the
+// same).
 #include <limits.h>
 #include <math.h>
 
@@ -266,6 +273,16 @@ __global__ void __launch_bounds__(HopCfg<DP>::THREADS, HopCfg<DP>::CTAS)
                    const __grid_constant__ CUtensorMap tv, const FwdArgs a,
                    const Units units) {
   fwd_sm90_body<DP>(tq, tk, tv, a, units, NoDropout());
+}
+
+// the ring step's forward on the same body, under the PosMask policy
+template <int DP>
+__global__ void __launch_bounds__(HopCfg<DP>::THREADS, HopCfg<DP>::CTAS)
+    flash_fwd_pos_sm90(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const FwdArgs a, const Units units, const PosMask pm) {
+  fwd_sm90_body<DP>(tq, tk, tv, a, units, NoDropout(), pm);
 }
 
 // --- backward: dQ -------------------------------------------------------------
@@ -508,6 +525,27 @@ __global__ void __launch_bounds__(BwdCfg<DP, true>::THREADS, 1)
   dkv_sm90_body<DP>(tk, tv, tq, tdo, p, units, NoDropout{});
 }
 
+// the ring step's dQ and dK/dV on the same bodies, under PosMask
+template <int DP>
+__global__ void __launch_bounds__(BwdCfg<DP, false>::THREADS, 1)
+    flash_dq_pos_sm90(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, const Params p,
+                      const Units units, const PosMask pm) {
+  dq_sm90_body<DP, false>(tq, tdo, tk, tv, p, units, NoDropout{}, pm);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(BwdCfg<DP, true>::THREADS, 1)
+    flash_dkv_pos_sm90(const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const Params p, const Units units, const PosMask pm) {
+  dkv_sm90_body<DP>(tk, tv, tq, tdo, p, units, NoDropout{}, pm);
+}
+
 // --- launch --------------------------------------------------------------------
 enum Kind {
   kFwd = 0, kDq = 1, kDkv = 2,            // the mma.sync bodies
@@ -549,8 +587,9 @@ int dispatch_d(int kind, int BH, const Params& p, cudaStream_t s) {
 
 // The Hopper bodies: the forward (kind 3), dQ (4) and dK/dV (5) on q, k,
 // v (and dout) as 4-D tensor maps over the caller's strides; tiles of 128
-// rows, blocks of 64 (the forward's as HopCfg says)
-int launch_sm90(int kind, const Params& p, int B, cudaStream_t s) {
+// rows, blocks of 64 (the forward's as HopCfg says); pos: the ring step's
+// kernels (PosMask, causal), of one length Sq == Sk
+int launch_sm90(int kind, const Params& p, int B, bool pos, cudaStream_t s) {
   const void* bases[4] = {p.q, p.k, p.v, p.dout};
   const long long st[4][3] = {{p.q_b, p.q_s, p.q_h},
                               {p.k_b, p.k_s, p.k_h},
@@ -562,14 +601,24 @@ int launch_sm90(int kind, const Params& p, int B, cudaStream_t s) {
     const long long qkv_st[3][3] = {{st[0][0], st[0][1], st[0][2]},
                                     {st[1][0], st[1][1], st[1][2]},
                                     {st[2][0], st[2][1], st[2][2]}};
+    if (pos)
+      return launch_fwd_sm90<flash_fwd_pos_sm90<64>, flash_fwd_pos_sm90<128>,
+                             true>(qkv, qkv_st, B, a, s,
+                                   PosMask{p.qpos, p.kpos});
     return launch_fwd_sm90<flash_fwd_sm90<64>, flash_fwd_sm90<128>>(
         qkv, qkv_st, B, a, s);
   }
+  const PosMask pm{p.qpos, p.kpos};
   if (kind == kDkvSm90)
-    return launch_bwd_sm90<flash_dkv_sm90<64>, flash_dkv_sm90<128>, true,
-                           false>(bases, st, B, p, s);
-  return launch_bwd_sm90<flash_dq_sm90<64>, flash_dq_sm90<128>, false,
-                         false>(bases, st, B, p, s);
+    return pos ? launch_bwd_sm90<flash_dkv_pos_sm90<64>,
+                                 flash_dkv_pos_sm90<128>, true, false, true>(
+                     bases, st, B, p, s, pm)
+               : launch_bwd_sm90<flash_dkv_sm90<64>, flash_dkv_sm90<128>,
+                                 true, false>(bases, st, B, p, s);
+  return pos ? launch_bwd_sm90<flash_dq_pos_sm90<64>, flash_dq_pos_sm90<128>,
+                               false, false, true>(bases, st, B, p, s, pm)
+             : launch_bwd_sm90<flash_dq_sm90<64>, flash_dq_sm90<128>, false,
+                               false>(bases, st, B, p, s);
 }
 
 int run(int kind, Params& p, int BH, int dtype, bool pos, void* stream) {
@@ -584,12 +633,15 @@ int run(int kind, Params& p, int BH, int dtype, bool pos, void* stream) {
   p.vec = vec;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kind >= kFwdSm90) {
-    // what the Hopper bodies admit; asked for anything else, the entry
-    // refuses rather than run another body
-    if (kind > kDkvSm90 || dtype != kBF16 || pos || !vec || p.D <= 32 ||
-        p.D > 128 || p.D % 8 != 0 || !(p.scale > 0.f))
+    // what the Hopper bodies admit (a ring step: shards of one length);
+    // asked for anything else, the entry refuses rather than run another
+    // body. A ring step without the mask is the whole-sequence kernel's
+    // work with causal off.
+    if (kind > kDkvSm90 || dtype != kBF16 || !vec || p.D <= 32 ||
+        p.D > 128 || p.D % 8 != 0 || !(p.scale > 0.f) ||
+        (pos && p.Sq != p.Sk))
       return static_cast<int>(cudaErrorInvalidValue);
-    const int err = launch_sm90(kind, p, BH / p.H, s);
+    const int err = launch_sm90(kind, p, BH / p.H, pos && p.causal, s);
     return err != 0 ? err : static_cast<int>(cudaGetLastError());
   }
   int err;
@@ -636,22 +688,24 @@ extern "C" int ptt_flash_attention(int kind, const void* q, const void* k,
              stream);
 }
 
-// The ring-step kernels: kinds 0-2 of ptt_flash_attention, sizes and
-// strides as arguments, with q / dout of Sq rows, k / v of Sk rows (dK, dV
-// [B, Sk, H, D]; lse, delta [B*H, Sq]) and the causal mask qpos[i] >=
-// kpos[j] on int32 positions ([Sq], [Sk]).
+// The ring-step kernels: the kinds of ptt_flash_attention (0-2 the
+// mma.sync bodies, 3-5 the Hopper bodies, which take Sq == Sk only), with
+// q / dout of Sq = dims[1] rows and k / v of Sk rows (dK, dV [B, Sk, H,
+// D]; lse, delta [B*H, Sq]) and the causal mask qpos[i] >= kpos[j] on
+// int32 positions ([Sq], [Sk]); dims packed as for ptt_flash_attention.
 extern "C" int ptt_flash_attention_pos(
     int kind, const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* out0, void* out1,
-    void* lse_out, const void* qpos, const void* kpos, int B, int Sq, int Sk,
-    int H, int D, long long q_b, long long q_s, long long q_h, long long k_b,
-    long long k_s, long long k_h, long long v_b, long long v_s,
-    long long v_h, long long d_b, long long d_s, long long d_h, int dtype,
-    float scale, int causal, void* stream) {
+    void* lse_out, const void* qpos, const void* kpos, const long long* dims,
+    int Sk, int dtype, float scale, int causal, void* stream) {
+  const long long* st = dims + 4;
   Params p{q, k, v, dout, static_cast<const float*>(lse),
            static_cast<const float*>(delta), out0, out1,
            static_cast<float*>(lse_out), static_cast<const int*>(qpos),
-           static_cast<const int*>(kpos), Sq, Sk, H, D, q_b, q_s, q_h, k_b,
-           k_s, k_h, v_b, v_s, v_h, d_b, d_s, d_h, scale, causal, 0};
-  return run(kind, p, B * H, dtype, true, stream);
+           static_cast<const int*>(kpos), static_cast<int>(dims[1]), Sk,
+           static_cast<int>(dims[2]), static_cast<int>(dims[3]), st[0], st[1],
+           st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
+           st[11], scale, causal, 0};
+  return run(kind, p, static_cast<int>(dims[0] * dims[2]), dtype, true,
+             stream);
 }

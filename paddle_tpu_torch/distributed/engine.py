@@ -51,8 +51,8 @@ __all__ = ["parallelize", "ShardedTrainStep"]
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 _LATER = ("is not ported yet: the port trains on one device (multi-device "
-          "meshes and sharding come with a later slice, ROADMAP 'Training "
-          "still lacks')")
+          "meshes and sharding come with a later slice, ROADMAP Queue 1, "
+          "item 6: more than one device)")
 
 
 def _dtype(d):
@@ -243,7 +243,8 @@ def parallelize(model, optimizer=None, loss_fn=None, *, mesh=None,
             if not isinstance(group["lr"], numbers.Real):
                 raise NotImplementedError(
                     f"learning rate {group['lr']!r}: LR schedulers are not "
-                    f"ported yet (ROADMAP 'Training still lacks')")
+                    f"ported yet (ROADMAP Queue 1, item 2: training "
+                    f"recipes)")
     return ShardedTrainStep(model, optimizer, loss_fn=loss_fn,
                             compute_dtype=compute_dtype, mesh=mesh,
                             context_parallel=context_parallel)

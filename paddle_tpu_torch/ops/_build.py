@@ -138,10 +138,10 @@ def lib():
     _sig(handle.ptt_flash_attention, I, P, P, P, P, P, P, P, P, P,
          ctypes.c_char_p, I, F, I, P)
     # the ring-step kernels: kind, the ten pointers as above, qpos, kpos,
-    # B, Sq, Sk, H, D, strides (b, s, h) of q, k, v, dout, dtype, scale,
-    # causal, stream
+    # dims as above (S: q's rows Sq), k's rows Sk, dtype, scale, causal,
+    # stream
     _sig(handle.ptt_flash_attention_pos, I, P, P, P, P, P, P, P, P, P, P, P,
-         I, I, I, I, I, *([L] * 12), I, F, I, P)
+         ctypes.c_char_p, I, I, F, I, P)
     # x, w, bias, out, m, n, k, dtype, stream (the row-stable GEMV)
     _sig(handle.ptt_row_gemv, P, P, P, P, I, I, I, I, P)
     # kind, q, k, v, dout, seed, lse, delta, out0, out1, dims (16 int64:

@@ -30,6 +30,12 @@ column indices, because a zigzag shard's rows are not contiguous, and
   one step's dQ and dK, dV from the GLOBAL merged lse and delta, each
   rounded to the input dtype as the TPU kernel's outputs are.
 
+Where the whole-sequence kernels take their Hopper bodies and the two
+shards are of one length (the ring's own case), these three run the same
+Hopper bodies under a position-mask policy; otherwise (f32, head-dim tiles
+32 and 256, Sq != Sk) the mma.sync bodies — `flash_pos_route` decides, and
+the wrappers' ``.routes`` count launches by body.
+
 The port keeps its [B, S, H, D] layout with lse [B, H, S] for these too
 (JAX: [bh, s, d] and [bh, s, 1]).
 
@@ -61,7 +67,8 @@ __all__ = ["flash_attention", "flash_attention_supported",
            "flash_attention_bwd_dq_ref", "flash_attention_bwd_dkv_ref",
            "flash_attention_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "attention_delta",
-           "flash_fwd_pos", "flash_bwd_pos", "flash_bwd_pos_dq",
+           "flash_pos_route", "flash_fwd_pos", "flash_bwd_pos",
+           "flash_bwd_pos_dq",
            "flash_bwd_pos_dkv", "flash_fwd_pos_ref", "flash_bwd_pos_ref"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -191,13 +198,6 @@ def _check_cuda(q, *others):
         if t.device != dev or t.dtype != dt:
             raise ValueError(f"operands must share q's device and dtype "
                              f"({dev}, {dt}), got {t.device}, {t.dtype}")
-
-
-def _cuda_operands(q, *others):
-    """`_check_cuda`, then the operands with a unit stride along D (a copy
-    only where the caller's has none)."""
-    _check_cuda(q, *others)
-    return _build.attention_views((q, *others))[0]
 
 
 def flash_fwd_route(q, k, v, scale=1.0):
@@ -432,11 +432,27 @@ def _cuda_positions(q, *pos):
     return out
 
 
-def _launch_pos(kind, q, k, v, dout, lse, delta, out0, out1, lse_out, q_pos,
-                k_pos, causal, scale):
-    B, Sq, H, D = q.shape
-    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-               *(dout.stride()[:3] if dout is not None else (0, 0, 0))]
+def flash_pos_route(q, k, v, do=None, scale=1.0):
+    """How a CUDA call of `flash_fwd_pos` (q, k, v) or of
+    `flash_bwd_pos_dq` / `flash_bwd_pos_dkv` (and dO) launches; the
+    wrappers launch exactly what this returns: (route, ops, ptrs,
+    strides), as `flash_fwd_route` / `flash_bwd_route` — the route
+    FWD_WGMMA / BWD_WGMMA (the Hopper bodies under the position mask)
+    where `_build.hopper_plan` admits the operands and q and k have one
+    length, FWD_MMA / BWD_MMA (the mma.sync bodies) otherwise."""
+    ops = (q, k, v) if do is None else (q, k, v, do)
+    hopper, *views = _build.hopper_plan(ops, scale)
+    hopper = hopper and q.shape[1] == k.shape[1]
+    if do is None:
+        return (FWD_WGMMA if hopper else FWD_MMA, *views)
+    return (BWD_WGMMA if hopper else BWD_MMA, *views)
+
+
+def _launch_pos(kind, q, k, ptrs, strides, lse, delta, out0, out1, lse_out,
+                q_pos, k_pos, causal, scale):
+    """One launch of a ring-step kernel on the operands q, k, v (and dout)
+    whose pointers and strides `flash_pos_route` fetched."""
+    dims = _build.attention_dims(q.shape, strides)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -445,11 +461,13 @@ def _launch_pos(kind, q, k, v, dout, lse, delta, out0, out1, lse_out, q_pos,
     ctx, stream = _build.launch_on(q.device)
     with ctx:
         err = lib.ptt_flash_attention_pos(
-            kind, ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta),
-            ptr(out0), ptr(out1), ptr(lse_out), q_pos.data_ptr(),
-            k_pos.data_ptr(), B, Sq, k.shape[1], H, D, *strides,
-            _build.dtype_code(q.dtype), scale, int(bool(causal)), stream)
-    _build.check(err, ("flash_fwd_pos", "flash_dq_pos", "flash_dkv_pos")[kind])
+            kind, ptrs[0], ptrs[1], ptrs[2], ptrs[3] if len(ptrs) > 3
+            else None, ptr(lse), ptr(delta), ptr(out0), ptr(out1),
+            ptr(lse_out), q_pos.data_ptr(), k_pos.data_ptr(), dims,
+            k.shape[1], _build.dtype_code(q.dtype), scale,
+            int(bool(causal)), stream)
+    _build.check(err, ("flash_fwd_pos", "flash_dq_pos",
+                       "flash_dkv_pos")[kind % 3])
 
 
 def flash_fwd_pos(q, k, v, q_pos, k_pos, *, causal=True, scale=None):
@@ -462,16 +480,18 @@ def flash_fwd_pos(q, k, v, q_pos, k_pos, *, causal=True, scale=None):
     if q.device.type == "cpu":
         return flash_fwd_pos_ref(q, k, v, q_pos, k_pos, causal=causal,
                                  scale=scale)
-    q, k, v = _cuda_operands(q, k, v)
+    _check_cuda(q, k, v)
     q_pos, k_pos = _cuda_positions(q, q_pos, k_pos)
     B, Sq, H, D = q.shape
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return out, lse
-    _launch_pos(_FWD, q, k, v, None, None, None, out, None, lse, q_pos,
-                k_pos, causal, scale)
+    route, ops, ptrs, strides = flash_pos_route(q, k, v, scale=scale)
+    _launch_pos(route, ops[0], ops[1], ptrs, strides, None, None, out, None,
+                lse, q_pos, k_pos, causal, scale)
     flash_fwd_pos.launches += 1
+    flash_fwd_pos.routes[route] += 1
     return out, lse
 
 
@@ -483,15 +503,17 @@ def flash_bwd_pos_dq(q, k, v, do, lse, delta, q_pos, k_pos, *, causal=True,
     if q.device.type == "cpu":
         return flash_bwd_pos_ref(q, k, v, do, lse, delta, q_pos, k_pos,
                                  causal=causal, scale=scale)[0]
-    q, k, v, do = _cuda_operands(q, k, v, do)
+    _check_cuda(q, k, v, do)
     q_pos, k_pos = _cuda_positions(q, q_pos, k_pos)
     lse, delta = _bwd_rows(q, lse, delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.numel() == 0:
         return dq
-    _launch_pos(_DQ, q, k, v, do, lse, delta, dq, None, None, q_pos, k_pos,
-                causal, scale)
+    route, ops, ptrs, strides = flash_pos_route(q, k, v, do, scale)
+    _launch_pos(_DQ_KIND[route], ops[0], ops[1], ptrs, strides, lse, delta,
+                dq, None, None, q_pos, k_pos, causal, scale)
     flash_bwd_pos_dq.launches += 1
+    flash_bwd_pos_dq.routes[route] += 1
     return dq
 
 
@@ -503,16 +525,18 @@ def flash_bwd_pos_dkv(q, k, v, do, lse, delta, q_pos, k_pos, *, causal=True,
     if q.device.type == "cpu":
         return flash_bwd_pos_ref(q, k, v, do, lse, delta, q_pos, k_pos,
                                  causal=causal, scale=scale)[1:]
-    q, k, v, do = _cuda_operands(q, k, v, do)
+    _check_cuda(q, k, v, do)
     q_pos, k_pos = _cuda_positions(q, q_pos, k_pos)
     lse, delta = _bwd_rows(q, lse, delta)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     if k.numel() == 0:
         return dk, dv
-    _launch_pos(_DKV, q, k, v, do, lse, delta, dk, dv, None, q_pos, k_pos,
-                causal, scale)
+    route, ops, ptrs, strides = flash_pos_route(q, k, v, do, scale)
+    _launch_pos(_DKV_KIND[route], ops[0], ops[1], ptrs, strides, lse, delta,
+                dk, dv, None, q_pos, k_pos, causal, scale)
     flash_bwd_pos_dkv.launches += 1
+    flash_bwd_pos_dkv.routes[route] += 1
     return dk, dv
 
 
@@ -533,3 +557,7 @@ def flash_bwd_pos(q, k, v, do, lse, delta, q_pos, k_pos, *, causal=True,
 flash_fwd_pos.launches = 0
 flash_bwd_pos_dq.launches = 0
 flash_bwd_pos_dkv.launches = 0
+#: launches of each body (`flash_pos_route`'s codes)
+flash_fwd_pos.routes = {FWD_MMA: 0, FWD_WGMMA: 0}
+flash_bwd_pos_dq.routes = {BWD_MMA: 0, BWD_WGMMA: 0}
+flash_bwd_pos_dkv.routes = {BWD_MMA: 0, BWD_WGMMA: 0}

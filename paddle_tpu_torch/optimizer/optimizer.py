@@ -23,8 +23,8 @@ def _lr_value(learning_rate):
     if not isinstance(learning_rate, numbers.Real):
         raise NotImplementedError(
             f"learning rate {learning_rate!r}: LR schedulers are not ported "
-            f"yet (a later slice, ROADMAP 'Training still lacks'); pass a "
-            f"number")
+            f"yet (a later slice, ROADMAP Queue 1, item 2: training "
+            f"recipes); pass a number")
     return float(learning_rate)
 
 

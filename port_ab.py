@@ -2,12 +2,14 @@
 """Compare two checkouts of the PyTorch/CUDA port on one GPU, alternating.
 
     python3 port_ab.py PARENT CHANGE
-        [--what decode,flash,short,weight_only,dense_decode,sparse]
+        [--what decode,flash,short,weight_only,dense_decode,sparse,ring]
         [--rounds 1]
 
 PARENT and CHANGE are the roots of two checkouts (for example a
 `git archive` of each commit unpacked into a git-ignored directory). Both
-trees' kernels are built first, in parallel. Then each measurement runs
+trees' kernels are built first, in parallel, and the kernels whose ptxas
+register or spill lines differ between the two builds are printed (one
+JSON line, "what": "ptxas"). Then each measurement runs
 in a child process that imports one tree only, in the order PARENT,
 CHANGE, CHANGE, PARENT for each round, so that a drift of the card's
 clock or power falls on both sides.
@@ -49,7 +51,15 @@ Measurements:
   median ms over 50 calls and the device time of a call (``_dev_ms``);
 * ``sparse``: the block-sparse kernel on `chip_smoke.py`'s BigBird tables
   (seed 0) at [4*12, 4096, 64] and [12, 4096, 128] bf16: median ms over
-  50 calls.
+  50 calls;
+* ``ring``: the ring-step kernels of context parallelism at cp = 2 with
+  zigzag placement — gpt_base's shards (B=8, s=512, H=12, D=64; ranks 0
+  and 1, own and visiting shard) and llama2_7b's (B=1, s=2048, H=32,
+  D=128; rank 0, own and visiting), bf16: median CUDA-event ms of the
+  forward, dq and dkv over 50 calls and each one's device time
+  (``_dev_ms``, as for ``flash``); beside them, as ``{shape}_causal_``,
+  the whole-sequence causal kernels on the same q, k, v (the own shard's
+  work, without positions).
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 per measurement, each naming its tree. Every child has a time limit and
@@ -59,6 +69,7 @@ import argparse
 import importlib
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -139,6 +150,51 @@ def child_flash(tree):
             res[f"{name}_{part}_ms"] = _time_ms(torch, fn)
             res[f"{name}_{part}_dev_ms"] = _graph_ms(torch, [fn])
         del qkv, q, k, v, do, out, lse, delta
+    return res
+
+
+RING_SHARDS = (("gpt_base", 8, 512, 12, 64, ((0, 0), (0, 1), (1, 1), (1, 0))),
+               ("llama2_7b", 1, 2048, 32, 128, ((0, 0), (0, 1))))
+
+
+def child_ring(tree):
+    import torch
+
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    cpm = importlib.import_module(
+        "paddle_tpu_torch.distributed.context_parallel")
+    res = {"tree": tree, "what": "ring"}
+    for name, B, s, H, D, ranks in RING_SHARDS:
+        g = torch.Generator(device="cuda").manual_seed(11)
+        q, k, v, do = (torch.randn(B, s, H, D, device="cuda",
+                                   generator=g).to(torch.bfloat16)
+                       for _ in range(4))
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        delta = fa.attention_delta(out, do)
+        whole = {
+            "fwd": lambda: fa.flash_attention_fwd(q, k, v),
+            "dq": lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+            "dkv": lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                      delta)}
+        for part, fn in whole.items():
+            res[f"{name}_causal_{part}_ms"] = _time_ms(torch, fn)
+            res[f"{name}_causal_{part}_dev_ms"] = _graph_ms(torch, [fn])
+        for rq, rk in ranks:
+            qp = cpm._local_positions(rq, 2, s, True, "cuda")
+            kp = cpm._local_positions(rk, 2, s, True, "cuda")
+            label = f"{name}_r{rq}_{'own' if rq == rk else 'visiting'}"
+            out, lse = fa.flash_fwd_pos(q, k, v, qp, kp)
+            delta = fa.attention_delta(out, do)
+            bwd = (q, k, v, do, lse, delta, qp, kp)
+            calls = {
+                "fwd": lambda: fa.flash_fwd_pos(q, k, v, qp, kp),
+                "dq": lambda: fa.flash_bwd_pos_dq(*bwd),
+                "dkv": lambda: fa.flash_bwd_pos_dkv(*bwd)}
+            for part, fn in calls.items():
+                res[f"{label}_{part}_ms"] = _time_ms(torch, fn)
+                res[f"{label}_{part}_dev_ms"] = _graph_ms(torch, [fn])
+            del out, lse, delta, bwd
+        del q, k, v, do
     return res
 
 
@@ -290,7 +346,7 @@ def _child(what, tree):
            "short": child_short,
            "weight_only": child_weight_only,
            "dense_decode": child_dense_decode,
-           "sparse": child_sparse}[what](tree)
+           "sparse": child_sparse, "ring": child_ring}[what](tree)
     print("AB " + json.dumps(res), flush=True)
 
 
@@ -307,6 +363,34 @@ def _run(argv, label):
     return out
 
 
+def _ptxas_lines(lines):
+    """kernel (mangled name, the anonymous namespace's hash, which differs
+    between the two trees' paths, left out) -> its ptxas register and
+    spill lines, whitespace collapsed."""
+    out, cur = {}, None
+    for ln in lines:
+        ln = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N_", ln)
+        ln = " ".join(re.sub(r"(_GLOBAL__N_\d+_\w+?_cu_)[0-9a-f]{8}", r"\1",
+                             ln).split())
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = out.setdefault(m.group(1), [])
+        elif cur is not None and ("registers" in ln or "spill" in ln):
+            cur.append(ln)
+    return out
+
+
+def _ptxas_diff(parent, change):
+    """The kernels whose register or spill lines differ between two
+    builds' ptxas logs, and those built in one tree only."""
+    a, b = _ptxas_lines(parent), _ptxas_lines(change)
+    return {"what": "ptxas", "kernels": [len(a), len(b)],
+            "differ": {k: [a[k], b[k]] for k in sorted(set(a) & set(b))
+                       if a[k] != b[k]},
+            "parent_only": sorted(set(a) - set(b)),
+            "change_only": {k: b[k] for k in sorted(set(b) - set(a))}}
+
+
 def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parent")
@@ -321,12 +405,24 @@ def main(argv):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=30, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    build = "from paddle_tpu_torch.ops import _build; _build.build()"
-    builds = [subprocess.Popen([sys.executable, "-c", build], cwd=t)
+    # a fresh build in each tree (its stamp removed first), so that both
+    # print their ptxas lines
+    build = ("import json, os; from paddle_tpu_torch.ops import _build; "
+             "stamp = os.path.join(_build.BUILD_DIR, _build.LIB_NAME) + "
+             "'.sha256'; os.path.exists(stamp) and os.remove(stamp); "
+             "_build.build(); "
+             "print('PTXAS ' + json.dumps(_build.build_info['ptxas']))")
+    builds = [subprocess.Popen([sys.executable, "-c", build], cwd=t,
+                               stdout=subprocess.PIPE, text=True)
               for t in (args.parent, args.change)]
+    ptxas = []
     for t, p in zip((args.parent, args.change), builds):
-        if p.wait(timeout=CHILD_TIMEOUT_S) != 0:
+        out, _ = p.communicate(timeout=CHILD_TIMEOUT_S)
+        if p.returncode != 0:
             raise SystemExit(f"kernel build failed in {t}")
+        ptxas.append(next((json.loads(ln[6:]) for ln in out.splitlines()
+                           if ln.startswith("PTXAS ")), []))
+    print(json.dumps(_ptxas_diff(*ptxas)), flush=True)
     for what in args.what.split(","):
         for _ in range(args.rounds):
             for tree in (args.parent, args.change, args.change, args.parent):

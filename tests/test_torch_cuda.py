@@ -1057,10 +1057,20 @@ def _pos_span(*spans):
                       zip(spans[::2], spans[1::2])]).to(torch.int32)
 
 
+def _pos_perm(n, m, seed):
+    return torch.randperm(n, generator=torch.Generator().manual_seed(
+        seed))[:m].int()
+
+
 # name -> (q positions, k positions, causal, D): rank 0 of a 2-way zigzag
 # ring (S = 512) on its own and the visiting shard; a contiguous shard
 # whose keys all lie in its future; no mask; ragged lengths with
-# shuffled positions and a padded head dim
+# shuffled positions and a padded head dim (the mma.sync bodies); then
+# cases of the Hopper route (bf16, shards of one length): zigzag runs of
+# 64 (rank 0 of a 4-way ring at S = 512: one 128-row tile straddles both
+# runs) and of 192 (a 2-way ring at S = 768: the middle tile straddles
+# them), shuffled positions of one length, a tile that mixes rows that see
+# keys with rows that see none, a shard wholly in the future at D = 128
 POS_KERNEL_CASES = {
     "zigzag own": (_pos_span(0, 127, 384, 511), _pos_span(0, 127, 384, 511),
                    True, 64),
@@ -1068,12 +1078,39 @@ POS_KERNEL_CASES = {
                         True, 64),
     "fully masked": (_pos_span(0, 255), _pos_span(256, 511), True, 64),
     "full D=128": (_pos_span(0, 255), _pos_span(256, 511), False, 128),
-    "shuffled ragged D=80": (torch.randperm(
-        400, generator=torch.Generator().manual_seed(1))[:200].int(),
-                             torch.randperm(
-        400, generator=torch.Generator().manual_seed(2))[:136].int(),
+    "shuffled ragged D=80": (_pos_perm(400, 200, 1), _pos_perm(400, 136, 2),
                              True, 80),
+    "runs of 64 own D=128": (_pos_span(0, 63, 448, 511),
+                             _pos_span(0, 63, 448, 511), True, 128),
+    "runs of 64 visiting D=64": (_pos_span(0, 63, 448, 511),
+                                 _pos_span(64, 127, 384, 447), True, 64),
+    "runs of 192 own D=64": (_pos_span(0, 191, 576, 767),
+                             _pos_span(0, 191, 576, 767), True, 64),
+    "runs of 192 visiting D=128": (_pos_span(0, 191, 576, 767),
+                                   _pos_span(192, 575), True, 128),
+    "shuffled equal D=64": (_pos_perm(400, 200, 3), _pos_perm(400, 200, 4),
+                            True, 64),
+    "shuffled equal D=128": (_pos_perm(600, 256, 5), _pos_perm(600, 256, 6),
+                             True, 128),
+    "mixed tile D=128": (_pos_span(0, 255), _pos_span(100, 355), True, 128),
+    "mixed tile D=64": (_pos_span(0, 255), _pos_span(100, 355), True, 64),
+    "future D=128": (_pos_span(0, 255), _pos_span(256, 511), True, 128),
+    "full shuffled D=64": (_pos_perm(400, 200, 7), _pos_perm(400, 200, 8),
+                           False, 64),
 }
+
+
+def _pos_counts():
+    return [(w.launches, dict(w.routes)) for w in (
+        tfa.flash_fwd_pos, tfa.flash_bwd_pos_dq, tfa.flash_bwd_pos_dkv)]
+
+
+def _pos_hopper(dtype, q_pos, k_pos, D):
+    """Whether a ring step of these operands (contiguous bf16 or f32)
+    takes the Hopper bodies: bf16, 32 < D <= 128, D % 8 == 0, one
+    length."""
+    return (dtype == torch.bfloat16 and len(q_pos) == len(k_pos)
+            and 32 < D <= 128 and D % 8 == 0)
 
 
 def _pos_case(q_pos, k_pos, D, dtype, seed, B=2, H=3):
@@ -1091,12 +1128,19 @@ def test_flash_pos_kernels_match_plain(cuda, dtype, case):
     """flash_fwd_pos, flash_dq_pos and flash_dkv_pos against their plain
     versions (the backward kernels on the plain forward's lse and delta):
     O to FLASH_TOL, rows that see no key O == 0 exactly with lse <= -1e29
-    and no NaN, gradients normwise (exactly 0 where no pair is kept)."""
+    and no NaN, gradients normwise (exactly 0 where no pair is kept). Each
+    call counts one launch on the route `flash_pos_route` names: the
+    Hopper bodies for bf16 shards of one length, the mma.sync bodies
+    otherwise."""
     q_pos, k_pos, causal, D = POS_KERNEL_CASES[case]
     tol, grad_tol = FLASH_TOL[dtype]
     q, k, v, do, qp, kp = _pos_case(q_pos, k_pos, D, dtype, seed=D)
-    counts = (tfa.flash_fwd_pos.launches, tfa.flash_bwd_pos_dq.launches,
-              tfa.flash_bwd_pos_dkv.launches)
+    hopper = _pos_hopper(dtype, q_pos, k_pos, D)
+    assert tfa.flash_pos_route(q, k, v)[0] == (
+        tfa.FWD_WGMMA if hopper else tfa.FWD_MMA)
+    route = tfa.BWD_WGMMA if hopper else tfa.BWD_MMA
+    assert tfa.flash_pos_route(q, k, v, do)[0] == route
+    counts = _pos_counts()
     out, lse = tfa.flash_fwd_pos(q, k, v, qp, kp, causal=causal)
     ref, lse_ref = tfa.flash_fwd_pos_ref(q, k, v, qp, kp, causal=causal)
     seen = ((qp[:, None] >= kp[None, :]).any(1) if causal
@@ -1118,13 +1162,22 @@ def test_flash_pos_kernels_match_plain(cuda, dtype, case):
             assert (got == 0).all(), name
         else:
             assert _norm_err(got, r) <= grad_tol, (name, _norm_err(got, r))
-    assert (tfa.flash_fwd_pos.launches, tfa.flash_bwd_pos_dq.launches,
-            tfa.flash_bwd_pos_dkv.launches) == tuple(c + 1 for c in counts)
+    fwd_route = tfa.FWD_WGMMA if hopper else tfa.FWD_MMA
+    for (n0, r0), (n1, r1), rt in zip(counts, _pos_counts(),
+                                      (fwd_route, route, route)):
+        assert (n1, r1) == (n0 + 1, {**r0, rt: r0[rt] + 1})
 
 
-def test_flash_pos_kernels_are_bitwise_reproducible(cuda):
-    q, k, v, do, qp, kp = _pos_case(*POS_KERNEL_CASES["zigzag visiting"][:2],
-                                    64, torch.bfloat16, seed=9)
+@pytest.mark.parametrize("case", ["zigzag visiting", "runs of 64 own D=128",
+                                  "runs of 192 own D=64"])
+def test_flash_pos_kernels_are_bitwise_reproducible(cuda, case):
+    """Two eager runs bit for bit, on the Hopper route; then 64 ring
+    steps (forward, dQ, dK/dV) in one CUDA graph replayed 3 times, each
+    bit-equal to the eager run (the skipped and the published blocks,
+    launch after launch)."""
+    q_pos, k_pos, _, D = POS_KERNEL_CASES[case]
+    q, k, v, do, qp, kp = _pos_case(q_pos, k_pos, D, torch.bfloat16, seed=9)
+    counts = _pos_counts()
     runs = []
     for _ in range(2):
         out, lse = tfa.flash_fwd_pos(q, k, v, qp, kp)
@@ -1133,6 +1186,44 @@ def test_flash_pos_kernels_are_bitwise_reproducible(cuda):
                                                   qp, kp)))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+    hopper = (tfa.FWD_WGMMA, tfa.BWD_WGMMA, tfa.BWD_WGMMA)
+    assert [r[rt] - r0[rt] for (_, r0), (_, r), rt in zip(
+        counts, _pos_counts(), hopper)] == [2, 2, 2]
+    lse, delta = runs[0][1], tfa.attention_delta(runs[0][0], do)
+
+    def step():
+        return (*tfa.flash_fwd_pos(q, k, v, qp, kp),
+                *tfa.flash_bwd_pos(q, k, v, do, lse, delta, qp, kp))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [step() for _ in range(64)]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        bad = [i for i, o in enumerate(outs)
+               if not all(torch.equal(a, b) for a, b in zip(o, runs[0]))]
+        assert not bad, f"{len(bad)} of 64 steps differ"
+
+
+@pytest.mark.parametrize("kind", [3, 4, 5])
+def test_flash_pos_hopper_kinds_refuse_unequal_shards(cuda, kind):
+    """Asked for a Hopper body on shards of two lengths, the ring step's C
+    entry refuses (cudaErrorInvalidValue) instead of running another
+    body."""
+    q_pos, k_pos = _pos_perm(400, 200, 1), _pos_perm(400, 136, 2)
+    q, k, v, do, qp, kp = _pos_case(q_pos, k_pos, 64, torch.bfloat16, seed=1)
+    _, ops, ptrs, strides = tfa.flash_pos_route(q, k, v, do)
+    lse = torch.zeros(2, 3, 200, device=cuda)
+    out = torch.empty_like(q)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tfa._launch_pos(kind, q, k, ptrs, strides, lse, lse, out, out, lse,
+                        qp, kp, True, 0.125)
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -1150,14 +1241,19 @@ def test_serial_ring_matches_whole_sequence_kernels(cuda, n, causal,
     before the f32 sum, where the whole-sequence kernel rounds once
     (readings on an H100 1.2e-3 to 3.0e-3). The same ring with the
     visiting partial's merge weight dropped must fail that gradient
-    gate."""
+    gate. Every ring step of the kernels' ring runs on the Hopper bodies
+    (n forwards, n dQ and n dK/dV a rank)."""
     from paddle_tpu_torch.distributed import context_parallel as cpm
     from paddle_tpu_torch.distributed.context_parallel import ring_serial
 
     tol, grad_tol = FLASH_TOL[torch.bfloat16]
     q, k, v, do = _flash_case(2, 1024, 4, 64, torch.bfloat16, seed=n)
     kw = dict(causal=causal, balanced=balanced)
+    counts = _pos_counts()
     got, _ = ring_serial(q, k, v, do, n, **kw)
+    hopper = (tfa.FWD_WGMMA, tfa.BWD_WGMMA, tfa.BWD_WGMMA)
+    assert [(n1 - n0, r[rt] - r0[rt]) for (n0, r0), (n1, r), rt in zip(
+        counts, _pos_counts(), hopper)] == [(n * n, n * n)] * 3
     plain, stats = ring_serial(q, k, v, do, n, fwd=tfa.flash_fwd_pos_ref,
                                bwd=tfa.flash_bwd_pos_ref, **kw)
     bwd_alone, _ = ring_serial(q, k, v, do, n, stats=stats, **kw)

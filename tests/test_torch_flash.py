@@ -321,3 +321,70 @@ def test_bwd_route_counts_name_both_bodies_and_a_cpu_call_counts_none():
     tfa.flash_attention_bwd_dkv(q, k, v, do, lse, lse, causal=True)
     assert [dict(w.routes) for w in (tfa.flash_attention_bwd_dq,
                                      tfa.flash_attention_bwd_dkv)] == before
+
+
+# --- the ring step's route (`flash_pos_route`) --------------------------------
+
+def _meta_shard(B, s, H, D, dtype=torch.bfloat16):
+    return torch.empty(B, s, H, D, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("case,q_shape,k_len,dtype,route", [
+    ("gpt_base shard", (8, 512, 12, 64), 512, "bfloat16", "wgmma"),
+    ("llama2_7b shard", (1, 2048, 32, 128), 2048, "bfloat16", "wgmma"),
+    ("padded D = 80", (2, 256, 4, 80), 256, "bfloat16", "wgmma"),
+    ("gpt_base shard f32", (8, 512, 12, 64), 512, "float32", "mma"),
+    ("D = 32", (2, 256, 4, 32), 256, "bfloat16", "mma"),
+    ("D = 256", (1, 256, 2, 256), 256, "bfloat16", "mma"),
+    ("Sq != Sk", (2, 200, 3, 64), 136, "bfloat16", "mma"),
+])
+def test_pos_route_predicate_on_the_ring_shapes(case, q_shape, k_len, dtype,
+                                                route):
+    """The ring step takes the Hopper bodies on the whole-sequence
+    kernels' conditions with shards of one length, forward and backward
+    alike; f32, head-dim tiles 32 and 256 and Sq != Sk the mma.sync
+    bodies."""
+    B, s, H, D = q_shape
+    q, do = (_meta_shard(B, s, H, D, _TDT[dtype]) for _ in range(2))
+    k, v = (_meta_shard(B, k_len, H, D, _TDT[dtype]) for _ in range(2))
+    fwd = {"wgmma": tfa.FWD_WGMMA, "mma": tfa.FWD_MMA}[route]
+    bwd = {"wgmma": tfa.BWD_WGMMA, "mma": tfa.BWD_MMA}[route]
+    assert tfa.flash_pos_route(q, k, v)[0] == fwd, case
+    assert tfa.flash_pos_route(q, k, v, do)[0] == bwd, case
+
+
+def test_pos_route_refuses_what_tma_cannot_describe():
+    """A base off 16 bytes (q, or dO alone) keeps the mma.sync bodies; a
+    stride along D is launched as a unit-stride copy, which the route
+    returns and the Hopper bodies take."""
+    q, k, v, do = (_meta_shard(2, 256, 4, 64) for _ in range(4))
+    base = torch.empty(2 * 256 * 4 * 64 + 4, dtype=torch.bfloat16,
+                       device="meta")
+    odd = base[4:].view(2, 256, 4, 64)
+    assert tfa.flash_pos_route(odd, k, v)[0] == tfa.FWD_MMA
+    assert tfa.flash_pos_route(q, k, v, odd)[0] == tfa.BWD_MMA
+    strided = torch.empty(2, 256, 4, 128, dtype=torch.bfloat16,
+                          device="meta")[..., ::2]
+    route, ops, _, strides = tfa.flash_pos_route(q, strided, v, do)
+    assert route == tfa.BWD_WGMMA
+    assert ops[1] is not strided and strides[1] == (65536, 256, 64, 1)
+
+
+def test_pos_route_counts_name_both_bodies_and_a_cpu_call_counts_none():
+    """The ring-step wrappers count launches by body (`.routes`) where the
+    kernels are launched, beside `.launches`; the plain versions on the
+    CPU launch none."""
+    assert set(tfa.flash_fwd_pos.routes) == {tfa.FWD_MMA, tfa.FWD_WGMMA}
+    wrappers = (tfa.flash_fwd_pos, tfa.flash_bwd_pos_dq,
+                tfa.flash_bwd_pos_dkv)
+    for w in wrappers[1:]:
+        assert set(w.routes) == {tfa.BWD_MMA, tfa.BWD_WGMMA}
+    g = torch.Generator().manual_seed(7)
+    q, k, v, do = (torch.randn(1, 128, 2, 64, generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    pos = torch.arange(128, dtype=torch.int32)
+    before = [(w.launches, dict(w.routes)) for w in wrappers]
+    out, lse = tfa.flash_fwd_pos(q, k, v, pos, pos)
+    delta = tfa.attention_delta(out, do)
+    tfa.flash_bwd_pos(q, k, v, do, lse, delta, pos, pos)
+    assert [(w.launches, dict(w.routes)) for w in wrappers] == before

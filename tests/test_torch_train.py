@@ -177,12 +177,18 @@ def test_train_batches_stacks_losses_and_norms():
 def test_engine_refuses_what_is_not_ported():
     tm = gpt("gpt_tiny", device="cpu")
     opt = AdamW(learning_rate=LR, parameters=tm.parameters())
-    with pytest.raises(NotImplementedError, match="later slice"):
+    later = "later slice, ROADMAP Queue 1, item 6: more than one device"
+    with pytest.raises(NotImplementedError, match=later):
         parallelize(tm, opt, mesh=["cuda:0", "cuda:1"])
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match=later):
         parallelize(tm, opt, sharding_stage=2)
-    with pytest.raises(NotImplementedError, match="LR schedulers"):
+    recipes = "LR schedulers .*ROADMAP Queue 1, item 2: training recipes"
+    with pytest.raises(NotImplementedError, match=recipes):
         AdamW(learning_rate=lambda step: 1e-3, parameters=tm.parameters())
+    scheduled = AdamW(learning_rate=LR, parameters=tm.parameters())
+    scheduled.param_groups[0]["lr"] = lambda step: 1e-3
+    with pytest.raises(NotImplementedError, match=recipes):
+        parallelize(tm, scheduled)
     with pytest.raises(RuntimeError, match="without an optimizer"):
         parallelize(tm).train_batch(torch.zeros(1, 8, dtype=torch.long))
     assert parallelize(tm, opt, mesh=["cpu"]).device == torch.device("cpu")
