@@ -1115,6 +1115,7 @@ def serve(torch, np, model, quant, lens, new_tokens, label, check_dense):
     weight_only_matmul.launches = 0
     zero_routes(weight_only_matmul)
     row_gemv.launches = 0
+    zero_routes(row_gemv)
     half = (len(prompts) + 1) // 2
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1132,6 +1133,7 @@ def serve(torch, np, model, quant, lens, new_tokens, label, check_dense):
                  for r, c in weight_only_matmul.routes.items()}
     paged_routes = {PAGED_ROUTE_NAMES[r]: c
                     for r, c in paged_decode_attention.routes.items()}
+    gemv_routes = {ROW_ROUTE_NAMES[r]: c for r, c in row_gemv.routes.items()}
     st = eng.stats()
     ttft = sorted(s.ttft for s in streams)
     res = {"run": label, "tokens": sum(map(len, outs)), "wall_s": wall,
@@ -1140,7 +1142,8 @@ def serve(torch, np, model, quant, lens, new_tokens, label, check_dense):
            "ttft_p95_s": ttft[min(len(ttft) - 1, int(0.95 * len(ttft)))],
            "steps": st["steps"], "prefill_chunks": st["prefill_chunks"],
            "occupancy": st["occupancy"], "launches": launches,
-           "weight_only_routes": wo_routes, "paged_routes": paged_routes}
+           "weight_only_routes": wo_routes, "paged_routes": paged_routes,
+           "gemv_routes": gemv_routes}
     if any(len(o) != new_tokens for o in outs) or any(
             not 0 <= t < model.cfg.vocab_size for o in outs for t in o):
         raise AssertionError(f"{label}: malformed token output")
@@ -1514,6 +1517,11 @@ def end_to_end(torch, np, layers, new_tokens):
             or r["launches"]["row_gemv"] == 0:
         raise AssertionError(f"run a: a kernel never launched: "
                              f"{r['launches']}")
+    # every float Linear of the bf16 decode steps on the tensor-core body
+    if r["gemv_routes"][ROW_ROUTE_NAMES[1]] != r["launches"]["row_gemv"]:
+        raise AssertionError(f"run a: row_gemv launches by body "
+                             f"{r['gemv_routes']}, expected all on "
+                             f"{ROW_ROUTE_NAMES[1]}")
     runs.append(r)
     quantize_for_inference(model, "int8")
     torch.cuda.empty_cache()
@@ -2071,9 +2079,13 @@ def check_fused_resblock(torch, iters):
     the plain backward on the kernels' residuals (as training runs
     them), each of the ten gradients normwise <= 1e-2. The end-to-end gap
     (each side on its own residuals) is reported: a residual one bf16 ulp
-    apart flips relu mask elements. Bound: forward x, y, r1, r2 = 10 M C
-    bf16 elements and 34 M C^2 operations; backward dy, y, x, r1, r2, dx =
-    18 M C elements and 68 M C^2 operations."""
+    apart flips relu mask elements. Times a call, and on the device (8
+    calls in a CUDA graph; the per-op backward's device time is the
+    captured forward + backward less the forward). The backward's split
+    by product comes from a child process (`block_products`). Bound:
+    forward x, y, r1, r2 = 10 M C bf16 elements and 34 M C^2 operations;
+    backward dy, y, x, r1, r2, dx = 18 M C elements and 68 M C^2
+    operations."""
     rb = _rb_mod()
     g = torch.Generator(device="cuda").manual_seed(11)
     names = "dx dw1 dw2 dw3 dg1 dbe1 dg2 dbe2 dg3 dbe3".split()
@@ -2119,6 +2131,10 @@ def check_fused_resblock(torch, iters):
         row["bwd_plain_ms"] = time_ms(
             torch, lambda: rb.fused_bottleneck_bwd_ref(res, dy), slow,
             warmup=1)
+        row["fwd_dev_ms"] = time_graph_ms(
+            torch, [lambda: rb.fused_bottleneck_fwd(*args)], calls=8)
+        row["bwd_dev_ms"] = time_graph_ms(
+            torch, [lambda: rb.fused_bottleneck_bwd(res, dy)], calls=8)
         blk, params = _per_op_block(torch, args, C)
         xin = args[0].detach().requires_grad_()
         leaves = [xin, *params.values()]
@@ -2127,6 +2143,20 @@ def check_fused_resblock(torch, iters):
             return torch.func.functional_call(blk, params, (xin,))
 
         with _route(None):
+            # captured before any autograd graph of these leaves is kept
+            # alive (its AccumulateGrad nodes would break the capture), on
+            # an emptied cache (a capture may not free cached blocks)
+            torch.cuda.empty_cache()
+            try:
+                row["fwd_per_op_dev_ms"] = time_graph_ms(torch, [per_op],
+                                                         calls=4)
+                row["bwd_per_op_dev_ms"] = time_graph_ms(
+                    torch,
+                    [lambda: torch.autograd.grad(per_op(), leaves, dy)],
+                    calls=4) - row["fwd_per_op_dev_ms"]
+            except RuntimeError as e:   # a refused capture: not measured
+                row["fwd_per_op_dev_ms"] = row["bwd_per_op_dev_ms"] = None
+                row["per_op_dev_error"] = str(e)[:300]
             row["fwd_per_op_ms"] = time_ms(torch, per_op, iters)
             out = per_op()
             row["bwd_per_op_ms"] = time_ms(
@@ -2149,6 +2179,17 @@ def check_fused_resblock(torch, iters):
         del args, dy, res, y
         torch.cuda.empty_cache()
     return rows
+
+
+def block_products(torch):
+    """`--profile-resblock`'s child: the fused backward's device time by
+    product at each stage shape (port_ab.py's `resblock_products`, one
+    torch.profiler pass: only the first profiling session of a process
+    records device kernels)."""
+    import port_ab
+
+    return port_ab.resblock_products(torch, _rb_mod(),
+                                     sys.modules[__name__])
 
 
 def _resnet_engine(torch, compute_dtype="bfloat16"):
@@ -2415,7 +2456,7 @@ def profile_resnet(torch, np, route, seed, steps=3):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     fam = kernel_families(prof, (
-        ("fused_bottleneck", ("rb_gemm", "rb_wgrad", "rb_sum", "rb_bn")),
+        ("fused_bottleneck", ("rb_gemm", "rb_wg", "rb_sum", "rb_bn")),
         ("batch_norm", ("batch_norm", "bn_fw", "bn_bw", "welford")),
         ("conv", ("conv", "cudnn", "implicit", "xmma", "fprop", "dgrad",
                   "wgrad", "nchw", "nhwc", *GEMM_NAMES)),
@@ -2464,7 +2505,10 @@ def resblock_kernel_rows(rows, resnet_run):
     for name, part, line in (("fused_bottleneck_fwd", "fwd", 141),
                              ("fused_bottleneck_bwd", "bwd", 192)):
         def step(key):
-            return sum(r[key] * r["blocks_per_step"] for r in rows)
+            vals = [r.get(key) for r in rows]
+            if None in vals:            # a stage not measured
+                return None
+            return sum(v * r["blocks_per_step"] for v, r in zip(vals, rows))
 
         share = {}
         for r in rows:
@@ -2481,13 +2525,20 @@ def resblock_kernel_rows(rows, resnet_run):
             ms=step(f"{part}_ms"), plain_ms=step(f"{part}_plain_ms"),
             bound_ms=step(f"{part}_bound_ms"),
             bound_by=max(share, key=share.get), library_ms=None,
+            device_ms=step(f"{part}_dev_ms"),
             per_op_ms=step(f"{part}_per_op_ms"),
+            per_op_device_ms=step(f"{part}_per_op_dev_ms"),
+            path=("rb_wg, rb_wg_conv, rb_wg_wgrad (TMA, wgmma)"
+                  if part == "bwd" else "rb_gemm (mma.sync)"),
             launches_per_call=fused["launches_per_call"][name],
             case="ResNet-50 step: 12 identity blocks at N=128, bf16 "
                  "(2 x layer1 + 3 x layer2 + 5 x layer3 + 2 x layer4)",
-            by_stage={r["stage"]: {k: r[k] for k in (
-                f"{part}_ms", f"{part}_plain_ms", f"{part}_per_op_ms",
-                f"{part}_bound_ms", f"{part}_bound_by")} for r in rows}))
+            by_stage={r["stage"]: {k: r.get(k) for k in (
+                f"{part}_ms", f"{part}_dev_ms", f"{part}_plain_ms",
+                f"{part}_per_op_ms", f"{part}_per_op_dev_ms",
+                f"{part}_bound_ms", f"{part}_bound_by") + (
+                    ("bwd_products_ms",) if part == "bwd" else ())}
+                for r in rows}))
     return out
 
 
@@ -2824,14 +2875,23 @@ def check_serial_ring(torch):
     return rows
 
 
+ROW_ROUTE_NAMES = {0: "CUDA-core body (row_gemv)",
+                   1: "tensor-core body (row_mma_gemv)"}
+
+
 def check_row_gemv(torch, iters):
     """The row-stable float GEMV at the llama2_7b decode Linears (bf16
-    weights, m = 1..16): against its plain version (2 bf16 ulps of the
-    largest output), the first rows of a call of 8 equal to calls of 1, 2
-    and 4 bit for bit, and timed (m = 1 and 8) beside cuBLAS
+    weights, m = 1..16), each call on the tensor-core body (k % 64 == 0;
+    the route read from `row_gemv.routes`): against its plain version (2
+    bf16 ulps of the largest output), the first rows of a call of 16
+    equal to calls of 1, 2, 4 and 8 bit for bit, and timed (m = 1 and 8)
+    a call and on the device (32 calls in a CUDA graph cycling through 4
+    copies of the weight, so each reads it from HBM) beside cuBLAS
     (`torch.nn.functional.linear`, the yardstick) and the bound (the
-    weight bytes)."""
+    weight bytes); with the body's CTAs a multiprocessor
+    (`ptt_row_gemv_occupancy`)."""
     import torch.nn.functional as F
+    from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops.weight_only import row_gemv, row_gemv_ref
 
     g = torch.Generator(device="cuda").manual_seed(4)
@@ -2840,17 +2900,20 @@ def check_row_gemv(torch, iters):
         w = (torch.randn(n, k, device="cuda", generator=g) * 0.02).to(
             torch.bfloat16)
         x = torch.randn(16, k, device="cuda", generator=g).to(torch.bfloat16)
-        full = row_gemv(x[:8], w)
+        copies = [w] + [w.clone() for _ in range(3)]
+        full = row_gemv(x, w)
         for m in (1, 2, 4, 8, 16):
+            zero_routes(row_gemv)
             got = row_gemv(x[:m], w)
+            route = launched_route(row_gemv, ROW_ROUTE_NAMES)
             ref = row_gemv_ref(x[:m], w)
             torch.cuda.synchronize()
             err = (got.float() - ref.float()).abs().max().item()
             tol = 2 * 2.0 ** -8 * ref.float().abs().max().item()
-            stable = m > 8 or bool(torch.equal(got, full[:m]))
+            stable = bool(torch.equal(got, full[:m]))
             row = dict(case=f"bf16 m={m} {lname} n={n} k={k}", m=m,
-                       layer=lname, max_abs_err=err, tol=tol,
-                       rows_equal_in_batch_of_8=stable)
+                       layer=lname, route=route, max_abs_err=err, tol=tol,
+                       rows_equal_in_batch_of_16=stable)
             if m in (1, 8):
                 xm = x[:m]
                 row["ms"] = time_ms(torch, lambda: row_gemv(xm, w), iters)
@@ -2858,13 +2921,20 @@ def check_row_gemv(torch, iters):
                                           max(3, iters // 4))
                 row["library_ms"] = time_ms(torch, lambda: F.linear(xm, w),
                                             iters)
+                row["device_ms"] = time_graph_ms(
+                    torch, [lambda c=c: row_gemv(xm, c) for c in copies])
+                row["library_device_ms"] = time_graph_ms(
+                    torch, [lambda c=c: F.linear(xm, c) for c in copies])
+                row["ctas_per_sm"] = _build.lib().ptt_row_gemv_occupancy(
+                    _build.dtype_code(torch.bfloat16), m)
                 row["bound_ms"], row["bound_by"] = bound(
                     (n * k + m * k + m * n) * 2, 2.0 * m * n * k)
             rows.append(row)
             log(f"  row_gemv {json.dumps(row)}")
-            if not (err <= tol and stable and bool(torch.isfinite(got).all())):
+            if not (err <= tol and stable and route == ROW_ROUTE_NAMES[1]
+                    and bool(torch.isfinite(got).all())):
                 raise AssertionError(f"row_gemv {row['case']}: {row}")
-        del w, x
+        del w, x, copies
     return rows
 
 
@@ -3806,6 +3876,8 @@ def main(argv):
                     help=argparse.SUPPRESS)
     ap.add_argument("--profile-resnet", metavar="OUT",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--profile-resblock", metavar="OUT",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--route", choices=sorted(RESNET_ROUTES),
                     help=argparse.SUPPRESS)
     ap.add_argument("--cp-only", action="store_true",
@@ -3852,6 +3924,11 @@ def main(argv):
         with open(args.profile_resnet, "w") as f:
             json.dump(res, f)
         return 0
+    if args.profile_resblock:
+        res = block_products(torch)
+        with open(args.profile_resblock, "w") as f:
+            json.dump(res, f)
+        return 0
     t_start = time.perf_counter()
     # the report's directory also holds the training profile child's file
     os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
@@ -3887,6 +3964,10 @@ def main(argv):
     fa_rows = check_flash(torch, iters)
     sa_rows = check_short_attention(torch, iters)
     rb_rows = check_fused_resblock(torch, iters)
+    products = run_child("--profile-resblock", 0, args.seed, args.report)
+    log(f"  fused backward by product {json.dumps(products)}")
+    for r in rb_rows:
+        r["bwd_products_ms"] = products.get(r["stage"])
     bs_rows = check_block_sparse(torch, np, iters, args.seed)
     dec_rows = check_decode_attention(torch, iters)
     table_cost = decode_table_cost(torch)
@@ -4033,7 +4114,8 @@ def main(argv):
                     routes=bert_run["throughput"]["bwd_routes"]))))
     kernels.extend(resblock_kernel_rows(rb_rows, resnet_run))
     kernels.extend(cp_kernel_rows(fp_rows, cp_run))
-    kernels.append(gemv_row(gv_rows, runs[0]["launches"]["row_gemv"]))
+    kernels.append(gemv_row(gv_rows, runs[0]["launches"]["row_gemv"],
+                            runs[0]["gemv_routes"]))
     kernels.extend(slice7_kernel_rows(bs_rows, dec_rows, pair_rows,
                                       sparse_run, table_cost))
     return finish(args, torch, smi, build_rec, t_start, kernels, {
@@ -4118,9 +4200,10 @@ def cp_kernel_rows(fp_rows, cp_run):
     return out
 
 
-def gemv_row(gv_rows, launches=None):
-    """The row-stable GEMV's entry: bf16 gate_up at m = 8, launches from
-    run (a)'s decode (None when phase 3 did not run)."""
+def gemv_row(gv_rows, launches=None, routes=None):
+    """The row-stable GEMV's entry: bf16 gate_up at m = 8; launches and
+    launches by body from run (a)'s decode (None when phase 3 did not
+    run)."""
     main = next(r for r in gv_rows if r["layer"] == "gate_up"
                 and r["m"] == 8)
     return dict(name="row_gemv", route="cuda",
@@ -4132,7 +4215,9 @@ def gemv_row(gv_rows, launches=None):
                 max_abs_err=max(r["max_abs_err"] for r in gv_rows),
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=main["library_ms"], case=main["case"])
+                library_ms=main["library_ms"], device_ms=main["device_ms"],
+                library_device_ms=main["library_device_ms"],
+                path=main["route"], routes=routes, case=main["case"])
 
 
 def finish(args, torch, smi, build_rec, t_start, kernels, parts):

@@ -85,6 +85,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if ((n & 4095u) == 0 && clock64() - t0 > (1ll << 35)) __trap();
 }
 
+// makes this thread's writes to shared memory visible to the async proxy:
+// a wgmma operand stored by threads (not by TMA), before the barrier that
+// hands it to the warpgroups that multiply
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // --- TMA tile loads into shared memory, completing on an mbarrier ------------
 // coordinates innermost first, in elements
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,

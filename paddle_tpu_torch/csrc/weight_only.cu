@@ -56,8 +56,8 @@
 //     weights; each row is summed in a fixed order whatever m is.
 // Ragged m, n and k are masked in every path.
 //
-// The file also holds `row_gemv`, the float-weight GEMV of the decode
-// buckets (see its note below).
+// The file also holds the float-weight GEMV of the decode buckets,
+// `row_mma_gemv` and `row_gemv` (see their note below).
 #include <string.h>
 
 #include <type_traits>
@@ -825,15 +825,169 @@ int dispatch_route(const void* x, const void* qw, const void* scale,
 // --- the row-stable float GEMV of the decode buckets --------------------------
 // out[m, n] = x[m, k] . w[n, k]^T (+ bias[n]) for float weights in
 // nn.Linear's [out, in] layout, x, w and bias of one dtype (f32, bf16 or
-// f16): the float Linears of a paged decode step (m <= 16). It is not the
-// port of a TPU kernel. It keeps the JAX engine's promise that a
-// sequence's decode rows are bit-identical whatever batch they sit in,
-// which cuBLAS does not make (it may choose its reduction by m). The
-// pattern is wo_gemv's: a warp owns two output columns and streams their
-// weight rows with 16-byte loads, each lane sums its 16-element chunks in
-// order and a butterfly sums the lanes, so a row's sum has one order
-// whatever m is; the bias is added to the f32 sum before the one rounding.
-// Bound: the weight bytes, n * k * sizeof(T), at 3.35 TB/s.
+// f16): the float Linears of a paged decode step (m <= 16) and its
+// vocabulary projection. It replaces no TPU kernel. It exists to keep the
+// JAX engine's promise that a sequence's decode rows are bit-identical
+// whatever batch they sit in (paddle_tpu/inference/decode/engine.py:84-89),
+// which cuBLAS does not make (it may choose its reduction by m). Bound: the
+// weight bytes, n * k * sizeof(T), at 3.35 TB/s (180 MB, 0.054 ms, for
+// llama2_7b's gate_up in bf16). The caller names the body
+// (ops/weight_only.py `row_gemv_route`, from the dtype, k and the weight's
+// alignment, never from m); asked for a body its inputs do not admit, the
+// entry returns cudaErrorInvalidValue:
+//   * route 1, `row_mma_gemv` (bf16 / f16, k % 64 == 0, x and w on 16
+//     bytes): the decode route of the weight-only product on float weights.
+//     The weights are mma.sync's A operand (16 output columns a warp) and
+//     x its B operand (8 rows; two n8 tiles for 9-16 rows). A warp streams
+//     its 16 weight rows with 16-byte loads that bypass L1, a 128-byte
+//     block (64 k, a whole L2 line) of each row a step with the next two
+//     blocks in flight. The CUDA-core body re-read x from memory in every
+//     warp of the grid for each 16-element chunk; here x's m rows are read
+//     once a multiprocessor into L1, where every warp of it finds them (a
+//     variant that staged x in shared memory once a CTA with cp.async
+//     measured 10 % slower at m = 8: each CTA waited for its copy before
+//     its first block). The warps of a CTA split the columns and, for
+//     narrow n (o_proj, down), k, by n alone. 80 registers and 8 KB of
+//     shared memory (the k-split sums) a CTA: three CTAs a multiprocessor
+//     (`ptt_row_gemv_occupancy` asks
+//     cudaOccupancyMaxActiveBlocksPerMultiprocessor; chip_smoke.py records
+//     it).
+//   * route 0, `row_gemv` (f32, k % 64 != 0 such as the tests' k = 550,
+//     unaligned weights): the CUDA-core body. A warp owns two output
+//     columns and streams their weight rows with 16-byte loads, each lane
+//     sums its 16-element chunks in order and a butterfly sums the lanes.
+// Both keep a row's f32 sum in one order whatever m is (blocks or chunks
+// in order, then the k-split warps or the lanes in a fixed order) and add
+// the bias to that sum before the one rounding to x's dtype.
+
+// 32 k values of the warp's 16 weight rows (a half of a 128-byte block):
+// lane (g, t) holds elements [8t, 8t + 8) of rows g (wa) and g + 8 (wb). Words
+// 2s and 2s + 1 of those 16 bytes are k16 slice s's A fragment (logical k
+// 2t, 2t + 1 <- elements 8t + 4s, +1; 8 + 2t, 9 + 2t <- 8t + 4s + 2, +3),
+// so x's B fragment of slice s is words 2s, 2s + 1 of the lane's run
+// x[row][8t .. 8t + 8): A and B are permuted alike, and the same way
+// whatever m is.
+template <typename T, int NT>
+__device__ __forceinline__ void row_block(const uint4& wa, const uint4& wb,
+                                          const T* const (&xr)[NT], int off,
+                                          const bool (&live)[NT],
+                                          float (&c)[NT][4]) {
+  constexpr bool F16 = std::is_same<T, __half>::value;
+  const uint4 z = make_uint4(0, 0, 0, 0);
+  uint4 xv[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)   // a row past m is zeros
+    xv[nt] = live[nt] ? __ldg(reinterpret_cast<const uint4*>(xr[nt] + off))
+                      : z;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const uint32_t a[4] = {word(wa, 2 * s), word(wb, 2 * s),
+                           word(wa, 2 * s + 1), word(wb, 2 * s + 1)};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      mma16816(c[nt], a, word(xv[nt], 2 * s), word(xv[nt], 2 * s + 1), F16);
+  }
+}
+
+// The CTA's 8 warps: wc = warp % WC owns 16 columns, wk = warp / WC takes
+// every WK-th 64-element block (WC * WK = 8, chosen from n alone): lane
+// (g, t) loads elements [8t, 8t + 8) and [32 + 8t, 40 + 8t) of rows g and
+// g + 8, two row_block halves, so the warp's two loads of a row cover its
+// 128 bytes; a warp keeps its next two weight blocks in flight. The
+// weights stream past L1 (ld.global.nc.L1::no_allocate); x's m rows are
+// read through L1, where all the warps of a multiprocessor find them
+// (m * k * 2 bytes: 64 KB at m = 8, k = 4096).
+
+// 16 bytes that are read once: not kept in L1
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
+  uint4 r;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p));
+  return r;
+}
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(kDecThreads, 3)
+    row_mma_gemv(const T* __restrict__ x, const T* __restrict__ w,
+                 const T* __restrict__ bias, T* __restrict__ out, int m,
+                 int n, int k, int wk_split) {
+  __shared__ float red[8][32][NT * 4];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int WK = wk_split, WC = 8 / wk_split;
+  const int wc = warp % WC, wk = warp / WC;
+  const int col0 = (blockIdx.x * WC + wc) * 16;
+  const int nblk = k / 64;
+  const T* w0 = w + static_cast<size_t>(min(col0 + g, n - 1)) * k + 8 * t;
+  const T* w1 = w + static_cast<size_t>(min(col0 + g + 8, n - 1)) * k + 8 * t;
+  bool live[NT];
+  const T* xr[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    live[nt] = 8 * nt + g < m;
+    xr[nt] = x + static_cast<size_t>(min(8 * nt + g, m - 1)) * k + 8 * t;
+  }
+  float c[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
+  auto load = [&](int b, uint4 (&r)[4]) {
+    if (b < nblk) {
+      r[0] = ld_stream(w0 + b * 64);
+      r[1] = ld_stream(w1 + b * 64);
+      r[2] = ld_stream(w0 + b * 64 + 32);
+      r[3] = ld_stream(w1 + b * 64 + 32);
+    } else {
+      r[0] = r[1] = r[2] = r[3] = make_uint4(0, 0, 0, 0);
+    }
+  };
+  int b = wk;
+  uint4 p0[4], p1[4];                       // blocks b and b + WK
+  load(b, p0);
+  load(b + WK, p1);
+  for (; b < nblk; b += WK) {
+    uint4 cur[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      cur[i] = p0[i];
+      p0[i] = p1[i];
+    }
+    load(b + 2 * WK, p1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      row_block<T, NT>(cur[2 * h], cur[2 * h + 1], xr, b * 64 + 32 * h,
+                       live, c);
+  }
+  if (WK > 1) {                             // k-split warps, summed in order
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[warp][lane][nt * 4 + e] = c[nt][e];
+    __syncthreads();
+    if (wk != 0) return;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = red[wc][lane][nt * 4 + e];
+        for (int i = 1; i < WK; ++i) v += red[i * WC + wc][lane][nt * 4 + e];
+        c[nt][e] = v;
+      }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = 8 * nt + 2 * t + (e & 1);
+      const int col = col0 + g + (e >= 2 ? 8 : 0);
+      if (row < m && col < n)
+        out[static_cast<size_t>(row) * n + col] = from_f<T>(
+            bias != nullptr ? c[nt][e] + to_f(bias[col]) : c[nt][e]);
+    }
+}
+
 template <typename T, bool VEC, int MT>
 __global__ void __launch_bounds__(kGemvWarps * 32)
     row_gemv(const T* __restrict__ x, const T* __restrict__ w,
@@ -920,6 +1074,45 @@ void row_gemv_mt(const void* x, const void* w, const void* bias, void* out,
     launch_row_gemv<T, VEC, 8>(x, w, bias, out, m, n, k, s);
 }
 
+// the grid and k split of a row_mma_gemv launch: 16-column warp groups,
+// the widest CTA (8 groups) that still gives about two CTAs a
+// multiprocessor, the rest of the 8 warps splitting k
+struct RowMmaPlan {
+  int ctas, wk;
+};
+
+inline RowMmaPlan row_mma_plan(int n) {
+  int wc = 8;
+  while (wc > 1 && (n + 16 * wc - 1) / (16 * wc) < 264) wc /= 2;
+  return {(n + 16 * wc - 1) / (16 * wc), 8 / wc};
+}
+
+template <typename T, int NT>
+void launch_row_mma_nt(const void* x, const void* w, const void* bias,
+                       void* out, int m, int n, int k, cudaStream_t s) {
+  const RowMmaPlan p = row_mma_plan(n);
+  row_mma_gemv<T, NT><<<p.ctas, kDecThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const T*>(bias), static_cast<T*>(out), m, n, k, p.wk);
+}
+
+template <typename T>
+void launch_row_mma(const void* x, const void* w, const void* bias, void* out,
+                    int m, int n, int k, cudaStream_t s) {
+  if (m <= 8)
+    launch_row_mma_nt<T, 1>(x, w, bias, out, m, n, k, s);
+  else
+    launch_row_mma_nt<T, 2>(x, w, bias, out, m, n, k, s);
+}
+
+template <typename T, int NT>
+int row_mma_occupancy() {
+  int blocks = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, row_mma_gemv<T, NT>, kDecThreads, 0);
+  return e == cudaSuccess ? blocks : -static_cast<int>(e);
+}
+
 template <typename T>
 void row_gemv_dispatch(const void* x, const void* w, const void* bias,
                        void* out, int m, int n, int k, cudaStream_t s) {
@@ -934,15 +1127,30 @@ void row_gemv_dispatch(const void* x, const void* w, const void* bias,
     row_gemv_mt<T, false>(x, w, bias, out, m, n, k, s);
 }
 
+enum RowRoute { kRowCudaCore = 0, kRowMma = 1 };
+
 }  // namespace
 
 // x [m, k], w [n, k], bias [n] (or null), out [m, n]: contiguous, one
-// dtype (x_dtype: 0 f32, 1 bf16, 2 f16).
+// dtype (x_dtype: 0 f32, 1 bf16, 2 f16); route: 0 the CUDA-core body, 1
+// the tensor-core body (see the note above).
 extern "C" int ptt_row_gemv(const void* x, const void* w, const void* bias,
                             void* out, int m, int n, int k, int x_dtype,
-                            void* stream) {
+                            int route, void* stream) {
   if (m < 1 || n < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == kRowMma) {
+    const bool ok = (x_dtype == kBF16 || x_dtype == kF16) && m <= kGemvMaxM &&
+                    k % 64 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    if (x_dtype == kBF16)
+      launch_row_mma<__nv_bfloat16>(x, w, bias, out, m, n, k, s);
+    else
+      launch_row_mma<__half>(x, w, bias, out, m, n, k, s);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (route != kRowCudaCore) return static_cast<int>(cudaErrorInvalidValue);
   switch (x_dtype) {
     case kF32:
       row_gemv_dispatch<float>(x, w, bias, out, m, n, k, s);
@@ -957,6 +1165,18 @@ extern "C" int ptt_row_gemv(const void* x, const void* w, const void* bias,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs of the tensor-core body a multiprocessor holds at once for x of m
+// rows (bf16 or f16), or a negative CUDA error
+extern "C" int ptt_row_gemv_occupancy(int x_dtype, int m) {
+  if (m < 1 || m > kGemvMaxM || (x_dtype != kBF16 && x_dtype != kF16))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  if (x_dtype == kBF16)
+    return m <= 8 ? row_mma_occupancy<__nv_bfloat16, 1>()
+                  : row_mma_occupancy<__nv_bfloat16, 2>();
+  return m <= 8 ? row_mma_occupancy<__half, 1>()
+                : row_mma_occupancy<__half, 2>();
 }
 
 // route: 0 the CUDA-core GEMV, 1 the decode tensor-core GEMV (m <= 16),

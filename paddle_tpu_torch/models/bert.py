@@ -121,9 +121,16 @@ class BertEmbeddings(nn.Module):
             position_ids = torch.arange(s, device=input_ids.device)[None]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
+        # the token types as a product with their one-hot rows, not a
+        # gather: every token indexes one of the table's few rows, and the
+        # CUDA gather's backward over that many duplicates of a row is not
+        # bit-stable from run to run; the product's backward is a matmul
+        # (the forward is exact: one nonzero term an output)
+        types = self.token_type_embeddings.weight
         x = (self.word_embeddings(input_ids)
              + self.position_embeddings(position_ids)
-             + self.token_type_embeddings(token_type_ids))
+             + nn.functional.one_hot(token_type_ids.long(),
+                                     types.shape[0]).to(types.dtype) @ types)
         return self.dropout(self.layer_norm(x))
 
 

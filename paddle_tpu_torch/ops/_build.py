@@ -142,8 +142,10 @@ def lib():
     # stream
     _sig(handle.ptt_flash_attention_pos, I, P, P, P, P, P, P, P, P, P, P, P,
          ctypes.c_char_p, I, I, F, I, P)
-    # x, w, bias, out, m, n, k, dtype, stream (the row-stable GEMV)
-    _sig(handle.ptt_row_gemv, P, P, P, P, I, I, I, I, P)
+    # x, w, bias, out, m, n, k, dtype, route, stream (the row-stable GEMV)
+    _sig(handle.ptt_row_gemv, P, P, P, P, I, I, I, I, I, P)
+    # dtype, m -> CTAs a multiprocessor of the tensor-core body
+    _sig(handle.ptt_row_gemv_occupancy, I, I)
     # kind, q, k, v, dout, seed, lse, delta, out0, out1, dims (16 int64:
     # B, S, H, D, strides (b, s, h) of q, k, v, dout), dtype, scale, keep
     # scale, keep threshold, dropout, causal, stream

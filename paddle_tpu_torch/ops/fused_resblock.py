@@ -21,8 +21,9 @@ kernel launches (at each launch), ``.calls`` the calls on CUDA inputs:
   reductions of the per-tile BN sums, seven launches;
 * `fused_bottleneck_bwd` replaces `_b1`..`_b4` (:192-287, from
   `fused_bottleneck_bwd` :404): the full BN backward, fourteen launches
-  (six products with fused edges, three weight-gradient products, five
-  reductions);
+  (five row products with fused edges and three weight-gradient products
+  on the Hopper bodies `rb_wg`, `rb_wg_conv` and `rb_wg_wgrad`, three BN
+  reductions and three sums of the gradients' row chunks);
 * `fused_bottleneck2_fwd` replaces the two-block chain of
   `fused_bottleneck2_fwd` (:612) with its coupled `_k41` (:593): block
   1's k4 and block 2's k1 in one kernel (`rb_k41`), so y1 reaches block
@@ -284,9 +285,11 @@ _F1, _F2, _F3, _F4, _B1, _B2A, _B2B, _B3, _B4, _W3, _W2, _W1, _F41 = \
     range(13)
 # reduction modes of ptt_resblock_reduce
 _SUM, _BN_FWD, _BN_BWD = range(3)
-_ROWS = 64          # rows of a product's tile (the per-tile sums' count)
-_WTILE = 64         # a weight gradient tile is 64 x 64
-_TARGET_CTAS = 528  # 4 a streaming multiprocessor on an H100
+_ROWS = 64          # rows of a forward product's tile (its sums' count)
+_BWD_ROWS = 128     # rows of a backward row product's tile
+_CHUNK = 64         # rows of a weight-gradient stage
+_MIN_SPLIT = 256    # the fewest rows a weight-gradient CTA sums
+_TARGET_CTAS = 528  # 4 waves of one CTA a multiprocessor on an H100
 
 
 class _Opnd(ctypes.Structure):
@@ -314,14 +317,26 @@ def _opnd(x=None, r=None, bn=None, bw=None, C=0):
     return _Opnd(_ptr(x), _ptr(r), _ptr(bn), _ptr(bw), C)
 
 
+def _wgrad_tiles(K, N, conv):
+    """CTAs of one row chunk of a weight-gradient product [K, N]
+    (`rb_wg_wgrad`'s grid but for the chunks): for the 3x3 one (K = 9 C)
+    three kernel rows x the 64-wide input-channel tiles, otherwise the
+    128-row tiles of K; x the output tiles, 128 wide where N > 64."""
+    cols = -(-N // (128 if N > 64 else 64))
+    if conv:
+        return 3 * -(-(K // 9) // 64) * cols
+    return -(-K // 128) * cols
+
+
 def _splits(M, tiles):
     """Row chunks of a weight-gradient product: enough CTAs to fill the
-    card, chunks of at least 256 rows, a multiple of 32 rows each. A pure
-    function of the shape, so the reduction order is fixed."""
+    card, chunks of at least `_MIN_SPLIT` rows, a multiple of `_CHUNK` rows
+    each. Returns (chunks, rows a chunk): a pure function of the shape, so
+    the reduction order is fixed."""
     want = max(1, -(-_TARGET_CTAS // tiles))
-    splits = max(1, min(want, M // 256))
+    splits = max(1, min(want, M // _MIN_SPLIT))
     rows = -(-M // splits)
-    rows = -(-rows // 32) * 32
+    rows = -(-rows // _CHUNK) * _CHUNK
     return -(-M // rows), rows
 
 
@@ -367,8 +382,7 @@ class _Launcher:
     def wgrad(self, kind, what, a, d, K, N):
         """A weight gradient [K, N] f32: per-chunk partial products, then
         their sum in chunk order."""
-        tiles = -(-K // _WTILE) * -(-N // _WTILE)
-        splits, rows = _splits(self.M, tiles)
+        splits, rows = _splits(self.M, _wgrad_tiles(K, N, kind == _W2))
         part = torch.empty((splits, K, N), dtype=torch.float32,
                            device=self.dev)
         self.gemm(kind, what, a, N, d=d, part=part, splits=splits, rows=rows)
@@ -379,8 +393,10 @@ class _Launcher:
     def empty(self, rows, cols, dtype):
         return torch.empty((rows, cols), dtype=dtype, device=self.dev)
 
-    def sums(self, N):
-        return torch.empty((-(-self.M // _ROWS), 2, N), dtype=torch.float32,
+    def sums(self, N, rows=_ROWS):
+        """Per-tile BN sums [ceil(M / rows), 2, N] of a product whose tiles
+        are `rows` rows."""
+        return torch.empty((-(-self.M // rows), 2, N), dtype=torch.float32,
                            device=self.dev)
 
 
@@ -485,21 +501,24 @@ def _bwd_cuda(res, dy4):
     dy = _aligned(dy4)
     L = _Launcher(fused_bottleneck_bwd, x, M, H, W)
     f2 = _opnd(r2, bn=bn2, C=C)
+    # the row products read their weight B [K, N] as [N, K] (TMA, K-major)
+    w3t = _aligned(w3c.t())
     # B1: dz = dy [y > 0], bn3's sums with r3 recomputed
     dz = L.empty(M, C4, x.dtype)
-    part = L.sums(C4)
-    L.gemm(_B1, "fused_bottleneck_bwd (b1)", f2, C4, w=w3c, e0=dy, e1=y,
+    part = L.sums(C4, _BWD_ROWS)
+    L.gemm(_B1, "fused_bottleneck_bwd (b1)", f2, C4, w=w3t, e0=dy, e1=y,
            ebn=bn3, out=dz, part=part)
     bw3 = L.stats(_BN_BWD, "fused_bottleneck_bwd (bn3)", part, C4, g3,
                   bn=bn3)
     # B2: dr3 (bf16), then da2 = dr3 @ w3^T masked, bn2's sums, and dW3
     dr3 = L.empty(M, C4, md)
-    L.gemm(_B2A, "fused_bottleneck_bwd (b2 dr3)", f2, C4, w=w3c, e0=dz,
+    L.gemm(_B2A, "fused_bottleneck_bwd (b2 dr3)", f2, C4, w=w3t, e0=dz,
            ebn=bn3, ebw=bw3, out=dr3)
     da2 = L.empty(M, C, x.dtype)
-    part = L.sums(C)
+    part = L.sums(C, _BWD_ROWS)
     L.gemm(_B2B, "fused_bottleneck_bwd (b2)", _opnd(dr3, C=C4), C,
-           w=_aligned(w3c.t()), e0=r2, ebn=bn2, out=da2, part=part)
+           w=_aligned(w3c),
+           e0=r2, ebn=bn2, out=da2, part=part)
     bw2 = L.stats(_BN_BWD, "fused_bottleneck_bwd (bn2)", part, C, g2,
                   bn=bn2)
     dw3 = L.wgrad(_W3, "fused_bottleneck_bwd (dw3)", f2,
@@ -508,10 +527,10 @@ def _bwd_cuda(res, dy4):
     # B3: dr2, the transposed conv, da1 masked, bn1's sums, and dW2
     dr2 = _opnd(da2, r2, bn2, bw2, C)
     da1 = L.empty(M, C, x.dtype)
-    part = L.sums(C)
+    part = L.sums(C, _BWD_ROWS)
     L.gemm(_B3, "fused_bottleneck_bwd (b3)", dr2, C,
-           w=_aligned(flip_transpose_w2(w2c)), e0=r1, ebn=bn1, out=da1,
-           part=part)
+           w=_aligned(flip_transpose_w2(w2c).reshape(9 * C, C).t()), e0=r1,
+           ebn=bn1, out=da1, part=part)
     bw1 = L.stats(_BN_BWD, "fused_bottleneck_bwd (bn1)", part, C, g1,
                   bn=bn1)
     dw2 = L.wgrad(_W2, "fused_bottleneck_bwd (dw2)", _opnd(r1, bn=bn1, C=C),
@@ -519,7 +538,7 @@ def _bwd_cuda(res, dy4):
     # B4: dr1, dx = dr1 @ w1^T + dz, and dW1
     dr1 = _opnd(da1, r1, bn1, bw1, C)
     dx = L.empty(M, C4, x.dtype)
-    L.gemm(_B4, "fused_bottleneck_bwd (b4)", dr1, C4, w=_aligned(w1c.t()),
+    L.gemm(_B4, "fused_bottleneck_bwd (b4)", dr1, C4, w=_aligned(w1c),
            e0=dz, out=dx)
     dw1 = L.wgrad(_W1, "fused_bottleneck_bwd (dw1)", _opnd(x, C=C4), dr1,
                   C4, C)

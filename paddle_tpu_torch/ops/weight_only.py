@@ -19,7 +19,9 @@ k % 64 != 0), the CUDA-core GEMV.
 kernel's rows each summed in one order whatever m is, so a decode row is
 bit-identical in every batch (cuBLAS may choose its reduction by m). It
 is not the port of a TPU kernel; it keeps the JAX engine's bit-identity
-across batch sizes. Its plain version is `row_gemv_ref`.
+across batch sizes. `row_gemv_route` names its body: the tensor-core body
+(bf16 / f16, k % 64 == 0, a 16-byte aligned weight) or the CUDA-core one.
+Its plain version is `row_gemv_ref`.
 """
 from __future__ import annotations
 
@@ -29,14 +31,17 @@ from . import _build
 
 __all__ = ["weight_only_matmul", "weight_only_matmul_nd",
            "weight_only_matmul_ref", "weight_only_route", "unpack_int4",
-           "row_gemv", "row_gemv_ref", "ROW_GEMV_MAX_M", "ROUTE_GEMV",
-           "ROUTE_DECODE", "ROUTE_PREFILL"]
+           "row_gemv", "row_gemv_ref", "row_gemv_route", "ROW_GEMV_MAX_M",
+           "ROUTE_GEMV", "ROUTE_DECODE", "ROUTE_PREFILL", "ROW_CUDA_CORE",
+           "ROW_MMA"]
 
 #: the largest m `row_gemv` is for: the decode buckets
 ROW_GEMV_MAX_M = 16
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 #: route codes of ``csrc/weight_only.cu``'s entry
 ROUTE_GEMV, ROUTE_DECODE, ROUTE_PREFILL = 0, 1, 2
+#: body codes of ``ptt_row_gemv``: the CUDA-core and the tensor-core GEMV
+ROW_CUDA_CORE, ROW_MMA = 0, 1
 
 
 def weight_only_route(m, k, dtype, aligned=True):
@@ -150,10 +155,25 @@ def row_gemv_ref(x, weight, bias=None):
     return out.to(x.dtype)
 
 
+def row_gemv_route(x, weight):
+    """The body a CUDA call of `row_gemv` takes for x [..., k] and weight
+    [n, k]: ROW_MMA (the tensor-core GEMV) when both are bf16 or both f16,
+    k % 64 == 0 and the weight starts on 16 bytes; ROW_CUDA_CORE
+    otherwise. It reads neither m nor x's address (the wrapper copies a
+    misaligned x), so every decode bucket of a Linear takes one body and
+    its rows stay bit-identical across batch sizes."""
+    if (x.dtype in (torch.bfloat16, torch.float16)
+            and weight.dtype == x.dtype and x.shape[-1] % 64 == 0
+            and weight.data_ptr() % 16 == 0):
+        return ROW_MMA
+    return ROW_CUDA_CORE
+
+
 def row_gemv(x, weight, bias=None):
     """x [..., k] and weight [n, k] (bias [n]) of one float dtype ->
     [..., n]: the row-stable GEMV kernel for CUDA tensors (at most
-    `ROW_GEMV_MAX_M` rows), the plain version for CPU ones."""
+    `ROW_GEMV_MAX_M` rows; the body `row_gemv_route` names), the plain
+    version for CPU ones."""
     if x.shape[-1] != weight.shape[-1] or weight.dim() != 2:
         raise ValueError(f"x {tuple(x.shape)} and weight "
                          f"{tuple(weight.shape)} do not chain")
@@ -180,15 +200,21 @@ def row_gemv(x, weight, bias=None):
     if out.numel():
         w = weight.contiguous()
         b = bias.contiguous() if bias is not None else None
+        route = row_gemv_route(x2, w)
+        if route == ROW_MMA and x2.data_ptr() % 16:
+            x2 = x2.clone()
         ctx, stream = _build.launch_on(x.device)
         with ctx:
             err = _build.lib().ptt_row_gemv(
                 x2.data_ptr(), w.data_ptr(),
                 b.data_ptr() if b is not None else None, out.data_ptr(), m,
-                n, k, _build.dtype_code(x.dtype), stream)
+                n, k, _build.dtype_code(x.dtype), route, stream)
         _build.check(err, "row_gemv")
         row_gemv.launches += 1
+        row_gemv.routes[route] += 1
     return out.reshape(*lead, n)
 
 
 row_gemv.launches = 0
+#: launches of each body (`row_gemv_route`'s codes)
+row_gemv.routes = {ROW_CUDA_CORE: 0, ROW_MMA: 0}

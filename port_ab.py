@@ -2,7 +2,8 @@
 """Compare two checkouts of the PyTorch/CUDA port on one GPU, alternating.
 
     python3 port_ab.py PARENT CHANGE
-        [--what decode,flash,short,weight_only,dense_decode,sparse,ring]
+        [--what decode,flash,short,weight_only,dense_decode,sparse,ring,
+                gemv,decode_busy,resblock]
         [--rounds 1]
 
 PARENT and CHANGE are the roots of two checkouts (for example a
@@ -59,7 +60,27 @@ Measurements:
   forward, dq and dkv over 50 calls and each one's device time
   (``_dev_ms``, as for ``flash``); beside them, as ``{shape}_causal_``,
   the whole-sequence causal kernels on the same q, k, v (the own shard's
-  work, without positions).
+  work, without positions);
+* ``gemv``: the row-stable float GEMV (`row_gemv`) and cuBLAS
+  (`torch.nn.functional.linear`, the yardstick) on `chip_smoke.py`'s five
+  llama2_7b Linears (bf16 weights from seed 4) at m = 1 and 8: median
+  CUDA-event ms over 50 calls and the device time of a call (``_dev_ms``:
+  32 calls in one CUDA graph cycling through 4 copies of the weight, so
+  each call reads it from HBM), and the launches by body where the tree
+  counts them (``routes``);
+* ``decode_busy``: `chip_smoke.py`'s `profile_decode` of run (a)'s model
+  (llama2_7b, 32 layers, bf16 weights from seed 0): 12 decode steps at
+  bucket 8 under torch.profiler, the device-busy ms a step among its
+  results;
+* ``resblock``: the fused bottleneck kernels at `chip_smoke.py`'s four
+  ResNet-50 stage shapes (N = 128, bf16, its seeded block inputs): the
+  forward and the backward, a call (median of 20) and on the device (8
+  calls in one CUDA graph, median of 7 replays); the per-op block (a
+  BottleneckBlock, cuDNN and PyTorch's batch norm, as phase 6's per-op
+  route runs it) likewise, its backward's device time the captured
+  forward + backward less the forward (4 calls a graph); the step sums
+  (each stage times its blocks a step); and the backward's device time by
+  product from one torch.profiler pass (`resblock_products`).
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 per measurement, each naming its tree. Every child has a time limit and
@@ -338,6 +359,152 @@ def child_decode(tree):
             "launches": runs[-1]["launches"]}
 
 
+GEMV_ROWS = (1, 8)
+
+
+def child_gemv(tree):
+    import torch
+    import torch.nn.functional as F
+
+    smoke = importlib.import_module("chip_smoke")
+    wo = importlib.import_module("paddle_tpu_torch.ops.weight_only")
+    res = {"tree": tree, "what": "gemv"}
+    routes = getattr(wo.row_gemv, "routes", None)
+    for name, (n, k) in smoke.LLAMA_LINEARS.items():
+        g = torch.Generator(device="cuda").manual_seed(4)
+        w = (torch.randn(n, k, device="cuda", generator=g) * 0.02).to(
+            torch.bfloat16)
+        copies = [w] + [w.clone() for _ in range(3)]
+        for m in GEMV_ROWS:
+            x = torch.randn(m, k, device="cuda", generator=g).to(
+                torch.bfloat16)
+            for label, fn in (("row_gemv", wo.row_gemv), ("cublas", F.linear)):
+                res[f"{name}_m{m}_{label}_ms"] = _time_ms(
+                    torch, lambda: fn(x, w))
+                res[f"{name}_m{m}_{label}_dev_ms"] = _graph_ms(
+                    torch, [lambda c=c: fn(x, c) for c in copies])
+        del w, copies
+    if routes is not None:
+        res["routes"] = dict(routes)
+    return res
+
+
+def child_decode_busy(tree):
+    """Run (a)'s model: the decode step's device-busy time (every float
+    Linear a row_gemv launch)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import gpt
+
+    smoke = importlib.import_module("chip_smoke")
+    model = gpt("llama2_7b", dtype="bfloat16", device="cuda", seed=0,
+                num_layers=32)
+    prof = smoke.profile_decode(torch, np, model, None,
+                                "a: bf16 weights, bf16 KV, bs 8")
+    return {"tree": tree, "what": "decode_busy", **prof}
+
+
+#: the fused backward's launches in order (ops/fused_resblock.py `_bwd_cuda`)
+BWD_PRODUCTS = ("B1", "bn3", "B2A", "B2B", "bn2", "W3", "W3 sum", "B3",
+                "bn1", "W2", "W2 sum", "B4", "W1", "W1 sum")
+
+
+def resblock_products(torch, rb, smoke, calls=2):
+    """The fused backward's device time by product (ms a call) at each of
+    `smoke.RESNET_STAGES`, from one torch.profiler pass (only the first
+    profiling session of a process records device kernels): the kernels
+    whose names hold "rb_", in launch order, cut into calls of
+    len(BWD_PRODUCTS)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    cases = []
+    for stage, H, C, _ in smoke.RESNET_STAGES:
+        args, dy = smoke._block_inputs(torch, smoke.RESNET_BATCH, H, C, g)
+        _, res, _ = rb.fused_bottleneck_fwd(*args)
+        rb.fused_bottleneck_bwd(res, dy)
+        cases.append((stage, res, dy))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _, res, dy in cases:
+            for _ in range(calls):
+                rb.fused_bottleneck_bwd(res, dy)
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.events()
+                   if e.device_type.name == "CUDA" and "rb_" in e.name),
+                  key=lambda e: e.time_range.start)
+    per = len(BWD_PRODUCTS)
+    if len(kern) != per * calls * len(cases):
+        return {"error": f"{len(kern)} rb_ kernels recorded, want "
+                         f"{per * calls * len(cases)}"}
+    out = {}
+    for i, (stage, _, _) in enumerate(cases):
+        ev = kern[i * per * calls:(i + 1) * per * calls]
+        out[stage] = {p: sum(ev[c * per + j].time_range.elapsed_us()
+                             for c in range(calls)) / calls / 1e3
+                      for j, p in enumerate(BWD_PRODUCTS)}
+        out[stage]["total"] = sum(out[stage][p] for p in BWD_PRODUCTS)
+    return out
+
+
+def child_resblock(tree):
+    import torch
+
+    smoke = importlib.import_module("chip_smoke")
+    rb = importlib.import_module("paddle_tpu_torch.ops.fused_resblock")
+    res = {"tree": tree, "what": "resblock"}
+    res["products"] = resblock_products(torch, rb, smoke)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    step = {}
+    for stage, H, C, blocks in smoke.RESNET_STAGES:
+        args, dy = smoke._block_inputs(torch, smoke.RESNET_BATCH, H, C, g)
+        _, fres, _ = rb.fused_bottleneck_fwd(*args)
+        row = {}
+        for part, fn in (
+                ("fwd", lambda: rb.fused_bottleneck_fwd(*args)),
+                ("bwd", lambda: rb.fused_bottleneck_bwd(fres, dy))):
+            row[f"{part}_ms"] = _time_ms(torch, fn, iters=20)
+            row[f"{part}_dev_ms"] = _graph_ms(torch, [fn], calls=8)
+        blk, params = smoke._per_op_block(torch, args, C)
+        xin = args[0].detach().requires_grad_()
+        leaves = [xin, *params.values()]
+
+        def per_op():
+            return torch.func.functional_call(blk, params, (xin,))
+
+        def per_op_both():
+            return torch.autograd.grad(per_op(), leaves, dy)
+
+        with smoke._route(None):
+            # captured first: a live autograd graph of these leaves (out,
+            # below) keeps AccumulateGrad nodes on the default stream,
+            # which breaks a capture
+            torch.cuda.empty_cache()    # a capture may not free blocks
+            try:
+                fwd_dev = _graph_ms(torch, [per_op], calls=4)
+                both = _graph_ms(torch, [per_op_both], calls=4)
+                row["per_op_fwd_dev_ms"] = fwd_dev
+                row["per_op_bwd_dev_ms"] = both - fwd_dev
+            except RuntimeError as e:    # capture refused: not measured
+                row["per_op_dev_error"] = str(e)[:200]
+            out = per_op()
+            row["per_op_fwd_ms"] = _time_ms(torch, per_op, iters=20)
+            row["per_op_bwd_ms"] = _time_ms(
+                torch, lambda: torch.autograd.grad(out, leaves, dy,
+                                                   retain_graph=True),
+                iters=20)
+        res[stage] = row
+        for key, v in row.items():
+            if key.endswith("_ms"):
+                step[key] = step.get(key, 0.0) + v * blocks
+        del args, dy, fres, blk, params, xin, leaves, out
+        torch.cuda.empty_cache()
+    res["step"] = step
+    return res
+
+
 def _child(what, tree):
     tree = os.path.abspath(tree)
     os.chdir(tree)
@@ -346,7 +513,9 @@ def _child(what, tree):
            "short": child_short,
            "weight_only": child_weight_only,
            "dense_decode": child_dense_decode,
-           "sparse": child_sparse, "ring": child_ring}[what](tree)
+           "sparse": child_sparse, "ring": child_ring,
+           "gemv": child_gemv, "decode_busy": child_decode_busy,
+           "resblock": child_resblock}[what](tree)
     print("AB " + json.dumps(res), flush=True)
 
 

@@ -962,6 +962,41 @@ def test_fused_resblock_kernels_are_bitwise_reproducible(cuda):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("N,H,W,C4,C,dtype", [
+    (5, 9, 11, 256, 64, torch.bfloat16),    # ragged M = 495; tiles span
+                                            # images
+    (3, 6, 5, 2048, 512, torch.bfloat16),   # ragged M = 90 at C = 512
+    (2, 20, 20, 512, 128, torch.bfloat16),  # 128-wide tiles of N = C
+    (1, 3, 130, 256, 64, torch.bfloat16),   # a halo wider than a tile
+    (2, 8, 8, 512, 128, torch.float32),     # f32: rings of one or two
+                                            # stages over two K steps and
+                                            # two row chunks
+])
+def test_fused_resblock_backward_matches_plain_on_hopper_tiles(cuda, N, H, W,
+                                                              C4, C, dtype):
+    """The backward's Hopper bodies (row products on 128-row tiles, the
+    3x3 conv from a staged halo, the weight gradients by row chunks)
+    against the plain backward on the kernels' residuals: each of the ten
+    gradients normwise within 1e-2; fourteen launches a call; a rerun
+    bit-equal."""
+    args = _block_args(N, H, W, C4, C, dtype, cuda, seed=3)
+    dy = torch.randn(N, H, W, C4, generator=torch.Generator().manual_seed(4)
+                     ).to(dtype).to(cuda)
+    _, res, _ = trb.fused_bottleneck_fwd(*args)
+    before = trb.fused_bottleneck_bwd.launches
+    grads = trb.fused_bottleneck_bwd(res, dy)
+    assert trb.fused_bottleneck_bwd.launches - before == 14
+    again = trb.fused_bottleneck_bwd(res, dy)
+    same_res = trb.fused_bottleneck_bwd_ref(res, dy)
+    torch.cuda.synchronize()
+    names = "dx dw1 dw2 dw3 dg1 dbe1 dg2 dbe2 dg3 dbe3".split()
+    for name, a, b, c in zip(names, grads, same_res, again):
+        assert a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        assert _normwise(a, b) <= 1e-2, (name, _normwise(a, b))
+        assert torch.equal(a, c), name
+
+
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
 def test_fused_resblock_kernels_refuse_other_dtypes(cuda, dtype):
     args = _block_args(2, 4, 4, 32, 8, torch.float32, cuda)
@@ -1288,35 +1323,69 @@ def test_serial_ring_matches_whole_sequence_kernels(cuda, n, causal,
 # --- the row-stable float GEMV of the decode buckets ----------------------------
 
 @pytest.mark.parametrize("dtype,k", [(torch.bfloat16, 4096),
+                                     (torch.bfloat16, 11008),
                                      (torch.bfloat16, 550),
+                                     (torch.float16, 4096),
                                      (torch.float32, 768)])
 @pytest.mark.parametrize("bias", [False, True])
 def test_row_gemv_matches_plain_and_is_row_stable(cuda, dtype, k, bias):
-    """Against the plain version (bf16: 2 ulps of the largest output; f32
-    1e-4), at every decode row count; the first rows of a call of 8 equal
-    a call of 1, 2 and 4 bit for bit."""
-    from paddle_tpu_torch.ops.weight_only import row_gemv, row_gemv_ref
+    """Against the plain version (bf16 / f16: 2 ulps of the largest
+    output; f32 1e-4), at every decode row count, on the body
+    `row_gemv_route` names (the tensor-core body for bf16 / f16 at
+    k % 64 == 0, the CUDA-core body for f32 and the ragged k = 550),
+    counted in `.routes`; the first rows of a call of 16 equal a call of
+    1, 2, 3, 4 and 8 bit for bit (n = 333: a ragged last column group)."""
+    from paddle_tpu_torch.ops.weight_only import (ROW_MMA, ROW_CUDA_CORE,
+                                                  row_gemv, row_gemv_ref)
 
     g = torch.Generator().manual_seed(k)
     n = 333
     w = (torch.randn(n, k, generator=g) * 0.05).to(dtype).to(cuda)
     b = (torch.randn(n, generator=g).to(dtype).to(cuda) if bias else None)
     x = torch.randn(16, k, generator=g).to(dtype).to(cuda)
-    full = row_gemv(x[:8], w, b)
+    want = (ROW_MMA if dtype != torch.float32 and k % 64 == 0
+            else ROW_CUDA_CORE)
+    full = row_gemv(x, w, b)
     for m in (1, 2, 3, 4, 8, 16):
-        before = row_gemv.launches
+        before = row_gemv.launches, dict(row_gemv.routes)
         got = row_gemv(x[:m], w, b)
-        assert row_gemv.launches == before + 1
+        assert row_gemv.launches == before[0] + 1
+        assert row_gemv.routes[want] == before[1][want] + 1
         ref = row_gemv_ref(x[:m], w, b)
         if dtype == torch.float32:
             torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
         else:
-            tol = 2 * 2.0 ** -8 * ref.float().abs().max().item()
+            ulp = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -11
+            tol = 2 * ulp * ref.float().abs().max().item()
             assert (got.float() - ref.float()).abs().max().item() <= tol
-        if m <= 8:
-            assert torch.equal(got, full[:m]), m
+        assert torch.equal(got, full[:m]), m
     with pytest.raises(ValueError):
         row_gemv(x.repeat(2, 1), w, b)
+
+
+@pytest.mark.parametrize("case", ["f32", "ragged_k", "misaligned_x",
+                                  "rows"])
+def test_row_gemv_tensor_core_body_refuses_what_it_does_not_admit(cuda,
+                                                                  case):
+    """The C entry asked for the tensor-core body on inputs it does not
+    admit returns cudaErrorInvalidValue and launches nothing (no other
+    body runs in its place): the output keeps its NaNs."""
+    from paddle_tpu_torch.ops.weight_only import ROW_MMA
+
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    k = 550 if case == "ragged_k" else 512
+    m = 17 if case == "rows" else 4
+    w = torch.randn(64, k, device=cuda).to(dtype)
+    x = torch.randn(m * k + 8, device=cuda).to(dtype)
+    xp = x.data_ptr() + (2 if case == "misaligned_x" else 0)
+    out = torch.full((m, 64), float("nan"), device=cuda, dtype=dtype)
+    _, stream = _build.launch_on(x.device)
+    err = _build.lib().ptt_row_gemv(xp, w.data_ptr(), None, out.data_ptr(),
+                                    m, 64, k, _build.dtype_code(dtype),
+                                    ROW_MMA, stream)
+    torch.cuda.synchronize()
+    assert err == 1            # cudaErrorInvalidValue
+    assert torch.isnan(out).all()
 
 
 def test_decode_step_logits_equal_across_batch_sizes(cuda):

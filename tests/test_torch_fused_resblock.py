@@ -245,3 +245,58 @@ def test_coupled_pair_is_two_chained_blocks():
     finally:
         tfr.MATMUL_DTYPE = old
     torch.testing.assert_close(pair, y2, atol=1e-6, rtol=1e-6)
+
+
+# ------------------------------- the backward's tiles and row chunks (CUDA)
+
+# ResNet-50's identity blocks at N = 128: (H = W, C)
+STAGES = ((56, 64), (28, 128), (14, 256), (7, 512))
+
+
+@pytest.mark.parametrize("H,C", STAGES)
+def test_weight_gradient_chunks_are_a_pure_function_of_the_shape(H, C):
+    """`_splits` cuts the rows into chunks of a multiple of 64 rows and at
+    least 256 (unless M is smaller), covering M exactly once, the same
+    cut on every call (the reduction order of the partial sums is fixed),
+    and enough of them to give the card about `_TARGET_CTAS` CTAs (less
+    what rounding the chunks up to 64 rows takes)."""
+    M = 128 * H * H
+    for K, N, conv in ((C, 4 * C, False), (9 * C, C, True),
+                       (4 * C, C, False)):
+        tiles = tfr._wgrad_tiles(K, N, conv)
+        splits, rows = tfr._splits(M, tiles)
+        assert (splits, rows) == tfr._splits(M, tiles)
+        assert rows % tfr._CHUNK == 0 and rows >= 256
+        assert (splits - 1) * rows < M <= splits * rows
+        assert tiles * splits >= 0.9 * min(tfr._TARGET_CTAS,
+                                           tiles * (M // 256))
+
+
+@pytest.mark.parametrize("M", [1, 63, 96, 255, 257, 1000, 6272])
+def test_weight_gradient_chunks_cover_small_and_ragged_m(M):
+    for tiles in (1, 3, 64, 600):
+        splits, rows = tfr._splits(M, tiles)
+        assert splits >= 1 and rows % 64 == 0
+        assert (splits - 1) * rows < M <= splits * rows
+
+
+def test_weight_gradient_tiles_follow_the_kernel_grid():
+    """The 3x3 gradient: 3 kernel rows x ceil(C / 64) input-channel
+    tiles, the 1x1 ones ceil(K / 128) tiles of K; x output tiles 128 wide
+    where N > 64."""
+    assert tfr._wgrad_tiles(9 * 64, 64, True) == 3
+    assert tfr._wgrad_tiles(9 * 512, 512, True) == 3 * 8 * 4
+    assert tfr._wgrad_tiles(9 * 8, 8, True) == 3
+    assert tfr._wgrad_tiles(64, 256, False) == 1 * 2
+    assert tfr._wgrad_tiles(2048, 512, False) == 16 * 4
+    assert tfr._wgrad_tiles(16, 8, False) == 1
+
+
+@pytest.mark.parametrize("M", [96, 128, 129, 401408])
+def test_backward_sums_have_a_row_per_128_row_tile(M):
+    """The backward's per-tile BN sums: one [2, N] row per 128-row tile
+    of the Hopper row products (the forward's tiles stay 64 rows)."""
+    L = tfr._Launcher.__new__(tfr._Launcher)
+    L.M, L.dev = M, torch.device("cpu")
+    assert L.sums(8, tfr._BWD_ROWS).shape == (-(-M // 128), 2, 8)
+    assert L.sums(8).shape == (-(-M // 64), 2, 8)

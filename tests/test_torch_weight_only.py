@@ -183,3 +183,52 @@ def test_route_counts_name_every_route_and_a_cpu_call_counts_none():
     for m in (1, 17):
         tw.weight_only_matmul(torch.randn(m, 64).to(torch.bfloat16), qw, sc)
     assert tw.weight_only_matmul.routes == before
+
+
+@pytest.mark.parametrize("layer", sorted(LLAMA_LINEARS))
+def test_row_gemv_route_takes_the_tensor_core_body_on_llama2_7b_linears(
+        layer):
+    """Every float Linear of a bf16/f16 decode step (k % 64 == 0, an
+    aligned weight) takes the tensor-core GEMV at every bucket: the body
+    reads neither m nor x's address; f32 takes the CUDA-core body."""
+    n, k = LLAMA_LINEARS[layer]
+    for dt in (torch.bfloat16, torch.float16):
+        w = torch.empty(8, k, dtype=dt)         # only dtype and k are read
+        for m in (1, 2, 8, 16):
+            assert tw.row_gemv_route(torch.empty(m, k, dtype=dt), w) \
+                == tw.ROW_MMA
+        # a misaligned view of x: the wrapper copies x, the body stays
+        xs = torch.empty(4 * k + 1, dtype=dt)[1:].view(4, k)
+        assert tw.row_gemv_route(xs, w) == tw.ROW_MMA
+    w32 = torch.empty(8, k)
+    assert tw.row_gemv_route(torch.empty(8, k), w32) == tw.ROW_CUDA_CORE
+
+
+@pytest.mark.parametrize("k", [550, 552, 576 + 32, 4096 + 8])
+def test_row_gemv_route_sends_k_not_a_multiple_of_64_to_the_cuda_cores(k):
+    w = torch.empty(16, k, dtype=torch.bfloat16)
+    for m in (1, 16):
+        assert tw.row_gemv_route(torch.empty(m, k, dtype=torch.bfloat16),
+                                 w) == tw.ROW_CUDA_CORE
+
+
+def test_row_gemv_route_refuses_misaligned_or_mixed_weights():
+    """A weight that starts off 16 bytes, or of another dtype than x,
+    takes the CUDA-core body."""
+    k = 4096
+    x = torch.empty(4, k, dtype=torch.bfloat16)
+    w = torch.empty(8 * k + 1, dtype=torch.bfloat16)[1:].view(8, k)
+    assert w.data_ptr() % 16
+    assert tw.row_gemv_route(x, w) == tw.ROW_CUDA_CORE
+    assert tw.row_gemv_route(x, torch.empty(8, k, dtype=torch.float16)) \
+        == tw.ROW_CUDA_CORE
+
+
+def test_row_gemv_counts_name_both_bodies_and_a_cpu_call_counts_none():
+    assert set(tw.row_gemv.routes) == {tw.ROW_CUDA_CORE, tw.ROW_MMA}
+    before = tw.row_gemv.launches, dict(tw.row_gemv.routes)
+    x = torch.randn(3, 128).to(torch.bfloat16)
+    w = torch.randn(16, 128).to(torch.bfloat16)
+    out = tw.row_gemv(x, w)
+    assert torch.equal(out, tw.row_gemv_ref(x, w))
+    assert (tw.row_gemv.launches, tw.row_gemv.routes) == before
