@@ -23,7 +23,9 @@ Phases (any failure exits non-zero and prints no result line):
    launched (the wrapper's route counts) — the main path's int8 gate_up
    at m = 8 and 256 held to the decode GEMV and the wgmma GEMM — and the
    decode rows bit-equal across m; BGMV at the qkv_proj and out_proj
-   shapes of a multi-tenant batch); the FlashAttention-2 forward (the
+   shapes of a multi-tenant batch, each case naming its body, the decode
+   cases held to the cluster body, beside the torch.bmm pair's call and
+   device time); the FlashAttention-2 forward (the
    route it launched named, the gpt_base case held to the Hopper body,
    each causal Hopper case launched hundreds of times in one CUDA graph
    and held bit-equal to its eager launch), dq and dkv kernels at the gpt_base and llama2_7b
@@ -39,8 +41,10 @@ Phases (any failure exits non-zero and prints no result line):
    int8 pools, held to the ring body, beside the first body; the
    fused bottleneck forward and backward kernels at ResNet-50's four stage
    shapes (N=128, bf16) against their plain versions (the backward on the
-   kernels' residuals), timed beside the plain versions and the per-op
-   route of the same block (cuDNN convolutions and batch norm); the
+   kernels' residuals; every forward product held to its Hopper body by
+   the wrapper's route counts), timed beside the plain versions and the
+   per-op route of the same block (cuDNN convolutions and batch norm),
+   with both directions' device time by launch from a child; the
    ring-step (position-masked) flash kernels at gpt_base's cp = 2 ring
    steps (ranks 0 and 1, own and visiting shard), a llama2_7b-width
    shard, a contiguous shard whose keys all lie in its future, f32 and no
@@ -68,7 +72,8 @@ Phases (any failure exits non-zero and prints no result line):
    every float decode Linear goes through the row-stable GEMV), and a
    torch.profiler window over decode steps (device-busy time per step
    and kernel time by family); then (d) multi-tenant serving on run (b)'s
-   int8 model: LoRA adapters through BGMV, a shared system prompt through
+   int8 model: LoRA adapters through BGMV (every launch on its cluster
+   body), a shared system prompt through
    the prefix cache with copy-on-write, sampled and greedy requests, a
    stop sequence — tokens held against a private-copy engine — and its
    decode step under torch.profiler in a child process;
@@ -100,7 +105,8 @@ Phases (any failure exits non-zero and prints no result line):
    and labels from `--seed` (bench.py's TPU row) — 20 steps on the per-op
    route and on the fused route (``PADDLE_TPU_FUSED_RESBLOCK=1``: the 12
    stride-1 identity blocks through the fused kernels), each with the
-   fused calls set to 0 before and read after (12 + 12 a step, and none),
+   fused calls set to 0 before and read after (12 + 12 a step, and none;
+   every forward launch on its body),
    step ms, images/s, MFU, peak memory; a 3-step parity run at B=32 in
    bf16 and f32 compute, gated on its first step (loss and grad norm
    against the plain fused route, the whole gradient against the plain
@@ -575,16 +581,21 @@ BGMV_CASES = (
     ("ragged d_out", 4096, 5000, 16, 8, 1, "bfloat16"),
 )
 BGMV_IDS = (0, 1, 1, 2, 3, 0, 5, 7)   # slot 0, a repeat, distinct slots
+BGMV_ROUTE_NAMES = {0: "two launches (bgmv_shrink, bgmv_expand)",
+                    1: "cluster body (bgmv_cluster, one launch)"}
 
 
 def check_bgmv(torch, iters):
     """BGMV against its plain version (f32 gather + two einsums):
     max abs error <= 1e-5 x max |ref| + 1e-6 (f32 sums in another order);
-    each row of the first case bitwise equal alone and in the batch.
-    `ms` is one wrapper call between CUDA events (the host's share
-    included, as for the other kernels); `device_ms` the kernels alone
-    (`time_graph_ms`, cycling through 16 copies of the slot stacks).
-    Library yardstick: torch.bmm(torch.bmm(x.float(), A[ids]), B[ids]).
+    each row of the first case bitwise equal alone and in the batch; each
+    case names the body it launched (`lora_delta.routes`), every decode
+    case (s = 1) held to the cluster body. `ms` is one wrapper call
+    between CUDA events (the host's share included, as for the other
+    kernels); `device_ms` the kernels alone (`time_graph_ms`, cycling
+    through 16 copies of the slot stacks). Library yardstick:
+    torch.bmm(torch.bmm(x.float(), A[ids]), B[ids]), a call and on the
+    device the same way (`library_device_ms`).
     Bound: x read once, each distinct slot's A and B once, the output
     written once over 3.35 TB/s; 2*b*s*r*(d_in + d_out) f32 operations
     over 67 TFLOP/s."""
@@ -600,7 +611,9 @@ def check_bgmv(torch, iters):
         A[0] = 0.0
         B[0] = 0.0
         ids = torch.tensor(BGMV_IDS[:b], dtype=torch.int32, device="cuda")
+        zero_routes(lora_delta)
         got = lora_delta(x, A, B, ids)
+        route = launched_route(lora_delta, BGMV_ROUTE_NAMES)
         ref = lora_delta_ref(x, A, B, ids)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
@@ -609,7 +622,10 @@ def check_bgmv(torch, iters):
             raise AssertionError(f"bgmv {label} {dt}: max abs err {err} > "
                                  f"{tol}")
         row = dict(case=f"{label} d_in={d_in} d_out={d_out} r={r} b={b} "
-                        f"s={s} {dt} slots=8", max_abs_err=err, tol=tol)
+                        f"s={s} {dt} slots=8", max_abs_err=err, tol=tol,
+                   route=route)
+        if s == 1 and route != BGMV_ROUTE_NAMES[1]:
+            raise AssertionError(f"bgmv {row['case']} took {route}")
         if not rows:
             solo = [lora_delta(x[i:i + 1], A, B, ids[i:i + 1])
                     for i in range(b)]
@@ -630,17 +646,24 @@ def check_bgmv(torch, iters):
                                   max(3, iters // 4))
         row["library_ms"] = time_ms(torch, lambda: torch.bmm(torch.bmm(
             x.float(), A[ids.long()]), B[ids.long()]), iters)
+        copies = [(A.clone(), B.clone()) for _ in range(16)]
+        row["library_device_ms"] = time_graph_ms(torch, [
+            lambda a=a, b_=b_: torch.bmm(torch.bmm(x.float(), a[ids.long()]),
+                                         b_[ids.long()])
+            for a, b_ in copies])
+        del copies
         distinct = len(set(BGMV_IDS[:b]))
         nbytes = x.numel() * x.element_size() + distinct * (
             d_in * r + r * d_out) * 4 + b * s * d_out * 4 + b * 4
         row["bound_ms"], row["bound_by"] = bound(
             nbytes, 2.0 * b * s * r * (d_in + d_out), F32_FLOPS)
         rows.append(row)
-        log(f"  bgmv {row['case']}: err {err:.3g} (tol {tol:.3g}) kernel "
-            f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}) plain "
-            f"{row['plain_ms']:.4f} ms library "
-            f"{row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']})")
+        log(f"  bgmv {row['case']} [{route}]: err {err:.3g} (tol "
+            f"{tol:.3g}) kernel {row['ms']:.4f} ms (device "
+            f"{row['device_ms']:.4f}) plain {row['plain_ms']:.4f} ms "
+            f"library {row['library_ms']:.4f} ms (device "
+            f"{row['library_device_ms']:.4f}) bound {row['bound_ms']:.4f} "
+            f"ms ({row['bound_by']})")
         del x, A, B, got, ref
     return rows
 
@@ -1427,12 +1450,15 @@ def multi_tenant(torch, np, model, new_tokens):
         eng.generate(reqs[1][0][:8], 2)               # warm-up
         for w in (lora_delta, paged_decode_attention, weight_only_matmul):
             w.launches = 0
+        zero_routes(lora_delta)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         streams, outs = _serve_tenants(eng, reqs, new_tokens,
                                        stop=(3, stop))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        bgmv_routes = {BGMV_ROUTE_NAMES[r]: c
+                       for r, c in lora_delta.routes.items()}
         launches = {"lora_delta": lora_delta.launches,
                     "paged_decode_attention": paged_decode_attention.launches,
                     "weight_only_matmul": weight_only_matmul.launches}
@@ -1458,7 +1484,7 @@ def multi_tenant(torch, np, model, new_tokens):
            "ttft_p95_s": ttft[min(len(ttft) - 1, int(0.95 * len(ttft)))],
            "steps": st["steps"], "prefill_chunks": st["prefill_chunks"],
            "occupancy": st["occupancy"], "launches": launches,
-           "adapter_stacks_gb": stack_gb,
+           "bgmv_routes": bgmv_routes, "adapter_stacks_gb": stack_gb,
            "prefix_hits": pc["hits"], "prefix_full_hits": pc["full_hits"],
            "prefix_hit_rate": st["prefix_hit_rate"],
            "tokens_reused": pc["tokens_reused"],
@@ -1476,6 +1502,11 @@ def multi_tenant(torch, np, model, new_tokens):
     fails = []
     if launches["lora_delta"] == 0:
         fails.append("lora_delta never launched")
+    # the engine's prefill passes a scalar id (no kernel): every launch is
+    # a batched decode step (s = 1), on the cluster body
+    if bgmv_routes[BGMV_ROUTE_NAMES[1]] != launches["lora_delta"]:
+        fails.append(f"bgmv launches by body {bgmv_routes}: expected all "
+                     f"{launches['lora_delta']} on the cluster body")
     if pc["hits"] < 1 or pc["full_hits"] < 1 or st["cow_copies"] < 1:
         fails.append(f"prefix cache: hits {pc['hits']}, full hits "
                      f"{pc['full_hits']}, cow copies {st['cow_copies']}")
@@ -2023,10 +2054,29 @@ def resblock_counts(what="launches"):
             "fused_bottleneck_bwd": getattr(rb.fused_bottleneck_bwd, what)}
 
 
+def resblock_routes(wrapper):
+    """A fused family's launches by body, by name (`ROUTE_NAMES`)."""
+    names = _rb_mod().ROUTE_NAMES
+    return {names[r]: c for r, c in wrapper.routes.items()}
+
+
 def reset_resblock_counts():
     rb = _rb_mod()
     for f in (rb.fused_bottleneck_fwd, rb.fused_bottleneck_bwd):
         f.launches = f.calls = 0
+        if hasattr(f, "routes"):     # not a plain version patched in
+            zero_routes(f)
+
+
+def fwd_routes_expected(calls):
+    """The forward's launches by body for `calls` calls: F1, F3 and F4 on
+    rb_wg, F2 on rb_wg_conv (the Hopper bodies), relu(bn2(r2)) formed once
+    a call, three BN reductions a call; nothing else."""
+    rb = _rb_mod()
+    want = dict.fromkeys(rb.ROUTE_NAMES, 0)
+    want.update({rb.ROUTE_ROWS: 3 * calls, rb.ROUTE_CONV: calls,
+                 rb.ROUTE_FORM: calls, rb.ROUTE_REDUCE: 3 * calls})
+    return {rb.ROUTE_NAMES[r]: c for r, c in want.items()}
 
 
 def _block_inputs(torch, N, H, C, g):
@@ -2077,7 +2127,9 @@ def check_fused_resblock(torch, iters):
     bf16 ulps of max |y| or 1e-2 abs; r1, r2 and the BN vectors normwise
     <= 1e-2 and the six statistics <= 1e-3; the backward kernels against
     the plain backward on the kernels' residuals (as training runs
-    them), each of the ten gradients normwise <= 1e-2. The end-to-end gap
+    them), each of the ten gradients normwise <= 1e-2; the forward's
+    launches held to their bodies (`fwd_routes_expected`: every product on
+    the Hopper bodies). The end-to-end gap
     (each side on its own residuals) is reported: a residual one bf16 ulp
     apart flips relu mask elements. Times a call, and on the device (8
     calls in a CUDA graph; the per-op backward's device time is the
@@ -2093,7 +2145,9 @@ def check_fused_resblock(torch, iters):
     for stage, H, C, blocks in RESNET_STAGES:
         N, M = RESNET_BATCH, RESNET_BATCH * H * H
         args, dy = _block_inputs(torch, N, H, C, g)
+        zero_routes(rb.fused_bottleneck_fwd)
         y, res, stats = rb.fused_bottleneck_fwd(*args)
+        fwd_routes = resblock_routes(rb.fused_bottleneck_fwd)
         grads = rb.fused_bottleneck_bwd(res, dy)
         y_ref, res_ref, stats_ref = rb.fused_bottleneck_fwd_ref(*args)
         same = rb.fused_bottleneck_bwd_ref(res, dy)
@@ -2114,7 +2168,11 @@ def check_fused_resblock(torch, iters):
         row = dict(case=case, stage=stage, blocks_per_step=blocks,
                    max_abs_err=err, y_tol=y_tol, residuals_normwise=resid,
                    stats_normwise=stat, grad_normwise=rel,
-                   grad_normwise_end_to_end=e2e, finite=finite)
+                   grad_normwise_end_to_end=e2e, finite=finite,
+                   fwd_routes=fwd_routes)
+        if fwd_routes != fwd_routes_expected(1):
+            raise AssertionError(f"fused bottleneck {case}: forward "
+                                 f"launches by body {fwd_routes}")
         if not (finite and err["y"] <= y_tol and stat <= 1e-3
                 and max(resid.values()) <= 1e-2
                 and max(rel.values()) <= 1e-2):
@@ -2182,10 +2240,10 @@ def check_fused_resblock(torch, iters):
 
 
 def block_products(torch):
-    """`--profile-resblock`'s child: the fused backward's device time by
-    product at each stage shape (port_ab.py's `resblock_products`, one
-    torch.profiler pass: only the first profiling session of a process
-    records device kernels)."""
+    """`--profile-resblock`'s child: the fused forward's and backward's
+    device time by launch at each stage shape (port_ab.py's
+    `resblock_products`, one torch.profiler pass: only the first profiling
+    session of a process records device kernels)."""
     import port_ab
 
     return port_ab.resblock_products(torch, _rb_mod(),
@@ -2249,7 +2307,8 @@ def resnet_throughput(torch, np, steps, seed):
     each route's run: ms a step, images/s, MFU (3 x the forward's conv
     and fc FLOPs a image, 2 per multiply-add, over 989e12), peak memory,
     losses (they must fall); 12 forward and 12 backward fused calls a step
-    on the fused route, none on the per-op route."""
+    on the fused route, every forward launch on its body
+    (`fwd_routes_expected`), none on the per-op route."""
     import math
 
     from paddle_tpu_torch.models import train_flops_per_image
@@ -2268,6 +2327,7 @@ def resnet_throughput(torch, np, steps, seed):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches, calls = resblock_counts(), resblock_counts("calls")
+            fwd_routes = resblock_routes(_rb_mod().fused_bottleneck_fwd)
         fpi = train_flops_per_image(model, RESNET_SIZE)
         ips = RESNET_BATCH * steps / wall
         row = {"route": route, "batch": RESNET_BATCH, "size": RESNET_SIZE,
@@ -2275,6 +2335,7 @@ def resnet_throughput(torch, np, steps, seed):
                "images_per_s": ips, "train_flops_per_image": fpi,
                "mfu": ips * fpi / BF16_FLOPS, "losses": losses,
                "grad_norms": norms, "launches": launches, "calls": calls,
+               "fwd_routes": fwd_routes,
                "launches_per_step": {k: v / steps
                                      for k, v in launches.items()},
                "launches_per_call": {k: v / max(calls[k], 1)
@@ -2287,6 +2348,9 @@ def resnet_throughput(torch, np, steps, seed):
             raise AssertionError(f"resnet50 {route}: fused calls {calls}, "
                                  f"launches {launches}, expected {want} "
                                  f"calls each")
+        if fwd_routes != fwd_routes_expected(want):
+            raise AssertionError(f"resnet50 {route}: forward launches by "
+                                 f"body {fwd_routes}")
         if not all(math.isfinite(v) for v in losses + norms) \
                 or not losses[-1] < losses[0]:
             raise AssertionError(f"resnet50 {route}: losses {losses}")
@@ -2456,7 +2520,7 @@ def profile_resnet(torch, np, route, seed, steps=3):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     fam = kernel_families(prof, (
-        ("fused_bottleneck", ("rb_gemm", "rb_wg", "rb_sum", "rb_bn")),
+        ("fused_bottleneck", ("rb_wg", "rb_form", "rb_sum", "rb_bn")),
         ("batch_norm", ("batch_norm", "bn_fw", "bn_bw", "welford")),
         ("conv", ("conv", "cudnn", "implicit", "xmma", "fprop", "dgrad",
                   "wgrad", "nchw", "nhwc", *GEMM_NAMES)),
@@ -2529,15 +2593,18 @@ def resblock_kernel_rows(rows, resnet_run):
             per_op_ms=step(f"{part}_per_op_ms"),
             per_op_device_ms=step(f"{part}_per_op_dev_ms"),
             path=("rb_wg, rb_wg_conv, rb_wg_wgrad (TMA, wgmma)"
-                  if part == "bwd" else "rb_gemm (mma.sync)"),
+                  if part == "bwd" else
+                  "rb_wg (F1, F3, F4), rb_wg_conv (F2) (TMA, wgmma); "
+                  "rb_form; rb_bn"),
+            **({"routes": fused["fwd_routes"]} if part == "fwd" else {}),
             launches_per_call=fused["launches_per_call"][name],
             case="ResNet-50 step: 12 identity blocks at N=128, bf16 "
                  "(2 x layer1 + 3 x layer2 + 5 x layer3 + 2 x layer4)",
             by_stage={r["stage"]: {k: r.get(k) for k in (
                 f"{part}_ms", f"{part}_dev_ms", f"{part}_plain_ms",
                 f"{part}_per_op_ms", f"{part}_per_op_dev_ms",
-                f"{part}_bound_ms", f"{part}_bound_by") + (
-                    ("bwd_products_ms",) if part == "bwd" else ())}
+                f"{part}_bound_ms", f"{part}_bound_by",
+                f"{part}_products_ms")}
                 for r in rows}))
     return out
 
@@ -3532,7 +3599,9 @@ def check_fused_pair(torch, iters):
     the reference left open: does the coupling win?), the plain version
     and the per-op route of the two blocks (cuDNN convolutions and batch
     norm; no single PyTorch call computes them). Bound: x read once and
-    y2 written once, 8 M C bf16 elements, and 68 M C^2 operations."""
+    y2 written once, 8 M C bf16 elements, and 68 M C^2 operations. Its
+    launches by body are held: rb_k41 once a call, every other product on
+    the Hopper bodies."""
     rb = _rb_mod()
     g = torch.Generator(device="cuda").manual_seed(19)
     rows = []
@@ -3541,7 +3610,9 @@ def check_fused_pair(torch, iters):
         a1, _ = _block_inputs(torch, N, H, C, g)
         a2, _ = _block_inputs(torch, N, H, C, g)
         x, p1, p2 = a1[0], a1[1:], a2[1:]
+        zero_routes(rb.fused_bottleneck2_fwd)
         y2 = rb.fused_bottleneck2_fwd(x, p1, p2)
+        routes = resblock_routes(rb.fused_bottleneck2_fwd)
         ref = rb.fused_bottleneck2_fwd_ref(x, p1, p2)
 
         def chained():
@@ -3555,11 +3626,15 @@ def check_fused_pair(torch, iters):
         err = (y2.float() - ref.float()).abs().max().item()
         case = f"{stage} bf16 N={N} H=W={H} C={C} 4C={4 * C}"
         row = dict(case=case, stage=stage, max_abs_err=err, tol=tol,
-                   rerun_bit_equal=torch.equal(y2, again),
+                   rerun_bit_equal=torch.equal(y2, again), routes=routes,
                    vs_two_12a_max_abs=(y2.float() - two.float()).abs().max()
                    .item(), vs_two_12a_normwise=_normwise(y2, two))
+        want = dict.fromkeys(rb.ROUTE_NAMES, 0)
+        want.update({rb.ROUTE_ROWS: 4, rb.ROUTE_CONV: 2, rb.ROUTE_FORM: 2,
+                     rb.ROUTE_REDUCE: 6, rb.ROUTE_K41: 1})
         if not (bool(torch.isfinite(y2).all()) and err <= tol
-                and row["rerun_bit_equal"]):
+                and row["rerun_bit_equal"]) or routes != {
+                    rb.ROUTE_NAMES[r]: c for r, c in want.items()}:
             raise AssertionError(f"fused pair {case}: {row}")
         del ref, two, again, y2
         row["ms"] = time_ms(torch, lambda: rb.fused_bottleneck2_fwd(
@@ -3965,9 +4040,11 @@ def main(argv):
     sa_rows = check_short_attention(torch, iters)
     rb_rows = check_fused_resblock(torch, iters)
     products = run_child("--profile-resblock", 0, args.seed, args.report)
-    log(f"  fused backward by product {json.dumps(products)}")
+    log(f"  fused forward and backward by launch {json.dumps(products)}")
     for r in rb_rows:
-        r["bwd_products_ms"] = products.get(r["stage"])
+        for part in ("fwd", "bwd"):
+            r[f"{part}_products_ms"] = (products.get(r["stage"])
+                                        or {}).get(part)
     bs_rows = check_block_sparse(torch, np, iters, args.seed)
     dec_rows = check_decode_attention(torch, iters)
     table_cost = decode_table_cost(torch)
@@ -4060,7 +4137,9 @@ def main(argv):
         ms=bg_main["ms"], plain_ms=bg_main["plain_ms"],
         bound_ms=bg_main["bound_ms"], bound_by=bg_main["bound_by"],
         library_ms=bg_main["library_ms"], device_ms=bg_main["device_ms"],
-        case=bg_main["case"]))
+        library_device_ms=bg_main["library_device_ms"], case=bg_main["case"],
+        path=bg_main["route"], cuda_kernels=["bgmv_cluster"],
+        routes=tenant_run["bgmv_routes"]))
     fa_main = fa_rows[0]
     # No PyTorch call forms dq alone or dk, dv alone: SDPA's backward forms
     # all three, so it stands beside the pair (pair_ms = dq + dkv), and

@@ -34,15 +34,32 @@
 // r2; the backward reads dy, y, x and writes dx), at layer3 and layer4 the
 // products (34 M C^2 operations forward, 68 backward).
 //
-// The forward (rb_gemm, and rb_k41) is the mma.sync design: 4-warp CTAs
-// of 64 x 64 tiles, mma.sync m16n8k16 (the tiles of attention_tiles.cuh),
-// K in steps of 32 loaded synchronously into shared memory between two
-// __syncthreads, the A prologue re-formed for every 64-column tile of N.
+// Both directions run on Hopper bodies built from TMA, mbarrier rings and
+// wgmma with both operands in shared memory. The forward's products:
+//   * F1 (r1 = x . w1) and F3 / F4 (relu(bn2(r2)) . w3) on rb_wg, the
+//     backward's row-product body below, with the epilogues eStoreStats
+//     (r1 in bf16 and its per-tile column sums), eStats (the sums alone: r3
+//     is never stored) and eResid (y = relu(bn3(r3) + bf16(x)), the x tile
+//     by TMA during the mainloop). For bf16 x, F1's A is a plain TMA copy
+//     into the swizzled operand; for f32 x, TMA brings the raw tile and
+//     the consumers cast it.
+//   * F2 (the 3x3 conv of relu(bn1(r1))) on rb_wg_conv: relu(bn1(r1))
+//     formed once a source row per 64-channel chunk into the staged halo,
+//     the nine taps copied from it.
+//   * F3 and F4 both read relu(bn2(r2)) [M, C] with K = C and N = 4C, so
+//     the forward forms it once, in bf16, by rb_form (the rounding the
+//     consumers would apply), and both products take it as a plain TMA
+//     copy: the mma.sync body formed it again for every 64 columns of N
+//     (16 times a row at layer3, 32 at layer4).
+// The forward's mma.sync body (rb_gemm) is retired; of it stay only the
+// pieces rb_k41 (12c's coupled pair) shares (opnd8, src_row, the step
+// constants), and rb_k41 keeps its mma.sync design: 4-warp CTAs, 64
+// columns a step, mma.sync m16n8k16 (the tiles of attention_tiles.cuh), K
+// in steps of 32 loaded synchronously between two __syncthreads.
 //
-// The backward runs on Hopper bodies built from TMA, mbarrier rings and
-// wgmma with both operands in shared memory (so no A fragment is built in
-// registers while a wgmma is in flight, which ptxas would serialize:
-// weight_only.cu's C7513):
+// The bodies keep both wgmma operands in shared memory (so no A fragment
+// is built in registers while a wgmma is in flight, which ptxas would
+// serialize: weight_only.cu's C7513). The backward's:
 //   * row products B1, B2A, B2B, B4 (rb_wg): persistent CTAs over tiles of
 //     128 rows x 128 columns (64 where N = 64), a TMA warp and two consumer
 //     warpgroups. The TMA warp keeps a ring of stages in flight: the
@@ -74,7 +91,8 @@
 //     mma.sync kernel formed W2's D tile once for every 64 of the 9 C rows
 //     of dW2. TMA brings the raw tiles, the consumer warpgroups form them.
 // The backward also stores dr3 [M, 4C] in bf16 between its two products,
-// which the TPU kernel kept in VMEM.
+// and the forward relu(bn2(r2)) [M, C] between F2 and F3, both of which
+// the TPU kernels kept in VMEM.
 #include <string.h>
 
 #include <type_traits>
@@ -99,8 +117,8 @@ struct Opnd {
 struct Args {
   Opnd a;            // A operand (rows of the output, or of the weight grad)
   Opnd d;            // weight gradients: the operand whose columns are N
-  const void* w;     // products: B, bf16: [K, N] row-major (forward),
-                     // [N, K] row-major (backward: TMA, K-major)
+  const void* w;     // products: B, bf16: [N, K] row-major (TMA,
+                     // K-major); kF41: [K, N] row-major
   const void* e0;    // epilogue inputs [M, N]
   const void* e1;
   const float* ebn;  // epilogue BN vectors [5, N]
@@ -122,10 +140,9 @@ using namespace ptt::attn;
 using namespace ptt::rb;
 using bf16 = __nv_bfloat16;
 
-constexpr int BM = 64;           // rows of a product tile (4 warps x 16)
-constexpr int BN = 64;           // columns of a product tile
+// rb_k41's steps (mma.sync)
+constexpr int BN = 64;           // columns of a step
 constexpr int BK = 32;           // K per step
-constexpr int NT = BN / 8;       // n-tiles of a warp
 constexpr int LDA = BK + 8;      // shared row strides (bf16 elements)
 constexpr int LDB = BN + 8;
 
@@ -140,7 +157,8 @@ enum AMode { kCastT = 0, kBf16, kRelu, kBnBwd };
 enum Epi {
   eStoreStats = 0,  // out = bf16(acc); sums of acc, acc^2
   eStats,           // sums of acc, acc^2
-  eResid,           // out = relu(acc * scale + bias + bf16(e0)) (T)
+  eResid,           // out = relu(acc * scale + bias + bf16(e0)) (T; the
+                    // scale and bias of ebn)
   eB1,              // out = dz = e0 [e1 > 0] (T); sums of dz, dz * xhat(acc)
   eDr3,             // out = bf16(c0 * ((e0 - m1) - xhat(acc) * m2))
   eMaskStats,       // out = da = acc [relu(e0 * s + b) > 0] (T); sums of
@@ -356,119 +374,7 @@ __device__ __forceinline__ float2 load2<bf16>(const bf16* p, long long off) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + off));
 }
 
-// --- row products: out [M, N] = A [M, K] . B [K, N] with fused edges ------
-template <int AM, bool CONV, int EPI, typename T>
-__global__ void __launch_bounds__(kThreads) rb_gemm(Args p) {
-  __shared__ __align__(16) bf16 As[BM * LDA];
-  __shared__ __align__(16) bf16 Bs[BK * LDB];
-  __shared__ float red[2][kWarps][BN];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int C = p.a.C, K = CONV ? 9 * C : C, N = p.N;
-  const bf16* w = static_cast<const bf16*>(p.w);
-
-  float acc[NT][4];
-  zero(acc);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = threadIdx.x; i < BM * BK / 8; i += kThreads) {
-      const int r = i / (BK / 8), kc = (i % (BK / 8)) * 8;
-      int c = 0;
-      const long long src = src_row<CONV>(p, C, m0 + r, k0 + kc, c);
-      *reinterpret_cast<uint4*>(As + r * LDA + kc) = opnd8<AM, T>(p.a, src, c);
-    }
-    for (int i = threadIdx.x; i < BK * BN / 8; i += kThreads) {
-      const int r = i / (BN / 8), nc = (i % (BN / 8)) * 8;
-      const int k = k0 + r, n = n0 + nc;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (k < K && n < N)
-        v = *reinterpret_cast<const uint4*>(w + static_cast<long long>(k) * N +
-                                            n);
-      *reinterpret_cast<uint4*>(Bs + r * LDB + nc) = v;
-    }
-    __syncthreads();
-    warp_mma<NT, BK, false>(acc, As + warp * kRows * LDA, LDA, Bs, LDB);
-    __syncthreads();
-  }
-
-  // epilogue: this thread holds rows r_lo, r_lo + 8 and columns
-  // n0 + 8 nt + 2 t + {0, 1}
-  constexpr bool kStats = EPI == eStoreStats || EPI == eStats;
-  float s0[NT][2], s1[NT][2];
-  const int r_lo = m0 + warp * kRows + g;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    s0[nt][0] = s0[nt][1] = s1[nt][0] = s1[nt][1] = 0.f;
-    const int col = n0 + nt * 8 + 2 * t;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = r_lo + 8 * half;
-      if (row >= p.M || col >= N) continue;
-      const long long off = static_cast<long long>(row) * N + col;
-      float v[2] = {acc[nt][2 * half], acc[nt][2 * half + 1]};
-      float a[2] = {0.f, 0.f}, b[2] = {0.f, 0.f};  // the sums' summands
-      if (EPI == eStoreStats || EPI == eStats) {
-        if (EPI == eStoreStats)
-          store2(static_cast<bf16*>(p.out), off, v[0], v[1]);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) { a[j] = v[j]; b[j] = v[j] * v[j]; }
-      } else if (EPI == eResid) {
-        const float2 x2 = load2(static_cast<const T*>(p.e0), off);
-        const float xs[2] = {x2.x, x2.y};
-        float y[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float xb = __bfloat162float(__float2bfloat16_rn(xs[j]));
-          const float z = __fadd_rn(
-              __fadd_rn(__fmul_rn(v[j], p.ebn[kScale * N + col + j]),
-                        p.ebn[kBias * N + col + j]),
-              xb);
-          y[j] = fmaxf(z, 0.f);
-        }
-        store2(static_cast<T*>(p.out), off, y[0], y[1]);
-      }
-      if (kStats) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          s0[nt][j] += a[j];
-          s1[nt][j] += b[j];
-        }
-      }
-    }
-  }
-  if (!kStats) return;
-  // column sums: the 8 lanes of a column (g), then the 4 warps in order
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1) {
-        s0[nt][j] += __shfl_xor_sync(0xffffffffu, s0[nt][j], o);
-        s1[nt][j] += __shfl_xor_sync(0xffffffffu, s1[nt][j], o);
-      }
-  if (g == 0) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        red[0][warp][nt * 8 + 2 * t + j] = s0[nt][j];
-        red[1][warp][nt * 8 + 2 * t + j] = s1[nt][j];
-      }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 2 * BN; i += kThreads) {
-    const int which = i / BN, col = i % BN;
-    if (n0 + col >= N) continue;
-    float s = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) s += red[which][wi][col];
-    p.part[(static_cast<long long>(blockIdx.x) * 2 + which) * N + n0 + col] =
-        s;
-  }
-}
-
-// --- the backward on Hopper ---------------------------------------------------
+// --- the Hopper bodies -------------------------------------------------------
 // Shared pieces of rb_wg and rb_wg_wgrad (see the note at the top): tiles of
 // rows of 64 bf16 values (128 bytes) in the SW128 layout, written by the
 // producer warpgroup and read by wgmma through descriptors.
@@ -598,15 +504,29 @@ __device__ __forceinline__ uint4 opnd8_raw(const Vec8<MODE>& vec,
 // could alias it). The per-tile column sums: the 8 lanes of a column (g),
 // then the 8 consumer warps in order (`ct`: the consumer thread 0..255;
 // `bar`: their named barrier).
+// whether an epilogue reads the input tiles e0 (and, eB1, e1)
+template <int EPI>
+struct EpiIn {
+  static constexpr bool value = EPI != eStoreStats && EPI != eStats;
+};
+
 template <int EPI>
 struct EpiVecs {
   // rows of ebn / ebw an epilogue reads: eB1 xhat; eDr3 xhat and the BN
-  // backward's c0, m1, m2; eMaskStats the relu's scale and bias and xhat
-  static constexpr int kN =
-      EPI == eB1 ? 2 : EPI == eDr3 ? 5 : EPI == eMaskStats ? 4 : 1;
+  // backward's c0, m1, m2; eMaskStats the relu's scale and bias and xhat;
+  // eResid the BN's scale and bias (eDx and the statistics epilogues
+  // none)
+  static constexpr bool kAny =
+      EPI != eDx && EPI != eStoreStats && EPI != eStats;
+  static constexpr int kN = EPI == eB1 || EPI == eResid ? 2
+                            : EPI == eDr3               ? 5
+                            : EPI == eMaskStats         ? 4
+                                                        : 1;
   __device__ static const float* row(const Args& p, int j) {
     const int N = p.N;
-    if constexpr (EPI == eMaskStats) {
+    if constexpr (EPI == eResid) {
+      return p.ebn + (j == 0 ? kScale : kBias) * N;
+    } else if constexpr (EPI == eMaskStats) {
       const int rows[4] = {kScale, kBias, kMean, kInv};
       return p.ebn + rows[j] * N;
     } else if constexpr (EPI == eDr3) {
@@ -645,7 +565,9 @@ __device__ __forceinline__ void row_epilogue(const Args& p,
                                              int g, int t, int ct, float* red,
                                              int bar, const uint8_t* epi) {
   constexpr int NI = BNT / 8;                // 8-column groups
-  constexpr bool kStats = EPI == eB1 || EPI == eMaskStats;
+  constexpr bool kStats = EPI == eB1 || EPI == eMaskStats ||
+                          EPI == eStoreStats || EPI == eStats;
+  constexpr bool kIn = EpiIn<EPI>::value;    // e0 (and e1) are read
   constexpr bool kTwo = EPI == eB1;          // dy and y
   constexpr int G = EPI == eDx ? 8 : 4;
   constexpr int NV = EpiVecs<EPI>::kN;
@@ -660,7 +582,7 @@ __device__ __forceinline__ void row_epilogue(const Args& p,
 #pragma unroll
     for (int i = 0; i < G; ++i) {
       const int col = n0 + 8 * (i0 + i) + 2 * t;
-      if constexpr (EPI != eDx)
+      if constexpr (EpiVecs<EPI>::kAny)
 #pragma unroll
         for (int j = 0; j < NV; ++j)
           vv[j][i] = col < N ? *reinterpret_cast<const float2*>(
@@ -670,6 +592,10 @@ __device__ __forceinline__ void row_epilogue(const Args& p,
       for (int half = 0; half < 2; ++half) {
         const int row = r_lo + 8 * half;
         const bool ok = row < p.M && col < N;
+        if constexpr (!kIn) {
+          ea[i][half] = make_float2(0.f, 0.f);
+          continue;
+        }
         if (epi != nullptr) {
           const int rr = row - mt * 128, cc = col - n0;
           ea[i][half] = tile2<E0>(epi, rr, cc);
@@ -691,7 +617,7 @@ __device__ __forceinline__ void row_epilogue(const Args& p,
       const int col = n0 + 8 * ii + 2 * t;
       // the BN vectors of columns col + j
       [[maybe_unused]] float vec[NV][2];
-      if constexpr (EPI != eDx)
+      if constexpr (EpiVecs<EPI>::kAny)
 #pragma unroll
         for (int j = 0; j < NV; ++j) {
           vec[j][0] = vv[j][i].x;
@@ -727,6 +653,26 @@ __device__ __forceinline__ void row_epilogue(const Args& p,
             dr[j] = __fmul_rn(vec[2][j], tt);
           }
           store2(static_cast<bf16*>(p.out), off, dr[0], dr[1]);
+        } else if constexpr (EPI == eStoreStats || EPI == eStats) {
+          if constexpr (EPI == eStoreStats)
+            store2(static_cast<bf16*>(p.out), off, v[0], v[1]);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            a[j] = v[j];
+            b[j] = v[j] * v[j];
+          }
+        } else if constexpr (EPI == eResid) {  // vec: scale, bias
+          const float xs[2] = {e.x, e.y};
+          float y[2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float xb = __bfloat162float(__float2bfloat16_rn(xs[j]));
+            y[j] = fmaxf(__fadd_rn(__fadd_rn(__fmul_rn(v[j], vec[0][j]),
+                                             vec[1][j]),
+                                   xb),
+                         0.f);
+          }
+          store2(static_cast<T*>(p.out), off, y[0], y[1]);
         } else if constexpr (EPI == eMaskStats) {
           // vec: scale, bias, mean, inv
           const float rs[2] = {e.x, e.y};
@@ -782,17 +728,18 @@ __device__ __forceinline__ void row_epilogue(const Args& p,
 }
 
 // --- row products: out [M, N] = A [M, K] . B [K, N] with fused edges ------
-// (B1, B2A, B2B, B4.) A CTA walks tiles tile = blockIdx.x, + gridDim.x, ...
-// of 128 rows x BNT columns (columns fastest, so the CTAs at work share A's
-// rows in L2), K in 64-channel steps. Warp 8 issues the TMA loads of a
-// ring of NS stages: each stage the B tile [BNT][64 k] and A's tile
-// [128][64 k] (swizzled where A is a plain copy, else raw). Warpgroups 0
-// and 1 (rows 0-63, 64-127) each form their 64 rows of A from the raw
-// tiles, fence them into the async proxy, run wgmma m64nBNTk16 with one
-// batch in flight (the forming of a stage overlaps the last stage's
-// batch), and run the epilogue on its input tiles ([128][BNT] of e0, and
-// of e1 for B1), which the TMA warp loads once the last tile's epilogue
-// has read them, so they land during the tile's mainloop.
+// (F1, F3, F4; B1, B2A, B2B, B4.) A CTA walks tiles tile = blockIdx.x,
+// + gridDim.x, ... of 128 rows x BNT columns (columns fastest, so the
+// CTAs at work share A's rows in L2), K in 64-channel steps. Warp 8
+// issues the TMA loads of a ring of NS stages: each stage the B tile
+// [BNT][64 k] and A's tile [128][64 k] (swizzled where A is a plain copy,
+// else raw). Warpgroups 0 and 1 (rows 0-63, 64-127) each form their 64
+// rows of A from the raw tiles (where A is raw), fence them into the
+// async proxy, run wgmma m64nBNTk16 with one batch in flight (the forming
+// of a stage overlaps the last stage's batch), and run the epilogue on its
+// input tiles ([128][BNT] of e0, and of e1 for B1), which the TMA warp
+// loads once the last tile's epilogue has read them, so they land during
+// the tile's mainloop.
 template <int AM, int EPI, typename T, int BNT>
 struct RowCfg {
   using RO = RawOf<AM, T>;
@@ -804,7 +751,8 @@ struct RowCfg {
   // the epilogue's input tiles [128][BNT]: e0, and for eB1 e1 (y); kept
   // in shared memory where they fit beside two stages (bf16 activations),
   // else read from global memory (kE = 0)
-  static constexpr int kE0 = 128 * BNT * static_cast<int>(sizeof(E0));
+  static constexpr int kE0 =
+      EpiIn<EPI>::value ? 128 * BNT * static_cast<int>(sizeof(E0)) : 0;
   static constexpr int kRed = 2 * 8 * BNT * static_cast<int>(sizeof(float));
   static constexpr int kEAll =
       kE0 + (EPI == eB1 ? 128 * BNT * static_cast<int>(sizeof(T)) : 0);
@@ -965,12 +913,13 @@ __global__ void __launch_bounds__(288, 1)
   }
 }
 
-// --- the transposed 3x3 conv (B3) ---------------------------------------------
+// --- the 3x3 conv (F2) and the transposed 3x3 conv (B3) ---------------------
 // As rb_wg, but warpgroup 0 produces: per 64-channel chunk of a tile it
-// stages the tile's rows plus W + 1 rows each side once, dr2's prologue
-// formed once a source row (direct loads, 128 rows at a time), and for
-// each of the nine taps copies the shifted window into the stage's
-// swizzled A tile beside the TMA-fed B tile; warpgroups 1 and 2 multiply.
+// stages the tile's rows plus W + 1 rows each side once, the A prologue
+// (F2's relu(bn1(r1)), B3's dr2) formed once a source row (direct loads,
+// 128 rows at a time), and for each of the nine taps copies the shifted
+// window into the stage's swizzled A tile beside the TMA-fed B tile;
+// warpgroups 1 and 2 multiply.
 template <int BNT>
 struct ConvCfg {
   static constexpr int kA = 128 * 128;   // bytes of a stage's A tile
@@ -1376,6 +1325,23 @@ __global__ void rb_bn(int mode, const float* __restrict__ part, int T, int N,
   }
 }
 
+// --- relu(bn2(r2)) in bf16, formed once for F3 and F4 ---------------------
+// out [M, C] = bf16(relu(r * scale + bias)) of the operand a (kRelu: r the
+// bf16 rows a.x, scale and bias of a.bn), 8 channels a thread: exactly what
+// rb_wg's consumers would form from raw r2 tiles, once instead of once for
+// every 128 columns of N in each of the two products.
+__global__ void __launch_bounds__(256)
+    rb_form(const Opnd a, int M, bf16* __restrict__ out) {
+  const int c8 = a.C / 8;
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(M) * c8) return;
+  Vec8<kRelu> vec;
+  vec.load(a, static_cast<int>(i % c8) * 8);
+  *reinterpret_cast<uint4*>(out + i * 8) = form8<kRelu, bf16>(
+      vec, static_cast<const bf16*>(a.x) + i * 8, nullptr);
+}
+
 // --- two blocks' boundary: block 1's k4 coupled with block 2's k1 -----------
 // A CTA owns BMR rows. Pass 1, over the 4C columns of y in steps of BN:
 // r3 = relu(bn2(r2)) . w3 (the tile's f2 rows re-formed per step), y =
@@ -1583,12 +1549,14 @@ int k41(const Args& p, cudaStream_t s) {
 
 // --- launch -----------------------------------------------------------------
 enum Kind { kF1 = 0, kF2, kF3, kF4, kB1, kB2A, kB2B, kB3, kB4, kW3, kW2, kW1,
-            kF41 };
+            kF41, kFA };
 
-template <int AM, bool CONV, int EPI, typename T>
-int row_gemm(const Args& p, cudaStream_t s) {
-  const dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN);
-  rb_gemm<AM, CONV, EPI, T><<<grid, kThreads, 0, s>>>(p);
+int form_a(const Args& p, cudaStream_t s) {
+  if (p.a.x == nullptr || p.a.bn == nullptr || p.out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = static_cast<long long>(p.M) * (p.a.C / 8);
+  rb_form<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
+      p.a, p.M, static_cast<bf16*>(p.out));
   return 0;
 }
 
@@ -1714,10 +1682,11 @@ int wg_wgrad(const Args& p, cudaStream_t s) {
 template <typename T>
 int dispatch(int kind, const Args& p, cudaStream_t s) {
   switch (kind) {
-    case kF1: return row_gemm<kCastT, false, eStoreStats, T>(p, s);
-    case kF2: return row_gemm<kRelu, true, eStoreStats, T>(p, s);
-    case kF3: return row_gemm<kRelu, false, eStats, T>(p, s);
-    case kF4: return row_gemm<kRelu, false, eResid, T>(p, s);
+    // F2 and F3 read no activation of dtype T: one instantiation each
+    case kF1: return wg_gemm<kCastT, false, eStoreStats, T>(p, s);
+    case kF2: return wg_gemm<kRelu, true, eStoreStats, bf16>(p, s);
+    case kF3: return wg_gemm<kBf16, false, eStats, bf16>(p, s);
+    case kF4: return wg_gemm<kBf16, false, eResid, T>(p, s);
     case kB1: return wg_gemm<kRelu, false, eB1, T>(p, s);
     case kB2A: return wg_gemm<kRelu, false, eDr3, T>(p, s);
     case kB2B: return wg_gemm<kBf16, false, eMaskStats, T>(p, s);
@@ -1727,24 +1696,26 @@ int dispatch(int kind, const Args& p, cudaStream_t s) {
     case kW2: return wg_wgrad<kRelu, true, kBnBwd, T>(p, s);
     case kW1: return wg_wgrad<kCastT, false, kBnBwd, T>(p, s);
     case kF41: return k41<T>(p, s);
+    case kFA: return form_a(p, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// One product of the block (kind: Kind above). Every row tensor is
-// contiguous [M, channels] and 16-byte aligned, every channel count a
-// multiple of 8; weights are bf16, [K, N] row-major for the forward's
-// products and [N, K] row-major (the TMA operand) for the backward's; dtype
-// is the activations' (x, y, dy, dz, da2, da1, dx): 0 f32, 1 bf16.
+// One launch of the block (kind: Kind above; kFA forms relu(bn2(r2)) in
+// bf16, no product). Every row tensor is contiguous [M, channels] and
+// 16-byte aligned, every channel count a multiple of 8; weights are bf16,
+// [N, K] row-major (the TMA operand), kF41's [K, N] row-major; dtype is the
+// activations' (x, y, dy, dz, da2, da1, dx): 0 f32, 1 bf16.
 extern "C" int ptt_resblock_gemm(int kind, const ptt::rb::Args* args,
                                  int dtype, void* stream) {
   const ptt::rb::Args& p = *args;
   if (p.M < 1 || p.N < 1 || p.N % 8 || p.a.C < 1 || p.a.C % 8 ||
       (kind >= kW3 && kind <= kW1 &&
        (p.splits < 1 || p.rows_per_split < 1)) ||
-      ((kind == kB3 || kind == kW2) && (p.W < 1 || p.W >= 65536)))
+      ((kind == kF2 || kind == kB3 || kind == kW2) &&
+       (p.W < 1 || p.W >= 65536)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;

@@ -152,8 +152,10 @@ def lib():
     _sig(handle.ptt_short_attention, I, P, P, P, P, P, P, P, P, P,
          ctypes.c_char_p, I, F, F, ctypes.c_uint, I, I, P)
     # x, x strides (b, s), A, B, ids, h scratch, out, batch, s, d_in, r,
-    # d_out, slots, x_dtype, stream
-    _sig(handle.ptt_bgmv, P, L, L, P, P, P, P, P, I, I, I, I, I, I, I, P)
+    # d_out, slots, x_dtype, route, cluster size, rows and columns a CTA,
+    # stream
+    _sig(handle.ptt_bgmv, P, L, L, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+         I, I, P)
     # kind, &Args (ops/fused_resblock.py _Args), activation dtype, stream
     _sig(handle.ptt_resblock_gemm, I, P, I, P)
     # 4C -> the coupled kernel's row tile (0: not taken)

@@ -12,13 +12,16 @@ on flat NHWC rows ``[M = N*H*W, channels]``::
     y  = relu(bn3(r3) + x)              r3 recomputed
 
 Three kernel wrappers over ``csrc/fused_resblock.cu``; one call is a
-family of launches, and each wrapper counts both: ``.launches`` the
-kernel launches (at each launch), ``.calls`` the calls on CUDA inputs:
+family of launches, and each wrapper counts them: ``.launches`` the
+kernel launches (at each launch), ``.routes`` the launches of each body
+(`ROUTE_NAMES`), ``.calls`` the calls on CUDA inputs:
 
 * `fused_bottleneck_fwd` replaces the TPU kernels `_k1`..`_k4`
   (fused_resblock.py:141-188, through `_call` :321 from
-  `fused_bottleneck_fwd` :334): four products and three fixed-order
-  reductions of the per-tile BN sums, seven launches;
+  `fused_bottleneck_fwd` :334): four products on the Hopper bodies (F1,
+  F3 and F4 on `rb_wg`, the 3x3 F2 on `rb_wg_conv`), relu(bn2(r2)) formed
+  once in bf16 for F3 and F4 (`rb_form`), and three fixed-order
+  reductions of the per-tile BN sums, eight launches (`FWD_PRODUCTS`);
 * `fused_bottleneck_bwd` replaces `_b1`..`_b4` (:192-287, from
   `fused_bottleneck_bwd` :404): the full BN backward, fourteen launches
   (five row products with fused edges and three weight-gradient products
@@ -26,9 +29,10 @@ kernel launches (at each launch), ``.calls`` the calls on CUDA inputs:
   reductions and three sums of the gradients' row chunks);
 * `fused_bottleneck2_fwd` replaces the two-block chain of
   `fused_bottleneck2_fwd` (:612) with its coupled `_k41` (:593): block
-  1's k4 and block 2's k1 in one kernel (`rb_k41`), so y1 reaches block
-  2's first product from shared memory; the other six products are the
-  kernels above, thirteen launches. The reference wires it into no model
+  1's k4 and block 2's k1 in one kernel (`rb_k41`, mma.sync), so y1
+  reaches block 2's first product from shared memory; the other six
+  products are the kernels above, fifteen launches. The reference wires it
+  into no model
   (only `tools/bench_resstage.py` and its test call it): it measures
   whether the coupling pays.
 
@@ -60,7 +64,8 @@ __all__ = ["MATMUL_DTYPE", "fused_bottleneck_fwd", "fused_bottleneck_bwd",
            "fused_bottleneck_fwd_ref", "fused_bottleneck_bwd_ref",
            "fused_bottleneck2_fwd", "fused_bottleneck2_fwd_ref",
            "bottleneck_reference", "fused_bottleneck",
-           "fused_bottleneck_auto", "fused_block_impl", "flip_transpose_w2"]
+           "fused_bottleneck_auto", "fused_block_impl", "flip_transpose_w2",
+           "FWD_PRODUCTS", "ROUTE_NAMES"]
 
 MATMUL_DTYPE = torch.bfloat16
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -280,16 +285,34 @@ def bottleneck_reference(x, w1, w2, w3, g1, be1, g2, be2, g3, be3,
 
 # ------------------------------------------------------------------ kernels
 
-# product kinds of ptt_resblock_gemm (csrc/fused_resblock.cu `Kind`)
-_F1, _F2, _F3, _F4, _B1, _B2A, _B2B, _B3, _B4, _W3, _W2, _W1, _F41 = \
-    range(13)
+# launch kinds of ptt_resblock_gemm (csrc/fused_resblock.cu `Kind`; _FA
+# forms relu(bn2(r2)) in bf16)
+_F1, _F2, _F3, _F4, _B1, _B2A, _B2B, _B3, _B4, _W3, _W2, _W1, _F41, _FA = \
+    range(14)
 # reduction modes of ptt_resblock_reduce
 _SUM, _BN_FWD, _BN_BWD = range(3)
-_ROWS = 64          # rows of a forward product's tile (its sums' count)
-_BWD_ROWS = 128     # rows of a backward row product's tile
+_TILE_ROWS = 128    # rows of a row product's tile (its sums' count)
 _CHUNK = 64         # rows of a weight-gradient stage
 _MIN_SPLIT = 256    # the fewest rows a weight-gradient CTA sums
 _TARGET_CTAS = 528  # 4 waves of one CTA a multiprocessor on an H100
+
+
+#: the bodies a family's launches run on (`.routes`' keys)
+ROUTE_ROWS, ROUTE_CONV, ROUTE_WGRAD, ROUTE_FORM, ROUTE_REDUCE, ROUTE_K41 = \
+    range(6)
+ROUTE_NAMES = {ROUTE_ROWS: "rb_wg (TMA + wgmma row product)",
+               ROUTE_CONV: "rb_wg_conv (TMA + wgmma, 3x3 from a staged halo)",
+               ROUTE_WGRAD: "rb_wg_wgrad (TMA + wgmma weight gradient)",
+               ROUTE_FORM: "rb_form (relu(bn2(r2)) in bf16)",
+               ROUTE_REDUCE: "rb_bn / rb_sum (fixed-order reductions)",
+               ROUTE_K41: "rb_k41 (mma.sync, the coupled pair)"}
+_BODY = {_F1: ROUTE_ROWS, _F2: ROUTE_CONV, _F3: ROUTE_ROWS, _F4: ROUTE_ROWS,
+         _B1: ROUTE_ROWS, _B2A: ROUTE_ROWS, _B2B: ROUTE_ROWS,
+         _B3: ROUTE_CONV, _B4: ROUTE_ROWS, _W3: ROUTE_WGRAD,
+         _W2: ROUTE_WGRAD, _W1: ROUTE_WGRAD, _F41: ROUTE_K41,
+         _FA: ROUTE_FORM}
+#: `fused_bottleneck_fwd`'s launches in order (`_fwd_cuda`)
+FWD_PRODUCTS = ("F1", "bn1", "F2", "bn2", "form a2", "F3", "bn3", "F4")
 
 
 class _Opnd(ctypes.Structure):
@@ -362,6 +385,7 @@ class _Launcher:
                                              self.dtype, self.stream)
         _build.check(err, what)
         self.wrapper.launches += 1
+        self.wrapper.routes[_BODY[kind]] += 1
 
     def reduce(self, mode, what, part, T, N, out, gamma=None, beta=None,
                bn=None, eps=0.0, n=1.0):
@@ -371,6 +395,7 @@ class _Launcher:
                 _ptr(bn), float(eps), float(n), out.data_ptr(), self.stream)
         _build.check(err, what)
         self.wrapper.launches += 1
+        self.wrapper.routes[ROUTE_REDUCE] += 1
 
     def stats(self, mode, what, part, N, gamma, beta=None, bn=None, eps=0.0):
         """[5, N] f32 BN vectors from the products' per-tile sums."""
@@ -393,7 +418,7 @@ class _Launcher:
     def empty(self, rows, cols, dtype):
         return torch.empty((rows, cols), dtype=dtype, device=self.dev)
 
-    def sums(self, N, rows=_ROWS):
+    def sums(self, N, rows=_TILE_ROWS):
         """Per-tile BN sums [ceil(M / rows), 2, N] of a product whose tiles
         are `rows` rows."""
         return torch.empty((-(-self.M // rows), 2, N), dtype=torch.float32,
@@ -438,34 +463,48 @@ def _cuda_operands(prm):
             + [_aligned(_vec(v)) for v in prm[3:]])
 
 
+def _fwd_weights(w1c, w2c, w3c):
+    """The forward products' B operands [N, K] (K-major, as TMA reads
+    them) from the block's weights: w1 [4C, C] -> [C, 4C]; the 3x3's
+    w2 [3, 3, C, C] -> [C, 9 C], K = tap * C + input channel with the taps
+    (di, dj) in `_conv3x3`'s order; w3 [C, 4C] -> [4C, C]."""
+    C = w1c.shape[1]
+    return (_aligned(w1c.t()), _aligned(w2c.reshape(9 * C, C).t()),
+            _aligned(w3c.t()))
+
+
 def _check_channels(C4, C):
     if C % 8 or C4 % 8:
         raise ValueError(f"the kernels take channel counts that are "
                          f"multiples of 8, got C={C}, 4C={C4}")
 
 
-def _block_head_cuda(L, what, xop, C4, C, w1c, w2c, w3c, g1, be1, g2, be2,
-                     g3, be3, eps, r1=None):
+def _block_head_cuda(L, what, xop, C4, C, wt, g1, be1, g2, be2, g3, be3,
+                     eps, r1=None):
     """k1 (skipped when r1 and its bn1 come in: the coupled kernel made
-    them), k2 and k3 of a block: (r1, r2, bn1, bn2, bn3)."""
+    them), k2 and k3 of a block on the B operands wt (`_fwd_weights`):
+    (r1, r2, a2 = relu(bn2(r2)) in bf16, bn1, bn2, bn3)."""
     M, md = L.M, MATMUL_DTYPE
+    w1t, w2t, w3t = wt
     if r1 is None:
         r1 = L.empty(M, C, md)
         part = L.sums(C)
-        L.gemm(_F1, f"{what} (k1)", xop, C, w=w1c, out=r1, part=part)
+        L.gemm(_F1, f"{what} (k1)", xop, C, w=w1t, out=r1, part=part)
         bn1 = L.stats(_BN_FWD, f"{what} (bn1)", part, C, g1, be1, eps=eps)
     else:
         r1, bn1 = r1
     r2 = L.empty(M, C, md)
     part = L.sums(C)
-    L.gemm(_F2, f"{what} (k2)", _opnd(r1, bn=bn1, C=C), C, w=w2c, out=r2,
+    L.gemm(_F2, f"{what} (k2)", _opnd(r1, bn=bn1, C=C), C, w=w2t, out=r2,
            part=part)
     bn2 = L.stats(_BN_FWD, f"{what} (bn2)", part, C, g2, be2, eps=eps)
+    # k3's and k4's A, formed once
+    a2 = L.empty(M, C, md)
+    L.gemm(_FA, f"{what} (a2)", _opnd(r2, bn=bn2, C=C), C, out=a2)
     part = L.sums(C4)
-    L.gemm(_F3, f"{what} (k3)", _opnd(r2, bn=bn2, C=C), C4, w=w3c,
-           part=part)
+    L.gemm(_F3, f"{what} (k3)", _opnd(a2, C=C), C4, w=w3t, part=part)
     bn3 = L.stats(_BN_FWD, f"{what} (bn3)", part, C4, g3, be3, eps=eps)
-    return r1, r2, bn1, bn2, bn3
+    return r1, r2, a2, bn1, bn2, bn3
 
 
 def _fwd_cuda(x, w1, w2, w3, g1, be1, g2, be2, g3, be3, eps):
@@ -477,12 +516,13 @@ def _fwd_cuda(x, w1, w2, w3, g1, be1, g2, be2, g3, be3, eps):
     w1c, w2c, w3c, g1, be1, g2, be2, g3, be3 = _cuda_operands(
         (w1, w2, w3, g1, be1, g2, be2, g3, be3))
     L = _Launcher(fused_bottleneck_fwd, x, M, H, W)
-    r1, r2, bn1, bn2, bn3 = _block_head_cuda(
-        L, "fused_bottleneck_fwd", _opnd(x, C=C4), C4, C, w1c, w2c, w3c, g1,
-        be1, g2, be2, g3, be3, eps)
+    wt = _fwd_weights(w1c, w2c, w3c)
+    r1, r2, a2, bn1, bn2, bn3 = _block_head_cuda(
+        L, "fused_bottleneck_fwd", _opnd(x, C=C4), C4, C, wt, g1, be1, g2,
+        be2, g3, be3, eps)
     y = L.empty(M, C4, x.dtype)
-    L.gemm(_F4, "fused_bottleneck_fwd (k4)", _opnd(r2, bn=bn2, C=C), C4,
-           w=w3c, e0=x, ebn=bn3, out=y)
+    L.gemm(_F4, "fused_bottleneck_fwd (k4)", _opnd(a2, C=C), C4, w=wt[2],
+           e0=x, ebn=bn3, out=y)
     res = _residuals(x, r1, r2, y, w1c, w2c, w3c, bn1, bn2, bn3, g1, g2, g3,
                      eps)
     stats = tuple((bn[_MEAN], bn[_VAR]) for bn in (bn1, bn2, bn3))
@@ -505,7 +545,7 @@ def _bwd_cuda(res, dy4):
     w3t = _aligned(w3c.t())
     # B1: dz = dy [y > 0], bn3's sums with r3 recomputed
     dz = L.empty(M, C4, x.dtype)
-    part = L.sums(C4, _BWD_ROWS)
+    part = L.sums(C4)
     L.gemm(_B1, "fused_bottleneck_bwd (b1)", f2, C4, w=w3t, e0=dy, e1=y,
            ebn=bn3, out=dz, part=part)
     bw3 = L.stats(_BN_BWD, "fused_bottleneck_bwd (bn3)", part, C4, g3,
@@ -515,7 +555,7 @@ def _bwd_cuda(res, dy4):
     L.gemm(_B2A, "fused_bottleneck_bwd (b2 dr3)", f2, C4, w=w3t, e0=dz,
            ebn=bn3, ebw=bw3, out=dr3)
     da2 = L.empty(M, C, x.dtype)
-    part = L.sums(C, _BWD_ROWS)
+    part = L.sums(C)
     L.gemm(_B2B, "fused_bottleneck_bwd (b2)", _opnd(dr3, C=C4), C,
            w=_aligned(w3c),
            e0=r2, ebn=bn2, out=da2, part=part)
@@ -527,7 +567,7 @@ def _bwd_cuda(res, dy4):
     # B3: dr2, the transposed conv, da1 masked, bn1's sums, and dW2
     dr2 = _opnd(da2, r2, bn2, bw2, C)
     da1 = L.empty(M, C, x.dtype)
-    part = L.sums(C, _BWD_ROWS)
+    part = L.sums(C)
     L.gemm(_B3, "fused_bottleneck_bwd (b3)", dr2, C,
            w=_aligned(flip_transpose_w2(w2c).reshape(9 * C, C).t()), e0=r1,
            ebn=bn1, out=da1, part=part)
@@ -559,8 +599,9 @@ def _fwd2_cuda(x, params1, params2, eps):
     x = _aligned(x)
     p1, p2 = _cuda_operands(params1), _cuda_operands(params2)
     L = _Launcher(fused_bottleneck2_fwd, x, M, H, W)
-    _, r2, _, bn2, bn3 = _block_head_cuda(L, what + " block 1",
-                                          _opnd(x, C=C4), C4, C, *p1, eps)
+    wt1, wt2 = _fwd_weights(*p1[:3]), _fwd_weights(*p2[:3])
+    _, r2, _, _, bn2, bn3 = _block_head_cuda(
+        L, what + " block 1", _opnd(x, C=C4), C4, C, wt1, *p1[3:], eps)
     # block 1's k4 coupled with block 2's k1: y1, r1 of block 2, its sums
     y1, r1b = L.empty(M, C4, x.dtype), L.empty(M, C, md)
     part = torch.empty((-(-M // rows), 2, C), dtype=torch.float32,
@@ -569,13 +610,14 @@ def _fwd2_cuda(x, params1, params2, eps):
            e0=x, ebn=bn3, out=y1, part=part, w_next=p2[0], out_next=r1b)
     bn1b = L.stats(_BN_FWD, what + " block 2 (bn1)", part, C, p2[3], p2[4],
                    eps=eps)
-    _, r2b, _, bn2b, bn3b = _block_head_cuda(
-        L, what + " block 2", None, C4, C, *p2, eps, r1=(r1b, bn1b))
+    _, _, a2b, _, _, bn3b = _block_head_cuda(
+        L, what + " block 2", None, C4, C, wt2, *p2[3:], eps,
+        r1=(r1b, bn1b))
     # block 2's k4: its residual y1 is read rounded to bf16, as the
     # reference's y1.astype(MATMUL_DTYPE)
     y2 = L.empty(M, C4, x.dtype)
-    L.gemm(_F4, what + " block 2 (k4)", _opnd(r2b, bn=bn2b, C=C), C4,
-           w=p2[2], e0=y1, ebn=bn3b, out=y2)
+    L.gemm(_F4, what + " block 2 (k4)", _opnd(a2b, C=C), C4, w=wt2[2],
+           e0=y1, ebn=bn3b, out=y2)
     return y2.reshape(N, H, W, C4)
 
 
@@ -593,6 +635,7 @@ def fused_bottleneck2_fwd(x, params1, params2, eps=1e-5):
 
 
 fused_bottleneck2_fwd.launches = fused_bottleneck2_fwd.calls = 0
+fused_bottleneck2_fwd.routes = dict.fromkeys(ROUTE_NAMES, 0)
 
 
 def fused_bottleneck_fwd(x, w1, w2, w3, g1, be1, g2, be2, g3, be3,
@@ -622,6 +665,9 @@ def fused_bottleneck_bwd(res, dy):
 
 fused_bottleneck_fwd.launches = fused_bottleneck_fwd.calls = 0
 fused_bottleneck_bwd.launches = fused_bottleneck_bwd.calls = 0
+#: launches of each body (`ROUTE_NAMES`' codes)
+fused_bottleneck_fwd.routes = dict.fromkeys(ROUTE_NAMES, 0)
+fused_bottleneck_bwd.routes = dict.fromkeys(ROUTE_NAMES, 0)
 
 
 # ------------------------------------------------------------------ autograd

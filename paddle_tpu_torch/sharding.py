@@ -8,7 +8,7 @@ SPMD code: `MeshConfig(cp=n).build()` is called in every rank of a
 its process group, its rank, its device and the transport its collectives
 go through (`distributed._ring.Transport`). Only the context-parallel
 axis is ported: ``dp``, ``fsdp`` or ``tp`` above 1, ``dcn_dp`` and extra
-axes (``sep``) raise `NotImplementedError` (ROADMAP Queue 1, item 8: more
+axes (``sep``) raise `NotImplementedError` (ROADMAP Queue 1, item 6: more
 than one device).
 
 The mesh is the port's own small object, not a `torch.distributed.
@@ -27,7 +27,7 @@ from . import resolve_device
 __all__ = ["MeshConfig", "Mesh"]
 
 _LATER = ("is not ported yet: the port's meshes have one axis, cp "
-          "(ROADMAP Queue 1, item 8: more than one device)")
+          "(ROADMAP Queue 1, item 6: more than one device)")
 
 
 class Mesh:

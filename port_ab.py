@@ -3,7 +3,7 @@
 
     python3 port_ab.py PARENT CHANGE
         [--what decode,flash,short,weight_only,dense_decode,sparse,ring,
-                gemv,decode_busy,resblock]
+                gemv,decode_busy,resblock,pair,bgmv,tenants]
         [--rounds 1]
 
 PARENT and CHANGE are the roots of two checkouts (for example a
@@ -52,7 +52,7 @@ Measurements:
   median ms over 50 calls and the device time of a call (``_dev_ms``);
 * ``sparse``: the block-sparse kernel on `chip_smoke.py`'s BigBird tables
   (seed 0) at [4*12, 4096, 64] and [12, 4096, 128] bf16: median ms over
-  50 calls;
+  50 calls and the device time of a call (``_dev_ms``);
 * ``ring``: the ring-step kernels of context parallelism at cp = 2 with
   zigzag placement — gpt_base's shards (B=8, s=512, H=12, D=64; ranks 0
   and 1, own and visiting shard) and llama2_7b's (B=1, s=2048, H=32,
@@ -79,8 +79,20 @@ Measurements:
   BottleneckBlock, cuDNN and PyTorch's batch norm, as phase 6's per-op
   route runs it) likewise, its backward's device time the captured
   forward + backward less the forward (4 calls a graph); the step sums
-  (each stage times its blocks a step); and the backward's device time by
-  product from one torch.profiler pass (`resblock_products`).
+  (each stage times its blocks a step); the forward's and the backward's
+  device time by launch from one torch.profiler pass
+  (`resblock_products`), with their step sums, and the forward's launches
+  by body where the tree counts them (``routes``);
+* ``pair``: row 12c, the coupled pair of blocks, at the four stage shapes
+  (`check_fused_pair`'s seeded inputs) beside two chained one-block
+  forwards, a call and on the device (8 calls a graph);
+* ``bgmv``: BGMV at `chip_smoke.py`'s `BGMV_CASES`: median CUDA-event ms
+  over 50 calls, the device time of a call and of the yardstick pair of
+  `torch.bmm` calls (``_dev_ms``, cycling through 16 copies of the slot
+  stacks), and the body each case took where the tree counts them;
+* ``tenants``: `chip_smoke.py`'s `profile_tenants` (run (d): the int8
+  llama2_7b at 32 layers with six LoRA adapters, 12 decode steps at bs 8
+  under torch.profiler), the `bgmv` family's ms a step among its results.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 per measurement, each naming its tree. Every child has a time limit and
@@ -311,9 +323,12 @@ def child_sparse(tree):
         q, k, v = (torch.randn(BH, smoke.BIGBIRD_SEQ, D, device="cuda",
                                generator=g).to(torch.bfloat16)
                    for _ in range(3))
-        res[f"bh{BH}_d{D}_ms"] = _time_ms(
-            torch, lambda: bsa.block_sparse_attention(
-                q, k, v, idx, cnt, D ** -0.5, smoke.SPARSE_BLOCK))
+
+        def fn():
+            return bsa.block_sparse_attention(q, k, v, idx, cnt, D ** -0.5,
+                                              smoke.SPARSE_BLOCK)
+        res[f"bh{BH}_d{D}_ms"] = _time_ms(torch, fn)
+        res[f"bh{BH}_d{D}_dev_ms"] = _graph_ms(torch, [fn])
     return res
 
 
@@ -408,45 +423,73 @@ def child_decode_busy(tree):
 #: the fused backward's launches in order (ops/fused_resblock.py `_bwd_cuda`)
 BWD_PRODUCTS = ("B1", "bn3", "B2A", "B2B", "bn2", "W3", "W3 sum", "B3",
                 "bn1", "W2", "W2 sum", "B4", "W1", "W1 sum")
+#: the fused forward's launches in order, for a tree whose module does not
+#: name them (`FWD_PRODUCTS` of ops/fused_resblock.py where it does)
+FWD_PRODUCTS = ("F1", "bn1", "F2", "bn2", "F3", "bn3", "F4")
 
 
 def resblock_products(torch, rb, smoke, calls=2):
-    """The fused backward's device time by product (ms a call) at each of
-    `smoke.RESNET_STAGES`, from one torch.profiler pass (only the first
-    profiling session of a process records device kernels): the kernels
-    whose names hold "rb_", in launch order, cut into calls of
-    len(BWD_PRODUCTS)."""
+    """The fused forward's and backward's device time by launch (ms a
+    call) at each of `smoke.RESNET_STAGES`, from one torch.profiler pass
+    (only the first profiling session of a process records device
+    kernels): the kernels whose names hold "rb_", in launch order, cut
+    into calls of the forward's and the backward's launch counts. Returns
+    {stage: {"fwd": {launch: ms, ..., "total"}, "bwd": {...}}}."""
     from torch.profiler import ProfilerActivity, profile
 
+    fwd_names = getattr(rb, "FWD_PRODUCTS", FWD_PRODUCTS)
     g = torch.Generator(device="cuda").manual_seed(11)
     cases = []
     for stage, H, C, _ in smoke.RESNET_STAGES:
         args, dy = smoke._block_inputs(torch, smoke.RESNET_BATCH, H, C, g)
         _, res, _ = rb.fused_bottleneck_fwd(*args)
         rb.fused_bottleneck_bwd(res, dy)
-        cases.append((stage, res, dy))
+        cases.append((stage, args, res, dy))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _, res, dy in cases:
+        for _, args, res, dy in cases:
+            for _ in range(calls):
+                rb.fused_bottleneck_fwd(*args)
             for _ in range(calls):
                 rb.fused_bottleneck_bwd(res, dy)
         torch.cuda.synchronize()
     kern = sorted((e for e in prof.events()
                    if e.device_type.name == "CUDA" and "rb_" in e.name),
                   key=lambda e: e.time_range.start)
-    per = len(BWD_PRODUCTS)
-    if len(kern) != per * calls * len(cases):
+    nf, nb = len(fwd_names), len(BWD_PRODUCTS)
+    per_case = (nf + nb) * calls
+    if len(kern) != per_case * len(cases):
         return {"error": f"{len(kern)} rb_ kernels recorded, want "
-                         f"{per * calls * len(cases)}"}
+                         f"{per_case * len(cases)}"}
     out = {}
-    for i, (stage, _, _) in enumerate(cases):
-        ev = kern[i * per * calls:(i + 1) * per * calls]
-        out[stage] = {p: sum(ev[c * per + j].time_range.elapsed_us()
-                             for c in range(calls)) / calls / 1e3
-                      for j, p in enumerate(BWD_PRODUCTS)}
-        out[stage]["total"] = sum(out[stage][p] for p in BWD_PRODUCTS)
+    for i, (stage, _, _, _) in enumerate(cases):
+        ev = kern[i * per_case:(i + 1) * per_case]
+        row = {}
+        for part, names, first in (("fwd", fwd_names, 0),
+                                   ("bwd", BWD_PRODUCTS, nf * calls)):
+            n = len(names)
+            row[part] = {p: sum(ev[first + c * n + j].time_range
+                                .elapsed_us() for c in range(calls))
+                         / calls / 1e3 for j, p in enumerate(names)}
+            row[part]["total"] = sum(row[part][p] for p in names)
+        out[stage] = row
     return out
+
+
+def products_step(products, smoke):
+    """`resblock_products`' ms a call summed over a ResNet-50 step (each
+    stage's launches times its blocks a step), by direction."""
+    if "error" in products:
+        return products
+    blocks = {stage: b for stage, _, _, b in smoke.RESNET_STAGES}
+    step = {}
+    for stage, row in products.items():
+        for part, times in row.items():
+            acc = step.setdefault(part, {})
+            for p, ms in times.items():
+                acc[p] = acc.get(p, 0.0) + ms * blocks[stage]
+    return step
 
 
 def child_resblock(tree):
@@ -456,6 +499,8 @@ def child_resblock(tree):
     rb = importlib.import_module("paddle_tpu_torch.ops.fused_resblock")
     res = {"tree": tree, "what": "resblock"}
     res["products"] = resblock_products(torch, rb, smoke)
+    res["products_step"] = products_step(res["products"], smoke)
+    res["routes"] = dict(getattr(rb.fused_bottleneck_fwd, "routes", {}))
     g = torch.Generator(device="cuda").manual_seed(11)
     step = {}
     for stage, H, C, blocks in smoke.RESNET_STAGES:
@@ -505,6 +550,91 @@ def child_resblock(tree):
     return res
 
 
+def child_pair(tree):
+    """Row 12c: `fused_bottleneck2_fwd` at `chip_smoke.py`'s four stage
+    shapes (its `check_fused_pair` inputs, seed 19), beside two chained
+    one-block forwards: a call (median of 20) and on the device (8 calls
+    in one CUDA graph), and the pair's launches by body where the tree
+    counts them (``routes``)."""
+    import torch
+
+    smoke = importlib.import_module("chip_smoke")
+    rb = importlib.import_module("paddle_tpu_torch.ops.fused_resblock")
+    res = {"tree": tree, "what": "pair"}
+    g = torch.Generator(device="cuda").manual_seed(19)
+    for stage, H, C, _ in smoke.RESNET_STAGES:
+        a1, _ = smoke._block_inputs(torch, smoke.RESNET_BATCH, H, C, g)
+        a2, _ = smoke._block_inputs(torch, smoke.RESNET_BATCH, H, C, g)
+        x, p1, p2 = a1[0], a1[1:], a2[1:]
+        calls = {"pair": lambda: rb.fused_bottleneck2_fwd(x, p1, p2),
+                 "two_12a": lambda: rb.fused_bottleneck_fwd(
+                     rb.fused_bottleneck_fwd(x, *p1)[0], *p2)[0]}
+        for part, fn in calls.items():
+            res[f"{stage}_{part}_ms"] = _time_ms(torch, fn, iters=20)
+            res[f"{stage}_{part}_dev_ms"] = _graph_ms(torch, [fn], calls=8)
+        del a1, a2, x, p1, p2
+        torch.cuda.empty_cache()
+    res["routes"] = dict(getattr(rb.fused_bottleneck2_fwd, "routes", {}))
+    return res
+
+
+def child_bgmv(tree):
+    """BGMV at `chip_smoke.py`'s `BGMV_CASES` (its seeded inputs): the
+    kernel's median CUDA-event ms over 50 calls, its device time and the
+    device time of the yardstick torch.bmm(torch.bmm(x.float(), A[ids]),
+    B[ids]) (``_dev_ms``: 32 calls in one CUDA graph cycling through 16
+    copies of the slot stacks, so each call reads them from HBM), and the
+    body each case launched where the tree counts them (``route``)."""
+    import torch
+
+    smoke = importlib.import_module("chip_smoke")
+    bg = importlib.import_module("paddle_tpu_torch.ops.bgmv")
+    routes = getattr(bg.lora_delta, "routes", None)
+    res = {"tree": tree, "what": "bgmv"}
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for label, d_in, d_out, r, b, s, dt in smoke.BGMV_CASES:
+        x = torch.randn(b, s, d_in, device="cuda", generator=g).to(
+            getattr(torch, dt))
+        A = torch.randn(8, d_in, r, device="cuda", generator=g) * 0.02
+        B = torch.randn(8, r, d_out, device="cuda", generator=g) * 0.02
+        ids = torch.tensor(smoke.BGMV_IDS[:b], dtype=torch.int32,
+                           device="cuda")
+        idl = ids.long()
+        name = f"{label.replace(' ', '_')}_{dt}"
+        if routes is not None:
+            for k in routes:
+                routes[k] = 0
+        bg.lora_delta(x, A, B, ids)
+        if routes is not None:
+            res[f"{name}_route"] = [k for k, c in routes.items() if c]
+        copies = [(A.clone(), B.clone()) for _ in range(16)]
+        res[f"{name}_ms"] = _time_ms(torch,
+                                     lambda: bg.lora_delta(x, A, B, ids))
+        res[f"{name}_dev_ms"] = _graph_ms(
+            torch, [lambda a=a, b_=b_: bg.lora_delta(x, a, b_, ids)
+                    for a, b_ in copies])
+        res[f"{name}_bmm_dev_ms"] = _graph_ms(
+            torch, [lambda a=a, b_=b_: torch.bmm(torch.bmm(
+                x.float(), a[idl]), b_[idl]) for a, b_ in copies])
+        del x, A, B, copies
+    return res
+
+
+def child_tenants(tree):
+    """Run (d)'s decode step (`chip_smoke.py`'s `profile_tenants`: the int8
+    llama2_7b at 32 layers with six LoRA adapters, bs 8) under
+    torch.profiler: its results, the `bgmv` family's ms a step among them,
+    and BGMV's launches by body in the child where the tree counts them."""
+    import numpy as np
+    import torch
+
+    smoke = importlib.import_module("chip_smoke")
+    bg = importlib.import_module("paddle_tpu_torch.ops.bgmv")
+    prof = smoke.profile_tenants(torch, np, 32)
+    return {"tree": tree, "what": "tenants", **prof,
+            "routes": dict(getattr(bg.lora_delta, "routes", {}))}
+
+
 def _child(what, tree):
     tree = os.path.abspath(tree)
     os.chdir(tree)
@@ -515,7 +645,9 @@ def _child(what, tree):
            "dense_decode": child_dense_decode,
            "sparse": child_sparse, "ring": child_ring,
            "gemv": child_gemv, "decode_busy": child_decode_busy,
-           "resblock": child_resblock}[what](tree)
+           "resblock": child_resblock, "pair": child_pair,
+           "bgmv": child_bgmv,
+           "tenants": child_tenants}[what](tree)
     print("AB " + json.dumps(res), flush=True)
 
 

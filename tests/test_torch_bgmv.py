@@ -5,6 +5,8 @@ CPU tensor takes; the CUDA kernel is held against it on the card in
 `tests/test_torch_cuda.py`), in f32 and bf16, against the JAX fallback
 (`use_kernel=False`) and the Pallas kernel in interpret mode.
 Tolerance: 1e-5 relative, normwise (f32 sums in another order)."""
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -106,3 +108,58 @@ def test_other_id_shapes_raise(ids):
     with pytest.raises(ValueError, match="ids must be scalar or"):
         bgmv.lora_delta(torch.from_numpy(x), torch.from_numpy(A),
                         torch.from_numpy(B), torch.from_numpy(ids))
+
+
+# --------------------------------------------- the kernel's route and plan
+
+# llama2_7b's LoRA'd projections (d_in, d_out) at the adapter pool's rank
+LLAMA_PROJ = ((4096, 12288), (4096, 4096))
+
+
+@pytest.mark.parametrize("d_in,d_out", LLAMA_PROJ)
+@pytest.mark.parametrize("r", [16, 64])
+def test_decode_steps_take_the_cluster_body(d_in, d_out, r):
+    """`bgmv_route` names the cluster body for every decode batch (s = 1)
+    at the llama2_7b shapes, and the two launches for a prefill chunk with
+    an id per sequence (s > 1)."""
+    for b in range(1, 17):
+        x = torch.empty(b, 1, d_in)
+        assert bgmv.bgmv_route(x, r, d_in, d_out) == bgmv.ROUTE_CLUSTER
+    for b, s in ((1, 2), (8, 16), (2, 256)):
+        x = torch.empty(b, s, d_in)
+        assert bgmv.bgmv_route(x, r, d_in, d_out) == bgmv.ROUTE_TWO_LAUNCH
+
+
+@pytest.mark.parametrize("d_in,r,d_out", [(4096, 16, 12288),
+                                          (4096, 16, 4096),
+                                          (4096, 64, 4096), (300, 3, 77),
+                                          (64, 1, 100), (256, 128, 513),
+                                          (5, 2, 3)])
+def test_cluster_plan_is_a_pure_function_of_the_shape(d_in, r, d_out):
+    """KC and the cuts of d_in and d_out depend on (d_in, r, d_out) alone
+    (the call has no batch or ids to read), cover both widths exactly
+    once, and keep each CTA's columns a multiple of 4 (16-byte stores)."""
+    kc, rows, cols = bgmv.bgmv_cluster_plan(d_in, r, d_out)
+    assert (kc, rows, cols) == bgmv.bgmv_cluster_plan(d_in, r, d_out)
+    assert kc in (8, 16)
+    assert rows == -(-d_in // kc) and kc * rows >= d_in
+    assert cols % 4 == 0 and cols - 4 < -(-d_out // kc) <= cols
+    assert list(inspect.signature(bgmv.bgmv_cluster_plan).parameters) == [
+        "d_in", "r", "d_out"]
+
+
+def test_llama_shapes_take_sixteen_ctas_a_sequence():
+    for d_in, d_out in LLAMA_PROJ:
+        assert bgmv.bgmv_cluster_plan(d_in, 16, d_out)[0] == 16
+    assert bgmv.bgmv_cluster_plan(64, 4, 64)[0] == 8
+
+
+def test_routes_name_both_bodies_and_cpu_counts_none():
+    assert set(bgmv.lora_delta.routes) == {bgmv.ROUTE_TWO_LAUNCH,
+                                           bgmv.ROUTE_CLUSTER}
+    before = dict(bgmv.lora_delta.routes)
+    x, A, B = _case(6, b=3, s=1)
+    bgmv.lora_delta(torch.from_numpy(x), torch.from_numpy(A),
+                    torch.from_numpy(B), torch.tensor([1, 0, 2],
+                                                      dtype=torch.int32))
+    assert bgmv.lora_delta.routes == before

@@ -447,7 +447,9 @@ def test_mesh_config_refuses_what_is_not_ported():
 
     for kw in (dict(dp=2), dict(fsdp=2), dict(tp=2), dict(dcn_dp=2),
                dict(extra={"sep": 2})):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1, item 6: more than one "
+                                 "device"):
             MeshConfig(**kw).build(device="cpu")
     with pytest.raises(ValueError):
         MeshConfig(cp=0)

@@ -506,10 +506,13 @@ def test_bgmv_kernel_matches_plain(cuda, dtype, b, s, d_in, d_out, r,
     x, A, B, ids = _bgmv_case(b, s, d_in, d_out, r, 6, dtype, seed=d_in + r,
                               strided=strided)
     ref = tb.lora_delta_ref(x, A, B, ids)
-    before = tb.lora_delta.launches
+    before = tb.lora_delta.launches, dict(tb.lora_delta.routes)
     got = tb.lora_delta(x.to(cuda), A.to(cuda), B.to(cuda), ids.to(cuda))
     torch.cuda.synchronize()
-    assert tb.lora_delta.launches == before + 1
+    assert tb.lora_delta.launches == before[0] + 1
+    route = tb.ROUTE_CLUSTER if s == 1 else tb.ROUTE_TWO_LAUNCH
+    assert tb.lora_delta.routes == {**before[1],
+                                    route: before[1][route] + 1}
     assert got.dtype == torch.float32 and got.shape == ref.shape
     assert (got.cpu() - ref).abs().max().item() <= _bgmv_tol(ref)
     for i in range(b):
@@ -517,9 +520,38 @@ def test_bgmv_kernel_matches_plain(cuda, dtype, b, s, d_in, d_out, r,
             assert not got[i].any()
 
 
-def test_bgmv_rows_are_batch_invariant(cuda):
-    """A row's bits do not depend on its batchmates or the batch size."""
-    x, A, B, ids = _bgmv_case(8, 1, 4096, 4096, 16, 8, torch.bfloat16, 5)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [1, 4, 16, 64, 128])
+@pytest.mark.parametrize("d_in,d_out", [
+    (4096, 12288),                     # llama2_7b qkv_proj: 16 CTAs
+    (4100, 4098),                      # neither divides by KC; d_out % 4
+    (300, 77)])                        # 8 CTAs, ragged cuts
+def test_bgmv_cluster_route_matches_plain(cuda, dtype, r, d_in, d_out):
+    """The decode step's body (one cluster a sequence, h exchanged
+    through distributed shared memory) at b = 1, 3, 8 and 16, a strided x
+    at b = 3 and 16: within 1e-5 of max |ref|, slot-0 rows exact zeros,
+    one launch on the cluster route."""
+    for b, strided in ((1, False), (3, True), (8, False), (16, True)):
+        x, A, B, ids = _bgmv_case(b, 1, d_in, d_out, r, 6, dtype,
+                                  seed=d_in + r + b, strided=strided)
+        ref = tb.lora_delta_ref(x, A, B, ids)
+        before = dict(tb.lora_delta.routes)
+        got = tb.lora_delta(x.to(cuda), A.to(cuda), B.to(cuda),
+                            ids.to(cuda))
+        torch.cuda.synchronize()
+        assert tb.lora_delta.routes == {
+            **before, tb.ROUTE_CLUSTER: before[tb.ROUTE_CLUSTER] + 1}
+        assert (got.cpu() - ref).abs().max().item() <= _bgmv_tol(ref), b
+        for i in range(b):
+            if ids[i] == 0:
+                assert not got[i].any()
+
+
+@pytest.mark.parametrize("d_out", [4096, 4098])
+def test_bgmv_rows_are_batch_invariant(cuda, d_out):
+    """A row's bits do not depend on its batchmates or the batch size
+    (the cluster body's cut is a function of the shape alone)."""
+    x, A, B, ids = _bgmv_case(8, 1, 4096, d_out, 16, 8, torch.bfloat16, 5)
     x, A, B, ids = x.to(cuda), A.to(cuda), B.to(cuda), ids.to(cuda)
     full = tb.lora_delta(x, A, B, ids)
     for i in range(8):
@@ -527,6 +559,20 @@ def test_bgmv_rows_are_batch_invariant(cuda):
         assert torch.equal(full[i:i + 1], one)
     part = tb.lora_delta(x[2:5], A, B, ids[2:5])
     assert torch.equal(full[2:5], part)
+    big = tb.lora_delta(torch.cat([x, x]), A, B, torch.cat([ids, ids]))
+    assert torch.equal(big[:8], full) and torch.equal(big[8:], full)
+
+
+def test_bgmv_prefill_rows_take_the_two_launch_body(cuda):
+    """s > 1 (a chunk with an id per sequence): shrink then expand, within
+    the tolerance of the plain version."""
+    x, A, B, ids = _bgmv_case(3, 40, 512, 300, 16, 4, torch.bfloat16, 7)
+    before = dict(tb.lora_delta.routes)
+    got = tb.lora_delta(x.to(cuda), A.to(cuda), B.to(cuda), ids.to(cuda))
+    assert tb.lora_delta.routes == {
+        **before, tb.ROUTE_TWO_LAUNCH: before[tb.ROUTE_TWO_LAUNCH] + 1}
+    ref = tb.lora_delta_ref(x, A, B, ids)
+    assert (got.cpu() - ref).abs().max().item() <= _bgmv_tol(ref)
 
 
 def test_bgmv_scalar_ids_take_the_matmul_path(cuda):
@@ -539,11 +585,18 @@ def test_bgmv_scalar_ids_take_the_matmul_path(cuda):
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-5)
 
 
-def test_bgmv_out_of_range_slot_gives_nan_rows(cuda):
-    x, A, B, _ = _bgmv_case(2, 1, 64, 48, 4, 3, torch.float32, 1)
-    ids = torch.tensor([1, 7], dtype=torch.int32, device=cuda)
-    got = tb.lora_delta(x.to(cuda), A.to(cuda), B.to(cuda), ids)
+@pytest.mark.parametrize("s", [1, 3])
+@pytest.mark.parametrize("d_in,d_out", [(64, 48), (4096, 12288)])
+def test_bgmv_out_of_range_slot_gives_nan_rows(cuda, s, d_in, d_out):
+    """An id outside [0, slots) gives a NaN row on either body; its
+    batchmates (slot 0 among them) are unaffected."""
+    x, A, B, _ = _bgmv_case(4, s, d_in, d_out, 4, 3, torch.float32, 1)
+    ids = torch.tensor([1, 7, 0, -1], dtype=torch.int32)
+    got = tb.lora_delta(x.to(cuda), A.to(cuda), B.to(cuda), ids.to(cuda))
     assert torch.isfinite(got[0]).all() and torch.isnan(got[1]).all()
+    assert not got[2].any() and torch.isnan(got[3]).all()
+    ref = tb.lora_delta_ref(x[:1], A, B, ids[:1])
+    assert (got[:1].cpu() - ref).abs().max().item() <= _bgmv_tol(ref)
 
 
 def _tiny_int8(cuda):
@@ -912,7 +965,7 @@ def test_fused_resblock_kernels_match_plain(cuda, N, H, W, C4, C, dtype):
     """Forward kernels against the plain forward: y within 2 bf16 ulps of
     max |y| (or 1e-2 abs) — both round f32 sums of the same bf16 products,
     summed in another order, to bf16 at r1, r2 and y; r1, r2 and the BN
-    vectors normwise within 1e-2 (readings <= 6e-4); one call each, seven
+    vectors normwise within 1e-2 (readings <= 6e-4); one call each, eight
     and fourteen launches counted at the launches. Backward kernels
     against the plain backward on the kernels' residuals, as training
     runs them: the ten gradients normwise within 1e-2 (readings <= 1.1e-3:
@@ -929,7 +982,7 @@ def test_fused_resblock_kernels_match_plain(cuda, N, H, W, C4, C, dtype):
     grads = trb.fused_bottleneck_bwd(res, dy)
     assert [(f.calls - c, f.launches - n) for f, (c, n) in zip(
         (trb.fused_bottleneck_fwd, trb.fused_bottleneck_bwd), before)] == [
-            (1, 7), (1, 14)]
+            (1, 8), (1, 14)]
     y_ref, res_ref, stats_ref = trb.fused_bottleneck_fwd_ref(*args)
     same_res = trb.fused_bottleneck_bwd_ref(res, dy)
     own_res = trb.fused_bottleneck_bwd_ref(res_ref, dy)
@@ -960,6 +1013,61 @@ def test_fused_resblock_kernels_are_bitwise_reproducible(cuda):
                      *trb.fused_bottleneck_bwd(res, dy)))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+#: the forward's launches a call by body: F1, F3, F4 on rb_wg, F2 on
+#: rb_wg_conv, relu(bn2(r2)) formed once, three BN reductions
+FWD_ROUTES = {trb.ROUTE_ROWS: 3, trb.ROUTE_CONV: 1, trb.ROUTE_WGRAD: 0,
+              trb.ROUTE_FORM: 1, trb.ROUTE_REDUCE: 3, trb.ROUTE_K41: 0}
+
+
+@pytest.mark.parametrize("N,H,W,C4,C,dtype", [
+    (2, 8, 8, 32, 8, torch.bfloat16),        # C = 8: 64-wide tiles of N
+    (6, 4, 4, 64, 16, torch.float32),        # ragged M = 96, f32 x
+    (3, 5, 7, 256, 64, torch.bfloat16),      # ragged M = 105; one K step
+    (2, 6, 1, 512, 128, torch.bfloat16),     # W = 1: every tap masked
+    (2, 6, 1, 512, 128, torch.float32),      # but the middle column
+    (5, 9, 11, 256, 64, torch.float32),      # f32 x over ragged tiles
+    (16, 7, 7, 2048, 512, torch.float32),    # ResNet-50 layer4 width, f32
+    (128, 56, 56, 256, 64, torch.bfloat16),  # ResNet-50 layer1, N = 128
+])
+def test_fused_forward_hopper_bodies_match_plain(cuda, N, H, W, C4, C,
+                                                 dtype):
+    """The forward on the Hopper bodies (F1, F3, F4 on rb_wg, F2 on
+    rb_wg_conv, relu(bn2(r2)) formed once) against the plain forward: y
+    within 2 bf16 ulps of max |y| (or 1e-2 abs), r1, r2 and the BN vectors
+    normwise within 1e-2, the statistics within 1e-3; each launch counted
+    on its body; a rerun bit-equal. The smallest ring of these bodies is
+    F1's three stages at f32 x; the f32 case at layer4 width wraps it over
+    32 K steps."""
+    args = _block_args(N, H, W, C4, C, dtype, cuda, seed=5)
+    before = dict(trb.fused_bottleneck_fwd.routes)
+    y, res, stats = trb.fused_bottleneck_fwd(*args)
+    took = {r: c - before[r]
+            for r, c in trb.fused_bottleneck_fwd.routes.items()}
+    assert took == FWD_ROUTES
+    y2, res2, stats2 = trb.fused_bottleneck_fwd(*args)
+    y_ref, res_ref, stats_ref = trb.fused_bottleneck_fwd_ref(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and torch.isfinite(y).all()
+    assert (y.float() - y_ref.float()).abs().max().item() <= _y_tol(y_ref)
+    for a, b in zip(res[1:3] + res[7:10], res_ref[1:3] + res_ref[7:10]):
+        assert _normwise(a, b) <= 1e-2
+    for pair, pair_ref in zip(stats, stats_ref):
+        for a, b in zip(pair, pair_ref):
+            assert _normwise(a, b) <= 1e-3
+    assert torch.equal(y, y2)
+    for a, b in zip(res[1:3] + res[7:10], res2[1:3] + res2[7:10]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_forward_kinds_refuse_what_they_do_not_admit(cuda, dtype):
+    """A width past the 3x3 body's staged halo returns
+    cudaErrorInvalidValue at the C entry (no other body takes it)."""
+    args = _block_args(1, 2, 2000, 64, 16, dtype, cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        trb.fused_bottleneck_fwd(*args)
 
 
 @pytest.mark.parametrize("N,H,W,C4,C,dtype", [
@@ -1601,17 +1709,24 @@ def test_dense_decode_kernel_refuses_what_it_cannot_take(cuda):
 ])
 def test_fused_pair_kernel_matches_plain(cuda, N, H, W, C4, C, dtype):
     """y2 within 2 bf16 ulps of max |y2| (or 1e-2 abs), as the one-block
-    forward; one call a pair, thirteen launches counted at the launches;
-    bit-equal reruns (fixed-order sums)."""
+    forward; one call a pair, fifteen launches counted at the launches;
+    bit-equal reruns (fixed-order sums). Fifteen launches: the coupled
+    rb_k41 once, the other products on the Hopper bodies."""
     a1 = _block_args(N, H, W, C4, C, dtype, cuda, seed=1)
     a2 = _block_args(N, H, W, C4, C, dtype, cuda, seed=2)
     x, p1, p2 = a1[0], a1[1:], a2[1:]
     before = (trb.fused_bottleneck2_fwd.calls,
-              trb.fused_bottleneck2_fwd.launches)
+              trb.fused_bottleneck2_fwd.launches,
+              dict(trb.fused_bottleneck2_fwd.routes))
     y2 = trb.fused_bottleneck2_fwd(x, p1, p2)
     assert (trb.fused_bottleneck2_fwd.calls,
             trb.fused_bottleneck2_fwd.launches) == (before[0] + 1,
-                                                    before[1] + 13)
+                                                    before[1] + 15)
+    took = {r: c - before[2][r]
+            for r, c in trb.fused_bottleneck2_fwd.routes.items()}
+    assert took == {trb.ROUTE_ROWS: 4, trb.ROUTE_CONV: 2, trb.ROUTE_WGRAD: 0,
+                    trb.ROUTE_FORM: 2, trb.ROUTE_REDUCE: 6,
+                    trb.ROUTE_K41: 1}
     ref = trb.fused_bottleneck2_fwd_ref(x, p1, p2)
     again = trb.fused_bottleneck2_fwd(x, p1, p2)
     torch.cuda.synchronize()

@@ -247,7 +247,7 @@ def test_coupled_pair_is_two_chained_blocks():
     torch.testing.assert_close(pair, y2, atol=1e-6, rtol=1e-6)
 
 
-# ------------------------------- the backward's tiles and row chunks (CUDA)
+# ---------------------- the kernels' tiles, row chunks and operands (CUDA)
 
 # ResNet-50's identity blocks at N = 128: (H = W, C)
 STAGES = ((56, 64), (28, 128), (14, 256), (7, 512))
@@ -294,9 +294,81 @@ def test_weight_gradient_tiles_follow_the_kernel_grid():
 
 @pytest.mark.parametrize("M", [96, 128, 129, 401408])
 def test_backward_sums_have_a_row_per_128_row_tile(M):
-    """The backward's per-tile BN sums: one [2, N] row per 128-row tile
-    of the Hopper row products (the forward's tiles stay 64 rows)."""
+    """The per-tile BN sums: one [2, N] row per 128-row tile of the Hopper
+    row products, in both directions (the forward's products run on the
+    backward's bodies)."""
     L = tfr._Launcher.__new__(tfr._Launcher)
     L.M, L.dev = M, torch.device("cpu")
-    assert L.sums(8, tfr._BWD_ROWS).shape == (-(-M // 128), 2, 8)
-    assert L.sums(8).shape == (-(-M // 64), 2, 8)
+    assert L.sums(8, tfr._TILE_ROWS).shape == (-(-M // 128), 2, 8)
+    assert L.sums(8).shape == (-(-M // 128), 2, 8)
+
+
+# ------------------------------- the forward's B operands (the wrapper's)
+
+@pytest.mark.parametrize("C", [8, 16, 64])
+def test_forward_weight_operands_are_the_plain_weights(C):
+    """`_fwd_weights` hands the products their weights as [N, K] (K-major,
+    as TMA reads them): w1 and w3 transposed, element for element; the
+    3x3's [C, 9 C] operand, cut back into taps, is w2[di + 1, dj + 1] in
+    `_conv3x3`'s tap order (the JAX `_conv3x3_flat`'s: di, dj = -1, 0, 1,
+    then input channels)."""
+    _, w1, w2, w3 = (torch.from_numpy(a) for a in _args(C4=4 * C, C=C)[:4])
+    w1t, w2t, w3t = tfr._fwd_weights(w1, w2, w3)
+    assert w1t.shape == (C, 4 * C) and w3t.shape == (4 * C, C)
+    assert torch.equal(w1t.t(), w1) and torch.equal(w3t.t(), w3)
+    assert w2t.shape == (C, 9 * C) and w2t.is_contiguous()
+    taps = w2t.t().reshape(9, C, C)
+    for i, ((di, dj), _) in enumerate(tfr._taps(torch.zeros(1, C), 1, 1,
+                                                 1)):
+        assert torch.equal(taps[i], w2[di + 1, dj + 1]), (di, dj)
+
+
+def test_forward_conv_operand_computes_the_conv():
+    """A plain product through the 3x3's operand — the nine shifted views
+    side by side, K = tap * C + c — equals `_conv3x3` within f32 rounding
+    (the sum over 9 C in one product, not tap by tap)."""
+    N, H, W, C = 2, 5, 6, 16
+    rng = np.random.RandomState(3)
+    f = torch.from_numpy(rng.randn(N * H * W, C).astype(np.float32))
+    w2 = torch.from_numpy(rng.randn(3, 3, C, C).astype(np.float32) * 0.1)
+    old = tfr.MATMUL_DTYPE
+    tfr.MATMUL_DTYPE = torch.float32
+    try:
+        want = tfr._conv3x3(f, w2, N, H, W)
+    finally:
+        tfr.MATMUL_DTYPE = old
+    _, w2t, _ = tfr._fwd_weights(torch.zeros(4 * C, C), w2,
+                                 torch.zeros(C, 4 * C))
+    a = torch.cat([g for _, g in tfr._taps(f, N, H, W)], dim=1)
+    torch.testing.assert_close(a @ w2t.t(), want, atol=1e-5, rtol=1e-5)
+
+
+def test_forward_launch_names_and_bodies():
+    """`FWD_PRODUCTS` names the forward's eight launches; every product
+    kind maps to a Hopper body, the coupled kind to rb_k41; every body the
+    wrappers count by has a name."""
+    assert tfr.FWD_PRODUCTS == ("F1", "bn1", "F2", "bn2", "form a2", "F3",
+                                "bn3", "F4")
+    hopper = {tfr.ROUTE_ROWS, tfr.ROUTE_CONV, tfr.ROUTE_WGRAD}
+    for kind in (tfr._F1, tfr._F2, tfr._F3, tfr._F4):
+        assert tfr._BODY[kind] in hopper
+    assert tfr._BODY[tfr._F2] == tfr.ROUTE_CONV
+    assert tfr._BODY[tfr._F41] == tfr.ROUTE_K41
+    assert tfr._BODY[tfr._FA] == tfr.ROUTE_FORM
+    for f in (tfr.fused_bottleneck_fwd, tfr.fused_bottleneck_bwd,
+              tfr.fused_bottleneck2_fwd):
+        assert set(f.routes) == set(tfr.ROUTE_NAMES)
+
+
+def test_cpu_calls_count_no_route():
+    """A CPU call takes the plain versions: no body's count moves."""
+    args = [torch.from_numpy(a) for a in _args()]
+    before = [dict(f.routes) for f in (tfr.fused_bottleneck_fwd,
+                                       tfr.fused_bottleneck_bwd,
+                                       tfr.fused_bottleneck2_fwd)]
+    y, res, _ = tfr.fused_bottleneck_fwd(*args)
+    tfr.fused_bottleneck_bwd(res, torch.ones_like(y))
+    tfr.fused_bottleneck2_fwd(args[0], args[1:], args[1:])
+    assert [dict(f.routes) for f in (tfr.fused_bottleneck_fwd,
+                                     tfr.fused_bottleneck_bwd,
+                                     tfr.fused_bottleneck2_fwd)] == before
