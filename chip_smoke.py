@@ -3300,6 +3300,11 @@ def _bs_mod():
         "paddle_tpu_torch.ops.block_sparse_attention")
 
 
+# the block-sparse kernel's bodies (`block_sparse_route`'s codes 0, 1)
+BS_ROUTE_NAMES = ("bs_fwd (mma.sync)",
+                  "bs_fwd_sm90 (flash Hopper body, BlockTable policy)")
+
+
 def bigbird_blocks(np, nb, seed):
     """BigBird's ITC pattern on nb key blocks, [nb, nb] bool: query block
     i attends its window {i - 1, i, i + 1}, the global blocks {0, nb - 1}
@@ -3342,9 +3347,12 @@ def check_block_sparse(torch, np, iters, seed):
     card, on tables of the BigBird pattern: [B*H = 4*12, 4096, 64] bf16
     (the kernels line's case) and f32, D = 128, and a table whose query
     block 5 lists nothing (O = 0 there exactly). O max abs error <= 8e-3
-    (bf16) / 1e-4 (f32), BS_TOL. Timed also with the query blocks
-    permuted longest first on the host (the kernel's own order should
-    match it). Bound:
+    (bf16) / 1e-4 (f32), BS_TOL. Each case names the body its launch
+    took (`.routes`) and fails on another than `block_sparse_route`'s:
+    bf16 at D = 64 and 128 the Hopper body, f32 `bs_fwd`. Timed also
+    with the query blocks permuted longest first on the host (the
+    kernel's own order should match it; the output rows must move with
+    them bit for bit), and on the device (a CUDA graph). Bound:
     4 BH (listed tiles) 128^2 D operations (over the bf16 or f32 peak), or
     q, k, v, o once; library: SDPA with the dense boolean tile mask."""
     import torch.nn.functional as F
@@ -3369,8 +3377,11 @@ def check_block_sparse(torch, np, iters, seed):
         q, k, v = (torch.randn(BH, S, D, device="cuda", generator=g).to(
             dtype) for _ in range(3))
         scale = D ** -0.5
+        want = bsa.block_sparse_route(q, k, v, scale)
+        zero_routes(bsa.block_sparse_attention)
         got = bsa.block_sparse_attention(q, k, v, idx, cnt, scale,
                                          SPARSE_BLOCK)
+        routes = dict(bsa.block_sparse_attention.routes)
         ref = bsa.block_sparse_attention_ref(q, k, v, idx, cnt, scale,
                                              SPARSE_BLOCK)
         torch.cuda.synchronize()
@@ -3384,8 +3395,13 @@ def check_block_sparse(torch, np, iters, seed):
         row = dict(case=case, dtype=dt, max_abs_err=err, tol=tol,
                    empty_rows_zero=zero, listed_tiles=int(pattern.sum()),
                    max_blocks_per_row=int(cnt.max()),
-                   mean_blocks_per_row=float(cnt.float().mean()))
-        if not (finite and err <= tol and zero):
+                   mean_blocks_per_row=float(cnt.float().mean()),
+                   route=BS_ROUTE_NAMES[want], routes=routes)
+        want_hopper = dt == "bfloat16" and 32 < D <= 128
+        if not (finite and err <= tol and zero) or routes != {
+                bsa.BS_MMA: int(want == bsa.BS_MMA),
+                bsa.BS_WGMMA: int(want == bsa.BS_WGMMA)} or (
+                    want == bsa.BS_WGMMA) != want_hopper:
             raise AssertionError(f"block_sparse {case}: {row}")
         del ref
         if timed:
@@ -3397,6 +3413,9 @@ def check_block_sparse(torch, np, iters, seed):
                 else F32_FLOPS)
             row["ms"] = time_ms(torch, lambda: bsa.block_sparse_attention(
                 q, k, v, idx, cnt, scale, SPARSE_BLOCK), iters)
+            row["device_ms"] = time_graph_ms(
+                torch, [lambda: bsa.block_sparse_attention(
+                    q, k, v, idx, cnt, scale, SPARSE_BLOCK)], calls=16)
             # the kernel's own order (longest rows first) against the same
             # work with the query blocks permuted longest first on the
             # host (q's row blocks and the tables' rows; the output rows
@@ -3600,8 +3619,10 @@ def check_fused_pair(torch, iters):
     and the per-op route of the two blocks (cuDNN convolutions and batch
     norm; no single PyTorch call computes them). Bound: x read once and
     y2 written once, 8 M C bf16 elements, and 68 M C^2 operations. Its
-    launches by body are held: rb_k41 once a call, every other product on
-    the Hopper bodies."""
+    launches by body are held: the coupled rb_wg_k41 once a call, every
+    other product on the Hopper bodies. The coupled kernel's device time
+    alone is read beside F4 + F1 of a row-12a call on the same operands
+    (`_coupled_vs_12a`)."""
     rb = _rb_mod()
     g = torch.Generator(device="cuda").manual_seed(19)
     rows = []
@@ -3652,6 +3673,7 @@ def check_fused_pair(torch, iters):
 
         with _route(None):
             row["per_op_ms"] = time_ms(torch, per_op, iters)
+        row.update(_coupled_vs_12a(torch, rb, x, p1, p2))
         row["bound_ms"], row["bound_by"] = bound(8 * M * C * 2,
                                                  68.0 * M * C * C)
         rows.append(row)
@@ -3662,6 +3684,47 @@ def check_fused_pair(torch, iters):
         del a1, a2, x, p1, p2, b1, b2, q1, q2
         torch.cuda.empty_cache()
     return rows
+
+
+def _coupled_vs_12a(torch, rb, x, p1, p2):
+    """Row 12c's coupled kernel alone against what it replaces, in device
+    ms (each launch alone in a CUDA graph, `time_graph_ms`): block 1's head
+    run once for a2 = relu(bn2(r2)) and bn3, then the coupled launch (y1
+    and block 2's r1 with its sums), row 12a's F4 (y1) and F1 (block 2's
+    r1 from y1) on the same operands. The launches count on a scratch
+    counter, not on the pair's."""
+    import types
+
+    N, H, W, C4 = x.shape
+    C, M = p1[0].shape[1], N * H * W
+    sink = types.SimpleNamespace(launches=0,
+                                 routes=dict.fromkeys(rb.ROUTE_NAMES, 0))
+    xa = rb._aligned(x)
+    c1, c2 = rb._cuda_operands(p1), rb._cuda_operands(p2)
+    wt1, wt2 = rb._fwd_weights(*c1[:3]), rb._fwd_weights(*c2[:3])
+
+    def launcher():       # on the current stream (a graph's, in capture)
+        return rb._Launcher(sink, xa, M, H, W)
+
+    _, _, a2, _, _, bn3 = rb._block_head_cuda(
+        launcher(), "probe", rb._opnd(xa, C=C4), C4, C, wt1, *c1[3:], 1e-5)
+    y1 = torch.empty(M, C4, dtype=x.dtype, device=x.device)
+    r1 = torch.empty(M, C, dtype=rb.MATMUL_DTYPE, device=x.device)
+    sums_k41 = launcher().sums(C, rb._K41_ROWS)
+    sums_f1 = launcher().sums(C)
+    a2op, y1op = rb._opnd(a2, C=C), rb._opnd(y1, C=C4)
+    launches = {
+        "coupled": lambda: launcher().gemm(
+            rb._F41, "coupled", a2op, C4, w=wt1[2], e0=xa, ebn=bn3, out=y1,
+            part=sums_k41, w_next=wt2[0], out_next=r1),
+        "f4": lambda: launcher().gemm(rb._F4, "f4", a2op, C4, w=wt1[2],
+                                      e0=xa, ebn=bn3, out=y1),
+        "f1": lambda: launcher().gemm(rb._F1, "f1", y1op, C, w=wt2[0],
+                                      out=r1, part=sums_f1)}
+    res = {f"{name}_device_ms": time_graph_ms(torch, [fn], calls=8)
+           for name, fn in launches.items()}
+    res["f4_f1_device_ms"] = res["f4_device_ms"] + res["f1_device_ms"]
+    return res
 
 
 def _dense_masked(torch, q, k, v, keep, gout, bias=None):
@@ -3703,6 +3766,7 @@ def _sparse_route(torch, bsa, dt, offset, columns, tables, keep, g, steps,
     dense, dense_grads = _dense_masked(torch, q, k, v, keep, gout)
     fwd, bwd = [], []
     bsa.block_sparse_attention.launches = 0
+    zero_routes(bsa.block_sparse_attention)
     for _ in range(steps):
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         torch.cuda.synchronize()
@@ -3715,6 +3779,9 @@ def _sparse_route(torch, bsa, dt, offset, columns, tables, keep, g, steps,
         fwd.append((t1 - t0) * 1e3)
         bwd.append((time.perf_counter() - t1) * 1e3)
     launches = bsa.block_sparse_attention.launches
+    routes = dict(bsa.block_sparse_attention.routes)
+    # every bf16 launch on the Hopper body, every f32 one on bs_fwd
+    body = bsa.BS_WGMMA if dt == "bfloat16" else bsa.BS_MMA
     grads = [t.grad for t in leaves]
     # the plain route: the block-sparse plain version, autograd
     idx, cnt = tables
@@ -3739,7 +3806,9 @@ def _sparse_route(torch, bsa, dt, offset, columns, tables, keep, g, steps,
     qf, kf, vf = (t.view(H, S, D) for t in (q, k, v))
     kernel_ms = time_ms(torch, lambda: bsa.block_sparse_attention(
         qf, kf, vf, idx, cnt, D ** -0.5, SPARSE_BLOCK), iters)
-    res = dict(dtype=dt, steps=steps, launches=launches, kernel_ms=kernel_ms,
+    res = dict(dtype=dt, steps=steps, launches=launches,
+               routes={BS_ROUTE_NAMES[r]: c for r, c in routes.items()},
+               kernel_ms=kernel_ms,
                max_abs_err_vs_dense=err, max_abs_err_vs_plain=plain_err,
                tol=BS_TOL[dt], grad_normwise_vs_plain=rel_plain,
                grad_tol=BS_GRAD_TOL[dt], grad_normwise_vs_dense=rel_dense,
@@ -3748,7 +3817,8 @@ def _sparse_route(torch, bsa, dt, offset, columns, tables, keep, g, steps,
                    dt], fwd_ms=fwd[len(fwd) // 2], bwd_ms=bwd[len(bwd) // 2],
                finite=bool(torch.isfinite(out).all()
                            and all(torch.isfinite(t).all() for t in grads)))
-    ok = (res["finite"] and launches == steps and err <= BS_TOL[dt]
+    ok = (res["finite"] and launches == steps and routes[body] == steps
+          and err <= BS_TOL[dt]
           and rel_plain <= BS_GRAD_TOL[dt] and res["fault_caught"]
           and rel_dense <= BS_DENSE_GRAD_TOL[dt])
     if not ok:
@@ -3905,7 +3975,10 @@ def slice7_kernel_rows(bs_rows, dec_rows, pair_rows, sparse_run,
              replaces="paddle_tpu/ops/pallas/block_sparse_attention.py:101",
              launches=sparse_run["launches"]["block_sparse_attention"],
              max_abs_err=max(r["max_abs_err"] for r in bs_rows),
-             library_ms=bs_main["library_ms"], **pick(bs_main, *common)),
+             library_ms=bs_main["library_ms"], path=bs_main["route"],
+             cuda_kernels=["bs_order", "bs_fwd_sm90"],
+             body_source="paddle_tpu_torch/csrc/attention_sm90.cuh",
+             device_ms=bs_main["device_ms"], **pick(bs_main, *common)),
         dict(name="decode_attention", route="cuda",
              source="paddle_tpu_torch/csrc/paged_decode_attn.cu",
              replaces="paddle_tpu/ops/pallas/decode_attn.py:50",
@@ -3925,6 +3998,10 @@ def slice7_kernel_rows(bs_rows, dec_rows, pair_rows, sparse_run,
              max_abs_err=max(r["max_abs_err"] for r in pair_rows),
              library_ms=None, two_12a_ms=pair_main["two_12a_ms"],
              per_op_ms=pair_main["per_op_ms"],
+             cuda_kernels=["rb_wg_k41", "rb_wg", "rb_wg_conv", "rb_form",
+                           "rb_bn"],
+             coupled_device_ms=pair_main["coupled_device_ms"],
+             f4_f1_device_ms=pair_main["f4_f1_device_ms"],
              launches_per_call=(unwired["fused_bottleneck2_fwd"]
                                 / unwired["fused_bottleneck2_fwd_calls"]),
              **pick(pair_main, *common)),

@@ -85,6 +85,24 @@
 // one that sees everything). A forward row that sees no key keeps l = 0
 // and is written O = 0, lse = -1e30 + log(1e-30) (the TPU kernel's l_safe;
 // its m would otherwise be the log2-domain max of masked scores).
+// BlockTable: the block-sparse forward (`bs_fwd_sm90`, block_sparse_sm90.cu) on
+// contiguous [BH, S, D] tensors, mapped as [B = BH, S, H = 1, D]. Query tile qt
+// (128 rows) attends the 128-key blocks its row of the table lists (idx[qt, 0
+// .. cnt[qt]), an index outside [0, S / 128) skipped). The work is not a static
+// list: the producer warp takes units (head, query tile) from a counter in
+// device memory, in the order of a pre-pass (the tiles longest-listed first,
+// all heads of a tile together), so the tiles that list every block start first
+// and the short ones fill the tail, whichever CTA is free. It reads the tile's
+// row of the table while Q's TMA is in flight, publishes the tile's record (the
+// stages it will stream, its head and tile) beside the resident Q, as PosMask
+// does, and then streams only the listed blocks (two 64-key stages a block at D
+// = 64, one at D = 128). With no unit left it publishes a record of -1 stages,
+// and the consumers leave. Every key of a listed block is live, so the
+// consumers take the MASK = false path and compare nothing; they read the tile
+// from the record and decide nothing (a block's index is of no use to them, so
+// the stages carry no record). No lse is written: the backward is the plain
+// version's. A tile with no listed block streams nothing and writes O = 0 (l =
+// 0).
 #pragma once
 
 #include <climits>
@@ -121,6 +139,22 @@ struct PosMask {
   static constexpr bool kOn = true;
   const int* qpos;   // [S] int32 global positions of the queries
   const int* kpos;   // [S] of the keys
+};
+struct BlockTable {
+  static constexpr bool kOn = false;  // no compare: every listed key is live
+  const int* idx;    // [nq, max_nb] int32: the key blocks of a query tile
+  const int* cnt;    // [nq] how many of a row's entries are listed
+  const int* order;  // [nq] the query tiles, longest-listed first
+  int* next;         // the units taken so far (the pre-pass zeroes it)
+  int max_nb, heads, units;  // units = heads * nq
+};
+template <class MP>
+constexpr bool kTable = std::is_same<MP, BlockTable>::value;
+
+// a tile's record under BlockTable: the stages streamed for it (-1: no
+// unit is left), its head and its query tile
+struct TableRec {
+  int n, bh, qt, pad;
 };
 
 // a record the producer publishes under PosMask: a tile's (N = its
@@ -234,7 +268,7 @@ __device__ __forceinline__ void publish_arrive(uint64_t* bar) {
   if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
 }
 
-template <int DP, bool POS = false>
+template <int DP, bool POS = false, bool TABLE = false>
 struct HopCfg {
   static constexpr int NSUB = DP / 64;          // 64-column sub-tiles
   static constexpr int NWG = 2;                 // consumer warpgroups
@@ -248,9 +282,11 @@ struct HopCfg {
   static constexpr int kSub = BK * 128;         // one [BK][64] sub-tile
   static constexpr int kKV = NSUB * kSub;       // one K or V block
   // PosMask: the [2] tiles' and [STAGES] blocks' records, after the
-  // barriers
+  // barriers; BlockTable: the [2] tiles' records
   static constexpr int kPos =
-      POS ? 2 * sizeof(PosRec<ROWS>) + STAGES * sizeof(PosRec<BK>) : 0;
+      POS     ? 2 * sizeof(PosRec<ROWS>) + STAGES * sizeof(PosRec<BK>)
+      : TABLE ? 2 * sizeof(TableRec)
+              : 0;
   static constexpr size_t smem = 1024 + 2 * kQ + 2 * STAGES * kKV +
                                  (4 + 4 * STAGES) * sizeof(uint64_t) + kPos;
 };
@@ -380,7 +416,8 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tq,
                                               const FwdArgs& a,
                                               const Units& units, DROP drop,
                                               MP mp = {}) {
-  using C = HopCfg<DP, MP::kOn>;
+  constexpr bool TABLE = kTable<MP>;
+  using C = HopCfg<DP, MP::kOn, TABLE>;
   constexpr int NS = C::STAGES, BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1024(smem_raw);    // [2] buffers
@@ -398,12 +435,16 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tq,
       reinterpret_cast<PosRec<C::ROWS>*>(v_empty + NS);
   [[maybe_unused]] PosRec<BK>* blk_recs =
       reinterpret_cast<PosRec<BK>*>(tile_recs + 2);
+  // BlockTable: the [2] tiles' records, beside the Q buffers
+  [[maybe_unused]] TableRec* table_recs =
+      reinterpret_cast<TableRec*>(v_empty + NS);
   const int n_kv = (a.S + BK - 1) / BK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
     // PosMask: Q's and K's full barriers take the record's arrival too
+    // (BlockTable: Q's)
     for (int i = 0; i < 2; ++i) {
-      mbar_init(&q_full[i], MP::kOn ? 2 : 1);
+      mbar_init(&q_full[i], MP::kOn || TABLE ? 2 : 1);
       mbar_init(&q_empty[i], C::NWG);   // one arrival per warpgroup
     }
     for (int s = 0; s < NS; ++s) {
@@ -418,7 +459,78 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tq,
 
   if (warp >= 4 * C::NWG) {             // producer
     if constexpr (C::CTAS == 1) regs_dealloc<40>();
-    if constexpr (MP::kOn) {
+    if constexpr (TABLE) {
+      // the whole warp: lane 0 takes the units and issues the loads, the
+      // lanes read the table's row (see the note above)
+      if (warp == 4 * C::NWG) {
+        constexpr int SPB = 128 / BK;   // stages a listed block streams
+        const int nkb = a.S / 128;      // key blocks
+        int jj = 0;
+        for (int tt = 0;; ++tt) {
+          const int qb = tt & 1;
+          mbar_wait(&q_empty[qb], ((tt >> 1) & 1) ^ 1);
+          int u = 0;
+          if (lane == 0) u = atomicAdd(mp.next, 1);
+          u = __shfl_sync(0xffffffffu, u, 0);
+          if (u >= mp.units) {          // none left: the consumers leave
+            if (lane == 0) {
+              table_recs[qb].n = -1;
+              mbar_arrive(&q_full[qb]);   // in place of Q's bytes
+            }
+            publish_arrive(&q_full[qb]);
+            break;
+          }
+          const int qt = mp.order[u / mp.heads], bh = u % mp.heads;
+          if (lane == 0) {
+            mbar_expect_tx(&q_full[qb], C::kQ);
+            for (int sub = 0; sub < C::NSUB; ++sub)
+              tma_load_4d(Qs + qb * C::kQ + sub * C::kQSub, &tq,
+                          &q_full[qb], sub * 64, 0, qt * C::ROWS, bh);
+          }
+          // the row's entries in range, counted while Q is in flight
+          const int cnt = min(max(mp.cnt[qt], 0), mp.max_nb);
+          const int* row = mp.idx + static_cast<size_t>(qt) * mp.max_nb;
+          int n = 0;
+          for (int c0 = 0; c0 < cnt; c0 += 32) {
+            const int blk = c0 + lane < cnt ? row[c0 + lane] : -1;
+            n += __popc(__ballot_sync(0xffffffffu, blk >= 0 && blk < nkb));
+          }
+          if (lane == 0) {
+            table_recs[qb].n = n * SPB;
+            table_recs[qb].bh = bh;
+            table_recs[qb].qt = qt;
+          }
+          publish_arrive(&q_full[qb]);
+          for (int c0 = 0; c0 < cnt; c0 += 32) {
+            const int blk = c0 + lane < cnt ? row[c0 + lane] : -1;
+            for (uint32_t mk = __ballot_sync(0xffffffffu,
+                                             blk >= 0 && blk < nkb);
+                 mk; mk &= mk - 1) {
+              const int j = __shfl_sync(0xffffffffu, blk, __ffs(mk) - 1);
+              for (int hb = 0; hb < SPB; ++hb, ++jj) {
+                const int s = jj % NS;
+                const uint32_t free_ph = ((jj / NS) & 1) ^ 1;
+                const int k0 = j * 128 + hb * BK;
+                mbar_wait(&k_empty[s], free_ph);
+                if (lane == 0) {
+                  mbar_expect_tx(&k_full[s], C::kKV);
+                  for (int sub = 0; sub < C::NSUB; ++sub)
+                    tma_load_4d(Ks + s * C::kKV + sub * C::kSub, &tk,
+                                &k_full[s], sub * 64, 0, k0, bh);
+                }
+                mbar_wait(&v_empty[s], free_ph);
+                if (lane == 0) {
+                  mbar_expect_tx(&v_full[s], C::kKV);
+                  for (int sub = 0; sub < C::NSUB; ++sub)
+                    tma_load_4d(Vs + s * C::kKV + sub * C::kSub, &tv,
+                                &v_full[s], sub * 64, 0, k0, bh);
+                }
+              }
+            }
+          }
+        }
+      }
+    } else if constexpr (MP::kOn) {
       // the whole warp: lane 0 issues the loads, the lanes classify and
       // publish (see the note above)
       if (warp == 4 * C::NWG) {
@@ -526,12 +638,24 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tq,
   const bool leader = (threadIdx.x & 127) == 0;
   const float sl2 = a.scale * 1.4426950408889634f;   // scale * log2(e)
   int jj = 0, tt = 0;
-  for (int u = blockIdx.x; u < units.count; u += gridDim.x) {
+  // BlockTable: until the producer's record says no tile is left
+  for (int u = blockIdx.x; TABLE || u < units.count; u += gridDim.x) {
     int bh, qts[2];
     const int nt = units.tiles(u, bh, qts);
-    const int b = bh / a.H, h = bh % a.H;
+    int b = bh / a.H, h = bh % a.H;
     for (int it = 0; it < nt; ++it, ++tt) {
-      const int q0 = qts[it] * C::ROWS;
+      int q0 = qts[it] * C::ROWS;
+      [[maybe_unused]] int n_tab = 0;
+      if constexpr (TABLE) {
+        // the tile from its record
+        mbar_wait(&q_full[tt & 1], (tt >> 1) & 1);
+        const TableRec& rec = table_recs[tt & 1];
+        n_tab = rec.n;
+        if (n_tab < 0) return;
+        b = rec.bh;
+        h = 0;
+        q0 = rec.qt * C::ROWS;
+      }
       const int hi =
           a.causal ? min((q0 + C::ROWS + BK - 1) / BK, n_kv) : n_kv;
       // causal: a block wholly past this warpgroup's last row holds no key
@@ -552,12 +676,14 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tq,
       for (int sub = 0; sub < C::NSUB; ++sub)
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[sub][i] = 0.f;
-      mbar_wait(&q_full[tt & 1], (tt >> 1) & 1);
+      if constexpr (!TABLE) mbar_wait(&q_full[tt & 1], (tt >> 1) & 1);
       __syncwarp();
       // PosMask: the blocks streamed for the tile, from its record
+      // (BlockTable: the stages)
       int nblk = hi;
       [[maybe_unused]] const PosRec<C::ROWS>* tr = tile_recs + (tt & 1);
       if constexpr (MP::kOn) nblk = tr->n;
+      if constexpr (TABLE) nblk = n_tab;
       for (int x = 0; x < nblk; ++x, ++jj) {
         const int s = jj % NS;
         const uint32_t ph = (jj / NS) & 1;
@@ -566,7 +692,7 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tq,
         // the block and whether this warpgroup skips it (PosMask: no row
         // of it sees a key of the block)
         int j = x;
-        bool skip = x >= hi_wg;
+        bool skip = !TABLE && x >= hi_wg;
         // (the mode is read again where it is used: a register held across
         // the S batch costs the D = 128 body, at its register cap)
         [[maybe_unused]] const PosRec<BK>* br = blk_recs + s;
@@ -613,7 +739,9 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tq,
         const int k0 = j * BK;
         uint32_t pa[BK / 16][4];
         float c[2];
-        if constexpr (MP::kOn) {
+        if constexpr (TABLE) {
+          hop_softmax<BK, false>(sc, m, l, c, a, k0, row_lo, sl2);
+        } else if constexpr (MP::kOn) {
           if (br->mode[wg] == kMask)
             hop_softmax<BK, true, true>(sc, m, l, c, a, k0, row_lo, sl2,
                                         tr->pos + (row_lo - q0), br->pos);
@@ -691,7 +819,7 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tq,
                   pack2<__nv_bfloat16>(o[sub][4 * i + 2 * hh] / lq[hh],
                                        o[sub][4 * i + 2 * hh + 1] / lq[hh]);
           }
-        if (t == 0) {
+        if (!TABLE && t == 0) {
           float lse = m[hh] * 0.6931471805599453f + logf(lq[hh]);
           // PosMask: a row that saw no key (l = 0; l >= 1 otherwise)
           if constexpr (MP::kOn)
@@ -1655,9 +1783,11 @@ inline bool attn_tmap(CUtensorMap* map, const void* base, int B, int S,
 // Launches the forward kernel K64 (D <= 64) or K128 (64 < D <= 128) on
 // q, k, v ([B, S, H, D] bf16, element strides {b, s, h} each) with the
 // kernel's trailing arguments `extra` (its dropout policy, or its
-// positions: POS, whose kernels run PosMask). The tensor maps take S rows
-// for q, k and v alike: a ring step's shards are of one length.
-template <auto K64, auto K128, bool POS = false, class... EXTRA>
+// positions: POS, whose kernels run PosMask; or its table: TABLE, whose
+// kernels run BlockTable). The tensor maps take S rows for q, k and v
+// alike: a ring step's shards are of one length.
+template <auto K64, auto K128, bool POS = false, bool TABLE = false,
+          class... EXTRA>
 int launch_fwd_sm90(const void* const (&bases)[3],
                     const long long (&strides)[3][3], int B,
                     const FwdArgs& a, cudaStream_t s, const EXTRA&... extra) {
@@ -1676,7 +1806,7 @@ int launch_fwd_sm90(const void* const (&bases)[3],
   auto run = [&](auto kernel, auto dp) {
     constexpr int DP = decltype(dp)::value;
     constexpr auto K = decltype(kernel)::value;
-    constexpr size_t smem = HopCfg<DP, POS>::smem;
+    constexpr size_t smem = HopCfg<DP, POS, TABLE>::smem;
     if (const int e = smem_opt_in<K>(smem)) return e;
     K<<<grid, HopCfg<DP>::THREADS, smem, s>>>(maps[0], maps[1], maps[2], a,
                                               units, extra...);

@@ -25,10 +25,25 @@
 //   * the products, the softmax, the f32 path and the output stores are
 //     flash_fwd's (csrc/flash_attention.cu, attention_tiles.cuh) without
 //     the causal mask: every key of a listed block is live.
-// Simple first: synchronous 16-byte loads, mma.sync, no K/V prefetch.
+// This body (`bs_fwd`, route 0) loads synchronously, multiplies with
+// mma.sync and prefetches no K/V; it takes f32, and bf16 at head-dim tiles
+// 32 and 256. bf16 at 32 < D <= 128 (D % 8 == 0, 16-byte aligned bases)
+// runs route 1, `bs_fwd_sm90` in block_sparse_sm90.cu: the flash
+// forward's Hopper body under the BlockTable policy (see its note). An
+// entry asked for route 1 on inputs it does not admit returns
+// cudaErrorInvalidValue.
 // A listed block index outside [0, S / 128) is skipped (the tables of
 // csr_to_block_tables never hold one).
 #include "attention_tiles.cuh"
+
+namespace ptt {
+// route 1 (block_sparse_sm90.cu): q, k, v, out contiguous [BH, S, D] bf16,
+// scratch int32 [S / 128 + 1]
+int block_sparse_sm90(const void* q, const void* k, const void* v,
+                      const int* idx, const int* cnt, void* out,
+                      int* scratch, int BH, int S, int D, int max_nb,
+                      float scale, cudaStream_t s);
+}  // namespace ptt
 
 namespace {
 
@@ -187,18 +202,32 @@ int dispatch_d(const BsParams& p, cudaStream_t s) {
 
 // q, k, v, out: contiguous [BH, S, D] of one dtype (0 f32, 1 bf16), S a
 // multiple of 128, D <= 256; idx [S / 128, max_nb], cnt [S / 128] int32.
+// route 0: bs_fwd (mma.sync); 1: bs_fwd_sm90 (bf16, 32 < D <= 128, D % 8
+// == 0, 16-byte aligned q, k, v, out, scale > 0), which takes scratch,
+// int32 [S / 128 + 1].
 extern "C" int ptt_block_sparse_attention(const void* q, const void* k,
                                           const void* v, const void* idx,
-                                          const void* cnt, void* out, int BH,
-                                          int S, int D, int max_nb, int dtype,
+                                          const void* cnt, void* out,
+                                          void* scratch, int BH, int S, int D,
+                                          int max_nb, int dtype, int route,
                                           float scale, void* stream) {
   if (BH < 1 || S < kBsRows || S % kBsRows || D < 1 || D > 256 ||
-      max_nb < 1 || S / kBsRows > 65535)
+      max_nb < 1 || S / kBsRows > 65535 || route < 0 || route > 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (dtype != kBF16 || D <= 32 || D > 128 || D % 8 || !(scale > 0.f) ||
+        !scratch || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
+        !aligned16(out))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int err = ptt::block_sparse_sm90(
+        q, k, v, static_cast<const int*>(idx), static_cast<const int*>(cnt),
+        out, static_cast<int*>(scratch), BH, S, D, max_nb, scale, s);
+    return err != 0 ? err : static_cast<int>(cudaGetLastError());
+  }
   BsParams p{q,  k,  v,  static_cast<const int*>(idx),
              static_cast<const int*>(cnt), out, BH, S, D, S / kBsRows,
              max_nb, scale, 0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
   switch (dtype) {
     case kF32:

@@ -5,7 +5,7 @@
 // Replaces paddle_tpu/ops/pallas/fused_resblock.py `_k1`..`_k4` (the
 // forward, through `_call` from `fused_bottleneck_fwd`) and `_b1`..`_b4`
 // (the backward, from `fused_bottleneck_bwd`); and `_k41` (from
-// `fused_bottleneck2_fwd`, two chained blocks): rb_k41 below. What they
+// `fused_bottleneck2_fwd`, two chained blocks): rb_wg_k41 below. What they
 // compute is ops/fused_resblock.py's plain versions: bf16 operands, f32
 // accumulation, r1 and r2 stored in bf16, every BN's sums taken from the
 // f32 accumulator before the store, r3 never stored (recomputed).
@@ -51,11 +51,10 @@
 //     consumers would apply), and both products take it as a plain TMA
 //     copy: the mma.sync body formed it again for every 64 columns of N
 //     (16 times a row at layer3, 32 at layer4).
-// The forward's mma.sync body (rb_gemm) is retired; of it stay only the
-// pieces rb_k41 (12c's coupled pair) shares (opnd8, src_row, the step
-// constants), and rb_k41 keeps its mma.sync design: 4-warp CTAs, 64
-// columns a step, mma.sync m16n8k16 (the tiles of attention_tiles.cuh), K
-// in steps of 32 loaded synchronously between two __syncthreads.
+// The coupled pair (12c: block 1's k4 and block 2's k1) runs on the same
+// pieces, rb_wg_k41: y1 computed in 64-row tiles chunk by chunk of 4C and
+// handed to block 2's first product as K slices in shared memory (see its
+// note). The mma.sync bodies are retired.
 //
 // The bodies keep both wgmma operands in shared memory (so no A fragment
 // is built in registers while a wgmma is in flight, which ptxas would
@@ -97,7 +96,6 @@
 
 #include <type_traits>
 
-#include "attention_tiles.cuh"
 #include "hopper.cuh"
 
 // the argument block of ptt_resblock_gemm (ops/fused_resblock.py _Args);
@@ -118,7 +116,7 @@ struct Args {
   Opnd a;            // A operand (rows of the output, or of the weight grad)
   Opnd d;            // weight gradients: the operand whose columns are N
   const void* w;     // products: B, bf16: [N, K] row-major (TMA,
-                     // K-major); kF41: [K, N] row-major
+                     // K-major)
   const void* e0;    // epilogue inputs [M, N]
   const void* e1;
   const float* ebn;  // epilogue BN vectors [5, N]
@@ -126,7 +124,7 @@ struct Args {
   void* out;         // [M, N]
   float* part;       // per-tile sums [tiles, 2, N] or chunks [splits, K, N]
   int M, H, W, N, splits, rows_per_split;
-  const void* w_next;  // kF41: the next block's w1 [N, C] bf16
+  const void* w_next;  // kF41: the next block's w1^T [C, N] bf16
   void* out_next;      // kF41: the next block's r1 [M, C] bf16
 };
 
@@ -136,15 +134,8 @@ struct Args {
 namespace {
 
 using namespace ptt;
-using namespace ptt::attn;
 using namespace ptt::rb;
 using bf16 = __nv_bfloat16;
-
-// rb_k41's steps (mma.sync)
-constexpr int BN = 64;           // columns of a step
-constexpr int BK = 32;           // K per step
-constexpr int LDA = BK + 8;      // shared row strides (bf16 elements)
-constexpr int LDB = BN + 8;
 
 // rows of the [5, C] BN vectors: forward, and backward (sum(g),
 // sum(g * xhat), c0 = gamma * inv, m1 = sum(g) / n, m2 = sum(g xhat) / n)
@@ -182,55 +173,6 @@ __device__ __forceinline__ void load8<float>(const float* p, float (&v)[8]) {
   const float4 hi = *reinterpret_cast<const float4*>(p + 4);
   v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
   v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-}
-
-// relu(r * scale + bias), rounded as the plain version rounds (no fma)
-__device__ __forceinline__ float affine_relu(float r, const float* bn, int C,
-                                             int c) {
-  return fmaxf(__fadd_rn(__fmul_rn(r, bn[kScale * C + c]), bn[kBias * C + c]),
-               0.f);
-}
-
-__device__ __forceinline__ float xhat(float r, const float* bn, int C, int c) {
-  return __fmul_rn(__fsub_rn(r, bn[kMean * C + c]), bn[kInv * C + c]);
-}
-
-// c0 * ((g - m1) - xhat * m2)
-__device__ __forceinline__ float bn_bwd(float g, float r, const float* bn,
-                                        const float* bw, int C, int c) {
-  const float t = __fsub_rn(__fsub_rn(g, bw[kM1 * C + c]),
-                            __fmul_rn(xhat(r, bn, C, c), bw[kM2 * C + c]));
-  return __fmul_rn(bw[kC0 * C + c], t);
-}
-
-// eight bf16 operand values of row `row`, channels c .. c + 7 (zeros for
-// row < 0); T is the activation dtype (x, dy and the stored gradients)
-template <int MODE, typename T>
-__device__ __forceinline__ uint4 opnd8(const Opnd& o, long long row, int c) {
-  uint4 out = make_uint4(0, 0, 0, 0);
-  if (row < 0) return out;
-  const long long off = row * o.C + c;
-  float v[8];
-  if (MODE == kCastT) {
-    load8(static_cast<const T*>(o.x) + off, v);
-  } else if (MODE == kBf16) {
-    load8(static_cast<const bf16*>(o.x) + off, v);
-  } else if (MODE == kRelu) {
-    load8(static_cast<const bf16*>(o.x) + off, v);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = affine_relu(v[e], o.bn, o.C, c + e);
-  } else {
-    float r[8];
-    load8(static_cast<const T*>(o.x) + off, v);
-    load8(static_cast<const bf16*>(o.r) + off, r);
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      v[e] = bn_bwd(v[e], r[e], o.bn, o.bw, o.C, c + e);
-  }
-  bf16* h = reinterpret_cast<bf16*>(&out);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) h[e] = __float2bfloat16_rn(v[e]);
-  return out;
 }
 
 // The BN vectors of 8 channels (ch .. ch + 7) that an operand's prologue
@@ -323,28 +265,6 @@ __device__ __forceinline__ uint4 opnd8v(const Opnd& o, const Vec8<MODE>& vec,
   const long long off = row * o.C + c;
   return form8<MODE, T>(vec, static_cast<const X*>(o.x) + off,
                         static_cast<const bf16*>(o.r) + off);
-}
-
-// the source row and channel of element (m, k) of an operand: k < C for a
-// 1x1 product; for the 3x3 conv k = tap * C + c and the source is the
-// neighbour (h + di, w + dj) of row m, or -1 outside the image. -1 too for
-// m >= M or k >= K.
-template <bool CONV>
-__device__ __forceinline__ long long src_row(const Args& p, int C, int m,
-                                             int k, int& c) {
-  const int K = CONV ? 9 * C : C;
-  if (m >= p.M || k >= K) return -1;
-  if (!CONV) {
-    c = k;
-    return m;
-  }
-  const int tap = k / C;
-  c = k - tap * C;
-  const int di = tap / 3 - 1, dj = tap % 3 - 1;
-  const int hw = m % (p.H * p.W);
-  const int h = hw / p.W + di, w = hw % p.W + dj;
-  if (h < 0 || h >= p.H || w < 0 || w >= p.W) return -1;
-  return static_cast<long long>(m) + di * p.W + dj;
 }
 
 template <typename T>
@@ -1343,207 +1263,357 @@ __global__ void __launch_bounds__(256)
 }
 
 // --- two blocks' boundary: block 1's k4 coupled with block 2's k1 -----------
-// A CTA owns BMR rows. Pass 1, over the 4C columns of y in steps of BN:
-// r3 = relu(bn2(r2)) . w3 (the tile's f2 rows re-formed per step), y =
-// relu(r3 * s3 + b3 + bf16(x)) stored in T (block 2's residual) and, as
-// bf16, into shared memory Ys [BMR][4C]. Pass 2, over the C columns of
-// block 2's r1: Ys . w1_next, r1 stored in bf16, each column's sums of the
-// f32 products (block 2's bn1) per tile into part [tiles, 2, C], as
-// eStoreStats does. y never leaves the CTA between the two products; it
-// is written once, as the TPU kernel writes it.
-// Shared memory: BMR x 4C bf16 for Ys, which at 64 rows is 128 KB at
-// layer3 (4C = 1024) and 256 KB at layer4 (4C = 2048), over the 227 KB a
-// CTA may hold. So the row tile follows 4C (k41_rows): 64 rows up to
-// 4C = 1024, 32 up to 2048, 16 up to 4096. The 4 warps sit as BMR / 16
-// row groups x 64 / BMR column groups over a 64-column step.
-constexpr int kK41MaxC4 = 4096;
+// rb_wg_k41 (12c): y1 = relu(bn3(a2 . w3) + bf16(x)) and block 2's
+// r1 = bf16(y1) . w1' with r1's per-tile column sums, in one launch, y
+// never read back from device memory: it reaches the second product as
+// K slices in shared memory. Persistent CTAs walk tiles of 64 rows; warp
+// 8 issues the TMA loads, the two consumer warpgroups share the tile's
+// rows and split the columns. Per chunk of YC = 2 YW columns of y (C4 of
+// them, 4C in ResNet):
+//   * P1: warpgroup w computes y's columns [YW w, YW w + YW) of the chunk
+//     by wgmma over K = C: A = the tile's a2 rows (relu(bn2(r2)) in bf16,
+//     rb_form's output, resident for the tile), B = w3's rows of the chunk
+//     streamed in 64-wide K stages;
+//   * its epilogue (eResid's arithmetic, the x tile by TMA during the
+//     mainloop, bn3's scale and bias staged in shared memory once a CTA)
+//     stores y1 in x's dtype and writes bf16(y1) into the chunk's K slice
+//     (SW128), fenced into the async proxy; one named barrier of the 256
+//     consumer threads hands both halves over (the slices are double-
+//     buffered, so that barrier also orders the rewrite of a slice after
+//     both warpgroups' last reads of it);
+//   * P2: warpgroup w accumulates its share of r1's columns, in NP pieces
+//     of NW columns, += slice . w1' over the chunk's K, with w1''s columns
+//     streamed in [2 NW][64] stages (NW rows for each warpgroup).
+// The r1 accumulators stay in registers across the whole loop over the
+// chunks: C / (4 NPASS) a thread. In one pass that is 128 at C = 512, at
+// ptxas's cap of 168 with y's: it spilled and serialized the wgmma
+// (C7512), 0.400 ms a layer4 call on an H100. Four consumer warpgroups
+// (544 threads, 64 accumulators each) were capped at 96 registers and
+// spilled too (0.41-0.90 ms). So C = 512 runs NPASS = 2 passes over the
+// chunks, each for half of r1's columns, P1 and its epilogue recomputed
+// (y1 stored in the first pass only): 1.5 times the operations, 0.149 ms
+// (PERF.md, row 12c). The end of a pass stores its r1 columns in bf16 and
+// their column sums from the f32 accumulators, in a fixed order, into
+// part [tiles, 2, C] (eStoreStats' arithmetic). CP: C rounded up to 64,
+// 128, 256 or 512 (TMA loads zeros past C and past C4, C4 <= 4 CP;
+// nothing is stored there). What bounds it on an H100: the bytes at
+// ResNet-50's layer1 and layer2 (x and a2 read, y1 and r1 written once),
+// the products (4 M C C4 operations) at layer3 and layer4.
+constexpr int kK41Rows = 64;     // rows of a tile (its sums' count)
+constexpr int kK41MaxC = 512;    // the widest C it takes
 
-__host__ __device__ constexpr int k41_rows(int C4) {
-  return C4 <= 1024 ? 64 : (C4 <= 2048 ? 32 : 16);
-}
-
-template <int BMR>
+template <typename T, int CP, int YW, int NPASS>
 struct K41Cfg {
-  static constexpr int WR = BMR / kRows;      // row groups of warps
-  static constexpr int WC = kWarps / WR;      // column groups
-  static constexpr int NTW = BN / WC / 8;     // n-tiles of a warp
+  static constexpr int CH = CP / (2 * NPASS);   // r1 columns a warpgroup
+  static constexpr int NW = CH < 64 ? CH : 64;  // r1 piece columns
+  static constexpr int NP = CH / NW;            // pieces a warpgroup
+  static constexpr int YC = 2 * YW;     // y columns a chunk: P2's K
+  static constexpr int KS = YC / 64;    // its 64-wide K slices
+  static constexpr int KC = CP / 64;    // P1's K stages
+  static constexpr int kSub = 64 * 128;                 // [64][64] bf16
+  static constexpr int kA2 = KC * kSub;                 // a2 tile [64][CP]
+  static constexpr int NA2 = CP <= 256 ? 2 : 1;         // its buffers
+  static constexpr int kY = KS * kSub;                  // a y slice
+  static constexpr int kXBox = 128 / static_cast<int>(sizeof(T));
+  static constexpr int kX = 64 * YC * static_cast<int>(sizeof(T));
+  static constexpr int kVec = 2 * 4 * CP * static_cast<int>(sizeof(float));
+  static constexpr int kRed = 2 * 2 * 4 * CH * static_cast<int>(sizeof(float));
+  static constexpr int kStage = 16384;  // max(YC, 2 NW) rows of 128 bytes
+  static constexpr int kFixed = NA2 * kA2 + 2 * kY + 2 * kX + kVec + kRed;
+  static constexpr int NS = (224 * 1024 - kFixed) / kStage < 8
+                                ? (224 * 1024 - kFixed) / kStage
+                                : 8;
+  static_assert(NS >= 2, "rb_wg_k41 needs two stages");
+  static constexpr size_t smem = 1024 + static_cast<size_t>(kFixed) +
+                                 static_cast<size_t>(NS) * kStage +
+                                 (2 * NS + 2 * NA2 + 4) * sizeof(uint64_t);
 };
 
-template <int BMR>
-size_t k41_smem(int C4) {
-  return sizeof(bf16) * (static_cast<size_t>(BMR) * (C4 + 8) + BMR * LDA +
-                         BK * LDB) +
-         sizeof(float) * 2 * kWarps * BN;
+// two elements (columns cc, cc + 1) of row rr of a [64][cols] tile that TMA
+// wrote as SW128 boxes of 128-byte rows, 64 rows each (8 KB a box)
+template <typename E>
+__device__ __forceinline__ float2 box2(const uint8_t* tile, int rr, int cc) {
+  constexpr int kIn = 128 / static_cast<int>(sizeof(E));   // a box's columns
+  constexpr int kCh = 16 / static_cast<int>(sizeof(E));    // a chunk's
+  const int within = cc % kIn;
+  const uint8_t* q = tile + (cc / kIn) * (64 * 128) + rr * 128 +
+                     (((within / kCh) ^ (rr & 7)) << 4) +
+                     (within % kCh) * static_cast<int>(sizeof(E));
+  if constexpr (std::is_same<E, float>::value) {
+    return *reinterpret_cast<const float2*>(q);
+  } else {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(q));
+  }
 }
 
-template <int BMR, typename T>
-__global__ void __launch_bounds__(kThreads) rb_k41(Args p) {
-  using Cfg = K41Cfg<BMR>;
-  constexpr int NTW = Cfg::NTW;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int C = p.a.C, C4 = p.N, LDY = C4 + 8;
-  bf16* Ys = reinterpret_cast<bf16*>(smem_raw);
-  bf16* As = Ys + BMR * LDY;
-  bf16* Bs = As + BMR * LDA;
-  float* red = reinterpret_cast<float*>(Bs + BK * LDB);  // [2][WR][BN]
+// Args: a.x = a2 [M, C] bf16 (a.C = C), w = w3^T [C4, C], e0 = x [M, C4]
+// (T), ebn = block 1's bn3 vectors [5, C4], out = y1 [M, C4] (T), w_next
+// = block 2's w1^T [C, C4], out_next = its r1 [M, C] bf16, part [tiles
+// of 64 rows, 2, C]; N = C4
+template <typename T, int CP, int YW, int NPASS>
+__global__ void __launch_bounds__(288, 1)
+    rb_wg_k41(const __grid_constant__ CUtensorMap ta2,
+              const __grid_constant__ CUtensorMap tw3,
+              const __grid_constant__ CUtensorMap tw1,
+              const __grid_constant__ CUtensorMap tx, const Args p) {
+  using Cfg = K41Cfg<T, CP, YW, NPASS>;
+  constexpr int NS = Cfg::NS, NA2 = Cfg::NA2, NW = Cfg::NW, NP = Cfg::NP;
+  constexpr int YC = Cfg::YC, KS = Cfg::KS, KC = Cfg::KC, CH = Cfg::CH;
+  extern __shared__ uint8_t wg_smem[];
+  uint8_t* st = align1024(wg_smem);           // [NS] stages
+  uint8_t* a2s = st + NS * Cfg::kStage;       // [NA2] a2 tiles
+  uint8_t* ys = a2s + NA2 * Cfg::kA2;         // [2] y slices
+  uint8_t* xs = ys + 2 * Cfg::kY;             // [2] x tiles
+  float* vec = reinterpret_cast<float*>(xs + 2 * Cfg::kX);  // scale, bias
+  float* red = vec + 2 * 4 * CP;              // [2 wg][2][4 warps][CH]
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 2 * 2 * 4 * CH);
+  uint64_t* empty = full + NS;
+  uint64_t* a2_full = empty + NS;
+  uint64_t* a2_empty = a2_full + NA2;
+  uint64_t* x_full = a2_empty + NA2;
+  uint64_t* x_empty = x_full + 2;
+  const int C = p.a.C, C4 = p.N;
+  const int nch = (C4 + YC - 1) / YC;         // chunks of y's columns
+  const int tiles = (p.M + 63) / 64;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp % Cfg::WR, wc = warp / Cfg::WR;
-  const int m0 = blockIdx.x * BMR;
-  const int r_lo = m0 + wr * kRows + g;        // this thread's rows
-  const int c_w = wc * NTW * 8;                // its columns in a step
-  const bf16* w3 = static_cast<const bf16*>(p.w);
-  const bf16* w1n = static_cast<const bf16*>(p.w_next);
-
-  // pass 1: y over the 4C columns
-  for (int n0 = 0; n0 < C4; n0 += BN) {
-    float acc[NTW][4];
-    zero(acc);
-    for (int k0 = 0; k0 < C; k0 += BK) {
-      for (int i = threadIdx.x; i < BMR * BK / 8; i += kThreads) {
-        const int r = i / (BK / 8), kc = (i % (BK / 8)) * 8;
-        int c = 0;
-        const long long src = src_row<false>(p, C, m0 + r, k0 + kc, c);
-        *reinterpret_cast<uint4*>(As + r * LDA + kc) =
-            opnd8<kRelu, T>(p.a, src, c);
-      }
-      for (int i = threadIdx.x; i < BK * BN / 8; i += kThreads) {
-        const int r = i / (BN / 8), nc = (i % (BN / 8)) * 8;
-        const int k = k0 + r, n = n0 + nc;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (k < C && n < C4)
-          v = *reinterpret_cast<const uint4*>(
-              w3 + static_cast<long long>(k) * C4 + n);
-        *reinterpret_cast<uint4*>(Bs + r * LDB + nc) = v;
-      }
-      __syncthreads();
-      warp_mma<NTW, BK, false>(acc, As + wr * kRows * LDA, LDA, Bs + c_w,
-                               LDB);
-      __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);      // the TMA bytes' arrival
+      mbar_init(&empty[s], 2);     // one arrival per consumer warpgroup
     }
-#pragma unroll
-    for (int nt = 0; nt < NTW; ++nt) {
-      const int col = n0 + c_w + nt * 8 + 2 * t;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = r_lo + 8 * half;
-        if (col >= C4) continue;
-        float y[2] = {0.f, 0.f};
-        if (row < p.M) {
-          const long long off = static_cast<long long>(row) * C4 + col;
-          const float2 x2 = load2(static_cast<const T*>(p.e0), off);
-          const float xs[2] = {x2.x, x2.y};
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const float xb = __bfloat162float(__float2bfloat16_rn(xs[j]));
-            const float z = __fadd_rn(
-                __fadd_rn(__fmul_rn(acc[nt][2 * half + j],
-                                    p.ebn[kScale * C4 + col + j]),
-                          p.ebn[kBias * C4 + col + j]),
-                xb);
-            y[j] = fmaxf(z, 0.f);
-          }
-          store2(static_cast<T*>(p.out), off, y[0], y[1]);
-        }
-        *reinterpret_cast<__nv_bfloat162*>(
-            Ys + (row - m0) * LDY + col) = __floats2bfloat162_rn(y[0], y[1]);
-      }
+    for (int i = 0; i < NA2; ++i) {
+      mbar_init(&a2_full[i], 1);
+      mbar_init(&a2_empty[i], 2);
     }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&x_full[i], 1);
+      mbar_init(&x_empty[i], 2);
+    }
+    fence_barrier_init();
   }
   __syncthreads();
 
-  // pass 2: block 2's r1 = bf16(y) . w1_next over the C columns, with sums
-  for (int n0 = 0; n0 < C; n0 += BN) {
-    float acc[NTW][4];
-    zero(acc);
-    for (int k0 = 0; k0 < C4; k0 += BK) {
-      for (int i = threadIdx.x; i < BK * BN / 8; i += kThreads) {
-        const int r = i / (BN / 8), nc = (i % (BN / 8)) * 8;
-        const int k = k0 + r, n = n0 + nc;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (k < C4 && n < C)
-          v = *reinterpret_cast<const uint4*>(
-              w1n + static_cast<long long>(k) * C + n);
-        *reinterpret_cast<uint4*>(Bs + r * LDB + nc) = v;
+  if (warp == 8) {                 // TMA
+    if (lane == 0) {
+      int it = 0, xi = 0, ti = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++ti) {
+        const int m0 = tile * 64, ab = ti % NA2;
+        mbar_wait(&a2_empty[ab], ((ti / NA2) & 1) ^ 1);
+        mbar_expect_tx(&a2_full[ab], Cfg::kA2);
+        for (int kc = 0; kc < KC; ++kc)
+          tma_load_2d(a2s + ab * Cfg::kA2 + kc * Cfg::kSub, &ta2,
+                      &a2_full[ab], kc * 64, m0);
+        for (int pass = 0; pass < NPASS; ++pass)
+          for (int ci = 0; ci < nch; ++ci, ++xi) {
+            const int xb = xi & 1;
+            mbar_wait(&x_empty[xb], ((xi >> 1) & 1) ^ 1);
+            mbar_expect_tx(&x_full[xb], Cfg::kX);
+#pragma unroll
+            for (int b = 0; b < YC / Cfg::kXBox; ++b)
+              tma_load_2d(xs + xb * Cfg::kX + b * (64 * 128), &tx,
+                          &x_full[xb], ci * YC + b * Cfg::kXBox, m0);
+            for (int kc = 0; kc < KC; ++kc, ++it) {   // P1: w3's rows
+              const int s = it % NS;
+              mbar_wait(&empty[s], ((it / NS) & 1) ^ 1);
+              mbar_expect_tx(&full[s], YC * 128);
+              tma_load_2d(st + s * Cfg::kStage, &tw3, &full[s], kc * 64,
+                          ci * YC);
+            }
+            for (int ks = 0; ks < KS; ++ks)           // P2: w1''s columns
+              for (int pc = 0; pc < NP; ++pc, ++it) {
+                const int s = it % NS;
+                mbar_wait(&empty[s], ((it / NS) & 1) ^ 1);
+                mbar_expect_tx(&full[s], 2 * NW * 128);
+                uint8_t* b = st + s * Cfg::kStage;
+                const int n0 = pass * 2 * CH + pc * NW;
+                tma_load_2d(b, &tw1, &full[s], ci * YC + ks * 64, n0);
+                tma_load_2d(b + NW * 128, &tw1, &full[s], ci * YC + ks * 64,
+                            n0 + CH);
+              }
+          }
       }
-      __syncthreads();
-      warp_mma<NTW, BK, false>(acc, Ys + wr * kRows * LDY + k0, LDY,
-                               Bs + c_w, LDB);
-      __syncthreads();
     }
-    float s0[NTW][2], s1[NTW][2];
-#pragma unroll
-    for (int nt = 0; nt < NTW; ++nt) {
-      s0[nt][0] = s0[nt][1] = s1[nt][0] = s1[nt][1] = 0.f;
-      const int col = n0 + c_w + nt * 8 + 2 * t;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = r_lo + 8 * half;
-        if (row >= p.M || col >= C) continue;
-        const float v0 = acc[nt][2 * half], v1 = acc[nt][2 * half + 1];
-        store2(static_cast<bf16*>(p.out_next),
-               static_cast<long long>(row) * C + col, v0, v1);
-        s0[nt][0] += v0;
-        s0[nt][1] += v1;
-        s1[nt][0] += v0 * v0;
-        s1[nt][1] += v1 * v1;
-      }
-    }
-    // column sums: the 8 lanes of a column (g), then the row groups in
-    // order
-#pragma unroll
-    for (int nt = 0; nt < NTW; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) {
-          s0[nt][j] += __shfl_xor_sync(0xffffffffu, s0[nt][j], o);
-          s1[nt][j] += __shfl_xor_sync(0xffffffffu, s1[nt][j], o);
-        }
-    if (g == 0) {
-#pragma unroll
-      for (int nt = 0; nt < NTW; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int c = c_w + nt * 8 + 2 * t + j;
-          red[(0 * Cfg::WR + wr) * BN + c] = s0[nt][j];
-          red[(1 * Cfg::WR + wr) * BN + c] = s1[nt][j];
-        }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < 2 * BN; i += kThreads) {
-      const int which = i / BN, c = i % BN;
-      if (n0 + c >= C) continue;
-      float sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < Cfg::WR; ++w)
-        sum += red[(which * Cfg::WR + w) * BN + c];
-      p.part[(static_cast<long long>(blockIdx.x) * 2 + which) * C + n0 + c] =
-          sum;
-    }
-    __syncthreads();  // red is rewritten by the next column step
+    return;
   }
-}
 
-template <int BMR, typename T>
-int k41_launch(const Args& p, cudaStream_t s) {
-  const size_t smem = k41_smem<BMR>(p.N);
-  const cudaError_t e = cudaFuncSetAttribute(
-      rb_k41<BMR, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  rb_k41<BMR, T><<<(p.M + BMR - 1) / BMR, kThreads, smem, s>>>(p);
-  return 0;
-}
-
-template <typename T>
-int k41(const Args& p, cudaStream_t s) {
-  if (p.N > kK41MaxC4 || !p.w_next || !p.out_next)
-    return static_cast<int>(cudaErrorInvalidValue);
-  switch (k41_rows(p.N)) {
-    case 64: return k41_launch<64, T>(p, s);
-    case 32: return k41_launch<32, T>(p, s);
-    default: return k41_launch<16, T>(p, s);
+  // consumers: both warpgroups on the tile's 64 rows
+  const int wg = warp >> 2, w4 = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int tw = threadIdx.x & 127;
+  const bool leader = tw == 0;
+  // bn3's scale and bias, once a CTA (zeros past C4)
+  for (int c = threadIdx.x; c < 4 * CP; c += 256) {
+    vec[c] = c < C4 ? p.ebn[kScale * C4 + c] : 0.f;
+    vec[4 * CP + c] = c < C4 ? p.ebn[kBias * C4 + c] : 0.f;
+  }
+  bar_sync(3, 256);
+  float* rw = red + wg * 2 * 4 * CH;
+  int it = 0, xi = 0, ti = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++ti) {
+    const int m0 = tile * 64, ab = ti % NA2;
+    const uint8_t* a2 = a2s + ab * Cfg::kA2;
+    mbar_wait(&a2_full[ab], (ti / NA2) & 1);
+    for (int pass = 0; pass < NPASS; ++pass) {
+      float r1[NP][NW / 2];
+      int prev = -1;
+      for (int ci = 0; ci < nch; ++ci, ++xi) {
+        // P1: this warpgroup's YW columns of the chunk's y
+        float y[YW / 2];
+        for (int kc = 0; kc < KC; ++kc, ++it) {
+          const int s = it % NS;
+          mbar_wait(&full[s], (it / NS) & 1);
+          __syncwarp();            // converged for the .aligned wgmma
+          reg_fence(y);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss_bf16<YW, 0, 0>(
+                y,
+                make_desc(a2 + kc * Cfg::kSub + kk * 32, 16, 1024, kSW128),
+                make_desc(st + s * Cfg::kStage + wg * YW * 128 + kk * 32, 16,
+                          1024, kSW128),
+                kc > 0 || kk > 0);
+          wgmma_commit();
+          wgmma_wait<1>();         // the last stage's batch is done
+          reg_fence(y);
+          if (prev >= 0 && leader) mbar_arrive(&empty[prev]);
+          prev = s;
+        }
+        wgmma_wait<0>();
+        reg_fence(y);
+        if (leader) {
+          mbar_arrive(&empty[prev]);
+          if (pass == NPASS - 1 && ci == nch - 1)
+            mbar_arrive(&a2_empty[ab]);   // a2 is read
+        }
+        prev = -1;
+        // y1 = relu(y * scale + bias + bf16(x)): stored in T (the first
+        // pass), and as bf16 into the chunk's K slice
+        const int xb = xi & 1;
+        mbar_wait(&x_full[xb], (xi >> 1) & 1);
+        __syncwarp();
+        uint8_t* slice = ys + (xi & 1) * Cfg::kY;
+#pragma unroll
+        for (int i = 0; i < YW / 8; ++i) {
+          const int cl = wg * YW + 8 * i + 2 * t;   // column in the chunk
+          const int col = ci * YC + cl;
+          const float2 sc = *reinterpret_cast<const float2*>(vec + col);
+          const float2 bi =
+              *reinterpret_cast<const float2*>(vec + 4 * CP + col);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int rr = w4 * 16 + g + 8 * half;
+            const int row = m0 + rr;
+            const float2 x2 = box2<T>(xs + xb * Cfg::kX, rr, cl);
+            const float xv[2] = {x2.x, x2.y}, sv[2] = {sc.x, sc.y},
+                        bv[2] = {bi.x, bi.y};
+            float yv[2];
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float xr = __bfloat162float(__float2bfloat16_rn(xv[j]));
+              yv[j] = fmaxf(
+                  __fadd_rn(__fadd_rn(__fmul_rn(y[4 * i + 2 * half + j],
+                                                sv[j]),
+                                      bv[j]),
+                            xr),
+                  0.f);
+            }
+            const bool live = col < C4;
+            if (pass == 0 && live && row < p.M)
+              store2(static_cast<T*>(p.out),
+                     static_cast<long long>(row) * C4 + col, yv[0], yv[1]);
+            const int within = cl % 64;
+            *reinterpret_cast<__nv_bfloat162*>(
+                slice + (cl / 64) * Cfg::kSub + rr * 128 +
+                (((within >> 3) ^ (rr & 7)) << 4) + (within & 7) * 2) =
+                live ? __floats2bfloat162_rn(yv[0], yv[1])
+                     : __floats2bfloat162_rn(0.f, 0.f);
+          }
+        }
+        // the warpgroup has read the x tile; the slice's halves are written
+        bar_sync(1 + wg, 128);
+        if (leader) mbar_arrive(&x_empty[xb]);
+        fence_proxy_async();
+        bar_sync(3, 256);
+        // P2: r1's pieces of this warpgroup += slice . w1'
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+          for (int pc = 0; pc < NP; ++pc, ++it) {
+            const int s = it % NS;
+            mbar_wait(&full[s], (it / NS) & 1);
+            __syncwarp();
+            reg_fence(r1[pc]);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_ss_bf16<NW, 0, 0>(
+                  r1[pc],
+                  make_desc(slice + ks * Cfg::kSub + kk * 32, 16, 1024,
+                            kSW128),
+                  make_desc(st + s * Cfg::kStage + wg * NW * 128 + kk * 32,
+                            16, 1024, kSW128),
+                  ci > 0 || ks > 0 || kk > 0);
+            wgmma_commit();
+            wgmma_wait<1>();
+            reg_fence(r1[pc]);
+            if (prev >= 0 && leader) mbar_arrive(&empty[prev]);
+            prev = s;
+          }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int pc = 0; pc < NP; ++pc) reg_fence(r1[pc]);
+      if (leader) mbar_arrive(&empty[prev]);
+      // r1 in bf16 and its column sums: the 8 lanes of a column (g), then
+      // the warpgroup's 4 warps in order
+      const int c0 = pass * 2 * CH + wg * CH;   // the warpgroup's columns
+#pragma unroll
+      for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+        for (int i = 0; i < NW / 8; ++i) {
+          const int cl = pc * NW + 8 * i + 2 * t;
+          const int col = c0 + cl;
+          float s0[2] = {0.f, 0.f}, s1[2] = {0.f, 0.f};
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int row = m0 + w4 * 16 + g + 8 * half;
+            if (row >= p.M || col >= C) continue;
+            const float v0 = r1[pc][4 * i + 2 * half];
+            const float v1 = r1[pc][4 * i + 2 * half + 1];
+            store2(static_cast<bf16*>(p.out_next),
+                   static_cast<long long>(row) * C + col, v0, v1);
+            s0[0] += v0;
+            s0[1] += v1;
+            s1[0] += v0 * v0;
+            s1[1] += v1 * v1;
+          }
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int o = 4; o < 32; o <<= 1) {
+              s0[j] += __shfl_xor_sync(0xffffffffu, s0[j], o);
+              s1[j] += __shfl_xor_sync(0xffffffffu, s1[j], o);
+            }
+          if (g == 0)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              rw[(0 * 4 + w4) * CH + cl + j] = s0[j];
+              rw[(1 * 4 + w4) * CH + cl + j] = s1[j];
+            }
+        }
+      bar_sync(1 + wg, 128);       // the warps' sums are in red
+      for (int i = tw; i < 2 * CH; i += 128) {
+        const int which = i / CH, cl = i % CH;
+        const int col = c0 + cl;
+        if (col >= C) continue;
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) sum += rw[(which * 4 + w) * CH + cl];
+        p.part[(static_cast<long long>(tile) * 2 + which) * C + col] = sum;
+      }
+      bar_sync(1 + wg, 128);       // red is read before it is rewritten
+    }
   }
 }
 
@@ -1679,6 +1749,38 @@ int wg_wgrad(const Args& p, cudaStream_t s) {
   return wg_wgrad_nb<AM, CONV, DM, T, 1>(p, s);
 }
 
+// the coupled pair (12c) at C's width class: a2 in [64 rows][64] boxes,
+// w3^T in [YC rows][64], w1'^T in [NW rows][64], x in [64 rows][128 bytes]
+template <typename T, int CP, int YW, int NPASS>
+int k41_cp(const Args& p, cudaStream_t s) {
+  using Cfg = K41Cfg<T, CP, YW, NPASS>;
+  const int C = p.a.C, C4 = p.N;
+  CUtensorMap ta2, tw3, tw1, tx;
+  if (C4 > 4 * CP || !row_map<bf16>(&ta2, p.a.x, C, p.M, 64, true) ||
+      !row_map<bf16>(&tw3, p.w, C, C4, Cfg::YC, true) ||
+      !row_map<bf16>(&tw1, p.w_next, C4, C, Cfg::NW, true) ||
+      !row_map<T>(&tx, p.e0, C4, p.M, 64, true, Cfg::kXBox))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (const int e = smem_opt_in<rb_wg_k41<T, CP, YW, NPASS>>(Cfg::smem))
+    return e;
+  const int tiles = (p.M + kK41Rows - 1) / kK41Rows;
+  rb_wg_k41<T, CP, YW, NPASS><<<tiles < sm_count() ? tiles : sm_count(), 288,
+                                Cfg::smem, s>>>(ta2, tw3, tw1, tx, p);
+  return 0;
+}
+
+template <typename T>
+int k41(const Args& p, cudaStream_t s) {
+  const int C = p.a.C;
+  if (C > kK41MaxC || !p.a.x || !p.w || !p.e0 || !p.ebn || !p.out ||
+      !p.part || !p.w_next || !p.out_next)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (C <= 64) return k41_cp<T, 64, 64, 1>(p, s);
+  if (C <= 128) return k41_cp<T, 128, 64, 1>(p, s);
+  if (C <= 256) return k41_cp<T, 256, 64, 1>(p, s);
+  return k41_cp<T, 512, 64, 2>(p, s);   // two passes (see the note)
+}
+
 template <typename T>
 int dispatch(int kind, const Args& p, cudaStream_t s) {
   switch (kind) {
@@ -1755,5 +1857,5 @@ extern "C" int ptt_resblock_reduce(int mode, const void* part, int T, int N,
 // rows of a kF41 tile for 4C = C4 (the per-tile sums' count is
 // ceil(M / rows)); 0 where the coupled kernel does not take C4
 extern "C" int ptt_resblock_k41_rows(int C4) {
-  return C4 <= kK41MaxC4 ? k41_rows(C4) : 0;
+  return C4 <= 4 * kK41MaxC ? kK41Rows : 0;
 }

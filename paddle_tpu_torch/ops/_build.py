@@ -162,10 +162,10 @@ def lib():
     _sig(handle.ptt_resblock_k41_rows, I)
     # mode, part, T, N, gamma, beta, bn, eps, n, out, stream
     _sig(handle.ptt_resblock_reduce, I, P, I, I, P, P, P, F, F, P, P)
-    # q, k, v, block_idx, block_cnt, out, BH, S, D, max_nb, dtype, scale,
-    # stream
-    _sig(handle.ptt_block_sparse_attention, P, P, P, P, P, P, I, I, I, I, I,
-         F, P)
+    # q, k, v, block_idx, block_cnt, out, scratch, BH, S, D, max_nb, dtype,
+    # route, scale, stream
+    _sig(handle.ptt_block_sparse_attention, P, P, P, P, P, P, P, I, I, I, I,
+         I, I, F, P)
     _sig(handle.ptt_cuda_error_string, I, ctypes.c_char_p, I)
     _lib = handle
     return _lib

@@ -17,7 +17,12 @@ table lists, so work and bytes scale with the listed tiles, not S^2.
   computes the plain version for a CPU q. Its backward is autograd
   through the plain version on the saved inputs, as the reference's
   `_bs_bwd_rule`: the JAX package has no backward kernel here. The
-  counter ``block_sparse_attention.launches`` counts kernel launches.
+  counter ``block_sparse_attention.launches`` counts kernel launches,
+  ``.routes`` the launches of each body.
+* `block_sparse_route` names the body a launch takes: BS_WGMMA (the flash
+  forward's Hopper body under the block-table policy, `bs_fwd_sm90`) for
+  bf16 at 32 < D <= 128 with D % 8 == 0 and 16-byte aligned operands,
+  BS_MMA (`bs_fwd`, mma.sync) otherwise (f32, D <= 32, 128 < D <= 256).
 """
 from __future__ import annotations
 
@@ -29,11 +34,14 @@ import torch
 from . import _build
 
 __all__ = ["block_sparse_attention", "block_sparse_attention_ref",
-           "csr_to_block_tables"]
+           "csr_to_block_tables", "block_sparse_route", "BS_MMA",
+           "BS_WGMMA"]
 
 _NEG_INF = -1e30
 _KERNEL_BLOCK = 128      # the tile of the kernel's CTA (and of the op)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+#: the kernel's two bodies (`block_sparse_route`; the C entry's routes)
+BS_MMA, BS_WGMMA = 0, 1
 
 
 def csr_to_block_tables(offset, columns, seq_len, block_size):
@@ -118,8 +126,21 @@ def _check(q, k, v, block_idx, block_cnt, block_size):
                          f"{tuple(block_cnt.shape)}")
 
 
+def block_sparse_route(q, k, v, scale=1.0):
+    """The body a launch on contiguous q, k, v [BH, S, D] takes:
+    BS_WGMMA (bf16 throughout, 32 < D <= 128, D % 8 == 0, a positive
+    scale, 16-byte aligned bases: what the Hopper body's tensor maps
+    describe) or BS_MMA. The wrapper launches exactly what this returns."""
+    d = q.shape[-1]
+    hopper = (32 < d <= 128 and not d % 8 and scale > 0
+              and all(t.dtype == torch.bfloat16 and not t.data_ptr() % 16
+                      for t in (q, k, v)))
+    return BS_WGMMA if hopper else BS_MMA
+
+
 def _launch(q, k, v, block_idx, block_cnt, scale, block_size):
-    """One kernel launch on q's device: O [BH, S, D] in q's dtype."""
+    """One kernel launch on q's device: O [BH, S, D] in q's dtype, on the
+    body `block_sparse_route` names."""
     BH, S, D = q.shape
     if block_size != _KERNEL_BLOCK:
         raise ValueError(f"the block-sparse kernel takes block_size "
@@ -140,14 +161,21 @@ def _launch(q, k, v, block_idx, block_cnt, scale, block_size):
     out = torch.empty_like(q)
     if BH == 0:
         return out
+    route = block_sparse_route(q, k, v, scale)
+    # the Hopper body's work list: the tiles' order and a counter
+    scratch = (torch.empty(S // block_size + 1, dtype=torch.int32,
+                           device=q.device) if route == BS_WGMMA else None)
     ctx, stream = _build.launch_on(q.device)
     with ctx:
         err = _build.lib().ptt_block_sparse_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
-            cnt.data_ptr(), out.data_ptr(), BH, S, D, idx.shape[1],
-            _build.dtype_code(q.dtype), ctypes.c_float(scale), stream)
+            cnt.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), BH, S, D,
+            idx.shape[1], _build.dtype_code(q.dtype), route,
+            ctypes.c_float(scale), stream)
     _build.check(err, "block_sparse_attention")
     block_sparse_attention.launches += 1
+    block_sparse_attention.routes[route] += 1
     return out
 
 
@@ -190,3 +218,5 @@ def block_sparse_attention(q, k, v, block_idx, block_cnt, scale,
 
 
 block_sparse_attention.launches = 0
+#: launches of each body (`block_sparse_route`'s codes)
+block_sparse_attention.routes = {BS_MMA: 0, BS_WGMMA: 0}

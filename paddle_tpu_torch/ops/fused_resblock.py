@@ -29,10 +29,10 @@ kernel launches (at each launch), ``.routes`` the launches of each body
   reductions and three sums of the gradients' row chunks);
 * `fused_bottleneck2_fwd` replaces the two-block chain of
   `fused_bottleneck2_fwd` (:612) with its coupled `_k41` (:593): block
-  1's k4 and block 2's k1 in one kernel (`rb_k41`, mma.sync), so y1
-  reaches block 2's first product from shared memory; the other six
-  products are the kernels above, fifteen launches. The reference wires it
-  into no model
+  1's k4 and block 2's k1 in one kernel (`rb_wg_k41`: TMA and wgmma on
+  64-row tiles, y1 handed to block 2's first product as K slices in
+  shared memory, C <= 512); the other six products are the kernels
+  above, fifteen launches. The reference wires it into no model
   (only `tools/bench_resstage.py` and its test call it): it measures
   whether the coupling pays.
 
@@ -292,6 +292,7 @@ _F1, _F2, _F3, _F4, _B1, _B2A, _B2B, _B3, _B4, _W3, _W2, _W1, _F41, _FA = \
 # reduction modes of ptt_resblock_reduce
 _SUM, _BN_FWD, _BN_BWD = range(3)
 _TILE_ROWS = 128    # rows of a row product's tile (its sums' count)
+_K41_ROWS = 64      # rows of the coupled kernel's tile (its sums' count)
 _CHUNK = 64         # rows of a weight-gradient stage
 _MIN_SPLIT = 256    # the fewest rows a weight-gradient CTA sums
 _TARGET_CTAS = 528  # 4 waves of one CTA a multiprocessor on an H100
@@ -305,7 +306,7 @@ ROUTE_NAMES = {ROUTE_ROWS: "rb_wg (TMA + wgmma row product)",
                ROUTE_WGRAD: "rb_wg_wgrad (TMA + wgmma weight gradient)",
                ROUTE_FORM: "rb_form (relu(bn2(r2)) in bf16)",
                ROUTE_REDUCE: "rb_bn / rb_sum (fixed-order reductions)",
-               ROUTE_K41: "rb_k41 (mma.sync, the coupled pair)"}
+               ROUTE_K41: "rb_wg_k41 (TMA + wgmma, the coupled pair)"}
 _BODY = {_F1: ROUTE_ROWS, _F2: ROUTE_CONV, _F3: ROUTE_ROWS, _F4: ROUTE_ROWS,
          _B1: ROUTE_ROWS, _B2A: ROUTE_ROWS, _B2B: ROUTE_ROWS,
          _B3: ROUTE_CONV, _B4: ROUTE_ROWS, _W3: ROUTE_WGRAD,
@@ -595,19 +596,19 @@ def _fwd2_cuda(x, params1, params2, eps):
     M, md = N * H * W, MATMUL_DTYPE
     rows = _build.lib().ptt_resblock_k41_rows(C4)
     if rows == 0:
-        raise ValueError(f"the coupled kernel takes 4C <= 4096, got {C4}")
+        raise ValueError(f"the coupled kernel takes 4C <= 2048, got {C4}")
     x = _aligned(x)
     p1, p2 = _cuda_operands(params1), _cuda_operands(params2)
     L = _Launcher(fused_bottleneck2_fwd, x, M, H, W)
     wt1, wt2 = _fwd_weights(*p1[:3]), _fwd_weights(*p2[:3])
-    _, r2, _, _, bn2, bn3 = _block_head_cuda(
+    _, _, a2, _, _, bn3 = _block_head_cuda(
         L, what + " block 1", _opnd(x, C=C4), C4, C, wt1, *p1[3:], eps)
-    # block 1's k4 coupled with block 2's k1: y1, r1 of block 2, its sums
+    # block 1's k4 coupled with block 2's k1 on a2 = relu(bn2(r2)) in bf16:
+    # y1, r1 of block 2, its sums (a row per tile of `rows` rows)
     y1, r1b = L.empty(M, C4, x.dtype), L.empty(M, C, md)
-    part = torch.empty((-(-M // rows), 2, C), dtype=torch.float32,
-                       device=x.device)
-    L.gemm(_F41, what + " (k4 + k1)", _opnd(r2, bn=bn2, C=C), C4, w=p1[2],
-           e0=x, ebn=bn3, out=y1, part=part, w_next=p2[0], out_next=r1b)
+    part = L.sums(C, rows)
+    L.gemm(_F41, what + " (k4 + k1)", _opnd(a2, C=C), C4, w=wt1[2], e0=x,
+           ebn=bn3, out=y1, part=part, w_next=wt2[0], out_next=r1b)
     bn1b = L.stats(_BN_FWD, what + " block 2 (bn1)", part, C, p2[3], p2[4],
                    eps=eps)
     _, _, a2b, _, _, bn3b = _block_head_cuda(

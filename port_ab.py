@@ -51,8 +51,10 @@ Measurements:
   at pos 4095 and 2000, MHA, and at pos 4095 GQA 4:1 (8 KV heads):
   median ms over 50 calls and the device time of a call (``_dev_ms``);
 * ``sparse``: the block-sparse kernel on `chip_smoke.py`'s BigBird tables
-  (seed 0) at [4*12, 4096, 64] and [12, 4096, 128] bf16: median ms over
-  50 calls and the device time of a call (``_dev_ms``);
+  (seed 0) at [4*12, 4096, 64] and [12, 4096, 128] bf16 and [4*12, 4096,
+  64] f32: median ms over 50 calls and the device time of a call
+  (``_dev_ms``), and the launches by body where the tree counts them
+  (``routes``);
 * ``ring``: the ring-step kernels of context parallelism at cp = 2 with
   zigzag placement — gpt_base's shards (B=8, s=512, H=12, D=64; ranks 0
   and 1, own and visiting shard) and llama2_7b's (B=1, s=2048, H=32,
@@ -85,7 +87,10 @@ Measurements:
   by body where the tree counts them (``routes``);
 * ``pair``: row 12c, the coupled pair of blocks, at the four stage shapes
   (`check_fused_pair`'s seeded inputs) beside two chained one-block
-  forwards, a call and on the device (8 calls a graph);
+  forwards, a call and on the device (8 calls a graph); and from one
+  torch.profiler pass (`pair_products`) the coupled kernel's device time
+  a call (the launch whose name holds "k41") beside F4 + F1 of a
+  one-block forward call on the same stage;
 * ``bgmv``: BGMV at `chip_smoke.py`'s `BGMV_CASES`: median CUDA-event ms
   over 50 calls, the device time of a call and of the yardstick pair of
   `torch.bmm` calls (``_dev_ms``, cycling through 16 copies of the slot
@@ -319,16 +324,21 @@ def child_sparse(tree):
                                       smoke.bigbird_blocks(np, nb, 0))
     g = torch.Generator(device="cuda").manual_seed(13)
     res = {"tree": tree, "what": "sparse"}
-    for BH, D in ((48, 64), (12, 128)):
+    for BH, D, dt in ((48, 64, "bfloat16"), (12, 128, "bfloat16"),
+                      (48, 64, "float32")):
         q, k, v = (torch.randn(BH, smoke.BIGBIRD_SEQ, D, device="cuda",
-                               generator=g).to(torch.bfloat16)
+                               generator=g).to(getattr(torch, dt))
                    for _ in range(3))
 
         def fn():
             return bsa.block_sparse_attention(q, k, v, idx, cnt, D ** -0.5,
                                               smoke.SPARSE_BLOCK)
-        res[f"bh{BH}_d{D}_ms"] = _time_ms(torch, fn)
-        res[f"bh{BH}_d{D}_dev_ms"] = _graph_ms(torch, [fn])
+        tag = f"bh{BH}_d{D}" + ("_f32" if dt == "float32" else "")
+        res[f"{tag}_ms"] = _time_ms(torch, fn, iters=20 if dt ==
+                                    "float32" else 50)
+        res[f"{tag}_dev_ms"] = _graph_ms(torch, [fn], calls=8 if dt ==
+                                         "float32" else 32)
+    res["routes"] = dict(getattr(bsa.block_sparse_attention, "routes", {}))
     return res
 
 
@@ -562,6 +572,7 @@ def child_pair(tree):
     rb = importlib.import_module("paddle_tpu_torch.ops.fused_resblock")
     res = {"tree": tree, "what": "pair"}
     g = torch.Generator(device="cuda").manual_seed(19)
+    cases = []
     for stage, H, C, _ in smoke.RESNET_STAGES:
         a1, _ = smoke._block_inputs(torch, smoke.RESNET_BATCH, H, C, g)
         a2, _ = smoke._block_inputs(torch, smoke.RESNET_BATCH, H, C, g)
@@ -572,10 +583,53 @@ def child_pair(tree):
         for part, fn in calls.items():
             res[f"{stage}_{part}_ms"] = _time_ms(torch, fn, iters=20)
             res[f"{stage}_{part}_dev_ms"] = _graph_ms(torch, [fn], calls=8)
-        del a1, a2, x, p1, p2
+        cases.append((stage, x, p1, p2))
         torch.cuda.empty_cache()
     res["routes"] = dict(getattr(rb.fused_bottleneck2_fwd, "routes", {}))
+    res["products"] = pair_products(torch, rb, cases)
     return res
+
+
+def pair_products(torch, rb, cases, calls=2):
+    """Device ms a call, by stage, from one torch.profiler pass: the
+    coupled kernel of a pair call (the launch whose name holds "k41") and
+    F1, F4 and their sum of a one-block forward call on block 1's
+    operands. Returns {stage: {"coupled", "f1", "f4", "f4_f1"}}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pair_n, fwd_n = 15, len(getattr(rb, "FWD_PRODUCTS", FWD_PRODUCTS))
+    for _, x, p1, p2 in cases:
+        rb.fused_bottleneck2_fwd(x, p1, p2)
+        rb.fused_bottleneck_fwd(x, *p1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _, x, p1, p2 in cases:
+            for _ in range(calls):
+                rb.fused_bottleneck2_fwd(x, p1, p2)
+            for _ in range(calls):
+                rb.fused_bottleneck_fwd(x, *p1)
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.events()
+                   if e.device_type.name == "CUDA" and "rb_" in e.name),
+                  key=lambda e: e.time_range.start)
+    per_case = (pair_n + fwd_n) * calls
+    if len(kern) != per_case * len(cases):
+        return {"error": f"{len(kern)} rb_ kernels recorded, want "
+                         f"{per_case * len(cases)}"}
+    out = {}
+    for i, (stage, _, _, _) in enumerate(cases):
+        ev = kern[i * per_case:(i + 1) * per_case]
+        pair_ev, fwd_ev = ev[:pair_n * calls], ev[pair_n * calls:]
+        coupled = [e for e in pair_ev if "k41" in e.name]
+        row = {"coupled": sum(e.time_range.elapsed_us() for e in coupled)
+               / calls / 1e3}
+        for name, j in (("f1", 0), ("f4", fwd_n - 1)):
+            row[name] = sum(fwd_ev[c * fwd_n + j].time_range.elapsed_us()
+                            for c in range(calls)) / calls / 1e3
+        row["f4_f1"] = row["f1"] + row["f4"]
+        out[stage] = row
+    return out
 
 
 def child_bgmv(tree):

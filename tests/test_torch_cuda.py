@@ -1612,6 +1612,123 @@ def test_block_sparse_kernel_refuses_what_it_cannot_take(cuda):
         tbs.block_sparse_attention(q, q, q, idx4, cnt4, 1.0, 64)
 
 
+# the Hopper body's gate (chip_smoke.py's BS_TOL): |O| is about 0.03-0.1
+# here, so 8e-3 is several bf16 ulps of the largest outputs
+BS_HOPPER_TOL = 8e-3
+
+
+def _bs_hopper_case(cuda, BH, S, D, seed, empty=(), bad_index=None):
+    """q, k, v bf16 [BH, S, D], the kernel's table and the plain version's
+    on the card (ragged counts; the query blocks in `empty` list nothing;
+    `bad_index` = (row, value) appends an index outside [0, S / 128) to
+    that row of the kernel's table only: the kernel skips it, and the
+    plain version, which would not, reads the table without it)."""
+    idx, cnt = _bs_tables(S // 128, seed=seed, empty=empty)
+    kidx, kcnt = idx, cnt
+    if bad_index is not None:
+        row, val = bad_index
+        kidx = torch.cat([idx, torch.zeros(idx.shape[0], 1,
+                                           dtype=torch.int32)], 1)
+        kcnt = cnt.clone()
+        kidx[row, kcnt[row]] = val
+        kcnt[row] += 1
+    g = torch.Generator().manual_seed(seed + D)
+    q, k, v = (torch.randn(BH, S, D, generator=g).to(torch.bfloat16).to(cuda)
+               for _ in range(3))
+    return (q, k, v, kidx.to(cuda), kcnt.to(cuda), idx.to(cuda),
+            cnt.to(cuda))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case", ["ragged", "empty", "out_of_range"])
+def test_block_sparse_hopper_body_matches_plain(cuda, D, case):
+    """bf16 at D = 64 and 128 runs the flash forward's Hopper body under
+    the block-table policy (`bs_fwd_sm90`, one launch, route BS_WGMMA):
+    O within 8e-3 of the plain version on ragged counts, an empty query
+    block exactly 0, an index outside [0, S / 128) skipped."""
+    S, BH = 1024, 5
+    q, k, v, kidx, kcnt, idx, cnt = _bs_hopper_case(
+        cuda, BH, S, D, seed=7, empty=(2,) if case == "empty" else (),
+        bad_index=(3, S // 128 + 5) if case == "out_of_range" else None)
+    assert tbs.block_sparse_route(q, k, v, D ** -0.5) == tbs.BS_WGMMA
+    before = dict(tbs.block_sparse_attention.routes)
+    got = tbs.block_sparse_attention(q, k, v, kidx, kcnt, D ** -0.5, 128)
+    assert tbs.block_sparse_attention.routes == {
+        **before, tbs.BS_WGMMA: before[tbs.BS_WGMMA] + 1}
+    ref = tbs.block_sparse_attention_ref(q, k, v, idx, cnt, D ** -0.5, 128)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - ref.float()).abs().max().item() <= BS_HOPPER_TOL
+    if case == "empty":
+        assert torch.equal(got[:, 256:384], torch.zeros_like(got[:, 256:384]))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_block_sparse_hopper_rows_do_not_depend_on_the_order(cuda, D):
+    """The query tiles permuted (q's row blocks and the table's rows):
+    every tile's output moves with it bit for bit, whichever CTA takes it
+    and when; reruns are bit-equal."""
+    S, BH = 2048, 6
+    q, k, v, idx, cnt = _bs_hopper_case(cuda, BH, S, D, seed=11)[:5]
+    nq = S // 128
+    perm = torch.randperm(nq, generator=torch.Generator().manual_seed(3))
+    perm = perm.to(cuda)
+    got = tbs.block_sparse_attention(q, k, v, idx, cnt, D ** -0.5, 128)
+    again = tbs.block_sparse_attention(q, k, v, idx, cnt, D ** -0.5, 128)
+    blocks = (BH, nq, 128, D)
+    qp = q.view(blocks)[:, perm].reshape(BH, S, D)
+    outp = tbs.block_sparse_attention(qp, k, v, idx[perm].contiguous(),
+                                      cnt[perm].contiguous(), D ** -0.5, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(outp.view(blocks), got.view(blocks)[:, perm])
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 64, 1), (torch.bfloat16, 128, 1),
+    (torch.bfloat16, 40, 1), (torch.bfloat16, 32, 0),
+    (torch.bfloat16, 256, 0), (torch.float32, 64, 0),
+    (torch.float32, 128, 0)])
+def test_block_sparse_route_by_dtype_and_head_dim(cuda, dtype, D, want):
+    """BS_WGMMA (1) for bf16 at 32 < D <= 128, BS_MMA (0) for f32, D <= 32
+    and D = 256; each call counts one launch on the body it names and
+    agrees with the plain version."""
+    idx, cnt = (t.to(cuda) for t in _bs_tables(4, seed=D))
+    g = torch.Generator().manual_seed(D)
+    q, k, v = (torch.randn(2, 512, D, generator=g).to(dtype).to(cuda)
+               for _ in range(3))
+    assert tbs.block_sparse_route(q, k, v, D ** -0.5) == want
+    before = dict(tbs.block_sparse_attention.routes)
+    got = tbs.block_sparse_attention(q, k, v, idx, cnt, D ** -0.5, 128)
+    assert tbs.block_sparse_attention.routes == {
+        **before, want: before[want] + 1}
+    ref = tbs.block_sparse_attention_ref(q, k, v, idx, cnt, D ** -0.5, 128)
+    torch.cuda.synchronize()
+    tol = BS_HOPPER_TOL if dtype == torch.bfloat16 else BS_TOL[dtype]
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_block_sparse_hopper_entry_refuses_what_it_cannot_take(cuda):
+    """Asked for the Hopper body (route 1) on f32, D = 256 or without its
+    scratch, the C entry refuses (cudaErrorInvalidValue) rather than run
+    another body."""
+    import ctypes
+
+    idx, cnt = (t.to(cuda) for t in _bs_tables(2, seed=0))
+    scratch = torch.zeros(3, dtype=torch.int32, device=cuda)
+    for dtype, D, scr in ((torch.float32, 64, scratch),
+                          (torch.bfloat16, 256, scratch),
+                          (torch.bfloat16, 64, None)):
+        q = torch.zeros(1, 256, D, device=cuda, dtype=dtype)
+        err = _build.lib().ptt_block_sparse_attention(
+            q.data_ptr(), q.data_ptr(), q.data_ptr(), idx.data_ptr(),
+            cnt.data_ptr(), q.data_ptr(),
+            None if scr is None else scr.data_ptr(), 1, 256, D, 1,
+            _build.dtype_code(dtype), tbs.BS_WGMMA, ctypes.c_float(0.125),
+            torch.cuda.current_stream().cuda_stream)
+        assert err != 0, (dtype, D)
+
+
 def test_sparse_attention_routes_through_the_kernel(cuda):
     """A shared exact 128-tile CSR: one kernel launch per forward; the
     gradients are the plain route's (the backward is autograd through the
@@ -1702,16 +1819,21 @@ def test_dense_decode_kernel_refuses_what_it_cannot_take(cuda):
 # ------------------------------------------- two blocks, k4 -> k1 coupled
 
 @pytest.mark.parametrize("N,H,W,C4,C,dtype", [
-    (2, 8, 8, 64, 16, torch.bfloat16),       # 64-row tiles
-    (6, 4, 4, 16, 8, torch.bfloat16),        # ragged M = 96, C = 8
+    (2, 8, 8, 64, 16, torch.bfloat16),       # two 64-row tiles, C < 64
+    (6, 4, 4, 16, 8, torch.bfloat16),        # M = 96: a ragged tile, C = 8
     (3, 5, 7, 256, 64, torch.float32),       # f32 input, bf16 operands
-    (8, 7, 7, 2048, 512, torch.bfloat16),    # layer4: 32-row tiles
+    (2, 56, 56, 256, 64, torch.bfloat16),    # ResNet-50 layer1
+    (2, 28, 28, 512, 128, torch.bfloat16),   # layer2
+    (4, 14, 14, 1024, 256, torch.bfloat16),  # layer3
+    (8, 7, 7, 2048, 512, torch.bfloat16),    # layer4
+    (3, 5, 7, 1024, 256, torch.float32),     # M = 105, f32, C = 256
+    (1, 9, 7, 2048, 512, torch.float32),     # M = 63, f32, C = 512
 ])
 def test_fused_pair_kernel_matches_plain(cuda, N, H, W, C4, C, dtype):
     """y2 within 2 bf16 ulps of max |y2| (or 1e-2 abs), as the one-block
     forward; one call a pair, fifteen launches counted at the launches;
     bit-equal reruns (fixed-order sums). Fifteen launches: the coupled
-    rb_k41 once, the other products on the Hopper bodies."""
+    rb_wg_k41 once, the other products on the Hopper bodies."""
     a1 = _block_args(N, H, W, C4, C, dtype, cuda, seed=1)
     a2 = _block_args(N, H, W, C4, C, dtype, cuda, seed=2)
     x, p1, p2 = a1[0], a1[1:], a2[1:]
@@ -1733,6 +1855,36 @@ def test_fused_pair_kernel_matches_plain(cuda, N, H, W, C4, C, dtype):
     assert y2.dtype == dtype and y2.shape == x.shape
     assert (y2.float() - ref.float()).abs().max().item() <= _y_tol(ref)
     assert torch.equal(y2, again)
+
+
+def test_fused_pair_coupled_kernel_tiles_and_width(cuda):
+    """The coupled kernel's row tile is the wrapper's (the per-tile sums'
+    count), for 4C up to 2048; wider is refused (0)."""
+    lib = _build.lib()
+    for C in (8, 64, 128, 256, 512):
+        assert lib.ptt_resblock_k41_rows(4 * C) == trb._K41_ROWS
+    assert lib.ptt_resblock_k41_rows(4 * 1024) == 0
+
+
+def test_fused_pair_planted_fault_fails_the_gate(cuda, monkeypatch):
+    """The coupled kernel run with block 1's residual x read as zeros
+    (the fault the gate must see) breaks the 2-ulp gate at layer3's
+    width."""
+    a1 = _block_args(4, 14, 14, 1024, 256, torch.bfloat16, cuda, seed=1)
+    a2 = _block_args(4, 14, 14, 1024, 256, torch.bfloat16, cuda, seed=2)
+    x, p1, p2 = a1[0], a1[1:], a2[1:]
+    ref = trb.fused_bottleneck2_fwd_ref(x, p1, p2)
+    gemm = trb._Launcher.gemm
+
+    def faulty(self, kind, what, a, N, **kw):
+        if kind == trb._F41:
+            kw["e0"] = torch.zeros_like(kw["e0"])
+        return gemm(self, kind, what, a, N, **kw)
+
+    monkeypatch.setattr(trb._Launcher, "gemm", faulty)
+    bad = trb.fused_bottleneck2_fwd(x, p1, p2)
+    torch.cuda.synchronize()
+    assert (bad.float() - ref.float()).abs().max().item() > 10 * _y_tol(ref)
 
 
 # ----------------------------- short-attention backward on the Hopper bodies

@@ -303,6 +303,17 @@ def test_backward_sums_have_a_row_per_128_row_tile(M):
     assert L.sums(8).shape == (-(-M // 128), 2, 8)
 
 
+@pytest.mark.parametrize("M", [63, 64, 96, 6272, 401408])
+def test_pair_sums_have_a_row_per_64_row_tile(M):
+    """The coupled kernel's per-tile sums of block 2's r1: one [2, C] row
+    per 64-row tile (`_K41_ROWS`, the C entry's `ptt_resblock_k41_rows`),
+    so ResNet-50's layer4 (M = 6272) has 98 of them."""
+    L = tfr._Launcher.__new__(tfr._Launcher)
+    L.M, L.dev = M, torch.device("cpu")
+    assert tfr._K41_ROWS == 64
+    assert L.sums(8, tfr._K41_ROWS).shape == (-(-M // 64), 2, 8)
+
+
 # ------------------------------- the forward's B operands (the wrapper's)
 
 @pytest.mark.parametrize("C", [8, 16, 64])
@@ -345,8 +356,8 @@ def test_forward_conv_operand_computes_the_conv():
 
 def test_forward_launch_names_and_bodies():
     """`FWD_PRODUCTS` names the forward's eight launches; every product
-    kind maps to a Hopper body, the coupled kind to rb_k41; every body the
-    wrappers count by has a name."""
+    kind maps to a Hopper body, the coupled kind to its own, the wgmma
+    kernel rb_wg_k41; every body the wrappers count by has a name."""
     assert tfr.FWD_PRODUCTS == ("F1", "bn1", "F2", "bn2", "form a2", "F3",
                                 "bn3", "F4")
     hopper = {tfr.ROUTE_ROWS, tfr.ROUTE_CONV, tfr.ROUTE_WGRAD}
@@ -354,6 +365,7 @@ def test_forward_launch_names_and_bodies():
         assert tfr._BODY[kind] in hopper
     assert tfr._BODY[tfr._F2] == tfr.ROUTE_CONV
     assert tfr._BODY[tfr._F41] == tfr.ROUTE_K41
+    assert tfr.ROUTE_NAMES[tfr.ROUTE_K41].startswith("rb_wg_k41 ")
     assert tfr._BODY[tfr._FA] == tfr.ROUTE_FORM
     for f in (tfr.fused_bottleneck_fwd, tfr.fused_bottleneck_bwd,
               tfr.fused_bottleneck2_fwd):

@@ -316,3 +316,44 @@ def test_flash_attn_unpadded_refuses_dropout_and_probabilities():
     with pytest.raises(NotImplementedError):
         tF.flash_attn_unpadded(x, x, x, cu, cu, 4, 4, 1.0,
                                return_softmax=True)
+
+
+# ------------------------------------------- the kernel's body (CUDA route)
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 64, 1), (torch.bfloat16, 128, 1),
+    (torch.bfloat16, 40, 1), (torch.bfloat16, 33, 0),
+    (torch.bfloat16, 32, 0), (torch.bfloat16, 256, 0),
+    (torch.float32, 64, 0), (torch.float32, 128, 0)])
+def test_block_sparse_route_by_dtype_and_head_dim(dtype, D, want):
+    """`block_sparse_route`: the flash forward's Hopper body under the
+    block-table policy (BS_WGMMA = 1) for bf16 at 32 < D <= 128 with
+    D % 8 == 0, `bs_fwd` (BS_MMA = 0) for f32, D <= 32 and D > 128 (the
+    range the flash Hopper body takes)."""
+    q = torch.zeros(2, 256, D, dtype=dtype)
+    assert (tbs.BS_MMA, tbs.BS_WGMMA) == (0, 1)
+    assert tbs.block_sparse_route(q, q, q, D ** -0.5) == want
+
+
+def test_block_sparse_route_needs_aligned_operands_and_a_scale():
+    """The Hopper body's tensor maps need 16-byte aligned bases, and its
+    softmax a positive scale: anything else takes `bs_fwd`."""
+    q = torch.zeros(2, 256, 64, dtype=torch.bfloat16)
+    assert tbs.block_sparse_route(q, q, q, 0.125) == tbs.BS_WGMMA
+    flat = torch.zeros(2 * 256 * 64 + 1, dtype=torch.bfloat16)
+    odd = flat[1:].view(2, 256, 64)                 # 2 bytes off
+    assert odd.data_ptr() % 16 != 0
+    assert tbs.block_sparse_route(odd, q, q, 0.125) == tbs.BS_MMA
+    assert tbs.block_sparse_route(q, q, odd, 0.125) == tbs.BS_MMA
+    assert tbs.block_sparse_route(q, q, q, 0.0) == tbs.BS_MMA
+    assert tbs.block_sparse_route(q, q.float(), q, 0.125) == tbs.BS_MMA
+
+
+def test_block_sparse_cpu_call_counts_no_route():
+    """A CPU call takes the plain version: no body's count moves."""
+    q, k, v, bidx, bcnt = _bs_case(2, 256, 64, 128, seed=5)
+    before = dict(tbs.block_sparse_attention.routes)
+    tbs.block_sparse_attention(*map(torch.from_numpy, (q, k, v, bidx, bcnt)),
+                               0.125, 128)
+    assert tbs.block_sparse_attention.routes == before
+    assert set(before) == {tbs.BS_MMA, tbs.BS_WGMMA}
