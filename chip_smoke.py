@@ -62,21 +62,30 @@ Phases (any failure exits non-zero and prints no result line):
    blocks at the four stage shapes, beside two one-block calls and the
    per-op route;
 3. serving end to end: llama2_7b at full width (random weights from a
-   seed) served by `DecodeEngine` — (a) bf16 weights with a bf16 KV pool,
-   (b) int8 weights with an int8 KV pool, (c) int4 weights, one short
-   wave — with launch counts of both kernels set to 0 before and read
-   after each run (every paged launch on the ring body), tokens/s, time
-   to first token, the block-pool
+   seed) served by `DecodeEngine` on its step programs, CUDA graphs built
+   by `warmup()` (every decode step a replay: replays equal steps) —
+   (a) bf16 weights with a bf16 KV pool, (b) int8 weights with an int8
+   KV pool, (c) int4 weights, one short wave — with launch counts of both
+   kernels set to 0 before and read after each run (every paged launch
+   on the ring body, counted on replays), tokens/s, time to first token,
+   mean decode step ms, the block-pool
    conservation check, the engine's first decode-step logits against a
    dense `model.forward` recompute, solo-vs-batched token equality (held:
-   every float decode Linear goes through the row-stable GEMV), and a
+   every float decode Linear goes through the row-stable GEMV), the same
+   prompts through eager steps (`_eager_steps`, half the tokens) held
+   bit-equal to the graphs' tokens for (a) and (b), and a
    torch.profiler window over decode steps (device-busy time per step
    and kernel time by family); then (d) multi-tenant serving on run (b)'s
    int8 model: LoRA adapters through BGMV (every launch on its cluster
    body), a shared system prompt through
    the prefix cache with copy-on-write, sampled and greedy requests, a
-   stop sequence — tokens held against a private-copy engine — and its
-   decode step under torch.profiler in a child process;
+   stop sequence — tokens held against a private-copy engine on eager
+   steps — and its decode step under torch.profiler in a child process;
+   and (e) speculative decoding on run (a)'s bf16 model, K = 4, over run
+   (a)'s prompts, drafted by the target itself and by a 4-layer draft
+   of its first blocks: every propose and verify step a replay, the
+   tokens held equal to run (a)'s, the acceptance counters and both
+   block pools checked;
 4. training end to end: gpt_base at full width and depth (f32 masters,
    bf16 compute) through `distributed.parallelize` with AdamW and global
    grad-norm clipping — a throughput run on one fixed batch from
@@ -147,13 +156,17 @@ the plain versions is a full float32 product.
 """
 from __future__ import annotations
 
+import faulthandler
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
+import weakref
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+WATCHDOG_S = 1140                  # inside the 1200 s a run may take
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12                # H100 SXM f32 peak outside the tensor cores
@@ -1120,7 +1133,73 @@ def _prompts(np, vocab, lens):
     return [rng.randint(0, vocab, (n,)).astype(np.int64) for n in lens]
 
 
-def serve(torch, np, model, quant, lens, new_tokens, label, check_dense):
+def time_steps(eng):
+    """Time every decode step of `eng` on the host clock (a step ends
+    with its tokens on the host, so the device's work is inside): wraps
+    the engine's step dispatch; returns the list the times (ms) go to."""
+    # the engine is held weakly: no reference cycle keeps it (its pools)
+    # alive past its run
+    times, ref, dispatch = [], weakref.ref(eng), type(eng)._dispatch_decode
+
+    def timed(active):
+        t0 = time.perf_counter()
+        out = dispatch(ref(), active)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    eng._dispatch_decode = timed
+    return times
+
+
+def programs(st, step_ms=None):
+    """The step programs of an engine's stats: built, whether every one is
+    a CUDA graph, replays by kind, and whether the decode programs'
+    replays equal the decode steps (and, with speculation on, the propose
+    and verify replays, summed over buckets, equal the speculation
+    rounds); the isolation rounds and speculation fallbacks, which must
+    both be 0: a step program that raises is caught by the engine and its
+    sequences re-run as plain bucket-1 steps, whose tokens are plain
+    greedy's too, so no token check sees it; with `step_ms`, the mean
+    step."""
+    by_kind = {}
+    for name, p in st["step_programs"].items():
+        kind = name.split("-b")[0]
+        by_kind[kind] = by_kind.get(kind, 0) + p["replays"]
+    sp = st["speculative"]
+    equal = by_kind.get("greedy", 0) + by_kind.get("sampled", 0) \
+        == st["steps"]
+    if sp["enabled"]:
+        equal = equal and by_kind.get("verify", 0) \
+            == sp["verify_dispatches"] == sp["rounds"] \
+            == by_kind.get("propose", 0) \
+            == sp["draft_dispatches"] - sp["catchup_chunks"]
+    out = {"programs_built": st["compiles"]["built"],
+           "all_graphs": all(p["graph"]
+                             for p in st["step_programs"].values()),
+           "replays": by_kind, "replays_equal_steps": equal,
+           "isolation_rounds": st["isolation_rounds"],
+           "spec_fallbacks": sp["fallbacks"]}
+    if step_ms:
+        out["step_ms_mean"] = sum(step_ms) / len(step_ms)
+        out["step_ms_median"] = sorted(step_ms)[len(step_ms) // 2]
+    return out
+
+
+def graph_gate(label, res, graphs=True):
+    """Fail unless every step of the run was a replay of a CUDA graph
+    (`graphs`) or an eager run of its program (not `graphs`)."""
+    if res["all_graphs"] != graphs or not res["replays_equal_steps"] \
+            or res["isolation_rounds"] or res["spec_fallbacks"]:
+        raise AssertionError(f"{label}: step programs {res}, expected "
+                             f"every step {'a replay' if graphs else 'eager'}"
+                             f" and no isolation round or fallback")
+
+
+def serve(torch, np, model, quant, lens, new_tokens, label, check_dense,
+          eager=False):
+    """Serve the prompts of `lens` in two waves; `eager`: on eager steps
+    (`_eager_steps`) instead of CUDA graphs. The result holds the tokens
+    under "outputs"."""
     from paddle_tpu_torch.inference import DecodeEngine
     from paddle_tpu_torch.ops.decode_attn import paged_decode_attention
     from paddle_tpu_torch.ops.weight_only import row_gemv, weight_only_matmul
@@ -1130,9 +1209,14 @@ def serve(torch, np, model, quant, lens, new_tokens, label, check_dense):
     eng = DecodeEngine(model, max_length=max_length, block_size=16,
                        decode_buckets=(1, 2, 4, 8), prefill_chunk=256,
                        quant=quant, default_timeout=600.0,
-                       device=model.device)
-    # warm-up: one short request, outside the measured window
+                       device=model.device, _eager_steps=eager)
+    # warm-up, outside the measured window: the step programs (graphs),
+    # then one short request
+    t0 = time.perf_counter()
+    eng.warmup()
+    warmup_s = time.perf_counter() - t0
     eng.generate(prompts[0][:8], 2)
+    step_ms = time_steps(eng)
     paged_decode_attention.launches = 0
     zero_routes(paged_decode_attention)
     weight_only_matmul.launches = 0
@@ -1166,7 +1250,9 @@ def serve(torch, np, model, quant, lens, new_tokens, label, check_dense):
            "steps": st["steps"], "prefill_chunks": st["prefill_chunks"],
            "occupancy": st["occupancy"], "launches": launches,
            "weight_only_routes": wo_routes, "paged_routes": paged_routes,
-           "gemv_routes": gemv_routes}
+           "gemv_routes": gemv_routes, "warmup_s": warmup_s,
+           **programs(st, step_ms)}
+    graph_gate(label, res, graphs=not eager)
     if any(len(o) != new_tokens for o in outs) or any(
             not 0 <= t < model.cfg.vocab_size for o in outs for t in o):
         raise AssertionError(f"{label}: malformed token output")
@@ -1194,6 +1280,31 @@ def serve(torch, np, model, quant, lens, new_tokens, label, check_dense):
         res.update(dense_check(torch, np, model, prompts[0], outs[0][0],
                                streams[0].logits[1]))
     log(f"  e2e {json.dumps(res)}")
+    res["outputs"] = outs
+    return res
+
+
+def eager_vs_graphs(torch, np, model, quant, run, new_tokens):
+    """The prompts of graph run `run` through eager steps, `new_tokens`
+    each: every sequence's tokens must be the graphs' first `new_tokens`
+    bit for bit (greedy decoding is causal). Returns both runs' rates."""
+    label = f"{run['run']}, eager steps"
+    r = serve(torch, np, model, quant, PROMPT_LENS, new_tokens, label,
+              check_dense=False, eager=True)
+    outs = r.pop("outputs")
+    equal = sum(o == g[:new_tokens] for o, g in zip(outs, run["outputs"]))
+    res = {"run": label, "sequences_equal": f"{equal}/{len(outs)}",
+           "eager_tokens_per_s": r["tokens_per_s"],
+           "graphs_tokens_per_s": run["tokens_per_s"],
+           "eager_step_ms_mean": r["step_ms_mean"],
+           "graphs_step_ms_mean": run["step_ms_mean"],
+           "eager_step_ms_median": r["step_ms_median"],
+           "graphs_step_ms_median": run["step_ms_median"],
+           "device": nvidia_smi_line()}
+    log(f"  eager vs graphs {json.dumps(res)}")
+    if equal != len(outs):
+        raise AssertionError(f"{label}: {equal} of {len(outs)} sequences "
+                             f"decode the graphs' tokens")
     return res
 
 
@@ -1232,10 +1343,12 @@ def profile_decode(torch, np, model, quant, label, steps=12, pool=None):
     are prefilled, then `steps` batched decode steps run under
     torch.profiler. The sequences may grow to max_length 1024 (4096 for a
     model of 2 layers or fewer, `--quick`'s, whose steps are fast enough
-    to finish 700 tokens while the profiler starts). Reports the
-    host-clock step time, the device-busy time per step (the sum of
-    kernel times; the rest is the GPU idling on the eager host loop) and
-    the kernel time by family. With an adapter
+    to finish 700 tokens while the profiler starts). The engine's step
+    programs are built first (`warmup()`: CUDA graphs, so each step is a
+    replay). Reports the host-clock step time, the device-busy time per
+    step (the sum of kernel times; the rest is the GPU idling on the
+    host: the scheduler's Python, the staging, the token copy) and the
+    kernel time by family. With an adapter
     `pool`, the sequences go round-robin over {none, a1..a6} and the odd
     ones are sampled, as in run (d)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1247,6 +1360,10 @@ def profile_decode(torch, np, model, quant, label, steps=12, pool=None):
                        decode_buckets=(1, 2, 4, 8), prefill_chunk=256,
                        quant=quant, default_timeout=600.0, adapters=pool,
                        device=model.device)
+    eng.warmup()
+    # no object of an earlier run (a CUDA graph among them) is left for
+    # the collector to free inside the profiled window
+    gc.collect()
 
     def opts(i):
         if pool is None:
@@ -1264,8 +1381,9 @@ def profile_decode(torch, np, model, quant, label, steps=12, pool=None):
     for st in streams:
         next(iter(st))                      # every prompt is prefilled
     give_up = time.perf_counter() + 120.0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    between_rounds(eng, prof.__enter__)
+    try:
         s0 = eng.stats()["steps"]
         t0 = time.perf_counter()
         while eng.stats()["steps"] < s0 + steps:
@@ -1279,7 +1397,10 @@ def profile_decode(torch, np, model, quant, label, steps=12, pool=None):
             time.sleep(0.0005)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        done = eng.stats()["steps"] - s0
+        st_end = eng.stats()
+        done = st_end["steps"] - s0
+    finally:
+        between_rounds(eng, lambda: prof.__exit__(None, None, None))
     for st in streams:
         st.cancel()
     eng.shutdown()
@@ -1290,12 +1411,38 @@ def profile_decode(torch, np, model, quant, label, steps=12, pool=None):
         ("library_gemm", GEMM_NAMES)))
     busy_ms = sum(fam.values()) / 1e3 / done
     res = {"run": label, "steps": done, "step_ms": wall * 1e3 / done,
+           "graphs": all(p["graph"] for p in st_end["step_programs"]
+                         .values()),
            "device_busy_ms_per_step": busy_ms,
            "device_idle_share": max(0.0, 1 - busy_ms / (wall * 1e3 / done)),
            "kernel_ms_per_step": {k: v / 1e3 / done for k, v in fam.items()},
            **host_ops(prof, done)}
     log(f"  profile {json.dumps(res)}")
     return res
+
+
+def between_rounds(eng, fn):
+    """Run `fn` on this thread while `eng`'s scheduler waits between two
+    rounds, so that no step of it is in flight: the profiler is started
+    and stopped so (a graph replay in flight while torch.profiler stopped
+    hung the run)."""
+    import threading
+
+    held, release = threading.Event(), threading.Event()
+
+    def hold():
+        held.set()
+        release.wait()
+
+    waiter = threading.Thread(target=eng._on_scheduler, args=(hold,))
+    waiter.start()
+    if not held.wait(60.0):
+        raise AssertionError("the engine's scheduler took no call in 60 s")
+    try:
+        return fn()
+    finally:
+        release.set()
+        waiter.join()
 
 
 def host_ops(prof, steps, n=12):
@@ -1416,10 +1563,12 @@ def multi_tenant(torch, np, model, new_tokens):
     sampled, on the decode buckets (1, 2, 4, 8). The private-copy engine
     (prefix_cache=False) runs the same requests first; with int8 weights
     every decode product is row-stable, so each greedy sequence must match
-    it exactly. The sampled request with a stop sequence stops where the
-    private run's tokens say it must; a sampled request resubmitted alone
-    (bucket 1) reproduces its tokens from the batch (buckets 8 down to
-    2)."""
+    it exactly. The private engine runs eager steps (`_eager_steps`) and
+    the sharing engine CUDA graphs, so the same gates hold the graphs to
+    the eager steps. The sampled request with a stop sequence stops where
+    the private run's tokens say it must; a sampled request resubmitted
+    alone (bucket 1) reproduces its tokens from the batch (buckets 8 down
+    to 2)."""
     from paddle_tpu_torch.inference import (AdapterPool, DecodeEngine,
                                             SamplingParams)
     from paddle_tpu_torch.ops.bgmv import lora_delta
@@ -1436,9 +1585,13 @@ def multi_tenant(torch, np, model, new_tokens):
                prefill_chunk=256, quant="int8", default_timeout=600.0,
                adapters=pool, device=model.device)
     try:
-        with DecodeEngine(model, prefix_cache=False, **geo) as priv:
+        with DecodeEngine(model, prefix_cache=False, _eager_steps=True,
+                          **geo) as priv:
+            priv.warmup()
             priv.generate(reqs[0][0][:8], 2)          # warm-up
+            priv_ms = time_steps(priv)
             _, ref = _serve_tenants(priv, reqs, new_tokens)
+            priv_progs = programs(priv.stats(), priv_ms)
         # the stop: the first bigram of sampled request 3's private run
         # whose first occurrence is past position 0
         toks = ref[3]
@@ -1447,7 +1600,9 @@ def multi_tenant(torch, np, model, new_tokens):
                          if tuple(toks[i:i + 2]) not in
                          {tuple(toks[j:j + 2]) for j in range(i)})
         eng = DecodeEngine(model, **geo)
+        eng.warmup()
         eng.generate(reqs[1][0][:8], 2)               # warm-up
+        step_ms = time_steps(eng)
         for w in (lora_delta, paged_decode_attention, weight_only_matmul):
             w.launches = 0
         zero_routes(lora_delta)
@@ -1463,6 +1618,7 @@ def multi_tenant(torch, np, model, new_tokens):
                     "paged_decode_attention": paged_decode_attention.launches,
                     "weight_only_matmul": weight_only_matmul.launches}
         st = eng.stats()
+        progs = programs(st, step_ms)
         quiesced = st["blocks"]["allocated"] \
             - st["prefix_cache"]["physical_blocks"]
         prompt, tenant, sampling = reqs[5]
@@ -1494,11 +1650,14 @@ def multi_tenant(torch, np, model, new_tokens):
            "stop_truncated_at": idx, "stop_hits": st["stop_hits"],
            "sampled_alone_equal": alone == outs[5],
            "adapter_refs_after": refs, "quiesced_extra_blocks": quiesced,
+           **progs, "private_eager": priv_progs,
            **bucket_invariance(torch, model),
            "blocks_after_shutdown": {k: blocks[k] for k in (
                "total", "allocated", "free", "reserved", "allocs",
                "frees")}}
     log(f"  e2e {json.dumps(res)}")
+    graph_gate("run (d)", progs)
+    graph_gate("run (d), private", priv_progs, graphs=False)
     fails = []
     if launches["lora_delta"] == 0:
         fails.append("lora_delta never launched")
@@ -1531,6 +1690,113 @@ def multi_tenant(torch, np, model, new_tokens):
     return res
 
 
+SPEC_K = 4
+DRAFT_LAYERS = 4
+
+
+def _draft_of(torch, model, layers):
+    """A llama2_7b-width draft of `layers` layers holding copies of the
+    target's embeddings, first `layers` blocks, final norm and head."""
+    from paddle_tpu_torch.models import gpt
+
+    draft = gpt("llama2_7b", dtype="bfloat16", device="cuda", seed=1,
+                num_layers=layers)
+    own = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, p in draft.named_parameters():
+            p.copy_(own[name])
+    return draft
+
+
+def speculative(torch, np, model, run_a, new_tokens):
+    """Run (e): run (a)'s prompts through speculative decoding (K = 4) on
+    run (a)'s bf16 model and pool, once drafted by the target itself and
+    once by a 4-layer draft of its first blocks, each with the launch
+    counts set to 0 before and read after. Gates: every propose and
+    verify step (and every plain step) a graph replay; every sequence's
+    tokens equal to run (a)'s plain greedy tokens; proposed == accepted +
+    rejected; the self-draft accepts every proposal; both pools drained
+    and conserved after shutdown."""
+    from paddle_tpu_torch.inference import DecodeEngine
+    from paddle_tpu_torch.ops.decode_attn import paged_decode_attention
+    from paddle_tpu_torch.ops.weight_only import row_gemv
+
+    prompts = _prompts(np, model.cfg.vocab_size, PROMPT_LENS)
+    max_length = 4096 if model.cfg.num_layers <= 2 else 1024
+    out = []
+    for name in ("self", "draft"):
+        draft = model if name == "self" else _draft_of(
+            torch, model, min(DRAFT_LAYERS, model.cfg.num_layers))
+        eng = DecodeEngine(model, max_length=max_length, block_size=16,
+                           decode_buckets=(1, 2, 4, 8), prefill_chunk=256,
+                           default_timeout=600.0, draft_model=draft,
+                           speculate_k=SPEC_K, device=model.device)
+        t0 = time.perf_counter()
+        eng.warmup()
+        warmup_s = time.perf_counter() - t0
+        eng.generate(prompts[0][:8], 2)
+        step_ms = time_steps(eng)
+        for w in (paged_decode_attention, row_gemv):
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams = [eng.submit(p, new_tokens) for p in prompts]
+        outs = [s.result() for s in streams]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"paged_decode_attention": paged_decode_attention.launches,
+                    "row_gemv": row_gemv.launches}
+        st = eng.stats()
+        drained = eng.shutdown()
+        after = eng.stats()
+        sp = st["speculative"]
+        equal = sum(o == r for o, r in zip(outs, run_a["outputs"]))
+        res = {"run": f"e: speculative, K = {SPEC_K}, draft = "
+                      f"{'the target' if name == 'self' else f'{DRAFT_LAYERS} layers'}",
+               "tokens": sum(map(len, outs)), "wall_s": wall,
+               "tokens_per_s": sum(map(len, outs)) / wall,
+               "plain_tokens_per_s": run_a["tokens_per_s"],
+               "warmup_s": warmup_s, "launches": launches,
+               "equal_plain_greedy": f"{equal}/{len(outs)}",
+               "acceptance_rate": sp["acceptance_rate"],
+               # a verify dispatch serves every ready sequence; a
+               # sequence's round commits accepted + 1 tokens at most
+               "committed_per_sequence_round":
+                   sp["committed"] * SPEC_K / max(1, sp["proposed"]),
+               "committed_per_verify_dispatch": sp["accepted_per_dispatch"],
+               **{k: sp[k] for k in ("rounds", "proposed", "accepted",
+                                     "rejected", "bonus", "committed",
+                                     "verify_dispatches", "catchup_chunks",
+                                     "fallbacks")},
+               "plain_steps": st["steps"], **programs(st, step_ms),
+               "blocks_after_shutdown": after["blocks"]["allocated"],
+               "draft_blocks_after_shutdown":
+                   after["draft_blocks"]["allocated"]}
+        log(f"  e2e {json.dumps(res)}")
+        graph_gate(res["run"], res)
+        fails = []
+        if equal != len(outs):
+            fails.append(f"{equal} of {len(outs)} sequences equal run "
+                         f"(a)'s greedy tokens")
+        if sp["proposed"] != sp["accepted"] + sp["rejected"] \
+                or sp["proposed"] == 0:
+            fails.append(f"counters {sp}")
+        if name == "self" and sp["acceptance_rate"] != 1.0:
+            fails.append(f"self-draft acceptance {sp['acceptance_rate']}")
+        for key in ("blocks", "draft_blocks"):
+            b = after[key]
+            if b["allocated"] != 0 or b["allocated"] + b["free"] \
+                    + b["reserved"] != b["total"]:
+                fails.append(f"{key} not conserved or drained: {b}")
+        if not drained or min(launches.values()) == 0:
+            fails.append(f"drained {drained}, launches {launches}")
+        if fails:
+            raise AssertionError(f"{res['run']}: {'; '.join(fails)}")
+        out.append(res)
+        del draft, eng
+    return out
+
+
 def end_to_end(torch, np, layers, new_tokens):
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.nn.quant import quantize_for_inference
@@ -1540,7 +1806,7 @@ def end_to_end(torch, np, layers, new_tokens):
         return gpt("llama2_7b", dtype="bfloat16", device="cuda", seed=0,
                    num_layers=layers)
 
-    runs = []
+    runs, eager = [], []
     model = build()
     r = serve(torch, np, model, None, PROMPT_LENS, new_tokens,
               "a: bf16 weights, bf16 KV", check_dense=True)
@@ -1554,11 +1820,16 @@ def end_to_end(torch, np, layers, new_tokens):
                              f"{r['gemv_routes']}, expected all on "
                              f"{ROW_ROUTE_NAMES[1]}")
     runs.append(r)
+    eager.append(eager_vs_graphs(torch, np, model, None, r,
+                                 new_tokens // 2))
+    spec = speculative(torch, np, model, r, new_tokens)
     quantize_for_inference(model, "int8")
     torch.cuda.empty_cache()
     r = serve(torch, np, model, "int8", PROMPT_LENS, new_tokens,
               "b: int8 weights, int8 KV", check_dense=False)
     runs.append(r)
+    eager.append(eager_vs_graphs(torch, np, model, "int8", r,
+                                 new_tokens // 2))
     # one profiler session per process: a second one in the same process
     # recorded no device activity on the card
     profiles = [profile_decode(torch, np, model, "int8",
@@ -1572,6 +1843,8 @@ def end_to_end(torch, np, layers, new_tokens):
               "c: int4 weights, int8 KV, one wave", check_dense=False)
     runs.append(r)
     del model
+    for r in runs:
+        r.pop("outputs", None)
     for r in runs[1:]:
         if min(v for k, v in r["launches"].items() if k != "row_gemv") == 0:
             raise AssertionError(f"{r['run']}: a kernel never launched: "
@@ -1584,7 +1857,7 @@ def end_to_end(torch, np, layers, new_tokens):
                                  f"{r['paged_routes']}, expected all "
                                  f"{r['launches']['paged_decode_attention']}"
                                  f" on the ring body")
-    return runs, profiles
+    return runs, profiles, eager, spec
 
 
 # ---------------------------------------------------------------------------
@@ -4082,6 +4355,9 @@ def main(argv):
             json.dump(res, f)
         return 0
     t_start = time.perf_counter()
+    # a hang prints every thread's stack and exits non-zero before the
+    # run's time limit
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     # the report's directory also holds the training profile child's file
     os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
     smi = nvidia_smi_line()
@@ -4129,8 +4405,8 @@ def main(argv):
 
     log_phase(t_start, "phase 3: llama2_7b end to end through DecodeEngine")
     serve_layers = 2 if args.quick else 32
-    runs, profiles = end_to_end(torch, np, serve_layers,
-                                8 if args.quick else 32)
+    runs, profiles, eager, spec = end_to_end(torch, np, serve_layers,
+                                             8 if args.quick else 32)
     profiles.append(run_child("--profile-tenants", serve_layers, args.seed,
                               args.report))
     log(f"  profile {json.dumps(profiles[-1])}")
@@ -4277,7 +4553,8 @@ def main(argv):
     return finish(args, torch, smi, build_rec, t_start, kernels, {
         "weight_only": wo_rows, "paged_decode": pd_rows, "bgmv": bg_rows,
         "flash_attention": fa_rows, "short_attention": sa_rows,
-        "e2e": runs, "profiles": profiles, "train": train, "bert": bert_run,
+        "e2e": runs, "profiles": profiles, "eager_vs_graphs": eager,
+        "speculative": spec, "train": train, "bert": bert_run,
         "fused_resblock": rb_rows, "resnet": resnet_run,
         "flash_pos": fp_rows, "serial_ring": ring_rows, "row_gemv": gv_rows,
         "cp": cp_run, "block_sparse": bs_rows, "decode_attention": dec_rows,

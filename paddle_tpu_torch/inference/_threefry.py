@@ -80,9 +80,12 @@ def uniform(key, n, minval=0.0):
     bits = random_bits(key, n)
     fb = (bits >> 9) | _ONE_F32_BITS
     floats = fb.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
-    span = torch.tensor(1.0, dtype=torch.float32, device=floats.device) - lo
-    return torch.maximum(lo, floats * span + lo)
+    # f32 scalars formed on the host: no copy to the device, so that a
+    # CUDA graph can capture the draw
+    lo = torch.tensor(minval, dtype=torch.float32)
+    span = float(1.0 - lo)
+    lo = float(lo)
+    return torch.clamp_min(floats * span + lo, lo)
 
 
 def gumbel(key, n):

@@ -25,6 +25,27 @@ batched decode step:
   pos % BS)`` (int8 pools quantize it first) and attends with the paged
   flash-decoding kernel (`ops.decode_attn.paged_decode_attention`),
   which reads every sequence's blocks in place through its table.
+* **One step program per (kind, bucket)** (`step_graphs`, the
+  counterpart of the JAX engine's bucketed AOT step executables): a
+  greedy and a sampled decode step, and with speculation on a propose
+  and a verify step, each over static input buffers. On the GPU each is
+  a CUDA graph, captured once on the scheduler thread (`warmup()`
+  builds them all up front), and a step is one host-to-device copy, one
+  replay and the copy of its tokens; on the CPU the same program runs
+  eagerly. Prefill chunks run eagerly, at their own length.
+* **Speculative decoding** (Leviathan et al. 2023; ``draft_model=``,
+  ``speculate_k=K``): a draft model proposes K tokens a round from its
+  own paged pool (the propose program: K + 1 draft steps, each fed the
+  previous step's argmax), and the target scores the K + 1 positions in
+  the verify program: K + 1 runs of the plain decode step's own body, so
+  every verified argmax is the plain greedy step's bit for bit. Greedy
+  acceptance commits the longest agreeing prefix plus the target's
+  correction (or bonus) token; the draft's rejected rows roll back by
+  position. Greedy, adapter-free sequences speculate; the rest take the
+  plain step. The draft prefills each of the target's prefill chunks
+  beside it; where it lags (a prefix-cache hit, plain steps after a
+  fallback) it catches up over the committed tokens one chunk a round,
+  eagerly like prefill.
 * **Copy-on-write prefix sharing** (vLLM): a completed prefill publishes
   its prompt's blocks into a prefix cache keyed by token content and
   adapter signature — a full-prompt entry, plus one entry at every
@@ -76,9 +97,9 @@ every bucket (tests/test_torch_cuda.py holds the bf16 decode step), and
 in a batch. Prefill chunks keep cuBLAS: a chunk is one sequence's, of
 the same length alone and in a batch.
 
-Not ported yet (passing them raises `NotImplementedError`): speculative
-decoding, `resume_committed`, tensor-parallel meshes, the `ServingPool`
-integration, the AOT compile cache and the fault hook.
+Not ported yet (passing them raises `NotImplementedError`):
+`resume_committed`, tensor-parallel meshes, the `ServingPool`
+integration, the on-disk compile cache and the fault hook.
 
 Usage::
 
@@ -108,6 +129,7 @@ from ..serving import (AdapterNotLoaded, Deadline, DeadlineExceeded,
                        Overloaded, PoolClosed, RequestFailed)
 from .adapter_pool import AdapterPool, adapter_context
 from .block_pool import OutOfBlocks, RESERVED_BLOCKS
+from .step_graphs import StepPrograms
 
 __all__ = ["DecodeEngine", "SequenceStream"]
 
@@ -119,9 +141,6 @@ _CACHE_OWNER = "prefix-cache"
 
 #: unported constructor / submit options -> the later slice that ports them
 _LATER = {
-    "draft_model": "the speculative-decoding slice",
-    "speculate_k": "the speculative-decoding slice",
-    "draft_num_blocks": "the speculative-decoding slice",
     "resume_committed": "the serving-runtime slice",
     "mesh": "the parallelism (NCCL) slice",
     "sharding_rules": "the parallelism (NCCL) slice",
@@ -215,7 +234,8 @@ class _Seq:
                  "prefill_pos", "last_token", "generated",
                  "cancelled", "submitted_at", "keep_logits", "sampling",
                  "adapter", "adapter_slot", "adapter_sig", "sample_base",
-                 "out_tokens", "held")
+                 "out_tokens", "held", "draft_blocks", "draft_pos",
+                 "draft_outstanding")
 
     def __init__(self, sid, prompt, max_new, deadline):
         self.id = sid
@@ -242,16 +262,32 @@ class _Seq:
         self.out_tokens = []            # every committed token (incl. held)
         self.held = []                  # committed, not yet streamed (a
         #                                 possible stop-sequence prefix)
+        self.draft_blocks = []          # draft-pool block ids, table order
+        self.draft_pos = 0              # valid draft KV rows (rollback line)
+        self.draft_outstanding = 0      # draft fresh allocations to come
 
 
 class DecodeEngine:
     """Iteration-level decode engine over a paged KV cache, with prefix
-    sharing, per-request sampling and LoRA adapters. See the module
-    docstring for the semantics and the determinism contract.
+    sharing, per-request sampling, LoRA adapters and speculative
+    decoding. See the module docstring for the semantics and the
+    determinism contract.
 
     `device` defaults to the GPU (raising when there is none) and must be
     the model's device. `adapters` is an `AdapterPool` built over `model`
-    (or None)."""
+    (or None). `draft_model` (a causal LM on the same device with the
+    target's vocabulary; the target itself is allowed) and `speculate_k`
+    >= 1 turn speculation on; its pool holds `draft_num_blocks` blocks
+    (default: a full bucket of worst-case sequences).
+
+    On the GPU the step programs are CUDA graphs, and a graph holds the
+    tensors its capture read: the KV pools and adapter stacks (written in
+    place, so later writes are seen) and the model's parameters as they
+    were. A parameter replaced out of place after a program was built
+    (``module.weight = ...``, or `quantize_for_inference` swapping a
+    layer) is not seen by that program: build the engine after the model
+    is final. A failed capture or replay raises; nothing falls back to
+    eager steps."""
 
     #: samp-pack values of a greedy row: the raw-argmax lane
     _PACK_DEFAULTS = {"ctr": 0, "greedy": 1, "rep": 1.0, "seed": 0,
@@ -262,7 +298,9 @@ class DecodeEngine:
                  prefill_chunk=None, quant=None, max_waiting=64,
                  default_timeout=None, eos_token_id=None, pad_token_id=0,
                  prefix_cache=True, prefix_cache_blocks=None, adapters=None,
-                 device=None, clock=time.monotonic, **unported):
+                 draft_model=None, speculate_k=0, draft_num_blocks=None,
+                 device=None, clock=time.monotonic, _eager_steps=False,
+                 **unported):
         for name, value in unported.items():
             if name not in _LATER:
                 raise TypeError(f"DecodeEngine got an unexpected keyword "
@@ -336,6 +374,12 @@ class DecodeEngine:
                 self._nb + (1 if self._prefix_on else 0))
         self.pool = model.init_block_pool(num_blocks, self.block_size,
                                           quant=quant, name="target")
+        self._init_speculation(draft_model, speculate_k, draft_num_blocks,
+                               quant)
+        # the step programs by (kind, bucket); graphs on the GPU unless
+        # `_eager_steps` (tests and chip_smoke.py compare the two)
+        self._programs = StepPrograms(
+            self.device, self.device.type == "cuda" and not _eager_steps)
 
         # prefix -> block-table cache (scheduler-owned; structure reads and
         # counters under _cv): entries pin their blocks with _CACHE_OWNER
@@ -369,11 +413,58 @@ class DecodeEngine:
         self._prefix_tokens_reused = self._prefix_evictions = 0
         self._cow_copies = self._sampled = self._stop_hits = 0
         self._ttfts = []
+        self._spec_rounds = self._spec_proposed = self._spec_accepted = 0
+        self._spec_rejected = self._spec_bonus = self._spec_committed = 0
+        self._spec_verify_dispatches = self._spec_draft_dispatches = 0
+        self._spec_catchup_chunks = self._spec_fallbacks = 0
+        self._jobs = []             # calls run on the scheduler thread
 
         self._thread = threading.Thread(target=self._loop,
                                         name="DecodeEngine-scheduler",
                                         daemon=True)
         self._thread.start()
+
+    def _init_speculation(self, draft_model, speculate_k, draft_num_blocks,
+                          quant):
+        """Speculation is on when a draft model and ``speculate_k >= 1``
+        are given; ``speculate_k=0`` is the plain engine. The draft pool
+        shares the target pool's geometry and quant mode."""
+        self._k = int(speculate_k)
+        if self._k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
+        self._spec_on = draft_model is not None and self._k > 0
+        self.draft_model = draft_model if self._spec_on else None
+        self.draft_pool = None
+        if not self._spec_on:
+            return
+        if not (hasattr(draft_model, "decode_step_paged")
+                and hasattr(draft_model, "init_block_pool")):
+            raise ValueError(
+                f"draft_model must be a causal LM with a paged step "
+                f"(decode_step_paged, init_block_pool), got "
+                f"{type(draft_model).__name__}")
+        if draft_model.device != self.device:
+            raise ValueError(f"draft model is on {draft_model.device}, "
+                             f"engine device is {self.device}")
+        draft_model.eval()
+        dvocab = draft_model.cfg.vocab_size
+        if dvocab != self._vocab:
+            raise ValueError(f"draft model vocab {dvocab} != target vocab "
+                             f"{self._vocab}: proposals would be "
+                             f"meaningless")
+        # a catch-up span beyond the largest prefill bucket is cut at the
+        # largest block-aligned bucket, as in the reference
+        if not any(b % self.block_size == 0 for b in self.prefill_buckets) \
+                and self.prefill_buckets[-1] < self.max_length - 1:
+            raise ValueError(
+                f"speculative draft catch-up needs a prefill bucket that "
+                f"is a multiple of block_size {self.block_size} (got "
+                f"{self.prefill_buckets}), or a largest bucket spanning "
+                f"max_length - 1 so that catch-up never has to chunk")
+        if draft_num_blocks is None:
+            draft_num_blocks = RESERVED_BLOCKS + self.max_active * self._nb
+        self.draft_pool = draft_model.init_block_pool(
+            draft_num_blocks, self.block_size, quant=quant, name="draft")
 
     # -- admission ---------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens, timeout=None, *,
@@ -424,6 +515,13 @@ class DecodeEngine:
             raise ValueError(f"request needs {worst} worst-case blocks but "
                              f"the pool holds only "
                              f"{self.pool.num_blocks - RESERVED_BLOCKS}")
+        if self._spec_on:
+            dworst = self._draft_worst(ids.shape[0], max_new)
+            if dworst > self.draft_pool.num_blocks - RESERVED_BLOCKS:
+                raise ValueError(
+                    f"request needs {dworst} worst-case draft blocks but "
+                    f"the draft pool holds only "
+                    f"{self.draft_pool.num_blocks - RESERVED_BLOCKS}")
         eff = self.default_timeout if timeout is None else timeout
         dl = Deadline(eff, clock=self._clock)
         with self._cv:
@@ -479,32 +577,69 @@ class DecodeEngine:
     def _loop(self):
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
-        with torch.no_grad():
-            while True:
-                with self._cv:
-                    if self._stopping:
-                        return
-                    idle = not (self._waiting or self._active
-                                or self._prefill_q)
-                    if idle and self._closed:
-                        return
-                    if idle:
-                        self._cv.wait(0.05)
-                        continue
+        try:
+            with torch.no_grad():
+                self._rounds()
+        finally:
+            self._fail_jobs()
+
+    def _rounds(self):
+        while True:
+            with self._cv:
+                if self._stopping:
+                    return
+                jobs, self._jobs = self._jobs, []
+                idle = not (self._waiting or self._active
+                            or self._prefill_q or jobs)
+                if idle and self._closed:
+                    return
+                if idle:
+                    self._cv.wait(0.05)
+                    continue
+            for job in jobs:
                 try:
-                    self._sweep_waiting()
-                    self._admit_waiting()
-                    self._sweep_prefilling()
-                    self._prefill_round()
-                    if self._active:
-                        self._decode_round()
-                except Exception as exc:  # noqa: BLE001 — the scheduler
-                    # survives anything: fail the implicated sequences
-                    err = RequestFailed(f"decode scheduler error: "
-                                        f"{type(exc).__name__}: {exc}",
-                                        cause=exc)
-                    for seq in list(self._active) + list(self._prefill_q):
-                        self._finish(seq, "failed", err)
+                    job["result"] = job["fn"]()
+                except Exception as exc:  # noqa: BLE001 — the caller
+                    job["error"] = exc    # raises it
+                job["done"].set()
+            try:
+                self._sweep_waiting()
+                self._admit_waiting()
+                self._sweep_prefilling()
+                self._prefill_round()
+                if self._active:
+                    self._decode_round()
+            except Exception as exc:  # noqa: BLE001 — the scheduler
+                # survives anything: fail the implicated sequences
+                err = RequestFailed(f"decode scheduler error: "
+                                    f"{type(exc).__name__}: {exc}",
+                                    cause=exc)
+                for seq in list(self._active) + list(self._prefill_q):
+                    self._finish(seq, "failed", err)
+
+    def _on_scheduler(self, fn):
+        """Run `fn` on the scheduler thread between rounds (where every
+        step runs and every program is captured) and return its result or
+        raise its error."""
+        job = {"fn": fn, "done": threading.Event(), "result": None,
+               "error": None}
+        with self._cv:
+            if self._closed:
+                raise PoolClosed("decode engine is shut down")
+            self._jobs.append(job)
+            self._cv.notify()
+        job["done"].wait()
+        if job["error"] is not None:
+            raise job["error"]
+        return job["result"]
+
+    def _fail_jobs(self):
+        with self._cv:
+            jobs, self._jobs = self._jobs, []
+        for job in jobs:
+            job["error"] = PoolClosed("decode engine stopped before the "
+                                      "call ran")
+            job["done"].set()
 
     def _sweep_waiting(self):
         with self._cv:
@@ -552,6 +687,15 @@ class DecodeEngine:
                         and not self._evict_for(reserve + fresh,
                                                 keep=entry):
                     return        # not enough headroom yet
+                if self._spec_on:
+                    # the draft pool has no cache to evict from: its
+                    # worst case must simply fit beside the live ones'
+                    dworst = self._draft_worst(plen, seq.max_new)
+                    dreserve = sum(s.draft_outstanding
+                                   for s in self._active + self._prefill_q)
+                    if self.draft_pool.free_count < dreserve + dworst:
+                        return    # draft headroom pending
+                    seq.draft_outstanding = dworst
                 self._waiting.pop(0)
             try:
                 self._begin_sequence(seq, entry)
@@ -652,6 +796,15 @@ class DecodeEngine:
         last = logits[0, -1].to(torch.float32)
         done = start + this_len
         seq.prefill_pos = done
+        if self._spec_on and seq.draft_pos == start \
+                and self._may_speculate(seq):
+            # the draft prefills the same chunk. On the GPU cuBLAS picks a
+            # product's reduction by the chunk's length, so only the
+            # target's own chunks give a self-draft the target's prompt
+            # rows bit for bit (one catch-up chunk of the whole prompt
+            # read acceptance 0.95 at llama2_7b width on an H100); and
+            # the first speculation round needs no catch-up
+            self._draft_prefill(seq, start, this_len)
         with self._lock:
             self._prefill_chunks += 1
         greedy = self._is_greedy(seq)
@@ -908,6 +1061,25 @@ class DecodeEngine:
                     f"sequence {seq.id} exceeded its deadline "
                     f"mid-generation"))
         active = list(self._active)
+        if self._spec_on:
+            # a sequence speculates when it still wants two tokens or more
+            # (one is exactly a plain step) and all K + 1 verify rows fit
+            # its table (near max_length it takes plain steps); sampled
+            # and adapter sequences take plain steps
+            limit = self._nb * self.block_size
+            spec = [s for s in active
+                    if s.max_new - s.generated > 1
+                    and s.pos + self._k + 1 <= limit
+                    and s.sampling is None and s.adapter is None]
+            active = [s for s in active if s not in spec]
+            if spec:
+                # a sequence whose draft is still catching up (one chunk
+                # a round) takes a plain step this round
+                active += self._speculate_round(spec)
+        if active:
+            self._plain_round(active)
+
+    def _plain_round(self, active):
         # lazy block growth and copy-on-write (the admission reserve covers
         # both): this step writes each sequence's row at seq.pos, and a
         # write into a block another holder references must not be seen
@@ -943,33 +1115,97 @@ class DecodeEngine:
         for seq, tok in zip(active, nxt):
             self._deliver(seq, tok)
 
+    # -- step programs -----------------------------------------------------
+    def _bucket(self, n):
+        return next(b for b in self.decode_buckets if b >= n)
+
+    def _program(self, kind, bucket):
+        """The (kind, bucket) step program, built on first use."""
+        return self._programs.get(kind, bucket,
+                                  lambda: self._make_program(kind, bucket))
+
+    def _make_program(self, kind, bucket):
+        """(fields, body) of a step program. Kinds: "greedy" and "sampled"
+        (one decode step of the target), "propose" (K + 1 draft steps)
+        and "verify" (K + 1 target steps). Pad rows keep the fill values:
+        table 0 (their writes land in reserved block 0), slot 0, the
+        greedy samp pack and a -1 history."""
+        nb, bs = self._nb, self.block_size
+        fields = [("pos", (bucket,), torch.int32, 0),
+                  ("tables", (bucket, nb), torch.int32, 0)]
+        width = self._k + 1 if kind == "verify" else 1
+        fields.append(("tokens", (bucket, width), torch.int64, 0))
+        if kind in ("greedy", "sampled"):
+            fields.append(("aids", (bucket,), torch.int32, 0))
+        if kind == "sampled":
+            fields += [(name, (bucket,), dt, self._PACK_DEFAULTS[name])
+                       for name, dt in PACK_FIELDS]
+            fields.append(("hist", (bucket, self.max_length), torch.int64,
+                           -1))
+
+        def step(model, pool, t, tokens, j=0):
+            """One decode step of `model` over `pool` at pos + j: the f32
+            logit rows [bucket, V]."""
+            batch = PagedBatch.decode(t["tables"], t["pos"] + j, bs)
+            return model.decode_step_paged(tokens, pool.tensors,
+                                           batch)[:, -1].to(torch.float32)
+
+        if kind in ("greedy", "sampled"):
+            def body(t):
+                with self._adapter_scope(t["aids"]):
+                    rows = step(self.model, self.pool, t, t["tokens"])
+                if kind == "greedy":
+                    nxt = rows.argmax(-1)
+                else:
+                    # rows that do not penalise repetition (penalty 1, or
+                    # an all -1 history) come out as without the history
+                    nxt = sample_token(
+                        rows, {name: t[name] for name, _ in PACK_FIELDS},
+                        t["hist"])
+                return {"next": nxt, "logits": rows}
+        elif kind == "propose":
+            def body(t):
+                # K + 1 draft steps, each fed the previous argmax: the
+                # last writes row pos + K (its argmax is dropped), so that
+                # a round whose K proposals are all accepted leaves every
+                # draft row below the new position written
+                tok, props = t["tokens"], []
+                for j in range(self._k + 1):
+                    nxt = step(self.draft_model, self.draft_pool, t, tok,
+                               j).argmax(-1)
+                    props.append(nxt)
+                    tok = nxt[:, None]
+                return {"props": torch.stack(props[:self._k], 1)}
+        else:
+            def body(t):
+                # K + 1 runs of the plain step's body: each argmax is the
+                # plain greedy step's at that position, bit for bit
+                preds = [step(self.model, self.pool, t,
+                              t["tokens"][:, j:j + 1], j).argmax(-1)
+                         for j in range(self._k + 1)]
+                return {"preds": torch.stack(preds, 1)}
+        return fields, body
+
     def _dispatch_decode(self, active):
         n = len(active)
-        bucket = next(b for b in self.decode_buckets if b >= n)
-        tokens = np.zeros((bucket, 1), np.int64)
-        positions = np.zeros(bucket, np.int32)
-        tables = np.zeros((bucket, self._nb), np.int32)  # pad rows -> 0
-        aids = np.zeros(bucket, np.int32)                # pad rows -> slot 0
+        bucket = self._bucket(n)
+        greedy = all(self._is_greedy(s) for s in active)
+        prog = self._program("greedy" if greedy else "sampled", bucket)
+        a = prog.stage()
         for i, seq in enumerate(active):
-            tokens[i, 0] = seq.last_token
-            positions[i] = seq.pos
-            tables[i, :len(seq.blocks)] = seq.blocks
-            aids[i] = seq.adapter_slot
-        dev = self.device
-        batch = PagedBatch.decode(torch.from_numpy(tables).to(dev),
-                                  torch.from_numpy(positions).to(dev),
-                                  self.block_size)
-        with self._adapter_scope(aids):
-            logits = self.model.decode_step_paged(
-                torch.from_numpy(tokens).to(dev), self.pool.tensors, batch)
-        rows = logits[:n, -1].to(torch.float32)
-        if all(self._is_greedy(s) for s in active):
-            nxt = rows.argmax(-1).tolist()
-        else:
-            nxt = self._sample_rows(rows, active)
+            a["tokens"][i, 0] = seq.last_token
+            a["pos"][i] = seq.pos
+            a["tables"][i, :len(seq.blocks)] = seq.blocks
+            a["aids"][i] = seq.adapter_slot
+            if not greedy:
+                for name, v in self._pack_values(seq).items():
+                    a[name][i] = v
+                self._hist_fill(a["hist"][i], seq)
+        out = prog.run()
+        nxt = prog.fetch("next", n)
         for i, seq in enumerate(active):
             if len(seq.stream.logits) < seq.keep_logits:
-                seq.stream.logits.append(rows[i].cpu())
+                seq.stream.logits.append(out["logits"][i].cpu())
             seq.pos += 1
         with self._lock:
             self._steps_run += 1
@@ -989,6 +1225,231 @@ class DecodeEngine:
                     f"{type(exc).__name__}: {exc}", cause=exc))
                 continue
             self._deliver(seq, nxt[0])
+
+    def warmup(self):
+        """Build every step program up front, largest bucket first, on the
+        scheduler thread: each decode bucket's greedy and sampled step,
+        and with speculation on its propose and verify step. On the GPU
+        each is a CUDA graph captured after an eager warm-up; after this
+        no traffic builds another (`stats()["compiles"]`). Prefill chunks
+        run eagerly at their own length, so nothing is built for them.
+        Returns ``{"decode": [...], "prefill": [...]}``, plus
+        ``"speculate_k"`` when speculation is on."""
+        kinds = ("greedy", "sampled") + (
+            ("propose", "verify") if self._spec_on else ())
+
+        def build():
+            for b in reversed(self.decode_buckets):
+                for kind in kinds:
+                    self._program(kind, b)
+
+        self._on_scheduler(build)
+        out = {"decode": list(self.decode_buckets),
+               "prefill": list(self.prefill_buckets)}
+        if self._spec_on:
+            out["speculate_k"] = self._k
+        return out
+
+    # -- speculative decoding ----------------------------------------------
+    # One round for every eligible sequence:
+    #   1. draft catch-up: rebuild the draft's KV over committed tokens
+    #      where it lags (the prompt, a full prefix hit, after a fallback);
+    #   2. propose: one draft program, K tokens a sequence;
+    #   3. verify: one target program, K + 1 positions a sequence;
+    #   4. commit: the longest agreeing prefix plus the target's own token;
+    #      rows past the committed position (both pools) are rewritten
+    #      before anything attends them.
+    # A failed propose or verify falls back to plain isolated steps from
+    # the committed state.
+
+    def _draft_worst(self, plen, max_new):
+        """Worst-case draft blocks of one sequence: a round writes rows
+        pos .. pos + K with pos at most plen + max_new - 2, and never past
+        the table."""
+        return min(self._nb,
+                   self.draft_pool.blocks_for(plen + max_new - 1 + self._k))
+
+    def _may_speculate(self, seq):
+        """Whether `seq` can take a speculation round after its prefill:
+        greedy, no adapter, at least two tokens to go after the first, and
+        K + 1 verify rows that fit its table."""
+        return (seq.sampling is None and seq.adapter is None
+                and seq.max_new > 2 and len(seq.prompt) + self._k + 1
+                <= self._nb * self.block_size)
+
+    def _draft_catchup(self, seq):
+        """Bring the draft's KV toward the committed position where it lags
+        (a prefix-cache hit skipped the prefill it rides on, or plain
+        steps ran after a fallback): prefill committed tokens [draft_pos,
+        pos) into the draft's pool, one chunk a call (a round), at most
+        the largest prefill bucket (then the largest block-aligned one);
+        True when the draft has caught up. The port's prefill writes row
+        by row, so a chunk starts at draft_pos itself (the reference
+        rounds it down to a block boundary for its block-wise scatter)."""
+        if seq.draft_pos >= seq.pos:
+            return True
+        start = seq.draft_pos
+        this_len = seq.pos - start
+        if this_len > self.prefill_buckets[-1]:
+            aligned = [b for b in self.prefill_buckets
+                       if b % self.block_size == 0]
+            if not aligned:
+                raise RequestFailed(
+                    f"sequence {seq.id}: draft catch-up of {this_len} "
+                    f"tokens needs a block-aligned prefill bucket (have "
+                    f"{self.prefill_buckets})")
+            this_len = aligned[-1]
+        self._draft_prefill(seq, start, this_len)
+        return seq.draft_pos >= seq.pos
+
+    def _draft_prefill(self, seq, start, n):
+        """Prefill committed tokens [start, start + n) into the draft's
+        pool, eagerly like the target's prefill chunks."""
+        need = self.draft_pool.blocks_for(start + n) - len(seq.draft_blocks)
+        if need > 0:
+            try:
+                seq.draft_blocks += self.draft_pool.alloc(need,
+                                                          owner=seq.id)
+            except OutOfBlocks as e:
+                raise RequestFailed(
+                    f"sequence {seq.id}: draft pool exhausted at catch-up "
+                    f"(admission reserve bug)", cause=e) from e
+            seq.draft_outstanding -= need
+        dev = self.device
+        table = torch.tensor(seq.draft_blocks, dtype=torch.int64,
+                             device=dev)
+        tokens = torch.as_tensor(
+            self._committed_tokens(seq)[start:start + n], device=dev)[None]
+        self.draft_model.decode_step_paged(
+            tokens, self.draft_pool.tensors,
+            PagedBatch.prefill(table, start, n, self.block_size))
+        seq.draft_pos = start + n
+        with self._lock:
+            self._spec_catchup_chunks += 1
+            self._spec_draft_dispatches += 1
+
+    def _prepare_spec_blocks(self, seq):
+        """Block growth and copy-on-write for one round: target rows pos ..
+        pos + K are written, but only rows below plen + max_new can be
+        committed, so only those get blocks (the rest sink into reserved
+        block 0 through the table's padding); the draft writes rows pos ..
+        pos + K."""
+        cap_rows = min(seq.pos + self._k + 1, len(seq.prompt) + seq.max_new)
+        need = self.pool.blocks_for(cap_rows) - len(seq.blocks)
+        if need > 0:
+            seq.blocks += self.pool.alloc(need, owner=seq.id)
+            seq.outstanding -= need
+        bi = seq.pos // self.block_size
+        if bi < len(seq.blocks) and self.pool.refcount(seq.blocks[bi]) > 1:
+            self._cow_block(seq, bi)
+        dneed = self.draft_pool.blocks_for(seq.pos + self._k + 1) \
+            - len(seq.draft_blocks)
+        if dneed > 0:
+            seq.draft_blocks += self.draft_pool.alloc(dneed, owner=seq.id)
+            seq.draft_outstanding -= dneed
+
+    def _dispatch_propose(self, seqs):
+        prog = self._program("propose", self._bucket(len(seqs)))
+        a = prog.stage()
+        for i, seq in enumerate(seqs):
+            a["tokens"][i, 0] = seq.last_token
+            a["pos"][i] = seq.pos
+            a["tables"][i, :len(seq.draft_blocks)] = seq.draft_blocks
+        prog.run()
+        props = prog.fetch("props", len(seqs))
+        with self._lock:
+            self._spec_draft_dispatches += 1
+        return props
+
+    def _dispatch_verify(self, seqs, props):
+        prog = self._program("verify", self._bucket(len(seqs)))
+        a = prog.stage()
+        for i, seq in enumerate(seqs):
+            a["tokens"][i, 0] = seq.last_token
+            a["tokens"][i, 1:] = props[i]
+            a["pos"][i] = seq.pos
+            a["tables"][i, :len(seq.blocks)] = seq.blocks
+        prog.run()
+        preds = prog.fetch("preds", len(seqs))
+        with self._lock:
+            self._spec_verify_dispatches += 1
+        return preds
+
+    def _speculate_round(self, seqs):
+        """One speculation round; returns the sequences left to the plain
+        round because their draft is still catching up."""
+        ready, deferred = [], []
+        for seq in seqs:
+            try:
+                caught_up = self._draft_catchup(seq)
+            except RequestFailed as e:
+                self._finish(seq, "failed", e)
+                continue
+            except Exception as exc:  # noqa: BLE001 — fail THIS sequence
+                self._finish(seq, "failed", RequestFailed(
+                    f"sequence {seq.id}: draft catch-up error: "
+                    f"{type(exc).__name__}: {exc}", cause=exc))
+                continue
+            if not caught_up:
+                deferred.append(seq)
+                continue
+            try:
+                self._prepare_spec_blocks(seq)
+            except OutOfBlocks as e:
+                self._finish(seq, "failed", RequestFailed(
+                    f"sequence {seq.id}: block pool exhausted preparing "
+                    f"a speculation round (admission reserve bug)",
+                    cause=e))
+                continue
+            ready.append(seq)
+        if not ready:
+            return deferred
+        try:
+            props = self._dispatch_propose(ready)
+            preds = self._dispatch_verify(ready, props)
+        except Exception:  # noqa: BLE001 — blame is ambiguous: plain
+            # isolated steps from the committed state (nothing of the
+            # round was delivered; the draft rolls back by position)
+            with self._lock:
+                self._spec_fallbacks += 1
+                if len(ready) > 1:
+                    self._isolations += 1
+            self._run_isolated(ready)
+            return deferred
+        with self._lock:
+            self._spec_rounds += 1
+        self._commit_speculation(ready, props, preds)
+        return deferred
+
+    def _commit_speculation(self, seqs, props, preds):
+        """Greedy acceptance: proposal i is accepted while it equals the
+        target's argmax at pos + i; the accepted proposals and the
+        target's next argmax are committed (what is committed is always
+        the target's argmax, so the tokens are plain greedy's)."""
+        k = self._k
+        for seq, d, g in zip(seqs, props, preds):
+            a = 0
+            while a < k and d[a] == g[a]:
+                a += 1
+            pos0, delivered = seq.pos, 0
+            for tok in d[:a] + [g[a]]:
+                self._deliver(seq, tok)
+                delivered += 1
+                if seq.state == _DONE:       # EOS or max_new: stop here
+                    break
+            seq.pos = pos0 + delivered
+            # rows from draft_pos on are rewritten before the draft attends
+            # them: the propose program wrote pos0 .. pos0 + K, each valid
+            # when its token was committed
+            seq.draft_pos = seq.pos
+            with self._lock:
+                # agreements cut off by EOS or max_new are not rejections
+                self._spec_proposed += k
+                self._spec_accepted += a
+                self._spec_rejected += k - a
+                self._spec_committed += delivered
+                if delivered == k + 1:
+                    self._spec_bonus += 1
 
     # -- lifecycle ---------------------------------------------------------
     def _finish(self, seq, status, error=None):
@@ -1017,6 +1478,9 @@ class DecodeEngine:
         self.pool.free_owned(seq.id)
         if self._adapters is not None:
             self._adapters.release_owned(seq.id)
+        if self._spec_on:
+            self.draft_pool.free_owned(seq.id)
+            seq.draft_outstanding = 0
         if status == "completed":
             self._completed += 1
         elif status == "failed":
@@ -1030,8 +1494,9 @@ class DecodeEngine:
     def shutdown(self, drain_timeout=30.0):
         """Stop admissions, decode until every live sequence finishes (or
         `drain_timeout` passes), fail leftovers with `PoolClosed`, stop
-        the scheduler and release the prefix cache's blocks. Returns True
-        on a full drain. Idempotent."""
+        the scheduler, release the step programs (their graphs and
+        buffers; `stats()` keeps their counts) and the prefix cache's
+        blocks. Returns True on a full drain. Idempotent."""
         with self._cv:
             if self._shutdown_called:
                 return self._drained
@@ -1052,6 +1517,9 @@ class DecodeEngine:
             self._stopping = True
             self._cv.notify_all()
         self._thread.join(timeout=30.0)
+        if not self._thread.is_alive():
+            # no step can run any more: free the graphs and their buffers
+            self._programs.release()
         with self._cv:
             leftovers = self._waiting + self._prefill_q + self._active
             self._waiting = []
@@ -1074,8 +1542,11 @@ class DecodeEngine:
     def stats(self):
         """Counter snapshot. Quiesced: ``admitted == completed + failed +
         timed_out + cancelled`` and ``blocks.allocated ==
-        prefix_cache.physical_blocks`` (the cache's pins); `blocks` carries
-        the pool's conservation numbers (checked as they are read)."""
+        prefix_cache.physical_blocks`` (the cache's pins); `blocks` (and
+        `draft_blocks` with speculation on) carry the pools' conservation
+        numbers (checked as they are read). `step_programs` gives each
+        built program's replays (eager runs where it is not a graph) and a
+        replay's launches by kernel wrapper."""
         with self._cv:
             used = sum(s.pos for s in self._active)
             slots = sum(len(s.blocks) for s in self._active) \
@@ -1127,6 +1598,27 @@ class DecodeEngine:
                 "buckets": {"decode": list(self.decode_buckets),
                             "prefill": list(self.prefill_buckets),
                             "prefill_chunk": self._chunk},
+                "speculative": {
+                    "enabled": self._spec_on,
+                    "k": self._k if self._spec_on else 0,
+                    "rounds": self._spec_rounds,
+                    "proposed": self._spec_proposed,
+                    "accepted": self._spec_accepted,
+                    "rejected": self._spec_rejected,
+                    "bonus": self._spec_bonus,
+                    "committed": self._spec_committed,
+                    "verify_dispatches": self._spec_verify_dispatches,
+                    "draft_dispatches": self._spec_draft_dispatches,
+                    "catchup_chunks": self._spec_catchup_chunks,
+                    "fallbacks": self._spec_fallbacks,
+                    "acceptance_rate":
+                        (self._spec_accepted / self._spec_proposed)
+                        if self._spec_proposed else 0.0,
+                    "accepted_per_dispatch":
+                        (self._spec_committed
+                         / self._spec_verify_dispatches)
+                        if self._spec_verify_dispatches else 0.0,
+                },
             }
 
         def pct(q):
@@ -1138,7 +1630,13 @@ class DecodeEngine:
                         "avg_s": sum(ttfts) / len(ttfts) if ttfts else None,
                         "p50_s": pct(0.5), "p95_s": pct(0.95),
                         "p99_s": pct(0.99)}
+        # step programs built (a CUDA graph each on the GPU); nothing is
+        # loaded from disk
+        snap["compiles"] = {"built": self._programs.built, "disk": 0}
+        snap["step_programs"] = self._programs.stats()
         snap["blocks"] = self.pool.stats()
         if self._adapters is not None:
             snap["adapters"] = self._adapters.stats()
+        if self._spec_on:
+            snap["draft_blocks"] = self.draft_pool.stats()
         return snap

@@ -1,5 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version (counterparts of paddle_tpu/ops/pallas)."""
+import importlib
+import pkgutil
+
 from .bgmv import lora_delta, lora_delta_ref
 from .block_sparse_attention import (block_sparse_attention,
                                      block_sparse_attention_ref,
@@ -35,4 +38,18 @@ __all__ = ["lora_delta", "lora_delta_ref", "block_sparse_attention",
            "short_attention",
            "short_attention_bwd", "short_attention_bwd_ref",
            "short_attention_fwd", "short_attention_ref", "weight_only_matmul",
-           "weight_only_matmul_nd", "weight_only_matmul_ref"]
+           "weight_only_matmul_nd", "weight_only_matmul_ref",
+           "counted_wrappers"]
+
+
+def counted_wrappers():
+    """Every kernel wrapper of this package: the functions, in any of its
+    modules, with an int `.launches` (the count each adds to where it
+    launches its kernel)."""
+    found = {}
+    for info in pkgutil.iter_modules(__path__):
+        mod = importlib.import_module(f"{__name__}.{info.name}")
+        for fn in vars(mod).values():
+            if callable(fn) and type(getattr(fn, "launches", None)) is int:
+                found[id(fn)] = fn
+    return list(found.values())

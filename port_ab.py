@@ -3,7 +3,8 @@
 
     python3 port_ab.py PARENT CHANGE
         [--what decode,flash,short,weight_only,dense_decode,sparse,ring,
-                gemv,decode_busy,resblock,pair,bgmv,tenants]
+                gemv,decode_busy,resblock,pair,bgmv,tenants,decode_step,
+                step_device]
         [--rounds 1]
 
 PARENT and CHANGE are the roots of two checkouts (for example a
@@ -97,7 +98,24 @@ Measurements:
   stacks), and the body each case took where the tree counts them;
 * ``tenants``: `chip_smoke.py`'s `profile_tenants` (run (d): the int8
   llama2_7b at 32 layers with six LoRA adapters, 12 decode steps at bs 8
-  under torch.profiler), the `bgmv` family's ms a step among its results.
+  under torch.profiler), the `bgmv` family's ms a step among its results;
+* ``decode_step``: run (b)'s decode step (llama2_7b at 32 layers, int8
+  weights quantized from seed 0, an int8 KV pool, 8 sequences of 300
+  prompt tokens at bucket 8, the engine's step programs built first where
+  the tree has `warmup()`): the host-clock ms a step over a window of
+  `STEP_WINDOW_S` seconds without the profiler, then the tree's
+  `chip_smoke.py` `profile_decode` of the same model (its device-busy ms
+  a step among its results);
+* ``step_device`` (CHANGE alone, once a round; a tree whose engine has
+  step programs): run (b)'s bucket-8 greedy step program, built and
+  staged by the engine's own steps as in ``decode_step``, then driven
+  from the measuring thread once the engine is idle, in five phases:
+  the graph's replays back to back under CUDA events (no profiler), the
+  same program's body run eagerly under torch.profiler (its kernels'
+  summed device time a run), the replays under torch.profiler (the same
+  sum), the eager body under CUDA events, and the replays under CUDA
+  events again. nvidia-smi samples the SM clock, the power draw and the
+  temperature every 100 ms, reported for each phase.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 per measurement, each naming its tree. Every child has a time limit and
@@ -112,6 +130,8 @@ import subprocess
 import sys
 
 CHILD_TIMEOUT_S = 900
+#: measurements of the change's own paths, made in CHANGE alone
+CHANGE_ONLY = ("step_device",)
 DECODE_SERVES = 3
 
 
@@ -689,6 +709,221 @@ def child_tenants(tree):
             "routes": dict(getattr(bg.lora_delta, "routes", {}))}
 
 
+STEP_WINDOW_S = 3.0
+
+
+def child_decode_step(tree):
+    """Run (b)'s decode step: unprofiled host-clock step ms, then the
+    tree's `profile_decode` (device-busy ms a step)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.inference import DecodeEngine
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.nn.quant import quantize_for_inference
+
+    smoke = importlib.import_module("chip_smoke")
+    model = gpt("llama2_7b", dtype="bfloat16", device="cuda", seed=0,
+                num_layers=32)
+    quantize_for_inference(model, "int8")
+    torch.cuda.empty_cache()
+    eng = DecodeEngine(model, max_length=1024, block_size=16,
+                       decode_buckets=(1, 2, 4, 8), prefill_chunk=256,
+                       quant="int8", default_timeout=600.0,
+                       device=model.device)
+    graphs = hasattr(eng, "warmup")
+    if graphs:
+        eng.warmup()
+    streams = [eng.submit(p, 1024 - 300) for p in smoke._prompts(
+        np, model.cfg.vocab_size, (300,) * 8)]
+    for st in streams:
+        next(iter(st))                    # every prompt is prefilled
+    s0, t0 = eng.stats()["steps"], time.perf_counter()
+    time.sleep(STEP_WINDOW_S)
+    s1, t1 = eng.stats()["steps"], time.perf_counter()
+    if any(st.done() for st in streams):
+        raise AssertionError("a stream finished inside the window")
+    for st in streams:
+        st.cancel()
+    eng.shutdown()
+    del eng
+    prof = smoke.profile_decode(torch, np, model, "int8",
+                                "b: int8 + int8 KV, bs 8")
+    return {"tree": tree, "what": "decode_step", "graphs": graphs,
+            "steps": s1 - s0, "step_ms": (t1 - t0) * 1e3 / (s1 - s0),
+            "profiled_step_ms": prof["step_ms"],
+            "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+            "device_idle_share": prof["device_idle_share"],
+            "kernel_ms_per_step": prof["kernel_ms_per_step"]}
+
+
+STEP_DEVICE_S = 2.0
+STEP_DEVICE_PROFILED = 30
+
+
+def _smi_sampler():
+    """nvidia-smi printing the SM clock, power draw and temperature every
+    100 ms until it is terminated."""
+    return subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+
+
+def _smi_phases(out, phases):
+    """{phase: {"samples", "sm_mhz" [min, median, max], "power_w" [...],
+    "temp_c" max}} of the sampler's lines inside each phase's window."""
+    import datetime
+
+    rows = []
+    for ln in out.splitlines():
+        f = [x.strip() for x in ln.split(",")]
+        try:
+            rows.append((datetime.datetime.strptime(
+                f[0], "%Y/%m/%d %H:%M:%S.%f"), float(f[1]), float(f[2]),
+                float(f[3])))
+        except (ValueError, IndexError):
+            continue
+
+    def spread(v):
+        v = sorted(v)
+        return [v[0], v[len(v) // 2], v[-1]] if v else None
+
+    res = {}
+    for name, (t0, t1) in phases.items():
+        got = [r for r in rows if t0 <= r[0] <= t1]
+        res[name] = {"samples": len(got),
+                     "sm_mhz": spread([r[1] for r in got]),
+                     "power_w": spread([r[2] for r in got]),
+                     "temp_c": max((r[3] for r in got), default=None)}
+    return res
+
+
+def child_step_device(tree):
+    """Run (b)'s bucket-8 greedy step program: device ms of a replay
+    without the profiler against the summed kernel time of the same body
+    run eagerly, and both under the profiler; see the module docstring."""
+    import datetime
+    import time
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.inference import DecodeEngine
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.nn.quant import quantize_for_inference
+
+    if not hasattr(DecodeEngine, "warmup"):
+        return {"tree": tree, "what": "step_device", "graphs": False}
+    smoke = importlib.import_module("chip_smoke")
+    model = gpt("llama2_7b", dtype="bfloat16", device="cuda", seed=0,
+                num_layers=32)
+    quantize_for_inference(model, "int8")
+    torch.cuda.empty_cache()
+    eng = DecodeEngine(model, max_length=1024, block_size=16,
+                       decode_buckets=(1, 2, 4, 8), prefill_chunk=256,
+                       quant="int8", default_timeout=600.0,
+                       device=model.device)
+    eng.warmup()
+    streams = [eng.submit(p, 1024 - 300) for p in smoke._prompts(
+        np, model.cfg.vocab_size, (300,) * 8)]
+    for st in streams:
+        next(iter(st))                    # every prompt is prefilled
+    s0 = eng.stats()["steps"]
+    while eng.stats()["steps"] < s0 + 20:   # bucket-8 steps staged
+        time.sleep(0.01)
+    for st in streams:
+        st.cancel()
+    give_up = time.perf_counter() + 60.0
+    while eng.stats()["active"] or eng.stats()["prefilling"]:
+        if time.perf_counter() > give_up:
+            raise AssertionError("the engine did not go idle")
+        time.sleep(0.01)
+    prog = eng._programs.get("greedy", 8, None)
+    if not prog.graph:
+        raise AssertionError("run (b)'s bucket-8 program is not a graph")
+    # the engine is idle and its pools unread from here on: the replays
+    # and eager runs rewrite the last step's KV rows in its blocks
+    replay = prog._graph.replay
+
+    def eager():
+        with torch.no_grad():
+            prog._body(prog._staging.tensors)
+
+    def events(fn):
+        """(ms a run under CUDA events, runs): fn back to back for
+        STEP_DEVICE_S seconds of host time."""
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        n, t_end = 0, time.perf_counter() + STEP_DEVICE_S
+        a.record()
+        while time.perf_counter() < t_end:
+            for _ in range(5):
+                fn()
+            n += 5
+            torch.cuda.synchronize()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / n, n
+
+    def profiled(fn):
+        """(summed kernel ms a run, kernels a run, families) of
+        STEP_DEVICE_PROFILED runs under torch.profiler."""
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(STEP_DEVICE_PROFILED):
+                fn()
+            torch.cuda.synchronize()
+        evts = smoke.device_events(prof)
+        fam = smoke.kernel_families(prof, (
+            ("paged_decode_attention", ("paged_decode", "merge_splits")),
+            ("weight_only_matmul", ("wo_gemv", "wo_mma_gemv", "wo_wgmma")),
+            ("row_gemv", ("row_mma_gemv", "row_gemv")),
+            ("library_gemm", smoke.GEMM_NAMES)))
+        n = STEP_DEVICE_PROFILED
+        return (sum(e.self_device_time_total for e in evts) / 1e3 / n,
+                sum(e.count for e in evts) / n,
+                {k: v / 1e3 / n for k, v in fam.items()})
+
+    smi = _smi_sampler()
+    time.sleep(1.0)                       # the sampler is up
+    phases, res = {}, {}
+    try:
+        for name, run in (("graph_events", lambda: events(replay)),
+                          ("eager_profiled", lambda: profiled(eager)),
+                          ("graph_profiled", lambda: profiled(replay)),
+                          ("eager_events", lambda: events(eager)),
+                          ("graph_events_again", lambda: events(replay))):
+            t0 = datetime.datetime.now()
+            res[name] = run()
+            phases[name] = (t0, datetime.datetime.now())
+    finally:
+        smi.terminate()
+        smi_out, _ = smi.communicate(timeout=30)
+    eng.shutdown()
+    return {"tree": tree, "what": "step_device", "graphs": True,
+            "graph_replay_ms": res["graph_events"][0],
+            "graph_replays": res["graph_events"][1],
+            "graph_replay_ms_again": res["graph_events_again"][0],
+            "eager_run_ms": res["eager_events"][0],
+            "eager_kernel_ms": res["eager_profiled"][0],
+            "eager_kernels": res["eager_profiled"][1],
+            "eager_families_ms": res["eager_profiled"][2],
+            "graph_profiled_kernel_ms": res["graph_profiled"][0],
+            "graph_profiled_kernels": res["graph_profiled"][1],
+            "graph_profiled_families_ms": res["graph_profiled"][2],
+            "smi": _smi_phases(smi_out, phases)}
+
+
 def _child(what, tree):
     tree = os.path.abspath(tree)
     os.chdir(tree)
@@ -700,8 +935,9 @@ def _child(what, tree):
            "sparse": child_sparse, "ring": child_ring,
            "gemv": child_gemv, "decode_busy": child_decode_busy,
            "resblock": child_resblock, "pair": child_pair,
-           "bgmv": child_bgmv,
-           "tenants": child_tenants}[what](tree)
+           "bgmv": child_bgmv, "tenants": child_tenants,
+           "decode_step": child_decode_step,
+           "step_device": child_step_device}[what](tree)
     print("AB " + json.dumps(res), flush=True)
 
 
@@ -780,7 +1016,9 @@ def main(argv):
     print(json.dumps(_ptxas_diff(*ptxas)), flush=True)
     for what in args.what.split(","):
         for _ in range(args.rounds):
-            for tree in (args.parent, args.change, args.change, args.parent):
+            trees = (args.change,) if what in CHANGE_ONLY else (
+                args.parent, args.change, args.change, args.parent)
+            for tree in trees:
                 out = _run([sys.executable, os.path.abspath(__file__),
                             tree, tree, "--child", what], f"{what} {tree}")
                 for line in out.splitlines():

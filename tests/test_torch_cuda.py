@@ -2233,3 +2233,218 @@ def test_ring_kernel_refuses_rows_it_cannot_read(cuda):
     torch.testing.assert_close(td.paged_decode_attention(*args),
                                td.paged_decode_attention_ref(*args),
                                rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------- decode step programs as CUDA graphs
+
+def _graph_engine(cuda, variant, **kw):
+    """A llama-shaped 2-layer bf16 model (every float Linear on the
+    row-stable GEMV) in one of the serving variants, its engine (graphs),
+    and the adapter pool for "adapters". The pool's blocks hold random
+    K/V."""
+    from paddle_tpu_torch.inference import AdapterPool, DecodeEngine
+    from paddle_tpu_torch.nn.quant import quantize_for_inference
+
+    m = gpt("llama2_7b", device=cuda, dtype="bfloat16", seed=0,
+            num_layers=2, hidden_size=512, num_heads=8, num_kv_heads=4,
+            intermediate_size=1376, vocab_size=4000)
+    if variant == "int4":
+        quantize_for_inference(m, "int4", min_features=0)
+    pool = None
+    if variant == "adapters":
+        pool = AdapterPool(m, rank=8, slots=4)
+        g = torch.Generator().manual_seed(1)
+        for name in ("a", "b", "c"):
+            pool.load(name, {k: (torch.randn(i, 8, generator=g) * 0.2,
+                                 torch.randn(8, o, generator=g) * 0.2)
+                             for k, (i, o) in pool.layers.items()})
+    quant = "int8" if variant in ("int8_kv", "int4") else None
+    eng = DecodeEngine(m, max_length=128, block_size=16,
+                       decode_buckets=(1, 2, 4, 8), quant=quant,
+                       adapters=pool, device=cuda, **kw)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for layer in eng.pool.tensors:
+        for t in layer:
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                      device=cuda))
+            elif t.dtype == torch.float32:
+                t.copy_(torch.rand(t.shape, generator=g, device=cuda) * 0.02)
+            else:
+                t.copy_(torch.randn(t.shape, generator=g, device=cuda))
+    return m, eng, pool
+
+
+def _stage_rows(prog, n, seed, nb, sampled=False, aids=False):
+    """Fill n real rows of a decode program's host arrays (the rest stay
+    pad rows): distinct blocks, ragged positions, random tokens; sampled
+    rows alternate greedy, sampled, sampled with a repetition penalty."""
+    g = torch.Generator().manual_seed(seed)
+    a = prog.stage()
+    for i in range(n):
+        pos = int(torch.randint(0, nb * 16 - 1, (1,), generator=g))
+        a["tokens"][i, 0] = int(torch.randint(0, 4000, (1,), generator=g))
+        a["pos"][i] = pos
+        a["tables"][i, :pos // 16 + 1] = [1 + i * nb + j
+                                          for j in range(pos // 16 + 1)]
+        if aids:
+            a["aids"][i] = i % 4
+        if sampled and i % 3:
+            a["greedy"][i] = 0
+            a["seed"][i], a["ctr"][i] = 100 + i, 5
+            a["temp"][i], a["top_k"][i], a["top_p"][i] = 0.8, 50, 0.9
+            if i % 3 == 2:
+                a["rep"][i] = 1.3
+                a["hist"][i, :6] = [1, 2, 3, 4, 5, 6]
+    return a
+
+
+@pytest.mark.parametrize("variant,kind", [
+    ("bf16", "greedy"), ("int8_kv", "greedy"), ("int4", "greedy"),
+    ("adapters", "greedy"), ("bf16", "sampled"), ("adapters", "sampled")])
+def test_step_program_replay_equals_eager(cuda, variant, kind):
+    """Every decode bucket: the captured program's replay gives the eager
+    run's logits and tokens bit for bit over the same static inputs (pad
+    rows included), for bf16 weights and KV, int8 KV, int4 weights, LoRA
+    adapters through BGMV and sampled rows with and without a penalty;
+    and a second replay over new inputs does not read stale buffers."""
+    from paddle_tpu_torch.inference.decode.step_graphs import StepProgram
+
+    m, eng, pool = _graph_engine(cuda, variant)
+    try:
+        for b in eng.decode_buckets:
+            graph = eng._on_scheduler(lambda b=b: eng._program(kind, b))
+            assert graph.graph
+            fields, body = eng._make_program(kind, b)
+            eager = StepProgram("eager", fields, body, cuda)
+            for seed in (b, b + 10):
+                n = max(1, b - 1) if seed == b else b
+                for prog in (graph, eager):
+                    _stage_rows(prog, n, seed, eng._nb, kind == "sampled",
+                                pool is not None)
+                    prog.run()
+                assert torch.equal(graph.outputs["logits"],
+                                   eager.outputs["logits"]), (b, seed)
+                assert graph.fetch("next", b) == eager.fetch("next", b)
+    finally:
+        eng.shutdown()
+        if pool is not None:
+            pool.detach()
+
+
+def test_replays_count_the_launches_of_eager_steps(cuda):
+    """N replays add to every wrapper's `.launches` and `.routes` what N
+    eager runs of the same program add; building the graph adds
+    nothing."""
+    from paddle_tpu_torch.inference.decode.step_graphs import (
+        StepProgram, counted_wrappers)
+
+    m, eng, pool = _graph_engine(cuda, "adapters")
+    wrappers = counted_wrappers()
+
+    def counts():
+        return [(w.launches, dict(getattr(w, "routes", {})))
+                for w in wrappers]
+
+    def delta(a, b):
+        return [(y[0] - x[0], {r: y[1][r] - x[1].get(r, 0) for r in y[1]})
+                for x, y in zip(a, b)]
+
+    try:
+        before = counts()
+        graph = eng._on_scheduler(lambda: eng._program("greedy", 4))
+        assert counts() == before
+        fields, body = eng._make_program("greedy", 4)
+        eager = StepProgram("eager", fields, body, cuda)
+        deltas = []
+        for prog in (eager, graph):
+            c0 = counts()
+            for i in range(5):
+                _stage_rows(prog, 3, i, eng._nb, aids=True)
+                prog.run()
+            prog.fetch("next", 3)
+            deltas.append(delta(c0, counts()))
+        assert deltas[0] == deltas[1]
+        assert tb.lora_delta.launches and tw.row_gemv.launches
+        by = {w.__name__: d[0] for w, d in zip(wrappers, deltas[1])}
+        assert by["lora_delta"] == 5 * 2 * 2         # 2 layers x 2 targets
+        assert by["paged_decode_attention"] == 5 * 2
+        assert graph.launches()["row_gemv"] == 2 * 4 + 1
+    finally:
+        eng.shutdown()
+        pool.detach()
+
+
+def test_engine_on_graphs_equals_eager_steps(cuda):
+    """The same traffic through the default engine (graphs) and through
+    `_eager_steps`: every sequence's tokens bit-equal, every decode step
+    a replay, and no program built after `warmup()`."""
+    from paddle_tpu_torch.inference import SamplingParams
+
+    prompts = [[1, 2, 3, 4, 5], list(range(10, 40)), [7] * 17, [9, 8, 7]]
+    samp = [None, SamplingParams(temperature=0.8, top_k=20, seed=4), None,
+            SamplingParams(temperature=0.7, repetition_penalty=1.2, seed=9)]
+    outs = []
+    for eager in (False, True):
+        m, eng, _ = _graph_engine(cuda, "bf16", _eager_steps=eager)
+        with eng:
+            warm = eng.warmup()
+            built = eng.stats()["compiles"]
+            streams = [eng.submit(p, 20, sampling=s)
+                       for p, s in zip(prompts, samp)]
+            outs.append([s.result() for s in streams])
+            st = eng.stats()
+        assert warm == {"decode": [1, 2, 4, 8],
+                        "prefill": list(eng.prefill_buckets)}
+        assert built == {"built": 8, "disk": 0} == st["compiles"]
+        progs = st["step_programs"]
+        assert all(p["graph"] != eager for p in progs.values())
+        assert sum(p["replays"] for p in progs.values()) == st["steps"]
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("draft", ["self", "perturbed"])
+def test_speculation_on_graphs_equals_plain_greedy(cuda, draft):
+    """Speculation on graphs (propose and verify replays): every
+    sequence's tokens equal the plain engine's greedy tokens; the
+    self-draft accepts every proposal."""
+    from paddle_tpu_torch.inference import DecodeEngine
+
+    m, plain, _ = _graph_engine(cuda, "bf16")
+    prompts = [[1, 2, 3, 4, 5], list(range(10, 40)), [7] * 17, [9, 8, 7]]
+    with plain:
+        ref = [s.result() for s in [plain.submit(p, 24) for p in prompts]]
+    d = m
+    if draft == "perturbed":
+        d = gpt("llama2_7b", device=cuda, dtype="bfloat16", seed=0,
+                num_layers=2, hidden_size=512, num_heads=8, num_kv_heads=4,
+                intermediate_size=1376, vocab_size=4000)
+        with torch.no_grad():
+            w = d.transformer.layers[1].mlp.down_proj.weight
+            w.add_(torch.randn(w.shape, device=cuda,
+                               generator=torch.Generator(device=cuda)
+                               .manual_seed(5)).to(w.dtype) * 2e-3)
+    with DecodeEngine(m, max_length=128, block_size=16,
+                      decode_buckets=(1, 2, 4, 8), draft_model=d,
+                      speculate_k=4, device=cuda) as eng:
+        assert eng.warmup()["speculate_k"] == 4
+        streams = [eng.submit(p, 24) for p in prompts]
+        assert [s.result() for s in streams] == ref
+    st = eng.stats()                     # after shutdown: pools drained
+    sp = st["speculative"]
+    assert sp["proposed"] == sp["accepted"] + sp["rejected"] > 0
+    # a raising propose or verify program falls back to plain isolated
+    # steps, whose tokens are plain greedy's too: none may have happened
+    assert sp["fallbacks"] == 0 and st["isolation_rounds"] == 0
+    progs = st["step_programs"]
+    for kind in ("propose", "verify"):
+        assert sum(p["replays"] for n, p in progs.items()
+                   if n.startswith(kind)) == sp["rounds"] \
+            == sp["verify_dispatches"]
+    assert all(p["graph"] for p in progs.values())
+    if draft == "self":
+        assert sp["acceptance_rate"] == 1.0
+    else:
+        assert sp["rejected"] > 0
+    assert st["blocks"]["allocated"] == 0
+    assert st["draft_blocks"]["allocated"] == 0

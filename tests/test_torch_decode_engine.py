@@ -281,12 +281,13 @@ def test_submit_validation(eng):
 
 
 # options: the ported ones take their typed behaviour (a prefix-cache
-# engine runs, a non-pool `adapters` is refused as in JAX, `adapter=`
-# without a pool is `AdapterNotLoaded`, a `sampling` dict is the wire
-# form); the rest still raise NotImplementedError
+# engine runs, a non-pool `adapters` and a draft that is no paged causal
+# LM are refused, `adapter=` without a pool is `AdapterNotLoaded`, a
+# `sampling` dict is the wire form); the rest still raise
+# NotImplementedError
 _ENGINE_OPTIONS = [
     ({"prefix_cache": True}, None),
-    ({"speculate_k": 2, "draft_model": object()}, NotImplementedError),
+    ({"speculate_k": 2, "draft_model": object()}, ValueError),
     ({"adapters": object()}, ValueError),
     ({"mesh": object()}, NotImplementedError),
     ({"fault_hook": print}, NotImplementedError),
@@ -318,3 +319,150 @@ def test_unported_submit_options_raise(eng, kw, error):
         return
     with pytest.raises(error):
         eng.submit(_prompt(1), 4, **kw)
+
+
+# ---------------------------------------------------------------------------
+# step programs (static buffers; CUDA graphs on the GPU)
+# ---------------------------------------------------------------------------
+
+def _fill_pool(e, seed):
+    g = torch.Generator().manual_seed(seed)
+    for layer in e.pool.tensors:
+        for t in layer:
+            t.copy_(torch.randn(t.shape, generator=g))
+
+
+def _step_inputs(e, n, bucket, seed, sampled):
+    """n real rows of a decode step (pad rows after them): distinct blocks,
+    ragged positions, slots 0-3; sampled rows alternate greedy, sampled,
+    sampled with a repetition penalty over a short history."""
+    rng = np.random.RandomState(seed)
+    rows = []
+    for i in range(n):
+        pos = int(rng.randint(0, e._nb * e.block_size - 1))
+        nblk = pos // e.block_size + 1
+        row = {"token": int(rng.randint(0, TINY["vocab_size"])),
+               "pos": pos, "blocks": [1 + i * e._nb + j
+                                      for j in range(nblk)],
+               "slot": i % 4, "pack": dict(e._PACK_DEFAULTS), "hist": []}
+        if sampled and i % 3:
+            row["pack"].update(greedy=0, seed=100 + i, ctr=5 + i, temp=0.8,
+                               top_k=20, top_p=0.9)
+            if i % 3 == 2:
+                row["pack"]["rep"] = 1.3
+                row["hist"] = list(rng.randint(0, TINY["vocab_size"], 6))
+        rows.append(row)
+    return rows
+
+
+def _program_step(e, prog, rows):
+    a = prog.stage()
+    for i, r in enumerate(rows):
+        a["tokens"][i, 0] = r["token"]
+        a["pos"][i] = r["pos"]
+        a["tables"][i, :len(r["blocks"])] = r["blocks"]
+        a["aids"][i] = r["slot"]
+        if "hist" in a:
+            for name, v in r["pack"].items():
+                a[name][i] = v
+            a["hist"][i, :len(r["hist"])] = r["hist"]
+    out = prog.run()
+    return out["logits"][:len(rows)].clone(), prog.fetch("next", len(rows))
+
+
+def _eager_step(e, rows, bucket, sampled):
+    """The decode step as the engine ran it before its step programs: the
+    batch's tensors formed outside the model call, the real rows sampled
+    (the history only where a row penalises)."""
+    from paddle_tpu_torch.inference.sampling import PACK_FIELDS, sample_token
+    from paddle_tpu_torch.models.gpt import PagedBatch
+
+    tokens = np.zeros((bucket, 1), np.int64)
+    positions = np.zeros(bucket, np.int32)
+    tables = np.zeros((bucket, e._nb), np.int32)
+    aids = np.zeros(bucket, np.int32)
+    for i, r in enumerate(rows):
+        tokens[i, 0], positions[i], aids[i] = r["token"], r["pos"], r["slot"]
+        tables[i, :len(r["blocks"])] = r["blocks"]
+    batch = PagedBatch.decode(torch.from_numpy(tables),
+                              torch.from_numpy(positions), e.block_size)
+    with e._adapter_scope(aids):
+        logits = e.model.decode_step_paged(torch.from_numpy(tokens),
+                                           e.pool.tensors, batch)
+    out = logits[:len(rows), -1].to(torch.float32)
+    if not sampled:
+        return out, out.argmax(-1).tolist()
+    pack = {name: torch.tensor([r["pack"][name] for r in rows], dtype=dt)
+            for name, dt in PACK_FIELDS}
+    hist = None
+    if any(r["pack"]["rep"] != 1.0 for r in rows):
+        h = np.full((len(rows), e.max_length), -1, np.int64)
+        for i, r in enumerate(rows):
+            h[i, :len(r["hist"])] = r["hist"]
+        hist = torch.from_numpy(h)
+    return out, sample_token(out, pack, hist).tolist()
+
+
+@pytest.mark.parametrize("kind", ["greedy", "sampled"])
+@pytest.mark.parametrize("adapters", [False, True])
+def test_step_program_equals_the_eager_step(models, kind, adapters):
+    """The static-buffer step program gives the eager step's logits bit
+    for bit and its tokens at every bucket, with pad rows, adapters (slot
+    0 rows included) and sampled rows with and without a penalty."""
+    from paddle_tpu_torch.inference import AdapterPool
+
+    tm = models[1]
+    pool = None
+    if adapters:
+        pool = AdapterPool(tm, rank=4, slots=4, device="cpu")
+        g = torch.Generator().manual_seed(2)
+        for name in ("a", "b", "c"):
+            pool.load(name, {k: (torch.randn(i, 4, generator=g) * 0.3,
+                                 torch.randn(4, o, generator=g) * 0.3)
+                             for k, (i, o) in pool.layers.items()})
+    try:
+        with _engine(tm, adapters=pool, num_blocks=1 + 4 * 7) as e:
+            _fill_pool(e, 1)
+            for b in e.decode_buckets:
+                prog = e._program(kind, b)
+                for n in sorted({max(1, b - 1), b}):
+                    rows = _step_inputs(e, n, b, 10 * b + n,
+                                        kind == "sampled")
+                    logits, toks = _program_step(e, prog, rows)
+                    ref, ref_toks = _eager_step(e, rows, b,
+                                                kind == "sampled")
+                    assert torch.equal(logits, ref), (b, n)
+                    assert toks == ref_toks, (b, n)
+    finally:
+        if pool is not None:
+            pool.detach()
+
+
+def test_warmup_builds_every_program_and_traffic_builds_none(models):
+    """`warmup()` returns the buckets (the reference's shape) and builds
+    a greedy and a sampled program per decode bucket, eager on the CPU;
+    traffic of every kind and bucket builds no other, and the decode
+    programs' runs add up to the engine's steps."""
+    from paddle_tpu_torch.inference import SamplingParams
+
+    with _engine(models[1]) as e:
+        assert e.stats()["compiles"] == {"built": 0, "disk": 0}
+        assert e.warmup() == {"decode": [1, 2, 4],
+                              "prefill": [8, 16, 32]}
+        built = e.stats()["compiles"]
+        assert built == {"built": 6, "disk": 0}
+        streams = [e.submit(_prompt(s, n), k, sampling=SamplingParams(
+            temperature=0.9, seed=s) if s % 2 else None)
+            for s, n, k in MIX + ((4, 9, 5), (5, 3, 6))]
+        for s in streams:
+            s.result()
+        e.generate(_prompt(6), 4)
+        st = e.stats()
+        assert st["compiles"] == built
+        progs = st["step_programs"]
+        assert set(progs) == {f"{k}-b{b}" for k in ("greedy", "sampled")
+                              for b in (1, 2, 4)}
+        assert not any(p["graph"] for p in progs.values())
+        assert sum(p["replays"] for p in progs.values()) == st["steps"]
+    with pytest.raises(PoolClosed):
+        e.warmup()
