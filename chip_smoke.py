@@ -6,6 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py            # the full run
     python3 chip_smoke.py --quick    # short: fewer timing repeats, 2 layers
     python3 chip_smoke.py --cp-only  # phases 1, 2's ring checks, and 7
+    python3 chip_smoke.py --recipes-only   # phases 1 and 9
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -148,7 +149,26 @@ Phases (any failure exits non-zero and prints no result line):
    must catch; the SDDMM route (S = 1024, a pattern per head, both masks)
    against the dense recompute; the dense decode kernel and the coupled
    pair, which no model calls, driven with their counts set to 0;
-9. the kernels' JSON line, the nvidia-smi line, then the last line
+9. training recipes, at phases 4 and 5's configurations: (a) gpt_base
+   pretraining under AdamW at LinearWarmup(CosineAnnealingDecay) with
+   global-norm clipping — 2 + 20 micro-steps through `train_batches`
+   (step ms and tokens/s beside phase 4's constant rate, flash launches
+   counted, all on the Hopper bodies) bit-equal to `train_batch` with
+   the scheduler stepped by hand, a `snapshot()` after step 10 restored
+   twice and replayed bit for bit, `state_dict()` into a freshly built
+   engine continuing bit for bit, and 5 steps under ClipGradByNorm;
+   (b) BERT-base fine-tuning under AMP O2 (BASELINE config 2) as a
+   dygraph loop — `decorate` to bf16, AdamW with decay off for biases
+   and norm weights under LinearWarmup(PolynomialDecay), `auto_cast`,
+   `GradScaler` — 20 steps (sequences/s and MFU beside phase 5's, every
+   short-attention launch on its Hopper body, falling losses), a planted
+   inf step skipped with the scale halved, 3 steps through the kernels
+   twice (bit for bit) and through the plain route (loss 1e-2); (c) the
+   fp16 GradScaler on a small MLP: planted overflows skipped, the scale
+   halved and grown back; then, in a child process, (b)'s loop beside
+   phase 5's engine (engine, O2, O2, engine, 10 steps each) and under
+   torch.profiler;
+10. the kernels' JSON line, the nvidia-smi line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every float32 product in
@@ -4281,6 +4301,513 @@ def slice7_kernel_rows(bs_rows, dec_rows, pair_rows, sparse_run,
     ]
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training recipes (schedules, clips, rewinds, AMP O2, GradScaler)
+# ---------------------------------------------------------------------------
+
+RECIPE_STEPS = 20
+# (b)'s kernels-vs-plain bound on the unscaled gradients' global norm, a
+# step (relative): ≈ 3.5x the largest reading on an H100 (2.9e-3, the
+# same dropout bits, bf16 rounding apart); an overflow reads inf or NaN
+O2_NORM_TOL = 1e-2
+
+
+def _recipe_engine(torch, layers, clip="global"):
+    """Phase 4's gpt_base engine (f32 masters from seed 0, bf16 compute)
+    under the pretraining recipe: AdamW at LinearWarmup(CosineAnnealing
+    Decay(1e-4, T_max=40), warmup_steps=10, 0 -> 1e-4), clipped by
+    ClipGradByGlobalNorm(1.0) (or ClipGradByNorm(1.0), `clip="norm"`).
+    Returns (model, scheduler, engine)."""
+    from paddle_tpu_torch.distributed import parallelize
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm, ClipGradByNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+
+    torch.cuda.empty_cache()
+    model = gpt("gpt_base", dtype="float32", device="cuda", seed=0,
+                num_layers=layers)
+    sched = LinearWarmup(CosineAnnealingDecay(1e-4, T_max=40),
+                         warmup_steps=10, start_lr=0.0, end_lr=1e-4)
+    clip_fn = (ClipGradByGlobalNorm if clip == "global" else
+               ClipGradByNorm)(1.0)
+    opt = AdamW(learning_rate=sched, parameters=model.parameters(),
+                grad_clip=clip_fn)
+    return model, sched, parallelize(model, opt, compute_dtype="bfloat16")
+
+
+def _sched_steps(torch, eng, sched, ids, steps):
+    """`steps` train_batch calls, the scheduler stepped by hand after
+    each; returns (losses, grad norms) as floats."""
+    losses, norms = [], []
+    for _ in range(steps):
+        losses.append(eng.train_batch(ids))
+        norms.append(eng.last_grad_norm)
+        sched.step()
+    return (torch.stack(losses).float().cpu().tolist(),
+            torch.stack(norms).float().cpu().tolist())
+
+
+def _params_equal(torch, model, ref):
+    return all(torch.equal(p, ref[n]) for n, p in model.named_parameters())
+
+
+def _param_copy(model):
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def gpt_recipe(torch, layers, seed, phase4):
+    """(a) gpt_base pretraining under the schedule and the clip: 2 + 20
+    micro-steps through `train_batches` (the 20 timed; flash launches set
+    to 0 before and read after, all on the Hopper bodies) against 22
+    `train_batch` calls with the scheduler stepped by hand, bit for bit;
+    a snapshot after step 10 replayed twice over steps 11-15; the
+    engine's `state_dict` into a freshly built engine, 5 steps on both,
+    bit for bit; 5 steps under ClipGradByNorm(1.0) from the end of the
+    warm-up."""
+    import math
+
+    from paddle_tpu_torch.models import flops_per_token
+
+    failures = []
+    res = {"layers": layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": RECIPE_STEPS}
+    # the fused run: train_batches steps the scheduler per micro-step
+    model, sched, eng = _recipe_engine(torch, layers)
+    ids = _train_batch(torch, model.cfg.vocab_size, TRAIN_BATCH, seed)
+    warm = eng.train_batches([(ids,)] * 2)
+    warm_norms = eng.last_grad_norms
+    torch.cuda.synchronize()
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    losses = eng.train_batches([(ids,)] * RECIPE_STEPS)
+    norms = eng.last_grad_norms
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routes = flash_counts(), flash_route_counts()
+    fused = (torch.cat([warm, losses]).float().cpu().tolist(),
+             torch.cat([warm_norms, norms]).float().cpu().tolist())
+    fused_epoch = sched.last_epoch
+    fpt = flops_per_token(model.cfg, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ * RECIPE_STEPS
+    res.update(step_ms=wall * 1e3 / RECIPE_STEPS,
+               tokens_per_s=tokens / wall,
+               mfu=tokens / wall * fpt / BF16_FLOPS,
+               losses=fused[0], grad_norms=fused[1], launches=launches,
+               routes=routes, lr_last=sched())
+    del model, eng
+    per_run = layers * RECIPE_STEPS
+    if any(n != per_run for n in launches.values()) or any(
+            r[FLASH_ROUTE_NAMES[3]] != per_run for r in routes.values()):
+        failures.append(f"flash launches {launches} routes {routes}: "
+                        f"expected {per_run} each, all on the Hopper body")
+    if not all(math.isfinite(x) for x in fused[0] + fused[1]) \
+            or not fused[0][-1] < fused[0][0]:
+        failures.append(f"recipe did not progress: losses {fused[0]}")
+
+    # the same 2 + 20 steps by hand, with a snapshot after step 10
+    model, sched, eng = _recipe_engine(torch, layers)
+    first = _sched_steps(torch, eng, sched, ids, 10)
+    snap, sched_state = eng.snapshot(), sched.state_dict()
+    after = _sched_steps(torch, eng, sched, ids, 5)
+    at15 = _param_copy(model)
+    rest = _sched_steps(torch, eng, sched, ids, RECIPE_STEPS - 13)
+    by_hand = (first[0] + after[0] + rest[0], first[1] + after[1] + rest[1])
+    res["hand_stepped_bitwise_equal"] = by_hand == fused
+    res["last_epoch"] = {"train_batches": fused_epoch,
+                         "by_hand": sched.last_epoch}
+    if by_hand != fused or fused_epoch != sched.last_epoch:
+        failures.append(f"train_batches {fused} (epoch {fused_epoch}) != "
+                        f"hand-stepped train_batch {by_hand} (epoch "
+                        f"{sched.last_epoch})")
+    replays = []
+    for _ in range(2):
+        eng.restore(snap)
+        sched.set_state_dict(sched_state)
+        again = _sched_steps(torch, eng, sched, ids, 5)
+        replays.append(again == after and _params_equal(torch, model,
+                                                        at15))
+    res["restore_replays_bitwise_equal"] = replays
+    if not all(replays):
+        failures.append(f"snapshot replays bit-equal: {replays}")
+    del snap, at15
+    # the engine's state into a freshly built engine
+    tree_sched = sched.state_dict()
+    model2, sched2, eng2 = _recipe_engine(torch, layers)
+    eng2.load_state_dict(eng.state_dict())
+    sched2.set_state_dict(tree_sched)
+    a = _sched_steps(torch, eng, sched, ids, 5)
+    b = _sched_steps(torch, eng2, sched2, ids, 5)
+    res["state_dict_continues_bitwise"] = (
+        a == b and _params_equal(torch, model2, _param_copy(model)))
+    if not res["state_dict_continues_bitwise"]:
+        failures.append(f"state_dict into a fresh engine: {a} != {b}")
+    del model, eng, model2, eng2
+    # ClipGradByNorm, from the end of the warm-up: the first steps' rates
+    # (0, 1e-5, ...) move the bf16 loss by less than its rounding
+    model, sched, eng = _recipe_engine(torch, layers, clip="norm")
+    for _ in range(10):
+        sched.step()
+    cl, cn = _sched_steps(torch, eng, sched, ids, 5)
+    res["clip_by_norm"] = {"losses": cl, "grad_norms": cn}
+    if not (all(math.isfinite(x) for x in cl + cn) and cl[-1] < cl[0]):
+        failures.append(f"ClipGradByNorm run: losses {cl}")
+    del model, eng
+    if phase4 is not None:
+        res["phase4_step_ms"] = phase4["step_ms"]
+        res["phase4_tokens_per_s"] = phase4["tokens_per_s"]
+        res["schedule_cost_ms"] = res["step_ms"] - phase4["step_ms"]
+    log(f"  gpt recipe {json.dumps(res)}")
+    if failures:
+        raise AssertionError("gpt_base recipe: " + "; ".join(failures))
+    return res
+
+
+def _bert_o2(torch, layers, gseed):
+    """bert_base (f32 weights from seed 0, dropout 0.1 from a CUDA
+    generator seeded `gseed`), 2 labels, decorated O2 bf16; AdamW with
+    weight decay 0.01 on every parameter but the biases and norm weights
+    (the 1-D ones: PaddleNLP's fine-tune recipe) under LinearWarmup(
+    PolynomialDecay(2e-5, decay_steps=20, end_lr=0), warmup_steps=2,
+    0 -> 2e-5); GradScaler at its defaults. Returns (model, scheduler,
+    optimizer, scaler)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import bert_for_sequence_classification
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import LinearWarmup, PolynomialDecay
+
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(gseed)
+    model = bert_for_sequence_classification(
+        "bert_base", device="cuda", seed=0, generator=gen, num_labels=2,
+        num_hidden_layers=layers)
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    decay = {n for n, p in model.named_parameters() if p.dim() > 1}
+    sched = LinearWarmup(PolynomialDecay(2e-5, decay_steps=20, end_lr=0.0),
+                         warmup_steps=2, start_lr=0.0, end_lr=2e-5)
+    opt = AdamW(learning_rate=sched, weight_decay=0.01,
+                parameters=model.named_parameters(),
+                apply_decay_param_fun=lambda n: n in decay)
+    return model, sched, opt, amp.GradScaler()
+
+
+def _o2_steps(torch, model, sched, opt, scaler, batch, steps, norms=None,
+              cast=True):
+    """The dygraph O2 loop: forward and loss under auto_cast, the scaled
+    backward, the scaler's step and update, clear_grad, the schedule.
+    With a list `norms`, each step unscales first and appends the global
+    L2 norm of the unscaled gradients (f32, on the device) before the
+    update. `scaler=None` (backward and the optimizer's step alone) and
+    `cast=False` (no auto_cast) are the profile child's variants."""
+    import contextlib
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as TF
+
+    losses = []
+    for _ in range(steps):
+        with (amp.auto_cast(level="O2", dtype="bfloat16") if cast
+              else contextlib.nullcontext()):
+            loss = TF.cross_entropy(model(batch[0]), batch[1]).mean()
+        if scaler is None:
+            loss.backward()
+            opt.step()
+        else:
+            scaler.scale(loss).backward()
+            if norms is not None:
+                scaler.unscale_(opt)
+                grads = [p.grad for p in model.parameters()
+                         if p.grad is not None]
+                norms.append(torch.linalg.vector_norm(torch.stack(
+                    torch._foreach_norm(grads, 2, dtype=torch.float32))))
+            scaler.step(opt)
+            scaler.update()
+        opt.clear_grad()
+        sched.step()
+        losses.append(loss.detach())
+    return torch.stack(losses).float().cpu().tolist()
+
+
+def bert_o2_recipe(torch, np, layers, seed, phase5):
+    """(b) BASELINE config 2, BERT-base fine-tune under AMP O2, as a
+    dygraph loop: 20 steps after 2 warm-up steps (timed; short-attention
+    launches set to 0 before and read after, every one on its Hopper
+    body), falling finite losses, every step taken (the optimizer's step
+    count) at the initial scale; 3 steps through the kernels twice (bit
+    for bit, losses and gradient norms) and through the plain composed
+    route (every step taken at the initial scale in each; loss within
+    1e-2, the unscaled gradients' global norm within O2_NORM_TOL, so the
+    backward kernels, fed the scaled dO, are held to the plain route);
+    a step whose gradient a hook makes inf is skipped with the
+    parameters bit-equal and the scale halved."""
+    import math
+
+    from paddle_tpu_torch.models.bert import n_matmul_params
+    from paddle_tpu_torch.nn.functional import attention
+
+    failures = []
+    model, sched, opt, scaler = _bert_o2(torch, layers, seed + 1)
+    scale0 = scaler.get_init_loss_scaling()
+    batch = _bert_batch(torch, np, model.cfg.vocab_size, seed)
+    _o2_steps(torch, model, sched, opt, scaler, batch, 2)
+    torch.cuda.synchronize()
+    reset_short_counts()
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    losses = _o2_steps(torch, model, sched, opt, scaler, batch,
+                       RECIPE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**short_counts(), **flash_counts()}
+    fwd_routes, bwd_routes = short_route_counts(), short_bwd_route_counts()
+    seqs = BERT_BATCH * RECIPE_STEPS / wall
+    n_matmul = n_matmul_params(model.cfg)
+    res = {"layers": layers, "batch": BERT_BATCH, "seq": BERT_SEQ,
+           "steps": RECIPE_STEPS, "step_ms": wall * 1e3 / RECIPE_STEPS,
+           "sequences_per_s": seqs,
+           "mfu": seqs * 6.0 * n_matmul * BERT_SEQ / BF16_FLOPS,
+           "losses": losses, "launches": launches,
+           "fwd_routes": fwd_routes, "bwd_routes": bwd_routes,
+           "loss_scale": scaler.get_init_loss_scaling(),
+           "optimizer_steps": opt._step_count,
+           "param_dtypes": sorted({str(p.dtype)
+                                   for p in model.parameters()}),
+           "moment_dtype": str(opt.state_dict()["moment1_0"].dtype)}
+    per_run = layers * RECIPE_STEPS
+    if (launches["short_attention_fwd"] != per_run
+            or launches["short_attention_bwd"] != 2 * per_run
+            or fwd_routes[SHORT_ROUTE_NAMES[3]] != per_run
+            or bwd_routes[SHORT_BWD_ROUTE_NAMES[1]] != 2 * per_run
+            or any(launches[k] for k in flash_counts())):
+        failures.append(f"launches {launches}, routes {fwd_routes} / "
+                        f"{bwd_routes}: expected {per_run} forward and "
+                        f"{2 * per_run} backward launches on the Hopper "
+                        f"bodies")
+    if not (all(math.isfinite(x) for x in losses)
+            and sum(losses[-5:]) < sum(losses[:5])):
+        failures.append(f"O2 losses not finite and falling: {losses}")
+    # a skipped step would leave the losses to dropout's noise
+    if (opt._step_count != 2 + RECIPE_STEPS
+            or scaler.get_init_loss_scaling() != scale0):
+        failures.append(f"O2 steps taken {opt._step_count} of "
+                        f"{2 + RECIPE_STEPS}, scale "
+                        f"{scaler.get_init_loss_scaling()} (was {scale0})")
+    # a planted inf: the step is skipped and the scale halves
+    scale = scaler.get_init_loss_scaling()
+    before = _param_copy(model)
+    w = model.classifier.weight
+    hook = w.register_hook(lambda g: g.index_fill(0, g.new_tensor(
+        [0], dtype=torch.long), float("inf")))
+    step_count = opt._step_count
+    try:
+        _o2_steps(torch, model, sched, opt, scaler, batch, 1)
+    finally:
+        hook.remove()
+    res["inf_step"] = {
+        "skipped_params_bitwise_equal": _params_equal(torch, model, before),
+        "scale_before": scale, "scale_after": scaler.get_init_loss_scaling(),
+        "optimizer_step_unchanged": opt._step_count == step_count}
+    if not (res["inf_step"]["skipped_params_bitwise_equal"]
+            and res["inf_step"]["scale_after"] == scale / 2
+            and res["inf_step"]["optimizer_step_unchanged"]):
+        failures.append(f"planted inf step: {res['inf_step']}")
+    del model, opt, before
+    # parity: kernels, kernels again, plain composed route
+    supported = attention.short_attention_supported
+    runs = {}
+    for route in ("kernels", "kernels again", "plain"):
+        if route == "plain":
+            attention.short_attention_supported = lambda *a: False
+        try:
+            model, sched, opt, scaler = _bert_o2(torch, layers, seed + 2)
+            reset_short_counts()
+            norms = []
+            losses = _o2_steps(torch, model, sched, opt, scaler, batch, 3,
+                               norms)
+            runs[route] = {"losses": losses,
+                           "grad_norms": torch.stack(norms).cpu().tolist(),
+                           "launches": short_counts(),
+                           "optimizer_steps": opt._step_count,
+                           "loss_scale": scaler.get_init_loss_scaling()}
+        finally:
+            attention.short_attention_supported = supported
+        del model, opt
+        if (runs[route]["optimizer_steps"] != 3
+                or runs[route]["loss_scale"] != scale0):
+            failures.append(f"O2 parity run '{route}': steps taken "
+                            f"{runs[route]['optimizer_steps']} of 3, scale "
+                            f"{runs[route]['loss_scale']} (was {scale0})")
+    k, p = runs["kernels"], runs["plain"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(k["losses"], p["losses"]))
+    norm_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(k["grad_norms"], p["grad_norms"]))
+    again = runs["kernels again"]
+    res["parity"] = {"runs": runs, "loss_max_rel_err": rel,
+                     "grad_norm_max_rel_err": norm_rel,
+                     "rerun_bitwise_equal":
+                         k["losses"] == again["losses"]
+                         and k["grad_norms"] == again["grad_norms"]}
+    if rel > 1e-2:
+        failures.append(f"O2 kernels vs plain: loss rel err {rel} (tol "
+                        f"1e-2)")
+    if not norm_rel <= O2_NORM_TOL:
+        failures.append(f"O2 kernels vs plain: gradient norm rel err "
+                        f"{norm_rel} (tol {O2_NORM_TOL})")
+    if not res["parity"]["rerun_bitwise_equal"]:
+        failures.append("O2 kernel rerun not bit-equal")
+    if min(k["launches"].values()) == 0 or any(p["launches"].values()):
+        failures.append(f"O2 routing: kernels {k['launches']}, plain "
+                        f"{p['launches']}")
+    if phase5 is not None:
+        res["phase5_step_ms"] = phase5["step_ms"]
+        res["phase5_sequences_per_s"] = phase5["sequences_per_s"]
+        res["phase5_mfu"] = phase5["mfu"]
+    log(f"  bert O2 {json.dumps(res)}")
+    if failures:
+        raise AssertionError("BERT O2 recipe: " + "; ".join(failures))
+    return res
+
+
+def profile_bert_o2(torch, np, layers, seed, steps=3, timed=10):
+    """In a child process of its own (`--profile-bert-o2`, run when phase 9
+    is given `--o2-profile`): phase 5's bf16 engine and (b)'s O2 loop in
+    three forms on the same batch: whole ("o2"), without the GradScaler
+    (backward and the optimizer's step: no unscale, no finite check, no
+    host read; "o2_no_scaler") and without auto_cast (the decorated bf16
+    model and the scaler, no policy mode or casts; "o2_no_autocast").
+    Each is timed over `timed` steps after 2 warm-up steps (host clock,
+    synchronized) in the order engine, o2, o2_no_scaler, o2_no_autocast,
+    then backwards, and then run `steps` steps under torch.profiler:
+    device busy ms and launches a step (kernel time by family for
+    "o2"). The step's excess over its busy time is its host share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def timed_ms(run):
+        run(2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(timed)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / timed
+
+    model, eng = _bert_engine(torch, layers, gseed=seed + 1)
+    batch = _bert_batch(torch, np, model.cfg.vocab_size, seed)
+    m, sched, opt, scaler = _bert_o2(torch, layers, seed + 1)
+    runs = {
+        "engine": lambda n: _bert_steps(torch, eng, batch, n),
+        "o2": lambda n: _o2_steps(torch, m, sched, opt, scaler, batch, n),
+        "o2_no_scaler": lambda n: _o2_steps(torch, m, sched, opt, None,
+                                            batch, n),
+        "o2_no_autocast": lambda n: _o2_steps(torch, m, sched, opt, scaler,
+                                              batch, n, cast=False)}
+    order = list(runs) + list(runs)[::-1]
+    times = {name: [] for name in runs}
+    for name in order:
+        times[name].append(timed_ms(runs[name]))
+    res = {"layers": layers, "timed_steps": timed, "order": order,
+           "step_ms": times, "profiled_steps": steps, "profiled": {}}
+    for name, run in runs.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(steps)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        fam = kernel_families(prof, (
+            ("short_attention", ("sa_fwd", "sa_dq", "sa_dkv")),
+            ("gemm", GEMM_NAMES),
+            ("optimizer", ("foreach", "multi_tensor")),
+            ("elementwise", ("elementwise",))))
+        busy = sum(fam.values()) / 1e3 / steps
+        res["profiled"][name] = {
+            "step_ms": wall_ms / steps, "device_busy_ms_per_step": busy,
+            "device_launches_per_step": sum(
+                e.count for e in device_events(prof)) / steps,
+            "kernel_ms_per_step": {k: v / 1e3 / steps
+                                   for k, v in fam.items()}}
+        if name == "o2":
+            res["profiled"][name]["top_kernels_ms_per_step"] = top_kernels(
+                prof, steps)
+    return res
+
+
+FP16_PLANTED = (3, 4)              # the steps whose loss is made to overflow
+
+
+def fp16_scaler(torch):
+    """(c) GradScaler in fp16 on the card: a 1024-4096-1024 MLP decorated
+    O2 fp16, SGD, GradScaler(2**16, incr_every_n_steps=2), 10 steps under
+    auto_cast O2 fp16. On FP16_PLANTED steps the loss is multiplied by
+    1e6 before scaling, so the fp16 gradients overflow: those steps must
+    be skipped (parameters bit-equal) and the scale must halve on each,
+    then double after every two good steps."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import SGD
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    mlp = torch.nn.Sequential(torch.nn.Linear(1024, 4096), torch.nn.GELU(),
+                              torch.nn.Linear(4096, 1024)).cuda()
+    amp.decorate(mlp, level="O2", dtype="float16")
+    opt = SGD(learning_rate=1e-2, parameters=mlp.parameters())
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 16,
+                            incr_every_n_steps=2)
+    x = torch.randn(256, 1024, generator=g, device="cuda")
+    y = torch.randn(256, 1024, generator=g, device="cuda")
+    scales, skipped_equal, losses = [], [], []
+    for i in range(10):
+        before = [p.detach().clone() for p in mlp.parameters()]
+        with amp.auto_cast(level="O2", dtype="float16"):
+            loss = torch.nn.functional.mse_loss(mlp(x), y)
+        planted = loss * 1e6 if i in FP16_PLANTED else loss
+        scaler.scale(planted).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        scales.append(scaler.get_init_loss_scaling())
+        losses.append(float(loss.detach()))
+        if i in FP16_PLANTED:
+            skipped_equal.append(all(torch.equal(p, q) for p, q in
+                                     zip(mlp.parameters(), before)))
+    want, s, good = [], 2.0 ** 16, 0
+    for i in range(10):
+        if i in FP16_PLANTED:
+            s, good = max(s / 2, 1.0), 0
+        else:
+            good += 1
+            if good == 2:
+                s, good = s * 2, 0
+        want.append(s)
+    res = {"scales": scales, "expected": want, "losses": losses,
+           "skipped_params_bitwise_equal": skipped_equal,
+           "optimizer_steps": opt._step_count,
+           "param_dtype": str(next(mlp.parameters()).dtype)}
+    log(f"  fp16 scaler {json.dumps(res)}")
+    if (scales != want or not all(skipped_equal)
+            or opt._step_count != 10 - len(FP16_PLANTED)):
+        raise AssertionError(f"fp16 GradScaler: {res}")
+    return res
+
+
+def recipes_phase(torch, np, args, phase4=None, phase5=None):
+    """Phase 9: (a) gpt_base pretraining recipe, (b) BERT-base O2
+    fine-tune, (c) the fp16 GradScaler; with `--o2-profile`, then (b)'s
+    loop and its variants beside phase 5's engine and under
+    torch.profiler in a child process."""
+    layers = 2 if args.quick else 12
+    t0 = time.perf_counter()
+    res = {"gpt": gpt_recipe(torch, layers, args.seed, phase4),
+           "bert_o2": bert_o2_recipe(torch, np, layers, args.seed, phase5),
+           "fp16_scaler": fp16_scaler(torch)}
+    if args.o2_profile:
+        res["bert_o2_profile"] = run_child("--profile-bert-o2", layers,
+                                           args.seed, args.report)
+        log(f"  bert O2 profile {json.dumps(res['bert_o2_profile'])}")
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def main(argv):
     import argparse
 
@@ -4299,12 +4826,20 @@ def main(argv):
                     help=argparse.SUPPRESS)
     ap.add_argument("--profile-bert", metavar="OUT",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--profile-bert-o2", metavar="OUT",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--profile-resnet", metavar="OUT",
                     help=argparse.SUPPRESS)
     ap.add_argument("--profile-resblock", metavar="OUT",
                     help=argparse.SUPPRESS)
     ap.add_argument("--route", choices=sorted(RESNET_ROUTES),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--recipes-only", action="store_true",
+                    help="the build and phase 9 (training recipes) only")
+    ap.add_argument("--o2-profile", action="store_true",
+                    help="phase 9 also times (b)'s O2 loop, without its "
+                         "scaler and without auto_cast, beside phase 5's "
+                         "engine and profiles each in a child (about 40 s)")
     ap.add_argument("--cp-only", action="store_true",
                     help="phases 1, 2's ring-attention and GEMV checks and "
                          "7 (cp training) only")
@@ -4344,6 +4879,11 @@ def main(argv):
         with open(args.profile_bert, "w") as f:
             json.dump(res, f)
         return 0
+    if args.profile_bert_o2:
+        res = profile_bert_o2(torch, np, args.layers, args.seed)
+        with open(args.profile_bert_o2, "w") as f:
+            json.dump(res, f)
+        return 0
     if args.profile_resnet:
         res = profile_resnet(torch, np, args.route, args.seed)
         with open(args.profile_resnet, "w") as f:
@@ -4374,6 +4914,10 @@ def main(argv):
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"(cached={build_rec.get('cached')}; ptxas -v lines in the report)")
 
+    if args.recipes_only:
+        log_phase(t_start, "phase 9: training recipes")
+        return finish(args, torch, smi, build_rec, t_start, [],
+                      {"recipes": recipes_phase(torch, np, args)})
     iters = 5 if args.quick else 20
     log_phase(t_start, "phase 2: kernels vs plain versions")
     fp_rows = check_flash_pos(torch, iters)
@@ -4443,6 +4987,11 @@ def main(argv):
 
     log_phase(t_start, "phase 8: sparse attention at bigbird_base width")
     sparse_run = sparse_phase(torch, np, args)
+
+    log_phase(t_start, "phase 9: training recipes (schedule, clips, "
+                       "rewinds, AMP O2, GradScaler)")
+    recipes_run = recipes_phase(torch, np, args, train["throughput"],
+                                bert_run["throughput"])
 
     launches = {k: sum(r["launches"].get(k, 0) for r in runs)
                 for k in runs[0]["launches"]}
@@ -4559,7 +5108,8 @@ def main(argv):
         "flash_pos": fp_rows, "serial_ring": ring_rows, "row_gemv": gv_rows,
         "cp": cp_run, "block_sparse": bs_rows, "decode_attention": dec_rows,
         "decode_table_cost": table_cost,
-        "fused_pair": pair_rows, "sparse": sparse_run})
+        "fused_pair": pair_rows, "sparse": sparse_run,
+        "recipes": recipes_run})
 
 
 def main_route_rows(wo_rows, fa_rows):

@@ -18,9 +18,11 @@ from __future__ import annotations
 
 import torch
 
+from . import amp
+
 __version__ = "0.1.0"
 
-__all__ = ["resolve_device", "__version__"]
+__all__ = ["amp", "resolve_device", "__version__"]
 
 
 def resolve_device(device=None) -> torch.device:

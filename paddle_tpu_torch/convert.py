@@ -17,6 +17,19 @@ Usage, with the JAX model's state as numpy arrays::
     load_jax_state(torch_model, named)
     back = state_to_jax(torch_model)     # the same names and layouts again
 
+Training state carries over too: `optimizer_state_from_jax` turns a JAX
+`Optimizer.state_dict()` (after the JAX engine's
+`sync_optimizer_state()`) into the port optimizer's, and
+`engine_state_from_jax` a JAX `ShardedTrainStep.state_dict()` tree into
+the port engine's, the slots of a Linear weight transposed like the
+weight::
+
+    jeng.sync_optimizer_state()
+    topt.set_state_dict(optimizer_state_from_jax(
+        jopt.state_dict(), [n for n, _ in jax_model.named_parameters()],
+        torch_model))
+    teng.load_state_dict(engine_state_from_jax(jeng.state_dict()))
+
 LoRA adapters need no conversion: a JAX adapter is ``{layer name: (A
 [in, r], B [r, out])}`` keyed by the JAX model's sublayer names
 (``transformer.layers.<i>.attn.qkv_proj`` ...), which are the port's module
@@ -30,7 +43,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "load_jax_state", "state_to_jax"]
+__all__ = ["params_from_jax", "load_jax_state", "state_to_jax",
+           "optimizer_state_from_jax", "engine_state_from_jax"]
 
 #: modules whose 2-D `.weight` is an embedding table, not a Linear: GPT's
 #: and BERT's
@@ -93,4 +107,53 @@ def state_to_jax(model):
         a = (t.float() if t.is_floating_point() else t).numpy()
         out[name] = np.ascontiguousarray(
             a.T if _is_linear_weight(name, a) else a)
+    return out
+
+
+def _numpy(v):
+    """A leaf of a JAX state tree (a JAX package Tensor, a JAX or numpy
+    array) as numpy; bfloat16, which torch cannot take from numpy, as
+    float32 (the port casts to its own tensor's dtype on load)."""
+    a = np.asarray(v.numpy() if hasattr(v, "numpy") else v)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def _port_layout(name, v):
+    a = _numpy(v)
+    if _is_linear_weight(name, a):
+        a = a.T
+    return torch.from_numpy(np.array(a, order="C", copy=True))
+
+
+def optimizer_state_from_jax(state, names, model):
+    """A JAX `Optimizer.state_dict()` (``_step_count``, ``{slot}_{i}``,
+    ``LR_Scheduler``), whose i-th parameter is ``names[i]``, -> the state
+    dict of the port optimizer built over ``model.parameters()``: slots
+    re-indexed by the port model's parameter order, a Linear weight's
+    slots transposed to [out, in]."""
+    order = {n: j for j, (n, _) in enumerate(model.named_parameters())}
+    out = {"_step_count": int(state.get("_step_count", 0))}
+    for key, v in state.items():
+        if key == "_step_count":
+            continue
+        if key == "LR_Scheduler":
+            out[key] = dict(v)
+            continue
+        slot, i = key.rsplit("_", 1)
+        name = names[int(i)]
+        out[f"{slot}_{order[name]}"] = _port_layout(name, v)
+    return out
+
+
+def engine_state_from_jax(tree):
+    """A JAX engine `state_dict()` tree (``model``, ``buffers``, ``opt``
+    by parameter name, ``step``) -> the port engine's, for its
+    `load_state_dict`."""
+    out = {"model": {n: _port_layout(n, v) for n, v in tree["model"].items()},
+           "buffers": {n: torch.from_numpy(np.array(_numpy(v), copy=True))
+                       for n, v in tree.get("buffers", {}).items()},
+           "step": int(tree.get("step", 0))}
+    if "opt" in tree:
+        out["opt"] = {n: {s: _port_layout(n, v) for s, v in slots.items()}
+                      for n, slots in tree["opt"].items()}
     return out

@@ -31,11 +31,18 @@ A custom `loss_fn` cannot keep those invariants and raises under cp > 1
 (the model's own `loss` is the cp-aware one). Other meshes — more than
 one device in a list, ``dp``/``fsdp``/``tp`` — and ``sharding_stage !=
 0`` raise `NotImplementedError` (a later slice).
+
+Training recipes: the optimizer's `grad_clip` (any of the three clips)
+and its learning rate act inside its `step()`, which reads ``get_lr()``
+every batch — an `optimizer.lr.LRScheduler` is stepped by the user after
+`train_batch`, and by the engine once per micro-step it consumes in
+`train_batches` (as the JAX engine does). `snapshot()` / `restore()`
+rewind the carried state bit for bit, and `state_dict()` /
+`load_state_dict()` carry it in the JAX engine's tree.
 """
 from __future__ import annotations
 
 import contextlib
-import numbers
 
 import numpy as np
 import torch
@@ -43,6 +50,8 @@ from torch import nn
 from torch.func import functional_call
 
 from ..nn.clip import global_norm
+from ..optimizer.lr import LRScheduler
+from ..optimizer.optimizer import LBFGS
 from ..sharding import Mesh, MeshConfig
 from .context_parallel import context_parallel_guard
 
@@ -87,6 +96,25 @@ class _LossOf(nn.Module):
         return self.loss_fn(self.model, *batch)
 
 
+def _generators(model):
+    """Every `torch.Generator` the model's modules hold (dropout's, the
+    short-attention kernels' seeds), once each, in module order."""
+    gens = {}
+    for m in model.modules():
+        for v in vars(m).values():
+            if isinstance(v, torch.Generator):
+                gens.setdefault(id(v), v)
+    return list(gens.values())
+
+
+def _default_generator(device):
+    if device.type == "cuda":
+        return torch.cuda.default_generators[
+            device.index if device.index is not None
+            else torch.cuda.current_device()]
+    return torch.default_generator
+
+
 class ShardedTrainStep:
     """`loss_fn(model, *batch)` plus the optimizer update, one step per
     `train_batch`. Attributes: `last_grad_norm` (0-d device tensor, the
@@ -119,14 +147,16 @@ class ShardedTrainStep:
         self.optimizer = optimizer
         self.compute_dtype = _dtype(compute_dtype)
         self._loss_of = _LossOf(model, loss_fn)
-        self._params = {"model." + n: p
-                        for n, p in model.named_parameters()}
+        self._named = dict(model.named_parameters())
+        self._buffers = dict(model.named_buffers())
+        self._params = {"model." + n: p for n, p in self._named.items()}
         self.device = next(iter(self._params.values())).device
         if self.cp > 1 and self.device != mesh.device:
             raise ValueError(f"the model is on {self.device}, this rank's "
                              f"mesh device is {mesh.device}")
         self.last_grad_norm = None
         self.last_grad_norms = None
+        self._step_count = 0
         self.stats = {"dispatches": 0, "steps": 0, "device_puts": 0}
 
     def _place(self, batch):
@@ -193,6 +223,7 @@ class ShardedTrainStep:
                                 if p.grad is not None])
         self.last_grad_norm = norm
         self.last_grad_norms = None
+        self._step_count += 1
         self.stats["dispatches"] += 1
         self.stats["steps"] += 1
         return self._global_loss(loss.detach())
@@ -200,13 +231,18 @@ class ShardedTrainStep:
     def train_batches(self, batches, n=None):
         """`train_batch` over each batch (a tuple of arguments or a single
         one), at most `n`; returns the stacked losses and keeps the grad
-        norms in `last_grad_norms`."""
+        norms in `last_grad_norms`. An `LRScheduler` learning rate is
+        stepped once after each of these steps (do not also step it for
+        them)."""
         batches = list(batches)[:n]
+        sched = getattr(self.optimizer, "_learning_rate", None)
         losses, norms = [], []
         for b in batches:
             losses.append(self.train_batch(
                 *(b if isinstance(b, (tuple, list)) else (b,))))
             norms.append(self.last_grad_norm)
+            if isinstance(sched, LRScheduler):
+                sched.step()
         if not losses:
             return torch.zeros((0,), device=self.device)
         self.last_grad_norms = torch.stack(norms)
@@ -217,6 +253,94 @@ class ShardedTrainStep:
         """The loss alone: no gradients, no update."""
         self.stats["dispatches"] += 1
         return self._global_loss(self._loss(self._place(batch)))
+
+    # ---- rewindable state ----------------------------------------------
+    def _slots(self, p):
+        return self.optimizer.state.get(p, {}) if self.optimizer else {}
+
+    @torch.no_grad()
+    def snapshot(self):
+        """A deep copy of the carried train state: the parameters (the f32
+        masters), the optimizer's slots and step counter, the buffers
+        (batch-norm running statistics), the engine's step count, and the
+        state of every `torch.Generator` the model holds and of the
+        device's default generator, so a `restore` replays the same
+        dropout. The LR scheduler is not part of it (as in the
+        reference): save and restore it with its own `state_dict`."""
+        gens = _generators(self.model) + [_default_generator(self.device)]
+        return {
+            "step_count": self._step_count,
+            "params": {n: p.detach().clone() for n, p in self._named.items()},
+            "opt_step": getattr(self.optimizer, "_step_count", None),
+            "opt": {n: {s: v.clone() for s, v in self._slots(p).items()}
+                    for n, p in self._named.items() if self._slots(p)},
+            "buffers": {n: b.clone() for n, b in self._buffers.items()},
+            "generators": [g.get_state() for g in gens],
+        }
+
+    @torch.no_grad()
+    def restore(self, snap):
+        """Rewind to `snap` (from `snapshot()`), copying into the engine's
+        own tensors: the same snapshot can be restored again. Slots made
+        since the snapshot are dropped; the default generator of the
+        device is rewound too."""
+        for n, p in self._named.items():
+            p.copy_(snap["params"][n])
+        for n, b in self._buffers.items():
+            b.copy_(snap["buffers"][n])
+        if self.optimizer is not None:
+            self.optimizer._step_count = snap["opt_step"]
+            for n, p in self._named.items():
+                self._load_slots(p, snap["opt"].get(n), drop=True)
+        gens = _generators(self.model) + [_default_generator(self.device)]
+        for g, state in zip(gens, snap["generators"]):
+            g.set_state(state)
+        self._step_count = int(snap["step_count"])
+
+    def _load_slots(self, p, slots, drop=False):
+        """Set `p`'s optimizer slots from {name: value}; with `drop`, also
+        remove the slots `slots` does not name."""
+        st = self.optimizer.state[p]
+        if drop:
+            for s in set(st) - set(slots or ()):
+                del st[s]
+        for s, v in (slots or {}).items():
+            self.optimizer._set_slot(p, s, v)
+
+    def state_dict(self):
+        """The JAX engine's checkpoint tree: ``model`` and ``buffers``
+        ({name: tensor}), ``opt`` ({parameter name: {slot: tensor}}, when
+        there is an optimizer) and ``step``. Leaves are the engine's own
+        tensors (a checkpoint writer copies them)."""
+        tree = {"model": {n: p.detach() for n, p in self._named.items()},
+                "buffers": dict(self._buffers),
+                "step": self._step_count}
+        if self.optimizer is not None:
+            tree["opt"] = {n: dict(self._slots(p))
+                           for n, p in self._named.items()}
+        return tree
+
+    @torch.no_grad()
+    def load_state_dict(self, tree):
+        """Adopt a `state_dict()`-shaped tree (torch tensors or numpy
+        arrays, the port's layouts: see `convert.engine_state_from_jax`),
+        cast to each tensor's dtype and device. The optimizer's step
+        counter becomes ``step``."""
+        for n, p in self._named.items():
+            p.copy_(torch.as_tensor(tree["model"][n]))
+        for n, b in self._buffers.items():
+            if n in tree.get("buffers", {}):
+                b.copy_(torch.as_tensor(tree["buffers"][n]))
+        for n, slots in (tree.get("opt") or {}).items():
+            self._load_slots(self._named[n], slots)
+        self._step_count = int(tree.get("step", 0))
+        if self.optimizer is not None:
+            self.optimizer._step_count = self._step_count
+
+    def sync_optimizer_state(self):
+        """Nothing to do: the JAX engine keeps the slots apart from its
+        eager optimizer and copies them back here; the port's engine
+        steps the optimizer itself, which holds its slots."""
 
 
 def parallelize(model, optimizer=None, loss_fn=None, *, mesh=None,
@@ -238,13 +362,10 @@ def parallelize(model, optimizer=None, loss_fn=None, *, mesh=None,
     if sharding_stage != 0:
         raise NotImplementedError(f"sharding_stage={sharding_stage} "
                                   + _LATER)
-    if optimizer is not None:
-        for group in optimizer.param_groups:
-            if not isinstance(group["lr"], numbers.Real):
-                raise NotImplementedError(
-                    f"learning rate {group['lr']!r}: LR schedulers are not "
-                    f"ported yet (ROADMAP Queue 1, item 2: training "
-                    f"recipes)")
+    if isinstance(optimizer, LBFGS):
+        raise TypeError(
+            "LBFGS has no per-parameter update for the engine to apply (it "
+            "re-evaluates a closure); use it eagerly, opt.step(closure)")
     return ShardedTrainStep(model, optimizer, loss_fn=loss_fn,
                             compute_dtype=compute_dtype, mesh=mesh,
                             context_parallel=context_parallel)

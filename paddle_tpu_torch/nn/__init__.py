@@ -2,13 +2,15 @@
 convolution, pooling, activation, dropout and norm layers, weight-only
 quantization and gradient clipping."""
 from . import functional
-from .clip import ClipGradByGlobalNorm
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
+                   clip_grad_norm_, clip_grad_value_)
 from .layer.activation import ReLU
 from .layer.common import Dropout
 from .layer.conv import Conv2D
 from .layer.norm import BatchNorm2D, LayerNorm, RMSNorm
 from .layer.pooling import AdaptiveAvgPool2D, MaxPool2D
 
-__all__ = ["functional", "ClipGradByGlobalNorm", "ReLU", "Dropout",
-           "Conv2D", "BatchNorm2D", "LayerNorm", "RMSNorm",
+__all__ = ["functional", "ClipGradByGlobalNorm", "ClipGradByNorm",
+           "ClipGradByValue", "clip_grad_norm_", "clip_grad_value_", "ReLU",
+           "Dropout", "Conv2D", "BatchNorm2D", "LayerNorm", "RMSNorm",
            "AdaptiveAvgPool2D", "MaxPool2D"]

@@ -13,12 +13,15 @@ Routing follows the JAX package's rules, on the tensors' device:
 * training-mode dropout with no mask, self-attention shapes that the
   short-attention kernels admit (`ops.short_attention.supported` and
   `supports_p`): the short-attention kernels, dropout drawn inside them
-  (`ops.short_attention`; on a CPU tensor their plain versions). The JAX
+  (`ops.short_attention`; on a CPU tensor their plain versions). A CUDA
+  tensor of such a shape in a dtype the kernels do not take (fp16)
+  raises TypeError, as the flash kernels' wrapper does. The JAX
   package gates this route behind an environment switch and a TPU, where
   XLA's fused composed path was faster; eagerly, the composed path writes
   [B, H, S, S] scores, probabilities and a mask through device memory in
   every layer, so here the kernels are the route;
-* any other dropout (a mask, a shape the kernels do not take, p = 1):
+* any other dropout (a mask, a shape the kernels do not take, p = 1,
+  an fp16 CPU tensor):
   the composed path (`ops.short_attention.composed_attention`, the
   kernels' plain version), drawing its mask from the same bit stream
   (`ops._dropout_rng`);
@@ -45,6 +48,7 @@ import math
 import numpy as np
 import torch
 
+from ...amp import amp_op
 from ...ops import _dropout_rng
 from ...ops.block_sparse_attention import (block_sparse_attention,
                                            csr_to_block_tables)
@@ -61,6 +65,7 @@ __all__ = ["apply_rotary_pos_emb", "scaled_dot_product_attention",
 _SPARSE_BLOCK = 128      # the tile of the block route (attention.py:239)
 
 
+@amp_op("sdpa")
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, name=None, generator=None):
@@ -93,10 +98,16 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         seed = _dropout_rng.draw_seed(generator, query.device)
         if (attn_mask is None and supports_p(dropout_p)
                 and query.shape == key.shape == value.shape
-                and short_attention_supported(tuple(query.shape), None,
-                                              query.dtype)):
-            return short_attention(query, key, value, seed, dropout_p,
-                                   causal)
+                and short_attention_supported(tuple(query.shape))):
+            if short_attention_supported(tuple(query.shape), None,
+                                         query.dtype):
+                return short_attention(query, key, value, seed, dropout_p,
+                                       causal)
+            if query.is_cuda:
+                raise TypeError(
+                    f"short attention kernels take float32 or bfloat16, got "
+                    f"{query.dtype} (fp16 training of the attention "
+                    f"layers is not on a kernel: train in bf16)")
         return composed_attention(query, key, value, attn_mask, causal,
                                   dropout_p, seed)[0]
     if attn_mask is not None:
@@ -128,6 +139,7 @@ def _host(t):
     return np.asarray(t)
 
 
+@amp_op("flash_attn_unpadded")
 def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
                         max_seqlen_q, max_seqlen_k, scale, dropout=0.0,
                         causal=False, return_softmax=False, name=None):
@@ -185,6 +197,7 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
     return flat, None
 
 
+@amp_op("sparse_attention")
 def sparse_attention(query, key, value, sparse_csr_offset, sparse_csr_columns,
                      key_padding_mask=None, attn_mask=None, name=None):
     """CSR-pattern attention (reference signature). q/k/v [B, H, S, D];
@@ -257,6 +270,7 @@ def _sddmm_attention(q, k, v, off, col, key_padding_mask, attn_mask, scale):
     return out.reshape(B, H, S, D)
 
 
+@amp_op("rope")
 def apply_rotary_pos_emb(q, k, position_ids, theta=10000.0):
     """Half-split (LLaMA) rotary embedding on [B, S, H, D] q and k at
     position_ids [B, S]; the trigonometry is f32, the result cast back."""

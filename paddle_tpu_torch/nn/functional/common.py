@@ -10,9 +10,12 @@ from __future__ import annotations
 
 import torch
 
+from ...amp import amp_op
+
 __all__ = ["dropout"]
 
 
+@amp_op("dropout")
 def dropout(x, p=0.5, training=True, generator=None, name=None):
     """Zero each element with probability `p` while training and scale the
     kept ones by 1 / (1 - p) (``upscale_in_train``); the identity

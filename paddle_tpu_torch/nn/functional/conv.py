@@ -18,6 +18,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ...amp import amp_op
+
 __all__ = ["conv2d"]
 
 
@@ -56,6 +58,7 @@ def _pads(padding, n, size, kernel, stride, dilation):
     raise ValueError(f"bad padding {padding!r}")
 
 
+@amp_op("conv")
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW"):
     """2-D convolution; x NCHW or NHWC, weight [Cout, Cin / groups, kh,

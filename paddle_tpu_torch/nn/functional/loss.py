@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ...amp import amp_op
+
 __all__ = ["cross_entropy", "cross_entropy_share"]
 
 
@@ -42,6 +44,7 @@ class _CrossEntropyHard(torch.autograd.Function):
         return d.to(logits.dtype), None, None, None, None
 
 
+@amp_op("cross_entropy")
 def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
     """Hard-label softmax cross entropy over the last axis, averaged over
     the positions whose label is not `ignore_index` (at least 1). input
@@ -56,6 +59,7 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
                                    None, None)
 
 
+@amp_op("cross_entropy")
 def cross_entropy_share(input, label, denom):
     """This rank's share of a mean cross entropy taken over more rows than
     it holds: the sum over its rows divided by `denom` (the global count),

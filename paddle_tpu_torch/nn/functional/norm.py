@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from ...amp import amp_op
+
 __all__ = ["batch_norm", "layer_norm", "rms_norm", "update_running_stats"]
 
 #: elements per first-stage chunk of a row reduction (see `_row_mean`)
@@ -40,6 +42,7 @@ def _row_mean(x):
     return parts.sum(dim=-1, keepdim=True) / d
 
 
+@amp_op("layer_norm")
 def layer_norm(x, weight=None, bias=None, epsilon=1e-5):
     """LayerNorm over the last dim, f32 statistics, affine in f32, then
     cast to x's dtype (the JAX fused forward `_ln_fused_fwd`)."""
@@ -54,6 +57,7 @@ def layer_norm(x, weight=None, bias=None, epsilon=1e-5):
     return out.to(x.dtype)
 
 
+@amp_op("rms_norm")
 def rms_norm(x, weight, epsilon=1e-6):
     """RMSNorm over the last dim: f32 mean square, normalise, cast back to
     x's dtype, THEN multiply by the weight (the JAX `_rms_norm_impl`)."""
@@ -65,6 +69,7 @@ def rms_norm(x, weight, epsilon=1e-6):
 _CHANNEL_LAST = ("NHWC", "NLC", "NDHWC")
 
 
+@amp_op("batch_norm_train")
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5,
                data_format="NCHW", use_global_stats=None):

@@ -2448,3 +2448,151 @@ def test_speculation_on_graphs_equals_plain_greedy(cuda, draft):
         assert sp["rejected"] > 0
     assert st["blocks"]["allocated"] == 0
     assert st["draft_blocks"]["allocated"] == 0
+
+
+# ---------------------------------------------------------------------------
+# training recipes: the fp16 GradScaler, rewinds, AMP O2
+# ---------------------------------------------------------------------------
+
+def test_fp16_grad_scaler_skips_and_recovers(cuda):
+    """An fp16 MLP under auto_cast O2 fp16: a loss made to overflow the
+    fp16 gradients on steps 2 and 3 is skipped twice (parameters
+    bit-equal, the optimizer's step counter unchanged), the scale halves
+    on each and doubles after every two good steps."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import SGD
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    mlp = torch.nn.Sequential(torch.nn.Linear(64, 128), torch.nn.GELU(),
+                              torch.nn.Linear(128, 64)).to(cuda)
+    amp.decorate(mlp, level="O2", dtype="float16")
+    opt = SGD(learning_rate=1e-2, parameters=mlp.parameters())
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 16,
+                            incr_every_n_steps=2)
+    x = torch.randn(32, 64, generator=g, device=cuda)
+    y = torch.randn(32, 64, generator=g, device=cuda)
+    scales = []
+    for i in range(8):
+        before = [p.detach().clone() for p in mlp.parameters()]
+        with amp.auto_cast(level="O2", dtype="float16"):
+            loss = torch.nn.functional.mse_loss(mlp(x), y)
+        assert loss.dtype == torch.float32
+        scaler.scale(loss * 1e9 if i in (2, 3) else loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        scales.append(scaler.get_init_loss_scaling())
+        same = all(torch.equal(p, q) for p, q in zip(mlp.parameters(),
+                                                      before))
+        assert same == (i in (2, 3)), i
+    s = 2.0 ** 16
+    assert scales == [s, 2 * s, s, s / 2, s / 2, s, s, 2 * s]
+    assert opt._step_count == 6
+    assert all(p.dtype == torch.float16 for p in mlp.parameters())
+
+
+def test_snapshot_restore_replays_gpt_tiny_through_flash(cuda):
+    """gpt_tiny through the flash kernels under a warm-up schedule and a
+    global-norm clip: `snapshot()` after 2 steps, 3 steps, then
+    `restore()` and the scheduler's `set_state_dict` twice, each
+    replaying the 3 steps bit for bit (losses, grad norms, parameters)."""
+    from paddle_tpu_torch.distributed import parallelize
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+
+    m = gpt("gpt_tiny", device=cuda)
+    sched = LinearWarmup(CosineAnnealingDecay(1e-3, T_max=10),
+                         warmup_steps=2, start_lr=0.0, end_lr=1e-3)
+    eng = parallelize(m, AdamW(learning_rate=sched,
+                               parameters=m.parameters(),
+                               grad_clip=ClipGradByGlobalNorm(1.0)),
+                      compute_dtype="bfloat16")
+    ids = torch.randint(0, m.cfg.vocab_size, (2, 128),
+                        generator=torch.Generator().manual_seed(0))
+
+    def steps(n):
+        out = []
+        for _ in range(n):
+            out.append((float(eng.train_batch(ids)),
+                        float(eng.last_grad_norm)))
+            sched.step()
+        return out, [p.detach().clone() for p in m.parameters()]
+
+    steps(2)
+    snap, state = eng.snapshot(), sched.state_dict()
+    before = tfa.flash_attention_fwd.launches
+    ref, ref_params = steps(3)
+    assert tfa.flash_attention_fwd.launches - before == 3 * m.cfg.num_layers
+    for _ in range(2):
+        eng.restore(snap)
+        sched.set_state_dict(state)
+        got, params = steps(3)
+        assert got == ref
+        assert all(torch.equal(p, q) for p, q in zip(params, ref_params))
+
+
+def test_bert_tiny_under_o2_through_short_attention(cuda):
+    """bert_tiny decorated O2 bf16, 3 dygraph steps under auto_cast and the
+    GradScaler: every short-attention launch on a kernel route (one
+    forward and two backward a layer and step), bf16 parameters and
+    moments, finite losses; the same steps from the same generator seed
+    again, bit for bit."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import bert_for_sequence_classification
+    from paddle_tpu_torch.nn import functional as TF
+    from paddle_tpu_torch.optimizer import AdamW
+
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, 1024, (4, 64), generator=g).to(cuda)
+    labels = torch.randint(0, 2, (4,), generator=g).to(cuda)
+    runs = []
+    for _ in range(2):
+        m = bert_for_sequence_classification(
+            "bert_tiny", device=cuda,
+            generator=torch.Generator(device=cuda).manual_seed(5))
+        amp.decorate(m, level="O2", dtype="bfloat16")
+        opt = AdamW(learning_rate=1e-3, parameters=m.parameters())
+        scaler = amp.GradScaler()
+        before = (tsa.short_attention_fwd.launches,
+                  tsa.short_attention_bwd.launches)
+        losses = []
+        for _ in range(3):
+            with amp.auto_cast(level="O2", dtype="bfloat16"):
+                loss = TF.cross_entropy(m(ids), labels)
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            scaler.update()
+            opt.clear_grad()
+            losses.append(float(loss.detach()))
+        per = 3 * m.cfg.num_hidden_layers
+        assert (tsa.short_attention_fwd.launches - before[0],
+                tsa.short_attention_bwd.launches - before[1]) == (per,
+                                                                  2 * per)
+        assert all(math.isfinite(x) for x in losses)
+        assert opt.state_dict()["moment1_0"].dtype == torch.bfloat16
+        assert all(p.dtype == torch.bfloat16 for p in m.parameters())
+        runs.append(losses)
+    assert runs[0] == runs[1]
+
+
+def test_bert_tiny_under_o2_fp16_refuses_the_attention_kernels(cuda):
+    """bert_tiny decorated O2 fp16 in training mode: its dropout attention
+    reaches the short-attention kernels in fp16, which they do not take,
+    so the forward raises TypeError and no short-attention launch is
+    counted (no plain route runs on the card in its place)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import bert_for_sequence_classification
+
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, 1024, (4, 64), generator=g).to(cuda)
+    m = bert_for_sequence_classification(
+        "bert_tiny", device=cuda,
+        generator=torch.Generator(device=cuda).manual_seed(5))
+    amp.decorate(m, level="O2", dtype="float16")
+    before = tsa.short_attention_fwd.launches
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        with amp.auto_cast(level="O2", dtype="float16"):
+            m(ids)
+    assert tsa.short_attention_fwd.launches == before
