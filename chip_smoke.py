@@ -7,6 +7,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --quick    # short: fewer timing repeats, 2 layers
     python3 chip_smoke.py --cp-only  # phases 1, 2's ring checks, and 7
     python3 chip_smoke.py --recipes-only   # phases 1 and 9
+    python3 chip_smoke.py --lora-only      # phases 1, 2's BGMV checks, 10
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -168,7 +169,27 @@ Phases (any failure exits non-zero and prints no result line):
    halved and grown back; then, in a child process, (b)'s loop beside
    phase 5's engine (engine, O2, O2, engine, 10 steps each) and under
    torch.profiler;
-10. the kernels' JSON line, the nvidia-smi line, then the last line
+10. LoRA fine-tuning and inference (BASELINE config 5): llama2_7b at full
+   width and depth (bf16 weights from a seed) with r = 8 adapters on
+   qkv_proj and out_proj (`nn.lora.apply_lora`), (a) fine-tuned through
+   `distributed.parallelize` (bf16 compute, AdamW over `lora_parameters`
+   at LinearWarmup(CosineAnnealingDecay(3e-4)), global-norm clip 1.0) on
+   one fixed [4, 1024] batch from `--seed`: 2 + 20 steps (step ms,
+   tokens/s, MFU over `lora_flops_per_token`, peak memory, falling
+   losses, flash launches set to 0 before and read after, all on the
+   Hopper bodies), every adapter moved and every base tensor bit-equal
+   to a fresh build of the seed, and a 2-layer parity run through the
+   kernels and the plain attention; (b) `generate` with the adapters
+   live at bench.py's LoRA decode shape (bs 8, 16 + 128 tokens): greedy
+   (tokens/s), sampled (a rerun bit-equal, another seed different),
+   merged (equal to the unmerged tokens up to the first near-tie) and on
+   int8 weights (every weight-only launch on its route); (c) the
+   exported adapter in an `AdapterPool` over the fresh build, served on
+   CUDA graphs beside adapter-free requests: the tenant's tokens equal
+   (b)'s up to the first near-tie, its first-token logits close to (b)'s,
+   every BGMV, paged and GEMV launch on its body, replays equal steps,
+   the block pool conserved;
+11. the kernels' JSON line, the nvidia-smi line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every float32 product in
@@ -611,6 +632,9 @@ BGMV_CASES = (
     ("out_proj", 4096, 4096, 16, 8, 1, "float32"),
     ("qkv_proj prefill", 4096, 12288, 16, 2, 256, "bfloat16"),
     ("out_proj rank 64", 4096, 4096, 64, 8, 1, "bfloat16"),
+    # the rank phase 10 serves (its fine-tuned adapter)
+    ("qkv_proj rank 8", 4096, 12288, 8, 8, 1, "bfloat16"),
+    ("out_proj rank 8", 4096, 4096, 8, 8, 1, "bfloat16"),
     ("ragged d_out", 4096, 5000, 16, 8, 1, "bfloat16"),
 )
 BGMV_IDS = (0, 1, 1, 2, 3, 0, 5, 7)   # slot 0, a repeat, distinct slots
@@ -4808,6 +4832,522 @@ def recipes_phase(torch, np, args, phase4=None, phase5=None):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 10: LoRA fine-tuning and inference (BASELINE config 5)
+# ---------------------------------------------------------------------------
+
+# (a): one fixed [4, 1024] batch, 2 warm-up and 20 timed steps
+LORA_BATCH, LORA_SEQ, LORA_STEPS = 4, 1024, 20
+LORA_CFG = dict(r=8, lora_alpha=16, target_modules=("qkv", "out"))
+# (b), (c): bench.py's bench_lora_decode shape (bs 8, a 16-token prompt,
+# 128 new tokens)
+LORA_GEN_BATCH, LORA_PROMPT, LORA_NEW = 8, 16, 128
+LORA_SAMPLED = dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.9)
+# (b)'s sampled rerun and other seed: the first tokens of the stream (a
+# draw is causal, so they are the first tokens of a longer run's)
+LORA_SAMPLED_RERUN = 32
+# logits of two bf16 routes of the same weights (merged against unmerged,
+# the first new token and every position teacher-forced; (c)'s engine
+# against (b)'s unmerged run, the first new token): max abs error, 3x the
+# largest read on an H100 (0.67, merged teacher-forced over 8 x 128
+# positions; phase 3's dense check allows 3x the bf16 forward's distance
+# from f32: 0.91 at llama2_7b's first decode step on an H100)
+LORA_LOGITS_TOL = 2.0
+# a near-tie: a step whose top-2 logit gap in (b)'s unmerged run is under
+# this, where two bf16 routes may pick either token (a gap moves by up to
+# twice the logits' error; bf16 logits of ~8 are 0.03-0.06 apart)
+LORA_TIE = 0.5
+
+
+def _lora_model(torch, layers, seed):
+    """llama2_7b at full width (bf16 weights from seed 0) with r = 8
+    adapters on qkv_proj and out_proj, A drawn from a CUDA generator
+    seeded `seed`."""
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.nn.lora import LoRAConfig, apply_lora
+
+    torch.cuda.empty_cache()
+    model = gpt("llama2_7b", dtype="bfloat16", device="cuda", seed=0,
+                num_layers=layers)
+    apply_lora(model, LoRAConfig(**LORA_CFG),
+               generator=torch.Generator(device="cuda").manual_seed(seed))
+    return model
+
+
+def _lora_engine(torch, model):
+    """AdamW over the adapters at LinearWarmup(CosineAnnealingDecay(3e-4,
+    T_max=22), 4 steps from 0), ClipGradByGlobalNorm(1.0), bf16 compute.
+    Returns (scheduler, engine)."""
+    from paddle_tpu_torch.distributed import parallelize
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn.lora import lora_parameters
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+
+    sched = LinearWarmup(CosineAnnealingDecay(3e-4, T_max=22),
+                         warmup_steps=4, start_lr=0.0, end_lr=3e-4)
+    opt = AdamW(learning_rate=sched, parameters=lora_parameters(model),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    return sched, parallelize(model, opt, compute_dtype="bfloat16")
+
+
+def lora_flops_per_token(torch, model, seq):
+    """Training FLOPs a token of a LoRA model: 4 N over the frozen
+    Linears (forward and the input gradient; lm_head included, the
+    embedding lookup not), 6 N over the adapters (forward, input and
+    weight gradients) and `flops_per_token`'s attention term 12 L h S."""
+    from paddle_tpu_torch.nn.lora import lora_parameters
+
+    frozen = sum(m.weight.numel() for m in model.modules()
+                 if isinstance(m, torch.nn.Linear))
+    adapters = sum(p.numel() for p in lora_parameters(model))
+    cfg = model.cfg
+    return (4.0 * frozen + 6.0 * adapters
+            + 12.0 * cfg.num_layers * cfg.hidden_size * seq)
+
+
+def _lora_run(torch, eng, ids, steps):
+    """`steps` micro-steps through `train_batches` (the scheduler stepped
+    a micro-step); (losses, grad norms) as floats."""
+    losses = eng.train_batches([(ids,)] * steps)
+    return (losses.float().cpu().tolist(),
+            eng.last_grad_norms.float().cpu().tolist())
+
+
+def lora_parity(torch, seed, steps=3):
+    """2 layers at full width, 3 steps on one [4, 1024] batch through the
+    flash kernels and through the plain attention (the routing predicate
+    patched to admit no shape): loss within 1e-2 and the adapters'
+    pre-clip grad norm within 5e-2, relative (phase 4's bounds)."""
+    from paddle_tpu_torch.nn.functional import attention
+
+    supported = attention.flash_attention_supported
+    runs = {}
+    for route in ("kernels", "plain"):
+        if route == "plain":
+            attention.flash_attention_supported = lambda shape, causal: False
+        try:
+            model = _lora_model(torch, 2, seed)
+            _, eng = _lora_engine(torch, model)
+            ids = _train_batch(torch, model.cfg.vocab_size, LORA_BATCH,
+                               seed + 1)[:, :LORA_SEQ]
+            reset_flash_counts()
+            losses, norms = _lora_run(torch, eng, ids, steps)
+            runs[route] = {"losses": losses, "grad_norms": norms,
+                           "launches": flash_counts()}
+        finally:
+            attention.flash_attention_supported = supported
+        del model, eng
+    k, p = runs["kernels"], runs["plain"]
+    res = {"layers": 2, "steps": steps, "runs": runs,
+           "loss_max_rel_err": max(abs(a - b) / abs(b) for a, b in
+                                   zip(k["losses"], p["losses"])),
+           "grad_norm_max_rel_err": max(abs(a - b) / abs(b) for a, b in
+                                        zip(k["grad_norms"],
+                                            p["grad_norms"]))}
+    log(f"  lora parity {json.dumps(res)}")
+    if not (res["loss_max_rel_err"] <= 1e-2
+            and res["grad_norm_max_rel_err"] <= 5e-2):
+        raise AssertionError(f"LoRA kernels vs plain: {res}")
+    if min(k["launches"].values()) == 0 or any(p["launches"].values()):
+        raise AssertionError(f"routing: kernel run {k['launches']}, plain "
+                             f"run {p['launches']}")
+    return res
+
+
+def lora_finetune(torch, layers, seed):
+    """(a) 2 warm-up and 20 timed steps of the LoRA fine-tune on one fixed
+    [4, 1024] batch from `seed`: step ms, tokens/s, MFU over
+    `lora_flops_per_token`, peak memory, the loss trajectory (must
+    fall), flash launches set to 0 before the timed steps and read after
+    (every one on its Hopper body), and every adapter moved. Returns
+    (model, result, exported adapters)."""
+    import math
+
+    from paddle_tpu_torch.nn.lora import export_lora_weights, lora_parameters
+
+    model = _lora_model(torch, layers, seed)
+    start = [p.detach().clone() for p in lora_parameters(model)]
+    sched, eng = _lora_engine(torch, model)
+    ids = _train_batch(torch, model.cfg.vocab_size, LORA_BATCH,
+                       seed)[:, :LORA_SEQ]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm = _lora_run(torch, eng, ids, 2)
+    torch.cuda.synchronize()
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    losses, norms = _lora_run(torch, eng, ids, LORA_STEPS)
+    wall = time.perf_counter() - t0
+    launches, routes = flash_counts(), flash_route_counts()
+    losses, norms = warm[0] + losses, warm[1] + norms
+    fpt = lora_flops_per_token(torch, model, LORA_SEQ)
+    tokens = LORA_BATCH * LORA_SEQ * LORA_STEPS
+    moved = sum(not torch.equal(a, p.detach())
+                for a, p in zip(start, lora_parameters(model)))
+    res = {"layers": layers, "batch": LORA_BATCH, "seq": LORA_SEQ,
+           "steps": LORA_STEPS, "step_ms": wall * 1e3 / LORA_STEPS,
+           "tokens_per_s": tokens / wall,
+           "mfu": tokens / wall * fpt / BF16_FLOPS,
+           "flops_per_token": fpt,
+           "ideal_step_ms": LORA_BATCH * LORA_SEQ * fpt / BF16_FLOPS * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses, "grad_norms": norms, "lr_last": sched(),
+           "launches": launches, "routes": routes,
+           "adapters": len(start), "adapters_moved": moved,
+           "adapter_params": sum(a.numel() for a in start)}
+    weights = export_lora_weights(model)
+    del eng, start
+    log(f"  lora fine-tune {json.dumps(res)}")
+    fails = []
+    per_run = layers * LORA_STEPS
+    if any(n != per_run for n in launches.values()) or any(
+            r.get(FLASH_ROUTE_NAMES[3]) != per_run for r in routes.values()):
+        fails.append(f"flash launches {launches} routes {routes}: expected "
+                     f"{per_run} each, all on the Hopper body")
+    if not all(math.isfinite(x) for x in losses + norms) \
+            or not losses[-1] < losses[0]:
+        fails.append(f"fine-tune did not progress: losses {losses}")
+    if moved != res["adapters"]:
+        fails.append(f"{moved} of {res['adapters']} adapters moved")
+    if fails:
+        raise AssertionError("LoRA fine-tune: " + "; ".join(fails))
+    return model, res, weights
+
+
+def _base_unchanged(torch, model, base):
+    """Every frozen tensor of the trained LoRA `model` bit-equal to the
+    same tensor of `base`, a fresh build of the same seed without
+    wrappers (``...qkv_proj.base.weight`` is ``...qkv_proj.weight``)."""
+    own = dict(base.named_parameters())
+    frozen = [(n, p) for n, p in model.named_parameters()
+              if not p.requires_grad]
+    equal = sum(bool(torch.equal(p, own[n.replace(".base.", ".")]))
+                for n, p in frozen)
+    return {"base_tensors": len(frozen), "base_bit_unchanged": equal,
+            "base_params": sum(p.numel() for _, p in frozen)}
+
+
+def _recording(model):
+    """Record the next-token logits (f32) of every `decode_step` of
+    `model` into the returned list; `del model.decode_step` stops it."""
+    rec, step = [], model.decode_step
+
+    def recorded(ids, caches, pos):
+        logits, caches = step(ids, caches, pos)
+        rec.append(logits[:, -1].float())
+        return logits, caches
+
+    model.decode_step = recorded
+    return rec
+
+
+def _top2_gaps(torch, rec):
+    """[steps, B] top-2 logit gaps of recorded next-token logits."""
+    top = torch.topk(torch.stack(rec), 2, dim=-1).values      # [n, B, 2]
+    return (top[..., 0] - top[..., 1]).cpu()
+
+
+def _first_ties(gap):
+    """Per sequence, the first new token whose logits' top-2 gap is under
+    LORA_TIE (the length when none is)."""
+    tie = gap < LORA_TIE
+    return [int(tie[:, b].nonzero()[0]) if tie[:, b].any() else len(gap)
+            for b in range(gap.shape[1])]
+
+
+def _agree_to_tie(new, ref, ties):
+    """Whether each sequence of `new` equals `ref` up to its first
+    near-tie; the tokens that check covers; and each sequence's first
+    token that differs (its length when none does)."""
+    ok = all(new[b][:t] == ref[b][:t] for b, t in enumerate(ties))
+    first = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                  len(a)) for a, b in zip(new, ref)]
+    return ok, sum(ties), first
+
+
+def _forced_logits(torch, model, prompts, tokens):
+    """f32 next-token logits of each new token of `tokens` [B, n] after
+    `prompts` [B, s], from one forward over the whole sequence (teacher
+    forcing): [B, n, V]."""
+    full = torch.cat([torch.as_tensor(prompts),
+                      torch.as_tensor(tokens)], 1)[:, :-1]
+    with torch.no_grad():
+        logits = model(full.to(model.device))
+    return logits[:, prompts.shape[1] - 1:].float()
+
+
+def lora_inference(torch, np, model, seed):
+    """(b) `generate` with the adapters live, on bench_lora_decode's shape:
+    greedy on the unmerged model (tokens/s; its logits recorded), sampled
+    (tokens/s; a rerun bit-equal, another seed different), merged (tokens
+    equal the unmerged ones up to the first near-tie, the first token's
+    logits within LORA_LOGITS_TOL of the unmerged; and, teacher-forced on
+    the unmerged tokens in one forward each, every position's logits
+    within LORA_LOGITS_TOL and the same argmax wherever the unmerged
+    top-2 gap is at least LORA_TIE), then int8
+    weights under the live adapters (weight-only launches counted: every
+    prefill launch on the wgmma GEMM, every decode launch on the decode
+    GEMV). The trained f32 adapters are cast to the base's bf16 first: a
+    bf16 Linear does not take the f32 activations the f32 adapters would
+    promote to. Returns (result, prompts, unmerged tokens, near-ties,
+    first-token logits)."""
+    from paddle_tpu_torch.models import GenerationConfig, generate
+    from paddle_tpu_torch.nn.lora import LoRALinear, merge_lora
+    from paddle_tpu_torch.nn.quant import quantize_for_inference
+    from paddle_tpu_torch.ops.weight_only import (ROUTE_DECODE,
+                                                  ROUTE_PREFILL,
+                                                  weight_only_matmul)
+
+    model.to(torch.bfloat16)
+    model.eval()
+    prompts = np.random.RandomState(seed).randint(
+        0, 256, (LORA_GEN_BATCH, LORA_PROMPT)).astype(np.int64)
+    greedy = GenerationConfig(max_new_tokens=LORA_NEW)
+
+    def run(cfg=greedy, record=False):
+        rec = _recording(model) if record else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate(model, prompts, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if record:
+            del model.decode_step
+        return out[:, LORA_PROMPT:].cpu().tolist(), wall, rec
+
+    res = {"batch": LORA_GEN_BATCH, "prompt": LORA_PROMPT,
+           "new_tokens": LORA_NEW}
+    ref, wall, rec = run(record=True)
+    gap = _top2_gaps(torch, rec)
+    ties = _first_ties(gap)
+    res.update(unmerged_tokens_per_s=LORA_GEN_BATCH * LORA_NEW / wall,
+               unmerged_wall_s=wall, first_near_tie=ties,
+               min_top2_gap=float(gap.min()),
+               median_top2_gap=float(gap.median()))
+    first_logits = rec[0].cpu()
+    del rec
+    fails = []
+    forced = _forced_logits(torch, model, prompts, ref)
+    sampled = [run(GenerationConfig(max_new_tokens=n, seed=s,
+                                    **LORA_SAMPLED))
+               for n, s in ((LORA_NEW, seed), (LORA_SAMPLED_RERUN, seed),
+                            (LORA_SAMPLED_RERUN, seed + 1))]
+    head = [o[:LORA_SAMPLED_RERUN] for o in sampled[0][0]]
+    res.update(sampled_tokens_per_s=LORA_GEN_BATCH * LORA_NEW
+               / sampled[0][1],
+               sampled_rerun_equal=head == sampled[1][0],
+               sampled_other_seed_differs=head != sampled[2][0])
+    if not res["sampled_rerun_equal"] or \
+            not res["sampled_other_seed_differs"]:
+        fails.append("sampled: rerun equal "
+                     f"{res['sampled_rerun_equal']}, another seed differs "
+                     f"{res['sampled_other_seed_differs']}")
+    merge_lora(model)
+    fm = _forced_logits(torch, model, prompts, ref)
+    top = torch.topk(forced, 2, dim=-1).values
+    decided = (top[..., 0] - top[..., 1]) >= LORA_TIE
+    flips = int((decided & (fm.argmax(-1) != forced.argmax(-1))).sum())
+    ferr = float((fm - forced).abs().max())
+    res.update(forced_decisions_checked=int(decided.sum()),
+               forced_decisions_flipped=flips,
+               forced_logits_max_abs_err=ferr,
+               forced_logits_mean_abs_err=float((fm - forced).abs().mean()))
+    del fm, forced, top
+    if flips or not ferr <= LORA_LOGITS_TOL:
+        fails.append(f"merged, teacher-forced: {flips} decisions flipped, "
+                     f"logits max abs err {ferr} (tol {LORA_LOGITS_TOL})")
+    merged, wall, mrec = run(record=True)
+    ok, covered, first_diff = _agree_to_tie(merged, ref, ties)
+    err = float((mrec[0].cpu() - first_logits).abs().max())
+    res.update(merged_tokens_per_s=LORA_GEN_BATCH * LORA_NEW / wall,
+               merged_equal_to_near_tie=ok, merged_tokens_gated=covered,
+               merged_first_difference=first_diff,
+               merged_sequences_equal=sum(a == b for a, b in zip(merged,
+                                                                 ref)),
+               merged_first_logits_max_abs_err=err)
+    del mrec
+    if not ok:
+        fails.append(f"merged tokens differ before a near-tie: first "
+                     f"differences {first_diff}, near-ties at {ties}")
+    if not err <= LORA_LOGITS_TOL:
+        fails.append(f"merged first-token logits max abs err {err} > "
+                     f"{LORA_LOGITS_TOL}")
+    for m in model.modules():
+        if isinstance(m, LoRALinear):
+            m.unmerge()
+    quantize_for_inference(model, "int8")
+    torch.cuda.empty_cache()
+    weight_only_matmul.launches = 0
+    zero_routes(weight_only_matmul)
+    int8, wall, _ = run()
+    routes = {WO_ROUTE_NAMES[r]: c
+              for r, c in weight_only_matmul.routes.items()}
+    linears = 4 * model.cfg.num_layers + 1
+    want = {WO_ROUTE_NAMES[ROUTE_PREFILL]: linears,
+            WO_ROUTE_NAMES[ROUTE_DECODE]: linears * (LORA_NEW - 1)}
+    res.update(int8_tokens_per_s=LORA_GEN_BATCH * LORA_NEW / wall,
+               int8_launches=weight_only_matmul.launches,
+               int8_routes=routes,
+               int8_sequences_equal_bf16=sum(a == b for a, b in zip(int8,
+                                                                    ref)),
+               int8_tokens_equal_bf16=sum(x == y for a, b in zip(int8, ref)
+                                          for x, y in zip(a, b)))
+    if {k: v for k, v in routes.items() if v} != want:
+        fails.append(f"int8 weight-only launches by route {routes}, "
+                     f"expected {want}")
+    if any(len(o) != LORA_NEW or not all(0 <= t < model.cfg.vocab_size
+                                         for t in o)
+           for o in ref + merged + int8 + sampled[0][0]) \
+            or any(len(o) != LORA_SAMPLED_RERUN
+                   for o in sampled[1][0] + sampled[2][0]):
+        fails.append("malformed token output")
+    log(f"  lora inference {json.dumps(res)}")
+    if fails:
+        raise AssertionError("LoRA inference: " + "; ".join(fails))
+    return res, prompts, ref, ties, first_logits
+
+
+def lora_serve(torch, np, base, weights, prompts, ref, ties, first_logits):
+    """(c) the exported adapter loaded into an `AdapterPool` (rank 8,
+    alpha 16, qkv_proj and out_proj) over `base`, the same base weights
+    without wrappers (a fresh build from the seed), served by a
+    `DecodeEngine` on CUDA graphs: (b)'s prompts as the tenant's
+    requests, alternating with the same prompts without the adapter.
+    Gates: the tenant's greedy tokens equal (b)'s unmerged tokens up to
+    the first near-tie, its first-token logits within LORA_LOGITS_TOL of
+    (b)'s, every BGMV launch on the cluster body, every paged launch on
+    the ring body, every GEMV launch on the tensor-core body, replays
+    equal steps, the block pool conserved."""
+    from paddle_tpu_torch.inference import AdapterPool, DecodeEngine
+    from paddle_tpu_torch.ops.bgmv import lora_delta
+    from paddle_tpu_torch.ops.decode_attn import paged_decode_attention
+    from paddle_tpu_torch.ops.weight_only import row_gemv
+
+    pool = AdapterPool(base, rank=LORA_CFG["r"], slots=2,
+                       alpha=LORA_CFG["lora_alpha"], device=base.device)
+    pool.load("tuned", weights)
+    wrappers = (lora_delta, paged_decode_attention, row_gemv)
+    try:
+        eng = DecodeEngine(base, max_length=256, block_size=16,
+                           decode_buckets=(1, 2, 4, 8), default_timeout=600.0,
+                           adapters=pool, device=base.device)
+        t0 = time.perf_counter()
+        eng.warmup()
+        warmup_s = time.perf_counter() - t0
+        eng.generate(prompts[0][:8], 2, adapter="tuned")     # warm-up
+        step_ms = time_steps(eng)
+        for w in wrappers:
+            w.launches = 0
+            zero_routes(w)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams = []
+        for p in prompts:
+            streams.append(eng.submit(p, LORA_NEW, adapter="tuned",
+                                      keep_logits=1))
+            streams.append(eng.submit(p, LORA_NEW))
+        outs = [s.result() for s in streams]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in wrappers}
+        routes = {"bgmv": {BGMV_ROUTE_NAMES[r]: c
+                           for r, c in lora_delta.routes.items()},
+                  "paged": {PAGED_ROUTE_NAMES[r]: c for r, c in
+                            paged_decode_attention.routes.items()},
+                  "gemv": {ROW_ROUTE_NAMES[r]: c
+                           for r, c in row_gemv.routes.items()}}
+        st = eng.stats()
+        drained = eng.shutdown()
+        blocks = eng.stats()["blocks"]
+        refs = pool.stats()["refs"]
+    finally:
+        pool.detach()
+    tenant, plain = outs[0::2], outs[1::2]
+    ok, covered, first_diff = _agree_to_tie(tenant, ref, ties)
+    logits = torch.stack([streams[i].logits[0] for i in
+                          range(0, len(streams), 2)])
+    err = float((logits - first_logits).abs().max())
+    res = {"requests": len(streams), "tokens": sum(map(len, outs)),
+           "wall_s": wall, "tokens_per_s": sum(map(len, outs)) / wall,
+           "warmup_s": warmup_s, "steps": st["steps"],
+           "launches": launches, "routes": routes,
+           "tenant_equal_to_near_tie": ok, "tenant_tokens_gated": covered,
+           "tenant_first_difference": first_diff,
+           "tenant_sequences_equal_unmerged": sum(
+               a == b for a, b in zip(tenant, ref)),
+           "adapter_free_sequences_equal_tenant": sum(
+               a == b for a, b in zip(plain, tenant)),
+           "first_logits_max_abs_err": err,
+           "first_logits_tol": LORA_LOGITS_TOL, "adapter_refs_after": refs,
+           **programs(st, step_ms),
+           "blocks_after_shutdown": {k: blocks[k] for k in (
+               "total", "allocated", "free", "reserved", "allocs",
+               "frees")}}
+    log(f"  lora serve {json.dumps(res)}")
+    graph_gate("phase 10 (c)", res)
+    fails = []
+    if not ok:
+        fails.append(f"tenant tokens differ from (b)'s before a near-tie: "
+                     f"first differences {first_diff}, near-ties at {ties}")
+    if not err <= LORA_LOGITS_TOL:
+        fails.append(f"first-token logits max abs err {err} > "
+                     f"{LORA_LOGITS_TOL}")
+    for name, body in (("bgmv", BGMV_ROUTE_NAMES[1]),
+                       ("paged", PAGED_ROUTE_NAMES[1]),
+                       ("gemv", ROW_ROUTE_NAMES[1])):
+        n = sum(routes[name].values())
+        if n == 0 or routes[name].get(body) != n:
+            fails.append(f"{name} launches by body {routes[name]}: "
+                         f"expected all on {body}")
+    if refs != 0 or not drained or blocks["allocated"] != 0 \
+            or blocks["allocs"] != blocks["frees"] \
+            or blocks["allocated"] + blocks["free"] + blocks["reserved"] \
+            != blocks["total"]:
+        fails.append(f"conservation: adapter refs {refs}, blocks {blocks}")
+    if any(len(o) != LORA_NEW for o in outs):
+        fails.append("malformed token output")
+    if fails:
+        raise AssertionError("LoRA serving: " + "; ".join(fails))
+    return res
+
+
+def lora_phase(torch, np, args):
+    """Phase 10: the LoRA parity run, then (a) the fine-tune, the base
+    checked against a fresh build of the seed, (b) inference with the
+    adapters live on the trained model, (c) the exported adapter served
+    over the fresh build. Frees its models before it returns."""
+    from paddle_tpu_torch.models import gpt
+
+    layers = 2 if args.quick else 32
+    t0 = time.perf_counter()
+    res = {"parity": lora_parity(torch, args.seed)}
+    model, res["finetune"], weights = lora_finetune(torch, layers, args.seed)
+    torch.cuda.empty_cache()
+    base = gpt("llama2_7b", dtype="bfloat16", device="cuda", seed=0,
+               num_layers=layers)
+    res["finetune"].update(_base_unchanged(torch, model, base))
+    if res["finetune"]["base_bit_unchanged"] \
+            != res["finetune"]["base_tensors"]:
+        raise AssertionError(f"LoRA fine-tune moved the frozen base: "
+                             f"{res['finetune']}")
+    res["inference"], prompts, ref, ties, first = lora_inference(
+        torch, np, model, args.seed)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["serve"] = lora_serve(torch, np, base, weights, prompts, ref, ties,
+                              first)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    res["device"] = nvidia_smi_line()
+    log(f"  phase 10: {res['seconds']:.1f} s")
+    return res
+
+
 def main(argv):
     import argparse
 
@@ -4840,6 +5380,9 @@ def main(argv):
                     help="phase 9 also times (b)'s O2 loop, without its "
                          "scaler and without auto_cast, beside phase 5's "
                          "engine and profiles each in a child (about 40 s)")
+    ap.add_argument("--lora-only", action="store_true",
+                    help="the build, phase 2's BGMV checks and phase 10 "
+                         "(LoRA fine-tune and inference) only")
     ap.add_argument("--cp-only", action="store_true",
                     help="phases 1, 2's ring-attention and GEMV checks and "
                          "7 (cp training) only")
@@ -4919,6 +5462,12 @@ def main(argv):
         return finish(args, torch, smi, build_rec, t_start, [],
                       {"recipes": recipes_phase(torch, np, args)})
     iters = 5 if args.quick else 20
+    if args.lora_only:
+        log_phase(t_start, "phase 2: BGMV vs its plain version")
+        bg_rows = check_bgmv(torch, iters)
+        log_phase(t_start, "phase 10: LoRA fine-tune and inference")
+        return finish(args, torch, smi, build_rec, t_start, [],
+                      {"bgmv": bg_rows, "lora": lora_phase(torch, np, args)})
     log_phase(t_start, "phase 2: kernels vs plain versions")
     fp_rows = check_flash_pos(torch, iters)
     ring_rows = check_serial_ring(torch)
@@ -4993,6 +5542,10 @@ def main(argv):
     recipes_run = recipes_phase(torch, np, args, train["throughput"],
                                 bert_run["throughput"])
 
+    log_phase(t_start, "phase 10: LoRA fine-tune and inference "
+                       "(llama2_7b, BASELINE config 5)")
+    lora_run = lora_phase(torch, np, args)
+
     launches = {k: sum(r["launches"].get(k, 0) for r in runs)
                 for k in runs[0]["launches"]}
     tenant_run = next(r for r in runs if "lora_delta" in r["launches"])
@@ -5015,7 +5568,9 @@ def main(argv):
              prefill_bound_ms=wo_prefill["bound_ms"],
              prefill_bound_by=wo_prefill["bound_by"],
              prefill_case=wo_prefill["case"],
-             prefill_path=wo_prefill["route"]),
+             prefill_path=wo_prefill["route"],
+             lora_launches=lora_run["inference"]["int8_launches"],
+             lora_routes=lora_run["inference"]["int8_routes"]),
         dict(name="paged_decode_attention", route="cuda",
              source="paddle_tpu_torch/csrc/paged_decode_attn.cu",
              replaces="paddle_tpu/ops/pallas/decode_attn.py:133",
@@ -5028,7 +5583,10 @@ def main(argv):
              cuda_kernels=["paged_decode_ring", "merge_splits"],
              routes=runs[1]["paged_routes"],
              first_body_ms=pd_main["first_body_ms"],
-             first_body_device_ms=pd_main["first_body_device_ms"]),
+             first_body_device_ms=pd_main["first_body_device_ms"],
+             lora_launches=lora_run["serve"]["launches"][
+                 "paged_decode_attention"],
+             lora_routes=lora_run["serve"]["routes"]["paged"]),
     ]
     bg_main = bg_rows[0]
     kernels.append(dict(
@@ -5041,7 +5599,9 @@ def main(argv):
         library_ms=bg_main["library_ms"], device_ms=bg_main["device_ms"],
         library_device_ms=bg_main["library_device_ms"], case=bg_main["case"],
         path=bg_main["route"], cuda_kernels=["bgmv_cluster"],
-        routes=tenant_run["bgmv_routes"]))
+        routes=tenant_run["bgmv_routes"],
+        lora_launches=lora_run["serve"]["launches"]["lora_delta"],
+        lora_routes=lora_run["serve"]["routes"]["bgmv"]))
     fa_main = fa_rows[0]
     # No PyTorch call forms dq alone or dk, dv alone: SDPA's backward forms
     # all three, so it stands beside the pair (pair_ms = dq + dkv), and
@@ -5068,6 +5628,8 @@ def main(argv):
             # launches by body
             path=fa_main["route" if part == "fwd" else "bwd_route"],
             routes=train["throughput"]["routes"][part],
+            lora_launches=lora_run["finetune"]["launches"][name],
+            lora_routes=lora_run["finetune"]["routes"][part],
             **({} if part == "fwd" else pair)))
     sa_main = sa_rows[0]
     for name, line, part in (("short_attention_fwd", 73, "fwd"),
@@ -5097,6 +5659,8 @@ def main(argv):
     kernels.extend(cp_kernel_rows(fp_rows, cp_run))
     kernels.append(gemv_row(gv_rows, runs[0]["launches"]["row_gemv"],
                             runs[0]["gemv_routes"]))
+    kernels[-1].update(lora_launches=lora_run["serve"]["launches"][
+        "row_gemv"], lora_routes=lora_run["serve"]["routes"]["gemv"])
     kernels.extend(slice7_kernel_rows(bs_rows, dec_rows, pair_rows,
                                       sparse_run, table_cost))
     return finish(args, torch, smi, build_rec, t_start, kernels, {
@@ -5109,7 +5673,7 @@ def main(argv):
         "cp": cp_run, "block_sparse": bs_rows, "decode_attention": dec_rows,
         "decode_table_cost": table_cost,
         "fused_pair": pair_rows, "sparse": sparse_run,
-        "recipes": recipes_run})
+        "recipes": recipes_run, "lora": lora_run})
 
 
 def main_route_rows(wo_rows, fa_rows):

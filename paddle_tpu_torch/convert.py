@@ -30,7 +30,12 @@ weight::
         torch_model))
     teng.load_state_dict(engine_state_from_jax(jeng.state_dict()))
 
-LoRA adapters need no conversion: a JAX adapter is ``{layer name: (A
+A LoRA model (`nn.lora.apply_lora` on both sides) carries over the same
+way: a wrapper's frozen ``...qkv_proj.base.weight`` is a Linear weight and
+is transposed, while its ``lora_A`` ``[in, r]`` and ``lora_B`` ``[r, out]``
+have the same layout on both sides (x @ A @ B) and are not.
+
+Serving adapters need no conversion either: a JAX adapter is ``{layer name: (A
 [in, r], B [r, out])}`` keyed by the JAX model's sublayer names
 (``transformer.layers.<i>.attn.qkv_proj`` ...), which are the port's module
 names, and A/B have the same layout on both sides (x @ A @ B), so

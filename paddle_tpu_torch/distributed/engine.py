@@ -11,6 +11,13 @@ the f32 masters that the optimizer keeps), and float batch inputs are
 cast too. Nothing is moved: the engine trains where the caller built the
 model, and batches are brought to that device.
 
+Frozen parameters keep Paddle's meaning: a parameter with
+``requires_grad=False`` (``stop_gradient``; `nn.lora.apply_lora` freezes
+all but the adapters) gets no gradient and no update, whether the
+optimizer was given only the trainable parameters or all of them, and
+`last_grad_norm` covers the trainable gradients only. (The JAX engine
+updates every parameter, frozen or not: ROADMAP Queue 3.)
+
 Context parallelism (``mesh=MeshConfig(cp=n)`` or a built cp `Mesh`,
 ``context_parallel="ring"`` by default as in JAX, or ``"ulysses"``) runs
 the step in each of the n ranks of a `torch.distributed` job. JAX keeps
@@ -190,10 +197,16 @@ class ShardedTrainStep:
         return self.mesh.transport.all_reduce_(loss.detach().float()
                                                .reshape(1))[0]
 
+    def _grads(self):
+        """The trainable parameters' gradients (a frozen parameter's
+        stale `.grad`, if it has one, is not the step's)."""
+        return [p.grad for p in self._params.values()
+                if p.grad is not None and p.requires_grad]
+
     def _sum_grads(self):
         """Sum every gradient over the cp mesh, coalesced into one f32
         buffer (the same bits on every rank)."""
-        grads = [p.grad for p in self._params.values() if p.grad is not None]
+        grads = self._grads()
         if not grads:
             return
         flat = torch.cat([g.reshape(-1).float() for g in grads])
@@ -219,8 +232,7 @@ class ShardedTrainStep:
         # step left the gradients as they were, so take it here
         norm = getattr(self.optimizer, "last_grad_norm", None)
         if norm is None:
-            norm = global_norm([p.grad for p in self._params.values()
-                                if p.grad is not None])
+            norm = global_norm(self._grads())
         self.last_grad_norm = norm
         self.last_grad_norms = None
         self._step_count += 1

@@ -155,7 +155,12 @@ def quantize_for_inference(model, weight_dtype="int8", group_size=-1,
     place), one layer at a time so the float weight of each is freed as
     soon as it is replaced. Layers smaller than `min_features` on either
     dim stay float — note that at test widths the default quantizes
-    nothing (pass ``min_features=0``)."""
+    nothing (pass ``min_features=0``).
+
+    On a LoRA model (`nn.lora.apply_lora`) the wrappers stay and their
+    frozen ``base`` Linears are swapped, as in the reference: the adapters
+    stay live, in float, on an int8 or int4 base (which can no longer be
+    merged)."""
     for name, sub in list(model.named_modules()):
         if not isinstance(sub, nn.Linear):
             continue

@@ -2596,3 +2596,99 @@ def test_bert_tiny_under_o2_fp16_refuses_the_attention_kernels(cuda):
         with amp.auto_cast(level="O2", dtype="float16"):
             m(ids)
     assert tsa.short_attention_fwd.launches == before
+
+
+# ---------------------------------------------------------------------------
+# LoRA fine-tuning and serving
+# ---------------------------------------------------------------------------
+
+def _lora_losses_and_norms(cuda, kernels):
+    """A LLaMA-style gpt_tiny with r = 4 adapters on qkv and out, 3 bf16
+    steps of AdamW over the adapters at S = 128, through the flash
+    kernels or (the routing predicate patched) the plain attention."""
+    from paddle_tpu_torch.distributed import parallelize
+    from paddle_tpu_torch.nn import lora
+    from paddle_tpu_torch.nn.functional import attention
+    from paddle_tpu_torch.optimizer import AdamW
+
+    m = gpt("gpt_tiny", device=cuda, rope=True, swiglu=True)
+    lora.apply_lora(m, r=4, target_modules=("qkv", "out"),
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    frozen = {n: p.detach().clone() for n, p in m.named_parameters()
+              if not p.requires_grad}
+    eng = parallelize(m, AdamW(learning_rate=1e-2,
+                               parameters=lora.lora_parameters(m)),
+                      compute_dtype="bfloat16")
+    ids = torch.randint(0, m.cfg.vocab_size, (2, 128),
+                        generator=torch.Generator().manual_seed(0))
+    supported = attention.flash_attention_supported
+    if not kernels:
+        attention.flash_attention_supported = lambda shape, causal: False
+    before = tfa.flash_attention_fwd.launches
+    try:
+        losses = eng.train_batches([(ids,)] * 3)
+    finally:
+        attention.flash_attention_supported = supported
+    launched = tfa.flash_attention_fwd.launches - before
+    assert launched == (3 * m.cfg.num_layers if kernels else 0)
+    assert all(torch.equal(p, frozen[n]) for n, p in m.named_parameters()
+               if n in frozen)
+    return losses.float().cpu(), eng.last_grad_norms.float().cpu()
+
+
+def test_lora_training_through_flash_kernels_matches_plain(cuda):
+    """Phase 4's bounds: loss within 1e-2 and the adapters' pre-clip
+    grad norm within 5e-2, relative; the base bit-unchanged on both."""
+    kl, kn = _lora_losses_and_norms(cuda, True)
+    pl, pn = _lora_losses_and_norms(cuda, False)
+    assert torch.isfinite(kl).all() and torch.isfinite(kn).all()
+    assert ((kl - pl).abs() / pl.abs()).max() <= 1e-2
+    assert ((kn - pn).abs() / pn.abs()).max() <= 5e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_out", [12288, 4096])     # qkv_proj, out_proj
+def test_bgmv_rank8_decode_matches_plain(cuda, dtype, d_out):
+    """The rank a fine-tuned r = 8 adapter serves at, llama2_7b's
+    projections, a decode batch of 8: one launch on the cluster body,
+    within 1e-5 of max |ref|."""
+    x, A, B, ids = _bgmv_case(8, 1, 4096, d_out, 8, 4, dtype, seed=8)
+    ref = tb.lora_delta_ref(x, A, B, ids)
+    before = dict(tb.lora_delta.routes)
+    got = tb.lora_delta(x.to(cuda), A.to(cuda), B.to(cuda), ids.to(cuda))
+    torch.cuda.synchronize()
+    assert tb.lora_delta.routes == {
+        **before, tb.ROUTE_CLUSTER: before[tb.ROUTE_CLUSTER] + 1}
+    assert (got.cpu() - ref).abs().max().item() <= _bgmv_tol(ref)
+
+
+def test_lora_generate_on_gpu_sampled_reruns_and_merge(cuda):
+    """`generate` with live adapters on the card: greedy cached equals
+    uncached, a sampled rerun is bit-equal, and an f32 LoRA model's merged
+    logits are within 1e-4 of its unmerged ones."""
+    from paddle_tpu_torch.models import generate
+    from paddle_tpu_torch.nn import lora
+
+    m = gpt("gpt_tiny", device=cuda, rope=True, swiglu=True)
+    lora.apply_lora(m, r=4, generator=torch.Generator(device=cuda)
+                    .manual_seed(2))
+    g = torch.Generator(device=cuda).manual_seed(3)
+    with torch.no_grad():
+        for p in lora.lora_parameters(m):
+            p.normal_(0.0, 0.05, generator=g)
+    ids = torch.randint(0, m.cfg.vocab_size, (3, 9),
+                        generator=torch.Generator().manual_seed(4))
+    a = generate(m, ids, max_new_tokens=6)
+    assert a.device.type == "cuda"
+    assert torch.equal(a, generate(m, ids, max_new_tokens=6,
+                                   use_cache=False))
+    s1 = generate(m, ids, max_new_tokens=6, do_sample=True, top_k=20,
+                  top_p=0.9, temperature=0.8, seed=7)
+    assert torch.equal(s1, generate(m, ids, max_new_tokens=6,
+                                    do_sample=True, top_k=20, top_p=0.9,
+                                    temperature=0.8, seed=7))
+    with torch.no_grad():
+        unmerged = m(ids.to(cuda))
+        lora.merge_lora(m)
+        merged = m(ids.to(cuda))
+    assert (merged - unmerged).abs().max() <= 1e-4 * unmerged.abs().max()
