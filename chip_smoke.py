@@ -8,6 +8,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --cp-only  # phases 1, 2's ring checks, and 7
     python3 chip_smoke.py --recipes-only   # phases 1 and 9
     python3 chip_smoke.py --lora-only      # phases 1, 2's BGMV checks, 10
+    python3 chip_smoke.py --serve-only     # phases 1 and 11
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -189,7 +190,36 @@ Phases (any failure exits non-zero and prints no result line):
    (b)'s up to the first near-tie, its first-token logits close to (b)'s,
    every BGMV, paged and GEMV launch on its body, replays equal steps,
    the block pool conserved;
-11. the kernels' JSON line, the nvidia-smi line, then the last line
+11. the serving tier, in a child process: llama2_7b at full size (bf16,
+   random weights seeded by the generation) behind a `ServingRouter` of
+   two `LocalReplica`s on the one card, each a generation-only
+   `ServingPool` over a `DecodeEngine` (buckets 1-8 on CUDA graphs, a
+   step deadline, a fault hook that is a no-op until a run arms it; one
+   model per generation shared by the engines), 16 greedy requests of
+   16-700 prompt tokens (four sharing a 512-token system prompt) and 128
+   new tokens each, held to each generation's direct engine submits: a
+   stream one replica served bit for bit; one that failed over bit for
+   bit up to its takeover, then bit for bit to a direct resume of the
+   same tokens on a fresh engine, and every resumed token within 0.5 of
+   its row's maximum in one teacher-forced forward over the prompt and
+   the stream's own tokens. (a) fault-free — every stream bit-equal,
+   tokens/s, TTFT p50 / p95, step ms; (b) replica 0 killed once every
+   stream holds 32 tokens — each stream 128 tokens, no duplicate, no gap,
+   the seconds to the first resumed token; (c) a replica wedged — dead
+   within the heartbeat ttl and a sweep, its streams failed over, its
+   restart (build and warm-up) timed; (d) a decode step wedged past the
+   step deadline once and one poisoned prefill — every other sequence
+   bit-equal, the poisoned one alone `RequestFailed`, one wedged and one
+   abandoned step; (e) `swap_weights` to generation 2 under live streams
+   — every completed stream one generation's tokens, a failure allowed
+   only to a stream the replica rolled last still served (the
+   generation-purity refusal), a stale and an uncommitted directory
+   refused. After each run: the router's, the streams' and the
+   pools' laws, every engine's blocks, graph replays = steps, no
+   isolation round, one scrape of `/metrics`. Paged and GEMV launches
+   counted from (a) to (e), all on the ring and tensor-core bodies; peak
+   memory; the phase's seconds without the model builds;
+12. the kernels' JSON line, the nvidia-smi line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every float32 product in
@@ -203,6 +233,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import weakref
 
@@ -5348,6 +5379,815 @@ def lora_phase(torch, np, args):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the serving tier (ServingRouter over two LocalReplicas)
+# ---------------------------------------------------------------------------
+
+SERVE_NEW = 128
+# 16 greedy requests: twelve prompts of 16-700 tokens and four that share
+# a 512-token system prompt (prefix affinity and the prefix cache)
+SERVE_LENS = (16, 100, 230, 400, 700, 50, 310, 560, 32, 180, 460, 620)
+SERVE_SYSTEM, SERVE_TAILS = 512, (24, 40, 64, 100)
+SERVE_STEP_TIMEOUT = 2.0         # a step's deadline (a normal one: < 0.1)
+SERVE_HANG = 2.5                 # (d)'s wedged step: past the deadline
+SERVE_POISON_LEN = 230           # (d)'s poisoned prefill: this prompt's
+SERVE_KILL_AT = 32               # (b): committed tokens before the kill
+SERVE_SWAP_AT = 96               # (e): committed tokens before the swap
+SERVE_TTL = 1.0                  # the router's heartbeat ttl (s)
+SERVE_SWEEP = 0.05               # its supervise interval (s)
+SERVE_BEAT = 0.05                # the replicas' heartbeat interval (s)
+# a near-tie: a top-2 gap of the reference's decode logits under this,
+# where a re-prefilled row (cuBLAS chunks) and a decoded one (GEMV) may
+# pick either token (phase 10's LORA_TIE; reported, not a gate here)
+SERVE_TIE = 0.5
+# the reference's decode logits against one forward over prompt + its
+# tokens (teacher-forced: what a resumed replica's re-prefill computes),
+# max abs error (phase 10's LORA_LOGITS_TOL)
+SERVE_LOGITS_TOL = 2.0
+# a token after a failover: its logit in one teacher-forced forward over
+# the prompt and the stream's own tokens within this of its row's
+# maximum (the logits are bf16, in steps of 0.03125 at their magnitude
+# here). On an H100 the decode path's own tokens (the reference's, no
+# failover) sat up to 0.25 under the forward's maximum over both
+# generations' 2048 tokens, and resumed ones up to 0.28125; the bound is
+# twice the former. The reference is held to it too, so every run shows
+# the bound covering the decode path's difference from that forward.
+SERVE_RESUME_TOL = 0.5
+
+
+def _serve_prompts(np, vocab):
+    rng = np.random.RandomState(11)
+    out = [rng.randint(0, vocab, (n,)).astype(np.int64) for n in SERVE_LENS]
+    system = rng.randint(0, vocab, (SERVE_SYSTEM,)).astype(np.int64)
+    out += [np.concatenate([system, rng.randint(0, vocab, (n,))])
+            .astype(np.int64) for n in SERVE_TAILS]
+    return out
+
+
+class _TierFaults:
+    """The tier engines' fault hook: a no-op until a run arms it. `wedge`:
+    the first decode step of more than one sequence sleeps SERVE_HANG
+    once; `poison`: the prefill of the SERVE_POISON_LEN-token prompt
+    raises ValueError once."""
+
+    def __init__(self):
+        self.wedge = self.poison = False
+        self.lock = threading.Lock()
+
+    def hook(self, tag, ids, info):
+        with self.lock:
+            wedge = self.wedge and tag == "decode" and len(ids) > 1
+            if wedge:
+                self.wedge = False
+            if self.poison and tag == "prefill" and info["start"] == 0 \
+                    and info["tokens"] == SERVE_POISON_LEN:
+                self.poison = False
+                raise ValueError("poisoned prefill (injected)")
+        if wedge:
+            time.sleep(SERVE_HANG)
+
+
+class _TierEngine:
+    """A tier engine's record: the engine while it lives (None once it is
+    shut down and checked, so that its KV pool is freed as the tier would
+    free it), its step times, its build seconds and its final stats."""
+
+    def __init__(self, eng, times, build_s):
+        self.eng, self.times, self.build_s = eng, times, build_s
+        self.final = None
+
+    def stats(self):
+        return self.final if self.eng is None else self.eng.stats()
+
+    def retire_if_closed(self):
+        if self.eng is not None and self.eng._closed:
+            self.final = self.eng.stats()
+            self.eng = None
+
+
+class _GenerationOnly:
+    """The replicas' pool member: the pools serve only their engines."""
+
+    def clone(self):
+        return self
+
+    def reset_handles(self):
+        pass
+
+
+def _tier_engine(torch, model, faults, metrics=False):
+    """A tier engine over `model` (phase 3's geometry), its step programs
+    built; returns (engine, its step times list, build seconds)."""
+    from paddle_tpu_torch.inference import DecodeEngine
+
+    t0 = time.perf_counter()
+    eng = DecodeEngine(model, max_length=1024, block_size=16,
+                       decode_buckets=(1, 2, 4, 8), prefill_chunk=256,
+                       default_timeout=600.0,
+                       step_timeout=SERVE_STEP_TIMEOUT, step_retries=1,
+                       fault_hook=faults.hook, metrics=metrics,
+                       device=model.device)
+    eng.warmup()
+    return eng, time_steps(eng), time.perf_counter() - t0
+
+
+def _serve_reference(torch, np, model, prompts, faults):
+    """The prompts through one engine's direct submit (phase 3's way):
+    the tokens and a report of their decode logits — near-ties (top-2 gap
+    under SERVE_TIE), the teacher-forced check, and how far under its
+    teacher-forced row maximum a decoded token sits at most (the decode
+    path's share of SERVE_RESUME_TOL)."""
+    eng, _, build_s = _tier_engine(torch, model, faults)
+    t0 = time.perf_counter()
+    streams = [eng.submit(p, SERVE_NEW, keep_logits=SERVE_NEW)
+               for p in prompts]
+    ref = [s.result() for s in streams]
+    wall = time.perf_counter() - t0
+    ties, gaps, forced_err, deficit, steps = [], [], 0.0, 0.0, {}
+    for p, s, toks in zip(prompts, streams, ref):
+        rec = torch.stack(s.logits)                       # [new, V] f32
+        top = torch.topk(rec, 2, dim=-1).values
+        gap = top[:, 0] - top[:, 1]
+        ties.append((gap < SERVE_TIE).tolist())
+        gaps.append(float(gap.median()))
+        full = torch.as_tensor(np.concatenate([p, toks[:-1]]),
+                               device=model.device)[None]
+        with torch.no_grad():
+            forced = model(full)[0, len(p) - 1:].float().cpu()
+        forced_err = max(forced_err, float((forced - rec).abs().max()))
+        own = forced.max(-1).values - forced.gather(
+            1, torch.as_tensor(toks)[:, None])[:, 0]
+        deficit = max(deficit, float(own.max()))
+        for d in own.tolist():
+            steps[d] = steps.get(d, 0) + 1
+        del rec, forced
+        s.logits.clear()
+    eng.shutdown()
+    res = {"tokens_per_s": len(prompts) * SERVE_NEW / wall,
+           "build_s": build_s,
+           "first_near_tie": [t.index(True) if True in t else len(t)
+                              for t in ties],
+           "near_ties": sum(map(sum, ties)),
+           "median_top2_gap": sorted(gaps)[len(gaps) // 2],
+           "forced_logits_max_abs_err": forced_err,
+           "forced_logits_tol": SERVE_LOGITS_TOL,
+           "decoded_token_forced_deficit_max": deficit,
+           "decoded_token_forced_deficits": {
+               str(d): n for d, n in sorted(steps.items())},
+           "resume_tol": SERVE_RESUME_TOL}
+    if forced_err > SERVE_LOGITS_TOL or any(len(t) != SERVE_NEW
+                                            for t in ref):
+        raise AssertionError(f"phase 11 reference: {res}")
+    return ref, res
+
+
+def _drain_streams(streams, t0):
+    """Consume router streams on threads; per stream (tokens, first-token
+    seconds after `t0`, error), and the wall seconds to the last end."""
+    out = [None] * len(streams)
+
+    def consume(i, rs):
+        toks, first, err = [], None, None
+        try:
+            for tok in rs:
+                if first is None:
+                    first = time.perf_counter() - t0
+                toks.append(tok)
+        except Exception as e:  # noqa: BLE001 — typed errors are results
+            err = e
+        out[i] = (toks, first, err)
+
+    threads = [threading.Thread(target=consume, args=(i, rs))
+               for i, rs in enumerate(streams)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return out, time.perf_counter() - t0
+
+
+def _forced_deficits(torch, np, model, prompt, toks):
+    """One teacher-forced forward over `prompt` and a stream's `toks`: for
+    each token its row's maximum logit less the token's (0 where the
+    forward picks it too), and for each position but the last the same
+    with the next token in its place (a stream one position off)."""
+    full = torch.as_tensor(np.concatenate([prompt, toks[:-1]]),
+                           device=model.device)[None]
+    t = torch.as_tensor(toks, device=model.device)
+    with torch.no_grad():
+        f = model(full)[0, len(prompt) - 1:].float()
+    top = f.max(-1).values
+    own = top - f.gather(1, t[:, None])[:, 0]
+    off = top[:-1] - f[:-1].gather(1, t[1:, None])[:, 0]
+    return own.cpu().tolist(), off.cpu().tolist()
+
+
+def _gate_streams(torch, np, models, resume, prompts, refs, outs, streams,
+                  gens=None, which=None):
+    """Completed router streams (tokens `outs`, handles `streams`) against
+    their generation's reference (`gens`, default 1; prompt indexes
+    `which`, default in order). A stream one replica served equals the
+    reference bit for bit. One that failed over equals it bit for bit up
+    to the tokens its first takeover resumed from (`served_by`: what the
+    first replica delivered). Each later attempt's tokens equal, bit for
+    bit, a direct `submit(prompt, rest, resume_committed=<the tokens it
+    resumed from>)` on a fresh engine of the same generation
+    (`resume(gen, jobs)`: the same re-prefill path). And every token from
+    the first takeover on is held by one teacher-forced forward over the
+    prompt and the stream's own tokens: its logit within SERVE_RESUME_TOL
+    of its row's maximum, which a resume at the wrong position would fail
+    in both paths alike. (The resumed replica re-prefilled those rows
+    with cuBLAS chunks where the reference decoded them, so after a
+    near-tie its tokens may differ from the reference's.) Also counted:
+    the resumed positions where the next token put in its place (a resume
+    one position off) would be refused. Returns (every stream passes, the
+    counts)."""
+    gens = gens or [1] * len(outs)
+    which = which or list(range(len(outs)))
+    res = {"sequences_bit_equal": 0, "tokens_bit_exact": 0,
+           "streams_resumed": 0, "resumed_tokens_checked": 0,
+           "resumed_tokens_equal_to_direct_resume": 0,
+           "resumed_tokens_equal_to_reference": 0,
+           "resumed_worst_deficit": 0.0, "resumed_deficits": {},
+           "off_by_one_positions": 0,
+           "off_by_one_refused": 0, "resume_tol": SERVE_RESUME_TOL,
+           "streams_off_gate": []}
+    jobs = {}                 # gen -> [(stream index, start, end, job)]
+    for i, (o, rs, gen, j) in enumerate(zip(outs, streams, gens, which)):
+        ref = refs[gen][j]
+        res["sequences_bit_equal"] += o == ref
+        if len(o) != len(ref):
+            res["streams_off_gate"].append(i)
+            continue
+        if len(rs.served_by) < 2:
+            res["tokens_bit_exact"] += len(ref) if o == ref else 0
+            if o != ref:
+                res["streams_off_gate"].append(i)
+            continue
+        at = rs.served_by[1][1]
+        bounds = [n for _, n in rs.served_by[1:]] + [len(o)]
+        for a, b in zip(bounds, bounds[1:]):
+            jobs.setdefault(gen, []).append(
+                (i, a, b, (prompts[j], o[:a], len(o) - a)))
+        own, off = _forced_deficits(torch, np, models[gen], prompts[j], o)
+        worst = max(own[at:], default=0.0)
+        res["streams_resumed"] += 1
+        res["tokens_bit_exact"] += at if o[:at] == ref[:at] else 0
+        res["resumed_tokens_checked"] += len(o) - at
+        res["resumed_tokens_equal_to_reference"] += sum(
+            a == b for a, b in zip(o[at:], ref[at:]))
+        res["resumed_worst_deficit"] = max(res["resumed_worst_deficit"],
+                                           worst)
+        for d in own[at:]:
+            res["resumed_deficits"][str(d)] = \
+                res["resumed_deficits"].get(str(d), 0) + 1
+        res["off_by_one_positions"] += len(off[at:])
+        res["off_by_one_refused"] += sum(d > SERVE_RESUME_TOL
+                                         for d in off[at:])
+        if o[:at] != ref[:at] or worst > SERVE_RESUME_TOL:
+            res["streams_off_gate"].append(i)
+    for gen, segs in jobs.items():
+        direct = resume(gen, [job for *_, job in segs])
+        for (i, a, b, _), toks in zip(segs, direct):
+            same = sum(x == y for x, y in zip(outs[i][a:b], toks))
+            res["resumed_tokens_equal_to_direct_resume"] += same
+            if same != b - a and i not in res["streams_off_gate"]:
+                res["streams_off_gate"].append(i)
+    return not res["streams_off_gate"], res
+
+
+def _wait_for(fn, timeout, what):
+    give_up = time.perf_counter() + timeout
+    while not fn():
+        if time.perf_counter() > give_up:
+            raise AssertionError(f"phase 11: timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def _tier_checks(label, router, reps, engines, server):
+    """After a run: the router's request and streams laws, each replica
+    pool's law, every engine quiesced (blocks held = its prefix cache's
+    pins; 0 once shut), its steps all replays of graphs with no isolation
+    round, and one scrape of /metrics showing the streams ledger."""
+    import urllib.request
+
+    _wait_for(lambda: router.stats()["streams"]["in_flight"] == 0, 60,
+              f"{label}'s streams to end")
+    s = router.stats()
+    st = s["streams"]
+    fails = []
+    if s["admitted"] != s["completed"] + s["failed"] + s["timed_out"] \
+            + s["overloaded"] + s["cancelled"]:
+        fails.append(f"router law {s}")
+    if st["admitted"] != st["completed"] + st["failed"] + st["timed_out"] \
+            + st["cancelled"] + st["in_flight"]:
+        fails.append(f"streams law {st}")
+    for rid, rep in reps.items():
+        p = rep.stats()["pool"]
+        if p is not None and p["admitted"] != p["completed"] + p["failed"] \
+                + p["timed_out"] + p["cancelled"] + p["queue_depth"] \
+                + p["in_flight"]:
+            fails.append(f"{rid} pool law {p}")
+    for i, rec in enumerate(engines):
+        _wait_for(lambda: not (rec.stats()["active"] or rec.stats()[
+            "waiting"] or rec.stats()["prefilling"]), 60,
+            f"engine {i} to quiesce")
+        rec.retire_if_closed()
+        closed = rec.eng is None
+        e = rec.stats()
+        held = e["blocks"]["allocated"] - (
+            0 if closed else e["prefix_cache"]["physical_blocks"])
+        prog = programs(e)
+        # a replica killed mid-step leaves at most that step's replay
+        # without its token
+        extra = prog["replays"].get("greedy", 0) \
+            + prog["replays"].get("sampled", 0) - e["steps"]
+        if held or not prog["all_graphs"] or prog["isolation_rounds"] \
+                or prog["spec_fallbacks"] or not (
+                    0 <= extra <= (1 if closed else 0)):
+            fails.append(f"engine {i}: blocks held {held}, {prog}")
+    with urllib.request.urlopen(server.url + "/metrics", timeout=30) as r:
+        text = r.read().decode()
+    scraped = {k: int(v) for k, v in (
+        line.rsplit(" ", 1) for line in text.splitlines()
+        if line.startswith(f"serving_router_{router.name}_streams_"))}
+    want = {f"serving_router_{router.name}_streams_{k}": v
+            for k, v in st.items()}
+    if {k: scraped.get(k) for k in want} != want:
+        fails.append(f"scrape {scraped} != {want}")
+    gc.collect()
+    if fails:
+        raise AssertionError(f"phase 11 {label}: " + "; ".join(fails))
+    return {"streams": st, "deaths": s["deaths"], "restarts": s["restarts"],
+            "ready": s["ready"], "scrape_lines": len(scraped)}
+
+
+def serve_tier(torch, np, layers, seed):
+    """Phase 11 (a child process): llama2_7b at full size (bf16, random
+    weights seeded by the generation) served by a `ServingRouter` over two
+    `LocalReplica`s on cuda:0, each a generation-only `ServingPool` whose
+    `DecodeEngine` (buckets 1-8, CUDA graphs, `step_timeout`, a fault hook
+    that is a no-op until armed) shares one model per generation. Runs
+    (a) the traffic, fault-free; (b) replica 0 killed once its streams
+    hold SERVE_KILL_AT tokens; (c) a replica wedged (the watchdog); (d) a
+    decode step wedged once past step_timeout and one poisoned prefill;
+    (e) `swap_weights` to generation 2 under live streams, and the stale
+    and uncommitted directories refused. The references are each
+    generation's direct engine submits (`_gate_streams` holds the streams
+    to them); the paged and GEMV launches are counted from (a) to (e)."""
+    import tempfile
+
+    from paddle_tpu_torch.inference import (LocalHeartbeats, LocalReplica,
+                                            RequestFailed, RetryPolicy,
+                                            RouterConfig, ServingRouter,
+                                            SwapFailed, commit_model_dir)
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.obs import MetricsRegistry
+    from paddle_tpu_torch.ops.decode_attn import paged_decode_attention
+    from paddle_tpu_torch.ops.weight_only import row_gemv
+
+    t_phase, builds = time.perf_counter(), 0.0
+    models = {}
+    for gen in (1, 2):
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        models[gen] = gpt("llama2_7b", dtype="bfloat16", device="cuda",
+                          seed=seed + gen, num_layers=layers)
+        models[gen].eval()
+        builds += time.perf_counter() - t0
+    prompts = _serve_prompts(np, models[1].cfg.vocab_size)
+    faults = _TierFaults()
+    res, refs = {"layers": layers, "requests": len(prompts),
+                 "new_tokens": SERVE_NEW}, {}
+    for gen in (1, 2):
+        refs[gen], res[f"reference_g{gen}"] = _serve_reference(
+            torch, np, models[gen], prompts, faults)
+    log(f"  tier references {json.dumps(res)}")
+
+    direct = {}
+
+    def resume(gen, jobs):
+        # the resumes as direct submits on a fresh engine of generation
+        # `gen` (built once, kept for the phase)
+        if gen not in direct:
+            direct[gen] = _tier_engine(torch, models[gen], _TierFaults())[0]
+        # the tier's launch counts leave out the check's
+        kept = [(w, w.launches, dict(w.routes))
+                for w in (paged_decode_attention, row_gemv)]
+        subs = [direct[gen].submit(p, n, resume_committed=c)
+                for p, c, n in jobs]
+        out = [st.result() for st in subs]
+        for w, n, routes in kept:
+            w.launches = n
+            w.routes.update(routes)
+        return out
+
+    def check(outs, streams, gens=None, which=None):
+        return _gate_streams(torch, np, models, resume, prompts, refs, outs,
+                             streams, gens, which)
+
+    work = tempfile.mkdtemp(prefix="serve_tier_")
+    dirs = {name: os.path.join(work, name)
+            for name in ("g1", "g2", "uncommitted")}
+    for d in dirs.values():
+        os.makedirs(d)
+    commit_model_dir(dirs["g1"], 1)
+    reg = MetricsRegistry()
+    hb = LocalHeartbeats()
+    engines, reps = [], {}
+
+    def decode_factory(gen):
+        rec = _TierEngine(*_tier_engine(torch, models[gen], faults,
+                                        metrics=reg))
+        engines.append(rec)
+        return rec.eng
+
+    def factory(rid, model_dir, gen):
+        rep = LocalReplica(rid, lambda d: _GenerationOnly(), model_dir, gen,
+                           heartbeat=hb, heartbeat_interval=SERVE_BEAT,
+                           decode_factory=decode_factory,
+                           pool_kwargs=dict(default_timeout=600.0,
+                                            metrics=reg))
+        reps[rid] = rep
+        return rep
+
+    cfg = RouterConfig(
+        heartbeat_ttl=SERVE_TTL, supervise_interval=SERVE_SWEEP,
+        start_grace=120.0, attempt_timeout=30.0, no_capacity_wait=120.0,
+        probe_timeout=120.0, affinity_block_tokens=16,
+        restart_backoff=RetryPolicy(max_retries=0, base_delay=0.1,
+                                    max_delay=0.5),
+        failover=RetryPolicy(max_retries=3, base_delay=0.005,
+                             max_delay=0.05, max_elapsed=300.0))
+    for w in (paged_decode_attention, row_gemv):
+        w.launches = 0
+        zero_routes(w)
+    router = ServingRouter(factory, size=2, model_dir=dirs["g1"],
+                           generation=1, config=cfg, metrics=reg,
+                           name="tier")
+    server = router.serve_metrics(port=0, host="127.0.0.1")
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res["a"] = _tier_run_a(router, reps, engines, server, prompts,
+                               check)
+        res["b"] = _tier_run_b(router, reps, engines, server, prompts,
+                               check)
+        res["c"] = _tier_run_c(router, reps, engines, server, prompts,
+                               check)
+        res["d"] = _tier_run_d(router, reps, engines, server, prompts,
+                               refs[1], faults, RequestFailed)
+        res["e"] = _tier_run_e(router, reps, engines, server, prompts,
+                               check, dirs, SwapFailed, commit_model_dir)
+    finally:
+        router.shutdown(drain_timeout=60.0)
+        for eng in direct.values():
+            eng.shutdown()
+    launches = {"paged_decode_attention": paged_decode_attention.launches,
+                "row_gemv": row_gemv.launches}
+    routes = {"paged": {PAGED_ROUTE_NAMES[r]: c for r, c in
+                        paged_decode_attention.routes.items()},
+              "gemv": {ROW_ROUTE_NAMES[r]: c
+                       for r, c in row_gemv.routes.items()}}
+    res.update(launches=launches, routes=routes, engines=len(engines),
+               engine_build_s=[round(r.build_s, 3) for r in engines],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               seconds_without_model_builds=time.perf_counter() - t_phase
+               - builds, model_build_s=builds, device=nvidia_smi_line())
+    fails = []
+    for name, body in (("paged", PAGED_ROUTE_NAMES[1]),
+                       ("gemv", ROW_ROUTE_NAMES[1])):
+        n = sum(routes[name].values())
+        if n == 0 or routes[name].get(body) != n:
+            fails.append(f"{name} launches by body {routes[name]}: "
+                         f"expected all on {body}")
+    leaked = [i for i, r in enumerate(engines)
+              if r.stats()["blocks"]["allocated"]]
+    if leaked:
+        fails.append(f"engines {leaked} hold blocks after shutdown")
+    for gen in (1, 2):
+        d = res[f"reference_g{gen}"]["decoded_token_forced_deficit_max"]
+        if d > SERVE_RESUME_TOL:
+            fails.append(f"generation {gen}'s decoded tokens sit {d} under "
+                         f"their teacher-forced maximum: the resume bound "
+                         f"{SERVE_RESUME_TOL} does not cover the decode path")
+    log(f"  tier {json.dumps({k: v for k, v in res.items() if k in ('launches', 'routes', 'peak_memory_gb', 'seconds_without_model_builds')})}")
+    if fails:
+        raise AssertionError("phase 11: " + "; ".join(fails))
+    return res
+
+
+def _step_stats(engines, before):
+    """Mean and median decode step ms over the engines' steps since
+    `before` (each engine's step-time list length)."""
+    ms = [t for r, n in zip(engines, before + [0] * len(engines))
+          for t in r.times[n:]]
+    return {"step_ms_mean": sum(ms) / len(ms) if ms else None,
+            "step_ms_median": sorted(ms)[len(ms) // 2] if ms else None,
+            "decode_steps": len(ms)}
+
+
+def _tier_run_a(router, reps, engines, server, prompts, check):
+    """(a) The traffic, fault-free: every stream bit-equal to the
+    reference (`_gate_streams`); tokens/s, TTFT p50 / p95, step ms."""
+    before = [len(r.times) for r in engines]
+    t0 = time.perf_counter()
+    streams = [router.submit_generate(p, SERVE_NEW, timeout=600.0)
+               for p in prompts]
+    got, wall = _drain_streams(streams, t0)
+    outs = [g[0] for g in got]
+    ok, gate = check(outs, streams)
+    ttft = sorted(g[1] for g in got)
+    res = {"tokens_per_s": sum(map(len, outs)) / wall, "wall_s": wall,
+           "ttft_p50_s": ttft[len(ttft) // 2],
+           "ttft_p95_s": ttft[min(len(ttft) - 1, int(0.95 * len(ttft)))],
+           **gate, **_step_stats(engines, before),
+           "replica_streams": {r: st["pool"]["decode"]["admitted"]
+                               for r, st in ((r, rep.stats())
+                                             for r, rep in reps.items())}}
+    res.update(_tier_checks("(a)", router, reps, engines, server))
+    log(f"  tier (a) {json.dumps(res)}")
+    if not ok or gate["streams_resumed"] or any(
+            g[2] is not None or len(g[0]) != SERVE_NEW for g in got):
+        raise AssertionError(f"phase 11 (a): tokens differ from the "
+                             f"reference: {res}")
+    return res
+
+
+def _tier_run_b(router, reps, engines, server, prompts, check):
+    """(b) Replica 0 killed once every stream holds SERVE_KILL_AT tokens:
+    each stream delivers exactly SERVE_NEW tokens, held to the reference
+    by `_gate_streams` (bit for bit up to its takeover, every resumed
+    token by the teacher-forced bound); the seconds from the kill to the
+    first resumed token, and to capacity 2 again."""
+    t0 = time.perf_counter()
+    streams = [router.submit_generate(p, SERVE_NEW, timeout=600.0)
+               for p in prompts]
+    box = {}
+
+    def kill_when_ready():
+        _wait_for(lambda: all(len(rs.tokens) >= SERVE_KILL_AT
+                              or rs.status for rs in streams), 300,
+                  "(b)'s streams to commit their tokens")
+        victims = next(m["streams"] for m in router.stats()["members"]
+                       if m["rid"] == "replica-0")
+        box["t_kill"] = time.perf_counter()
+        reps["replica-0"].kill()
+
+        def resumed():
+            # a token past the count a takeover resumed from
+            for rs in streams:
+                sb = rs.served_by[-1:]
+                if sb and len(rs.served_by) > 1 \
+                        and len(rs.tokens) > sb[0][1]:
+                    return True
+            return False
+
+        _wait_for(resumed, 120, "(b)'s first resumed token")
+        box["resumed_s"] = time.perf_counter() - box["t_kill"]
+        box["victims"] = victims
+
+    killer = threading.Thread(target=kill_when_ready)
+    killer.start()
+    got, wall = _drain_streams(streams, t0)
+    killer.join(timeout=600)
+    _wait_for(lambda: router.stats()["ready"] == 2, 300, "(b)'s restart")
+    restart_s = time.perf_counter() - box["t_kill"]
+    outs = [g[0] for g in got]
+    ok, gate = check(outs, streams)
+    failed_over = sum(1 for rs in streams if rs.failovers)
+    res = {"kill_to_first_resumed_token_s": box.get("resumed_s"),
+           "kill_to_capacity_2_s": restart_s,
+           "streams_on_killed_replica": box.get("victims"),
+           "streams_failed_over": failed_over, **gate, "wall_s": wall}
+    res.update(_tier_checks("(b)", router, reps, engines, server))
+    log(f"  tier (b) {json.dumps(res)}")
+    if not ok or failed_over == 0 or res["streams"]["resumed"] < 1 \
+            or gate["resumed_tokens_checked"] < 1 \
+            or any(g[2] is not None or len(g[0]) != SERVE_NEW for g in got):
+        raise AssertionError(f"phase 11 (b): {res}; errors "
+                             f"{[repr(g[2]) for g in got if g[2]]}")
+    return res
+
+
+def _tier_run_c(router, reps, engines, server, prompts, check):
+    """(c) A replica wedged: the watchdog marks it dead within the
+    heartbeat ttl plus a sweep, its streams fail over (held to the
+    reference by `_gate_streams`), and its restart (engine build and
+    warm-up) brings capacity back to 2."""
+    t0 = time.perf_counter()
+    streams = [router.submit_generate(p, SERVE_NEW, timeout=600.0)
+               for p in prompts]
+    box = {}
+
+    def wedge_when_ready():
+        _wait_for(lambda: all(len(rs.tokens) >= SERVE_KILL_AT // 2
+                              or rs.status for rs in streams), 300,
+                  "(c)'s streams to commit their tokens")
+        members = router.stats()["members"]
+        victim = max(members, key=lambda m: m["streams"])["rid"]
+        box["victim"] = victim
+        box["t_wedge"] = time.perf_counter()
+        reps[victim].wedge()
+        _wait_for(lambda: any(m["rid"] == victim and m["state"] == "dead"
+                              for m in router.stats()["members"]), 60,
+                  "the watchdog to mark the wedged replica dead")
+        box["dead_s"] = time.perf_counter() - box["t_wedge"]
+        _wait_for(lambda: router.stats()["ready"] == 2, 300,
+                  "(c)'s restart")
+        box["restart_s"] = time.perf_counter() - box["t_wedge"] \
+            - box["dead_s"]
+
+    wedger = threading.Thread(target=wedge_when_ready)
+    wedger.start()
+    got, wall = _drain_streams(streams, t0)
+    wedger.join(timeout=600)
+    outs = [g[0] for g in got]
+    ok, gate = check(outs, streams)
+    limit = SERVE_TTL + SERVE_SWEEP + SERVE_BEAT + 0.25
+    res = {"victim": box.get("victim"), "wedge_to_dead_s": box.get("dead_s"),
+           "dead_limit_s": limit,
+           "restart_s_build_and_warmup_included": box.get("restart_s"),
+           "streams_failed_over": sum(1 for rs in streams if rs.failovers),
+           **gate, "wall_s": wall}
+    res.update(_tier_checks("(c)", router, reps, engines, server))
+    log(f"  tier (c) {json.dumps(res)}")
+    if not ok or box.get("dead_s") is None or box["dead_s"] > limit \
+            or res["ready"] != 2 or gate["resumed_tokens_checked"] < 1 \
+            or any(g[2] is not None or len(g[0]) != SERVE_NEW for g in got):
+        raise AssertionError(f"phase 11 (c): {res}")
+    return res
+
+
+def _tier_run_d(router, reps, engines, server, prompts, ref, faults,
+                RequestFailed):
+    """(d) One decode step wedged past step_timeout (sent again) and one
+    poisoned prefill: every other sequence's tokens bit-equal to the
+    reference, the poisoned one alone fails with RequestFailed, one
+    wedged step and one abandoned (its worker did nothing on waking)."""
+    def tier_count(key):
+        return sum(r.stats()[key] for r in engines if r.eng is not None)
+
+    wedged0, abandoned0 = tier_count("wedged_steps"), \
+        tier_count("abandoned_steps")
+    with faults.lock:
+        faults.wedge = faults.poison = True
+    t0 = time.perf_counter()
+    streams = [router.submit_generate(p, SERVE_NEW, timeout=600.0)
+               for p in prompts]
+    got, wall = _drain_streams(streams, t0)
+    _wait_for(lambda: tier_count("abandoned_steps") > abandoned0, 60,
+              "(d)'s abandoned step to wake")
+    poisoned = [i for i, p in enumerate(prompts)
+                if len(p) == SERVE_POISON_LEN]
+    fails = []
+    for i, (toks, _, err) in enumerate(got):
+        if i in poisoned:
+            if not isinstance(err, RequestFailed) \
+                    or not isinstance(err.cause, ValueError):
+                fails.append(f"poisoned sequence {i}: {err!r}")
+        elif err is not None or toks != ref[i]:
+            fails.append(f"sequence {i}: not bit-equal ({err!r})")
+    res = {"wedged_steps": tier_count("wedged_steps") - wedged0,
+           "abandoned_steps": tier_count("abandoned_steps") - abandoned0,
+           "poisoned_error": repr(got[poisoned[0]][2])[:200],
+           "sequences_bit_equal": sum(g[0] == r for g, r in zip(got, ref)),
+           "wall_s": wall, "faults_left": [faults.wedge, faults.poison]}
+    res.update(_tier_checks("(d)", router, reps, engines, server))
+    log(f"  tier (d) {json.dumps(res)}")
+    if res["wedged_steps"] != 1 or res["abandoned_steps"] != 1 \
+            or any(res["faults_left"]):
+        fails.append(f"wedged / abandoned steps, faults left: {res}")
+    if fails:
+        raise AssertionError("phase 11 (d): " + "; ".join(fails))
+    return res
+
+
+def _tier_run_e(router, reps, engines, server, prompts, check, dirs,
+                SwapFailed, commit_model_dir):
+    """(e) `swap_weights` to a directory committed as generation 2 while
+    streams run: every stream that completes is stamped with one
+    generation and held to that generation's reference by
+    `_gate_streams`; streams after the swap are generation 2; a stale and
+    an uncommitted directory are refused. The roll moves the first
+    replica's streams to the second, still on generation 1; when the
+    second rolls, the streams it still serves have no replica of their
+    generation left and fail typed (the generation-purity refusal) rather
+    than splice. That is the only failure allowed: a stream that fails
+    must have been served last by the replica rolled last and fail on
+    that refusal; every other stream completes."""
+    refusals = []
+    for d in (dirs["uncommitted"], dirs["g1"]):
+        try:
+            router.swap_weights(d)
+        except SwapFailed as e:
+            refusals.append(str(e)[:120])
+    commit_model_dir(dirs["g2"], 2)
+    t0 = time.perf_counter()
+    streams = [router.submit_generate(p, SERVE_NEW, timeout=600.0)
+               for p in prompts]
+    box, order, rolled = {}, [], threading.Event()
+
+    def watch_roll():
+        # the order in which the replicas begin to drain
+        while not rolled.is_set():
+            for m in router.stats()["members"]:
+                if m["state"] == "draining" and m["rid"] not in order:
+                    order.append(m["rid"])
+            time.sleep(0.002)
+
+    watcher = threading.Thread(target=watch_roll)
+
+    def swap_when_ready():
+        _wait_for(lambda: all(len(rs.tokens) >= SERVE_SWAP_AT
+                              or rs.status for rs in streams), 300,
+                  "(e)'s streams to commit their tokens")
+        box["on"] = [rs.served_by[-1][0] if rs.served_by and
+                     rs.status is None else None for rs in streams]
+        watcher.start()
+        ts = time.perf_counter()
+        try:
+            box["generation"] = router.swap_weights(dirs["g2"],
+                                                    drain_timeout=300.0)
+        finally:
+            rolled.set()
+        box["swap_s"] = time.perf_counter() - ts
+
+    swapper = threading.Thread(target=swap_when_ready)
+    swapper.start()
+    got, wall = _drain_streams(streams, t0)
+    swapper.join(timeout=600)
+    watcher.join(timeout=10)
+    after = [router.submit_generate(p, SERVE_NEW, timeout=600.0)
+             for p in prompts[:8]]
+    got_after, _ = _drain_streams(after, time.perf_counter())
+    try:
+        router.swap_weights(dirs["g1"])
+    except SwapFailed as e:
+        refusals.append(str(e)[:120])
+    last = order[-1] if len(order) == 2 else None
+    fails, gens, done, failed_typed = [], {}, [], {}
+    for i, (rs, (toks, _, err)) in enumerate(
+            list(zip(streams, got)) + list(zip(after, got_after))):
+        if err is not None:
+            on = box.get("on", [None] * len(prompts))[i] \
+                if i < len(prompts) else None
+            origin = "own" if on == last else "handed"
+            failed_typed[origin] = failed_typed.get(origin, 0) + 1
+            if i >= len(prompts) or type(err).__name__ != "RequestFailed" \
+                    or "mixed-weights" not in str(err) \
+                    or not rs.served_by or rs.served_by[-1][0] != last:
+                fails.append(f"stream {i} (served by {rs.served_by}, on "
+                             f"{on} at the swap, roll order {order}): "
+                             f"{err!r}")
+            continue
+        gen = rs.generation
+        gens[gen] = gens.get(gen, 0) + 1
+        if gen not in (1, 2):
+            fails.append(f"stream {i}: generation {gen}")
+            continue
+        if i >= len(prompts) and gen != 2:
+            fails.append(f"stream {i} after the swap is generation {gen}")
+        done.append((i, toks, rs, gen))
+    ok, gate = check([t for _, t, _, _ in done], [rs for _, _, rs, _ in done],
+                     [g for *_, g in done], [i % len(prompts)
+                                             for i, *_ in done])
+    if not ok:
+        fails.append(f"streams {[done[k][0] for k in gate['streams_off_gate']]}"
+                     f" are not their generation's tokens")
+    res = {"swap_s": box.get("swap_s"), "generation": box.get("generation"),
+           "roll_order": order,
+           "streams_on_replica_at_swap": {
+               r: box.get("on", []).count(r) for r in set(box.get("on", []))
+               if r is not None},
+           "streams_by_generation": gens,
+           "streams_failed_typed": failed_typed, **gate,
+           "refusals": refusals, "wall_s": wall}
+    res.update(_tier_checks("(e)", router, reps, engines, server))
+    log(f"  tier (e) {json.dumps(res)}")
+    if box.get("generation") != 2 or len(refusals) != 3 or last is None \
+            or router.stats()["generation"] != 2 or not gens.get(1):
+        fails.append(f"swap: {res}")
+    if fails:
+        raise AssertionError("phase 11 (e): " + "; ".join(fails))
+    return res
+
+
+def serve_phase(args):
+    """Phase 11 in a child process of its own (earlier phases' tensors
+    stay live in this one); returns its result."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = run_child("--serve-tier", 2 if args.quick else 32, args.seed,
+                    args.report)
+    log(f"  tier {json.dumps(res)}")
+    log(f"  phase 11: {res['seconds_without_model_builds']:.1f} s without "
+        f"the model builds ({res['model_build_s']:.1f} s); peak "
+        f"{res['peak_memory_gb']:.2f} GB")
+    return res
+
+
 def main(argv):
     import argparse
 
@@ -5383,6 +6223,9 @@ def main(argv):
     ap.add_argument("--lora-only", action="store_true",
                     help="the build, phase 2's BGMV checks and phase 10 "
                          "(LoRA fine-tune and inference) only")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="the build and phase 11 (the serving tier) only")
+    ap.add_argument("--serve-tier", metavar="OUT", help=argparse.SUPPRESS)
     ap.add_argument("--cp-only", action="store_true",
                     help="phases 1, 2's ring-attention and GEMV checks and "
                          "7 (cp training) only")
@@ -5437,6 +6280,11 @@ def main(argv):
         with open(args.profile_resblock, "w") as f:
             json.dump(res, f)
         return 0
+    if args.serve_tier:
+        res = serve_tier(torch, np, args.layers, args.seed)
+        with open(args.serve_tier, "w") as f:
+            json.dump(res, f)
+        return 0
     t_start = time.perf_counter()
     # a hang prints every thread's stack and exits non-zero before the
     # run's time limit
@@ -5462,6 +6310,11 @@ def main(argv):
         return finish(args, torch, smi, build_rec, t_start, [],
                       {"recipes": recipes_phase(torch, np, args)})
     iters = 5 if args.quick else 20
+    if args.serve_only:
+        log_phase(t_start, "phase 11: the serving tier (llama2_7b, two "
+                           "replicas)")
+        return finish(args, torch, smi, build_rec, t_start, [],
+                      {"serve": serve_phase(args)})
     if args.lora_only:
         log_phase(t_start, "phase 2: BGMV vs its plain version")
         bg_rows = check_bgmv(torch, iters)
@@ -5546,6 +6399,10 @@ def main(argv):
                        "(llama2_7b, BASELINE config 5)")
     lora_run = lora_phase(torch, np, args)
 
+    log_phase(t_start, "phase 11: the serving tier (llama2_7b, two "
+                       "replicas)")
+    serve_run = serve_phase(args)
+
     launches = {k: sum(r["launches"].get(k, 0) for r in runs)
                 for k in runs[0]["launches"]}
     tenant_run = next(r for r in runs if "lora_delta" in r["launches"])
@@ -5586,7 +6443,9 @@ def main(argv):
              first_body_device_ms=pd_main["first_body_device_ms"],
              lora_launches=lora_run["serve"]["launches"][
                  "paged_decode_attention"],
-             lora_routes=lora_run["serve"]["routes"]["paged"]),
+             lora_routes=lora_run["serve"]["routes"]["paged"],
+             serve_launches=serve_run["launches"]["paged_decode_attention"],
+             serve_routes=serve_run["routes"]["paged"]),
     ]
     bg_main = bg_rows[0]
     kernels.append(dict(
@@ -5660,7 +6519,9 @@ def main(argv):
     kernels.append(gemv_row(gv_rows, runs[0]["launches"]["row_gemv"],
                             runs[0]["gemv_routes"]))
     kernels[-1].update(lora_launches=lora_run["serve"]["launches"][
-        "row_gemv"], lora_routes=lora_run["serve"]["routes"]["gemv"])
+        "row_gemv"], lora_routes=lora_run["serve"]["routes"]["gemv"],
+        serve_launches=serve_run["launches"]["row_gemv"],
+        serve_routes=serve_run["routes"]["gemv"])
     kernels.extend(slice7_kernel_rows(bs_rows, dec_rows, pair_rows,
                                       sparse_run, table_cost))
     return finish(args, torch, smi, build_rec, t_start, kernels, {
@@ -5673,7 +6534,7 @@ def main(argv):
         "cp": cp_run, "block_sparse": bs_rows, "decode_attention": dec_rows,
         "decode_table_cost": table_cost,
         "fused_pair": pair_rows, "sparse": sparse_run,
-        "recipes": recipes_run, "lora": lora_run})
+        "recipes": recipes_run, "lora": lora_run, "serve": serve_run})
 
 
 def main_route_rows(wo_rows, fa_rows):

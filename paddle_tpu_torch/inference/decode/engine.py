@@ -77,6 +77,30 @@ batched decode step:
   multi-sequence step is re-run as single-sequence steps so only the
   culpable sequence fails (a re-run rewrites the same rows from the same
   committed state).
+* **Supervised steps** (the JAX engine's step pool): every prefill
+  chunk, draft catch-up and decode, propose or verify step runs on a
+  one-slot `serving.ServingPool` whose worker thread does the device
+  work while the scheduler thread waits for its result. A step that
+  hangs past ``step_timeout`` is detected by the pool's supervisor, its
+  worker retired and the step sent again from the same committed state
+  (``stats()["wedged_steps"]``); after ``step_retries + 1`` wedges it
+  fails with `RequestFailed` and the isolation above takes over. Each
+  dispatch carries an epoch: a worker that wakes after its dispatch was
+  abandoned finds the epoch moved on and does no device work, so it can
+  never overwrite the static inputs of a CUDA graph or KV rows of
+  blocks that were freed meanwhile. ``fault_hook(tag, seq_ids, info)``
+  runs on the worker just before a step (the tags and `info` keys of
+  the JAX engine: ``prefill`` / ``draft_prefill`` with ``bucket``,
+  ``start``, ``tokens``; ``decode`` with ``bucket``; ``speculate`` and
+  ``verify`` with ``bucket``, ``k``); a raise is a step fault, a sleep a
+  hang.
+* **Mid-stream resume** (``submit(resume_committed=...)``): the tokens a
+  client already received from an earlier attempt extend the prompt and
+  the sampling counter starts at their count, so the stream yields only
+  the continuation: greedy tokens equal the uninterrupted run's (in f32
+  on the CPU bit for bit; on the GPU the re-prefill's cuBLAS chunks and
+  the decode steps' GEMV give different bf16 bits), and a sampled
+  sequence draws from the same (seed, index) counters.
 
 Determinism contract. The JAX engine gets bit-identity across batch sizes
 from a scan over sequences; this port runs the batch as one set of
@@ -97,9 +121,12 @@ every bucket (tests/test_torch_cuda.py holds the bf16 decode step), and
 in a batch. Prefill chunks keep cuBLAS: a chunk is one sequence's, of
 the same length alone and in a batch.
 
-Not ported yet (passing them raises `NotImplementedError`):
-`resume_committed`, tensor-parallel meshes, the `ServingPool`
-integration, the on-disk compile cache and the fault hook.
+Not ported (passing them raises `NotImplementedError`): tensor-parallel
+meshes (``mesh=``, ``sharding_rules=``, the parallelism slice) and the
+on-disk compile cache (``compile_cache=``, refused by design: a CUDA
+graph has no serialized form, so the step programs are built again in
+each process by `warmup()`, and the kernels' nvcc build is cached under
+``paddle_tpu_torch/_build/`` already).
 
 Usage::
 
@@ -126,7 +153,8 @@ from ... import resolve_device
 from ...models.gpt import PagedBatch
 from ..sampling import PACK_FIELDS, SamplingParams, sample_token
 from ..serving import (AdapterNotLoaded, Deadline, DeadlineExceeded,
-                       Overloaded, PoolClosed, RequestFailed)
+                       Overloaded, PoolClosed, RequestFailed, RetryPolicy,
+                       ServingPool, _NullPredictor)
 from .adapter_pool import AdapterPool, adapter_context
 from .block_pool import OutOfBlocks, RESERVED_BLOCKS
 from .step_graphs import StepPrograms
@@ -139,20 +167,26 @@ _END = object()   # stream sentinel
 #: reference-owner tag of the blocks the prefix cache pins
 _CACHE_OWNER = "prefix-cache"
 
-#: unported constructor / submit options -> the later slice that ports them
+#: distinct registry collector names, one per engine
+_ENGINE_SEQ = itertools.count()
+
+#: constructor options the port refuses -> why
 _LATER = {
-    "resume_committed": "the serving-runtime slice",
-    "mesh": "the parallelism (NCCL) slice",
-    "sharding_rules": "the parallelism (NCCL) slice",
-    "compile_cache": "the serving-runtime slice",
-    "fault_hook": "the serving-runtime slice",
+    "mesh": "it is not ported to paddle_tpu_torch yet; it comes with the "
+            "parallelism (NCCL) slice",
+    "sharding_rules": "it is not ported to paddle_tpu_torch yet; it comes "
+                      "with the parallelism (NCCL) slice",
+    "compile_cache": "the JAX engine's cache stores compiled XLA "
+                     "executables on disk, and a CUDA graph has no "
+                     "serialized form: the port builds its step programs "
+                     "in every process (warmup()), and the kernels' nvcc "
+                     "build is already cached under paddle_tpu_torch/"
+                     "_build/",
 }
 
 
 def _not_ported(name):
-    raise NotImplementedError(
-        f"{name}= is not ported to paddle_tpu_torch yet; it comes with "
-        f"{_LATER[name]}")
+    raise NotImplementedError(f"{name}= is refused: {_LATER[name]}")
 
 
 class SequenceStream:
@@ -175,6 +209,7 @@ class SequenceStream:
         self._error = None
         self._cancel = None
         self._raised = False
+        self._ended = False       # poll() consumed the end marker
 
     def _push(self, tok):
         self.tokens.append(tok)
@@ -226,6 +261,27 @@ class SequenceStream:
         for _ in self:
             pass
         return list(self.tokens)
+
+    def poll(self, timeout=None):
+        """The pump primitive the serving router consumes: wait up to
+        `timeout` seconds for the next event and return ``("tok", t)``,
+        ``("end", status, error)`` (returned again on every later call) or
+        ``("empty", None)``. Unlike iteration it does not enforce the
+        deadline. Consume a stream through iteration or `poll`, not
+        both."""
+        if self._ended:
+            return ("end", self._status, self._error)
+        try:
+            if timeout is None or timeout <= 0:
+                item = self._q.get_nowait()
+            else:
+                item = self._q.get(timeout=timeout)
+        except queue.Empty:
+            return ("empty", None)
+        if item is not _END:
+            return ("tok", item)
+        self._ended = True
+        return ("end", self._status, self._error)
 
 
 class _Seq:
@@ -287,7 +343,15 @@ class DecodeEngine:
     (``module.weight = ...``, or `quantize_for_inference` swapping a
     layer) is not seen by that program: build the engine after the model
     is final. A failed capture or replay raises; nothing falls back to
-    eager steps."""
+    eager steps.
+
+    Steps run on a supervised one-slot executor: `step_timeout` (seconds;
+    None: unbounded) is a step's deadline, `step_retries` how often a
+    wedged step is sent again, `hang_grace` and `supervise_interval` the
+    executor's hang detection; `fault_hook(tag, seq_ids, info)` runs on
+    its worker before each step. `metrics` is the registry the engine's
+    `stats()` and TTFT histogram go to (None: the process registry;
+    False: none)."""
 
     #: samp-pack values of a greedy row: the raw-argmax lane
     _PACK_DEFAULTS = {"ctr": 0, "greedy": 1, "rep": 1.0, "seed": 0,
@@ -299,6 +363,8 @@ class DecodeEngine:
                  default_timeout=None, eos_token_id=None, pad_token_id=0,
                  prefix_cache=True, prefix_cache_blocks=None, adapters=None,
                  draft_model=None, speculate_k=0, draft_num_blocks=None,
+                 step_timeout=30.0, step_retries=1, hang_grace=0.1,
+                 supervise_interval=0.02, fault_hook=None, metrics=None,
                  device=None, clock=time.monotonic, _eager_steps=False,
                  **unported):
         for name, value in unported.items():
@@ -332,6 +398,9 @@ class DecodeEngine:
         self.eos_token_id = eos_token_id
         self.pad_token_id = int(pad_token_id)
         self.default_timeout = default_timeout
+        self.step_timeout = step_timeout
+        self._step_retries = int(step_retries)
+        self._fault_hook = fault_hook
         self._clock = clock
         self._vocab = model.cfg.vocab_size
 
@@ -392,6 +461,24 @@ class DecodeEngine:
         self._prefix_cap = int(prefix_cache_blocks)
         self._adapters = adapters
 
+        # the supervised step executor: ONE slot (a step consumes the
+        # previous step's commit), under the serving pool's hang detection
+        self._steps = ServingPool(
+            predictor=_NullPredictor(), size=1, max_queue_depth=4,
+            default_timeout=None,
+            breaker_threshold=max(3, self._step_retries + 2),
+            breaker_reset_timeout=0.25,
+            retry=RetryPolicy(max_retries=2, base_delay=0.01,
+                              max_delay=0.05),
+            hang_grace=hang_grace, supervise_interval=supervise_interval,
+            metrics=False, clock=clock)
+        # a dispatch runs only while its epoch is current, checked under
+        # _lock after the fault hook and before any device work, all under
+        # _dispatch_lock (one step's device work at a time)
+        self._dispatch_lock = threading.Lock()
+        self._step_epoch = 0
+        self._worker_state = threading.local()
+
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
         self._waiting = []
@@ -417,12 +504,29 @@ class DecodeEngine:
         self._spec_rejected = self._spec_bonus = self._spec_committed = 0
         self._spec_verify_dispatches = self._spec_draft_dispatches = 0
         self._spec_catchup_chunks = self._spec_fallbacks = 0
+        self._resumed = self._wedged_steps = self._abandoned_steps = 0
         self._jobs = []             # calls run on the scheduler thread
+
+        self.name = f"engine{next(_ENGINE_SEQ)}"
+        if metrics is False:
+            self._metrics = self._h_ttft = None
+        else:
+            from ...obs.metrics import registry as _obs_registry
+
+            self._metrics = metrics if metrics is not None \
+                else _obs_registry()
+            self._h_ttft = self._metrics.histogram(
+                "decode.ttft_seconds",
+                help="time to first token: admission -> first delivery")
 
         self._thread = threading.Thread(target=self._loop,
                                         name="DecodeEngine-scheduler",
                                         daemon=True)
         self._thread.start()
+        if self._metrics is not None:
+            # last: a scrape only ever sees a fully built engine
+            self._metrics.register_collector(f"decode.{self.name}",
+                                             self.stats)
 
     def _init_speculation(self, draft_model, speculate_k, draft_num_blocks,
                           quant):
@@ -468,7 +572,8 @@ class DecodeEngine:
 
     # -- admission ---------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens, timeout=None, *,
-               keep_logits=0, sampling=None, adapter=None, **unported):
+               keep_logits=0, sampling=None, adapter=None,
+               resume_committed=None):
         """Admit one generation request; returns its `SequenceStream`.
 
         Malformed requests raise `ValueError` synchronously; a full
@@ -481,19 +586,28 @@ class DecodeEngine:
         pool, raises `AdapterNotLoaded`). `keep_logits=k` keeps the first
         k next-token logit rows on the stream (the prefill's, then each
         decode step's); such a request recomputes its last prompt chunk
-        rather than take a full-prompt cache hit."""
-        for name, value in unported.items():
-            if name not in _LATER:
-                raise TypeError(f"submit() got an unexpected keyword "
-                                f"argument {name!r}")
-            if value is not None:
-                _not_ported(name)
+        rather than take a full-prompt cache hit.
+
+        `resume_committed` (the router's mid-stream failover) holds the
+        tokens an earlier attempt already delivered: they extend the
+        prompt, the sampling counter starts at their count, and the
+        stream yields only the tokens after them."""
         if sampling is not None and not isinstance(sampling, SamplingParams):
             sampling = SamplingParams.from_dict(dict(sampling))
         ids = np.asarray(prompt_ids.cpu() if torch.is_tensor(prompt_ids)
                          else prompt_ids)
         if ids.ndim == 2 and ids.shape[0] == 1:
             ids = ids[0]
+        committed = 0
+        if resume_committed is not None and len(resume_committed):
+            ext = np.asarray(resume_committed)
+            if ext.ndim != 1 or not np.issubdtype(ext.dtype, np.integer):
+                raise ValueError(
+                    f"resume_committed must be a 1-D integer id array, got "
+                    f"shape {ext.shape} dtype {ext.dtype}")
+            committed = int(ext.shape[0])
+            ids = np.concatenate([ids.astype(np.int64),
+                                  ext.astype(np.int64)])
         if ids.ndim != 1 or not np.issubdtype(ids.dtype, np.integer):
             raise ValueError(f"prompt must be a 1-D integer id array, got "
                              f"shape {ids.shape} dtype {ids.dtype}")
@@ -541,6 +655,7 @@ class DecodeEngine:
             seq = _Seq(self._ids, ids.astype(np.int64), max_new, dl)
             seq.keep_logits = int(keep_logits)
             seq.sampling = sampling
+            seq.sample_base = committed
             if adapter is not None:
                 if self._adapters is None:
                     raise AdapterNotLoaded(
@@ -559,6 +674,8 @@ class DecodeEngine:
             self._admitted += 1
             if sampling is not None:
                 self._sampled += 1
+            if committed:
+                self._resumed += 1
             self._cv.notify()
         return seq.stream
 
@@ -761,6 +878,10 @@ class DecodeEngine:
                       key=lambda s: (len(s.prompt) - s.prefill_pos, s.id))
         try:
             self._prefill_chunk(seq)
+        except PoolClosed as e:
+            self._finish(seq, "cancelled", e)
+        except RequestFailed as e:
+            self._finish(seq, "failed", e)
         except Exception as exc:  # noqa: BLE001 — fail THIS sequence
             self._finish(seq, "failed", RequestFailed(
                 f"sequence {seq.id}: prefill error: "
@@ -785,16 +906,32 @@ class DecodeEngine:
         if need > 0:
             seq.blocks += self.pool.alloc(need, owner=seq.id)
             seq.outstanding -= need
-        dev = self.device
-        table = torch.tensor(seq.blocks, dtype=torch.int64, device=dev)
-        batch = PagedBatch.prefill(table, start, this_len, self.block_size)
-        tokens = torch.as_tensor(seq.prompt[start:start + this_len],
-                                 device=dev)[None]
-        with self._adapter_scope(seq.adapter_slot):
-            logits = self.model.decode_step_paged(tokens, self.pool.tensors,
-                                                  batch)
-        last = logits[0, -1].to(torch.float32)
         done = start + this_len
+        greedy = self._is_greedy(seq)
+        final = done == plen
+        blocks = list(seq.blocks)
+
+        def work():
+            dev = self.device
+            table = torch.tensor(blocks, dtype=torch.int64, device=dev)
+            batch = PagedBatch.prefill(table, start, this_len,
+                                       self.block_size)
+            tokens = torch.as_tensor(seq.prompt[start:start + this_len],
+                                     device=dev)[None]
+            with self._adapter_scope(seq.adapter_slot):
+                logits = self.model.decode_step_paged(
+                    tokens, self.pool.tensors, batch)
+            last = logits[0, -1].to(torch.float32)
+            # the raw argmax is what a greedy full-prompt hit on this
+            # entry must deliver, whoever published it
+            argmax = int(last.argmax())
+            tok = argmax if greedy or not final else \
+                self._sample_rows(last[None], [seq])[0]
+            kept = last.cpu() if final and seq.keep_logits else None
+            return argmax, tok, kept
+
+        argmax, tok, kept = self._submit_step(
+            work, "prefill", [seq], self._prefill_info(start, this_len))
         seq.prefill_pos = done
         if self._spec_on and seq.draft_pos == start \
                 and self._may_speculate(seq):
@@ -807,10 +944,6 @@ class DecodeEngine:
             self._draft_prefill(seq, start, this_len)
         with self._lock:
             self._prefill_chunks += 1
-        greedy = self._is_greedy(seq)
-        # the raw argmax is what a greedy full-prompt hit on this entry
-        # must deliver, whoever published it
-        argmax = int(last.argmax())
         if self._prefix_on and self._chunk and done % self._chunk == 0 \
                 and (greedy or done < plen):
             # a chunk boundary: publish tokens[0:done]. Boundaries are
@@ -823,9 +956,8 @@ class DecodeEngine:
                     seq.adapter_sig)
         if done < plen:
             return
-        tok = argmax if greedy else self._sample_rows(last[None], [seq])[0]
-        if seq.keep_logits:
-            seq.stream.logits.append(last.cpu())
+        if kept is not None:
+            seq.stream.logits.append(kept)
         # prompt complete: greedy sequences publish the full-prompt entry
         # (a mid-block tail is shared too: its writer copies it first)
         if self._prefix_on and greedy \
@@ -1008,6 +1140,8 @@ class DecodeEngine:
             seq.stream.ttft = self._clock() - seq.submitted_at
             with self._lock:
                 self._ttfts.append(seq.stream.ttft)
+            if self._h_ttft is not None:
+                self._h_ttft.observe(seq.stream.ttft)
         sps = seq.sampling.stop_sequences if seq.sampling is not None else ()
         if not sps:
             self._push_tokens(seq, [tok])
@@ -1102,11 +1236,12 @@ class DecodeEngine:
             return
         try:
             nxt = self._dispatch_decode(active)
+        except PoolClosed:
+            return          # the engine is stopping; shutdown fails them
         except Exception as exc:  # noqa: BLE001 — isolate the culprit
             if len(active) == 1:
-                self._finish(active[0], "failed", RequestFailed(
-                    f"sequence {active[0].id}: decode step error: "
-                    f"{type(exc).__name__}: {exc}", cause=exc))
+                self._finish(active[0], "failed", self._step_error(
+                    active[0], exc))
                 return
             with self._lock:
                 self._isolations += 1
@@ -1114,6 +1249,73 @@ class DecodeEngine:
             return
         for seq, tok in zip(active, nxt):
             self._deliver(seq, tok)
+
+    # -- the supervised step executor --------------------------------------
+    def _submit_step(self, work, tag, seqs, info):
+        """Run `work()`, one step's device work returning the step's host
+        results, on the step executor; returns its result. `work` reads
+        only committed state, so a step the executor's supervisor finds
+        wedged (its worker retired) is sent again, up to `step_retries`
+        times, and a re-run rewrites the same rows. Each attempt takes a
+        new epoch: a worker that wakes after its attempt was given up
+        finds the epoch moved on and does nothing. Raises `RequestFailed`
+        (a step fault, or every attempt wedged) or `PoolClosed`."""
+        hook = self._fault_hook
+        ids = [s.id for s in seqs]
+        last = None
+        for _ in range(self._step_retries + 1):
+            with self._lock:
+                self._step_epoch += 1
+                epoch = self._step_epoch
+
+            def run(_member, epoch=epoch):
+                if hook is not None:
+                    hook(tag, ids, info)
+                with self._dispatch_lock:
+                    with self._lock:
+                        if epoch != self._step_epoch:
+                            # abandoned: a retry (or shutdown) owns the
+                            # buffers and blocks this step would touch
+                            self._abandoned_steps += 1
+                            return None
+                    with self._worker_scope():
+                        return work()
+
+            req = self._steps.submit(run, timeout=self.step_timeout)
+            try:
+                return req.result()
+            except DeadlineExceeded as e:
+                with self._lock:
+                    self._wedged_steps += 1
+                last = e
+        raise RequestFailed(
+            f"{tag} step wedged {self._step_retries + 1} time(s) — giving "
+            f"up", cause=last, attempts=self._step_retries + 1)
+
+    @contextlib.contextmanager
+    def _worker_scope(self):
+        """A step worker's thread state: the engine's CUDA device (set
+        once a thread) and no autograd."""
+        if self.device.type == "cuda" \
+                and not getattr(self._worker_state, "device_set", False):
+            torch.cuda.set_device(self.device)
+            self._worker_state.device_set = True
+        with torch.no_grad():
+            yield
+
+    def _prefill_info(self, start, n):
+        """The fault hook's `info` of a prefill chunk: its bucket (the
+        smallest prefill bucket holding it; the chunk itself runs at its
+        own length), start and length."""
+        bucket = next((p for p in self.prefill_buckets if p >= n), n)
+        return {"bucket": bucket, "start": start, "tokens": n}
+
+    @staticmethod
+    def _step_error(seq, exc):
+        if isinstance(exc, RequestFailed):
+            return exc
+        return RequestFailed(f"sequence {seq.id}: decode step error: "
+                             f"{type(exc).__name__}: {exc}", cause=exc)
 
     # -- step programs -----------------------------------------------------
     def _bucket(self, n):
@@ -1190,22 +1392,30 @@ class DecodeEngine:
         n = len(active)
         bucket = self._bucket(n)
         greedy = all(self._is_greedy(s) for s in active)
-        prog = self._program("greedy" if greedy else "sampled", bucket)
-        a = prog.stage()
+        keep = [i for i, seq in enumerate(active)
+                if len(seq.stream.logits) < seq.keep_logits]
+
+        def work():
+            prog = self._program("greedy" if greedy else "sampled", bucket)
+            a = prog.stage()
+            for i, seq in enumerate(active):
+                a["tokens"][i, 0] = seq.last_token
+                a["pos"][i] = seq.pos
+                a["tables"][i, :len(seq.blocks)] = seq.blocks
+                a["aids"][i] = seq.adapter_slot
+                if not greedy:
+                    for name, v in self._pack_values(seq).items():
+                        a[name][i] = v
+                    self._hist_fill(a["hist"][i], seq)
+            out = prog.run()
+            nxt = prog.fetch("next", n)
+            return nxt, {i: out["logits"][i].cpu() for i in keep}
+
+        nxt, kept = self._submit_step(work, "decode", active,
+                                      {"bucket": bucket})
         for i, seq in enumerate(active):
-            a["tokens"][i, 0] = seq.last_token
-            a["pos"][i] = seq.pos
-            a["tables"][i, :len(seq.blocks)] = seq.blocks
-            a["aids"][i] = seq.adapter_slot
-            if not greedy:
-                for name, v in self._pack_values(seq).items():
-                    a[name][i] = v
-                self._hist_fill(a["hist"][i], seq)
-        out = prog.run()
-        nxt = prog.fetch("next", n)
-        for i, seq in enumerate(active):
-            if len(seq.stream.logits) < seq.keep_logits:
-                seq.stream.logits.append(out["logits"][i].cpu())
+            if i in kept:
+                seq.stream.logits.append(kept[i])
             seq.pos += 1
         with self._lock:
             self._steps_run += 1
@@ -1219,10 +1429,10 @@ class DecodeEngine:
                 continue
             try:
                 nxt = self._dispatch_decode([seq])
+            except PoolClosed:
+                return
             except Exception as exc:  # noqa: BLE001
-                self._finish(seq, "failed", RequestFailed(
-                    f"sequence {seq.id}: decode step error: "
-                    f"{type(exc).__name__}: {exc}", cause=exc))
+                self._finish(seq, "failed", self._step_error(seq, exc))
                 continue
             self._deliver(seq, nxt[0])
 
@@ -1239,9 +1449,10 @@ class DecodeEngine:
             ("propose", "verify") if self._spec_on else ())
 
         def build():
-            for b in reversed(self.decode_buckets):
-                for kind in kinds:
-                    self._program(kind, b)
+            with self._dispatch_lock:
+                for b in reversed(self.decode_buckets):
+                    for kind in kinds:
+                        self._program(kind, b)
 
         self._on_scheduler(build)
         out = {"decode": list(self.decode_buckets),
@@ -1315,14 +1526,19 @@ class DecodeEngine:
                     f"sequence {seq.id}: draft pool exhausted at catch-up "
                     f"(admission reserve bug)", cause=e) from e
             seq.draft_outstanding -= need
-        dev = self.device
-        table = torch.tensor(seq.draft_blocks, dtype=torch.int64,
-                             device=dev)
-        tokens = torch.as_tensor(
-            self._committed_tokens(seq)[start:start + n], device=dev)[None]
-        self.draft_model.decode_step_paged(
-            tokens, self.draft_pool.tensors,
-            PagedBatch.prefill(table, start, n, self.block_size))
+        blocks = list(seq.draft_blocks)
+        ids = self._committed_tokens(seq)[start:start + n]
+
+        def work():
+            dev = self.device
+            table = torch.tensor(blocks, dtype=torch.int64, device=dev)
+            self.draft_model.decode_step_paged(
+                torch.as_tensor(ids, device=dev)[None],
+                self.draft_pool.tensors,
+                PagedBatch.prefill(table, start, n, self.block_size))
+
+        self._submit_step(work, "draft_prefill", [seq],
+                          self._prefill_info(start, n))
         seq.draft_pos = start + n
         with self._lock:
             self._spec_catchup_chunks += 1
@@ -1349,28 +1565,40 @@ class DecodeEngine:
             seq.draft_outstanding -= dneed
 
     def _dispatch_propose(self, seqs):
-        prog = self._program("propose", self._bucket(len(seqs)))
-        a = prog.stage()
-        for i, seq in enumerate(seqs):
-            a["tokens"][i, 0] = seq.last_token
-            a["pos"][i] = seq.pos
-            a["tables"][i, :len(seq.draft_blocks)] = seq.draft_blocks
-        prog.run()
-        props = prog.fetch("props", len(seqs))
+        bucket = self._bucket(len(seqs))
+
+        def work():
+            prog = self._program("propose", bucket)
+            a = prog.stage()
+            for i, seq in enumerate(seqs):
+                a["tokens"][i, 0] = seq.last_token
+                a["pos"][i] = seq.pos
+                a["tables"][i, :len(seq.draft_blocks)] = seq.draft_blocks
+            prog.run()
+            return prog.fetch("props", len(seqs))
+
+        props = self._submit_step(work, "speculate", seqs,
+                                  {"bucket": bucket, "k": self._k})
         with self._lock:
             self._spec_draft_dispatches += 1
         return props
 
     def _dispatch_verify(self, seqs, props):
-        prog = self._program("verify", self._bucket(len(seqs)))
-        a = prog.stage()
-        for i, seq in enumerate(seqs):
-            a["tokens"][i, 0] = seq.last_token
-            a["tokens"][i, 1:] = props[i]
-            a["pos"][i] = seq.pos
-            a["tables"][i, :len(seq.blocks)] = seq.blocks
-        prog.run()
-        preds = prog.fetch("preds", len(seqs))
+        bucket = self._bucket(len(seqs))
+
+        def work():
+            prog = self._program("verify", bucket)
+            a = prog.stage()
+            for i, seq in enumerate(seqs):
+                a["tokens"][i, 0] = seq.last_token
+                a["tokens"][i, 1:] = props[i]
+                a["pos"][i] = seq.pos
+                a["tables"][i, :len(seq.blocks)] = seq.blocks
+            prog.run()
+            return prog.fetch("preds", len(seqs))
+
+        preds = self._submit_step(work, "verify", seqs,
+                                  {"bucket": bucket, "k": self._k})
         with self._lock:
             self._spec_verify_dispatches += 1
         return preds
@@ -1516,10 +1744,19 @@ class DecodeEngine:
         with self._cv:
             self._stopping = True
             self._cv.notify_all()
+        self._steps.shutdown(drain_timeout=1.0)
         self._thread.join(timeout=30.0)
-        if not self._thread.is_alive():
-            # no step can run any more: free the graphs and their buffers
-            self._programs.release()
+        # a step still running finishes first; any later worker finds its
+        # epoch stale: from here no step can run, so the graphs and their
+        # buffers go
+        if self._dispatch_lock.acquire(timeout=30.0):
+            try:
+                with self._lock:
+                    self._step_epoch += 1
+                if not self._thread.is_alive():
+                    self._programs.release()
+            finally:
+                self._dispatch_lock.release()
         with self._cv:
             leftovers = self._waiting + self._prefill_q + self._active
             self._waiting = []
@@ -1528,6 +1765,9 @@ class DecodeEngine:
                     f"engine shut down before sequence {seq.id} finished"))
             # a shut-down engine returns the pool to allocated == 0
             self._clear_prefix_cache_locked()
+        if self._metrics is not None:
+            self._metrics.unregister_collector(f"decode.{self.name}",
+                                               self.stats)
         self._drained = drained
         return drained
 
@@ -1539,6 +1779,13 @@ class DecodeEngine:
         return False
 
     # -- observability -----------------------------------------------------
+    def load(self):
+        """Routing signal: the live sequences (waiting, prefilling and
+        decoding)."""
+        with self._cv:
+            return len(self._waiting) + len(self._prefill_q) \
+                + len(self._active)
+
     def stats(self):
         """Counter snapshot. Quiesced: ``admitted == completed + failed +
         timed_out + cancelled`` and ``blocks.allocated ==
@@ -1569,6 +1816,9 @@ class DecodeEngine:
                 "prefill_chunks": self._prefill_chunks,
                 "tokens_out": self._tokens_out,
                 "isolation_rounds": self._isolations,
+                "resumed": self._resumed,
+                "wedged_steps": self._wedged_steps,
+                "abandoned_steps": self._abandoned_steps,
                 "occupancy": (self._step_active / self._step_slots)
                 if self._step_slots else 0.0,
                 "internal_fragmentation": (1.0 - used / slots)
@@ -1634,6 +1884,7 @@ class DecodeEngine:
         # loaded from disk
         snap["compiles"] = {"built": self._programs.built, "disk": 0}
         snap["step_programs"] = self._programs.stats()
+        snap["step_pool"] = self._steps.stats()
         snap["blocks"] = self.pool.stats()
         if self._adapters is not None:
             snap["adapters"] = self._adapters.stats()

@@ -103,9 +103,13 @@ Measurements:
   weights quantized from seed 0, an int8 KV pool, 8 sequences of 300
   prompt tokens at bucket 8, the engine's step programs built first where
   the tree has `warmup()`): the host-clock ms a step over a window of
-  `STEP_WINDOW_S` seconds without the profiler, then the tree's
-  `chip_smoke.py` `profile_decode` of the same model (its device-busy ms
-  a step among its results);
+  `STEP_WINDOW_S` seconds without the profiler (the window's mean, and
+  the median and p90 of the intervals between consecutive steps'
+  starts); where the engine runs its steps on a supervised executor
+  (`_submit_step`), HANDOFFS steps with no device work sent through it
+  with the engine idle (µs each: the executor's own cost a step); then
+  the tree's `chip_smoke.py` `profile_decode` of the same model (its
+  device-busy ms a step among its results);
 * ``step_device`` (CHANGE alone, once a round; a tree whose engine has
   step programs): run (b)'s bucket-8 greedy step program, built and
   staged by the engine's own steps as in ``decode_step``, then driven
@@ -710,13 +714,15 @@ def child_tenants(tree):
 
 
 STEP_WINDOW_S = 3.0
+HANDOFFS = 2000                  # no-op steps through the step executor
 
 
-def child_decode_step(tree):
-    """Run (b)'s decode step: unprofiled host-clock step ms, then the
-    tree's `profile_decode` (device-busy ms a step)."""
-    import time
-
+def _run_b_engine():
+    """Run (b)'s engine — llama2_7b, weights quantized to int8 from seed 0,
+    an int8 KV pool, buckets 1-8, its step programs built where the tree
+    has `warmup()` — decoding 8 sequences of 300 prompt tokens at bucket
+    8, every prompt prefilled. Returns (torch, np, the tree's chip_smoke,
+    the model, the engine, its streams)."""
     import numpy as np
     import torch
 
@@ -733,26 +739,78 @@ def child_decode_step(tree):
                        decode_buckets=(1, 2, 4, 8), prefill_chunk=256,
                        quant="int8", default_timeout=600.0,
                        device=model.device)
-    graphs = hasattr(eng, "warmup")
-    if graphs:
+    if hasattr(eng, "warmup"):
         eng.warmup()
     streams = [eng.submit(p, 1024 - 300) for p in smoke._prompts(
         np, model.cfg.vocab_size, (300,) * 8)]
     for st in streams:
         next(iter(st))                    # every prompt is prefilled
+    return torch, np, smoke, model, eng, streams
+
+
+def _wait_idle(eng):
+    import time
+
+    give_up = time.perf_counter() + 60.0
+    while eng.stats()["active"] or eng.stats()["prefilling"]:
+        if time.perf_counter() > give_up:
+            raise AssertionError("the engine did not go idle")
+        time.sleep(0.01)
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
+
+
+def child_decode_step(tree):
+    """Run (b)'s decode step: unprofiled host-clock step ms (the window's
+    mean, and the median and p90 of the intervals between consecutive
+    steps' starts), the executor's no-op hand-off where the tree has one,
+    then the tree's `profile_decode` (device-busy ms a step)."""
+    import time
+
+    torch, np, smoke, model, eng, streams = _run_b_engine()
+    graphs = hasattr(eng, "warmup")
+    starts, dispatch = [], eng._dispatch_decode
+
+    def timed(active):
+        starts.append(time.perf_counter())
+        return dispatch(active)
+
+    eng._dispatch_decode = timed
     s0, t0 = eng.stats()["steps"], time.perf_counter()
     time.sleep(STEP_WINDOW_S)
     s1, t1 = eng.stats()["steps"], time.perf_counter()
+    del eng._dispatch_decode
     if any(st.done() for st in streams):
         raise AssertionError("a stream finished inside the window")
     for st in streams:
         st.cancel()
+    gaps = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    handoff = None
+    if hasattr(eng, "_submit_step"):
+        # the step executor's own cost: a step with no device work sent
+        # through it (a supervised one-slot pool) from this thread, with
+        # the engine idle
+        _wait_idle(eng)
+        per = []
+        for _ in range(HANDOFFS):
+            h0 = time.perf_counter()
+            eng._submit_step(lambda: None, "decode", [], {"bucket": 8})
+            per.append((time.perf_counter() - h0) * 1e6)
+        handoff = {"n": HANDOFFS, "median_us": _pct(per, 0.5),
+                   "p90_us": _pct(per, 0.9),
+                   "mean_us": sum(per) / len(per)}
     eng.shutdown()
     del eng
     prof = smoke.profile_decode(torch, np, model, "int8",
                                 "b: int8 + int8 KV, bs 8")
     return {"tree": tree, "what": "decode_step", "graphs": graphs,
             "steps": s1 - s0, "step_ms": (t1 - t0) * 1e3 / (s1 - s0),
+            "interval_median_ms": _pct(gaps, 0.5),
+            "interval_p90_ms": _pct(gaps, 0.9),
+            "handoff": handoff,
             "profiled_step_ms": prof["step_ms"],
             "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
             "device_idle_share": prof["device_idle_share"],
@@ -808,40 +866,19 @@ def child_step_device(tree):
     import datetime
     import time
 
-    import numpy as np
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.inference import DecodeEngine
-    from paddle_tpu_torch.models import gpt
-    from paddle_tpu_torch.nn.quant import quantize_for_inference
 
     if not hasattr(DecodeEngine, "warmup"):
         return {"tree": tree, "what": "step_device", "graphs": False}
-    smoke = importlib.import_module("chip_smoke")
-    model = gpt("llama2_7b", dtype="bfloat16", device="cuda", seed=0,
-                num_layers=32)
-    quantize_for_inference(model, "int8")
-    torch.cuda.empty_cache()
-    eng = DecodeEngine(model, max_length=1024, block_size=16,
-                       decode_buckets=(1, 2, 4, 8), prefill_chunk=256,
-                       quant="int8", default_timeout=600.0,
-                       device=model.device)
-    eng.warmup()
-    streams = [eng.submit(p, 1024 - 300) for p in smoke._prompts(
-        np, model.cfg.vocab_size, (300,) * 8)]
-    for st in streams:
-        next(iter(st))                    # every prompt is prefilled
+    torch, np, smoke, model, eng, streams = _run_b_engine()
     s0 = eng.stats()["steps"]
     while eng.stats()["steps"] < s0 + 20:   # bucket-8 steps staged
         time.sleep(0.01)
     for st in streams:
         st.cancel()
-    give_up = time.perf_counter() + 60.0
-    while eng.stats()["active"] or eng.stats()["prefilling"]:
-        if time.perf_counter() > give_up:
-            raise AssertionError("the engine did not go idle")
-        time.sleep(0.01)
+    _wait_idle(eng)
     prog = eng._programs.get("greedy", 8, None)
     if not prog.graph:
         raise AssertionError("run (b)'s bucket-8 program is not a graph")

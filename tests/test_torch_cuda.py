@@ -14,6 +14,8 @@ machine that has only PyTorch; there, skip the repository's conftest
 """
 import importlib
 import math
+import threading
+import time
 
 import pytest
 import torch
@@ -2237,6 +2239,14 @@ def test_ring_kernel_refuses_rows_it_cannot_read(cuda):
 
 # ------------------------------------- decode step programs as CUDA graphs
 
+def _serve_model(cuda):
+    """A llama-shaped 2-layer bf16 model, every float Linear of a decode
+    step on the row-stable GEMV."""
+    return gpt("llama2_7b", device=cuda, dtype="bfloat16", seed=0,
+               num_layers=2, hidden_size=512, num_heads=8, num_kv_heads=4,
+               intermediate_size=1376, vocab_size=4000)
+
+
 def _graph_engine(cuda, variant, **kw):
     """A llama-shaped 2-layer bf16 model (every float Linear on the
     row-stable GEMV) in one of the serving variants, its engine (graphs),
@@ -2245,9 +2255,7 @@ def _graph_engine(cuda, variant, **kw):
     from paddle_tpu_torch.inference import AdapterPool, DecodeEngine
     from paddle_tpu_torch.nn.quant import quantize_for_inference
 
-    m = gpt("llama2_7b", device=cuda, dtype="bfloat16", seed=0,
-            num_layers=2, hidden_size=512, num_heads=8, num_kv_heads=4,
-            intermediate_size=1376, vocab_size=4000)
+    m = _serve_model(cuda)
     if variant == "int4":
         quantize_for_inference(m, "int4", min_features=0)
     pool = None
@@ -2448,6 +2456,159 @@ def test_speculation_on_graphs_equals_plain_greedy(cuda, draft):
         assert sp["rejected"] > 0
     assert st["blocks"]["allocated"] == 0
     assert st["draft_blocks"]["allocated"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the serving runtime: supervised steps on graphs, resume on the card
+# ---------------------------------------------------------------------------
+
+_SERVE_PROMPTS = [[1, 2, 3, 4, 5], list(range(10, 40)), [7] * 17, [9, 8, 7]]
+#: a near-tie of the 2-layer model's bf16 logits: a top-2 gap under this,
+#: where a re-prefilled (cuBLAS) row and a decoded (GEMV) row may pick
+#: either token
+_RESUME_TIE = 0.25
+
+
+def _serve_engine(cuda, m, **kw):
+    """A warmed engine (every step program a CUDA graph) over `m`."""
+    from paddle_tpu_torch.inference import DecodeEngine
+
+    eng = DecodeEngine(m, max_length=128, block_size=16,
+                       decode_buckets=(1, 2, 4, 8), default_timeout=120.0,
+                       device=cuda, **kw)
+    eng.warmup()
+    return eng
+
+
+def _wedge_once(seconds):
+    """A fault hook that sleeps `seconds` in the first decode step of more
+    than one sequence."""
+    state = {"armed": True}
+
+    def hook(tag, ids, info):
+        if state["armed"] and tag == "decode" and len(ids) > 1:
+            state["armed"] = False
+            time.sleep(seconds)
+
+    return hook
+
+
+def _wedged_run(cuda, m):
+    """The prompts through an engine whose first batched decode step
+    sleeps past the step deadline once; returns the engine (open), its
+    tokens and the launch counts read after the last token."""
+    from paddle_tpu_torch.ops import counted_wrappers
+
+    eng = _serve_engine(cuda, m, step_timeout=0.5, hang_grace=0.05,
+                        supervise_interval=0.01, fault_hook=_wedge_once(1.5))
+    got = [s.result() for s in [eng.submit(p, 24) for p in _SERVE_PROMPTS]]
+    torch.cuda.synchronize()
+    return eng, got, [w.launches for w in counted_wrappers()]
+
+
+def test_a_resent_wedged_step_on_graphs_is_bit_equal(cuda):
+    """A decode step whose worker hangs past `step_timeout` is sent again
+    on a fresh worker, which replays the graph the scheduler thread
+    captured: every sequence's tokens equal a fault-free engine's bit for
+    bit, with one wedged step, no isolation round, replays = steps."""
+    m = _serve_model(cuda)
+    with _serve_engine(cuda, m) as ref_eng:
+        ref = [s.result() for s in [ref_eng.submit(p, 24)
+                                    for p in _SERVE_PROMPTS]]
+    eng, got, _ = _wedged_run(cuda, m)
+    eng.shutdown()
+    st = eng.stats()
+    assert got == ref
+    assert st["wedged_steps"] == 1 and st["isolation_rounds"] == 0
+    assert all(p["graph"] for p in st["step_programs"].values())
+    assert sum(p["replays"] for n, p in st["step_programs"].items()
+               if n.startswith(("greedy", "sampled"))) == st["steps"]
+    assert st["blocks"]["allocated"] == 0
+
+
+def test_an_abandoned_worker_launches_nothing(cuda):
+    """The retired worker wakes after its step was re-sent and served: it
+    finds its epoch stale and does no device work, so no kernel wrapper's
+    launch count moves between the last token and its waking."""
+    from paddle_tpu_torch.ops import counted_wrappers
+
+    eng, got, counts = _wedged_run(cuda, _serve_model(cuda))
+    try:
+        give_up = time.monotonic() + 30.0
+        while eng.stats()["abandoned_steps"] < 1 \
+                and time.monotonic() < give_up:
+            time.sleep(0.02)
+        torch.cuda.synchronize()
+        assert eng.stats()["abandoned_steps"] == 1
+        assert [w.launches for w in counted_wrappers()] == counts
+        assert sum(counts) > 0
+    finally:
+        eng.shutdown()
+
+
+def test_one_engine_captures_while_another_replays(cuda):
+    """Engine B captures its step programs (warmup, on its scheduler
+    thread) while engine A's worker thread replays A's graphs under live
+    traffic: A's streams keep A's tokens and B then serves the same
+    tokens from its own graphs."""
+    from paddle_tpu_torch.inference import DecodeEngine
+
+    m = _serve_model(cuda)
+    a = _serve_engine(cuda, m)
+    ref = [s.result() for s in [a.submit(p, 24) for p in _SERVE_PROMPTS]]
+    stop, during, bad = threading.Event(), [], []
+    capturing = threading.Event()
+
+    def traffic():
+        while not stop.is_set():
+            outs = [s.result() for s in [a.submit(p, 24)
+                                         for p in _SERVE_PROMPTS]]
+            if outs != ref:
+                bad.append(outs)
+            if capturing.is_set():
+                during.append(1)
+
+    t = threading.Thread(target=traffic)
+    t.start()
+    try:
+        b = DecodeEngine(m, max_length=128, block_size=16,
+                         decode_buckets=(1, 2, 4, 8), default_timeout=120.0,
+                         device=cuda)
+        capturing.set()
+        b.warmup()
+        capturing.clear()
+        with b:
+            assert [s.result() for s in [b.submit(p, 24)
+                                         for p in _SERVE_PROMPTS]] == ref
+    finally:
+        stop.set()
+        t.join(timeout=120)
+        a.shutdown()
+    assert not t.is_alive() and not bad
+    assert all(p["graph"] for p in b.stats()["step_programs"].values())
+    assert b.stats()["compiles"]["built"] == 8
+
+
+def test_resume_committed_keeps_tokens_up_to_the_first_near_tie(cuda):
+    """A stream resumed from 8 committed tokens re-prefills prompt +
+    committed (cuBLAS chunks) where the uninterrupted run decoded them
+    (GEMV), so the bits may differ: its tokens equal the uninterrupted
+    continuation up to the first near-tie of the uninterrupted run's
+    decode logits."""
+    m = _serve_model(cuda)
+    with _serve_engine(cuda, m) as eng:
+        for p in _SERVE_PROMPTS:
+            full = eng.submit(p, 24, keep_logits=24)
+            ref = full.result()
+            logits = torch.stack(full.logits)
+            top = torch.topk(logits, 2, dim=-1).values
+            gap = (top[:, 0] - top[:, 1])[8:]
+            ties = (gap < _RESUME_TIE).nonzero()
+            first_tie = int(ties[0]) if len(ties) else len(gap)
+            got = eng.submit(p, 16, resume_committed=ref[:8]).result()
+            assert len(got) == 16
+            assert got[:first_tie] == ref[8:8 + first_tie], (p, first_tie)
+        assert eng.stats()["resumed"] == len(_SERVE_PROMPTS)
 
 
 # ---------------------------------------------------------------------------

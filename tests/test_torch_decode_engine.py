@@ -7,6 +7,7 @@ scheduling, typed deadline / cancel / overload / shutdown semantics, and
 the engine options (the unported ones raising). Runs on the CPU in
 float32. The prefix cache is on by default, so a quiesced engine holds
 exactly the blocks its cache pins."""
+import threading
 import time
 
 import numpy as np
@@ -282,15 +283,16 @@ def test_submit_validation(eng):
 
 # options: the ported ones take their typed behaviour (a prefix-cache
 # engine runs, a non-pool `adapters` and a draft that is no paged causal
-# LM are refused, `adapter=` without a pool is `AdapterNotLoaded`, a
-# `sampling` dict is the wire form); the rest still raise
-# NotImplementedError
+# LM are refused, a fault hook runs before each step, `adapter=` without
+# a pool is `AdapterNotLoaded`, a `sampling` dict is the wire form,
+# `resume_committed` extends the prompt); `mesh` still raises
+# NotImplementedError, and `compile_cache` is refused by design
 _ENGINE_OPTIONS = [
     ({"prefix_cache": True}, None),
     ({"speculate_k": 2, "draft_model": object()}, ValueError),
     ({"adapters": object()}, ValueError),
     ({"mesh": object()}, NotImplementedError),
-    ({"fault_hook": print}, NotImplementedError),
+    ({"fault_hook": lambda tag, ids, info: None}, None),
     ({"compile_cache": object()}, NotImplementedError)]
 
 
@@ -308,7 +310,7 @@ def test_unported_engine_options_raise(models, kw, error):
 
 _SUBMIT_OPTIONS = [({"sampling": {"temperature": 0.7}}, None),
                    ({"adapter": "tenant-a"}, AdapterNotLoaded),
-                   ({"resume_committed": [1, 2]}, NotImplementedError)]
+                   ({"resume_committed": [1, 2]}, None)]
 
 
 @pytest.mark.parametrize("kw,error", _SUBMIT_OPTIONS,
@@ -466,3 +468,218 @@ def test_warmup_builds_every_program_and_traffic_builds_none(models):
         assert sum(p["replays"] for p in progs.values()) == st["steps"]
     with pytest.raises(PoolClosed):
         e.warmup()
+
+
+# ---------------------------------------------------------------------------
+# supervised steps, the fault hook and mid-stream resume (held to the JAX
+# engine: tools/serving_fault_injector.py's decode phases and geometry)
+# ---------------------------------------------------------------------------
+
+#: (prompt seed, prompt length, new tokens) of the injector's decode phases
+FAULT_SEQS = ((1, 6, 10), (2, 5, 4), (3, 7, 8), (4, 6, 4), (5, 8, 6),
+              (6, 5, 9))
+STEP_TIMEOUT, STEP_HANG = 0.25, 0.6
+#: the injector's engine geometry, with prefill buckets that also admit a
+#: resumed prompt (tokens do not depend on the buckets in float32)
+FAULT_GEO = dict(max_length=32, block_size=8, decode_buckets=(1, 2, 4, 8),
+                 prefill_buckets=(8, 16, 24), default_timeout=30.0,
+                 step_timeout=STEP_TIMEOUT, step_retries=2, hang_grace=0.05,
+                 supervise_interval=0.01)
+SAMPLED = dict(temperature=0.8, top_k=10, seed=77)
+
+
+@pytest.fixture(scope="module")
+def jax_fault_refs(models, tmp_path_factory):
+    """One JAX engine (its own compile cache, threefry keys): the fault
+    phases' solo references, a greedy and a sampled run and their resumes
+    from 4 committed tokens."""
+    import jax
+    from paddle_tpu.inference import SamplingParams as JSamplingParams
+    from paddle_tpu.jit.aot import CompileCache
+
+    jm = models[0]
+    old = jax.config.jax_default_prng_impl
+    jax.config.update("jax_default_prng_impl", "threefry2x32")
+    je = JDecodeEngine(jm, **FAULT_GEO, compile_cache=CompileCache(
+        str(tmp_path_factory.mktemp("jax_cache"))))
+    try:
+        out = {"solo": [je.generate(_prompt(s, n), k)
+                        for s, n, k in FAULT_SEQS]}
+        p = _prompt(1, 6)
+        for name, sp in (("greedy", None), ("sampled", SAMPLED)):
+            js = None if sp is None else JSamplingParams(**sp)
+            full = je.submit(p, 10, sampling=js).result()
+            out[name] = full
+            out[name + "_resumed"] = je.submit(
+                p, 6, sampling=js, resume_committed=full[:4]).result()
+    finally:
+        je.shutdown()
+        jax.config.update("jax_default_prng_impl", old)
+    return out
+
+
+def _fault_engine(tm, hook=None):
+    return DecodeEngine(tm, **FAULT_GEO, fault_hook=hook, device="cpu")
+
+
+def _blocks_conserved(e):
+    bs = e.stats()["blocks"]
+    return (bs["allocated"] == 0 and bs["allocs"] == bs["frees"]
+            and bs["free"] + bs["reserved"] == bs["total"])
+
+
+@pytest.mark.parametrize("kind", ["greedy", "sampled"])
+def test_resume_committed_equals_the_jax_engine(models, jax_fault_refs,
+                                                kind):
+    """A stream resumed from 4 committed tokens yields the JAX engine's
+    resumed tokens, which are the uninterrupted run's continuation: the
+    committed tokens extend the prompt and the sampling counter starts at
+    4."""
+    from paddle_tpu_torch.inference import SamplingParams
+
+    sp = None if kind == "greedy" else SamplingParams(**SAMPLED)
+    ref = jax_fault_refs[kind]
+    with _fault_engine(models[1]) as e:
+        p = _prompt(1, 6)
+        assert e.submit(p, 10, sampling=sp).result() == ref
+        got = e.submit(p, 6, sampling=sp, resume_committed=ref[:4])
+        assert got.result() == jax_fault_refs[kind + "_resumed"] == ref[4:]
+        assert e.stats()["resumed"] == 1
+    with pytest.raises(ValueError, match="resume_committed"):
+        _engine(models[1]).submit(p, 4, resume_committed=[[1, 2]])
+
+
+def _fault_phase(tm, kind):
+    """The injector's decode-`kind` phase on the port: the streams'
+    outcomes, their tokens and the engine's stats after its shutdown."""
+    victim = 2
+    inj = {"armed": kind in ("wedge", "poison"), "injected": 0}
+    lock = threading.Lock()
+
+    def hook(stage, seq_ids, meta):
+        with lock:
+            if not inj["armed"]:
+                return
+            if kind == "wedge" and stage == "decode" and len(seq_ids) > 1:
+                inj["armed"] = False
+                inj["injected"] += 1
+            elif kind == "poison" and stage == "prefill" \
+                    and seq_ids == [victim + 1]:
+                inj["armed"] = False
+                inj["injected"] += 1
+                raise ValueError(f"injected poisoned feed for sequence "
+                                 f"{seq_ids[0]}")
+            else:
+                return
+        time.sleep(STEP_HANG)
+
+    e = _fault_engine(tm, hook if kind != "none" else None)
+    try:
+        e.warmup()
+        streams = [e.submit(_prompt(s, n), k) for s, n, k in FAULT_SEQS]
+        if kind == "kill":
+            next(iter(streams[victim]))
+            streams[victim].cancel()
+            inj["injected"] += 1
+        outcomes = []
+        for s in streams:
+            try:
+                outcomes.append(s.result())
+            except Exception as exc:  # noqa: BLE001 — typed, checked below
+                outcomes.append(exc)
+    finally:
+        drained = e.shutdown(drain_timeout=10.0)
+    assert drained and (kind == "none" or inj["injected"] == 1)
+    return outcomes, e
+
+
+@pytest.mark.parametrize("kind", ["kill", "wedge", "poison"])
+def test_fault_phases_give_the_jax_engines_tokens(models, jax_fault_refs,
+                                                  kind):
+    """decode-kill (a stream cancelled mid-generation), decode-wedge (the
+    first multi-sequence decode step hangs past the step deadline once:
+    it is sent again) and decode-poison (one sequence's prefill raises
+    ValueError): every other sequence gets the JAX engine's tokens, the
+    victim alone fails typed, and no block leaks."""
+    from paddle_tpu_torch.inference import RequestFailed
+
+    outcomes, e = _fault_phase(models[1], kind)
+    st = e.stats()
+    for i, (out, ref) in enumerate(zip(outcomes, jax_fault_refs["solo"])):
+        if i == 2 and kind == "kill":
+            assert isinstance(out, PoolClosed)
+        elif i == 2 and kind == "poison":
+            assert isinstance(out, RequestFailed)
+            assert isinstance(out.cause, ValueError)
+        else:
+            assert out == ref, (kind, i)
+    if kind == "wedge":
+        assert st["wedged_steps"] == 1 and st["step_pool"]["wedged"] == 1
+    assert st["admitted"] == st["completed"] + st["failed"] \
+        + st["timed_out"] + st["cancelled"]
+    assert _blocks_conserved(e)
+
+
+def test_an_abandoned_step_does_no_device_work(models):
+    """Epoch gate: the wedged attempt's worker wakes after its retry has
+    run, finds its epoch stale and returns without touching the model, so
+    the run makes exactly the model calls of a fault-free run, its tokens
+    equal the fault-free run's and the blocks are conserved."""
+    tm = models[1]
+    calls = {"n": 0}
+    step = tm.decode_step_paged
+
+    def counted(*args, **kwargs):
+        calls["n"] += 1
+        return step(*args, **kwargs)
+
+    tm.decode_step_paged = counted
+    try:
+        ref, _ = _fault_phase(tm, "none")
+        n_ref, calls["n"] = calls["n"], 0
+        got, e = _fault_phase(tm, "wedge")
+        give_up = time.monotonic() + 10.0
+        while e.stats()["abandoned_steps"] < 1 \
+                and time.monotonic() < give_up:
+            time.sleep(0.02)
+        assert e.stats()["abandoned_steps"] == 1
+        assert e.stats()["step_pool"]["late_results"] == 1
+        assert calls["n"] == n_ref
+    finally:
+        del tm.decode_step_paged
+    assert got == ref
+    assert _blocks_conserved(e)
+
+
+def test_sequence_stream_poll_is_the_pump_contract(eng):
+    """`poll` yields ("tok", t) in order, ("empty", None) on a timeout
+    and a sticky ("end", status, error)."""
+    ref = eng.generate(_prompt(7), 5)
+    s = eng.submit(_prompt(7), 5)
+    toks, give_up = [], time.monotonic() + 30.0
+    while time.monotonic() < give_up:
+        ev = s.poll(0.05)
+        if ev[0] == "tok":
+            toks.append(ev[1])
+        elif ev[0] == "end":
+            break
+    assert toks == ref and ev == ("end", "completed", None)
+    assert s.poll(0.01) == ev and s.poll(None) == ev
+    idle = eng.submit(_prompt(8), 3)
+    idle.cancel()
+    while idle.poll(0.05)[0] != "end":
+        pass
+    assert idle.poll(0)[1] == "cancelled"
+
+
+def test_engine_stats_are_a_registry_collector(models):
+    from paddle_tpu_torch.obs import MetricsRegistry
+
+    reg = MetricsRegistry()
+    with _engine(models[1], metrics=reg) as e:
+        e.generate(_prompt(9), 3)
+        snap = reg.snapshot()
+        col = snap["collectors"][f"decode.{e.name}"]
+        assert col["completed"] == 1 and col["step_pool"]["completed"] >= 3
+        assert snap["metrics"]["decode.ttft_seconds"][0]["count"] == 1
+    assert f"decode.{e.name}" not in reg.collector_names()

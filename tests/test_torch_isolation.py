@@ -29,6 +29,8 @@ def test_import_loads_no_jax_and_no_reference_package():
                      or n.startswith(("jax.", "jaxlib.", "paddle_tpu.")))
         print("BAD", bad)
         print("N", sum(n.startswith("paddle_tpu_torch") for n in sys.modules))
+        print("MODS", " ".join(sorted(n for n in sys.modules
+                                      if n.startswith("paddle_tpu_torch"))))
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -36,7 +38,14 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("N ")[1].split()[0])
-    assert n >= 52                      # every module was imported
+    assert n >= 64                      # every module was imported
+    mods = set(out.stdout.split("MODS ")[1].split())
+    # the serving runtime's modules among them
+    assert {f"paddle_tpu_torch.{m}" for m in (
+        "inference.serving", "inference.replica", "inference.router",
+        "inference.decode.demo", "obs", "obs.metrics", "obs.export",
+        "obs.slo", "obs.http", "distributed.store",
+        "distributed.checkpoint", "distributed.checkpoint.api")} <= mods
 
 
 def _no_gpu():
