@@ -9,6 +9,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --recipes-only   # phases 1 and 9
     python3 chip_smoke.py --lora-only      # phases 1, 2's BGMV checks, 10
     python3 chip_smoke.py --serve-only     # phases 1 and 11
+    python3 chip_smoke.py --predictor-only # phases 1 and 12
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -219,7 +220,28 @@ Phases (any failure exits non-zero and prints no result line):
    isolation round, one scrape of `/metrics`. Paged and GEMV launches
    counted from (a) to (e), all on the ring and tensor-core bodies; peak
    memory; the phase's seconds without the model builds;
-12. the kernels' JSON line, the nvidia-smi line, then the last line
+12. deploying an exported model (Paddle Inference's path): bert_base at
+   full width and depth (random bf16 weights from `--seed`, 2 labels)
+   exported by `jit.save` with [1, 128] ids and token types (no mask, so
+   attention is the flash forward operator, and the graph holds no other
+   attention op) — first the flash forward and int8 weight-only kernels
+   at this path's shapes against their plain versions; (a)
+   `create_predictor(Config(path))`, handle-style runs bit-equal to the
+   eager model, 512 single requests (the references), 32 of them held to
+   the eager model on the plain route (a planted fault must fail that
+   gate); (b) a `PredictorPool(size=4)` leased from 4 threads; (c)
+   `ServingPool(config=..., size=2)` unbatched and with dynamic batching
+   (buckets 1-16, 3 ms) after `warmup()`, 512 requests at concurrency 1,
+   8 and 32 (bench.py:553's sweep): requests/s, every response bit-equal
+   to its single run, no program built by traffic, `executed_by_bucket`
+   and occupancy, each bucket program's call time (with
+   `--bucket-designs`, beside the other body's); (d) the model after
+   `quantize_for_inference("int8")`, exported, held to the plain route
+   as in (a) and served batched at 32. The flash and weight-only launches
+   are set to 0 before each run and read after, every flash forward on
+   its Hopper body and every int8 encoder Linear on the wgmma GEMM; peak
+   memory; the phase's seconds;
+13. the kernels' JSON line, the nvidia-smi line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every float32 product in
@@ -6188,6 +6210,509 @@ def serve_phase(args):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 12: deploy and serve an exported model
+# ---------------------------------------------------------------------------
+
+PRED_SEQ = 128                      # bert_base's fine-tune length
+PRED_REQUESTS = 512                 # bench.py:553's serving sweep, larger
+PRED_CONCURRENCY = (1, 8, 32)
+PRED_BUCKETS = (1, 2, 4, 8, 16)
+PRED_POOL = 2
+PRED_LEASED = 128                   # (b)'s requests
+# int8 weight-only checks of the path: bert_base's Linears (n, k), and the
+# rows each takes: the pooler's 1-16 (a row an example, the decode GEMV),
+# an example's 128 and bucket 16's fold of them (the wgmma GEMM)
+PRED_WO_LINEARS = {"qkv": (2304, 768), "out/pooler": (768, 768),
+                   "fc1": (3072, 768), "fc2": (768, 3072)}
+PRED_WO_ROWS = (1, 2, 16, 128, 2048)
+PRED_PLAIN_FEEDS = 32               # requests held to the plain route
+# the logits' normwise relative gap ||program - plain|| / ||plain||
+# allowed against the eager model on the plain route
+PRED_LOGITS_TOL = 5e-2
+
+
+def _pred_counts():
+    """The modules of the two kernel operators (flash forward,
+    weight-only)."""
+    import importlib
+
+    return (importlib.import_module("paddle_tpu_torch.ops.flash_attention"),
+            importlib.import_module("paddle_tpu_torch.ops.weight_only"))
+
+
+def _pred_zero():
+    fa, wo = _pred_counts()
+    for w in (fa.flash_attention_fwd, wo.weight_only_matmul):
+        w.launches = 0
+        for r in w.routes:
+            w.routes[r] = 0
+
+
+def _pred_read():
+    fa, wo = _pred_counts()
+    return {"flash_attention_fwd": {
+                "launches": fa.flash_attention_fwd.launches,
+                "routes": {FLASH_ROUTE_NAMES[r]: n for r, n in
+                           fa.flash_attention_fwd.routes.items() if n}},
+            "weight_only_matmul": {
+                "launches": wo.weight_only_matmul.launches,
+                "routes": {WO_ROUTE_NAMES[r]: n for r, n in
+                           wo.weight_only_matmul.routes.items() if n}}}
+
+
+def _pred_gate_routes(label, counts, runs, layers, int8, gemv_runs=None):
+    """Every flash forward on the Hopper body, one a layer a run of the
+    program (a run: one example, or with the fold body one bucket, whose
+    examples fold into the kernels' batch); int8: every encoder Linear (4
+    a layer, 128 rows an example) on the wgmma GEMM and the pooler (a row
+    an example) on the decode GEMV, `gemv_runs` launches of at most 16
+    rows (default: one a run); float: no weight-only launch."""
+    f = counts["flash_attention_fwd"]
+    want_f = {FLASH_ROUTE_NAMES[3]: runs * layers}
+    w = counts["weight_only_matmul"]
+    want_w = ({WO_ROUTE_NAMES[2]: runs * layers * 4,
+               WO_ROUTE_NAMES[1]: runs if gemv_runs is None else gemv_runs}
+              if int8 else {})
+    if f["routes"] != want_f or w["routes"] != want_w:
+        raise AssertionError(f"phase 12 {label}: launches {counts}, want "
+                             f"flash {want_f}, weight-only {want_w}")
+
+
+def _pred_feeds(np, vocab, n, seed):
+    r = np.random.RandomState(seed)
+    return [[r.randint(1, vocab, (1, PRED_SEQ)).astype(np.int64),
+             r.randint(0, 2, (1, PRED_SEQ)).astype(np.int64)]
+            for _ in range(n)]
+
+
+def _pred_drive(pool, feeds, want, c):
+    """`len(feeds)` requests from `c` threads; (requests/s, mismatches:
+    responses not bit-equal to the single-request run)."""
+    import concurrent.futures
+
+    bad = [0]
+
+    def one(i):
+        out, = pool.infer(feeds[i], timeout=60.0)
+        if out.shape != want[i].shape or not (out == want[i]).all():
+            bad[0] += 1
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=c) as ex:
+        t0 = time.perf_counter()
+        list(ex.map(one, range(len(feeds))))
+        dt = time.perf_counter() - t0
+    return len(feeds) / dt, bad[0]
+
+
+def _pred_serve(torch, path, feeds, want, layers, int8, concurrency,
+                modes=("unbatched", "batched")):
+    """`ServingPool(config=..., size=2)` over the artifact, unbatched and
+    with dynamic batching (after `warmup()`), at each concurrency: every
+    response bit-equal to `want`, no program built by traffic, the
+    kernels' launches counted around the traffic and gated by route."""
+    from paddle_tpu_torch.inference import BatchConfig, Config, ServingPool
+    from paddle_tpu_torch.jit import aot
+
+    out = {}
+    for mode in modes:
+        batching = (BatchConfig(buckets=PRED_BUCKETS, max_wait_ms=3.0)
+                    if mode == "batched" else None)
+        pool = ServingPool(config=Config(path), size=PRED_POOL,
+                           max_queue_depth=max(concurrency) * 4,
+                           default_timeout=60.0, batching=batching)
+        try:
+            row = {}
+            if batching is not None:
+                t0 = time.perf_counter()
+                pool.warmup()
+                row["warmup_s"] = time.perf_counter() - t0
+                built = pool.stats()["batch"]["compile"]["compiles"]
+            _pred_drive(pool, feeds[:64], want, 4)     # warm every member
+            before = (pool.stats()["batch"] or {}).get("executed_by_bucket",
+                                                        {})
+            _pred_zero()
+            n = 0
+            for c in concurrency:
+                rps, bad = _pred_drive(pool, feeds, want, c)
+                if bad:
+                    raise AssertionError(f"phase 12 {mode}@{c}: {bad} of "
+                                         f"{len(feeds)} responses differ "
+                                         f"from Predictor.run")
+                row[f"rps@{c}"] = rps
+                n += len(feeds)
+            torch.cuda.synchronize()
+            row["launches"] = _pred_read()
+            gemv = None
+            if batching is not None:
+                # a bucket program runs its padded rows too; the fold body
+                # runs each kernel once a bucket, the pooler's GEMV in
+                # launches of at most 16 rows
+                layer = pool._batcher.layer
+                after = pool.stats()["batch"]["executed_by_bucket"]
+                runs = {bk: k - before.get(bk, 0) for bk, k in after.items()}
+                fold = {bk: layer.batched_call(bk).design == "fold"
+                        for bk in runs}
+                n = sum((1 if fold[bk] else bk) * k for bk, k in runs.items())
+                gemv = sum((-(-bk // 16) if fold[bk] else bk) * k
+                           for bk, k in runs.items())
+            row["program_runs"] = n
+            _pred_gate_routes(f"{mode} serving", row["launches"], n, layers,
+                              int8, gemv)
+            if batching is not None:
+                b = pool.stats()["batch"]
+                if b["compile"]["compiles"] != built \
+                        or b["compile"]["disk_hits"] != 0:
+                    raise AssertionError(f"phase 12: traffic built bucket "
+                                         f"programs: {b['compile']}")
+                layer = pool._batcher.layer
+                if not all(layer.batched_call(bk).graph
+                           for bk in PRED_BUCKETS):
+                    raise AssertionError("phase 12: a bucket program is "
+                                         "not a CUDA graph")
+                row.update(executed_by_bucket=b["executed_by_bucket"],
+                           occupancy=b["occupancy"], formed=b["formed"],
+                           padded=b["padded_examples"],
+                           flushes=b["flushes"], compile=b["compile"])
+            s = pool.stats()
+            if s["failed"] or s["timed_out"] or s["retried"]:
+                raise AssertionError(f"phase 12 {mode}: {s}")
+            out[mode] = row
+            log(f"  {mode}: " + ", ".join(
+                f"{k} {v:.1f}" for k, v in row.items()
+                if k.startswith("rps@")) + (
+                f"; by bucket {row['executed_by_bucket']}, occupancy "
+                f"{row['occupancy']:.3f}" if batching is not None else ""))
+        finally:
+            pool.shutdown(drain_timeout=10.0)
+    return out
+
+
+def _pred_bucket_times(torch, np, layer, feeds, singles, iters,
+                       designs=False):
+    """Each bucket program's call time (stacking, one replay, the copy
+    back; CUDA events) and how many of its rows are bit-equal to the
+    single runs (all of them, or the phase fails); with `designs`, also
+    the other body's (`jit.aot.bucket_design`), built for the comparison
+    only."""
+    from paddle_tpu_torch.jit import aot
+
+    rows = {}
+    for b in PRED_BUCKETS:
+        stacked = [np.stack(col) for col in zip(*feeds[:b])]
+        prog = layer.batched_call(b)
+        progs = [(prog.design, prog)]
+        if designs:
+            other = "loop" if prog.design == "fold" else "fold"
+            progs.append((other, aot.compile_batched(layer, b, other)))
+        row = {"design": prog.design}
+        for name, p in progs:
+            out, = p(*stacked)
+            row[f"{name}_ms"] = time_ms(torch, lambda: p(*stacked), iters)
+            row[f"{name}_rows_bit_equal"] = sum(
+                bool((out[j] == singles[j]).all()) for j in range(b))
+        if row[f"{prog.design}_rows_bit_equal"] != b:
+            raise AssertionError(f"phase 12: bucket {b}'s rows differ from "
+                                 f"single runs: {row}")
+        rows[b] = row
+    return rows
+
+
+def _pred_kernel_checks(torch):
+    """The two kernels at the shapes this path gives them, each against
+    its plain version. The flash forward, not causal, on bert_base's
+    [B, 128, 12, 64] bf16 q, k and v (the model's strided views of one
+    [B, 128, 3, 12, 64] projection) at B = 1 (a single run) and 16
+    (bucket 16, folded), on the Hopper body, within FLASH_TOL; int8
+    weight-only on each bert_base Linear at PRED_WO_ROWS rows, on the
+    decode GEMV for m <= 16 and the wgmma GEMM above, within 2 bf16 ulps
+    of the largest output, the rows of m = 1 and 2 bit-equal to the first
+    rows of m = 16 and those of m = 128 to the first rows of m = 2048 (an
+    example keeps its bits in any fold)."""
+    from paddle_tpu_torch.nn.quant import weight_quantize
+    from paddle_tpu_torch.ops.weight_only import (weight_only_matmul,
+                                                  weight_only_matmul_ref)
+
+    fa = _flash_mod()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    rows = []
+    for B in (1, PRED_BUCKETS[-1]):
+        qkv = torch.randn(B, PRED_SEQ, 3, 12, 64, device="cuda",
+                          generator=g).to(torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        zero_routes(fa.flash_attention_fwd)
+        out, _ = fa.flash_attention_fwd(q, k, v, causal=False)
+        route = launched_route(fa.flash_attention_fwd, FLASH_ROUTE_NAMES)
+        ref, _ = fa.flash_attention_ref(q, k, v, causal=False)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = FLASH_TOL["bfloat16"][0]
+        rows.append({"case": f"flash fwd [{B}, 128, 12, 64] bf16",
+                     "route": route, "max_abs_err": err, "tol": tol})
+        if err > tol or route != FLASH_ROUTE_NAMES[3]:
+            raise AssertionError(f"phase 12: {rows[-1]}")
+    for lname, (n, k) in PRED_WO_LINEARS.items():
+        w = torch.randn(n, k, device="cuda", generator=g) * 0.02
+        qw, sc = weight_quantize(w.t(), "weight_only_int8")
+        X = torch.randn(max(PRED_WO_ROWS), k, device="cuda",
+                        generator=g).to(torch.bfloat16)
+        outs = {}
+        for m in PRED_WO_ROWS:
+            zero_routes(weight_only_matmul)
+            got = outs[m] = weight_only_matmul(X[:m], qw, sc, "int8")
+            route = launched_route(weight_only_matmul, WO_ROUTE_NAMES)
+            ref = weight_only_matmul_ref(X[:m], qw, sc, "int8")
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = 2 * 2.0 ** -8 * ref.float().abs().max().item()
+            want = WO_ROUTE_NAMES[1 if m <= 16 else 2]
+            rows.append({"case": f"int8 m={m} {lname} n={n} k={k}",
+                         "route": route, "max_abs_err": err, "tol": tol})
+            if err > tol or route != want:
+                raise AssertionError(f"phase 12: {rows[-1]}, want {want}")
+        for m, top in ((1, 16), (2, 16), (128, 2048)):
+            if not torch.equal(outs[m], outs[top][:m]):
+                raise AssertionError(f"phase 12: int8 {lname}: the rows of "
+                                     f"m={m} differ from the first rows of "
+                                     f"m={top}")
+    log(f"  the path's kernels vs plain: {len(rows)} cases, worst "
+        + ", ".join(f"{r['case']} {r['max_abs_err']:.3g} (tol "
+                    f"{r['tol']:.3g})" for r in (
+                        max(rows[:2], key=lambda r: r["max_abs_err"]),
+                        max(rows[2:], key=lambda r: r["max_abs_err"]
+                            / r["tol"]))))
+    return rows
+
+
+def _pred_logits(torch, model, feeds):
+    """The eager model's logits for each feed, float32 on the host."""
+    with torch.no_grad():
+        return [model(*(torch.from_numpy(a).cuda() for a in f))
+                .float().cpu().numpy() for f in feeds]
+
+
+def _pred_path_checks(torch, np, label, model, feeds, got):
+    """The path's kernels against their plain versions on the inputs the
+    path gives them: the eager model (the same kernels as the program:
+    (a) holds them bit-equal) runs `feeds` with every flash forward and
+    weight-only call checked against its plain version on the same
+    tensors (FLASH_TOL; 2 bf16 ulps of the largest output); then the
+    card's program's logits (`got`, one array a feed) against the eager
+    model on the plain route (the kernels' plain versions in their
+    place), within PRED_LOGITS_TOL normwise. Returns the readings with
+    "ok"; the phase raises at its end, after every run was read."""
+    from paddle_tpu_torch.nn import quant
+    from paddle_tpu_torch.nn.functional import attention
+    from paddle_tpu_torch.ops.weight_only import weight_only_matmul_ref
+
+    fa = _flash_mod()
+    fwd, wo_nd = attention.flash_attention_fwd, quant.weight_only_matmul_nd
+    flash_errs, wo_ratios = [], []
+
+    def wo_ref(x, qw, sc, wdt="int8"):
+        return weight_only_matmul_ref(x.reshape(-1, x.shape[-1]), qw, sc,
+                                      wdt).reshape(*x.shape[:-1],
+                                                   qw.shape[0])
+
+    def checked_fwd(q, k, v, causal=True, scale=None):
+        out = fwd(q, k, v, causal=causal, scale=scale)
+        ref, _ = fa.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+        flash_errs.append((out[0].float() - ref.float()).abs().max().item())
+        return out
+
+    def checked_wo(x, qw, sc, wdt="int8"):
+        out = wo_nd(x, qw, sc, wdt)
+        ref = wo_ref(x, qw, sc, wdt).float()
+        wo_ratios.append((out.float() - ref).abs().max().item() / (
+            2 * 2.0 ** -8 * ref.abs().max().item()))
+        return out
+
+    def plain_flash(q, k, v, causal=True, scale=None):
+        return fa.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+
+    try:
+        attention.flash_attention_fwd = checked_fwd
+        quant.weight_only_matmul_nd = checked_wo
+        _pred_logits(torch, model, feeds)
+        attention.flash_attention_fwd = plain_flash
+        quant.weight_only_matmul_nd = wo_ref
+        plain = _pred_logits(torch, model, feeds)
+    finally:
+        attention.flash_attention_fwd = fwd
+        quant.weight_only_matmul_nd = wo_nd
+    a, b = np.concatenate(got), np.concatenate(plain)
+    res = {"flash_calls": len(flash_errs),
+           "flash_max_abs_err": max(flash_errs),
+           "flash_tol": FLASH_TOL["bfloat16"][0],
+           "weight_only_calls": len(wo_ratios),
+           "weight_only_err_over_tol": max(wo_ratios, default=0.0),
+           "logits_gap": float(np.linalg.norm(a - b) / np.linalg.norm(b)),
+           "logits_tol": PRED_LOGITS_TOL, "feeds": len(feeds)}
+    res["ok"] = (res["flash_max_abs_err"] <= res["flash_tol"]
+                 and res["weight_only_err_over_tol"] <= 1.0
+                 and res["logits_gap"] <= PRED_LOGITS_TOL)
+    log(f"  {label} vs the plain versions: {res}")
+    return res
+
+
+def predictor_phase(torch, np, args):
+    """Phase 12: bert_base (full width, random bf16 weights from --seed,
+    2 labels) exported with [1, 128] ids and token types (no mask: the
+    attention is the flash forward) and deployed through the port's
+    Paddle Inference path. First the two kernels at this path's shapes
+    against their plain versions (`_pred_kernel_checks`). (a)
+    `create_predictor(Config(path))` and handle-style runs, bit-equal to
+    the eager model and near the eager model on the plain route; the
+    exported graph names the flash operator and no other attention op;
+    (b) a
+    `PredictorPool(size=4)` leased from 4 threads; (c) `ServingPool(config,
+    size=2)` unbatched and with `BatchConfig(buckets=(1, 2, 4, 8, 16),
+    max_wait_ms=3)` after `warmup()`, 512 requests at concurrency 1, 8
+    and 32, every response bit-equal to the single-request `Predictor.run`;
+    (d) the same model after `quantize_for_inference("int8")`, exported,
+    held to the plain route and served batched at concurrency 32.
+    Launches counted around each run."""
+    import concurrent.futures
+    import tempfile
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.inference import (Config, PredictorPool,
+                                            create_predictor)
+    from paddle_tpu_torch.jit import aot
+    from paddle_tpu_torch.models import bert_for_sequence_classification
+    from paddle_tpu_torch.nn.quant import quantize_for_inference
+
+    t_phase = time.perf_counter()
+    layers = 2 if args.quick else 12
+    iters = 5 if args.quick else 20
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = bert_for_sequence_classification(
+        "bert_base", device="cuda", seed=args.seed,
+        num_hidden_layers=layers).to(torch.bfloat16).eval()
+    vocab = model.cfg.vocab_size
+    feeds = _pred_feeds(np, vocab, PRED_REQUESTS, args.seed)
+    spec = [((1, PRED_SEQ), torch.int64)] * 2
+    res = {"layers": layers, "requests": PRED_REQUESTS,
+           "kernel_checks": _pred_kernel_checks(torch)}
+    with tempfile.TemporaryDirectory(prefix="phase12-") as work:
+        path = os.path.join(work, "bert")
+        t0 = time.perf_counter()
+        jit.save(model, path, input_spec=spec)
+        res["export_s"] = time.perf_counter() - t0
+        res["artifact_mb"] = {s: os.path.getsize(path + s) / 1e6 for s in (
+            ".pdmodel", ".pdiparams", ".pdmodel.txt")}
+
+        # (a) the predictor, handle-style; graph ops; bit-equal to eager
+        pred = create_predictor(Config(path))
+        ops = pred._layer.graph_ops
+        attn = [o for o in ops if "attention" in o or "softmax" in o
+                or "flash" in o]
+        if attn != ["paddle_tpu_torch.flash_fwd.default"]:
+            raise AssertionError(f"phase 12: the exported graph's attention "
+                                 f"ops are {attn}")
+        res["graph_ops"] = len(ops)
+        for f in feeds[:8]:
+            for name, arr in zip(pred.get_input_names(), f):
+                pred.get_input_handle(name).copy_from_cpu(arr)
+            got, = pred.run()
+            with torch.no_grad():
+                want = model(*(torch.from_numpy(a).cuda() for a in f))
+            if not np.array_equal(got, want.float().cpu().numpy()):
+                raise AssertionError("phase 12 (a): Predictor.run differs "
+                                     "from the eager model")
+        ids, types = (torch.from_numpy(a).cuda() for a in feeds[0])
+        with torch.no_grad():
+            res["eager_model_ms"] = time_ms(torch, lambda: model(ids, types),
+                                            iters)
+        res["program_eager_ms"] = time_ms(
+            torch, lambda: pred._layer.eager(*feeds[0]), iters)
+        _pred_zero()
+        t0 = time.perf_counter()
+        singles = [pred.run(f)[0] for f in feeds]
+        torch.cuda.synchronize()
+        res["single_run_ms"] = (time.perf_counter() - t0) * 1e3 / len(feeds)
+        res["single_launches"] = _pred_read()
+        _pred_gate_routes("(a) Predictor.run", res["single_launches"],
+                          len(feeds), layers, False)
+        if not all(np.isfinite(s).all() and s.shape == (1, 2)
+                   for s in singles):
+            raise AssertionError("phase 12 (a): non-finite or misshapen "
+                                 "logits")
+        res["plain"] = _pred_path_checks(torch, np, "(a)", model,
+                                         feeds[:PRED_PLAIN_FEEDS],
+                                         singles[:PRED_PLAIN_FEEDS])
+        log(f"  (a) export {res['export_s']:.1f} s, artifact "
+            f"{res['artifact_mb']} MB, Predictor.run "
+            f"{res['single_run_ms']:.3f} ms a request (the bucket-1 graph), "
+            f"bit-equal to eager; the eager model "
+            f"{res['eager_model_ms']:.3f} ms, the program run op by op "
+            f"{res['program_eager_ms']:.3f} ms")
+
+        # (b) a PredictorPool of 4 leased from 4 threads
+        ppool = PredictorPool(Config(path), size=4)
+
+        def leased(i):
+            i %= len(feeds)
+            with ppool.acquire(timeout=60) as p:
+                return bool((p.run(feeds[i])[0] == singles[i]).all())
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(max_workers=4) as ex:
+            ok = list(ex.map(leased, range(PRED_LEASED)))
+        res["pool4_rps"] = PRED_LEASED / (time.perf_counter() - t0)
+        st = ppool.stats()
+        if not all(ok) or st["leases_granted"] != PRED_LEASED \
+                or st["in_flight"] or st["dirty_releases"]:
+            raise AssertionError(f"phase 12 (b): {sum(ok)} of "
+                                 f"{PRED_LEASED} bit-equal, {st}")
+        log(f"  (b) PredictorPool(4) from 4 threads: "
+            f"{res['pool4_rps']:.1f} requests/s, all bit-equal")
+        del ppool
+
+        # (c) ServingPool over the artifact, unbatched and batched
+        res["serve"] = _pred_serve(torch, path, feeds, singles, layers,
+                                   False, PRED_CONCURRENCY)
+        res["design"] = aot.bucket_design(pred._layer)
+        res["buckets"] = _pred_bucket_times(torch, np, pred._layer, feeds,
+                                            singles, iters,
+                                            args.bucket_designs)
+        log(f"  bucket programs (ms a call) "
+            f"{json.dumps(res['buckets'])}")
+        del pred
+
+        # (d) the same model quantized to int8, served batched at 32
+        quantize_for_inference(model, weight_dtype="int8")
+        qpath = os.path.join(work, "bert_int8")
+        jit.save(model, qpath, input_spec=spec)
+        qpred = create_predictor(Config(qpath))
+        if "paddle_tpu_torch.weight_only_matmul.default" \
+                not in qpred._layer.graph_ops:
+            raise AssertionError("phase 12 (d): no weight-only operator in "
+                                 "the int8 program")
+        _pred_zero()
+        qsingles = [qpred.run(f)[0] for f in feeds]
+        torch.cuda.synchronize()
+        _pred_gate_routes("(d) Predictor.run", _pred_read(), len(feeds),
+                          layers, True)
+        res["int8_plain"] = _pred_path_checks(torch, np, "(d)", model,
+                                              feeds[:PRED_PLAIN_FEEDS],
+                                              qsingles[:PRED_PLAIN_FEEDS])
+        res["int8"] = _pred_serve(torch, qpath, feeds, qsingles, layers,
+                                  True, (32,), modes=("batched",))
+        del qpred
+    del model
+    torch.cuda.synchronize()
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 12: {res['seconds']:.1f} s, peak "
+        f"{res['peak_memory_gb']:.2f} GB")
+    for k in ("plain", "int8_plain"):
+        if not res[k]["ok"]:
+            raise AssertionError(f"phase 12 {k}: logits vs the plain "
+                                 f"route {res[k]}")
+    return res
+
+
 def main(argv):
     import argparse
 
@@ -6226,6 +6751,12 @@ def main(argv):
     ap.add_argument("--serve-only", action="store_true",
                     help="the build and phase 11 (the serving tier) only")
     ap.add_argument("--serve-tier", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--predictor-only", action="store_true",
+                    help="the build and phase 12 (deploy and serve an "
+                         "exported bert_base) only")
+    ap.add_argument("--bucket-designs", action="store_true",
+                    help="phase 12 also builds and times the bucket "
+                         "programs' other body (jit.aot.bucket_design)")
     ap.add_argument("--cp-only", action="store_true",
                     help="phases 1, 2's ring-attention and GEMV checks and "
                          "7 (cp training) only")
@@ -6315,6 +6846,11 @@ def main(argv):
                            "replicas)")
         return finish(args, torch, smi, build_rec, t_start, [],
                       {"serve": serve_phase(args)})
+    if args.predictor_only:
+        log_phase(t_start, "phase 12: deploy and serve an exported "
+                           "bert_base")
+        return finish(args, torch, smi, build_rec, t_start, [],
+                      {"predictor": predictor_phase(torch, np, args)})
     if args.lora_only:
         log_phase(t_start, "phase 2: BGMV vs its plain version")
         bg_rows = check_bgmv(torch, iters)
@@ -6403,6 +6939,9 @@ def main(argv):
                        "replicas)")
     serve_run = serve_phase(args)
 
+    log_phase(t_start, "phase 12: deploy and serve an exported bert_base")
+    pred_run = predictor_phase(torch, np, args)
+
     launches = {k: sum(r["launches"].get(k, 0) for r in runs)
                 for k in runs[0]["launches"]}
     tenant_run = next(r for r in runs if "lora_delta" in r["launches"])
@@ -6413,7 +6952,10 @@ def main(argv):
              source="paddle_tpu_torch/csrc/weight_only.cu",
              replaces="paddle_tpu/ops/pallas/weight_only.py:34",
              launches=launches["weight_only_matmul"],
-             max_abs_err=max(r["max_abs_err"] for r in wo_rows),
+             # phase 2's llama2_7b checks and phase 12's bert_base ones
+             max_abs_err=max(r["max_abs_err"] for r in wo_rows + [
+                 r for r in pred_run["kernel_checks"]
+                 if r["case"].startswith("int8")]),
              ms=wo_main["ms"], plain_ms=wo_main["plain_ms"],
              bound_ms=wo_main["bound_ms"], bound_by=wo_main["bound_by"],
              library_ms=wo_main["library_ms"], case=wo_main["case"],
@@ -6427,7 +6969,9 @@ def main(argv):
              prefill_case=wo_prefill["case"],
              prefill_path=wo_prefill["route"],
              lora_launches=lora_run["inference"]["int8_launches"],
-             lora_routes=lora_run["inference"]["int8_routes"]),
+             lora_routes=lora_run["inference"]["int8_routes"],
+             predictor_launches=pred_run["int8"]["batched"]["launches"][
+                 "weight_only_matmul"]),
         dict(name="paged_decode_attention", route="cuda",
              source="paddle_tpu_torch/csrc/paged_decode_attn.cu",
              replaces="paddle_tpu/ops/pallas/decode_attn.py:133",
@@ -6476,7 +7020,10 @@ def main(argv):
             source="paddle_tpu_torch/csrc/flash_attention.cu",
             replaces=f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
             launches=train["throughput"]["launches"][name],
-            max_abs_err=max(r["max_abs_err"][part] for r in fa_rows),
+            max_abs_err=max([r["max_abs_err"][part] for r in fa_rows] + (
+                [r["max_abs_err"] for r in pred_run["kernel_checks"]
+                 if r["case"].startswith("flash")] if part == "fwd"
+                else [])),
             ms=fa_main[f"{part}_ms"], plain_ms=fa_main[f"{part}_plain_ms"],
             bound_ms=fa_main[f"{part}_bound_ms"],
             bound_by=fa_main[f"{part}_bound_by"],
@@ -6489,7 +7036,10 @@ def main(argv):
             routes=train["throughput"]["routes"][part],
             lora_launches=lora_run["finetune"]["launches"][name],
             lora_routes=lora_run["finetune"]["routes"][part],
-            **({} if part == "fwd" else pair)))
+            **({"predictor_launches": {
+                m: r["launches"]["flash_attention_fwd"]
+                for m, r in pred_run["serve"].items()}}
+               if part == "fwd" else pair)))
     sa_main = sa_rows[0]
     for name, line, part in (("short_attention_fwd", 73, "fwd"),
                              ("short_attention_bwd", 87, "bwd")):
@@ -6534,7 +7084,8 @@ def main(argv):
         "cp": cp_run, "block_sparse": bs_rows, "decode_attention": dec_rows,
         "decode_table_cost": table_cost,
         "fused_pair": pair_rows, "sparse": sparse_run,
-        "recipes": recipes_run, "lora": lora_run, "serve": serve_run})
+        "recipes": recipes_run, "lora": lora_run, "serve": serve_run,
+        "predictor": pred_run})
 
 
 def main_route_rows(wo_rows, fa_rows):

@@ -22,7 +22,7 @@ from . import amp
 
 __version__ = "0.1.0"
 
-__all__ = ["amp", "resolve_device", "__version__"]
+__all__ = ["amp", "jit", "resolve_device", "__version__"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -37,3 +37,6 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+from . import jit  # noqa: E402  (jit.load resolves its device here)

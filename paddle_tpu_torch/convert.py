@@ -35,6 +35,16 @@ way: a wrapper's frozen ``...qkv_proj.base.weight`` is a Linear weight and
 is transposed, while its ``lora_A`` ``[in, r]`` and ``lora_B`` ``[r, out]``
 have the same layout on both sides (x @ A @ B) and are not.
 
+A model exported by the JAX package (``paddle_tpu.jit.save``) deploys on
+the port through its parameter archive: `load_jax_artifact_params(model,
+prefix)` reads the artifact's ``.pdiparams`` (a pickle of numpy arrays)
+and ``.pdmodel.json`` (their names) into a port model of the same
+architecture, without JAX; then `paddle_tpu_torch.jit.save` exports the
+port's program::
+
+    load_jax_artifact_params(torch_model, "/models/bert/infer")
+    paddle_tpu_torch.jit.save(torch_model, "/models/bert/infer_port", spec)
+
 Serving adapters need no conversion either: a JAX adapter is ``{layer name: (A
 [in, r], B [r, out])}`` keyed by the JAX model's sublayer names
 (``transformer.layers.<i>.attn.qkv_proj`` ...), which are the port's module
@@ -49,7 +59,8 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "load_jax_state", "state_to_jax",
-           "optimizer_state_from_jax", "engine_state_from_jax"]
+           "optimizer_state_from_jax", "engine_state_from_jax",
+           "load_jax_artifact_params"]
 
 #: modules whose 2-D `.weight` is an embedding table, not a Linear: GPT's
 #: and BERT's
@@ -162,3 +173,17 @@ def engine_state_from_jax(tree):
         out["opt"] = {n: {s: _port_layout(n, v) for s, v in slots.items()}
                       for n, slots in tree["opt"].items()}
     return out
+
+
+@torch.no_grad()
+def load_jax_artifact_params(model, prefix):
+    """Copy the weights of the JAX `jit.save` artifact at `prefix` into
+    `model` (`load_jax_state`'s names, layouts and checks; the archive's
+    names are the model's parameters and buffers). A bf16 artifact
+    raises ValueError: its arrays unpickle only with the ml_dtypes
+    package, which the port does not use."""
+    from .jit.save_load import read_meta, read_params
+
+    raw = read_params(prefix)
+    names = read_meta(prefix).get("param_names", list(raw))
+    return load_jax_state(model, {n: raw[n] for n in names})

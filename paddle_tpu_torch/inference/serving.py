@@ -35,12 +35,21 @@ one base member driven by its own worker thread:
   registry (`paddle_tpu_torch.obs`) and registers `stats()` as a
   collector; `serve_metrics()` serves ``/metrics`` and ``/healthz``.
 
+* **Dynamic batching** (``batching=BatchConfig(...)``): workers coalesce
+  concurrent `infer()` requests into padded batches along the configured
+  buckets, each served by one bucket program (batching.py, `jit.aot`: on
+  the GPU one CUDA graph replay), deadline-aware: a batch flushes when the
+  largest bucket fills, `max_wait_ms` passes or the earliest deadline in
+  it nears. Each request's outputs are bit-identical to an unbatched
+  `Predictor.run`. A failed multi-request batch is retried as split
+  singles, so one poison request cannot fail its batchmates; `warmup()`
+  builds every bucket's program before traffic.
+
 A member is any object with `clone()`, `reset_handles()` and (for
-`infer`) `run(feeds)`. ``decode_engine=`` alone makes a generation-only
-pool, whose members are `_NullPredictor`s; the decode engine runs each
-of its steps on such a one-slot pool. Serving an exported program
-(``config=``) and dynamic batching (``batching=``) come with the
-Predictor / jit slice.
+`infer`) `run(feeds)`; ``config=`` (an `inference.Config`) builds a
+`Predictor` over an exported program. ``decode_engine=`` alone makes a
+generation-only pool, whose members are `_NullPredictor`s; the decode
+engine runs each of its steps on such a one-slot pool.
 
 `fault_hook(slot_index, request, member)` runs on the member's worker
 thread just before execution: a raise is a member fault, a sleep a hang.
@@ -60,11 +69,6 @@ import numpy as np
 __all__ = ["ServingError", "DeadlineExceeded", "Overloaded", "PoolClosed",
            "RequestFailed", "AdapterNotLoaded", "Deadline", "CircuitBreaker",
            "RetryPolicy", "ServingPool", "DETERMINISTIC_ERRORS"]
-
-#: the slice that ports serving an exported program
-PREDICTOR_SLICE = ("the Predictor / jit slice (jit.save artifacts, "
-                   "Config, Predictor, PredictorPool and DynamicBatcher)")
-
 
 # ---------------------------------------------------------------------------
 # typed errors
@@ -250,18 +254,23 @@ _PENDING, _RUNNING, _DONE, _ABANDONED = range(4)
 class _Request:
     """One admitted request: a callable over a leased member and a
     single-assignment result with abandon semantics (the caller may give
-    up at its deadline while a worker still holds it; one side wins)."""
+    up at its deadline while a worker still holds it; one side wins).
+    With batching, `feeds` holds the validated inputs that workers stack
+    with batchmates (`fn` runs the request alone); `no_batch` marks a
+    request split out of a failed batch, which then runs alone."""
 
     __slots__ = ("id", "fn", "deadline", "attempts", "on_timeout",
-                 "enqueued_at", "_lock", "_ev", "_state", "_value",
-                 "_error")
+                 "feeds", "no_batch", "enqueued_at", "_lock", "_ev",
+                 "_state", "_value", "_error")
 
-    def __init__(self, rid, fn, deadline, on_timeout=None):
+    def __init__(self, rid, fn, deadline, on_timeout=None, feeds=None):
         self.id = rid
         self.fn = fn
         self.deadline = deadline
         self.attempts = 0
         self.on_timeout = on_timeout  # pool stats hook (counted once)
+        self.feeds = feeds            # batchable inputs (None: fn only)
+        self.no_batch = False         # split out of a failed batch
         self.enqueued_at = None       # admission stamp (queue wait)
         self._lock = threading.Lock()
         self._ev = threading.Event()
@@ -340,6 +349,28 @@ class _Request:
             return self._value
 
 
+class _BatchTicket:
+    """A formed batch in flight on one member, the slot's `current`: the
+    earliest deadline in it governs hang detection, and a wedge fails
+    every request in it."""
+
+    __slots__ = ("requests", "deadline")
+
+    def __init__(self, requests):
+        self.requests = requests
+        bounded = [r.deadline for r in requests
+                   if r.deadline.remaining() is not None]
+        self.deadline = (min(bounded, key=lambda d: d.remaining())
+                         if bounded else requests[0].deadline)
+
+
+def _in_flight(cur):
+    """The requests of a slot's `current` (none, one, or a batch)."""
+    if cur is None:
+        return []
+    return cur.requests if isinstance(cur, _BatchTicket) else [cur]
+
+
 class _NullPredictor:
     """Stateless member of pools that supervise work which serves no
     exported program: the decode engine's step executor and a
@@ -392,8 +423,10 @@ class ServingPool:
         pool.shutdown(drain_timeout=5.0)
 
     `submit(fn, timeout=...)` runs ``fn(member)`` on a leased member's
-    worker thread. With ``decode_engine=`` the pool also serves
-    `submit_generate` / `generate` on that engine."""
+    worker thread. ``config=`` serves an exported program
+    (``ServingPool(Config(path), size=2, batching=BatchConfig(...))``).
+    With ``decode_engine=`` the pool also serves `submit_generate` /
+    `generate` on that engine."""
 
     def __init__(self, config=None, size=1, *, predictor=None,
                  max_queue_depth=64, default_timeout=None,
@@ -401,29 +434,33 @@ class ServingPool:
                  retry=None, hang_grace=0.1, supervise_interval=0.02,
                  fault_hook=None, batching=None, decode_engine=None,
                  metrics=None, name=None, clock=time.monotonic):
-        if config is not None:
-            raise NotImplementedError(
-                f"ServingPool(config=...) serves a jit.save artifact, which "
-                f"paddle_tpu_torch cannot load yet; it comes with "
-                f"{PREDICTOR_SLICE}. Pass predictor= (an object with "
-                f"clone(), reset_handles() and run()) or decode_engine=")
-        if batching is not None and batching is not False:
-            raise NotImplementedError(
-                f"ServingPool(batching=...) is not ported to "
-                f"paddle_tpu_torch yet; dynamic batching comes with "
-                f"{PREDICTOR_SLICE}")
         if size < 1:
             raise ValueError("pool size must be >= 1")
         if max_queue_depth < 1:
             raise ValueError("max_queue_depth must be >= 1")
         self._engine = decode_engine
         if predictor is None:
-            if decode_engine is None:
+            if config is not None:
+                from . import Predictor
+
+                predictor = Predictor(config)
+            elif decode_engine is not None:
+                predictor = _NullPredictor()
+            else:
                 raise ValueError(
-                    "ServingPool needs predictor= (or decode_engine= for a "
-                    "generation-only pool)")
-            predictor = _NullPredictor()
+                    "ServingPool needs a Config or predictor= (or "
+                    "decode_engine= for a generation-only pool)")
         self._base = predictor
+        self._batcher = None
+        if batching is not None and batching is not False:
+            from .batching import BatchConfig, DynamicBatcher
+
+            if isinstance(batching, DynamicBatcher):
+                self._batcher = batching
+            else:
+                cfg = BatchConfig() if batching is True else batching
+                layer = getattr(predictor, "_layer", predictor)
+                self._batcher = DynamicBatcher(layer, cfg, clock=clock)
         self.max_queue_depth = int(max_queue_depth)
         self.default_timeout = default_timeout
         self.hang_grace = float(hang_grace)
@@ -467,7 +504,11 @@ class ServingPool:
                 help="admission-queue wait before execution starts")
             self._h_execute = reg.histogram(
                 "serving.execute_seconds",
-                help="member execution time of one request")
+                help="member execution time (one dispatch: a single "
+                     "request or a whole formed batch)")
+            if self._batcher is not None:
+                self._batcher.h_queue_wait = self._h_queue_wait
+                self._batcher.h_execute = self._h_execute
 
         self._slots = []
         for i in range(size):
@@ -501,7 +542,7 @@ class ServingPool:
         shedding."""
         return self._admit(fn, timeout)
 
-    def _admit(self, fn, timeout):
+    def _admit(self, fn, timeout, feeds=None):
         eff = self.default_timeout if timeout is None else timeout
         dl = Deadline(eff, clock=self._clock)
         with self._cv:
@@ -519,7 +560,7 @@ class ServingPool:
                     f"admission queue full ({self.max_queue_depth} deep) — "
                     f"request shed; retry with backoff or scale the pool")
             req = _Request(next(self._ids), fn, dl,
-                           on_timeout=self._on_caller_timeout)
+                           on_timeout=self._on_caller_timeout, feeds=feeds)
             req.enqueued_at = self._clock()
             self._queue.append(req)
             self._admitted += 1
@@ -531,14 +572,28 @@ class ServingPool:
 
     def infer(self, feeds, timeout=None):
         """Run ``member.run(feeds)`` on some healthy member; returns its
-        outputs or raises the typed serving error."""
-        feeds = [f if hasattr(f, "shape") else np.asarray(f) for f in feeds]
-        return self._admit(lambda pred: pred.run(feeds), timeout).result()
+        outputs or raises the typed serving error. With batching,
+        concurrent calls are coalesced into bucket programs, and the feeds
+        are validated against the exported input_spec here (a malformed
+        request raises ValueError before it is queued)."""
+        if self._batcher is not None:
+            feeds = self._batcher.validate(feeds)
+        else:
+            feeds = [f if hasattr(f, "shape") else np.asarray(f)
+                     for f in feeds]
+        return self._admit(lambda pred: pred.run(feeds), timeout,
+                           feeds=feeds if self._batcher is not None
+                           else None).result()
 
     def warmup(self, buckets=None):
-        raise NotImplementedError(
-            f"ServingPool.warmup() warms dynamic batching's buckets, which "
-            f"come with {PREDICTOR_SLICE}")
+        """Build every batch bucket's program before traffic (they live on
+        the shared exported layer, so every clone and re-clone uses them).
+        Returns the warmed buckets. Requires batching."""
+        if self._batcher is None:
+            raise RuntimeError(
+                "warmup() needs batching: construct the pool with "
+                "batching=BatchConfig(...)")
+        return self._batcher.warmup(buckets)
 
     def rebase(self, predictor):
         """Swap the pool's base member for `predictor` (new weights, same
@@ -552,6 +607,10 @@ class ServingPool:
                 raise PoolClosed("cannot rebase a shut-down pool")
             self._base = predictor
             self._rebases += 1
+        if self._batcher is not None and hasattr(predictor, "_layer"):
+            # batched requests run the new base's layer (and its bucket
+            # programs, built on first use or by warmup())
+            self._batcher.layer = predictor._layer
         for slot in list(self._slots):
             try:
                 fresh = predictor.clone()
@@ -617,7 +676,8 @@ class ServingPool:
 
     def _next_request(self, slot):
         """The next live request for `slot`'s worker (None when there is
-        none yet); "exit" once the pool is drained."""
+        none yet), or with batching a list: a batchable request and the
+        batchmates gathered for it; "exit" once the pool is drained."""
         with self._cv:
             if not self._queue:
                 if self._closed and not self._retry_timers \
@@ -634,6 +694,9 @@ class ServingPool:
                             f"before execution")):
                         self._timed_out += 1
                     continue
+                if self._batcher is not None and cand.feeds is not None \
+                        and not cand.no_batch:
+                    return self._gather_batchmates(cand)
                 return cand
         return None
 
@@ -650,6 +713,9 @@ class ServingPool:
             if req == "exit":
                 br.cancel_probe()
                 return
+            if isinstance(req, list):
+                self._run_batch(slot, req)
+                continue
             if req is None or not req.mark_running():
                 br.cancel_probe()
                 continue
@@ -685,6 +751,158 @@ class ServingPool:
                         self._late_results += 1
             finally:
                 slot.current = None
+
+    # -- batched dispatch --------------------------------------------------
+    def _gather_batchmates(self, first):
+        """_cv held. Deadline-aware batch formation: collect batchable
+        queued requests up to the largest bucket, waiting at most
+        `max_wait_ms` for latecomers; flush early when the bucket fills,
+        the earliest deadline in the batch comes within
+        `deadline_margin_ms`, or the pool drains. Collected requests leave
+        the queue; the others keep their order."""
+        bt = self._batcher
+        cfg = bt.config
+        batch = [first]
+        target = bt.max_bucket
+        start = self._clock()
+        wait_s = cfg.max_wait_ms / 1e3
+        margin_s = cfg.deadline_margin_ms / 1e3
+        while True:
+            if len(batch) < target and self._queue:
+                rest = collections.deque()
+                for c in self._queue:
+                    if c.done():
+                        continue
+                    if (len(batch) < target and c.feeds is not None
+                            and not c.no_batch):
+                        if c.deadline.expired():
+                            if c.fail(DeadlineExceeded(
+                                    f"request {c.id} expired after queue "
+                                    f"wait, before execution")):
+                                self._timed_out += 1
+                            continue
+                        batch.append(c)
+                    else:
+                        rest.append(c)
+                self._queue = rest
+            if len(batch) >= target:
+                bt.note_flush("full")
+                return batch
+            if self._closed or self._stopping:
+                bt.note_flush("drain")
+                return batch
+            budget = wait_s - (self._clock() - start)
+            rem = None
+            for r in batch:
+                rr = r.deadline.remaining()
+                if rr is not None and (rem is None or rr < rem):
+                    rem = rr
+            if rem is not None and rem - margin_s < budget:
+                if rem - margin_s <= 0:
+                    bt.note_flush("deadline")
+                    return batch
+                budget = rem - margin_s
+            if budget <= 0:
+                bt.note_flush("wait")
+                return batch
+            # short slices: a notify may wake another idle worker, so the
+            # gatherer looks at the queue again soon
+            self._cv.wait(min(budget, 0.0025))
+
+    def _run_batch(self, slot, batch):
+        """Execute a formed batch on this member: one bucket program for
+        the whole group, each request's rows scattered back."""
+        br = slot.breaker
+        live = [r for r in batch if r.mark_running()]
+        if not live:
+            br.cancel_probe()
+            return
+        ticket = _BatchTicket(live)
+        slot.current = ticket
+        with self._lock:
+            self._watch(ticket.deadline, self.hang_grace)
+        for r in live:
+            r.attempts += 1
+        try:
+            if self._fault_hook is not None:
+                for r in live:
+                    self._fault_hook(slot.index, r, slot.predictor)
+            results = self._batcher.execute(live)
+        except Exception as exc:  # noqa: BLE001 — classified below
+            self._on_batch_error(slot, live, exc)
+        else:
+            done = self._clock()
+            self._reset_member(slot)
+            if not slot.retired:
+                br.record_success()
+            with self._lock:
+                for r, res in zip(live, results):
+                    if r.complete(res):
+                        self._completed += 1
+                        slot.completed += 1
+                        if self._h_latency is not None:
+                            self._h_latency.observe(done - r.enqueued_at)
+                    else:
+                        self._late_results += 1
+        finally:
+            slot.current = None
+
+    def _on_batch_error(self, slot, batch, exc):
+        """A batch raised. The fault cannot be pinned on one request, so a
+        multi-request batch is retried as split singles (`no_batch`): the
+        innocent complete, a poison request fails alone with its own
+        typed error."""
+        if len(batch) == 1:
+            self._on_execution_error(slot, batch[0], exc)
+            return
+        self._reset_member(slot)
+        if slot.retired:
+            # a wedged worker's late failure: the supervisor already failed
+            # the batch and charged the breaker
+            with self._lock:
+                for r in batch:
+                    if r.fail(RequestFailed(
+                            f"request {r.id} failed on a retired member: "
+                            f"{type(exc).__name__}: {exc}",
+                            cause=exc, attempts=r.attempts)):
+                        self._failed += 1
+                    else:
+                        self._late_results += 1
+            return
+        if isinstance(exc, DETERMINISTIC_ERRORS):
+            # a malformed batchmate; the member ran fine
+            slot.breaker.record_success()
+        else:
+            with self._lock:
+                slot.failures += 1
+            slot.breaker.record_failure()
+            self._quarantine(slot)
+        self._batcher.note_split(len(batch))
+        with self._cv:
+            requeued = []
+            for r in batch:
+                if r.done():
+                    continue
+                if self._stopping:
+                    if r.fail(PoolClosed(
+                            "pool shut down before the split retry ran")):
+                        self._cancelled += 1
+                    continue
+                if r.deadline.expired():
+                    if r.fail(DeadlineExceeded(
+                            f"request {r.id} expired before its split "
+                            f"retry could run")):
+                        self._timed_out += 1
+                    continue
+                if r.mark_pending():
+                    r.no_batch = True
+                    requeued.append(r)
+            for r in reversed(requeued):
+                self._queue.appendleft(r)  # splits resume at the front
+            if requeued:
+                self._cv.notify_all()
+                for r in requeued:
+                    self._watch(r.deadline)
 
     def _reset_member(self, slot):
         try:
@@ -887,12 +1105,15 @@ class ServingPool:
                 continue
             slot.retired = True
             slot.breaker.record_failure()
+            # a wedged batch fails whole: its compute is abandoned with
+            # the retired worker
             with self._lock:
                 self._wedged += 1
-                if cur.fail(DeadlineExceeded(
-                        f"request {cur.id} wedged its member past the "
-                        f"deadline; member {i} replaced")):
-                    self._timed_out += 1
+                for req in _in_flight(cur):
+                    if req.fail(DeadlineExceeded(
+                            f"request {req.id} wedged its member past the "
+                            f"deadline; member {i} replaced")):
+                        self._timed_out += 1
             self._replace_slot(i, slot)
 
     def _replace_slot(self, i, old):
@@ -947,11 +1168,11 @@ class ServingPool:
             self._stopping = True
             self._cv.notify_all()
         for slot in self._slots:
-            req = slot.current
-            if req is not None and not req.done() and req.fail(PoolClosed(
-                    "pool shut down before the request completed")):
-                with self._lock:
-                    self._cancelled += 1
+            for req in _in_flight(slot.current):
+                if not req.done() and req.fail(PoolClosed(
+                        "pool shut down before the request completed")):
+                    with self._lock:
+                        self._cancelled += 1
         with self._lock:
             self._sup_stopped = True
             self._sup_cv.notify()
@@ -1019,7 +1240,7 @@ class ServingPool:
         pool counts requests only, so its router sends every stream
         without a prefix-affinity hit to the first ready replica)."""
         with self._lock:
-            in_flight = sum(1 for s in self._slots if s.current is not None)
+            in_flight = sum(len(_in_flight(s.current)) for s in self._slots)
             n = len(self._queue) + len(self._retry_timers) + in_flight
             engine = self._engine
         return n + (engine.load() if hasattr(engine, "load") else 0)
@@ -1038,7 +1259,7 @@ class ServingPool:
                     "alive": alive, "breaker": slot.breaker.state,
                     "failures": slot.failures, "reclones": slot.reclones,
                     "completed": slot.completed,
-                    "in_flight": 1 if slot.current is not None else 0})
+                    "in_flight": len(_in_flight(slot.current))})
             snap = {
                 "name": self.name,
                 "size": len(self._slots),
@@ -1062,8 +1283,10 @@ class ServingPool:
                 "in_flight": sum(m["in_flight"] for m in members),
                 "members": members,
             }
-        # the engine's snapshot takes its own locks: outside ours
-        snap["batch"] = None
+        # the batcher's and the engine's snapshots take their own locks:
+        # outside ours
+        snap["batch"] = (self._batcher.stats()
+                         if self._batcher is not None else None)
         engine = self._engine
         snap["decode"] = engine.stats() if engine is not None else None
         return snap

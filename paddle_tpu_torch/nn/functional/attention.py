@@ -29,8 +29,11 @@ Routing follows the JAX package's rules, on the tensors' device:
   bias;
 * otherwise self-attention whose q, k and v share one shape that
   `flash_attention_supported` admits runs the FlashAttention-2 kernels on
-  the GPU (`ops.flash_attention`); every other call takes the plain
-  version (`ops.flash_attention.flash_attention_ref`).
+  the GPU (`ops.flash_attention`); without a gradient to take it calls
+  the forward operator ``paddle_tpu_torch::flash_fwd`` on any device (the
+  plain version on the CPU), so that `jit.save` records the operator and
+  not the branch of the device it traced on; every other call takes the
+  plain version (`ops.flash_attention.flash_attention_ref`).
 
 Each dropout call draws a new stream seed from the caller's
 `torch.Generator` (torch's default generator of the device when None), as
@@ -53,6 +56,7 @@ from ...ops import _dropout_rng
 from ...ops.block_sparse_attention import (block_sparse_attention,
                                            csr_to_block_tables)
 from ...ops.flash_attention import (flash_attention as _flash_kernel,
+                                    flash_attention_fwd,
                                     flash_attention_ref,
                                     flash_attention_supported)
 from ...ops.short_attention import composed_attention, short_attention
@@ -112,9 +116,15 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                   dropout_p, seed)[0]
     if attn_mask is not None:
         return composed_attention(query, key, value, attn_mask, causal)[0]
-    if (query.is_cuda and query.shape == key.shape == value.shape
+    if (query.shape == key.shape == value.shape
             and flash_attention_supported(tuple(query.shape), is_causal)):
-        return _flash_kernel(query, key, value, causal=causal)
+        if not (torch.is_grad_enabled() and any(
+                t.requires_grad for t in (query, key, value))):
+            # no gradient: the forward operator on any device (an exported
+            # program records it, and it dispatches by device when it runs)
+            return flash_attention_fwd(query, key, value, causal=causal)[0]
+        if query.is_cuda:
+            return _flash_kernel(query, key, value, causal=causal)
     return flash_attention_ref(query, key, value, causal=causal)[0]
 
 

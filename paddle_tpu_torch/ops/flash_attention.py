@@ -51,6 +51,11 @@ A CUDA input launches the kernels (bf16 or f32; any other dtype raises
 `flash_attention_ref`, `flash_attention_bwd_dq_ref`,
 `flash_attention_bwd_dkv_ref`, `flash_fwd_pos_ref` and
 `flash_bwd_pos_ref` — f32 math with the kernels' casts.
+
+The forward is the operator ``paddle_tpu_torch::flash_fwd`` (`flash_fwd`,
+see `_library`): its CUDA implementation is the launch, its CPU one the
+plain version, so an exported program that reaches it dispatches by the
+device it runs on. `flash_attention_fwd` checks the arguments and calls it.
 """
 from __future__ import annotations
 
@@ -58,14 +63,14 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, _library
 
 __all__ = ["flash_attention", "flash_attention_supported",
            "flash_fwd_route", "FWD_MMA", "FWD_WGMMA", "flash_bwd_route",
            "BWD_MMA", "BWD_WGMMA",
            "flash_attention_ref", "flash_attention_bwd_ref",
            "flash_attention_bwd_dq_ref", "flash_attention_bwd_dkv_ref",
-           "flash_attention_fwd", "flash_attention_bwd_dq",
+           "flash_attention_fwd", "flash_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "attention_delta",
            "flash_pos_route", "flash_fwd_pos", "flash_bwd_pos",
            "flash_bwd_pos_dq",
@@ -244,13 +249,8 @@ def _launch(kind, q, ptrs, strides, lse, delta, out0, out1, lse_out, causal,
                        "flash_attention_bwd_dkv")[kind % 3])
 
 
-def flash_attention_fwd(q, k, v, *, causal=True, scale=None):
-    """q, k, v [B, S, H, D] -> (O [B, S, H, D] in q's dtype, lse
-    [B, H, S] f32)."""
-    _check(q, k, v)
-    scale = _scale(q, scale)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, scale=scale)
+def _fwd_cuda(q, k, v, causal, scale):
+    """The operator's CUDA implementation: the kernel's launch."""
     _check_cuda(q, k, v)
     B, S, H, D = q.shape
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -263,6 +263,44 @@ def flash_attention_fwd(q, k, v, *, causal=True, scale=None):
     flash_attention_fwd.launches += 1
     flash_attention_fwd.routes[route] += 1
     return out, lse
+
+
+def _fwd_cpu(q, k, v, causal, scale):
+    return flash_attention_ref(q, k, v, causal=causal, scale=scale)
+
+
+def _fwd_fake(q, k, v, causal, scale):
+    B, S, H, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((B, H, S), dtype=torch.float32)
+
+
+def _fwd_vmap(info, in_dims, q, k, v, causal, scale):
+    """vmap folds the mapped axis into B: one launch for every example."""
+    n = info.batch_size
+
+    def fold(t, d):
+        t = t.movedim(d, 0) if d is not None else t.expand(n, *t.shape)
+        return t.reshape(n * t.shape[1], *t.shape[2:])
+
+    out, lse = flash_fwd(*(fold(t, d) for t, d in zip((q, k, v), in_dims)),
+                         causal, scale)
+    return (out.unflatten(0, (n, -1)), lse.unflatten(0, (n, -1))), (0, 0)
+
+
+#: ``paddle_tpu_torch::flash_fwd`` (`_library`): the CUDA launch, the
+#: plain version on the CPU, the shapes on fake tensors
+flash_fwd = _library.define(
+    "flash_fwd",
+    "(Tensor q, Tensor k, Tensor v, bool causal, float scale) "
+    "-> (Tensor, Tensor)",
+    cpu=_fwd_cpu, cuda=_fwd_cuda, fake=_fwd_fake, vmap=_fwd_vmap)
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, scale=None):
+    """q, k, v [B, S, H, D] -> (O [B, S, H, D] in q's dtype, lse
+    [B, H, S] f32), through the `flash_fwd` operator."""
+    _check(q, k, v)
+    return flash_fwd(q, k, v, bool(causal), _scale(q, scale))
 
 
 def _bwd_rows(q, lse, delta):

@@ -8,7 +8,10 @@ halves-packed nibbles (`paddle_tpu_torch.nn.quant._pack_int4`).
 
 `weight_only_matmul` launches ``csrc/weight_only.cu`` for CUDA tensors at
 every ``m`` (the TPU kernel's block-shape cut-offs were VMEM tiling limits
-and do not apply) and computes `weight_only_matmul_ref` for CPU tensors.
+and do not apply) and computes `weight_only_matmul_ref` for CPU tensors,
+through the operator ``paddle_tpu_torch::weight_only_matmul``
+(`weight_only_matmul_op`, see `_library`), so an exported program that
+reaches it dispatches by the device it runs on.
 `weight_only_route` names the kernel a CUDA call takes: the wgmma GEMM of
 prefill chunks (m > 16), the row-stable tensor-core GEMV of the decode
 buckets (m <= 16), or, for what neither admits (f32 x, unaligned x,
@@ -27,9 +30,10 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, _library
 
-__all__ = ["weight_only_matmul", "weight_only_matmul_nd",
+__all__ = ["weight_only_matmul", "weight_only_matmul_op",
+           "weight_only_matmul_nd",
            "weight_only_matmul_ref", "weight_only_route", "unpack_int4",
            "row_gemv", "row_gemv_ref", "row_gemv_route", "ROW_GEMV_MAX_M",
            "ROUTE_GEMV", "ROUTE_DECODE", "ROUTE_PREFILL", "ROW_CUDA_CORE",
@@ -95,16 +99,10 @@ def weight_only_matmul_ref(x, qweight, scale, weight_dtype="int8"):
     return (out * scale.to(torch.float32)).to(x.dtype)
 
 
-def weight_only_matmul(x, qweight, scale, weight_dtype="int8"):
-    """x [m, k] f32/bf16/f16; qweight [n, k] int8 or [n, k/2] packed int4;
-    scale [n] f32 -> [m, n] in x's dtype. A CPU input takes the plain
-    version; a CUDA input launches the kernel (or raises)."""
+def _wo_cuda(x, qweight, scale, weight_dtype):
+    """The operator's CUDA implementation: the kernel's launch."""
     m, n, k = _check(x, qweight, scale, weight_dtype)
     dev = x.device
-    if dev.type == "cpu":
-        return weight_only_matmul_ref(x, qweight, scale, weight_dtype)
-    if dev.type != "cuda":
-        raise RuntimeError(f"weight_only_matmul: no kernel for device {dev}")
     if qweight.device != dev or scale.device != dev:
         raise ValueError(f"qweight is on {qweight.device} and scale on "
                          f"{scale.device}, x on {dev}")
@@ -131,6 +129,66 @@ def weight_only_matmul(x, qweight, scale, weight_dtype="int8"):
     weight_only_matmul.launches += 1
     weight_only_matmul.routes[route] += 1
     return out
+
+
+def _wo_fake(x, qweight, scale, weight_dtype):
+    return x.new_empty((x.shape[0], qweight.shape[0]))
+
+
+def _wo_vmap(info, in_dims, x, qweight, scale, weight_dtype):
+    """vmap folds the mapped axis of x into its rows, and each example
+    keeps the route its own call takes (`weight_only_route` reads m): an
+    example of at most ROW_GEMV_MAX_M rows is served by the decode GEMV
+    over the fold in launches of at most that many rows (a row's bits do
+    not depend on the rows beside it), a larger one by one launch of the
+    whole fold (the wgmma GEMM, as its own call)."""
+    if in_dims[1] is not None or in_dims[2] is not None:
+        raise ValueError("weight_only_matmul maps over x only: the weight "
+                         "and its scales are shared")
+    n = info.batch_size
+    d = in_dims[0]
+    x = x.movedim(d, 0) if d is not None else x.expand(n, *x.shape)
+    rows = x.reshape(-1, x.shape[-1])
+    if x.shape[1] <= ROW_GEMV_MAX_M < rows.shape[0]:
+        out = torch.cat([weight_only_matmul_op(c, qweight, scale,
+                                               weight_dtype)
+                         for c in rows.split(ROW_GEMV_MAX_M)])
+    else:
+        out = weight_only_matmul_op(rows, qweight, scale, weight_dtype)
+    return out.unflatten(0, (n, -1)), 0
+
+
+def _wo_setup(ctx, inputs, output):
+    x, qweight, scale, weight_dtype = inputs
+    ctx.save_for_backward(qweight, scale)
+    ctx.weight_dtype, ctx.x_dtype = weight_dtype, x.dtype
+
+
+def _wo_backward(ctx, grad):
+    """dx of the plain version's f32 arithmetic, rounded to x's dtype."""
+    qweight, scale = ctx.saved_tensors
+    q = unpack_int4(qweight) if ctx.weight_dtype == "int4" else qweight
+    dx = (grad.to(torch.float32) * scale.to(torch.float32)) \
+        @ q.to(torch.float32)
+    return dx.to(ctx.x_dtype), None, None, None
+
+
+#: ``paddle_tpu_torch::weight_only_matmul`` (`_library`): the CUDA launch,
+#: the plain version on the CPU, the shape on fake tensors
+weight_only_matmul_op = _library.define(
+    "weight_only_matmul",
+    "(Tensor x, Tensor qweight, Tensor scale, str weight_dtype) -> Tensor",
+    cpu=weight_only_matmul_ref, cuda=_wo_cuda, fake=_wo_fake, vmap=_wo_vmap,
+    backward=_wo_backward, setup_context=_wo_setup)
+
+
+def weight_only_matmul(x, qweight, scale, weight_dtype="int8"):
+    """x [m, k] f32/bf16/f16; qweight [n, k] int8 or [n, k/2] packed int4;
+    scale [n] f32 -> [m, n] in x's dtype, through the
+    `weight_only_matmul_op` operator: a CPU input takes the plain
+    version, a CUDA input launches the kernel (or raises)."""
+    _check(x, qweight, scale, weight_dtype)
+    return weight_only_matmul_op(x, qweight, scale, weight_dtype)
 
 
 weight_only_matmul.launches = 0

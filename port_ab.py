@@ -4,7 +4,7 @@
     python3 port_ab.py PARENT CHANGE
         [--what decode,flash,short,weight_only,dense_decode,sparse,ring,
                 gemv,decode_busy,resblock,pair,bgmv,tenants,decode_step,
-                step_device]
+                step_device,bert_step,dispatch]
         [--rounds 1]
 
 PARENT and CHANGE are the roots of two checkouts (for example a
@@ -120,6 +120,18 @@ Measurements:
   sum), the eager body under CUDA events, and the replays under CUDA
   events again. nvidia-smi samples the SM clock, the power draw and the
   temperature every 100 ms, reported for each phase.
+
+* ``bert_step``: `chip_smoke.py` phase 5's BERT fine-tune step of that
+  tree (bert_base at 12 layers, bf16 compute, dropout 0.1, one fixed
+  [128, 128] batch from seed 0): `bert_throughput`'s step ms and
+  sequences/s over 20 steps after 2 warm-up steps;
+* ``dispatch``: the host cost of one wrapper call, where the change's
+  wrappers are `torch.library` operators: `flash_attention_fwd` on
+  bert_base's eval shape ([1, 128, 12, 64] bf16, not causal) and
+  `weight_only_matmul` on its int8 qkv Linear (m = 128, k = 768,
+  n = 2304), DISPATCH_CALLS calls back to back (host clock, the device
+  synchronized before and after; the kernels are shorter than a call's
+  host work, so the host sets the pace): µs a call, median of 5 runs.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 per measurement, each naming its tree. Every child has a time limit and
@@ -961,6 +973,56 @@ def child_step_device(tree):
             "smi": _smi_phases(smi_out, phases)}
 
 
+def child_bert_step(tree):
+    """Phase 5's BERT fine-tune step (the tree's `bert_throughput`)."""
+    import numpy as np
+    import torch
+
+    smoke = importlib.import_module("chip_smoke")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = smoke.bert_throughput(torch, np, 12, 20, 0)
+    return {"tree": tree, "what": "bert_step", "step_ms": res["step_ms"],
+            "sequences_per_s": res["sequences_per_s"], "mfu": res["mfu"]}
+
+
+DISPATCH_CALLS = 2000
+
+
+def child_dispatch(tree):
+    """µs of host time a call of the two wrappers (see the docstring)."""
+    import time
+
+    import torch
+
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    wo = importlib.import_module("paddle_tpu_torch.ops.weight_only")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn(1, 128, 3, 12, 64, device="cuda", generator=g,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    x = torch.randn(128, 768, device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    qw = torch.randint(-127, 128, (2304, 768), device="cuda", generator=g,
+                       dtype=torch.int8)
+    sc = torch.rand(2304, device="cuda", generator=g) / 100
+    calls = {"flash_attention_fwd":
+             lambda: fa.flash_attention_fwd(q, k, v, causal=False),
+             "weight_only_matmul":
+             lambda: wo.weight_only_matmul(x, qw, sc, "int8")}
+    res = {"tree": tree, "what": "dispatch", "calls": DISPATCH_CALLS}
+    for name, fn in calls.items():
+        runs = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DISPATCH_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e6 / DISPATCH_CALLS)
+        res[f"{name}_us"] = _pct(runs[1:], 0.5)
+    return res
+
+
 def _child(what, tree):
     tree = os.path.abspath(tree)
     os.chdir(tree)
@@ -974,7 +1036,9 @@ def _child(what, tree):
            "resblock": child_resblock, "pair": child_pair,
            "bgmv": child_bgmv, "tenants": child_tenants,
            "decode_step": child_decode_step,
-           "step_device": child_step_device}[what](tree)
+           "step_device": child_step_device,
+           "bert_step": child_bert_step,
+           "dispatch": child_dispatch}[what](tree)
     print("AB " + json.dumps(res), flush=True)
 
 

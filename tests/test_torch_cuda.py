@@ -2853,3 +2853,183 @@ def test_lora_generate_on_gpu_sampled_reruns_and_merge(cuda):
         lora.merge_lora(m)
         merged = m(ids.to(cuda))
     assert (merged - unmerged).abs().max() <= 1e-4 * unmerged.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# the kernel operators under torch.export, and bucket programs
+# ---------------------------------------------------------------------------
+
+def _tiny_bert(device, quantize):
+    from paddle_tpu_torch.models import bert_for_sequence_classification
+
+    m = bert_for_sequence_classification(
+        "bert_tiny", device=device, hidden_size=128, num_attention_heads=2,
+        intermediate_size=256).to(torch.bfloat16).eval()
+    if quantize:
+        tq.quantize_for_inference(m, "int8", min_features=0)
+    return m
+
+
+def _bert_feeds(n, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [[torch.randint(1, 1024, (1, 128), generator=g),
+             torch.randint(0, 2, (1, 128), generator=g)] for _ in range(n)]
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_exported_program_launches_the_kernels_on_their_routes(
+        cuda, tmp_path, quantize):
+    """A bf16 tiny BERT (head dim 64) exported on the card: the program
+    names the operators, and running it (a bucket-1 graph replay, and op
+    by op) launches the Hopper flash forward once a layer (and, int8, the
+    wgmma GEMM for every quantized Linear of the layers), bit-equal to the
+    eager model."""
+    from paddle_tpu_torch import jit
+
+    m = _tiny_bert(cuda, quantize)
+    path = str(tmp_path / "bert")
+    spec = [((1, 128), torch.int64)] * 2
+    jit.save(m, path, input_spec=spec)
+    layer = jit.load(path)
+    assert "paddle_tpu_torch.flash_fwd.default" in layer.graph_ops
+    assert ("paddle_tpu_torch.weight_only_matmul.default"
+            in layer.graph_ops) == quantize
+    feeds = _bert_feeds(2)
+    with torch.no_grad():
+        wants = [m(*(t.to(cuda) for t in f)) for f in feeds]
+    tfa.flash_attention_fwd.routes[tfa.FWD_WGMMA] = 0
+    tw.weight_only_matmul.routes[tw.ROUTE_PREFILL] = 0
+    fwd, wo = tfa.flash_attention_fwd.launches, tw.weight_only_matmul.launches
+    for f, want in zip(feeds, wants):
+        assert torch.equal(layer(*f), want)
+    for f, want in zip(feeds, wants):
+        assert torch.equal(layer.eager(*f), want)
+    # 2 feeds, 2 runs each (graph, op by op), 2 layers
+    assert tfa.flash_attention_fwd.launches - fwd == 2 * 2 * 2
+    assert tfa.flash_attention_fwd.routes[tfa.FWD_WGMMA] == 2 * 2 * 2
+    # 2 layers x (qkv, out, fc1, fc2) on 128 rows: the wgmma GEMM; the
+    # pooler and the classifier on one row: the decode GEMV
+    n_gemm, n_gemv = (8, 2) if quantize else (0, 0)
+    assert tw.weight_only_matmul.launches - wo == 4 * (n_gemm + n_gemv)
+    assert tw.weight_only_matmul.routes[tw.ROUTE_PREFILL] == 4 * n_gemm
+
+
+def test_operators_cpu_implementations_are_the_plain_versions(cuda):
+    q, k, v = (torch.randn(1, 128, 2, 64) for _ in range(3))
+    o, lse = tfa.flash_fwd(q, k, v, False, 0.125)
+    ro, rlse = tfa.flash_attention_ref(q, k, v, causal=False, scale=0.125)
+    assert torch.equal(o, ro) and torch.equal(lse, rlse)
+    x = torch.randn(5, 64)
+    qw = torch.randint(-127, 127, (16, 64), dtype=torch.int8)
+    s = torch.rand(16)
+    assert torch.equal(tw.weight_only_matmul_op(x, qw, s, "int8"),
+                       tw.weight_only_matmul_ref(x, qw, s, "int8"))
+    launches = tfa.flash_attention_fwd.launches
+    tfa.flash_attention_fwd(q, k, v, causal=False)
+    assert tfa.flash_attention_fwd.launches == launches
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_bucket_graph_rows_equal_single_calls(cuda, tmp_path, quantize):
+    """Each bucket program is one CUDA graph replay of the "fold" body
+    whose rows equal the single calls (graph and op by op) bit for bit, up
+    to bucket 32, and whose replays count the kernels' launches: one flash
+    forward a layer a bucket; int8, one wgmma GEMM a Linear of the layers
+    a bucket and, for the one-row pooler, the decode GEMV in launches of
+    at most 16 rows (each example's own route)."""
+    from paddle_tpu_torch import jit
+
+    m = _tiny_bert(cuda, quantize)
+    path = str(tmp_path / "bert")
+    jit.save(m, path, input_spec=[((1, 128), torch.int64)] * 2)
+    layer = jit.load(path)
+    feeds = _bert_feeds(4, seed=1)
+    singles = [layer(*f).float().cpu() for f in feeds]
+    for f, one in zip(feeds, singles):
+        assert torch.equal(layer.eager(*f).float().cpu(), one)
+    for bucket in (1, 2, 4, 8, 16, 32):
+        prog = layer.batched_call(bucket)
+        assert prog.graph and prog.design == "fold"
+        rows = [feeds[j % 4] for j in range(bucket)]
+        stacked = [torch.stack(col).numpy() for col in zip(*rows)]
+        tfa.flash_attention_fwd.routes[tfa.FWD_WGMMA] = 0
+        tw.weight_only_matmul.routes[tw.ROUTE_PREFILL] = 0
+        tw.weight_only_matmul.routes[tw.ROUTE_DECODE] = 0
+        for _ in range(2):
+            out, = prog(*stacked)
+            for j in range(bucket):
+                assert torch.equal(torch.from_numpy(out[j]), singles[j % 4])
+        # 2 replays x 2 layers
+        assert tfa.flash_attention_fwd.routes[tfa.FWD_WGMMA] == 2 * 2
+        gemm, gemv = (2 * 2 * 4, 2 * 2 * -(-bucket // 16)) if quantize \
+            else (0, 0)
+        assert tw.weight_only_matmul.routes[tw.ROUTE_PREFILL] == gemm
+        assert tw.weight_only_matmul.routes[tw.ROUTE_DECODE] == gemv
+    assert layer.aot_stats()["compiles"] == 6
+
+
+def _mlp(device, dtype):
+    """The reference's batching test model: Linear(32, 32), ReLU,
+    Linear(32, 32)."""
+    torch.manual_seed(0)
+    return torch.nn.Sequential(
+        torch.nn.Linear(32, 32), torch.nn.ReLU(),
+        torch.nn.Linear(32, 32)).to(device, dtype).eval()
+
+
+@pytest.mark.parametrize("model", ["mlp f32", "mlp bf16", "bert int8"])
+def test_batched_programs_keep_single_run_bits(cuda, tmp_path, model):
+    """The reference's MLP (f32 and bf16; one row an example, where cuBLAS
+    folded over the examples sums rows in another order) and the int8
+    tiny BERT, batched at every bucket up to 32: each row equals the
+    example's single run bit for bit (the products run once per example,
+    the rest folds)."""
+    from paddle_tpu_torch import jit
+
+    path = str(tmp_path / "m")
+    g = torch.Generator().manual_seed(2)
+    if model.startswith("mlp"):
+        dt = torch.float32 if model == "mlp f32" else torch.bfloat16
+        jit.save(_mlp(cuda, dt), path, input_spec=[((1, 32), dt)])
+        feeds = [[torch.rand(1, 32, generator=g).to(dt)] for _ in range(32)]
+    else:
+        jit.save(_tiny_bert(cuda, True), path,
+                 input_spec=[((1, 128), torch.int64)] * 2)
+        feeds = _bert_feeds(32, seed=2)
+    layer = jit.load(path)
+    singles = [layer(*f).float().cpu() for f in feeds]
+    for bucket in (2, 3, 8, 17, 32):
+        prog = layer.batched_call(bucket)
+        assert prog.graph and prog.design == "fold"
+        stacked = [torch.stack(col).float().numpy()
+                   for col in zip(*feeds[:bucket])]
+        out, = prog(*stacked)
+        for j in range(bucket):
+            assert torch.equal(torch.from_numpy(out[j]), singles[j]), \
+                (bucket, j)
+
+
+def test_weight_only_vmap_keeps_each_examples_route(cuda):
+    """vmap of the weight-only operator: examples of one row, 32 of them,
+    take the decode GEMV (two launches of 16 rows), bit-equal to their
+    single calls; examples of 128 rows take one wgmma launch."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    qw = torch.randint(-127, 128, (768, 768), device=cuda, generator=g,
+                       dtype=torch.int8)
+    sc = torch.rand(768, device=cuda, generator=g) / 100
+
+    def op(x):
+        return tw.weight_only_matmul(x, qw, sc, "int8")
+
+    for m, bucket, route, launches in ((1, 32, tw.ROUTE_DECODE, 2),
+                                       (128, 4, tw.ROUTE_PREFILL, 1)):
+        x = torch.randn(bucket, m, 768, device=cuda, generator=g,
+                        dtype=torch.bfloat16)
+        singles = [op(x[j]) for j in range(bucket)]
+        for r in tw.weight_only_matmul.routes:
+            tw.weight_only_matmul.routes[r] = 0
+        out = torch.func.vmap(op)(x)
+        assert tw.weight_only_matmul.routes[route] == launches
+        assert sum(tw.weight_only_matmul.routes.values()) == launches
+        for j in range(bucket):
+            assert torch.equal(out[j], singles[j]), (m, j)

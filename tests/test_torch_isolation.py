@@ -46,6 +46,10 @@ def test_import_loads_no_jax_and_no_reference_package():
         "inference.decode.demo", "obs", "obs.metrics", "obs.export",
         "obs.slo", "obs.http", "distributed.store",
         "distributed.checkpoint", "distributed.checkpoint.api")} <= mods
+    # the export-and-predict path's modules among them
+    assert {f"paddle_tpu_torch.{m}" for m in (
+        "jit", "jit.save_load", "jit.aot", "inference.batching",
+        "ops._library", "_graphs")} <= mods
 
 
 def _no_gpu():
@@ -147,3 +151,29 @@ def test_parallelize_trains_where_the_model_lives():
     assert {n: p.data_ptr() for n, p in m.named_parameters()} == before
     assert eng.stats["device_puts"] == 0
     assert flash_attention_fwd.launches == launches
+
+
+def test_predictor_raises_without_gpu_and_runs_where_asked(tmp_path):
+    """`jit.load` and `inference.Config` resolve to the GPU and raise
+    without one; `device="cpu"` / `Config.disable_gpu()` run the exported
+    program on the CPU (the kernel operators' plain versions: no launch)."""
+    import numpy as np
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.ops import flash_attention_fwd
+
+    m = torch.nn.Linear(4, 2)
+    path = str(tmp_path / "m")
+    jit.save(m, path, input_spec=[np.zeros((1, 4), np.float32)])
+    cfg = Config(path)
+    cfg.disable_gpu()
+    launches = flash_attention_fwd.launches
+    out, = create_predictor(cfg).run([np.ones((1, 4), np.float32)])
+    assert out.shape == (1, 2) and flash_attention_fwd.launches == launches
+    assert jit.load(path, device="cpu").device.type == "cpu"
+    _no_gpu()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        jit.load(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_predictor(Config(path))

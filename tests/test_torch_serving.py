@@ -498,27 +498,28 @@ def test_rebase_reclones_every_slot():
 # ---------------------------------------------------------------------------
 
 def test_unported_names_raise_naming_their_slice():
+    """The subprocess replica is not ported yet and raises naming its
+    slice. The Predictor / jit names are ported: misused, they raise as
+    the reference's do (warmup() without batching, batching over a member
+    with no exported layer, a pool with nothing to serve)."""
     from paddle_tpu_torch.inference.replica import serve_replica
 
-    for name in ("Config", "Predictor", "PredictorPool", "BatchConfig",
-                 "DynamicBatcher"):
-        with pytest.raises(NotImplementedError, match="Predictor / jit"):
-            getattr(tinf, name)()
-    with pytest.raises(NotImplementedError, match="Predictor / jit"):
-        tinf.create_predictor(None)
-    with pytest.raises(NotImplementedError, match="Predictor / jit"):
-        tinf.ServingPool(config=object())
-    with pytest.raises(NotImplementedError, match="batching"):
-        tinf.ServingPool(predictor=Stub(), batching=True)
     with pytest.raises(NotImplementedError, match="subprocess-replica"):
         tinf.SubprocessReplica("r0")
     with pytest.raises(NotImplementedError, match="subprocess-replica"):
         serve_replica()
-    with _pool(tinf) as pool, \
-            pytest.raises(NotImplementedError, match="Predictor / jit"):
-        pool.warmup()
-    with pytest.raises(ValueError, match="predictor="):
-        tinf.ServingPool()
+    # (the reference's pool raises AttributeError there: Stub has no _layer)
+    with pytest.raises(TypeError, match="batched_call"):
+        tinf.ServingPool(predictor=Stub(), batching=True)
+    for inf in (jinf, tinf):
+        with _pool(inf) as pool, \
+                pytest.raises(RuntimeError, match="batching"):
+            pool.warmup()
+        with pytest.raises(ValueError, match="predictor="):
+            inf.ServingPool()
+    for name in ("Config", "Predictor", "PredictorPool", "BatchConfig",
+                 "DynamicBatcher", "create_predictor"):
+        assert name in tinf.__all__ and callable(getattr(tinf, name))
 
 
 def test_generation_only_pool_serves_the_engine_and_drains_it():
