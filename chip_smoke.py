@@ -10,6 +10,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --lora-only      # phases 1, 2's BGMV checks, 10
     python3 chip_smoke.py --serve-only     # phases 1 and 11
     python3 chip_smoke.py --predictor-only # phases 1 and 12
+    python3 chip_smoke.py --replicas-only  # phases 1 and 13
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -191,8 +192,9 @@ Phases (any failure exits non-zero and prints no result line):
    (b)'s up to the first near-tie, its first-token logits close to (b)'s,
    every BGMV, paged and GEMV launch on its body, replays equal steps,
    the block pool conserved;
-11. the serving tier, in a child process: llama2_7b at full size (bf16,
-   random weights seeded by the generation) behind a `ServingRouter` of
+11. the serving tier, in a child process: llama2_7b at full width and 8
+   of its 32 layers (`SERVE_LAYERS`; bf16, random weights seeded by the
+   generation) behind a `ServingRouter` of
    two `LocalReplica`s on the one card, each a generation-only
    `ServingPool` over a `DecodeEngine` (buckets 1-8 on CUDA graphs, a
    step deadline, a fault hook that is a no-op until a run arms it; one
@@ -241,7 +243,39 @@ Phases (any failure exits non-zero and prints no result line):
    are set to 0 before each run and read after, every flash forward on
    its Hopper body and every int8 encoder Linear on the wgmma GEMM; peak
    memory; the phase's seconds;
-13. the kernels' JSON line, the nvidia-smi line, then the last line
+13. process replicas over the port's coordination store (a child process
+   hosting `TCPStore`, each replica a fresh interpreter running
+   `serve_replica` on this card, behind `ServingRouter(heartbeats=store)`)
+   and request tracing: (a) int8 bert_base at full width and depth,
+   generation 1 from `--seed` and 2 from `--seed + 1`, each exported and
+   committed, served by two replica processes (pools of 2): 512 requests
+   at concurrency 8 and 32, every reply bit-equal to this process's
+   `Predictor.run` of the same artifact, requests/s and latency p50 / p95
+   beside the in-process p50 (the difference: the store transport's cost
+   a request); replica 0 SIGKILLed under traffic, every request served,
+   its respawn (process start, CUDA init, `jit.load`, the probe's
+   warm-up) timed; `swap_weights` to generation 2, every reply stamped 2
+   and bit-equal to generation 2's run; requests/s with tracing off, on,
+   on, off; (b) two replica processes each carrying phase 3 run (b)'s
+   llama2_7b engine (int8 weights, int8 KV; the factory is this script's
+   `replica_llama_factory`), 8 prompts of 16-700 tokens and 128 new
+   tokens each, held to a direct engine here from the same seed: tokens/s
+   and TTFT beside phase 11 (a)'s; the busiest replica SIGSTOPped once
+   every stream holds 32 tokens (the watchdog declares it dead, the router
+   SIGKILLs it): every stream 128 tokens, bit for bit up to its takeover
+   and to a direct resume after it, the seconds to dead and to the first
+   resumed token; a cancelled stream's blocks free in its replica's
+   engine; (c) one traced request of (a) and one traced stream of (b):
+   `/traces/<id>` of the router's `MetricsServer` holds this process's
+   spans and the replica process's (printed as a tree with each span's
+   ms), and one OpenMetrics scrape's exemplar resolves to a trace. Each
+   replica process writes its kernel launches by route
+   (`ops.counted_wrappers()`) to a file: every flash forward on its Hopper
+   body and every int8 encoder Linear on the wgmma GEMM in (a), paged
+   decode on the ring body and the weight-only matmul and GEMV on their
+   tensor-core bodies in (b). Peak memory of every process; the phase's
+   seconds;
+14. the kernels' JSON line, the nvidia-smi line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every float32 product in
@@ -5406,6 +5440,10 @@ def lora_phase(torch, np, args):
 # ---------------------------------------------------------------------------
 
 SERVE_NEW = 128
+# llama2_7b's depth in phase 11, cut from 32 so the script keeps inside its
+# time limit with phase 13, whose run (b) serves the same model at full
+# depth through replica processes (widths are never cut)
+SERVE_LAYERS = 8
 # 16 greedy requests: twelve prompts of 16-700 tokens and four that share
 # a 512-token system prompt (prefix affinity and the prefix cache)
 SERVE_LENS = (16, 100, 230, 400, 700, 50, 310, 560, 32, 180, 460, 620)
@@ -5745,8 +5783,8 @@ def _tier_checks(label, router, reps, engines, server):
 
 
 def serve_tier(torch, np, layers, seed):
-    """Phase 11 (a child process): llama2_7b at full size (bf16, random
-    weights seeded by the generation) served by a `ServingRouter` over two
+    """Phase 11 (a child process): llama2_7b at full width, `layers` deep
+    (bf16, random weights seeded by the generation) served by a `ServingRouter` over two
     `LocalReplica`s on cuda:0, each a generation-only `ServingPool` whose
     `DecodeEngine` (buckets 1-8, CUDA graphs, `step_timeout`, a fault hook
     that is a no-op until armed) shares one model per generation. Runs
@@ -6201,8 +6239,8 @@ def serve_phase(args):
 
     gc.collect()
     torch.cuda.empty_cache()
-    res = run_child("--serve-tier", 2 if args.quick else 32, args.seed,
-                    args.report)
+    res = run_child("--serve-tier", 2 if args.quick else SERVE_LAYERS,
+                    args.seed, args.report)
     log(f"  tier {json.dumps(res)}")
     log(f"  phase 11: {res['seconds_without_model_builds']:.1f} s without "
         f"the model builds ({res['model_build_s']:.1f} s); peak "
@@ -6713,6 +6751,720 @@ def predictor_phase(torch, np, args):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: process replicas over the coordination store, request tracing
+# ---------------------------------------------------------------------------
+
+REPLICA_ENV = "CHIP_SMOKE_REPLICA"  # the replica processes' factories read it
+REPLICA_COUNTS_S = 0.05             # a replica process writes its counts
+REPLICA_POOL = 2                    # (a): each replica process's pool size
+REPLICA_CONCURRENCY = (8, 32)
+REPLICA_KILL_AFTER = 64             # (a): requests done before the kill
+REPLICA_SWAP_CHECK = 64             # (a): requests held to generation 2
+REPLICA_NEW = 128                   # (b): new tokens a stream
+REPLICA_WEDGE_AT = 32               # (b): committed tokens before the wedge
+REPLICA_TTL = 1.0                   # the routers' heartbeat ttl (s)
+REPLICA_START = 300.0               # a replica process's start timeout (s)
+_counts_writer = []
+
+
+def _replica_counts(engine=None, **extra):
+    """In a replica process: a daemon thread that writes this process's
+    kernel launches by wrapper and route (`ops.counted_wrappers()`), its
+    peak device memory and, with `engine`, the engine's live sequences
+    and blocks to ``<counts_dir>/<pid>.json`` every REPLICA_COUNTS_S."""
+    import torch
+
+    from paddle_tpu_torch import ops
+
+    if _counts_writer:
+        return
+    cfg = json.loads(os.environ[REPLICA_ENV])
+    path = os.path.join(cfg["counts_dir"], f"{os.getpid()}.json")
+    wrappers = ops.counted_wrappers()
+
+    def write():
+        rec = {"pid": os.getpid(), "role": cfg["role"], "t": time.time(),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "counts": {w.__name__: {
+                   "launches": w.launches,
+                   "routes": {str(r): n for r, n in
+                              (getattr(w, "routes", None) or {}).items()}}
+                   for w in wrappers}, **extra}
+        if engine is not None:
+            st = engine.stats()
+            rec["engine"] = {"active": st["active"],
+                             "waiting": st["waiting"],
+                             "prefilling": st["prefilling"],
+                             "allocated": st["blocks"]["allocated"],
+                             "prefix_blocks":
+                                 st["prefix_cache"]["physical_blocks"]}
+        with open(path + ".tmp", "w") as f:
+            json.dump(rec, f)
+        os.replace(path + ".tmp", path)
+
+    def loop():
+        while True:
+            write()
+            time.sleep(REPLICA_COUNTS_S)
+
+    write()
+    _counts_writer.append(threading.Thread(target=loop, daemon=True,
+                                           name="chip-smoke-counts"))
+    _counts_writer[0].start()
+
+
+def replica_counts_factory(generation):
+    """Phase 13 (a)'s decode factory (``chip_smoke:replica_counts_factory``,
+    called in each replica process): no engine; starts the counts writer,
+    which records when the process got here (its imports done)."""
+    _replica_counts(factory_at=time.time())
+    return None
+
+
+def _replica_engine(model):
+    """Phase 3 run (b)'s engine over `model` (int8 weights, int8 KV,
+    buckets 1-8, 256-token prefill chunks), its step programs built."""
+    from paddle_tpu_torch.inference import DecodeEngine
+
+    eng = DecodeEngine(model, max_length=1024, block_size=16,
+                       decode_buckets=(1, 2, 4, 8), prefill_chunk=256,
+                       quant="int8", default_timeout=600.0,
+                       device=model.device)
+    eng.warmup()
+    return eng
+
+
+def _replica_llama(torch, layers, seed):
+    """llama2_7b (random bf16 weights from `seed`) quantized to int8."""
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.nn.quant import quantize_for_inference
+
+    model = gpt("llama2_7b", dtype="bfloat16", device="cuda", seed=seed,
+                num_layers=layers)
+    model.eval()
+    quantize_for_inference(model, "int8")
+    torch.cuda.empty_cache()
+    return model
+
+
+def replica_llama_factory(generation):
+    """Phase 13 (b)'s decode factory (``chip_smoke:replica_llama_factory``,
+    called in each replica process as ``factory(generation)``): run (b)'s
+    llama2_7b engine (weights from ``seed + generation``), then the counts
+    writer with the build's seconds."""
+    import torch
+
+    cfg = json.loads(os.environ[REPLICA_ENV])
+    t0 = time.perf_counter()
+    eng = _replica_engine(_replica_llama(torch, cfg["layers"],
+                                         cfg["seed"] + int(generation)))
+    _replica_counts(eng, build_s=time.perf_counter() - t0)
+    return eng
+
+
+def _p13_wait(fn, timeout, what):
+    give_up = time.perf_counter() + timeout
+    while not fn():
+        if time.perf_counter() > give_up:
+            raise AssertionError(f"phase 13: timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def _replica_records(counts_dir, role):
+    """The latest counts record of every replica process of `role`."""
+    out = []
+    for name in sorted(os.listdir(counts_dir)):
+        if name.endswith(".json"):
+            with open(os.path.join(counts_dir, name)) as f:
+                rec = json.load(f)
+            if rec["role"] == role:
+                out.append(rec)
+    return out
+
+
+def _replica_launches(recs, names):
+    """Launches by wrapper and route summed over replica processes."""
+    out = {}
+    for n in names:
+        routes = {}
+        for rec in recs:
+            for r, c in rec["counts"][n]["routes"].items():
+                routes[int(r)] = routes.get(int(r), 0) + c
+        out[n] = {"launches": sum(rec["counts"][n]["launches"]
+                                  for rec in recs),
+                  "routes": {r: c for r, c in routes.items() if c}}
+    return out
+
+
+def _span_tree(spans):
+    """Indented lines of a trace's spans: name, the recording pid, ms."""
+    kids = {}
+    ids = {s.span_id for s in spans}
+    for s in spans:
+        kids.setdefault(s.parent_id if s.parent_id in ids else None,
+                        []).append(s)
+    lines = []
+
+    def walk(parent, depth):
+        for s in sorted(kids.get(parent, []), key=lambda s: s.t0):
+            lines.append(f"{'  ' * depth}{s.name} [pid {s.pid}] "
+                         f"{(s.t1 - s.t0) * 1e3:.3f} ms"
+                         + ("" if s.status == "ok" else f" {s.status}"))
+            walk(s.span_id, depth + 1)
+
+    walk(None, 0)
+    return lines
+
+
+def _replica_trace(server, trace_id, child_names):
+    """`/traces/<id>` of the router's MetricsServer: the merged record
+    must hold this process's spans and a replica process's, among them
+    `child_names`; returns (its tree lines, the pids)."""
+    import urllib.request
+
+    from paddle_tpu_torch.obs.flight import Span
+
+    with urllib.request.urlopen(f"{server.url}/traces/{trace_id}",
+                                timeout=30) as r:
+        spans = [Span.from_dict(d) for d in json.loads(r.read())["spans"]]
+    pids = sorted({s.pid for s in spans})
+    child = {s.name for s in spans if s.pid != os.getpid()}
+    if os.getpid() not in pids or len(pids) < 2 \
+            or not set(child_names) <= child:
+        raise AssertionError(f"phase 13: trace {trace_id} holds pids "
+                             f"{pids}, the replica's spans {sorted(child)}")
+    return _span_tree(spans), pids
+
+
+def _replica_drive(router, feeds, want, gen, c):
+    """`len(want)` requests through the router from `c` threads: (the
+    requests/s, latency p50 / p95 ms, the responses not bit-equal to the
+    in-process run or not stamped `gen`)."""
+    import concurrent.futures
+
+    def one(i):
+        t0 = time.perf_counter()
+        outs, g = router.infer_stamped(feeds[i], timeout=60.0)
+        dt = (time.perf_counter() - t0) * 1e3
+        return dt, g == gen and outs[0].shape == want[i].shape \
+            and bool((outs[0] == want[i]).all())
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=c) as ex:
+        t0 = time.perf_counter()
+        futs = [ex.submit(one, i) for i in range(len(want))]
+        try:
+            done = [f.result() for f in futs]
+        except BaseException:
+            # the first failure ends the run: the queued requests are
+            # dropped, not each sent to wait out its own deadline
+            for f in futs:
+                f.cancel()
+            raise
+        wall = time.perf_counter() - t0
+    lat = sorted(d for d, _ in done)
+    return {"requests": len(want), "rps": len(want) / wall,
+            "p50_ms": lat[len(lat) // 2],
+            "p95_ms": lat[min(len(lat) - 1, int(0.95 * len(lat)))],
+            "mismatches": sum(not ok for _, ok in done)}
+
+
+def _replica_spawner(store, made, **kw):
+    """A replica factory over `store` (every replica it spawns recorded in
+    `made`) and a function spawning the first `n` at once."""
+    import concurrent.futures
+
+    from paddle_tpu_torch.inference import SubprocessReplica
+
+    def spawn(rid, d, gen):
+        rep = SubprocessReplica(rid, store, d, gen, artifact_name="model",
+                                start_timeout=REPLICA_START, **kw)
+        made.setdefault(rid, []).append(rep)
+        return rep
+
+    first = {}
+
+    def factory(rid, d, gen):
+        rep = first.pop(rid, None)
+        return rep if rep is not None else spawn(rid, d, gen)
+
+    def prespawn(n, d, gen):
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(n) as ex:
+            reps = list(ex.map(lambda i: spawn(f"replica-{i}", d, gen),
+                               range(n)))
+        first.update((r.rid, r) for r in reps)
+        return time.perf_counter() - t0
+
+    return factory, prespawn
+
+
+def _replica_run_a(torch, np, store, work, counts_dir, layers, seed):
+    """(a) Exported int8 bert_base (generation 1 from `seed`, 2 from
+    `seed + 1`, each committed) behind a router over two replica
+    processes (`pool_size` 2 each): 512 requests at concurrency 8 and 32,
+    every reply bit-equal to this process's `Predictor.run` of the same
+    artifact; replica 0 SIGKILLed under traffic (every request served) and
+    its respawn timed; `swap_weights` to generation 2; requests/s with
+    tracing off, on, on, off; one traced request's merged trace."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.inference import (Config, Predictor, RetryPolicy,
+                                            RouterConfig, ServingRouter,
+                                            commit_model_dir)
+    from paddle_tpu_torch.models import bert_for_sequence_classification
+    from paddle_tpu_torch.nn.quant import quantize_for_inference
+    from paddle_tpu_torch.obs import trace
+
+    res = {"layers": layers, "requests": PRED_REQUESTS,
+           "pool_size": REPLICA_POOL}
+    spec = [((1, PRED_SEQ), torch.int64)] * 2
+    dirs, want, export_s = {}, {}, []
+
+    def export(gen):
+        t0 = time.perf_counter()
+        model = bert_for_sequence_classification(
+            "bert_base", device="cuda", seed=seed + gen - 1,
+            num_hidden_layers=layers).to(torch.bfloat16).eval()
+        quantize_for_inference(model, weight_dtype="int8")
+        dirs[gen] = os.path.join(work, f"bert_g{gen}")
+        os.makedirs(dirs[gen])
+        jit.save(model, os.path.join(dirs[gen], "model"), input_spec=spec)
+        commit_model_dir(dirs[gen], gen)
+        export_s.append(time.perf_counter() - t0)
+        return model.cfg.vocab_size
+
+    def references(gen, timed):
+        pred = Predictor(Config(os.path.join(dirs[gen], "model")))
+        pred.run(feeds[0])
+        ms, want[gen] = [], []
+        for f in feeds:
+            t0 = time.perf_counter()
+            want[gen].append(pred.run(f)[0])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        ms.sort()
+        if timed:
+            res[f"in_process_g{gen}"] = {"p50_ms": ms[len(ms) // 2],
+                                         "p95_ms": ms[int(0.95 * len(ms))]}
+
+    feeds = _pred_feeds(np, export(1), PRED_REQUESTS, seed)
+    export(2)
+    references(1, True)
+    references(2, False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ[REPLICA_ENV] = json.dumps({"role": "bert",
+                                          "counts_dir": counts_dir})
+    made = {}
+    factory, prespawn = _replica_spawner(
+        store, made, pool_size=REPLICA_POOL,
+        decode_factory="chip_smoke:replica_counts_factory")
+    cfg = RouterConfig(
+        heartbeat_ttl=REPLICA_TTL, supervise_interval=SERVE_SWEEP,
+        start_grace=REPLICA_START, attempt_timeout=30.0,
+        no_capacity_wait=120.0, probe_timeout=120.0, probe_feeds=feeds[0],
+        restart_backoff=RetryPolicy(base_delay=0.1, max_delay=0.5),
+        failover=RetryPolicy(max_retries=4, base_delay=0.005,
+                             max_delay=0.05, max_elapsed=120.0))
+    res["export_s"] = export_s
+    router = None
+    try:
+        res["spawn_s"] = prespawn(2, dirs[1], 1)
+        router = ServingRouter(factory, size=2, model_dir=dirs[1],
+                               generation=1, config=cfg, heartbeats=store,
+                               name="replicas_a")
+        t0 = time.perf_counter()
+        router.warmup(feeds=feeds[0], timeout=120.0)
+        res["warmup_s"] = time.perf_counter() - t0
+        for c in REPLICA_CONCURRENCY:
+            res[f"at_{c}"] = row = _replica_drive(router, feeds, want[1], 1,
+                                                  c)
+            row["transport_p50_ms"] = row["p50_ms"] \
+                - res["in_process_g1"]["p50_ms"]
+            log(f"  (a) @{c}: {json.dumps(row)}")
+        # SIGKILL replica 0 under traffic: every request is served
+        box = {}
+        victim = router._records[0].replica
+
+        def killer():
+            _p13_wait(lambda: router.stats()["completed"]
+                      >= box["start"] + REPLICA_KILL_AFTER, 120,
+                      "(a)'s traffic before the kill")
+            box["pid"] = victim.pid
+            box["t"], box["wall"] = time.perf_counter(), time.time()
+            victim.kill()
+
+        box["start"] = router.stats()["completed"]
+        th = threading.Thread(target=killer)
+        th.start()
+        kill = _replica_drive(router, feeds, want[1], 1, 8)
+        th.join(timeout=120)
+        _p13_wait(lambda: router.stats()["deaths"] >= 1
+                  and router.stats()["ready"] == 2, 300,
+                  "(a)'s respawn")
+        kill["respawn_s"] = time.perf_counter() - box["t"]
+        kill["new_pid"] = victim.pid != box["pid"]
+        # the respawn's parts: the kill to the new process (detection, the
+        # restart's backoff), its start to its factory (the interpreter,
+        # torch and the package imported), the factory to its first
+        # heartbeat (CUDA, `jit.load`), then the router's probe (the
+        # bucket-1 graph's capture)
+        with open(os.path.join(counts_dir, f"{victim.pid}.json")) as f:
+            factory_at = json.load(f)["factory_at"]
+        kill["respawn_parts_s"] = {
+            "kill_to_spawn": victim.spawned_at - box["wall"],
+            "imports": factory_at - victim.spawned_at,
+            "load_to_heartbeat": victim.spawned_at + victim.spawn_s
+            - factory_at,
+            "probe": kill["respawn_s"] - (victim.spawned_at
+                                          + victim.spawn_s - box["wall"])}
+        res["kill"] = kill
+        log(f"  (a) kill: {json.dumps(kill)}")
+        t0 = time.perf_counter()
+        gen = router.swap_weights(dirs[2], drain_timeout=120.0)
+        res["swap_s"] = time.perf_counter() - t0
+        res["swap"] = swap = _replica_drive(
+            router, feeds, want[2][:REPLICA_SWAP_CHECK], 2, 8)
+        log(f"  (a) swap to {gen} in {res['swap_s']:.2f} s: "
+            f"{json.dumps(swap)}")
+        res["tracing"] = []
+        for mode in ("off", "on", "on", "off"):
+            (trace.enable if mode == "on" else trace.disable)()
+            row = _replica_drive(router, feeds, want[2], 2, 32)
+            row["trace"] = mode
+            res["tracing"].append(row)
+        trace.enable()
+        log(f"  (a) tracing off/on/on/off @32: "
+            f"{[round(r['rps'], 1) for r in res['tracing']]} requests/s")
+        with trace.root_span("phase13.request") as root:
+            router.infer_stamped(feeds[1], timeout=60.0)
+        server = router.serve_metrics(port=0, host="127.0.0.1")
+        res["trace_tree"], res["trace_pids"] = _replica_trace(
+            server, root.trace_id_hex, ("replica.infer", "serving.execute"))
+        log("  (a) one traced request:\n    "
+            + "\n    ".join(res["trace_tree"]))
+        s = router.stats()
+        res["router"] = {k: s[k] for k in ("admitted", "completed", "failed",
+                                           "timed_out", "overloaded",
+                                           "cancelled", "failovers",
+                                           "deaths", "restarts", "swaps")}
+    finally:
+        if router is not None:
+            router.shutdown(drain_timeout=30.0)
+        for reps in made.values():
+            for rep in reps:
+                rep.kill()
+    recs = _replica_records(counts_dir, "bert")
+    res["launches"] = _replica_launches(recs, ("flash_attention_fwd",
+                                               "weight_only_matmul"))
+    res["replica_peak_memory_gb"] = [r["peak_memory_gb"] for r in recs]
+    fails = []
+    for name in ("at_8", "at_32", "kill", "swap"):
+        if res[name]["mismatches"]:
+            fails.append(f"{name}: {res[name]['mismatches']} replies differ")
+    if any(r["mismatches"] for r in res["tracing"]):
+        fails.append("a traced run's replies differ")
+    if not res["kill"]["new_pid"]:
+        fails.append("replica 0 was not respawned as a new process")
+    r = res["router"]
+    if r["admitted"] != r["completed"] or r["failovers"] < 1 \
+            or r["swaps"] != 1:
+        fails.append(f"router {r}")
+    fa = res["launches"]["flash_attention_fwd"]
+    wo = res["launches"]["weight_only_matmul"]
+    runs = wo["routes"].get(1, 0)     # the pooler's GEMV: one a request
+    if runs == 0 or fa["routes"] != {3: runs * layers} \
+            or wo["routes"] != {2: runs * layers * 4, 1: runs}:
+        fails.append(f"replica launches: flash {fa}, weight-only {wo}: "
+                     f"expected every flash forward on the Hopper body and "
+                     f"every encoder Linear on the wgmma GEMM")
+    if fails:
+        raise AssertionError("phase 13 (a): " + "; ".join(fails))
+    return res
+
+
+def _replica_run_b(torch, np, store, work, counts_dir, layers, seed):
+    """(b) Streams: two replica processes, each run (b)'s llama2_7b engine
+    (int8 weights, int8 KV) from ``seed + 1``, behind a router without
+    restarts; the references are a direct engine here from the same seed.
+    8 prompts of 16-700 tokens, 128 new each: tokens/s, TTFT, every stream
+    bit-equal; then the replica with most streams SIGSTOPped once every
+    stream holds 32 tokens (the watchdog declares it dead and the router
+    SIGKILLs it): every stream 128 tokens, held to the references up to
+    its takeover and to a direct resume after it (`_gate_streams`); then a
+    cancelled stream's sequence gone from its replica's engine. The
+    stream's merged trace, and one OpenMetrics exemplar resolved."""
+    import urllib.request
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.inference import (RequestFailed, RetryPolicy,
+                                            RouterConfig, ServingRouter,
+                                            commit_model_dir)
+
+    res = {"layers": layers, "new_tokens": REPLICA_NEW}
+
+    def resume(gen, jobs):
+        subs = [direct.submit(p, n, resume_committed=c) for p, c, n in jobs]
+        return [st.result() for st in subs]
+
+    def check(outs, streams):
+        return _gate_streams(torch, np, {1: model}, resume, prompts,
+                             {1: refs}, outs, streams)
+
+    # the replica processes' own artifact: a tiny program (the pool needs
+    # one; the streams run on the engine)
+    tiny = os.path.join(work, "tiny")
+    os.makedirs(tiny)
+    jit.save(torch.nn.Sequential(torch.nn.Linear(4, 2)).cuda().eval(),
+             os.path.join(tiny, "model"),
+             input_spec=[((1, 4), torch.float32)])
+    commit_model_dir(tiny, 1)
+    os.environ[REPLICA_ENV] = json.dumps({"role": "llama", "layers": layers,
+                                          "seed": seed,
+                                          "counts_dir": counts_dir})
+    made = {}
+    factory, prespawn = _replica_spawner(
+        store, made, decode_factory="chip_smoke:replica_llama_factory")
+    cfg = RouterConfig(
+        heartbeat_ttl=REPLICA_TTL, supervise_interval=SERVE_SWEEP,
+        start_grace=REPLICA_START, attempt_timeout=30.0,
+        no_capacity_wait=120.0, probe_timeout=120.0,
+        affinity_block_tokens=16,
+        # no restart inside the run: the survivor serves the resumes
+        restart_backoff=RetryPolicy(max_retries=0, base_delay=3600.0,
+                                    max_delay=3600.0),
+        failover=RetryPolicy(max_retries=3, base_delay=0.005,
+                             max_delay=0.05, max_elapsed=300.0))
+    router = direct = None
+    try:
+        # the direct engine first, then the replica processes: three
+        # processes building llama2_7b at once peak at 3 x 21.7 GB together
+        t0 = time.perf_counter()
+        model = _replica_llama(torch, layers, seed + 1)
+        direct = _replica_engine(model)
+        res["direct_build_s"] = time.perf_counter() - t0
+        prompts = _prompts(np, model.cfg.vocab_size, PROMPT_LENS)
+        refs = [st.result() for st in [direct.submit(p, REPLICA_NEW)
+                                       for p in prompts]]
+        res["spawn_s"] = prespawn(2, tiny, 1)
+        router = ServingRouter(factory, size=2, model_dir=tiny,
+                               generation=1, config=cfg, heartbeats=store,
+                               name="replicas_b")
+        server = router.serve_metrics(port=0, host="127.0.0.1")
+        # (b1) fault-free
+        t0 = time.perf_counter()
+        streams = [router.submit_generate(p, REPLICA_NEW, timeout=600.0)
+                   for p in prompts]
+        got, wall = _drain_streams(streams, t0)
+        outs = [g[0] for g in got]
+        ok, gate = check(outs, streams)
+        ttft = sorted(g[1] for g in got)
+        res["b1"] = b1 = {
+            "tokens_per_s": sum(map(len, outs)) / wall, "wall_s": wall,
+            "ttft_p50_s": ttft[len(ttft) // 2],
+            "ttft_p95_s": ttft[min(len(ttft) - 1, int(0.95 * len(ttft)))],
+            "sequences_bit_equal": gate["sequences_bit_equal"],
+            "replica_streams": {m["rid"]: m["dispatched"]
+                                for m in router.stats()["members"]}}
+        log(f"  (b) fault-free: {json.dumps(b1)}")
+        if not ok or gate["streams_resumed"] or any(
+                g[2] is not None for g in got):
+            raise AssertionError(f"phase 13 (b): streams differ from the "
+                                 f"direct engine: {gate}")
+        # one traced stream alone: the router keeps the replicas' spans in
+        # one ring of 512 (obs.flight), and 8 concurrent streams' records
+        # (≈ 135 spans each at 128 tokens) overwrite each other there
+        rs = router.submit_generate(prompts[1], REPLICA_NEW, timeout=600.0)
+        if rs.result(timeout=600.0) != refs[1]:
+            raise AssertionError("phase 13 (b): the traced stream differs "
+                                 "from the direct engine")
+        res["trace_tree"], res["trace_pids"] = _replica_trace(
+            server, rs.trace_id,
+            ("replica.generate", "decode.sequence", "decode.first_token"))
+        log("  (b) one traced stream:\n    "
+            + "\n    ".join(res["trace_tree"][:40]))
+        # (b2) SIGSTOP the busiest replica once every stream holds its
+        # tokens; the watchdog declares it dead and the router SIGKILLs it
+        t0 = time.perf_counter()
+        streams = [router.submit_generate(p, REPLICA_NEW, timeout=600.0)
+                   for p in prompts]
+        box = {}
+
+        def wedge():
+            _p13_wait(lambda: all(len(rs.tokens) >= REPLICA_WEDGE_AT
+                                  or rs.status for rs in streams), 300,
+                      "(b)'s streams to commit their tokens")
+            m = max(router.stats()["members"], key=lambda m: m["streams"])
+            box["victim"], box["streams"] = m["rid"], m["streams"]
+            rep = made[m["rid"]][-1]
+            deaths = router.stats()["deaths"]
+            box["t"] = time.perf_counter()
+            rep.wedge()
+            try:
+                _p13_wait(lambda: router.stats()["deaths"] > deaths, 60,
+                          "the watchdog to declare the wedged replica dead")
+                box["dead_s"] = time.perf_counter() - box["t"]
+            finally:
+                rep.kill()      # (the router's SIGKILL came first if dead)
+
+            def resumed():
+                return any(len(rs.served_by) > 1
+                           and len(rs.tokens) > rs.served_by[-1][1]
+                           for rs in streams)
+
+            _p13_wait(resumed, 120, "(b)'s first resumed token")
+            box["resumed_s"] = time.perf_counter() - box["t"]
+
+        th = threading.Thread(target=wedge)
+        th.start()
+        got, wall = _drain_streams(streams, t0)
+        th.join(timeout=600)
+        outs = [g[0] for g in got]
+        ok, gate = check(outs, streams)
+        res["b2"] = b2 = {
+            "victim": box.get("victim"),
+            "victim_streams": box.get("streams"),
+            "wedge_to_dead_s": box.get("dead_s"),
+            "wedge_to_first_resumed_token_s": box.get("resumed_s"),
+            "streams_failed_over": sum(1 for rs in streams if rs.failovers),
+            **gate, "wall_s": wall}
+        log(f"  (b) wedge then kill: {json.dumps(b2)}")
+        if not ok or b2["streams_failed_over"] == 0 \
+                or gate["resumed_tokens_checked"] < 1 or any(
+                    g[2] is not None or len(g[0]) != REPLICA_NEW
+                    for g in got):
+            raise AssertionError(f"phase 13 (b) wedge: {b2}; errors "
+                                 f"{[repr(g[2]) for g in got if g[2]]}")
+        # (b3) a cancelled stream leaves its replica's engine
+        rs = router.submit_generate(prompts[4], REPLICA_NEW, timeout=600.0)
+        next(iter(rs))
+        rid = rs.served_by[-1][0]
+        pid = made[rid][-1].pid
+        path = os.path.join(counts_dir, f"{pid}.json")
+
+        def engine_idle():
+            with open(path) as f:
+                e = json.load(f)["engine"]
+            return not (e["active"] or e["waiting"] or e["prefilling"]) \
+                and e["allocated"] == e["prefix_blocks"]
+
+        t0 = time.perf_counter()
+        rs.cancel()
+        _p13_wait(engine_idle, 30, "the cancelled stream's blocks")
+        res["cancel_to_blocks_free_s"] = time.perf_counter() - t0
+        try:
+            rs.result(timeout=30.0)
+            raise AssertionError("phase 13 (b): a cancelled stream "
+                                 "completed")
+        except RequestFailed:
+            pass
+        # one OpenMetrics scrape: an exemplar that resolves to a trace
+        req = urllib.request.Request(
+            server.url + "/metrics",
+            headers={"Accept": "application/openmetrics-text"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            text = r.read().decode()
+        ex = [ln.split('trace_id="')[1].split('"')[0]
+              for ln in text.splitlines() if "# {trace_id=" in ln]
+        if not ex:
+            raise AssertionError("phase 13: no exemplar in the OpenMetrics "
+                                 "scrape")
+        with urllib.request.urlopen(f"{server.url}/traces/{ex[-1]}",
+                                    timeout=30) as r:
+            res["exemplar"] = {"trace_id": ex[-1], "exemplars": len(ex),
+                               "spans": len(json.loads(r.read())["spans"])}
+        log(f"  (b) cancel -> blocks free "
+            f"{res['cancel_to_blocks_free_s']:.3f} s; exemplar "
+            f"{json.dumps(res['exemplar'])}")
+        st = router.stats()["streams"]
+        res["streams"] = st
+        if st["admitted"] != st["completed"] + st["failed"] \
+                + st["timed_out"] + st["cancelled"] + st["in_flight"]:
+            raise AssertionError(f"phase 13 (b): streams law {st}")
+    finally:
+        if router is not None:
+            router.shutdown(drain_timeout=30.0)
+        for reps in made.values():
+            for rep in reps:
+                rep.kill()
+        if direct is not None:
+            direct.shutdown()
+    recs = _replica_records(counts_dir, "llama")
+    res["launches"] = _replica_launches(
+        recs, ("paged_decode_attention", "weight_only_matmul", "row_gemv"))
+    res["replica_build_s"] = [r.get("build_s") for r in recs]
+    res["replica_peak_memory_gb"] = [r["peak_memory_gb"] for r in recs]
+    pd = res["launches"]["paged_decode_attention"]
+    wo = res["launches"]["weight_only_matmul"]
+    gv = res["launches"]["row_gemv"]
+    if not pd["launches"] or set(pd["routes"]) != {1} \
+            or set(wo["routes"]) != {1, 2} \
+            or set(gv["routes"]) - {1}:
+        raise AssertionError(
+            f"phase 13 (b): replica launches {res['launches']}: expected "
+            f"paged decode on the ring body, the weight-only matmul on the "
+            f"decode GEMV and the wgmma GEMM, the GEMV on its tensor-core "
+            f"body")
+    return res
+
+
+def replica_tier(torch, np, layers, seed):
+    """Phase 13 (a child process): (a) and (b) over the port's TCPStore,
+    each with its own router and replica processes on this card."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.distributed.store import create_master_store
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    work = tempfile.mkdtemp(prefix="phase13-")
+    counts_dir = os.path.join(work, "counts")
+    os.makedirs(counts_dir)
+    # the replica processes import this script for their factories
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    store = create_master_store()
+    res = {}
+    try:
+        t0 = time.perf_counter()
+        res["a"] = _replica_run_a(torch, np, store, work, counts_dir,
+                                  12 if layers > 2 else 2, seed)
+        res["a"]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res["b"] = _replica_run_b(torch, np, store, work, counts_dir,
+                                  layers, seed)
+        res["b"]["seconds"] = time.perf_counter() - t0
+    finally:
+        store.close()
+        shutil.rmtree(work, ignore_errors=True)
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["seconds"] = time.perf_counter() - t_phase
+    res["device"] = nvidia_smi_line()
+    return res
+
+
+def replicas_phase(args):
+    """Phase 13 in a child process of its own; returns its result."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = run_child("--replica-tier", 2 if args.quick else 32, args.seed,
+                    args.report)
+    for run in ("a", "b"):
+        log(f"  phase 13 ({run}) trace:\n    "
+            + "\n    ".join(res[run].pop("trace_tree")[:40]))
+    log(f"  phase 13 {json.dumps(res)}")
+    log(f"  phase 13: {res['seconds']:.1f} s; peak "
+        f"{res['peak_memory_gb']:.2f} GB here, the replica processes "
+        f"{res['a']['replica_peak_memory_gb']} (a), "
+        f"{res['b']['replica_peak_memory_gb']} (b)")
+    return res
+
+
 def main(argv):
     import argparse
 
@@ -6754,6 +7506,10 @@ def main(argv):
     ap.add_argument("--predictor-only", action="store_true",
                     help="the build and phase 12 (deploy and serve an "
                          "exported bert_base) only")
+    ap.add_argument("--replicas-only", action="store_true",
+                    help="the build and phase 13 (process replicas over "
+                         "the coordination store, request tracing) only")
+    ap.add_argument("--replica-tier", metavar="OUT", help=argparse.SUPPRESS)
     ap.add_argument("--bucket-designs", action="store_true",
                     help="phase 12 also builds and times the bucket "
                          "programs' other body (jit.aot.bucket_design)")
@@ -6816,6 +7572,11 @@ def main(argv):
         with open(args.serve_tier, "w") as f:
             json.dump(res, f)
         return 0
+    if args.replica_tier:
+        res = replica_tier(torch, np, args.layers, args.seed)
+        with open(args.replica_tier, "w") as f:
+            json.dump(res, f)
+        return 0
     t_start = time.perf_counter()
     # a hang prints every thread's stack and exits non-zero before the
     # run's time limit
@@ -6851,6 +7612,11 @@ def main(argv):
                            "bert_base")
         return finish(args, torch, smi, build_rec, t_start, [],
                       {"predictor": predictor_phase(torch, np, args)})
+    if args.replicas_only:
+        log_phase(t_start, "phase 13: process replicas over the "
+                           "coordination store, request tracing")
+        return finish(args, torch, smi, build_rec, t_start, [],
+                      {"replicas": replicas_phase(args)})
     if args.lora_only:
         log_phase(t_start, "phase 2: BGMV vs its plain version")
         bg_rows = check_bgmv(torch, iters)
@@ -6942,6 +7708,18 @@ def main(argv):
     log_phase(t_start, "phase 12: deploy and serve an exported bert_base")
     pred_run = predictor_phase(torch, np, args)
 
+    log_phase(t_start, "phase 13: process replicas over the coordination "
+                       "store, request tracing")
+    rep_run = replicas_phase(args)
+    b1, a11 = rep_run["b"]["b1"], serve_run["a"]
+    rep_run["b"]["b1"]["phase11_a"] = {
+        k: a11[k] for k in ("tokens_per_s", "ttft_p50_s", "ttft_p95_s")}
+    log(f"  phase 13 (b) {b1['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{b1['ttft_p50_s']:.3f} s, p95 {b1['ttft_p95_s']:.3f} s; phase 11 "
+        f"(a) {a11['tokens_per_s']:.1f}, {a11['ttft_p50_s']:.3f}, "
+        f"{a11['ttft_p95_s']:.3f}")
+    rep_a, rep_b = rep_run["a"]["launches"], rep_run["b"]["launches"]
+
     launches = {k: sum(r["launches"].get(k, 0) for r in runs)
                 for k in runs[0]["launches"]}
     tenant_run = next(r for r in runs if "lora_delta" in r["launches"])
@@ -6971,7 +7749,11 @@ def main(argv):
              lora_launches=lora_run["inference"]["int8_launches"],
              lora_routes=lora_run["inference"]["int8_routes"],
              predictor_launches=pred_run["int8"]["batched"]["launches"][
-                 "weight_only_matmul"]),
+                 "weight_only_matmul"],
+             # phase 13's replica processes, by route code: (a) exported
+             # int8 bert_base, (b) llama2_7b int8 streams
+             replica_launches={"a": rep_a["weight_only_matmul"],
+                               "b": rep_b["weight_only_matmul"]}),
         dict(name="paged_decode_attention", route="cuda",
              source="paddle_tpu_torch/csrc/paged_decode_attn.cu",
              replaces="paddle_tpu/ops/pallas/decode_attn.py:133",
@@ -6989,7 +7771,8 @@ def main(argv):
                  "paged_decode_attention"],
              lora_routes=lora_run["serve"]["routes"]["paged"],
              serve_launches=serve_run["launches"]["paged_decode_attention"],
-             serve_routes=serve_run["routes"]["paged"]),
+             serve_routes=serve_run["routes"]["paged"],
+             replica_launches=rep_b["paged_decode_attention"]),
     ]
     bg_main = bg_rows[0]
     kernels.append(dict(
@@ -7038,7 +7821,8 @@ def main(argv):
             lora_routes=lora_run["finetune"]["routes"][part],
             **({"predictor_launches": {
                 m: r["launches"]["flash_attention_fwd"]
-                for m, r in pred_run["serve"].items()}}
+                for m, r in pred_run["serve"].items()},
+                "replica_launches": rep_a["flash_attention_fwd"]}
                if part == "fwd" else pair)))
     sa_main = sa_rows[0]
     for name, line, part in (("short_attention_fwd", 73, "fwd"),
@@ -7071,7 +7855,8 @@ def main(argv):
     kernels[-1].update(lora_launches=lora_run["serve"]["launches"][
         "row_gemv"], lora_routes=lora_run["serve"]["routes"]["gemv"],
         serve_launches=serve_run["launches"]["row_gemv"],
-        serve_routes=serve_run["routes"]["gemv"])
+        serve_routes=serve_run["routes"]["gemv"],
+        replica_launches=rep_b["row_gemv"])
     kernels.extend(slice7_kernel_rows(bs_rows, dec_rows, pair_rows,
                                       sparse_run, table_cost))
     return finish(args, torch, smi, build_rec, t_start, kernels, {
@@ -7085,7 +7870,7 @@ def main(argv):
         "decode_table_cost": table_cost,
         "fused_pair": pair_rows, "sparse": sparse_run,
         "recipes": recipes_run, "lora": lora_run, "serve": serve_run,
-        "predictor": pred_run})
+        "predictor": pred_run, "replicas": rep_run})
 
 
 def main_route_rows(wo_rows, fa_rows):

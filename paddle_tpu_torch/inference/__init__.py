@@ -5,11 +5,10 @@ the deployment predictor over a `jit.save` artifact (`Config`,
 `DynamicBatcher`), the paged continuous-batching decode engine with
 prefix sharing, per-request sampling and LoRA adapters; the resilient
 serving runtime (`ServingPool`); and the serving tier (`ServingRouter`
-over `LocalReplica`s, with failover, restarts, autoscale and weight
-hot-swap).
-
-Not ported yet: `SubprocessReplica` (the subprocess-replica slice) raises
-`NotImplementedError` when used.
+over `LocalReplica`s in this process or `SubprocessReplica`s, each its
+own process over the coordination store, with failover, restarts,
+autoscale and weight hot-swap). Requests are traced (`obs.trace`) across
+threads and processes.
 
 A `Config` resolves to the GPU (and raises when there is none) unless
 `disable_gpu()` asks for the CPU. The artifact's program launches the
@@ -33,7 +32,7 @@ __all__ = [
     "OutOfAdapterSlots", "AdapterNotLoaded", "SamplingParams",
     "ServingRouter", "RouterConfig", "RouterStream", "SwapFailed",
     "commit_model_dir", "LocalReplica", "SubprocessReplica",
-    "LocalHeartbeats", "ReplicaError", "ReplicaDead"]
+    "serve_replica", "LocalHeartbeats", "ReplicaError", "ReplicaDead"]
 
 
 class Config:
@@ -258,7 +257,8 @@ from .batching import BatchConfig, DynamicBatcher  # noqa: E402
 from .decode import (AdapterPool, BlockKVCache, DecodeEngine,  # noqa: E402
                      OutOfAdapterSlots, OutOfBlocks, SequenceStream)
 from .replica import (LocalHeartbeats, LocalReplica,  # noqa: E402
-                      ReplicaDead, ReplicaError, SubprocessReplica)
+                      ReplicaDead, ReplicaError, SubprocessReplica,
+                      serve_replica)
 from .router import (RouterConfig, RouterStream,  # noqa: E402
                      ServingRouter, SwapFailed, commit_model_dir)
 from .sampling import SamplingParams  # noqa: E402

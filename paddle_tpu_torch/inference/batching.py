@@ -16,9 +16,11 @@ paddle_tpu/inference/batching.py).
   to an unbatched `Predictor.run`.
 
 `ServingPool(..., batching=BatchConfig(...))` wires it into the worker
-loop (see serving.py). The reference's per-stage profiler spans and the
-batch trace (``serving.batch`` with its member links) come with the
-request-tracing slice (ROADMAP Queue 1 item 4).
+loop (see serving.py). A batch of traced requests is a trace of its own
+(obs.trace): its ``serving.batch`` root span links every member's trace
+id, each member's trace gets a ``serving.batch_member`` event pointing
+back, and the stages (``serving::batch_form``, ``_pad``, ``_dispatch``,
+``_scatter``) are spans under the batch span.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ import threading
 import time
 
 import numpy as np
+
+from ..obs import trace as _otrace
 
 __all__ = ["BatchConfig", "DynamicBatcher"]
 
@@ -158,20 +162,50 @@ class DynamicBatcher:
         n = len(requests)
         bucket = self.bucket_for(n)
         now = self._clock()
-        columns = list(zip(*(r.feeds for r in requests)))
-        pad = bucket - n
-        if pad:
-            columns = [col + (col[-1],) * pad for col in columns]
-        stacked = [np.stack(col) for col in columns]
+        # a batch serves N traces, so it is a trace of its own (a span has
+        # one parent): the batch span links every sampled member, each
+        # member gets a back-link event, and the stage spans nest under
+        # the batch span. The batch trace is sampled because its members
+        # are: a back-link to a trace that recorded nothing would dangle
+        members = ([r for r in requests
+                    if r.ctx is not None and r.ctx.sampled]
+                   if _otrace.enabled() else [])
+        bspan = _otrace.null_span() if not members else _otrace.root_span(
+            "serving.batch",
+            attrs={"bucket": bucket, "n": n,
+                   "links": [r.ctx.trace_id_hex for r in members]},
+            sampled=True)
+        try:
+            for r in members:
+                _otrace.event_in(
+                    "serving.batch_member", r.ctx,
+                    attrs={"request": r.id,
+                           "batch_trace": bspan.trace_id_hex,
+                           "batch_span": bspan.span_id_hex})
+            with _otrace.span("serving::batch_form"):
+                columns = list(zip(*(r.feeds for r in requests)))
+            with _otrace.span("serving::batch_pad"):
+                pad = bucket - n
+                if pad:
+                    columns = [col + (col[-1],) * pad for col in columns]
+                stacked = [np.stack(col) for col in columns]
 
-        fn = self.layer.batched_call(bucket)
-        t0 = time.perf_counter()
-        outs = fn(*stacked)
-        exec_ms = (time.perf_counter() - t0) * 1e3
-        if self.h_execute is not None:
-            self.h_execute.observe(exec_ms / 1e3)
-        # copies, not views: a view would pin the bucket-sized output
-        results = [[o[j].copy() for o in outs] for j in range(n)]
+            fn = self.layer.batched_call(bucket)
+            t0 = time.perf_counter()
+            with _otrace.span("serving::batch_dispatch"):
+                outs = fn(*stacked)
+            exec_ms = (time.perf_counter() - t0) * 1e3
+            if self.h_execute is not None:
+                self.h_execute.observe(exec_ms / 1e3)
+            with _otrace.span("serving::batch_scatter"):
+                # copies, not views: a view would pin the bucket-sized
+                # output
+                results = [[o[j].copy() for o in outs] for j in range(n)]
+        except BaseException as exc:
+            bspan.end(error=exc)
+            raise
+        else:
+            bspan.end()
 
         with self._lock:
             self._formed += 1
@@ -186,7 +220,7 @@ class DynamicBatcher:
                     self._queue_wait_ms += w
                     self._queue_wait_max_ms = max(self._queue_wait_max_ms, w)
                     if self.h_queue_wait is not None and r.attempts == 1:
-                        self.h_queue_wait.observe(w / 1e3)
+                        self.h_queue_wait.observe(w / 1e3, ctx=r.ctx)
         return results
 
     # -- bookkeeping hooks (pool-driven) -----------------------------------

@@ -151,6 +151,7 @@ import torch
 
 from ... import resolve_device
 from ...models.gpt import PagedBatch
+from ...obs import trace as _otrace
 from ..sampling import PACK_FIELDS, SamplingParams, sample_token
 from ..serving import (AdapterNotLoaded, Deadline, DeadlineExceeded,
                        Overloaded, PoolClosed, RequestFailed, RetryPolicy,
@@ -291,7 +292,7 @@ class _Seq:
                  "cancelled", "submitted_at", "keep_logits", "sampling",
                  "adapter", "adapter_slot", "adapter_sig", "sample_base",
                  "out_tokens", "held", "draft_blocks", "draft_pos",
-                 "draft_outstanding")
+                 "draft_outstanding", "span")
 
     def __init__(self, sid, prompt, max_new, deadline):
         self.id = sid
@@ -309,6 +310,7 @@ class _Seq:
         self.generated = 0
         self.cancelled = False
         self.submitted_at = None
+        self.span = _otrace.null_span()  # the sequence's root (obs.trace)
         self.keep_logits = 0
         self.sampling = None            # SamplingParams or None (greedy)
         self.adapter = None             # adapter name or None (base model)
@@ -669,6 +671,20 @@ class DecodeEngine:
                 seq.adapter_slot = slot
                 seq.adapter_sig = (slot, gen)
             seq.submitted_at = self._clock()
+            # the sequence's root span lives across scheduler rounds (on
+            # no thread's stack) and ends in _finish with its status; a
+            # child of the submitting caller's trace when one is active
+            if _otrace.enabled():
+                seq.span = _otrace.open_span(
+                    "decode.sequence",
+                    attrs={"engine": self.name, "seq": seq.id,
+                           "prompt_len": int(ids.shape[0]),
+                           "max_new": max_new,
+                           **({"resumed_from": committed}
+                              if committed else {}),
+                           **({"adapter": adapter} if adapter else {}),
+                           **({"sampled": True}
+                              if sampling is not None else {})})
             seq.stream._cancel = lambda s=seq: self._request_cancel(s)
             self._waiting.append(seq)
             self._admitted += 1
@@ -1141,7 +1157,12 @@ class DecodeEngine:
             with self._lock:
                 self._ttfts.append(seq.stream.ttft)
             if self._h_ttft is not None:
-                self._h_ttft.observe(seq.stream.ttft)
+                # the TTFT bucket's exemplar: this sequence's trace
+                self._h_ttft.observe(seq.stream.ttft, ctx=seq.span.ctx)
+            if seq.span.ctx is not None:
+                _otrace.event_in("decode.first_token", seq.span.ctx,
+                                 attrs={"seq": seq.id,
+                                        "ttft_s": seq.stream.ttft})
         sps = seq.sampling.stop_sequences if seq.sampling is not None else ()
         if not sps:
             self._push_tokens(seq, [tok])
@@ -1278,8 +1299,17 @@ class DecodeEngine:
                             # buffers and blocks this step would touch
                             self._abandoned_steps += 1
                             return None
-                    with self._worker_scope():
-                        return work()
+                    span, linked = self._step_span(tag, seqs, info)
+                    with self._worker_scope(), span:
+                        out = work()
+                    for seq in linked:
+                        _otrace.event_in(
+                            self._LINKED[tag][1], seq.span.ctx,
+                            attrs={"seq": seq.id, "pos": int(seq.pos),
+                                   **{k: v for k, v in info.items()
+                                      if k != "bucket"},
+                                   "step_trace": span.trace_id_hex})
+                    return out
 
             req = self._steps.submit(run, timeout=self.step_timeout)
             try:
@@ -1291,6 +1321,45 @@ class DecodeEngine:
         raise RequestFailed(
             f"{tag} step wedged {self._step_retries + 1} time(s) — giving "
             f"up", cause=last, attempts=self._step_retries + 1)
+
+    #: the shared steps' spans: (the step's root span, each member's event)
+    _LINKED = {"decode": ("decode.step", "decode.step_join"),
+               "speculate": ("decode.speculate", "decode.speculate"),
+               "verify": ("decode.verify", "decode.verify")}
+
+    def _step_span(self, tag, seqs, info):
+        """The span around one step's work on the step worker, and the
+        members to give a back-link event after it. A prefill chunk or a
+        draft catch-up is a child of its sequence's trace; a shared step
+        (decode, propose, verify) is a trace of its own, sampled because
+        its members are, whose span links every member's trace. Spans are
+        host-side only: they read no device tensor and synchronize
+        nothing, so the step's device work is the same with them."""
+        if not _otrace.enabled():
+            return _otrace.null_span(), ()
+        if tag in ("prefill", "draft_prefill"):
+            seq = seqs[0]
+            start, n = info["start"], info["tokens"]
+            attrs = {"seq": seq.id, "bucket": info["bucket"],
+                     "start": start, "tokens": n}
+            if tag == "draft_prefill":
+                name = "decode.draft_catchup"
+            else:
+                plen = len(seq.prompt)
+                name = "decode.prefill_chunk" \
+                    if n < plen - start or start > 0 else "decode.prefill"
+                attrs["prompt_len"] = plen
+            return _otrace.span_in(name, seq.span.ctx, attrs), ()
+        traced = [s for s in seqs
+                  if s.span.ctx is not None and s.span.ctx.sampled]
+        if tag not in self._LINKED or not traced:
+            return _otrace.null_span(), ()
+        span = _otrace.root_span(
+            self._LINKED[tag][0],
+            attrs={**info, "n": len(seqs),
+                   "links": [s.span.trace_id_hex for s in traced]},
+            sampled=True)
+        return span, traced
 
     @contextlib.contextmanager
     def _worker_scope(self):
@@ -1670,6 +1739,11 @@ class DecodeEngine:
             # them: the propose program wrote pos0 .. pos0 + K, each valid
             # when its token was committed
             seq.draft_pos = seq.pos
+            if seq.span.ctx is not None:
+                _otrace.event_in("decode.spec_commit", seq.span.ctx,
+                                 attrs={"seq": seq.id, "accepted": a,
+                                        "rejected": k - a,
+                                        "committed": delivered})
             with self._lock:
                 # agreements cut off by EOS or max_new are not rejections
                 self._spec_proposed += k
@@ -1717,6 +1791,12 @@ class DecodeEngine:
             self._timed_out += 1
         else:
             self._cancelled += 1
+        # the sequence's root span ends with its status; a typed failure
+        # pins the trace as a postmortem
+        if error is not None:
+            _otrace.pin_failure(seq.span.ctx, error)
+        seq.span.end(error=error if status != "completed" else None,
+                     status="ok" if status == "completed" else status)
         seq.stream._finish(status, error)
 
     def shutdown(self, drain_timeout=30.0):

@@ -47,6 +47,8 @@ from collections import OrderedDict
 
 import numpy as np
 
+from ..obs import flight as _oflight
+from ..obs import trace as _otrace
 from .replica import LocalHeartbeats, ReplicaDead, ReplicaError
 from .serving import (DETERMINISTIC_ERRORS, CircuitBreaker, Deadline,
                       DeadlineExceeded, Overloaded, PoolClosed,
@@ -59,6 +61,8 @@ __all__ = ["SwapFailed", "RouterConfig", "RouterStream", "ServingRouter",
 class SwapFailed(ServingError):
     """A weight hot-swap could not complete; the tier was rolled back to
     (or converges on) the previous committed generation."""
+
+    _trace_postmortem = True  # a failed deploy retains its roll's trace
 
 
 def commit_model_dir(path, generation):
@@ -175,7 +179,9 @@ class RouterStream:
     attempt that served the stream, ``(replica id, tokens committed when
     it took over)``: the first is ``(rid, 0)``, a resumed one continues
     after its count (a port addition, for checking a failed-over stream
-    segment by segment)."""
+    segment by segment). `trace_id` is the hex id of the stream's
+    ``router.generate`` trace once its pump started (None untraced; a
+    port addition)."""
 
     def __init__(self, router, timeout):
         self._router = router
@@ -191,6 +197,7 @@ class RouterStream:
         self.generation = None
         self.failovers = 0
         self.served_by = []
+        self.trace_id = None
 
     @property
     def tokens(self):
@@ -397,6 +404,23 @@ class ServingRouter:
         return tmo
 
     def _route(self, feeds, timeout, idempotent):
+        # the tier's root span: one trace per request (nested under a
+        # traced caller's); every failover attempt is a sibling span
+        # under it, and typed failures pin the trace as a postmortem
+        if not _otrace.enabled():
+            return self._route_impl(feeds, timeout, idempotent)
+        with _otrace.root_span("router.infer",
+                               attrs={"router": self.name}) as root:
+            outs, served_gen = self._route_impl(feeds, timeout, idempotent)
+            root.set_attr("generation", served_gen)
+            if root.parent_id is None and root.ctx is not None:
+                # recovered after a failed attempt pinned the trace: keep
+                # the bounded postmortem buffer for requests that failed
+                # (only for a true root: a nested trace is the caller's)
+                _oflight.recorder().unpin(root.ctx.trace_id)
+            return outs, served_gen
+
+    def _route_impl(self, feeds, timeout, idempotent):
         cfg = self.config
         eff = cfg.default_timeout if timeout is None else timeout
         dl = Deadline(eff, clock=self._clock)
@@ -445,9 +469,14 @@ class ServingRouter:
             attempts += 1
             with self._lock:
                 rec.dispatched += 1
+            att_span = _otrace.null_span() if not _otrace.enabled() \
+                else _otrace.span("router.attempt",
+                                  attrs={"rid": rec.rid,
+                                         "attempt": attempts})
             try:
-                outs, served_gen = rec.replica.infer_stamped(
-                    feeds, timeout=self._attempt_timeout(dl))
+                with att_span:
+                    outs, served_gen = rec.replica.infer_stamped(
+                        feeds, timeout=self._attempt_timeout(dl))
             except Overloaded:
                 # never admitted there: rerouting is safe even when not
                 # idempotent, and no health penalty
@@ -604,6 +633,26 @@ class ServingRouter:
 
     def _stream_pump(self, rs, prompt, max_new, sampling=None,
                      adapter=None):
+        # the stream's root span covers the pump's life: each failover
+        # attempt is a sibling `router.attempt` under it, and a process
+        # replica's spans come home on its terminal frame
+        if not _otrace.enabled():
+            self._stream_pump_impl(rs, prompt, max_new, sampling, adapter)
+            return
+        with _otrace.root_span("router.generate",
+                               attrs={"router": self.name}) as root:
+            rs.trace_id = root.trace_id_hex
+            self._stream_pump_impl(rs, prompt, max_new, sampling, adapter)
+            root.set_attr("status", rs._status)
+            root.set_attr("failovers", rs.failovers)
+            if rs.generation is not None:
+                root.set_attr("generation", rs.generation)
+            if rs._status == "completed" and root.parent_id is None \
+                    and root.ctx is not None:
+                _oflight.recorder().unpin(root.ctx.trace_id)
+
+    def _stream_pump_impl(self, rs, prompt, max_new, sampling=None,
+                          adapter=None):
         cfg = self.config
         dl = rs._deadline
         committed = []   # every token delivered to the client, in order
@@ -656,8 +705,16 @@ class ServingRouter:
                 continue
             no_capacity_since = None
             attempts += 1
-            exc = self._stream_attempt(rs, rec, prompt, max_new, committed,
-                                       dl, attempts, sampling, adapter)
+            att_span = _otrace.null_span() if not _otrace.enabled() \
+                else _otrace.span("router.attempt",
+                                  attrs={"rid": rec.rid, "attempt": attempts,
+                                         "resumed_from": len(committed)})
+            with att_span:
+                exc = self._stream_attempt(rs, rec, prompt, max_new,
+                                           committed, dl, attempts, sampling,
+                                           adapter)
+                if exc is not None:
+                    att_span.end(error=exc)
             if exc is None:
                 return   # the attempt ended the stream
             last_exc = exc
@@ -1189,6 +1246,14 @@ class ServingRouter:
         serve. Returns the new generation. On any failure the swapped
         replicas roll back and `SwapFailed` is raised; replicas that died
         come back on the committed generation."""
+        # a deploy is traced too: the roll's drains, probes and rollback
+        # record under one trace, which a SwapFailed retains
+        if not _otrace.enabled():
+            return self._swap_weights_impl(ckpt_dir, drain_timeout)
+        with _otrace.root_span("router.swap", attrs={"dir": str(ckpt_dir)}):
+            return self._swap_weights_impl(ckpt_dir, drain_timeout)
+
+    def _swap_weights_impl(self, ckpt_dir, drain_timeout):
         from ..distributed.checkpoint.api import (CheckpointError,
                                                   commit_generation,
                                                   is_committed)
@@ -1257,6 +1322,11 @@ class ServingRouter:
         """One replica through the roll: out of rotation -> drain -> swap
         -> probe -> readmit. Raises SwapFailed (the replica back to READY
         when it is merely busy, DEAD when it is broken)."""
+        with _otrace.span("router.swap_replica",
+                          attrs={"rid": rec.rid, "generation": gen}):
+            self._swap_one_impl(rec, model_dir, gen, drain_timeout)
+
+    def _swap_one_impl(self, rec, model_dir, gen, drain_timeout):
         with self._lock:
             if rec.state != _READY:
                 raise SwapFailed(f"replica {rec.rid} is {rec.state}, not "

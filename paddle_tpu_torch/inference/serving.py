@@ -66,6 +66,8 @@ import time
 
 import numpy as np
 
+from ..obs import trace as _otrace
+
 __all__ = ["ServingError", "DeadlineExceeded", "Overloaded", "PoolClosed",
            "RequestFailed", "AdapterNotLoaded", "Deadline", "CircuitBreaker",
            "RetryPolicy", "ServingPool", "DETERMINISTIC_ERRORS"]
@@ -75,11 +77,25 @@ __all__ = ["ServingError", "DeadlineExceeded", "Overloaded", "PoolClosed",
 # ---------------------------------------------------------------------------
 
 class ServingError(RuntimeError):
-    """Base of every error the serving runtime raises for a request."""
+    """Base of every error the serving runtime raises for a request.
+
+    A subclass that is a request-level failure worth a postmortem (not
+    routine shedding) sets ``_trace_postmortem``: constructing one under
+    an active sampled trace context pins the trace's record into the
+    flight recorder (obs.trace) and stamps the error's ``.trace_id``."""
+
+    _trace_postmortem = False
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        if self._trace_postmortem:
+            _otrace.note_failure(self)
 
 
 class DeadlineExceeded(ServingError, TimeoutError):
     """The request's deadline (queue wait + execution) elapsed."""
+
+    _trace_postmortem = True
 
 
 class Overloaded(ServingError):
@@ -94,6 +110,8 @@ class PoolClosed(Overloaded):
 class RequestFailed(ServingError):
     """The request's execution raised; `cause` is the original exception,
     `attempts` how many executions were tried."""
+
+    _trace_postmortem = True
 
     def __init__(self, msg, cause=None, attempts=1):
         super().__init__(msg)
@@ -257,10 +275,13 @@ class _Request:
     up at its deadline while a worker still holds it; one side wins).
     With batching, `feeds` holds the validated inputs that workers stack
     with batchmates (`fn` runs the request alone); `no_batch` marks a
-    request split out of a failed batch, which then runs alone."""
+    request split out of a failed batch, which then runs alone. `ctx` is
+    the admitting thread's trace context, re-entered by the worker that
+    executes the request; `fail()` / `abandon()` pin its postmortem when
+    the error asks for one."""
 
     __slots__ = ("id", "fn", "deadline", "attempts", "on_timeout",
-                 "feeds", "no_batch", "enqueued_at", "_lock", "_ev",
+                 "feeds", "no_batch", "enqueued_at", "ctx", "_lock", "_ev",
                  "_state", "_value", "_error")
 
     def __init__(self, rid, fn, deadline, on_timeout=None, feeds=None):
@@ -272,6 +293,7 @@ class _Request:
         self.feeds = feeds            # batchable inputs (None: fn only)
         self.no_batch = False         # split out of a failed batch
         self.enqueued_at = None       # admission stamp (queue wait)
+        self.ctx = None               # admitting trace context (or None)
         self._lock = threading.Lock()
         self._ev = threading.Event()
         self._state = _PENDING
@@ -310,7 +332,8 @@ class _Request:
             self._state = _DONE
             self._error = error
             self._ev.set()
-            return True
+        _otrace.pin_failure(self.ctx, error)
+        return True
 
     def abandon(self, error):
         """Caller-side deadline: a late worker result is discarded."""
@@ -320,7 +343,8 @@ class _Request:
             self._state = _ABANDONED
             self._error = error
             self._ev.set()
-            return True
+        _otrace.pin_failure(self.ctx, error)
+        return True
 
     def done(self):
         return self._ev.is_set()
@@ -562,12 +586,19 @@ class ServingPool:
             req = _Request(next(self._ids), fn, dl,
                            on_timeout=self._on_caller_timeout, feeds=feeds)
             req.enqueued_at = self._clock()
+            if _otrace.enabled():
+                req.ctx = _otrace.current()
             self._queue.append(req)
             self._admitted += 1
             depth = len(self._queue) + len(self._retry_timers)
             self._queue_peak = max(self._queue_peak, depth)
             self._cv.notify()
             self._watch(dl)
+        if req.ctx is not None:
+            # the admission stamp: the queue depth the request met
+            _otrace.event("serving.admit",
+                          attrs={"pool": self.name, "request": req.id,
+                                 "queue_depth": depth})
         return req
 
     def infer(self, feeds, timeout=None):
@@ -725,11 +756,18 @@ class ServingPool:
             req.attempts += 1
             t0 = self._clock()
             if self._h_queue_wait is not None and req.attempts == 1:
-                self._h_queue_wait.observe(t0 - req.enqueued_at)
+                self._h_queue_wait.observe(t0 - req.enqueued_at, ctx=req.ctx)
             try:
                 if self._fault_hook is not None:
                     self._fault_hook(slot.index, req, slot.predictor)
-                result = req.fn(slot.predictor)
+                # the admitting thread's context: each execution attempt
+                # is one span (retries are sibling attempts)
+                with _otrace.span_in(
+                        "serving.execute", req.ctx,
+                        attrs=None if req.ctx is None else
+                        {"pool": self.name, "slot": slot.index,
+                         "attempt": req.attempts}):
+                    result = req.fn(slot.predictor)
             except Exception as exc:  # noqa: BLE001 — classified below
                 self._on_execution_error(slot, req, exc)
             else:
@@ -746,7 +784,8 @@ class ServingPool:
                         self._completed += 1
                         slot.completed += 1
                         if self._h_latency is not None:
-                            self._h_latency.observe(done - req.enqueued_at)
+                            self._h_latency.observe(done - req.enqueued_at,
+                                                    ctx=req.ctx)
                     else:
                         self._late_results += 1
             finally:
@@ -841,7 +880,8 @@ class ServingPool:
                         self._completed += 1
                         slot.completed += 1
                         if self._h_latency is not None:
-                            self._h_latency.observe(done - r.enqueued_at)
+                            self._h_latency.observe(done - r.enqueued_at,
+                                                    ctx=r.ctx)
                     else:
                         self._late_results += 1
         finally:

@@ -105,8 +105,12 @@ def _flatten(prefix, value, out):
                     out.append((prefix, {"idx": i}, num))
 
 
-def render_prometheus(snapshot):
-    """`MetricsRegistry.snapshot()` as Prometheus text."""
+def render_prometheus(snapshot, exemplars=False):
+    """`MetricsRegistry.snapshot()` as Prometheus text. ``exemplars=True``
+    renders the OpenMetrics flavour: histogram buckets carry their
+    trace-id exemplars (``# {trace_id="..."} v``, a parse error to a
+    classic 0.0.4 parser, so obs.http serves it only under the OpenMetrics
+    content type) and the text ends with ``# EOF``."""
     lines = []
     for name in sorted(snapshot.get("metrics", {})):
         children = snapshot["metrics"][name]
@@ -119,11 +123,18 @@ def render_prometheus(snapshot):
         for c in sorted(children, key=lambda c: sorted(c["labels"].items())):
             labels = c["labels"]
             if kind == "histogram":
-                for le, cum in c["buckets"]:
+                exs = (c.get("exemplars") or {}) if exemplars else {}
+                for i, (le, cum) in enumerate(c["buckets"]):
                     le = "+Inf" if le == "+Inf" else _fmt(le)
-                    lines.append(f"{pname}_bucket"
-                                 f"{_labels_text(labels, {'le': le})} "
-                                 f"{_fmt(cum)}")
+                    line = (f"{pname}_bucket"
+                            f"{_labels_text(labels, {'le': le})} "
+                            f"{_fmt(cum)}")
+                    ex = exs.get(i, exs.get(str(i)))
+                    if ex is not None:
+                        # the last traced observation in this bucket
+                        line += (f' # {{trace_id="{ex["trace_id"]}"}} '
+                                 f'{_fmt(ex["value"])}')
+                    lines.append(line)
                 lines.append(f"{pname}_sum{_labels_text(labels)} "
                              f"{_fmt(c['sum'])}")
                 lines.append(f"{pname}_count{_labels_text(labels)} "
@@ -145,4 +156,6 @@ def render_prometheus(snapshot):
         for name, lbl, v in sorted(
                 flat, key=lambda t: (t[0], sorted((t[1] or {}).items()))):
             lines.append(f"{name}{_labels_text(None, lbl)} {_fmt(v)}")
+    if exemplars:
+        lines.append("# EOF")
     return "\n".join(lines) + "\n"

@@ -2,12 +2,17 @@
 paddle_tpu/obs/http.py). `MetricsServer` binds a threaded HTTP server
 (an ephemeral port by default) on a daemon thread and serves
 
-* ``GET /metrics``: the Prometheus text exposition;
+* ``GET /metrics``: the Prometheus text exposition; an OpenMetrics
+  scrape (``Accept: application/openmetrics-text`` or
+  ``?openmetrics=1``) also gets the histograms' trace exemplars;
 * ``GET /metrics.json``: the nested-JSON registry snapshot;
 * ``GET /healthz``: 200 or 503 from the attached health callable, with a
   small JSON body;
-* ``GET /traces``: 404, naming the tracing slice that brings the flight
-  recorder.
+* ``GET /traces``: recent and retained traces of the flight recorder
+  (obs.flight), newest first;
+* ``GET /traces/<id>``: one trace's merged record, every span across
+  threads and processes that shares the id; ``?format=chrome`` renders a
+  chrome://tracing file instead of the span list.
 
 A request thread holds no lock: the registry copies references under its
 own lock and the collectors run outside it.
@@ -22,11 +27,6 @@ from .export import render_json, render_prometheus
 from .metrics import registry as _default_registry
 
 __all__ = ["MetricsServer"]
-
-_NO_TRACES = (b"request tracing (obs.trace / obs.flight, the /traces "
-              b"endpoints) is not ported to paddle_tpu_torch yet; it comes "
-              b"with the tracing slice\n")
-
 
 class MetricsServer:
     """Background exporter over one registry.
@@ -98,15 +98,23 @@ class MetricsServer:
         self.stop()
         return False
 
-    def _respond(self, raw_path):
+    def _respond(self, raw_path, accept=""):
         """(status, content type, body bytes) of one GET."""
-        path = raw_path.partition("?")[0]
+        path, _, query = raw_path.partition("?")
         if path == "/traces" or path.startswith("/traces/"):
-            return 404, "text/plain; charset=utf-8", _NO_TRACES
+            return self._respond_traces(path, query)
         if path in ("/metrics", "/"):
-            body = render_prometheus(self.registry.snapshot())
-            return 200, "text/plain; version=0.0.4; charset=utf-8", \
-                body.encode()
+            # exemplars are legal only in the OpenMetrics exposition (a
+            # classic 0.0.4 parser fails the whole scrape on '#' after a
+            # value), so they render only when the client asks for it
+            openmetrics = ("application/openmetrics-text" in accept
+                           or "openmetrics=1" in query)
+            body = render_prometheus(self.registry.snapshot(),
+                                     exemplars=openmetrics)
+            ctype = ("application/openmetrics-text; version=1.0.0; "
+                     "charset=utf-8" if openmetrics
+                     else "text/plain; version=0.0.4; charset=utf-8")
+            return 200, ctype, body.encode()
         if path in ("/metrics.json", "/snapshot"):
             return 200, "application/json", \
                 render_json(self.registry.snapshot(), indent=1).encode()
@@ -123,12 +131,46 @@ class MetricsServer:
             return (200 if ok else 503), "application/json", body
         return 404, "text/plain; charset=utf-8", b"not found\n"
 
+    def _respond_traces(self, path, query):
+        """/traces (the index) and /traces/<id> (the merged spans, JSON or
+        ``?format=chrome``). The flight recorder is the process's: every
+        exporter of the process serves the same spans."""
+        from .flight import FlightRecorder, recorder
+
+        rec = recorder()
+        if path == "/traces":
+            body = json.dumps({"traces": rec.traces(),
+                               "recorder": rec.stats()},
+                              sort_keys=True, default=str).encode()
+            return 200, "application/json", body
+        tid = path.split("/", 2)[2].strip("/")
+        try:
+            int(tid, 16)
+        except ValueError:
+            return 404, "text/plain; charset=utf-8", \
+                b"malformed trace id\n"
+        spans = rec.spans_for(tid)
+        if not spans:
+            return 404, "text/plain; charset=utf-8", \
+                f"trace {tid} not found\n".encode()
+        params = dict(p.split("=", 1) for p in query.split("&") if "=" in p)
+        if params.get("format") == "chrome":
+            body = json.dumps(
+                {"traceEvents": FlightRecorder.chrome_events(spans)},
+                default=str).encode()
+            return 200, "application/json", body
+        body = json.dumps({"trace_id": tid,
+                           "spans": [s.to_dict() for s in spans]},
+                          sort_keys=True, default=str).encode()
+        return 200, "application/json", body
+
 
 def _make_handler(server):
     class Handler(BaseHTTPRequestHandler):
         def do_GET(self):  # noqa: N802 — BaseHTTPRequestHandler contract
             try:
-                status, ctype, body = server._respond(self.path)
+                status, ctype, body = server._respond(
+                    self.path, accept=self.headers.get("Accept", ""))
             except Exception as e:  # noqa: BLE001 — a 500, not a dead
                 status, ctype = 500, "text/plain; charset=utf-8"  # server
                 body = f"{type(e).__name__}: {e}\n".encode()

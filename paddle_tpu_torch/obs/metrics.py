@@ -1,5 +1,5 @@
 """Metric primitives and the process-wide registry (counterpart of
-paddle_tpu/obs/metrics.py, without exemplars: the port has no spans yet).
+paddle_tpu/obs/metrics.py).
 
 * `Counter` / `Gauge` / `Histogram`: standalone metrics. The histogram
   keeps FIXED log-spaced buckets, so p50 / p95 / p99 come from about 30
@@ -23,6 +23,8 @@ import math
 import os
 import threading
 import weakref
+
+from . import trace as _trace
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "registry",
            "default_latency_buckets"]
@@ -114,10 +116,16 @@ class Histogram(_Metric):
     """Distribution over fixed log-spaced buckets. `observe(v)` is one
     `bisect` plus three unlocked adds. Quantiles interpolate linearly
     inside the bucket where the cumulative count crosses q * total; an
-    observation past the last bound reports that bound."""
+    observation past the last bound reports that bound.
+
+    Exemplars (OpenMetrics): an observation under a sampled trace context
+    (obs.trace, or `ctx=`) makes its bucket remember that trace id and
+    value, one unlocked slot write, so a scrape leads from "the p99
+    bucket grew" to the last request that landed there
+    (``/traces/<id>``). With tracing off it is one flag check."""
 
     kind = "histogram"
-    __slots__ = ("bounds", "_counts", "_sum", "_count")
+    __slots__ = ("bounds", "_counts", "_sum", "_count", "_exemplars")
 
     def __init__(self, name, help="", labels=None, bounds=None):
         super().__init__(name, help=help, labels=labels)
@@ -130,12 +138,19 @@ class Histogram(_Metric):
         self._counts = [0] * (len(bs) + 1)  # [-1]: overflow (+Inf)
         self._sum = 0.0
         self._count = 0
+        self._exemplars = [None] * (len(bs) + 1)  # (trace id hex, value)
 
-    def observe(self, v):
+    def observe(self, v, ctx=None):
         v = float(v)
-        self._counts[bisect.bisect_left(self.bounds, v)] += 1
+        i = bisect.bisect_left(self.bounds, v)
+        self._counts[i] += 1
         self._sum += v
         self._count += 1
+        if _trace.enabled():
+            if ctx is None:
+                ctx = _trace.current()
+            if ctx is not None and ctx.sampled:
+                self._exemplars[i] = (ctx.trace_id_hex, v)
 
     @property
     def count(self):
@@ -169,6 +184,27 @@ class Histogram(_Metric):
                 return lo + frac * (self.bounds[i] - lo)
         return self.bounds[-1]
 
+    def exemplar_for(self, q, counts=None):
+        """The ``(trace id hex, value)`` exemplar of the bucket the
+        q-quantile falls in (or of the nearest lower bucket that holds
+        one), or None: "which request blew the p99"."""
+        counts = list(self._counts) if counts is None else counts
+        total = sum(counts)
+        if total == 0:
+            return None
+        target = q * total
+        cum = 0
+        crossing = len(counts) - 1
+        for i, c in enumerate(counts):
+            cum += c
+            if c and cum >= target:
+                crossing = i
+                break
+        for i in range(crossing, -1, -1):
+            if self._exemplars[i] is not None:
+                return self._exemplars[i]
+        return None
+
     def snapshot(self):
         counts = list(self._counts)        # one instant for every field
         total = sum(counts)
@@ -177,12 +213,18 @@ class Histogram(_Metric):
             cum += counts[i]
             buckets.append([b, cum])
         buckets.append(["+Inf", total])
-        return {"count": total, "sum": self._sum,
+        snap = {"count": total, "sum": self._sum,
                 "avg": (self._sum / total) if total else 0.0,
                 "p50": self.quantile(0.50, counts),
                 "p95": self.quantile(0.95, counts),
                 "p99": self.quantile(0.99, counts),
                 "buckets": buckets}
+        exemplars = {i: {"trace_id": ex[0], "value": ex[1]}
+                     for i, ex in enumerate(self._exemplars)
+                     if ex is not None}
+        if exemplars:       # absent when no traced observation landed
+            snap["exemplars"] = exemplars
+        return snap
 
 
 class MetricsRegistry:

@@ -4,7 +4,7 @@
     python3 port_ab.py PARENT CHANGE
         [--what decode,flash,short,weight_only,dense_decode,sparse,ring,
                 gemv,decode_busy,resblock,pair,bgmv,tenants,decode_step,
-                step_device,bert_step,dispatch]
+                step_device,bert_step,dispatch,trace]
         [--rounds 1]
 
 PARENT and CHANGE are the roots of two checkouts (for example a
@@ -132,6 +132,16 @@ Measurements:
   n = 2304), DISPATCH_CALLS calls back to back (host clock, the device
   synchronized before and after; the kernels are shorter than a call's
   host work, so the host sets the pace): µs a call, median of 5 runs.
+
+* ``trace``: request tracing's cost (`obs.trace`, where the tree has
+  it): an exported bert_base (bf16, 12 layers, weights from seed 0,
+  [1, 128] ids and token types) served by `ServingPool(Config(path),
+  size=2)`, TRACE_REQUESTS requests one after another, each under a root
+  span when tracing is on (so the pool's admission and execution spans
+  record): ms a request (median, p90) for each of on, off, on, off (a
+  tree without tracing: four runs as they are); then run (b)'s decode
+  step as in ``decode_step`` over four windows of TRACE_WINDOW_S seconds,
+  tracing on, off, on, off.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 per measurement, each naming its tree. Every child has a time limit and
@@ -1023,6 +1033,79 @@ def child_dispatch(tree):
     return res
 
 
+TRACE_WINDOW_S = 1.5
+TRACE_REQUESTS = 256
+
+
+def child_trace(tree):
+    """Tracing's cost on an exported bert_base request and on run (b)'s
+    decode step (see the docstring)."""
+    import tempfile
+    import time
+
+    import numpy as np
+    import torch
+
+    try:
+        tr = importlib.import_module("paddle_tpu_torch.obs.trace")
+    except ImportError:
+        tr = None
+    modes = ("on", "off", "on", "off") if tr is not None else ("-",) * 4
+
+    def set_mode(mode):
+        if tr is not None:
+            (tr.enable if mode == "on" else tr.disable)()
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.inference import Config, ServingPool
+    from paddle_tpu_torch.models import bert_for_sequence_classification
+
+    smoke = importlib.import_module("chip_smoke")
+    res = {"tree": tree, "what": "trace", "tracing": tr is not None,
+           "request_ms": [], "decode_step_ms": []}
+    bert = bert_for_sequence_classification(
+        "bert_base", device="cuda", seed=0).to(torch.bfloat16).eval()
+    feeds = smoke._pred_feeds(np, bert.cfg.vocab_size, TRACE_REQUESTS, 0)
+    with tempfile.TemporaryDirectory(prefix="port_ab_trace-") as work:
+        path = os.path.join(work, "bert")
+        jit.save(bert, path, input_spec=[((1, 128), torch.int64)] * 2)
+        pool = ServingPool(config=Config(path), size=2,
+                           default_timeout=60.0)
+        try:
+            for f in feeds[:16]:
+                pool.infer(f)
+            for mode in modes:
+                set_mode(mode)
+                ms = []
+                for f in feeds:
+                    t0 = time.perf_counter()
+                    if mode == "on":
+                        with tr.root_span("port_ab.request"):
+                            pool.infer(f)
+                    else:
+                        pool.infer(f)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                res["request_ms"].append([mode, _pct(ms, 0.5),
+                                          _pct(ms, 0.9)])
+        finally:
+            pool.shutdown(drain_timeout=10.0)
+    del bert, pool
+    torch.cuda.empty_cache()
+    set_mode("on")
+    torch, np, smoke, model, eng, streams = _run_b_engine()
+    for mode in modes:
+        set_mode(mode)
+        s0, t0 = eng.stats()["steps"], time.perf_counter()
+        time.sleep(TRACE_WINDOW_S)
+        s1, t1 = eng.stats()["steps"], time.perf_counter()
+        res["decode_step_ms"].append([mode, (t1 - t0) * 1e3 / (s1 - s0)])
+    if any(st.done() for st in streams):
+        raise AssertionError("a stream finished inside the windows")
+    eng.shutdown()
+    set_mode("on")
+    return res
+
+
 def _child(what, tree):
     tree = os.path.abspath(tree)
     os.chdir(tree)
@@ -1038,7 +1121,7 @@ def _child(what, tree):
            "decode_step": child_decode_step,
            "step_device": child_step_device,
            "bert_step": child_bert_step,
-           "dispatch": child_dispatch}[what](tree)
+           "dispatch": child_dispatch, "trace": child_trace}[what](tree)
     print("AB " + json.dumps(res), flush=True)
 
 

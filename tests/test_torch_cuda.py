@@ -3033,3 +3033,40 @@ def test_weight_only_vmap_keeps_each_examples_route(cuda):
         assert sum(tw.weight_only_matmul.routes.values()) == launches
         for j in range(bucket):
             assert torch.equal(out[j], singles[j]), (m, j)
+
+
+def test_subprocess_replica_on_the_card_replies_bit_equal(cuda, tmp_path):
+    """One replica process (a fresh interpreter running `serve_replica`,
+    on the card by default) serves an exported int8 tiny BERT over the
+    coordination store: its reply equals this process's `Predictor.run`
+    of the same artifact bit for bit, stamped with its generation, and
+    its trace merges this process's spans with the replica's."""
+    import os
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.distributed.store import create_master_store
+    from paddle_tpu_torch.inference import (Config, Predictor,
+                                            SubprocessReplica)
+    from paddle_tpu_torch.obs import flight, trace
+
+    m = _tiny_bert(cuda, True)
+    jit.save(m, str(tmp_path / "model"),
+             input_spec=[((1, 128), torch.int64)] * 2)
+    feeds = [t.numpy() for t in _bert_feeds(1)[0]]
+    want = Predictor(Config(str(tmp_path / "model"))).run(feeds)[0]
+    store = create_master_store()
+    rep = None
+    try:
+        rep = SubprocessReplica("r0", store, str(tmp_path), 3,
+                                artifact_name="model", start_timeout=300.0)
+        trace.enable()
+        with trace.root_span("cuda-replica") as root:
+            outs, gen = rep.infer_stamped(feeds, timeout=120.0)
+        assert gen == 3 and outs[0].dtype == want.dtype
+        assert (outs[0] == want).all()
+        pids = {s.pid for s in flight.recorder().spans_for(root.trace_id)}
+        assert pids == {os.getpid(), rep.pid}
+    finally:
+        if rep is not None:
+            rep.kill()
+        store.close()

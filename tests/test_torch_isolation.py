@@ -44,12 +44,47 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert {f"paddle_tpu_torch.{m}" for m in (
         "inference.serving", "inference.replica", "inference.router",
         "inference.decode.demo", "obs", "obs.metrics", "obs.export",
-        "obs.slo", "obs.http", "distributed.store",
+        "obs.slo", "obs.http", "obs.trace", "obs.flight", "native",
+        "distributed.store",
         "distributed.checkpoint", "distributed.checkpoint.api")} <= mods
     # the export-and-predict path's modules among them
     assert {f"paddle_tpu_torch.{m}" for m in (
         "jit", "jit.save_load", "jit.aot", "inference.batching",
         "ops._library", "_graphs")} <= mods
+
+
+def test_replica_main_and_native_store_load_no_jax():
+    """The replica process's entry (``python -m
+    paddle_tpu_torch.inference.replica``) and the native coordination
+    store, built from the port's own source, load nothing of JAX."""
+    code = textwrap.dedent("""
+        import runpy, sys
+        sys.argv = ["replica", "--help"]
+        try:
+            runpy.run_module("paddle_tpu_torch.inference.replica",
+                             run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        from paddle_tpu_torch import native
+        from paddle_tpu_torch.distributed.store import create_master_store
+        s = create_master_store()
+        s.set("k", b"v")
+        assert s.get_nowait("k") == b"v"
+        s.close()
+        print("LIB", native.build("coord_store"))
+        bad = sorted(n for n in sys.modules
+                     if n in ("jax", "jaxlib", "paddle_tpu")
+                     or n.startswith(("jax.", "jaxlib.", "paddle_tpu.")))
+        print("BAD", bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    assert "--device" in out.stdout
+    lib = out.stdout.split("LIB ")[1].split()[0]
+    assert lib.startswith(os.path.join(REPO, "paddle_tpu_torch", "_build"))
 
 
 def _no_gpu():
@@ -177,3 +212,34 @@ def test_predictor_raises_without_gpu_and_runs_where_asked(tmp_path):
         jit.load(path)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         create_predictor(Config(path))
+
+
+def test_replica_process_raises_without_gpu_unless_asked_for_cpu(tmp_path):
+    """A replica process serves on the GPU by default: without one it
+    raises and exits non-zero before its first heartbeat (the handle
+    raises `ReplicaDead`), and with ``device="cpu"`` it serves."""
+    import numpy as np
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.distributed.store import create_master_store
+    from paddle_tpu_torch.inference import ReplicaDead, SubprocessReplica
+
+    _no_gpu()
+    jit.save(torch.nn.Linear(4, 2), str(tmp_path / "model"),
+             input_spec=[np.zeros((1, 4), np.float32)])
+    store = create_master_store()
+    reps = []
+    try:
+        with pytest.raises(ReplicaDead, match="exited with 1"):
+            reps.append(SubprocessReplica("gpu", store, str(tmp_path),
+                                          artifact_name="model",
+                                          start_timeout=120.0))
+        reps.append(SubprocessReplica("cpu", store, str(tmp_path),
+                                      artifact_name="model",
+                                      start_timeout=120.0, device="cpu"))
+        out, = reps[-1].infer([np.ones((1, 4), np.float32)], timeout=60.0)
+        assert out.shape == (1, 2)
+    finally:
+        for rep in reps:
+            rep.kill()
+        store.close()

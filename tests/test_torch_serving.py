@@ -498,16 +498,18 @@ def test_rebase_reclones_every_slot():
 # ---------------------------------------------------------------------------
 
 def test_unported_names_raise_naming_their_slice():
-    """The subprocess replica is not ported yet and raises naming its
-    slice. The Predictor / jit names are ported: misused, they raise as
-    the reference's do (warmup() without batching, batching over a member
-    with no exported layer, a pool with nothing to serve)."""
+    """Every name is ported now: misused, they raise as the reference's do
+    (a process replica without its store, a serve loop without its
+    address, warmup() without batching, batching over a member with no
+    exported layer, a pool with nothing to serve)."""
+    from paddle_tpu.inference.replica import serve_replica as jserve
     from paddle_tpu_torch.inference.replica import serve_replica
 
-    with pytest.raises(NotImplementedError, match="subprocess-replica"):
-        tinf.SubprocessReplica("r0")
-    with pytest.raises(NotImplementedError, match="subprocess-replica"):
-        serve_replica()
+    for inf, serve in ((jinf, jserve), (tinf, serve_replica)):
+        with pytest.raises(TypeError, match="store"):
+            inf.SubprocessReplica("r0")
+        with pytest.raises(TypeError, match="rid"):
+            serve()
     # (the reference's pool raises AttributeError there: Stub has no _layer)
     with pytest.raises(TypeError, match="batched_call"):
         tinf.ServingPool(predictor=Stub(), batching=True)
@@ -574,7 +576,7 @@ def test_serve_metrics_exports_the_conservation_law_and_health():
         assert json.loads(body)["collectors"]["serving.pool.scrape"][
             "completed"] == 3
         code, body = _get(server.url + "/traces")
-        assert code == 404 and "tracing slice" in body
+        assert code == 200 and "traces" in json.loads(body)
     finally:
         pool.shutdown(1)
     assert not server.running
