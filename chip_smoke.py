@@ -11,6 +11,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --serve-only     # phases 1 and 11
     python3 chip_smoke.py --predictor-only # phases 1 and 12
     python3 chip_smoke.py --replicas-only  # phases 1 and 13
+    python3 chip_smoke.py --vision-only    # phases 1 and 14
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -275,7 +276,33 @@ Phases (any failure exits non-zero and prints no result line):
    decode on the ring body and the weight-only matmul and GEMV on their
    tensor-core bodies in (b). Peak memory of every process; the phase's
    seconds;
-14. the kernels' JSON line, the nvidia-smi line, then the last line
+14. vision, in a child process: (a) PP-YOLOE-s (BASELINE config 3) at
+   bench.py:344-450's row — 640 px, B = 16, NHWC, 80 classes, 16
+   boxes of which 8 valid, synthetic images and boxes from `--seed`,
+   random weights from the seed, Momentum 0.01 / 0.9, f32 masters and
+   bf16 compute through `distributed.parallelize` with `loss_fn(m, img,
+   gb, gl, gm)`: 2 warm-up steps and 20 (ms a step, images/s, MFU over
+   the analytic count `vision.models.train_flops_per_image`, peak memory;
+   every loss finite, the last below the first); `postprocess` on two
+   images, every `nms` call on the card equal to the port's CPU `nms` on
+   the same 400 boxes, and `nms`'s ms at 400 boxes; a torch.profiler
+   window over 3 steps (ms a step by kernel family); one f32 step at
+   B = 2 on the card against the port on the CPU (same weights and
+   inputs: loss and global grad norm within 1e-4 relative), the GIoU
+   hull term dropped on the card only (a planted fault that must fail
+   that gate), NCHW against NHWC (the loss, 1e-4), and a bit-equal bf16
+   rerun under `cudnn.deterministic`; (b) ViT-B/16 at 224 px, B = 128,
+   1000 classes, AdamW, f32 masters, bf16 compute, hard-label
+   cross-entropy through `parallelize`: 2 warm-up steps and 10 (ms a
+   step, images/s, MFU, peak memory, falling losses), the flash launches
+   set to 0 before and read after (12 forward, 12 dQ and 12 dK/dV a
+   step, each on its Hopper body), and a 2-layer run of the same weights
+   through the kernels and the plain attention in bf16 and f32 compute
+   (the logits within FLASH_TOL's O bound; the whole gradient normwise
+   within FLASH_TOL's bound in f32 and phase 4's 5e-2 in bf16); phase 2
+   holds the flash kernels at its attention shape (B = 128, S = 197,
+   H = 12, D = 64, bf16, non-causal) at FLASH_TOL;
+15. the kernels' JSON line, the nvidia-smi line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every float32 product in
@@ -315,6 +342,9 @@ FLASH_CASES = (
     ("ragged S", 4, 1000, 12, 64, "float32", False, False),
     ("padded D", 2, 1024, 8, 80, "bfloat16", True, False),
     ("padded D", 2, 1000, 8, 80, "float32", False, False),
+    # ViT-B/16's attention (phase 14): 196 patches and the class token, a
+    # tail tile with 5 valid keys of 64, non-causal
+    ("vit_b_16", 128, 197, 12, 64, "bfloat16", False, True),
 )
 # dtype -> (O max abs error, each gradient's normwise relative error)
 FLASH_TOL = {"bfloat16": (2e-2, 1e-3), "float32": (1e-4, 1e-5)}
@@ -838,7 +868,7 @@ FLASH_ROUTE_NAMES = {0: "mma.sync body", 3: "Hopper body (TMA + wgmma)"}
 FLASH_BWD_ROUTE_NAMES = {0: "mma.sync body", 1: "Hopper body (TMA + wgmma)"}
 # the cases whose forward and backward must take the Hopper bodies: the
 # main paths' shapes
-FLASH_HOPPER_CASES = ("gpt_base", "llama2_7b")
+FLASH_HOPPER_CASES = ("gpt_base", "llama2_7b", "vit_b_16")
 
 
 def flash_route_counts():
@@ -2163,26 +2193,48 @@ def profile_tenants(torch, np, layers):
                           "d: 6 adapters, half sampled, bs 8", pool=pool)
 
 
-def run_child(flag, layers, seed, report, *extra):
-    """Run one `--profile-*` phase in a child process (`extra`: more of
-    its arguments); returns its result."""
+def start_child(flag, layers, seed, report, *extra):
+    """Start one `--profile-*` or `--*-tier` phase in a child process
+    (`extra`: more of its arguments); `wait_child` collects its result.
+    A child that reads a line from its stdin before its work (the vision
+    tier) waits there until `wait_child` sends it one, so its start-up
+    can overlap an earlier phase."""
     path = f"{report}.{flag.strip('-')}.json"
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), flag, path,
          "--layers", str(layers), "--seed", str(seed), *extra],
-        capture_output=True, text=True, timeout=600)
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return proc, path, flag
+
+
+def wait_child(child):
+    proc, path, flag = child
+    try:
+        out, err = proc.communicate(input="go\n", timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
     if proc.returncode != 0:
         raise AssertionError(f"{flag} child failed:\n"
-                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+                             f"{out[-3000:]}\n{err[-3000:]}")
     with open(path) as f:
         res = json.load(f)
     os.remove(path)
     return res
 
 
-def profile_train_child(torch, layers, seed, report):
-    """Run `profile_train` in a child process; returns its result."""
-    res = run_child("--profile-train", layers, seed, report)
+def run_child(flag, layers, seed, report, *extra):
+    """Run one child phase (`start_child`) to its end; returns its
+    result."""
+    return wait_child(start_child(flag, layers, seed, report, *extra))
+
+
+def profile_train_child(child):
+    """`profile_train`'s child process (`start_child`) to its end; returns
+    its result."""
+    res = wait_child(child)
     log(f"  train profile {json.dumps(res)}")
     return res
 
@@ -2950,11 +3002,12 @@ def resnet_phase(torch, np, args):
     """Phase 6: throughput on both routes, parity, and a profile child per
     route. 20 steps on each route, `--quick` too: the loss gate was set
     for 20 (five steps at lr 0.1 do not lower the loss)."""
-    run = {"throughput": resnet_throughput(torch, np, 20, args.seed),
-           "parity": resnet_parity(torch, np, args.seed)}
-    run["profile"] = {r: run_child("--profile-resnet", 0, args.seed,
-                                   args.report, "--route", r)
-                      for r in RESNET_ROUTES}
+    run = {"throughput": resnet_throughput(torch, np, 20, args.seed)}
+    # the profile children start before the parity and wait for the card
+    children = {r: start_child("--profile-resnet", 0, args.seed, args.report,
+                               "--route", r) for r in RESNET_ROUTES}
+    run["parity"] = resnet_parity(torch, np, args.seed)
+    run["profile"] = {r: wait_child(c) for r, c in children.items()}
     for route, prof in run["profile"].items():
         log(f"  resnet50 profile {json.dumps(prof)}")
         prof["device_busy_share_unprofiled"] = (
@@ -6591,7 +6644,7 @@ def _pred_path_checks(torch, np, label, model, feeds, got):
     return res
 
 
-def predictor_phase(torch, np, args):
+def predictor_phase(torch, np, args, keep_int8=None):
     """Phase 12: bert_base (full width, random bf16 weights from --seed,
     2 labels) exported with [1, 128] ids and token types (no mask: the
     attention is the flash forward) and deployed through the port's
@@ -6607,7 +6660,9 @@ def predictor_phase(torch, np, args):
     and 32, every response bit-equal to the single-request `Predictor.run`;
     (d) the same model after `quantize_for_inference("int8")`, exported,
     held to the plain route and served batched at concurrency 32.
-    Launches counted around each run."""
+    Launches counted around each run. With `keep_int8` (a directory) the
+    int8 artifact is exported there as ``model`` and kept, for phase 13
+    (a)'s generation 1, which is this very model."""
     import concurrent.futures
     import tempfile
 
@@ -6720,8 +6775,14 @@ def predictor_phase(torch, np, args):
 
         # (d) the same model quantized to int8, served batched at 32
         quantize_for_inference(model, weight_dtype="int8")
-        qpath = os.path.join(work, "bert_int8")
+        if keep_int8 is None:
+            qpath = os.path.join(work, "bert_int8")
+        else:
+            os.makedirs(keep_int8)
+            qpath = os.path.join(keep_int8, "model")
+        t0 = time.perf_counter()
         jit.save(model, qpath, input_spec=spec)
+        res["int8_export_s"] = time.perf_counter() - t0
         qpred = create_predictor(Config(qpath))
         if "paddle_tpu_torch.weight_only_matmul.default" \
                 not in qpred._layer.graph_ops:
@@ -6999,19 +7060,27 @@ def _replica_spawner(store, made, **kw):
     return factory, prespawn
 
 
-def _replica_run_a(torch, np, store, work, counts_dir, layers, seed):
+def _replica_run_a(torch, np, store, work, counts_dir, layers, seed,
+                   int8_artifact=None):
     """(a) Exported int8 bert_base (generation 1 from `seed`, 2 from
     `seed + 1`, each committed) behind a router over two replica
     processes (`pool_size` 2 each): 512 requests at concurrency 8 and 32,
     every reply bit-equal to this process's `Predictor.run` of the same
     artifact; replica 0 SIGKILLed under traffic (every request served) and
     its respawn timed; `swap_weights` to generation 2; requests/s with
-    tracing off, on, on, off; one traced request's merged trace."""
+    tracing off, on, on, off; one traced request's merged trace.
+    `int8_artifact`: a directory holding generation 1 already exported as
+    ``model`` (phase 12 (d) exports this very model: bert_base from
+    `seed` at `layers`, bf16, int8), served from there instead of
+    exported again."""
     from paddle_tpu_torch import jit
     from paddle_tpu_torch.inference import (Config, Predictor, RetryPolicy,
                                             RouterConfig, ServingRouter,
                                             commit_model_dir)
     from paddle_tpu_torch.models import bert_for_sequence_classification
+    import concurrent.futures
+
+    from paddle_tpu_torch.models.bert import CONFIGS, BertConfig
     from paddle_tpu_torch.nn.quant import quantize_for_inference
     from paddle_tpu_torch.obs import trace
 
@@ -7022,6 +7091,11 @@ def _replica_run_a(torch, np, store, work, counts_dir, layers, seed):
 
     def export(gen):
         t0 = time.perf_counter()
+        if gen == 1 and int8_artifact is not None:
+            dirs[gen] = int8_artifact
+            commit_model_dir(dirs[gen], gen)
+            export_s.append(0.0)
+            return BertConfig(**CONFIGS["bert_base"]).vocab_size
         model = bert_for_sequence_classification(
             "bert_base", device="cuda", seed=seed + gen - 1,
             num_hidden_layers=layers).to(torch.bfloat16).eval()
@@ -7047,9 +7121,7 @@ def _replica_run_a(torch, np, store, work, counts_dir, layers, seed):
                                          "p95_ms": ms[int(0.95 * len(ms))]}
 
     feeds = _pred_feeds(np, export(1), PRED_REQUESTS, seed)
-    export(2)
     references(1, True)
-    references(2, False)
     gc.collect()
     torch.cuda.empty_cache()
     os.environ[REPLICA_ENV] = json.dumps({"role": "bert",
@@ -7068,7 +7140,13 @@ def _replica_run_a(torch, np, store, work, counts_dir, layers, seed):
     res["export_s"] = export_s
     router = None
     try:
-        res["spawn_s"] = prespawn(2, dirs[1], 1)
+        # generation 2 is needed only by the swap: its export runs while
+        # the two replica processes start
+        with concurrent.futures.ThreadPoolExecutor(1) as ex:
+            gen2 = ex.submit(export, 2)
+            res["spawn_s"] = prespawn(2, dirs[1], 1)
+            gen2.result()
+        references(2, False)
         router = ServingRouter(factory, size=2, model_dir=dirs[1],
                                generation=1, config=cfg, heartbeats=store,
                                name="replicas_a")
@@ -7407,7 +7485,7 @@ def _replica_run_b(torch, np, store, work, counts_dir, layers, seed):
     return res
 
 
-def replica_tier(torch, np, layers, seed):
+def replica_tier(torch, np, layers, seed, int8_artifact=None):
     """Phase 13 (a child process): (a) and (b) over the port's TCPStore,
     each with its own router and replica processes on this card."""
     import shutil
@@ -7429,7 +7507,8 @@ def replica_tier(torch, np, layers, seed):
     try:
         t0 = time.perf_counter()
         res["a"] = _replica_run_a(torch, np, store, work, counts_dir,
-                                  12 if layers > 2 else 2, seed)
+                                  12 if layers > 2 else 2, seed,
+                                  int8_artifact)
         res["a"]["seconds"] = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
@@ -7446,14 +7525,16 @@ def replica_tier(torch, np, layers, seed):
     return res
 
 
-def replicas_phase(args):
-    """Phase 13 in a child process of its own; returns its result."""
+def replicas_phase(args, int8_artifact=None):
+    """Phase 13 in a child process of its own; returns its result.
+    `int8_artifact`: phase 12 (d)'s kept export, (a)'s generation 1."""
     import torch
 
     gc.collect()
     torch.cuda.empty_cache()
     res = run_child("--replica-tier", 2 if args.quick else 32, args.seed,
-                    args.report)
+                    args.report, *(("--int8-artifact", int8_artifact)
+                                   if int8_artifact else ()))
     for run in ("a", "b"):
         log(f"  phase 13 ({run}) trace:\n    "
             + "\n    ".join(res[run].pop("trace_tree")[:40]))
@@ -7462,6 +7543,463 @@ def replicas_phase(args):
         f"{res['peak_memory_gb']:.2f} GB here, the replica processes "
         f"{res['a']['replica_peak_memory_gb']} (a), "
         f"{res['b']['replica_peak_memory_gb']} (b)")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 14: vision — PP-YOLOE-s detection (BASELINE config 3) and ViT-B/16
+# ---------------------------------------------------------------------------
+
+# bench.py:344-450's TPU row: 640 px, B = 16, NHWC, 80 classes, 16 boxes of
+# which 8 valid, Momentum 0.01 / 0.9, bf16 compute
+DET_SIZE, DET_BATCH, DET_CLASSES = 640, 16, 80
+DET_BOXES, DET_VALID = 16, 8
+DET_STEPS = 20
+# card against the CPU and NCHW against NHWC (f32, B = 2): loss and global
+# grad norm, relative
+DET_TOL = 1e-4
+DET_NMS_BOXES = 400                 # the postprocess's pre-NMS cap
+# DeiT-B's recipe on one card: B = 128 of a global 1024 over 8 GPUs
+VIT_SIZE, VIT_BATCH, VIT_CLASSES = 224, 128, 1000
+VIT_STEPS = 10
+VIT_PARITY_LAYERS, VIT_PARITY_BATCH = 2, 16
+# the 2-layer parity's whole-gradient gate (normwise) by compute dtype:
+# f32 FLASH_TOL's; bf16 phase 4's kernels-vs-plain gate (5e-2), since
+# the model's other bf16 operations round a one-ulp difference of the
+# attention output into every gradient (8.2e-3 read on the H100, where
+# each attention call alone holds FLASH_TOL's 1e-3 in phase 2)
+VIT_GRAD_TOL = {"bfloat16": 5e-2, "float32": FLASH_TOL["float32"][1]}
+
+
+def _det_batch(torch, np, seed, batch, size=DET_SIZE):
+    """bench.py:377-389's synthetic batch from RandomState(seed): NHWC
+    images N(0, 1), xyxy boxes inside the image, labels, the first 8 of
+    16 boxes valid (CPU tensors)."""
+    rng = np.random.RandomState(seed)
+    img = rng.randn(batch, size, size, 3).astype(np.float32)
+    x0 = rng.uniform(0, size * 0.6, (batch, DET_BOXES, 2))
+    wh = rng.uniform(size * 0.05, size * 0.35, (batch, DET_BOXES, 2))
+    gb = np.concatenate([x0, np.minimum(x0 + wh, size - 1)], -1)
+    gl = rng.randint(0, DET_CLASSES, (batch, DET_BOXES))
+    gm = (np.arange(DET_BOXES)[None] < DET_VALID).repeat(batch, 0)
+    return [torch.from_numpy(a) for a in (
+        img, gb.astype(np.float32), gl.astype(np.int64),
+        gm.astype(np.float32))]
+
+
+def _det_loss(m, img, gb, gl, gm):
+    return m.loss(img, gb, gl, gm)
+
+
+def _det_engine(torch, model, compute_dtype):
+    from paddle_tpu_torch.distributed import parallelize
+    from paddle_tpu_torch.optimizer import Momentum
+
+    opt = Momentum(learning_rate=0.01, momentum=0.9,
+                   parameters=model.parameters())
+    return parallelize(model, opt, loss_fn=_det_loss,
+                       compute_dtype=compute_dtype)
+
+
+def _det_model(torch, seed, device="cuda", fmt="NHWC"):
+    from paddle_tpu_torch.vision.models import ppyoloe_s
+
+    return ppyoloe_s(num_classes=DET_CLASSES, max_boxes=DET_BOXES,
+                     data_format=fmt, device=device, seed=seed)
+
+
+def det_throughput(torch, np, seed, steps=DET_STEPS):
+    """PP-YOLOE-s at bench.py's row: 2 warm-up steps, then `steps` on one
+    fixed batch (ms a step, images/s, MFU over the analytic count, peak
+    memory); every loss finite and the last below the first. Returns the
+    row and the trained model (for the postprocess)."""
+    import math
+
+    from paddle_tpu_torch.vision.models import train_flops_per_image
+
+    torch.cuda.empty_cache()
+    model = _det_model(torch, seed)
+    eng = _det_engine(torch, model, "bfloat16")
+    batch = [t.cuda() for t in _det_batch(torch, np, seed, DET_BATCH)]
+    _bert_steps(torch, eng, batch, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses, norms = _bert_steps(torch, eng, batch, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fpi = train_flops_per_image(model, DET_SIZE)
+    ips = DET_BATCH * steps / wall
+    row = {"model": "ppyoloe_s", "batch": DET_BATCH, "size": DET_SIZE,
+           "layout": "NHWC", "steps": steps, "step_ms": wall * 1e3 / steps,
+           "images_per_s": ips, "train_flops_per_image": fpi,
+           "mfu": ips * fpi / BF16_FLOPS, "losses": losses,
+           "grad_norms": norms,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  (a) ppyoloe_s {json.dumps(row)}")
+    if not all(math.isfinite(v) for v in losses + norms) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 14 (a): losses {losses}")
+    del eng, batch
+    return row, model
+
+
+def _det_step(torch, model, batch):
+    """One f32 Momentum step of `model` on `batch` (moved to the model's
+    device): (loss, pre-clip global grad norm)."""
+    eng = _det_engine(torch, model, None)
+    dev = next(model.parameters()).device
+    loss = eng.train_batch(*(t.to(dev) for t in batch))
+    return float(loss), float(eng.last_grad_norm)
+
+
+def _no_hull_giou(torch, yolo):
+    """A planted fault: GIoU without its hull term, the IoU alone."""
+    clip0 = yolo._clip0
+
+    def iou(a, b):
+        iw = clip0(torch.minimum(a[..., 2], b[..., 2])
+                   - torch.maximum(a[..., 0], b[..., 0]))
+        ih = clip0(torch.minimum(a[..., 3], b[..., 3])
+                   - torch.maximum(a[..., 1], b[..., 1]))
+        inter = iw * ih
+        union = (clip0(a[..., 2] - a[..., 0]) * clip0(a[..., 3] - a[..., 1])
+                 + clip0(b[..., 2] - b[..., 0]) * clip0(b[..., 3] - b[..., 1])
+                 - inter)
+        return inter / torch.clamp_min(union, 1e-9)
+    return iou
+
+
+def det_gates(torch, np, seed):
+    """PP-YOLOE-s gates at B = 2 (f32): one Momentum step on the card
+    against the same step of the port on the CPU (same weights and batch;
+    loss and global grad norm within DET_TOL relative); the same with the
+    GIoU hull term dropped on the card only, which must fail that gate;
+    NCHW against NHWC with the same weights (the loss, DET_TOL); and a
+    bf16 rerun of 3 steps at bench.py's batch under
+    `cudnn.deterministic`, bit-equal (losses, grad norms, parameters)."""
+    from paddle_tpu_torch.vision.models import yolo
+
+    res = {}
+    batch = _det_batch(torch, np, seed + 1, 2)
+    card = _det_model(torch, seed)
+    state = {k: v.detach().cpu().clone() for k, v in
+             card.state_dict().items()}
+    cpu = _det_model(torch, seed, device="cpu")
+    cpu.load_state_dict(state)
+    t0 = time.perf_counter()
+    want = _det_step(torch, cpu, batch)
+    res["cpu_step_s"] = time.perf_counter() - t0
+    got = _det_step(torch, card, batch)
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    res["card_vs_cpu"] = {"card": got, "cpu": want, "rel": rel(got, want)}
+    real = yolo._giou
+    yolo._giou = _no_hull_giou(torch, yolo)
+    try:
+        card.load_state_dict(state)
+        fault = _det_step(torch, card, batch)
+    finally:
+        yolo._giou = real
+    res["fault_no_hull"] = {"card": fault, "rel": rel(fault, want)}
+    # layouts: the same weights and images, NCHW against NHWC
+    nchw = _det_model(torch, seed, fmt="NCHW")
+    nchw.load_state_dict(state)
+    card.load_state_dict(state)
+    img, gb, gl, gm = (t.cuda() for t in batch)
+    with torch.no_grad():
+        l_nhwc = float(card.loss(img, gb, gl, gm))
+        l_nchw = float(nchw.loss(img.permute(0, 3, 1, 2).contiguous(), gb,
+                                 gl, gm))
+    res["layouts"] = {"nhwc": l_nhwc, "nchw": l_nchw,
+                      "rel": abs(l_nhwc - l_nchw) / abs(l_nchw)}
+    del nchw, cpu
+    # bit-equal rerun, bf16 at bench.py's batch, cuDNN deterministic
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        full = [t.cuda() for t in _det_batch(torch, np, seed, DET_BATCH)]
+        runs = []
+        for _ in range(2):
+            m = _det_model(torch, seed)
+            eng = _det_engine(torch, m, "bfloat16")
+            losses, norms = _bert_steps(torch, eng, full, 3)
+            runs.append((losses, norms, [p.detach().clone()
+                                         for p in m.parameters()]))
+            del m, eng
+        same = runs[0][:2] == runs[1][:2] and all(
+            torch.equal(a, b) for a, b in zip(runs[0][2], runs[1][2]))
+        res["rerun"] = {"losses": runs[0][0], "bit_equal": same}
+        del runs, full
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = det
+    log(f"  (a) gates {json.dumps(res)}")
+    if not res["card_vs_cpu"]["rel"] <= DET_TOL:
+        raise AssertionError(f"phase 14 (a): card vs CPU {res['card_vs_cpu']}"
+                             f" (tol {DET_TOL})")
+    if res["fault_no_hull"]["rel"] <= DET_TOL:
+        raise AssertionError(f"phase 14 (a): the planted fault (GIoU hull "
+                             f"term dropped) passed the CPU gate: "
+                             f"{res['fault_no_hull']}")
+    if not res["layouts"]["rel"] <= DET_TOL:
+        raise AssertionError(f"phase 14 (a): NCHW vs NHWC {res['layouts']}")
+    if not res["rerun"]["bit_equal"]:
+        raise AssertionError("phase 14 (a): a deterministic rerun differs")
+    return res
+
+
+def det_postprocess(torch, np, model, seed, iters):
+    """`postprocess` of the trained model on two of its images (score
+    threshold 0: each image's 400 best boxes go to `nms`): every `nms`
+    call on the card returns the indices the port's CPU `nms` gives on the
+    same boxes and scores; `nms`'s ms at 400 boxes on the card."""
+    from paddle_tpu_torch.vision import ops as vops
+
+    img = _det_batch(torch, np, seed, 2)[0].cuda()
+    calls = []
+    real = vops.nms
+
+    def recording(boxes, scores=None, iou_threshold=0.3, top_k=None, **kw):
+        out = real(boxes, scores, iou_threshold, top_k, **kw)
+        calls.append((boxes, scores, iou_threshold, out))
+        return out
+
+    model.eval()
+    vops.nms = recording
+    try:
+        dets = model.postprocess(img, score_threshold=0.0, nms_iou=0.6)
+    finally:
+        vops.nms = real
+        model.train()
+    equal = [bool(torch.equal(out.cpu(), real(b.cpu(), s.cpu(), t)))
+             for b, s, t, out in calls]
+    b, s, t, _ = calls[0]
+    res = {"images": len(dets), "nms_calls": len(calls),
+           "boxes_per_call": [int(c[0].shape[0]) for c in calls],
+           "kept": [int(len(d[1])) for d in dets], "nms_equal_cpu": equal,
+           "nms_ms_400": time_ms(torch, lambda: real(b, s, t), iters)}
+    log(f"  (a) postprocess {json.dumps(res)}")
+    if len(calls) != 2 or not all(equal) or res["boxes_per_call"] != [
+            DET_NMS_BOXES] * 2:
+        raise AssertionError(f"phase 14 (a): postprocess / nms {res}")
+    if not all(np.isfinite(d[0]).all() and d[2].dtype == np.int64
+               for d in dets):
+        raise AssertionError("phase 14 (a): postprocess output")
+    return res
+
+
+def profile_det(torch, np, model, seed, steps=3):
+    """torch.profiler over `steps` bf16 steps of PP-YOLOE-s at bench.py's
+    batch (this process's only profiler session): device-busy share and
+    ms a step by kernel family."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = _det_engine(torch, model, "bfloat16")
+    batch = [t.cuda() for t in _det_batch(torch, np, seed, DET_BATCH)]
+    _bert_steps(torch, eng, batch, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _bert_steps(torch, eng, batch, steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fam = kernel_families(prof, (
+        ("batch_norm", ("batch_norm", "bn_fw", "bn_bw", "welford")),
+        ("conv", ("conv", "cudnn", "implicit", "xmma", "fprop", "dgrad",
+                  "wgrad", "nchw", "nhwc", *GEMM_NAMES)),
+        ("optimizer", ("foreach", "multi_tensor")),
+        ("loss gather / index", ("gather", "index", "scatter", "arg")),
+        ("elementwise", ("elementwise", "reduce", "copy", "fill", "cat"))))
+    busy_ms = sum(fam.values()) / 1e3
+    evts = device_events(prof)
+    return {"steps": steps, "step_ms": wall_ms / steps,
+            "device_busy_ms_per_step": busy_ms / steps,
+            "device_busy_share": busy_ms / wall_ms,
+            "device_launches_per_step": sum(e.count for e in evts) / steps,
+            "kernel_ms_per_step": {k: v / 1e3 / steps
+                                   for k, v in fam.items()},
+            "top_kernels_ms_per_step": top_kernels(prof, steps)}
+
+
+def _vit_loss(m, x, y):
+    from paddle_tpu_torch.nn.functional import cross_entropy
+
+    return cross_entropy(m(x), y).mean()
+
+
+def _vit_engine(torch, depth, seed, compute_dtype="bfloat16"):
+    """ViT-B/16 (224 px, 1000 classes; `depth` of its 12 layers) from
+    `seed`, AdamW lr 1e-4, f32 masters, hard-label cross-entropy."""
+    from paddle_tpu_torch.distributed import parallelize
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.vision.models import VisionTransformer
+
+    # vit_b_16's geometry at `depth` layers
+    model = VisionTransformer(patch_size=16, embed_dim=768, depth=depth,
+                              num_heads=12, num_classes=VIT_CLASSES,
+                              device="cuda", seed=seed)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    return model, parallelize(model, opt, loss_fn=_vit_loss,
+                              compute_dtype=compute_dtype)
+
+
+def _vit_batch(torch, np, seed, batch):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(batch, 3, VIT_SIZE, VIT_SIZE).astype(np.float32)
+    y = rng.randint(0, VIT_CLASSES, (batch,)).astype(np.int64)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+
+
+def vit_throughput(torch, np, depth, seed, steps=VIT_STEPS):
+    """ViT-B/16 at B = 128: 2 warm-up steps, then `steps`, the flash
+    counts set to 0 just before and read just after: per step `depth`
+    forward, `depth` dQ and `depth` dK/dV launches, every one on its
+    Hopper body; ms a step, images/s, MFU, peak memory; losses finite and
+    falling."""
+    import math
+
+    from paddle_tpu_torch.vision.models import train_flops_per_image
+
+    torch.cuda.empty_cache()
+    model, eng = _vit_engine(torch, depth, seed)
+    batch = _vit_batch(torch, np, seed, VIT_BATCH)
+    _bert_steps(torch, eng, batch, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    losses, norms = _bert_steps(torch, eng, batch, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routes = flash_counts(), flash_route_counts()
+    fpi = train_flops_per_image(model, VIT_SIZE)
+    ips = VIT_BATCH * steps / wall
+    row = {"model": "vit_b_16", "layers": depth, "batch": VIT_BATCH,
+           "size": VIT_SIZE, "seq": (VIT_SIZE // 16) ** 2 + 1,
+           "steps": steps, "step_ms": wall * 1e3 / steps,
+           "images_per_s": ips, "train_flops_per_image": fpi,
+           "mfu": ips * fpi / BF16_FLOPS, "losses": losses,
+           "grad_norms": norms, "launches": launches, "routes": routes,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  (b) vit_b_16 {json.dumps(row)}")
+    per_run = depth * steps
+    if any(n != per_run for n in launches.values()) or any(
+            r.get(FLASH_ROUTE_NAMES[3], 0) != per_run
+            for r in routes.values()):
+        raise AssertionError(f"phase 14 (b): flash launches {launches}, by "
+                             f"body {routes}; expected {per_run} of each "
+                             f"on its Hopper body")
+    if not all(math.isfinite(v) for v in losses + norms) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 14 (b): losses {losses}")
+    del model, eng, batch
+    return row
+
+
+def vit_parity(torch, np, seed):
+    """A 2-layer ViT-B/16 of the same weights through the flash kernels
+    and through the plain attention (the routing predicate patched to
+    admit no shape), one step at B = 16 in bf16 and in f32 compute: the
+    logits (read by a hook on the head, in the compute dtype) within
+    FLASH_TOL's O bound (max |got - ref| / max(1, max |ref|)) and the
+    whole gradient normwise within VIT_GRAD_TOL; the loss reported."""
+    from paddle_tpu_torch.nn.functional import attention
+
+    supported = attention.flash_attention_supported
+    batch = _vit_batch(torch, np, seed + 1, VIT_PARITY_BATCH)
+    res = {}
+    for dt in ("bfloat16", "float32"):
+        runs = {}
+        for route in ("kernels", "plain"):
+            if route == "plain":
+                attention.flash_attention_supported = \
+                    lambda shape, causal: False
+            try:
+                model, eng = _vit_engine(torch, VIT_PARITY_LAYERS, seed,
+                                         dt if dt == "bfloat16" else None)
+                logits = []
+                model.head.register_forward_hook(
+                    lambda mod, inp, out: logits.append(out.detach()))
+                reset_flash_counts()
+                loss = float(eng.train_batch(*batch))
+                grads = torch.cat([p.grad.float().flatten()
+                                   for p in model.parameters()])
+                runs[route] = (loss, logits[0].float(), grads,
+                               flash_counts())
+            finally:
+                attention.flash_attention_supported = supported
+            del model, eng
+        (lk, ok, gk, ck), (lp, op, gp, cp) = runs["kernels"], runs["plain"]
+        o_tol, grad_tol = FLASH_TOL[dt][0], VIT_GRAD_TOL[dt]
+        row = {"loss": {"kernels": lk, "plain": lp},
+               "logits_err": float((ok - op).abs().max()
+                                   / op.abs().max().clamp_min(1.0)),
+               "grad_norm_rel_err": float((gk - gp).norm() / gp.norm()),
+               "launches": ck, "plain_launches": cp, "o_tol": o_tol,
+               "grad_tol": grad_tol}
+        res[dt] = row
+        log(f"  (b) parity {dt} {json.dumps(row)}")
+        if not (row["logits_err"] <= o_tol
+                and row["grad_norm_rel_err"] <= grad_tol):
+            raise AssertionError(f"phase 14 (b): kernels vs plain {dt}: "
+                                 f"{row}")
+        if min(ck.values()) == 0 or any(cp.values()):
+            raise AssertionError(f"phase 14 (b): routing {ck} / {cp}")
+    return res
+
+
+def vision_tier(torch, np, layers, seed, iters):
+    """Phase 14 (a child process): (a) PP-YOLOE-s — throughput, the gates,
+    the postprocess and a profile; (b) ViT-B/16 — throughput with the
+    flash launches by body, and the kernels-vs-plain parity."""
+    t_phase = time.perf_counter()
+    res = {"device": nvidia_smi_line()}
+    t0 = time.perf_counter()
+    res["det"], model = det_throughput(torch, np, seed)
+    res["det"]["postprocess"] = det_postprocess(torch, np, model, seed,
+                                                iters)
+    res["det"]["profile"] = profile_det(torch, np, model, seed)
+    log(f"  (a) profile {json.dumps(res['det']['profile'])}")
+    del model
+    res["det"]["gates"] = det_gates(torch, np, seed)
+    res["det"]["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["vit"] = vit_throughput(torch, np, layers, seed)
+    res["vit"]["parity"] = vit_parity(torch, np, seed)
+    res["vit"]["seconds"] = time.perf_counter() - t0
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def start_vision(args):
+    """Phase 14's child process (its profiler session is that process's
+    first), started ahead: it imports and waits for `vision_phase`."""
+    return start_child("--vision-tier", 2 if args.quick else 12, args.seed,
+                       args.report, *(["--quick"] if args.quick else []))
+
+
+def vision_phase(args, child=None):
+    """Phase 14 in its child process (`start_vision`'s, or one started
+    here); returns its result."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = wait_child(child or start_vision(args))
+    log(f"  phase 14: {res['seconds']:.1f} s ((a) {res['det']['seconds']:.1f}"
+        f", (b) {res['vit']['seconds']:.1f}); ppyoloe_s "
+        f"{res['det']['step_ms']:.2f} ms a step, "
+        f"{res['det']['images_per_s']:.1f} images/s, MFU "
+        f"{res['det']['mfu']:.4f}; vit_b_16 {res['vit']['step_ms']:.2f} ms "
+        f"a step, {res['vit']['images_per_s']:.1f} images/s, MFU "
+        f"{res['vit']['mfu']:.4f}")
     return res
 
 
@@ -7510,6 +8048,11 @@ def main(argv):
                     help="the build and phase 13 (process replicas over "
                          "the coordination store, request tracing) only")
     ap.add_argument("--replica-tier", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--int8-artifact", help=argparse.SUPPRESS)
+    ap.add_argument("--vision-only", action="store_true",
+                    help="the build and phase 14 (PP-YOLOE-s detection, "
+                         "ViT-B/16) only")
+    ap.add_argument("--vision-tier", metavar="OUT", help=argparse.SUPPRESS)
     ap.add_argument("--bucket-designs", action="store_true",
                     help="phase 12 also builds and times the bucket "
                          "programs' other body (jit.aot.bucket_design)")
@@ -7537,6 +8080,16 @@ def main(argv):
     torch.backends.cudnn.allow_tf32 = False
     if args.cp_rank is not None:
         return cp_rank(torch, args)
+    if any((args.profile_train, args.profile_tenants, args.profile_bert,
+            args.profile_bert_o2, args.profile_resnet, args.profile_resblock,
+            args.serve_tier, args.replica_tier, args.vision_tier)):
+        # a child phase (`start_child`): import, then wait for the parent's
+        # go, so that a child started ahead uses the card only when told
+        import paddle_tpu_torch.distributed  # noqa: F401
+        import paddle_tpu_torch.models  # noqa: F401
+        import paddle_tpu_torch.vision  # noqa: F401
+        if not sys.stdin.readline():
+            return 1                # the parent is gone: no go, no work
     if args.profile_train:
         res = profile_train(torch, args.layers, args.seed)
         with open(args.profile_train, "w") as f:
@@ -7573,8 +8126,15 @@ def main(argv):
             json.dump(res, f)
         return 0
     if args.replica_tier:
-        res = replica_tier(torch, np, args.layers, args.seed)
+        res = replica_tier(torch, np, args.layers, args.seed,
+                           args.int8_artifact)
         with open(args.replica_tier, "w") as f:
+            json.dump(res, f)
+        return 0
+    if args.vision_tier:
+        res = vision_tier(torch, np, args.layers, args.seed,
+                          5 if args.quick else 20)
+        with open(args.vision_tier, "w") as f:
             json.dump(res, f)
         return 0
     t_start = time.perf_counter()
@@ -7617,6 +8177,11 @@ def main(argv):
                            "coordination store, request tracing")
         return finish(args, torch, smi, build_rec, t_start, [],
                       {"replicas": replicas_phase(args)})
+    if args.vision_only:
+        log_phase(t_start, "phase 14: vision (PP-YOLOE-s detection, "
+                           "ViT-B/16)")
+        return finish(args, torch, smi, build_rec, t_start, [],
+                      {"vision": vision_phase(args)})
     if args.lora_only:
         log_phase(t_start, "phase 2: BGMV vs its plain version")
         bg_rows = check_bgmv(torch, iters)
@@ -7661,17 +8226,19 @@ def main(argv):
 
     log_phase(t_start, "phase 4: gpt_base training through parallelize")
     layers = 2 if args.quick else 12
-    train = {"throughput": train_throughput(torch, layers, 20, args.seed),
-             "parity": train_parity(torch, layers, args.seed),
-             "profile": profile_train_child(torch, layers, args.seed,
-                                            args.report)}
+    train = {"throughput": train_throughput(torch, layers, 20, args.seed)}
+    # each profile child starts before its phase's parity (a gate on
+    # numbers, not times) and waits for the card until it is collected
+    child = start_child("--profile-train", layers, args.seed, args.report)
+    train["parity"] = train_parity(torch, layers, args.seed)
+    train["profile"] = profile_train_child(child)
 
     log_phase(t_start, "phase 5: bert_base fine-tuning through parallelize")
     bert_run = {"throughput": bert_throughput(torch, np, layers, 20,
-                                              args.seed),
-                "parity": bert_parity(torch, np, layers, args.seed)}
-    bert_run["profile"] = run_child("--profile-bert", layers, args.seed,
-                                    args.report)
+                                              args.seed)}
+    child = start_child("--profile-bert", layers, args.seed, args.report)
+    bert_run["parity"] = bert_parity(torch, np, layers, args.seed)
+    bert_run["profile"] = wait_child(child)
     # the profiler's own host cost stretches its window's step; the device
     # time it records against the unprofiled step is the busy share a run
     # without it sees
@@ -7706,11 +8273,23 @@ def main(argv):
     serve_run = serve_phase(args)
 
     log_phase(t_start, "phase 12: deploy and serve an exported bert_base")
-    pred_run = predictor_phase(torch, np, args)
+    # phase 12 (d)'s int8 export is phase 13 (a)'s generation 1: kept here
+    # until phase 13 is done
+    import shutil
+
+    int8_dir = os.path.join(os.path.dirname(os.path.abspath(args.report)),
+                            "phase12-bert-int8")
+    shutil.rmtree(int8_dir, ignore_errors=True)
+    pred_run = predictor_phase(torch, np, args, keep_int8=int8_dir)
 
     log_phase(t_start, "phase 13: process replicas over the coordination "
                        "store, request tracing")
-    rep_run = replicas_phase(args)
+    # phase 14's child imports while phase 13 runs, and waits for the card
+    vision_child = start_vision(args)
+    try:
+        rep_run = replicas_phase(args, int8_dir)
+    finally:
+        shutil.rmtree(int8_dir, ignore_errors=True)
     b1, a11 = rep_run["b"]["b1"], serve_run["a"]
     rep_run["b"]["b1"]["phase11_a"] = {
         k: a11[k] for k in ("tokens_per_s", "ttft_p50_s", "ttft_p95_s")}
@@ -7719,6 +8298,11 @@ def main(argv):
         f"(a) {a11['tokens_per_s']:.1f}, {a11['ttft_p50_s']:.3f}, "
         f"{a11['ttft_p95_s']:.3f}")
     rep_a, rep_b = rep_run["a"]["launches"], rep_run["b"]["launches"]
+
+    log_phase(t_start, "phase 14: vision (PP-YOLOE-s detection, ViT-B/16)")
+    vision_run = vision_phase(args, vision_child)
+    vit = vision_run["vit"]
+    fa_vit = next(r for r in fa_rows if r["case"].startswith("vit_b_16"))
 
     launches = {k: sum(r["launches"].get(k, 0) for r in runs)
                 for k in runs[0]["launches"]}
@@ -7819,6 +8403,17 @@ def main(argv):
             routes=train["throughput"]["routes"][part],
             lora_launches=lora_run["finetune"]["launches"][name],
             lora_routes=lora_run["finetune"]["routes"][part],
+            # phase 14 (b): ViT-B/16's training run, and phase 2's check
+            # at its shape (S = 197, non-causal)
+            vit_launches=vit["launches"][name], vit_routes=vit["routes"][part],
+            vit_case=fa_vit["case"], vit_ms=fa_vit[f"{part}_ms"],
+            vit_plain_ms=fa_vit[f"{part}_plain_ms"],
+            vit_bound_ms=fa_vit[f"{part}_bound_ms"],
+            vit_device_ms=fa_vit[f"{part}_dev_ms"],
+            vit_library_ms=(fa_vit["fwd_library_ms"] if part == "fwd"
+                            else None),
+            vit_pair_library_ms=(None if part == "fwd"
+                                 else fa_vit["bwd_library_ms"]),
             **({"predictor_launches": {
                 m: r["launches"]["flash_attention_fwd"]
                 for m, r in pred_run["serve"].items()},
@@ -7870,7 +8465,7 @@ def main(argv):
         "decode_table_cost": table_cost,
         "fused_pair": pair_rows, "sparse": sparse_run,
         "recipes": recipes_run, "lora": lora_run, "serve": serve_run,
-        "predictor": pred_run, "replicas": rep_run})
+        "predictor": pred_run, "replicas": rep_run, "vision": vision_run})
 
 
 def main_route_rows(wo_rows, fa_rows):

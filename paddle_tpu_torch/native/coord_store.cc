@@ -12,11 +12,15 @@
 // SET/ADD. Heartbeats are ordinary keys with server-side receipt
 // timestamps, so the watchdog is a pure reader.
 //
-// Two changes from the reference's copy, for process replicas that are
-// SIGSTOPped: a client sends each command in one write, and the daemon
-// drops a client that blocks it for kIoTimeoutMs (the reference's daemon
-// blocks forever on a client frozen in the middle of a command, and with
-// it every client, heartbeats included).
+// Three changes from the reference's copy, for process replicas that are
+// SIGSTOPped: a client sends each command in one write; the daemon drops a
+// client that blocks it for kIoTimeoutMs (the reference's daemon blocks
+// forever on a client frozen in the middle of a command, and with it every
+// client, heartbeats included); and a client whose exchange fails (it was
+// dropped while stopped mid-transfer) reconnects and sends the command
+// again when running it twice is harmless (every command but ADD), so a
+// process that is continued goes on as it does against the reference's
+// daemon.
 //
 // C ABI only, loaded with ctypes (distributed/store.py); built with the
 // host C++ compiler by paddle_tpu_torch/native/__init__.py.
@@ -64,6 +68,7 @@ enum Status : uint8_t {
 };
 
 constexpr int kIoTimeoutMs = 200;  // the daemon's longest wait on one client
+constexpr int kReconnectMs = 250;  // a client's reconnect after a drop
 
 int64_t now_ms() {
   return std::chrono::duration_cast<std::chrono::milliseconds>(
@@ -411,75 +416,94 @@ class StoreClient {
     fd_ = -1;
   }
 
+  // One request/response on the connection (mu_ held): send `m`, then
+  // `reply()` reads the answer and returns -1 on a broken connection, else
+  // its result. A broken exchange reconnects; with `resend` the command
+  // goes out once more on the new connection.
+  template <typename F>
+  int Exchange(const std::string& m, bool resend, F&& reply) {
+    for (int attempt = 0;; attempt++) {
+      if (fd_ >= 0 && send_all(fd_, m.data(), m.size())) {
+        int rc = reply();
+        if (rc != -1) return rc;
+      }
+      if (fd_ >= 0) ::close(fd_);
+      fd_ = -1;
+      if (!Connect(host_, port_, kReconnectMs) || !resend || attempt == 1)
+        return -1;
+    }
+  }
+
   int Set(const std::string& key, const std::string& val) {
     std::lock_guard<std::mutex> g(mu_);
-    uint8_t st;
     std::string m = command(CMD_SET, key);
     put_bytes(&m, val);
-    if (!send_all(fd_, m.data(), m.size()) || !recv_all(fd_, &st, 1))
-      return -1;
-    return st == ST_OK ? 0 : -1;
+    return Exchange(m, true, [&] {
+      uint8_t st;
+      if (!recv_all(fd_, &st, 1)) return -1;
+      return st == ST_OK ? 0 : 2;
+    }) == 0 ? 0 : -1;
   }
 
   int Get(const std::string& key, std::string* val) {
     std::lock_guard<std::mutex> g(mu_);
-    uint8_t st;
-    std::string m = command(CMD_GET, key);
-    if (!send_all(fd_, m.data(), m.size()) || !recv_all(fd_, &st, 1))
-      return -1;
-    if (st != ST_OK) return 1;  // not found
-    return recv_bytes(fd_, val) ? 0 : -1;
+    return Exchange(command(CMD_GET, key), true, [&] {
+      uint8_t st;
+      if (!recv_all(fd_, &st, 1)) return -1;
+      if (st != ST_OK) return 1;  // not found
+      return recv_bytes(fd_, val) ? 0 : -1;
+    });
   }
 
   int Add(const std::string& key, int64_t delta, int64_t* out) {
     std::lock_guard<std::mutex> g(mu_);
-    uint8_t st;
     std::string m = command(CMD_ADD, key);
     put_i64(&m, delta);
-    if (!send_all(fd_, m.data(), m.size()) || !recv_all(fd_, &st, 1) ||
-        !recv_all(fd_, out, 8))
-      return -1;
-    return st == ST_OK ? 0 : -1;
+    // not resent: an ADD that reached the daemon before the connection
+    // broke has counted once already
+    return Exchange(m, false, [&] {
+      uint8_t st;
+      if (!recv_all(fd_, &st, 1) || !recv_all(fd_, out, 8)) return -1;
+      return st == ST_OK ? 0 : 2;
+    }) == 0 ? 0 : -1;
   }
 
   int Wait(const std::string& key, int64_t timeout_ms, std::string* val) {
     std::lock_guard<std::mutex> g(mu_);
-    uint8_t st;
     std::string m = command(CMD_WAIT, key);
     put_i64(&m, timeout_ms);
-    if (!send_all(fd_, m.data(), m.size()) || !recv_all(fd_, &st, 1))
-      return -1;
-    if (st != ST_OK) return 1;  // timed out
-    return recv_bytes(fd_, val) ? 0 : -1;
+    return Exchange(m, true, [&] {
+      uint8_t st;
+      if (!recv_all(fd_, &st, 1)) return -1;
+      if (st != ST_OK) return 1;  // timed out
+      return recv_bytes(fd_, val) ? 0 : -1;
+    });
   }
 
   int Delete(const std::string& key) {
     std::lock_guard<std::mutex> g(mu_);
-    uint8_t st;
-    std::string m = command(CMD_DELETE, key);
-    if (!send_all(fd_, m.data(), m.size()) || !recv_all(fd_, &st, 1))
-      return -1;
-    return st == ST_OK ? 0 : 1;
+    return Exchange(command(CMD_DELETE, key), true, [&] {
+      uint8_t st;
+      if (!recv_all(fd_, &st, 1)) return -1;
+      return st == ST_OK ? 0 : 1;
+    });
   }
 
   int Keys(const std::string& prefix, std::string* joined) {
     std::lock_guard<std::mutex> g(mu_);
-    uint8_t st;
-    std::string m = command(CMD_KEYS, prefix);
-    if (!send_all(fd_, m.data(), m.size()) || !recv_all(fd_, &st, 1) ||
-        !recv_bytes(fd_, joined))
-      return -1;
-    return 0;
+    return Exchange(command(CMD_KEYS, prefix), true, [&] {
+      uint8_t st;
+      return recv_all(fd_, &st, 1) && recv_bytes(fd_, joined) ? 0 : -1;
+    });
   }
 
   int StampAge(const std::string& key, int64_t* age_ms) {
     std::lock_guard<std::mutex> g(mu_);
-    uint8_t st;
-    std::string m = command(CMD_STAMP, key);
-    if (!send_all(fd_, m.data(), m.size()) || !recv_all(fd_, &st, 1) ||
-        !recv_all(fd_, age_ms, 8))
-      return -1;
-    return st == ST_OK ? 0 : 1;
+    return Exchange(command(CMD_STAMP, key), true, [&] {
+      uint8_t st;
+      if (!recv_all(fd_, &st, 1) || !recv_all(fd_, age_ms, 8)) return -1;
+      return st == ST_OK ? 0 : 1;
+    });
   }
 
   // ---- heartbeat publisher (the watchdog's write side) ----

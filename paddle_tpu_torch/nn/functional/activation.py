@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch.nn.functional as F
 
-__all__ = ["gelu", "relu", "silu"]
+__all__ = ["gelu", "relu", "relu6", "silu"]
 
 
 def gelu(x, approximate=False):
@@ -13,6 +13,10 @@ def gelu(x, approximate=False):
 
 def relu(x):
     return F.relu(x)
+
+
+def relu6(x):
+    return F.relu6(x)
 
 
 def silu(x):

@@ -1,14 +1,35 @@
 """Activation layers (counterpart of paddle_tpu/nn/layer/activation.py's
-`ReLU`)."""
+`ReLU`, `ReLU6`, `Silu` and `GELU`)."""
 from __future__ import annotations
 
 from torch import nn
 
-from ..functional.activation import relu
+from ..functional.activation import gelu, relu, relu6, silu
 
-__all__ = ["ReLU"]
+__all__ = ["ReLU", "ReLU6", "Silu", "GELU"]
 
 
 class ReLU(nn.Module):
     def forward(self, x):
         return relu(x)
+
+
+class ReLU6(nn.Module):
+    def forward(self, x):
+        return relu6(x)
+
+
+class Silu(nn.Module):
+    def forward(self, x):
+        return silu(x)
+
+
+class GELU(nn.Module):
+    """``approximate=True`` is the tanh form."""
+
+    def __init__(self, approximate=False):
+        super().__init__()
+        self._approximate = bool(approximate)
+
+    def forward(self, x):
+        return gelu(x, self._approximate)

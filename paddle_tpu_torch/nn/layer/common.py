@@ -1,12 +1,38 @@
-"""Common layers (counterpart of paddle_tpu/nn/layer/common.py):
-`Dropout`, which holds the generator its masks are drawn from."""
+"""Common layers (counterpart of paddle_tpu/nn/layer/common.py): `Linear`
+and `Dropout`, which holds the generator its masks are drawn from."""
 from __future__ import annotations
 
+import math
+
+import torch
 from torch import nn
 
 from ..functional.common import dropout
 
-__all__ = ["Dropout"]
+__all__ = ["Linear", "Dropout"]
+
+
+class Linear(nn.Linear):
+    """`torch.nn.Linear` (weight ``[out, in]``; the JAX layer's is ``[in,
+    out]`` and `convert` transposes it) with Paddle's default
+    initialisation: a Xavier-uniform weight, uniform in +-sqrt(6 / (in +
+    out)), drawn from `generator`, and a zero bias. ``bias_attr=False``
+    builds no bias."""
+
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, *, device=None, dtype=None,
+                 generator=None):
+        if weight_attr is not None or bias_attr not in (None, False):
+            raise NotImplementedError("Linear ports weight_attr None and "
+                                      "bias_attr None or False")
+        super().__init__(in_features, out_features,
+                         bias=bias_attr is not False, device=device,
+                         dtype=dtype)
+        bound = math.sqrt(6.0 / (in_features + out_features))
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+            if self.bias is not None:
+                self.bias.zero_()
 
 
 class Dropout(nn.Module):

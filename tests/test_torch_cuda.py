@@ -3070,3 +3070,125 @@ def test_subprocess_replica_on_the_card_replies_bit_equal(cuda, tmp_path):
         if rep is not None:
             rep.kill()
         store.close()
+
+
+# ------------------------------------------------------------------ vision
+
+def test_nms_on_the_card_equals_nms_on_the_cpu(cuda):
+    """400 boxes (the postprocess's pre-NMS cap), scores with exact ties
+    and IoU exactly at the threshold: the indices on the card equal the
+    CPU's, and the scan reads the host only once every few rounds."""
+    from paddle_tpu_torch.vision import ops
+
+    g = torch.Generator().manual_seed(0)
+    xy = torch.rand(400, 2, generator=g) * 600
+    wh = torch.rand(400, 2, generator=g) * 200 + 5
+    boxes = torch.cat([xy, xy + wh], 1)
+    boxes[1] = torch.tensor([0.0, 0.0, 10.0, 5.0])
+    boxes[0] = torch.tensor([0.0, 0.0, 10.0, 10.0])      # IoU 0.5 exactly
+    for scores in (torch.rand(400, generator=g),
+                   torch.randint(0, 7, (400,), generator=g).float()):
+        for thr in (0.3, 0.5, 0.6):
+            want = ops.nms(boxes, scores, thr)
+            got = ops.nms(boxes.cuda(), scores.cuda(), thr)
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu(), want), thr
+
+
+def test_vit_attention_shape_on_the_hopper_bodies(cuda):
+    """ViT-B/16's attention (S = 197: 196 patches and the class token, 12
+    heads of 64, non-causal, bf16; a tail tile with 5 valid keys of 64):
+    forward, dQ and dK/dV each against the plain versions at FLASH_TOL,
+    each launch on its Hopper body."""
+    q, k, v, do = _flash_case(8, 197, 12, 64, torch.bfloat16, seed=197,
+                              fused=True)
+    assert tfa.flash_fwd_route(q, k, v)[0] == tfa.FWD_WGMMA
+    assert tfa.flash_bwd_route(q, k, v, do)[0] == tfa.BWD_WGMMA
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=False)
+    ref, lse_ref = tfa.flash_attention_ref(q, k, v, causal=False)
+    assert _err(out, ref) <= FLASH_TOL[torch.bfloat16][0]
+    delta = tfa.attention_delta(ref, do)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse_ref, delta,
+                                    causal=False)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse_ref, delta,
+                                         causal=False)
+    refs = tfa.flash_attention_bwd_ref(q, k, v, do, lse_ref, delta,
+                                       causal=False)
+    for name, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert _norm_err(got, r) <= FLASH_TOL[torch.bfloat16][1], name
+
+
+def test_small_vit_trains_through_the_flash_kernels(cuda):
+    """A 2-layer ViT at 224 px (S = 197, heads of 64) trained by
+    `parallelize` in bf16: every attention launch a step — 2 forward, 2
+    dQ, 2 dK/dV — on the Hopper bodies, and the loss finite."""
+    from paddle_tpu_torch.distributed import parallelize
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.vision.models import VisionTransformer
+
+    m = VisionTransformer(embed_dim=128, depth=2, num_heads=2,
+                          num_classes=10, device="cuda")
+    eng = parallelize(m, AdamW(learning_rate=1e-3,
+                               parameters=m.parameters()),
+                      loss_fn=lambda mm, x, y: cross_entropy(mm(x), y).mean(),
+                      compute_dtype="bfloat16")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(4, 3, 224, 224, device="cuda", generator=g)
+    y = torch.randint(0, 10, (4,), device="cuda", generator=g)
+    wrappers = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+                tfa.flash_attention_bwd_dkv)
+    for w in wrappers:
+        w.launches = 0
+        for r in w.routes:
+            w.routes[r] = 0
+    losses = [float(eng.train_batch(x, y)) for _ in range(3)]
+    assert all(math.isfinite(v) for v in losses)
+    assert [w.launches for w in wrappers] == [6, 6, 6]
+    assert tfa.flash_attention_fwd.routes[tfa.FWD_WGMMA] == 6
+    assert tfa.flash_attention_bwd_dq.routes[tfa.BWD_WGMMA] == 6
+    assert tfa.flash_attention_bwd_dkv.routes[tfa.BWD_WGMMA] == 6
+
+
+@pytest.mark.parametrize("data_format", ["NCHW", "NHWC"])
+def test_small_ppyoloe_trains_and_postprocesses_on_the_card(cuda,
+                                                            data_format):
+    """PP-YOLOE at width 0.25 on 128 px images: a bf16 `parallelize`
+    Momentum step on the card, the loss finite and near the CPU's f32 loss
+    of the same weights, and `postprocess` returning numpy arrays."""
+    import numpy as np
+
+    from paddle_tpu_torch.distributed import parallelize
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import PPYOLOE
+
+    def build(device):
+        return PPYOLOE(num_classes=4, width=0.25, max_boxes=4,
+                       data_format=data_format, device=device, seed=1)
+
+    rng = np.random.RandomState(0)
+    shape = (2, 3, 128, 128) if data_format == "NCHW" else (2, 128, 128, 3)
+    img = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    gb = torch.tensor([[[8.0, 8.0, 60.0, 70.0], [30.0, 20.0, 120.0, 90.0],
+                        [0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0]]] * 2)
+    gl = torch.tensor([[1, 2, 0, 0]] * 2)
+    gm = torch.tensor([[1.0, 1.0, 0.0, 0.0]] * 2)
+    cpu = build("cpu")
+    want = cpu.loss(img, gb, gl, gm).item()
+    m = build("cuda")
+    m.load_state_dict(cpu.state_dict())
+    with torch.no_grad():
+        got = m.loss(img.cuda(), gb.cuda(), gl.cuda(), gm.cuda()).item()
+    assert abs(got - want) <= 1e-4 * abs(want)
+    eng = parallelize(m, Momentum(learning_rate=0.01, momentum=0.9,
+                                  parameters=m.parameters()),
+                      loss_fn=lambda mm, *b: mm.loss(*b),
+                      compute_dtype="bfloat16")
+    loss = float(eng.train_batch(img, gb, gl, gm))
+    assert math.isfinite(loss)
+    m.eval()
+    dets = m.postprocess(img.cuda(), score_threshold=0.0)
+    assert len(dets) == 2
+    for bb, sc, lb in dets:
+        assert bb.shape[1:] == (4,) and len(sc) == len(lb) <= 100
+        assert np.isfinite(bb).all() and lb.dtype == np.int64

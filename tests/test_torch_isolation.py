@@ -119,6 +119,19 @@ def test_resnet_constructors_raise_without_gpu():
         ResNet(BottleneckBlock, [1, 1, 1, 1], num_classes=10)
 
 
+def test_vision_constructors_raise_without_gpu():
+    from paddle_tpu_torch.vision import models, ops
+
+    assert models.vit_tiny(device="cpu").head.weight.device.type == "cpu"
+    _no_gpu()
+    for build in (models.ppyoloe_s, models.vit_tiny, models.LeNet,
+                  models.squeezenet1_1):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.nms([[0.0, 0.0, 1.0, 1.0]])
+
+
 def test_block_pool_raises_without_gpu():
     from paddle_tpu_torch.inference.decode import BlockKVCache
 

@@ -13,6 +13,13 @@ every replica process on ``device="cpu"``.
   cancel over the store frees the replica's sequence.
 * A trace minted by the router holds spans of both processes, merged by
   ``/traces/<id>``.
+* A replica process SIGSTOPped mid-request and SIGCONTed after a wedge
+  shorter than the heartbeat ttl (a small request, and one of 64 MB, far
+  larger than the socket buffers, stopped while the process reads it) or
+  longer than the ttl: the same script runs against the reference's
+  `SubprocessReplica` and store, and the port must end as the reference
+  does — served again by the same process, or declared dead and
+  respawned — with every request answered once.
 
 The replica processes import this module for their decode factory
 (`demo_factory`), so it imports nothing of JAX at module level. Every
@@ -325,3 +332,130 @@ def test_subprocess_replica_trace_merges_across_processes(tmp_path, store):
             r.shutdown(drain_timeout=10.0)
     finally:
         _kill_all(made)
+
+
+# ------------------------------------------------------------------ wedges
+
+WEDGE_TTL = 1.0                     # the routers' heartbeat ttl (s)
+#: (request floats, wedge seconds) of each case: a 16-byte request, and a
+#: 64 MB one (its reply 64 MB too), larger than the socket buffers
+WEDGE_CASES = {"short": (4, 0.4), "long": (4, 2.5),
+               "short, 64 MB": (16_000_000, 0.4)}
+
+
+def _doubler(pkg, d, n):
+    """Export ``x * 2`` on [1, n] float32 with `pkg`'s `jit.save` into
+    <d>/model."""
+    os.makedirs(d)
+    x = np.zeros((1, n), np.float32)
+    if pkg == "paddle_tpu":
+        import paddle_tpu as paddle
+        from paddle_tpu import nn as jnn
+
+        class Double(jnn.Layer):
+            def forward(self, t):
+                return t * 2.0
+
+        m = Double()
+        m.eval()
+        paddle.jit.save(m, os.path.join(d, "model"),
+                        input_spec=[paddle.to_tensor(x)])
+    else:
+        class Double(torch.nn.Module):
+            def forward(self, t):
+                return t * 2.0
+
+        tjit.save(Double().eval(), os.path.join(d, "model"), input_spec=[x])
+
+
+def _resident(pid):
+    with open(f"/proc/{pid}/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _wedge_run(pkg, d, n, wedge_s):
+    """One replica process of `pkg` behind its router and store; a
+    request in flight while the process is SIGSTOPped (a 64 MB one once
+    the process has read a megabyte of it), SIGCONT after `wedge_s`, then
+    one more request. Returns how it ended."""
+    import importlib
+
+    inf = importlib.import_module(pkg + ".inference")
+    store = importlib.import_module(
+        pkg + ".distributed.store").create_master_store()
+    kw = {} if pkg == "paddle_tpu" else {"device": "cpu"}
+    made = []
+
+    def factory(rid, model_dir, gen):
+        rep = inf.SubprocessReplica(rid, store, model_dir, gen,
+                                    artifact_name="model",
+                                    start_timeout=START, **kw)
+        made.append(rep)
+        return rep
+
+    cfg = inf.RouterConfig(
+        heartbeat_ttl=WEDGE_TTL, supervise_interval=0.02, start_grace=START,
+        attempt_timeout=30.0, probe_timeout=60.0, no_capacity_wait=60.0,
+        restart_backoff=inf.RetryPolicy(base_delay=0.05, max_delay=0.5),
+        failover=inf.RetryPolicy(max_retries=4, base_delay=0.002,
+                                 max_delay=0.01, max_elapsed=60.0))
+    x = np.random.RandomState(0).rand(1, n).astype(np.float32)
+    try:
+        r = inf.ServingRouter(factory, size=1, model_dir=d, config=cfg,
+                              heartbeats=store, metrics=False)
+        try:
+            outs = [r.infer([x], timeout=60.0)[0]]
+            rep = made[-1]
+            pid = rep._proc.pid
+            base = _resident(pid)
+            with concurrent.futures.ThreadPoolExecutor(1) as ex:
+                fut = ex.submit(r.infer, [x], timeout=60.0)
+                deadline = time.monotonic() + 30.0
+                while n > 4 and _resident(pid) - base < (1 << 20) \
+                        and time.monotonic() < deadline:
+                    time.sleep(0.0002)
+                rep.wedge()
+                in_flight = not fut.done()
+                time.sleep(wedge_s)
+                rep.unwedge()
+                outs.append(fut.result(timeout=60.0)[0])
+            outs.append(r.infer([x], timeout=60.0)[0])
+            st = r.stats()
+            return {"served_again": made[-1]._proc.pid == pid,
+                    "deaths": st["deaths"], "in_flight": in_flight,
+                    "answered": (st["admitted"], st["completed"]),
+                    "correct": all(np.array_equal(o, 2 * x) for o in outs)}
+        finally:
+            r.shutdown(drain_timeout=5.0)
+    finally:
+        _kill_all({"r": made})
+        store.close()
+
+
+@pytest.mark.parametrize("case", list(WEDGE_CASES))
+def test_wedged_process_replica_ends_as_the_reference_does(case, tmp_path,
+                                                          monkeypatch):
+    """SIGSTOP mid-request, SIGCONT after `case`'s wedge: the port's
+    replica and the reference's, side by side, end the same way. Shorter
+    than the ttl: served again by the same process (for the 64 MB
+    request the port's daemon drops the stopped reader after 200 ms and
+    its client reconnects and reads the request again; the reference's
+    daemon waits for it, every client frozen meanwhile). Longer: declared
+    dead, killed and respawned, the request answered by the new
+    process."""
+    _prepend_path(monkeypatch, os.path.dirname(HERE))
+    n, wedge_s = WEDGE_CASES[case]
+    runs = {}
+    for pkg in ("paddle_tpu", "paddle_tpu_torch"):
+        _doubler(pkg, str(tmp_path / pkg), n)
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        futs = {pkg: ex.submit(_wedge_run, pkg, str(tmp_path / pkg), n,
+                               wedge_s)
+                for pkg in ("paddle_tpu", "paddle_tpu_torch")}
+        runs = {pkg: f.result() for pkg, f in futs.items()}
+    for pkg, run in runs.items():
+        assert run["in_flight"] and run["correct"], (pkg, run)
+        assert run["answered"] == (3, 3), (pkg, run)
+        assert run["served_again"] == (run["deaths"] == 0), (pkg, run)
+    assert runs["paddle_tpu_torch"]["served_again"] \
+        == runs["paddle_tpu"]["served_again"] == (wedge_s < WEDGE_TTL), runs
