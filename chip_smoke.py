@@ -301,7 +301,21 @@ Phases (any failure exits non-zero and prints no result line):
    (the logits within FLASH_TOL's O bound; the whole gradient normwise
    within FLASH_TOL's bound in f32 and phase 4's 5e-2 in bf16); phase 2
    holds the flash kernels at its attention shape (B = 128, S = 197,
-   H = 12, D = 64, bf16, non-causal) at FLASH_TOL;
+   H = 12, D = 64, bf16, non-causal) at FLASH_TOL; (c) and (d) in a
+   second child, which computes their CPU references ahead: (c) the
+   detection ops in f32 at PaddleDetection's widths (Faster R-CNN
+   R50-FPN's proposals, FPN distribution, RoIAlign and box decode;
+   YOLOv3's loss, box decode and matrix NMS; PP-YOLO's DCNv2), each on
+   the card against the CPU (floats within 1e-5 relative, every index
+   and count equal) and a planted fault a gate; (d) ResNeXt-50,
+   DenseNet-121, MobileNetV3-Large, ShuffleNetV2 1.0x, GoogLeNet and
+   InceptionV3 trained at B = 128 in bf16 (ms a step, images/s, MFU,
+   peak memory, falling losses; ResNeXt-50's step profiled, its
+   fused-bottleneck launches 0), and for each an f32 step at B = 2 on
+   the card against the CPU (frozen batch norms within 1e-4, batch
+   statistics within 1e-3; ShuffleNetV2 run again with two planted
+   faults, which must fail them), NCHW against NHWC and a bit-equal
+   bf16 rerun;
 15. the kernels' JSON line, the nvidia-smi line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2218,7 +2232,7 @@ def wait_child(child):
         raise
     if proc.returncode != 0:
         raise AssertionError(f"{flag} child failed:\n"
-                             f"{out[-3000:]}\n{err[-3000:]}")
+                             f"{out[-12000:]}\n{err[-3000:]}")
     with open(path) as f:
         res = json.load(f)
     os.remove(path)
@@ -8003,6 +8017,760 @@ def vision_phase(args, child=None):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 14 (c), (d): the detection ops at PaddleDetection's widths and the
+# CNN families at PaddleClas's — a child process of their own (its
+# profiler session, ResNeXt-50's, is that process's first)
+# ---------------------------------------------------------------------------
+
+# (c) Faster R-CNN R50-FPN (PaddleDetection configs/faster_rcnn/_base_/
+# faster_rcnn_r50_fpn.yml): 800 x 1344 padded, batch 2, RPN on P2-P6
+FRCNN_B, FRCNN_H, FRCNN_W, FRCNN_CH = 2, 800, 1344, 256
+FRCNN_STRIDES = (4, 8, 16, 32, 64)
+FRCNN_SIZES = (32, 64, 128, 256, 512)
+FRCNN_RATIOS = (0.5, 1.0, 2.0)
+FRCNN_PRE, FRCNN_POST, FRCNN_NMS = 2000, 1000, 0.7
+FRCNN_ROIS = 512                    # BBoxAssigner's batch_size_per_im
+FRCNN_CODED = 2000                  # box_coder's decoded boxes
+# YOLOv3 DarkNet-53 (configs/yolov3/_base_/yolov3_darknet53.yml)
+YOLO_B, YOLO_SIZE, YOLO_CLASSES = 8, 608, 80
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+YOLO_MASKS = ([6, 7, 8], [3, 4, 5], [0, 1, 2])
+YOLO_STRIDES = (32, 16, 8)
+YOLO_GT, YOLO_VALID = 50, 20
+# head logits: objectness and classes drawn low, as a trained detector's
+# are, so that a few hundred boxes a class pass 0.01
+YOLO_OBJ, YOLO_CLS = (-7.0, 2.0), (-3.0, 1.5)
+# matrix NMS as configs/ppyolo/ppyolo_r50vd_dcn_1x_coco.yml
+MNMS = dict(score_threshold=0.01, post_threshold=0.01, nms_top_k=-1,
+            keep_top_k=100, background_label=-1)
+# DCNv2 as PP-YOLO places it: ResNet50-vd's last-stage 3x3s, 608 px
+DCN_B, DCN_C, DCN_HW = 8, 512, 19
+# card against CPU: floats relative to the largest magnitude, gradients
+# normwise (`_ops_err`); index outputs, kept sets and counts equal
+OPS_TOL = 1e-5
+OPS_ITERS = 5
+# f32 operations a box pair costs matrix NMS (IoU 12, decay 4, min 1)
+MNMS_PAIR_OPS = 17
+
+# (d) PaddleClas's ImageNet recipe on one card: B = 128 (phase 6's shape,
+# bench.py:221-280), Momentum 0.9 at its base lr 0.1 a batch of 256 scaled
+# linearly to 0.05 (at 0.1 ResNeXt-50's loss on the fixed batch rose from
+# 5.56 to 8.56 over the timed steps on the H100), bf16 compute, NHWC
+ZOO_MODELS = (("resnext50_32x4d", 224, 10), ("densenet121", 224, 5),
+              ("mobilenet_v3_large", 224, 5), ("shufflenet_v2_x1_0", 224, 5),
+              ("googlenet", 224, 5), ("inception_v3", 299, 5))
+ZOO_BATCH, ZOO_CLASSES, ZOO_LR = 128, 1000, 0.05
+# gates: one f32 step at B = 2, batch norms on their running statistics
+# (ZOO_TOL) and on the batch's (ZOO_BS_TOL: a freshly initialised deep
+# net's batch-statistics gradient is fixed by f32 only to 1e-2 normwise,
+# the port in f32 against the port in f64 on the CPU; the H100 read
+# 1.0e-5 to 2.9e-4 against the CPU); the layouts in eval mode; a
+# deterministic bf16 rerun. ZOO_FAULT_MODEL's card side is run again with
+# each planted fault of `_plant_zoo_fault`, which the gates must reject
+ZOO_GATE_BATCH, ZOO_TOL, ZOO_BS_TOL = 2, 1e-4, 1e-3
+ZOO_FAULT_MODEL = "shufflenet_v2_x1_0"
+ZOO_RERUN_BATCH, ZOO_RERUN_STEPS = 32, 2
+
+
+def _tensors(x):
+    """The tensors of a nested output, in order (None skipped)."""
+    if x is None:
+        return []
+    if isinstance(x, (list, tuple)):
+        return [t for y in x for t in _tensors(y)]
+    return [x]
+
+
+def _ops_err(torch, got, want, grads_from=None):
+    """(relative float error, index outputs equal) of two nested outputs:
+    a float output against the largest magnitude of its reference, the
+    gradients (the flattened outputs from `grads_from` on) normwise, as
+    their sums of many atomically added terms run in another order on
+    each device; integers and shapes exactly."""
+    got, want = _tensors(got), _tensors(want)
+    if len(got) != len(want):
+        return float("inf"), False
+    err, same = 0.0, True
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g.detach().cpu()
+        if g.shape != w.shape:
+            return float("inf"), False
+        if not w.is_floating_point():
+            same = same and torch.equal(g, w)
+        elif w.numel():
+            d = g.float() - w.float()
+            if grads_from is not None and i >= grads_from:
+                e = float(d.norm()) / max(float(w.float().norm()), 1e-30)
+            else:
+                e = float(d.abs().max()) / max(float(w.abs().max()), 1e-30)
+            err = max(err, e)
+    return err, same
+
+
+def host_syncs(torch, fn):
+    """The host's synchronisations with the card in one call of `fn`, as
+    CUDA's sync debug mode counts them: each read of a device value (a
+    count, a `nonzero`, `.tolist()`) and each copy of a host constant from
+    pageable memory warns once."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _anchors(np, hs, ws, stride, size):
+    """PaddleDetection's AnchorGenerator (offset 0): ratios 0.5 / 1 / 2 of
+    `size` at every cell, [H, W, 3, 4] xyxy."""
+    base = []
+    for r in FRCNN_RATIOS:
+        w, h = size / np.sqrt(r), size * np.sqrt(r)
+        base.append([-w / 2, -h / 2, w / 2, h / 2])
+    base = np.array(base, np.float64)
+    ys, xs = np.meshgrid(np.arange(hs) * stride, np.arange(ws) * stride,
+                         indexing="ij")
+    shift = np.stack([xs, ys, xs, ys], -1)[:, :, None, :]
+    return (shift + base[None, None]).astype(np.float32)
+
+
+def detops_inputs(np, seed):
+    """Every input of phase 14 (c), numpy from RandomState(seed)."""
+    rng = np.random.RandomState(seed)
+    inp = {"rpn": [], "feats": []}
+    for stride, size in zip(FRCNN_STRIDES, FRCNN_SIZES):
+        hs, ws = -(-FRCNN_H // stride), -(-FRCNN_W // stride)
+        inp["rpn"].append((
+            rng.randn(FRCNN_B, 3, hs, ws).astype(np.float32),
+            (rng.randn(FRCNN_B, 12, hs, ws) * 0.5).astype(np.float32),
+            _anchors(np, hs, ws, stride, size)))
+        if stride <= 32:
+            inp["feats"].append(rng.randn(FRCNN_B, FRCNN_CH, hs, ws)
+                                .astype(np.float32))
+    inp["im_shape"] = np.array([[FRCNN_H, FRCNN_W]] * FRCNN_B, np.float32)
+    inp["sample"] = np.stack([np.sort(rng.choice(FRCNN_POST, FRCNN_ROIS,
+                                                 replace=False))
+                              for _ in range(FRCNN_B)])
+    inp["roi_cot"] = rng.randn(FRCNN_B * FRCNN_ROIS, FRCNN_CH, 7, 7) \
+        .astype(np.float32)
+    prior = inp["rpn"][1][2].reshape(-1, 4)[:FRCNN_CODED]
+    inp["coder"] = (prior, np.tile(np.array([0.1, 0.1, 0.2, 0.2],
+                                            np.float32), (FRCNN_CODED, 1)),
+                    (rng.randn(FRCNN_CODED, 4) * 0.5).astype(np.float32))
+    heads = []
+    for stride in YOLO_STRIDES:
+        g = YOLO_SIZE // stride
+        x = rng.randn(YOLO_B, 3, 85, g, g).astype(np.float32)
+        x[:, :, 2:4] *= 0.5
+        x[:, :, 4] = x[:, :, 4] * YOLO_OBJ[1] + YOLO_OBJ[0]
+        x[:, :, 5:] = x[:, :, 5:] * YOLO_CLS[1] + YOLO_CLS[0]
+        heads.append(x.reshape(YOLO_B, 255, g, g))
+    inp["yolo"] = heads
+    gt = np.zeros((YOLO_B, YOLO_GT, 4), np.float32)
+    gt[:, :YOLO_VALID, :2] = rng.uniform(0.05, 0.95, (YOLO_B, YOLO_VALID, 2))
+    gt[:, :YOLO_VALID, 2:] = np.exp(rng.uniform(np.log(0.02), np.log(0.6),
+                                                (YOLO_B, YOLO_VALID, 2)))
+    inp["gt"] = gt
+    inp["gl"] = rng.randint(0, YOLO_CLASSES, (YOLO_B, YOLO_GT)) \
+        .astype(np.int64)
+    inp["yolo_size"] = np.array([[YOLO_SIZE, YOLO_SIZE]] * YOLO_B, np.int32)
+    inp["dcn"] = (
+        rng.randn(DCN_B, DCN_C, DCN_HW, DCN_HW).astype(np.float32),
+        (rng.randn(27, DCN_C, 3, 3) * 0.02).astype(np.float32),
+        (rng.randn(DCN_C, DCN_C, 3, 3) / np.sqrt(DCN_C * 9))
+        .astype(np.float32),
+        rng.randn(DCN_B, DCN_C, DCN_HW, DCN_HW).astype(np.float32))
+    return inp
+
+
+def _to(torch, x, dev):
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to(torch, y, dev) for y in x)
+    if isinstance(x, dict):
+        return {k: _to(torch, v, dev) for k, v in x.items()}
+    return torch.from_numpy(x).to(dev) if hasattr(x, "dtype") else x
+
+
+def _collect(torch, props, sample):
+    """PaddleDetection's collect after the RPN: an image's proposals of
+    every level, its FRCNN_POST best by score, then the BBoxAssigner's
+    FRCNN_ROIS of them (the fixed `sample` positions) -> rois [B * 512,
+    4], rois_num [B]."""
+    per = [([], []) for _ in sample]
+    for rois, scores, nums in props:
+        n = nums.tolist()
+        for i, (r, s) in enumerate(zip(torch.split(rois, n),
+                                       torch.split(scores[:, 0], n))):
+            per[i][0].append(r)
+            per[i][1].append(s)
+    out = []
+    for i, (r, s) in enumerate(per):
+        r, s = torch.cat(r), torch.cat(s)
+        top = torch.argsort(-s, stable=True)[:FRCNN_POST]
+        out.append(r[top][torch.as_tensor(sample[i], device=r.device)])
+    return torch.cat(out), torch.full((len(per),), FRCNN_ROIS,
+                                      dtype=torch.int32, device=r.device)
+
+
+def _detops(torch, vops):
+    """phase 14 (c)'s ops, each a function of its (device) inputs and of
+    `fault` (a planted fault that its gate must reject)."""
+
+    def proposals(rpn, im, fault=False):
+        real = vops._suppressors
+        if fault:             # NMS suppresses only above threshold + 0.1
+            vops._suppressors = lambda b, t, e=1e-9: real(b, t + 0.1, e)
+        try:
+            return [vops.generate_proposals(
+                s, d, im, a, torch.ones_like(a), FRCNN_PRE, FRCNN_POST,
+                FRCNN_NMS, 0.0, return_rois_num=True) for s, d, a in rpn]
+        finally:
+            vops._suppressors = real
+
+    def distribute(rois, rois_num, fault=False):
+        # fault: the level rule one level off
+        return vops.distribute_fpn_proposals(rois, 2, 5, 3 if fault else 4,
+                                             224, rois_num=rois_num)
+
+    def roi_align(feats, lv, nums, restore, cot, fault=False, grad=True):
+        feats = [f.detach().requires_grad_(grad) for f in feats]
+        outs = [vops.roi_align(f, r, n, 7, 1.0 / s, 0, not fault)
+                for f, r, n, s in zip(feats, lv, nums, FRCNN_STRIDES)]
+        out = torch.cat(outs)[restore[:, 0].long()]
+        if not grad:
+            return out
+        (out * cot).sum().backward()
+        return [out.detach()] + [f.grad for f in feats]
+
+    def coder(prior, var, deltas, fault=False):
+        return vops.box_coder(prior, var, deltas, "decode_center_size",
+                              box_normalized=fault)
+
+    def yolo_loss(heads, gt, gl, fault=False, grad=True):
+        heads = [h.detach().requires_grad_(grad) for h in heads]
+        real = vops._yolo_targets
+        if fault:             # the ignore mask dropped
+            def no_ignore(*a):
+                *t, ign = real(*a)
+                return (*t, torch.ones_like(ign))
+            vops._yolo_targets = no_ignore
+        try:
+            losses = [vops.yolo_loss(h, gt, gl, YOLO_ANCHORS, m, YOLO_CLASSES,
+                                     0.7, s, use_label_smooth=False)
+                      for h, m, s in zip(heads, YOLO_MASKS, YOLO_STRIDES)]
+        finally:
+            vops._yolo_targets = real
+        if not grad:
+            return losses
+        sum(l.sum() for l in losses).backward()
+        return [l.detach() for l in losses] + [h.grad for h in heads]
+
+    def yolo_box(heads, size, fault=False):
+        outs = [vops.yolo_box(h, size, YOLO_ANCHORS[2 * m[0]:2 * m[-1] + 2],
+                              YOLO_CLASSES, 0.005, s, clip_bbox=not fault)
+                for h, m, s in zip(heads, YOLO_MASKS, YOLO_STRIDES)]
+        return (torch.cat([o[0] for o in outs], 1),
+                torch.cat([o[1] for o in outs], 1))
+
+    def matrix_nms(boxes, scores, fault=False):
+        return vops.matrix_nms(boxes, scores.transpose(1, 2), **MNMS,
+                               use_gaussian=fault, return_index=True)
+
+    def dcn(x, w_off, w, cot, fault=False, grad=True):
+        x, w_off, w = (t.detach().requires_grad_(grad) for t in (x, w_off, w))
+        om = torch.nn.functional.conv2d(x, w_off, padding=1)
+        mask = None if fault else torch.sigmoid(om[:, 18:])
+        y = vops.deform_conv2d(x, om[:, :18], w, None, 1, 1, 1, 1, 1, mask)
+        if not grad:
+            return y
+        (y * cot).sum().backward()
+        return [y.detach(), x.grad, w_off.grad, w.grad]
+
+    return dict(proposals=proposals, distribute=distribute,
+                roi_align=roi_align, coder=coder, yolo_loss=yolo_loss,
+                yolo_box=yolo_box, matrix_nms=matrix_nms, dcn=dcn)
+
+
+def detops_cpu(torch, np, seed):
+    """The CPU side of phase 14 (c): every op on the CPU (the chain's
+    inputs of each op are these outputs, on both sides) -> (inputs, the
+    CPU outputs, CPU seconds)."""
+    from paddle_tpu_torch.vision import ops as vops
+
+    t0 = time.perf_counter()
+    inp = detops_inputs(np, seed)
+    c = _to(torch, inp, "cpu")
+    f = _detops(torch, vops)
+    ref = {}
+    ref["proposals"] = f["proposals"](c["rpn"], c["im_shape"])
+    rois, rois_num = _collect(torch, ref["proposals"], inp["sample"])
+    inp["rois"], inp["rois_num"] = rois.numpy(), rois_num.numpy()
+    ref["distribute"] = f["distribute"](rois, rois_num)
+    lv, restore, nums = ref["distribute"]
+    inp["lv"] = [t.numpy() for t in lv]
+    inp["lv_nums"] = [t.numpy() for t in nums]
+    inp["restore"] = restore.numpy()
+    ref["roi_align"] = f["roi_align"](c["feats"], lv, nums, restore,
+                                      c["roi_cot"])
+    ref["coder"] = f["coder"](*c["coder"])
+    ref["yolo_loss"] = f["yolo_loss"](c["yolo"], c["gt"], c["gl"])
+    ref["yolo_box"] = f["yolo_box"](c["yolo"], c["yolo_size"])
+    inp["yolo_out"] = tuple(t.numpy() for t in ref["yolo_box"])
+    ref["matrix_nms"] = f["matrix_nms"](*ref["yolo_box"])
+    ref["dcn"] = f["dcn"](*c["dcn"])
+    return inp, ref, time.perf_counter() - t0
+
+
+def _ops_bounds(torch, inp, ref):
+    """(ms, bound_by) of the least time the card could take (bytes over
+    HBM_BYTES_PER_S, f32 operations over F32_FLOPS) for roi_align,
+    matrix_nms and deform_conv2d forward, from this run's inputs."""
+    f32 = 4
+    feats = sum(a.size for a in inp["feats"]) * f32
+    rois = inp["rois"].size * f32
+    out = FRCNN_B * FRCNN_ROIS * FRCNN_CH * 49 * f32
+    # 4 samples a bin, 4 corners a sample, 3 operations a corner
+    ra = bound(feats + rois + out, out / f32 * 4 * 4 * 3, F32_FLOPS)
+    boxes, scores = inp["yolo_out"]
+    s = scores.transpose(0, 2, 1)
+    cnt = (s > MNMS["score_threshold"]).sum(-1).astype("int64")
+    rows = ref["matrix_nms"][0].shape[0]
+    mn = bound(boxes.nbytes + scores.nbytes + rows * 6 * f32 + rows * 8,
+               float((cnt ** 2).sum()) * MNMS_PAIR_OPS, F32_FLOPS)
+    x, w_off, w, _ = inp["dcn"]
+    k = 9
+    cols = DCN_B * DCN_C * k * DCN_HW * DCN_HW
+    dc = bound(x.nbytes + w.nbytes + DCN_B * 27 * DCN_HW ** 2 * f32
+               + x.nbytes,
+               2.0 * DCN_B * DCN_C * DCN_C * k * DCN_HW ** 2 + cols * 12,
+               F32_FLOPS)
+    return {"roi_align_fwd": ra, "matrix_nms": mn, "deform_conv2d_fwd": dc,
+            "candidates_per_class": {
+                "mean": float(cnt.mean()), "max": int(cnt.max()),
+                "min": int(cnt.min())}}
+
+
+def detops_card(torch, np, inp, ref):
+    """phase 14 (c) on the card: each op on the CPU's inputs, its outputs
+    against the CPU's (OPS_TOL; index outputs, kept sets and counts
+    equal), the same with its planted fault (which must fail), its ms (a
+    CUDA-event median of OPS_ITERS calls after warm-up, host syncs
+    counted) and its host reads a call."""
+    from paddle_tpu_torch.vision import ops as vops
+
+    g = _to(torch, inp, "cuda")
+    f = _detops(torch, vops)
+    cases = {           # name: (op, its inputs, its first gradient)
+        "proposals": (f["proposals"], (g["rpn"], g["im_shape"]), None),
+        "distribute": (f["distribute"], (g["rois"], g["rois_num"]), None),
+        "roi_align": (f["roi_align"], (g["feats"], g["lv"], g["lv_nums"],
+                                       g["restore"], g["roi_cot"]), 1),
+        "coder": (f["coder"], g["coder"], None),
+        "yolo_loss": (f["yolo_loss"], (g["yolo"], g["gt"], g["gl"]), 3),
+        "yolo_box": (f["yolo_box"], (g["yolo"], g["yolo_size"]), None),
+        "matrix_nms": (f["matrix_nms"], g["yolo_out"], None),
+        "dcn": (f["dcn"], g["dcn"], 1),
+    }
+    names = {"proposals": "generate_proposals (5 levels)",
+             "distribute": "distribute_fpn_proposals",
+             "roi_align": "roi_align (P2-P5)", "coder": "box_coder",
+             "yolo_loss": "yolo_loss (3 heads)",
+             "yolo_box": "yolo_box (3 heads)", "matrix_nms": "matrix_nms",
+             "dcn": "deform_conv2d (DCNv2)"}
+    res = {}
+    for key, (fn, args, grads) in cases.items():
+        got = fn(*args)
+        err, same = _ops_err(torch, got, ref[key], grads)
+        ferr, fsame = _ops_err(torch, fn(*args, fault=True), ref[key], grads)
+        row = {"op": names[key], "err": err, "index_equal": same,
+               "fault_err": ferr, "fault_index_equal": fsame,
+               "ms": time_ms(torch, lambda: fn(*args), OPS_ITERS, warmup=1),
+               "host_syncs": host_syncs(torch, lambda: fn(*args))}
+        if grads is not None:                  # the forward alone too
+            row["fwd_ms"] = time_ms(torch, lambda: fn(*args, grad=False),
+                                    OPS_ITERS, warmup=1)
+            row["fwd_host_syncs"] = host_syncs(
+                torch, lambda: fn(*args, grad=False))
+        res[key] = row
+        log(f"  (c) {json.dumps(row)}")
+        del got
+    res["bounds"] = _ops_bounds(torch, inp, ref)
+    res["counts"] = {
+        "proposals_per_level": [int(p[2].sum()) for p in ref["proposals"]],
+        "rois_per_level": [int(n.sum()) for n in ref["distribute"][2]],
+        "matrix_nms_rows": ref["matrix_nms"][2].tolist()}
+    log(f"  (c) bounds and counts {json.dumps(res['bounds'])} "
+        f"{json.dumps(res['counts'])}")
+    bad = [k for k in cases if not (res[k]["err"] <= OPS_TOL
+                                    and res[k]["index_equal"])]
+    caught = [k for k in cases if res[k]["fault_err"] > OPS_TOL
+              or not res[k]["fault_index_equal"]]
+    if bad:
+        raise AssertionError(f"phase 14 (c): card against CPU: "
+                             f"{ {k: res[k] for k in bad} }")
+    if len(caught) != len(cases):
+        raise AssertionError(f"phase 14 (c): planted faults passed the "
+                             f"gates: {set(cases) - set(caught)}")
+    return res
+
+
+def _zoo_loss(m, x, y):
+    from paddle_tpu_torch.nn.functional import cross_entropy
+
+    out = m(x)
+    if isinstance(out, tuple):        # GoogLeNet in train mode: PaddleClas's
+        main, a1, a2 = out            # weights for the auxiliary heads
+        return (cross_entropy(main, y).mean()
+                + 0.3 * (cross_entropy(a1, y).mean()
+                         + cross_entropy(a2, y).mean()))
+    return cross_entropy(out, y).mean()
+
+
+def _zoo_model(name, device, seed, fmt="NHWC"):
+    from paddle_tpu_torch.vision import models
+
+    return getattr(models, name)(num_classes=ZOO_CLASSES, data_format=fmt,
+                                 device=device, seed=seed)
+
+
+def _zoo_engine(torch, model, compute_dtype="bfloat16"):
+    from paddle_tpu_torch.distributed import parallelize
+    from paddle_tpu_torch.optimizer import Momentum
+
+    opt = Momentum(learning_rate=ZOO_LR, momentum=0.9,
+                   parameters=model.parameters())
+    return parallelize(model, opt, loss_fn=_zoo_loss,
+                       compute_dtype=compute_dtype)
+
+
+def _freeze_bn(model, frozen=True):
+    from paddle_tpu_torch.nn import BatchNorm2D
+
+    for m in model.modules():
+        if isinstance(m, BatchNorm2D):
+            m._use_global_stats = True if frozen else None
+
+
+def _zoo_gate_batch(torch, np, seed, size, fmt="NHWC"):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(ZOO_GATE_BATCH, 3, size, size).astype(np.float32)
+    if fmt == "NHWC":
+        x = np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+    y = rng.randint(0, ZOO_CLASSES, ZOO_GATE_BATCH).astype(np.int64)
+    return torch.from_numpy(x), torch.from_numpy(y)
+
+
+def _plant_zoo_fault(torch, model, fault):
+    """A planted fault in an NHWC ShuffleNetV2: "no_shuffle" drops every
+    block's channel shuffle; "bn_per_image" takes each batch norm's
+    batch statistics over one image's H x W instead of the batch's (the
+    running-statistics mode is untouched)."""
+    from paddle_tpu_torch.nn import BatchNorm2D
+    from paddle_tpu_torch.vision.models import ShuffleNetV2
+
+    assert isinstance(model, ShuffleNetV2)
+    for m in model.modules():
+        if fault == "no_shuffle" and hasattr(m, "shuffle"):
+            m.shuffle = torch.nn.Identity()
+        elif fault == "bn_per_image" and isinstance(m, BatchNorm2D):
+            assert m._data_format == "NHWC"
+
+            def forward(x, bn=m, plain=m.forward):
+                if not bn.training or bn._use_global_stats:
+                    return plain(x)
+                mu = x.mean((1, 2), keepdim=True)
+                var = x.var((1, 2), unbiased=False, keepdim=True)
+                return ((x - mu) * torch.rsqrt(var + bn._epsilon)
+                        * bn.weight + bn.bias)
+            m.forward = forward
+    return model
+
+
+def _zoo_step(torch, model, batch, frozen):
+    """One f32 Momentum step: (loss, pre-clip global grad norm), the
+    batch norms on their running statistics when `frozen`."""
+    _freeze_bn(model, frozen)
+    eng = _zoo_engine(torch, model, None)
+    dev = next(model.parameters()).device
+    loss = eng.train_batch(*(t.to(dev) for t in batch))
+    return float(loss), float(eng.last_grad_norm)
+
+
+def zoo_cpu(torch, np, seed):
+    """The CPU side of phase 14 (d)'s card-against-CPU gate: each model
+    built on the CPU from `seed` (its state goes to the card), one f32
+    step at B = 2 with frozen batch norms and one with batch statistics,
+    both gated."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, size, _ in ZOO_MODELS:
+        m = _zoo_model(name, "cpu", seed)
+        state = {k: v.clone() for k, v in m.state_dict().items()}
+        batch = _zoo_gate_batch(torch, np, seed + 1, size)
+        frozen = _zoo_step(torch, m, batch, True)
+        m.load_state_dict(state)
+        live = _zoo_step(torch, m, batch, False)
+        out[name] = {"state": state, "frozen": frozen, "batch_stats": live}
+        del m
+    return out, time.perf_counter() - t0
+
+
+def _zoo_throughput(torch, name, size, steps, seed):
+    """`steps` timed bf16 steps at B = 128 after 2 warm-up steps on one
+    fixed batch made on the card: ms a step, images/s, MFU over the
+    analytic count, peak memory, the losses (finite, the last below the
+    first), and the fused-bottleneck launches in the timed steps (the
+    fused route switched on: a ResNeXt block must never take it)."""
+    from paddle_tpu_torch.vision.models import train_flops_per_image
+
+    torch.cuda.empty_cache()
+    model = _zoo_model(name, "cuda", seed)
+    eng = _zoo_engine(torch, model)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    batch = (torch.randn(ZOO_BATCH, size, size, 3, device="cuda",
+                         generator=gen),
+             torch.randint(0, ZOO_CLASSES, (ZOO_BATCH,), device="cuda",
+                           generator=gen))
+    mode = os.environ.get("PADDLE_TPU_FUSED_RESBLOCK")
+    os.environ["PADDLE_TPU_FUSED_RESBLOCK"] = "1"
+    try:
+        _bert_steps(torch, eng, batch, 2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_resblock_counts()
+        t0 = time.perf_counter()
+        losses, norms = _bert_steps(torch, eng, batch, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fused = resblock_counts() | {
+            k + " calls": v for k, v in resblock_counts("calls").items()}
+    finally:
+        if mode is None:
+            os.environ.pop("PADDLE_TPU_FUSED_RESBLOCK")
+        else:
+            os.environ["PADDLE_TPU_FUSED_RESBLOCK"] = mode
+    fpi = train_flops_per_image(model, size)
+    ips = ZOO_BATCH * steps / wall
+    row = {"model": name, "batch": ZOO_BATCH, "size": size, "layout": "NHWC",
+           "steps": steps, "step_ms": wall * 1e3 / steps,
+           "images_per_s": ips, "train_flops_per_image": fpi,
+           "mfu": ips * fpi / BF16_FLOPS, "losses": losses,
+           "grad_norms": norms, "fused_bottleneck": fused,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return row, model, eng, batch
+
+
+def _zoo_gates(torch, np, name, size, seed, cpu):
+    """phase 14 (d)'s gates of one model: the card against the CPU's
+    f32 step (loss and grad norm; frozen batch norms within ZOO_TOL, batch
+    statistics within ZOO_BS_TOL; for ZOO_FAULT_MODEL each planted fault
+    outside them), NCHW against NHWC (eval-mode logits at B = 2,
+    ZOO_TOL normwise), and a bit-equal bf16 rerun (ZOO_RERUN_STEPS steps
+    at ZOO_RERUN_BATCH from one seed, twice, under
+    `cudnn.deterministic`)."""
+    res = {}
+    t0 = time.perf_counter()
+    card = _zoo_model(name, "cuda", seed)
+    batch = _zoo_gate_batch(torch, np, seed + 1, size)
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    tols = {"frozen": ZOO_TOL, "batch_stats": ZOO_BS_TOL}
+    for key, frozen in (("frozen", True), ("batch_stats", False)):
+        card.load_state_dict(cpu["state"])
+        got = _zoo_step(torch, card, batch, frozen)
+        res[key] = {"card": got, "cpu": cpu[key],
+                    "rel": rel(got, cpu[key])}
+    if name == ZOO_FAULT_MODEL:
+        res["faults"] = {}
+        for fault, keys in (("no_shuffle", ("frozen", "batch_stats")),
+                            ("bn_per_image", ("batch_stats",))):
+            bad = _plant_zoo_fault(torch, _zoo_model(name, "cuda", seed),
+                                   fault)
+            for key in keys:
+                bad.load_state_dict(cpu["state"])
+                r = rel(_zoo_step(torch, bad, batch, key == "frozen"),
+                        cpu[key])
+                res["faults"][f"{fault} {key}"] = {
+                    "rel": r, "caught": r > tols[key]}
+            del bad
+    _freeze_bn(card, False)
+    card.load_state_dict(cpu["state"])
+    nchw = _zoo_model(name, "cuda", seed, "NCHW")
+    nchw.load_state_dict(cpu["state"])
+    card.eval()
+    nchw.eval()
+    x = batch[0].cuda()
+    with torch.no_grad():
+        a = card(x).float()
+        b = nchw(x.permute(0, 3, 1, 2).contiguous()).float()
+    res["layouts"] = {"rel": float((a - b).norm() / b.norm())}
+    del card, nchw
+    t1 = time.perf_counter()
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed + 2)
+        full = (torch.randn(ZOO_RERUN_BATCH, size, size, 3, device="cuda",
+                            generator=gen),
+                torch.randint(0, ZOO_CLASSES, (ZOO_RERUN_BATCH,),
+                              device="cuda", generator=gen))
+        runs = []
+        for _ in range(2):
+            m = _zoo_model(name, "cuda", seed)
+            eng = _zoo_engine(torch, m)
+            losses, norms = _bert_steps(torch, eng, full, ZOO_RERUN_STEPS)
+            runs.append((losses, norms, [p.detach().clone()
+                                         for p in m.parameters()]))
+            del m, eng
+        res["rerun"] = {"losses": runs[0][0], "bit_equal": (
+            runs[0][:2] == runs[1][:2] and all(
+                torch.equal(a, b) for a, b in zip(runs[0][2], runs[1][2])))}
+        res["seconds"] = {"card_vs_cpu_and_layouts": t1 - t0,
+                          "rerun": time.perf_counter() - t1}
+        del runs, full
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = det
+    return res
+
+
+def profile_zoo(torch, eng, batch):
+    """torch.profiler over one bf16 step of ResNeXt-50 at B = 128 (this
+    process's first profiler session): device-busy ms by kernel family,
+    the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _bert_steps(torch, eng, batch, 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fam = kernel_families(prof, (
+        ("grouped conv", ("group", "depthwise", "dgrad2d_grouped",
+                          "conv2d_grouped")),
+        ("batch_norm", ("batch_norm", "bn_fw", "bn_bw", "welford")),
+        ("conv", ("conv", "cudnn", "implicit", "xmma", "fprop", "dgrad",
+                  "wgrad", "nchw", "nhwc", *GEMM_NAMES)),
+        ("optimizer", ("foreach", "multi_tensor")),
+        ("elementwise", ("elementwise", "reduce", "copy", "fill", "cat",
+                         "pool"))))
+    busy_ms = sum(fam.values()) / 1e3
+    return {"step_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "device_launches": sum(e.count for e in device_events(prof)),
+            "kernel_ms": {k: v / 1e3 for k, v in fam.items()},
+            "top_kernels_ms": top_kernels(prof, 1)}
+
+
+def zoo_card(torch, np, seed, cpu):
+    """phase 14 (d) on the card: every model's throughput, then its
+    gates; ResNeXt-50's step profiled."""
+    import math
+
+    res = {}
+    for name, size, steps in ZOO_MODELS:
+        t0 = time.perf_counter()
+        row, model, eng, batch = _zoo_throughput(torch, name, size, steps,
+                                                 seed)
+        if name == "resnext50_32x4d":
+            row["profile"] = profile_zoo(torch, eng, batch)
+        del model, eng, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        row["gates"] = _zoo_gates(torch, np, name, size, seed, cpu[name])
+        row["seconds"] = {"throughput": t1 - t0,
+                          "gates": time.perf_counter() - t1}
+        res[name] = row
+        log(f"  (d) {json.dumps(row)}")
+        g = row["gates"]
+        if not all(math.isfinite(v) for v in row["losses"] + row[
+                "grad_norms"]) or not row["losses"][-1] < row["losses"][0]:
+            raise AssertionError(f"phase 14 (d) {name}: losses "
+                                 f"{row['losses']}")
+        if any(row["fused_bottleneck"].values()):
+            raise AssertionError(f"phase 14 (d) {name}: fused-bottleneck "
+                                 f"launches {row['fused_bottleneck']}")
+        if not (g["frozen"]["rel"] <= ZOO_TOL
+                and g["batch_stats"]["rel"] <= ZOO_BS_TOL
+                and g["layouts"]["rel"] <= ZOO_TOL
+                and g["rerun"]["bit_equal"]):
+            raise AssertionError(f"phase 14 (d) {name}: gates {g}")
+        if name == ZOO_FAULT_MODEL and not all(
+                f["caught"] for f in g["faults"].values()):
+            raise AssertionError(f"phase 14 (d) {name}: planted faults "
+                                 f"passed the gates: {g['faults']}")
+    return res
+
+
+def vision_more_tier(torch, np, seed):
+    """Phase 14 (c) and (d) (a child process): the CPU references first,
+    during the parent's kernel build (or its phase 14 (a), (b) in
+    `--vision-only`), then the card's runs on the parent's go."""
+    torch.set_num_threads(3)
+    t0 = time.perf_counter()
+    inp, ref, ops_cpu_s = detops_cpu(torch, np, seed)
+    cpu, zoo_cpu_s = zoo_cpu(torch, np, seed)
+    cpu_s = time.perf_counter() - t0
+    if not sys.stdin.readline():
+        return None                 # the parent is gone: no go, no work
+    t_phase = time.perf_counter()
+    res = {"device": nvidia_smi_line(), "cpu_seconds": {
+        "ops": ops_cpu_s, "zoo": zoo_cpu_s, "total": cpu_s}}
+    t0 = time.perf_counter()
+    res["ops"] = detops_card(torch, np, inp, ref)
+    res["ops"]["seconds"] = time.perf_counter() - t0
+    del inp, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["zoo"] = zoo_card(torch, np, seed, cpu)
+    res["zoo"]["seconds"] = time.perf_counter() - t0
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def start_vision_more(args):
+    """Phase 14 (c) and (d)'s child, started ahead: it computes its CPU
+    references, then waits for `vision_more_phase`."""
+    return start_child("--vision-more-tier", 12, args.seed, args.report)
+
+
+def vision_more_phase(args, child=None):
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = wait_child(child or start_vision_more(args))
+    zoo = {k: v for k, v in res["zoo"].items() if isinstance(v, dict)}
+    ops = {k: v for k, v in res["ops"].items()
+           if isinstance(v, dict) and "ms" in v}
+    log("  (c) " + "; ".join(
+        f"{v['op']} {v['ms']:.3f} ms, {v['host_syncs']} host syncs, err "
+        f"{v['err']:.2e}, fault {v['fault_err']:.2e}" for v in ops.values()))
+    log(f"  phase 14 (c), (d): {res['seconds']:.1f} s on the card ((c) "
+        f"{res['ops']['seconds']:.1f}, (d) {res['zoo']['seconds']:.1f}); "
+        f"CPU references {res['cpu_seconds']['total']:.1f} s ahead; "
+        + "; ".join(f"{k} {v['step_ms']:.2f} ms a step, "
+                    f"{v['images_per_s']:.1f} images/s, MFU {v['mfu']:.4f}"
+                    for k, v in zoo.items()))
+    return res
+
+
 def main(argv):
     import argparse
 
@@ -8053,6 +8821,8 @@ def main(argv):
                     help="the build and phase 14 (PP-YOLOE-s detection, "
                          "ViT-B/16) only")
     ap.add_argument("--vision-tier", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--vision-more-tier", metavar="OUT",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--bucket-designs", action="store_true",
                     help="phase 12 also builds and times the bucket "
                          "programs' other body (jit.aot.bucket_design)")
@@ -8080,6 +8850,16 @@ def main(argv):
     torch.backends.cudnn.allow_tf32 = False
     if args.cp_rank is not None:
         return cp_rank(torch, args)
+    if args.vision_more_tier:
+        # phase 14 (c), (d): its CPU references before the parent's go
+        import paddle_tpu_torch.distributed  # noqa: F401
+        import paddle_tpu_torch.vision  # noqa: F401
+        res = vision_more_tier(torch, np, args.seed)
+        if res is None:
+            return 1
+        with open(args.vision_more_tier, "w") as f:
+            json.dump(res, f)
+        return 0
     if any((args.profile_train, args.profile_tenants, args.profile_bert,
             args.profile_bert_o2, args.profile_resnet, args.profile_resblock,
             args.serve_tier, args.replica_tier, args.vision_tier)):
@@ -8149,6 +8929,13 @@ def main(argv):
 
     from paddle_tpu_torch.ops import _build
 
+    more_child = None
+    if not any((args.recipes_only, args.serve_only, args.predictor_only,
+                args.replicas_only, args.vision_only, args.lora_only,
+                args.cp_only)):
+        # phase 14 (c), (d)'s child computes its CPU references during the
+        # kernel build, where nothing is timed, and then waits for its go
+        more_child = start_vision_more(args)
     t0 = time.perf_counter()
     _build.build()
     # the kernels' first launch calls build() again (a cache hit), which
@@ -8179,9 +8966,11 @@ def main(argv):
                       {"replicas": replicas_phase(args)})
     if args.vision_only:
         log_phase(t_start, "phase 14: vision (PP-YOLOE-s detection, "
-                           "ViT-B/16)")
-        return finish(args, torch, smi, build_rec, t_start, [],
-                      {"vision": vision_phase(args)})
+                           "ViT-B/16; detection ops, CNN families)")
+        more = start_vision_more(args)
+        parts = {"vision": vision_phase(args)}
+        parts["vision_more"] = vision_more_phase(args, more)
+        return finish(args, torch, smi, build_rec, t_start, [], parts)
     if args.lora_only:
         log_phase(t_start, "phase 2: BGMV vs its plain version")
         bg_rows = check_bgmv(torch, iters)
@@ -8284,7 +9073,8 @@ def main(argv):
 
     log_phase(t_start, "phase 13: process replicas over the coordination "
                        "store, request tracing")
-    # phase 14's child imports while phase 13 runs, and waits for the card
+    # phase 14's (a), (b) child imports while phase 13 runs, and waits
+    # for the card
     vision_child = start_vision(args)
     try:
         rep_run = replicas_phase(args, int8_dir)
@@ -8299,8 +9089,10 @@ def main(argv):
         f"{a11['ttft_p95_s']:.3f}")
     rep_a, rep_b = rep_run["a"]["launches"], rep_run["b"]["launches"]
 
-    log_phase(t_start, "phase 14: vision (PP-YOLOE-s detection, ViT-B/16)")
+    log_phase(t_start, "phase 14: vision (PP-YOLOE-s detection, ViT-B/16;"
+                       " detection ops, CNN families)")
     vision_run = vision_phase(args, vision_child)
+    vision_more_run = vision_more_phase(args, more_child)
     vit = vision_run["vit"]
     fa_vit = next(r for r in fa_rows if r["case"].startswith("vit_b_16"))
 
@@ -8465,7 +9257,8 @@ def main(argv):
         "decode_table_cost": table_cost,
         "fused_pair": pair_rows, "sparse": sparse_run,
         "recipes": recipes_run, "lora": lora_run, "serve": serve_run,
-        "predictor": pred_run, "replicas": rep_run, "vision": vision_run})
+        "predictor": pred_run, "replicas": rep_run, "vision": vision_run,
+        "vision_more": vision_more_run})
 
 
 def main_route_rows(wo_rows, fa_rows):

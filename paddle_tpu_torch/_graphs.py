@@ -28,7 +28,9 @@ Launch accounting. The kernel wrappers count their launches in Python
 capture records each wrapper's change over one run of the body, and every
 replay adds it, so the counts read the same whether a program ran eagerly
 or as a replay. Building a program (its warm-up and its capture) leaves
-the counts as they were.
+the counts as they were. Programs replay on several threads at once (a
+pool's workers), so the additions and a capture's read-and-restore hold
+the wrappers' count lock (`ops._counts`).
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import math
 import torch
 
 from .ops import counted_wrappers
+from .ops._counts import COUNTS_LOCK
 
 __all__ = ["StepProgram", "counted_wrappers"]
 
@@ -72,12 +75,13 @@ class _Counts:
                 self.items.append((w, launches, calls, routes))
 
     def add(self):
-        for w, launches, calls, routes in self.items:
-            w.launches += launches
-            if calls:
-                w.calls += calls
-            for r, n in routes.items():
-                w.routes[r] = w.routes.get(r, 0) + n
+        with COUNTS_LOCK:
+            for w, launches, calls, routes in self.items:
+                w.launches += launches
+                if calls:
+                    w.calls += calls
+                for r, n in routes.items():
+                    w.routes[r] = w.routes.get(r, 0) + n
 
     def as_dict(self):
         return {w.__name__: launches for w, launches, _, _ in self.items}
@@ -147,6 +151,10 @@ class StepProgram:
         """Warm up on a side stream, then capture one run of the body into
         a CUDA graph in memory pool `pool`. Raises if the capture fails."""
         dev = self.device
+        with COUNTS_LOCK:
+            self._capture(pool, wrappers, dev)
+
+    def _capture(self, pool, wrappers, dev):
         before = _read(wrappers)
         try:
             # the warm-up reads the static inputs' fill values

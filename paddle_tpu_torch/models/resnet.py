@@ -143,14 +143,17 @@ class BasicBlock(nn.Module):
 
 class ResNet(nn.Module):
     """`block` (BottleneckBlock or BasicBlock) in four stages of
-    `depth_cfg` blocks. `device`: the GPU by default (raises without
+    `depth_cfg` blocks; `groups` and `width_per_group` shape each
+    bottleneck's 3x3 (ResNeXt). `device`: the GPU by default (raises without
     one), ``"cpu"`` on request; weights from `seed` (Paddle's default
     initialisers: Kaiming-uniform convolutions, BN 1 / 0, a Xavier-uniform
     fc with a zero bias)."""
 
     def __init__(self, block, depth_cfg, num_classes=1000, with_pool=True,
-                 data_format="NCHW", *, device=None, seed=0):
+                 data_format="NCHW", *, device=None, seed=0, groups=1,
+                 width_per_group=64):
         super().__init__()
+        self._groups, self._base_width = groups, width_per_group
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
@@ -190,12 +193,13 @@ class ResNet(nn.Module):
                        **self._init),
                 BatchNorm2D(planes * block.expansion, data_format=df,
                             device=self._init["device"]))
+        grouped = dict(groups=self._groups, base_width=self._base_width)
         layers = [block(self.inplanes, planes, stride, downsample,
-                        data_format=df, **self._init)]
+                        data_format=df, **grouped, **self._init)]
         self.inplanes = planes * block.expansion
         for _ in range(1, blocks):
             layers.append(block(self.inplanes, planes, data_format=df,
-                                **self._init))
+                                **grouped, **self._init))
         return nn.Sequential(*layers)
 
     def forward(self, x):

@@ -1,12 +1,15 @@
 """Activation layers (counterpart of paddle_tpu/nn/layer/activation.py's
-`ReLU`, `ReLU6`, `Silu` and `GELU`)."""
+`ReLU`, `ReLU6`, `Silu`, `Swish`, `Hardswish`, `Hardsigmoid` and
+`GELU`)."""
 from __future__ import annotations
 
 from torch import nn
 
-from ..functional.activation import gelu, relu, relu6, silu
+from ..functional.activation import (gelu, hardsigmoid, hardswish, relu,
+                                     relu6, silu, swish)
 
-__all__ = ["ReLU", "ReLU6", "Silu", "GELU"]
+__all__ = ["ReLU", "ReLU6", "Silu", "Swish", "Hardswish", "Hardsigmoid",
+           "GELU"]
 
 
 class ReLU(nn.Module):
@@ -22,6 +25,21 @@ class ReLU6(nn.Module):
 class Silu(nn.Module):
     def forward(self, x):
         return silu(x)
+
+
+class Swish(nn.Module):
+    def forward(self, x):
+        return swish(x)
+
+
+class Hardswish(nn.Module):
+    def forward(self, x):
+        return hardswish(x)
+
+
+class Hardsigmoid(nn.Module):
+    def forward(self, x):
+        return hardsigmoid(x)
 
 
 class GELU(nn.Module):

@@ -1,5 +1,6 @@
-"""Common layers (counterpart of paddle_tpu/nn/layer/common.py): `Linear`
-and `Dropout`, which holds the generator its masks are drawn from."""
+"""Common layers (counterpart of paddle_tpu/nn/layer/common.py): `Linear`,
+`Dropout`, which holds the generator its masks are drawn from, `Flatten`
+and `ChannelShuffle`."""
 from __future__ import annotations
 
 import math
@@ -8,8 +9,9 @@ import torch
 from torch import nn
 
 from ..functional.common import dropout
+from ..functional.extra import channel_shuffle
 
-__all__ = ["Linear", "Dropout"]
+__all__ = ["Linear", "Dropout", "Flatten", "ChannelShuffle"]
 
 
 class Linear(nn.Linear):
@@ -51,3 +53,25 @@ class Dropout(nn.Module):
 
     def extra_repr(self):
         return f"p={self.p}"
+
+
+class Flatten(nn.Module):
+    """Flattens the axes `start_axis` .. `stop_axis` into one."""
+
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis, self.stop_axis = int(start_axis), int(stop_axis)
+
+    def forward(self, x):
+        return torch.flatten(x, self.start_axis, self.stop_axis)
+
+
+class ChannelShuffle(nn.Module):
+    """`nn.functional.channel_shuffle` with `groups` groups."""
+
+    def __init__(self, groups, data_format="NCHW"):
+        super().__init__()
+        self.groups, self.data_format = int(groups), data_format
+
+    def forward(self, x):
+        return channel_shuffle(x, self.groups, self.data_format)

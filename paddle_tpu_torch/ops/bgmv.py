@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ._counts import count
 
 __all__ = ["lora_delta", "lora_delta_ref", "bgmv_route",
            "bgmv_cluster_plan", "ROUTE_TWO_LAUNCH", "ROUTE_CLUSTER"]
@@ -133,8 +134,7 @@ def lora_delta(x, A, B, ids):
             out.data_ptr(), bsz, s, d_in, r, d_out, slots,
             _build.dtype_code(x.dtype), route, *plan, stream)
     _build.check(err, "lora_delta")
-    lora_delta.launches += 1
-    lora_delta.routes[route] += 1
+    count(lora_delta, route)
     return out
 
 

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ._counts import count
 
 __all__ = ["block_sparse_attention", "block_sparse_attention_ref",
            "csr_to_block_tables", "block_sparse_route", "BS_MMA",
@@ -174,8 +175,7 @@ def _launch(q, k, v, block_idx, block_cnt, scale, block_size):
             idx.shape[1], _build.dtype_code(q.dtype), route,
             ctypes.c_float(scale), stream)
     _build.check(err, "block_sparse_attention")
-    block_sparse_attention.launches += 1
-    block_sparse_attention.routes[route] += 1
+    count(block_sparse_attention, route)
     return out
 
 

@@ -30,6 +30,7 @@ import struct
 import torch
 
 from . import _build
+from ._counts import count
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_ref",
            "decode_attention", "decode_attention_ref", "paged_route",
@@ -217,8 +218,7 @@ def _launch_paged(q, kq, ks, vq, vs, tables, pos, wrapper, route=None):
             partial.data_ptr() if partial is not None else None, dims,
             1.0 / D ** 0.5, stream)
     _build.check(err, wrapper.__name__)
-    wrapper.launches += 1
-    wrapper.routes[route] += 1
+    count(wrapper, route)
     return out
 
 

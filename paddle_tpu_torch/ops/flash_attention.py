@@ -64,6 +64,7 @@ import math
 import torch
 
 from . import _build, _library
+from ._counts import count
 
 __all__ = ["flash_attention", "flash_attention_supported",
            "flash_fwd_route", "FWD_MMA", "FWD_WGMMA", "flash_bwd_route",
@@ -260,8 +261,7 @@ def _fwd_cuda(q, k, v, causal, scale):
     route, ops, ptrs, strides = flash_fwd_route(q, k, v, scale)
     _launch(route, ops[0], ptrs, strides, None, None, out, None, lse, causal,
             scale)
-    flash_attention_fwd.launches += 1
-    flash_attention_fwd.routes[route] += 1
+    count(flash_attention_fwd, route)
     return out, lse
 
 
@@ -331,8 +331,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True,
     route, ops, ptrs, strides = flash_bwd_route(q, k, v, do, scale)
     _launch(_DQ_KIND[route], ops[0], ptrs, strides, lse, delta, dq, None, None,
             causal, scale)
-    flash_attention_bwd_dq.launches += 1
-    flash_attention_bwd_dq.routes[route] += 1
+    count(flash_attention_bwd_dq, route)
     return dq
 
 
@@ -353,8 +352,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
     route, ops, ptrs, strides = flash_bwd_route(q, k, v, do, scale)
     _launch(_DKV_KIND[route], ops[0], ptrs, strides, lse, delta, dk, dv, None,
             causal, scale)
-    flash_attention_bwd_dkv.launches += 1
-    flash_attention_bwd_dkv.routes[route] += 1
+    count(flash_attention_bwd_dkv, route)
     return dk, dv
 
 
@@ -528,8 +526,7 @@ def flash_fwd_pos(q, k, v, q_pos, k_pos, *, causal=True, scale=None):
     route, ops, ptrs, strides = flash_pos_route(q, k, v, scale=scale)
     _launch_pos(route, ops[0], ops[1], ptrs, strides, None, None, out, None,
                 lse, q_pos, k_pos, causal, scale)
-    flash_fwd_pos.launches += 1
-    flash_fwd_pos.routes[route] += 1
+    count(flash_fwd_pos, route)
     return out, lse
 
 
@@ -550,8 +547,7 @@ def flash_bwd_pos_dq(q, k, v, do, lse, delta, q_pos, k_pos, *, causal=True,
     route, ops, ptrs, strides = flash_pos_route(q, k, v, do, scale)
     _launch_pos(_DQ_KIND[route], ops[0], ops[1], ptrs, strides, lse, delta,
                 dq, None, None, q_pos, k_pos, causal, scale)
-    flash_bwd_pos_dq.launches += 1
-    flash_bwd_pos_dq.routes[route] += 1
+    count(flash_bwd_pos_dq, route)
     return dq
 
 
@@ -573,8 +569,7 @@ def flash_bwd_pos_dkv(q, k, v, do, lse, delta, q_pos, k_pos, *, causal=True,
     route, ops, ptrs, strides = flash_pos_route(q, k, v, do, scale)
     _launch_pos(_DKV_KIND[route], ops[0], ops[1], ptrs, strides, lse, delta,
                 dk, dv, None, q_pos, k_pos, causal, scale)
-    flash_bwd_pos_dkv.launches += 1
-    flash_bwd_pos_dkv.routes[route] += 1
+    count(flash_bwd_pos_dkv, route)
     return dk, dv
 
 

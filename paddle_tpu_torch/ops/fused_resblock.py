@@ -59,6 +59,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._counts import count, count_call
 
 __all__ = ["MATMUL_DTYPE", "fused_bottleneck_fwd", "fused_bottleneck_bwd",
            "fused_bottleneck_fwd_ref", "fused_bottleneck_bwd_ref",
@@ -385,8 +386,7 @@ class _Launcher:
             err = self.lib.ptt_resblock_gemm(kind, ctypes.byref(args),
                                              self.dtype, self.stream)
         _build.check(err, what)
-        self.wrapper.launches += 1
-        self.wrapper.routes[_BODY[kind]] += 1
+        count(self.wrapper, _BODY[kind])
 
     def reduce(self, mode, what, part, T, N, out, gamma=None, beta=None,
                bn=None, eps=0.0, n=1.0):
@@ -395,8 +395,7 @@ class _Launcher:
                 mode, part.data_ptr(), T, N, _ptr(gamma), _ptr(beta),
                 _ptr(bn), float(eps), float(n), out.data_ptr(), self.stream)
         _build.check(err, what)
-        self.wrapper.launches += 1
-        self.wrapper.routes[ROUTE_REDUCE] += 1
+        count(self.wrapper, ROUTE_REDUCE)
 
     def stats(self, mode, what, part, N, gamma, beta=None, bn=None, eps=0.0):
         """[5, N] f32 BN vectors from the products' per-tile sums."""
@@ -631,7 +630,7 @@ def fused_bottleneck2_fwd(x, params1, params2, eps=1e-5):
     if x.device.type == "cpu":
         return fused_bottleneck2_fwd_ref(x, params1, params2, eps)
     out = _fwd2_cuda(x, tuple(params1), tuple(params2), eps)
-    fused_bottleneck2_fwd.calls += 1
+    count_call(fused_bottleneck2_fwd)
     return out
 
 
@@ -650,7 +649,7 @@ def fused_bottleneck_fwd(x, w1, w2, w3, g1, be1, g2, be2, g3, be3,
         return fused_bottleneck_fwd_ref(x, w1, w2, w3, g1, be1, g2, be2, g3,
                                         be3, eps)
     out = _fwd_cuda(x, w1, w2, w3, g1, be1, g2, be2, g3, be3, eps)
-    fused_bottleneck_fwd.calls += 1
+    count_call(fused_bottleneck_fwd)
     return out
 
 
@@ -660,7 +659,7 @@ def fused_bottleneck_bwd(res, dy):
     if dy.device.type == "cpu":
         return fused_bottleneck_bwd_ref(res, dy)
     out = _bwd_cuda(res, dy)
-    fused_bottleneck_bwd.calls += 1
+    count_call(fused_bottleneck_bwd)
     return out
 
 

@@ -40,6 +40,7 @@ import math
 import torch
 
 from . import _build, _dropout_rng
+from ._counts import count
 
 __all__ = ["short_attention", "short_attention_fwd", "short_attention_bwd",
            "short_attention_ref", "short_attention_bwd_ref",
@@ -259,8 +260,7 @@ def short_attention_fwd(q, k, v, seed, p=0.0, causal=False):
     route, ops, ptrs, strides = short_fwd_route(q, k, v)
     _launch(route, ops[0], ptrs, strides, seed, lse, None, out, None, p,
             causal, _scale(q))
-    short_attention_fwd.launches += 1
-    short_attention_fwd.routes[route] += 1
+    count(short_attention_fwd, route)
     return out, lse
 
 
@@ -287,8 +287,7 @@ def short_attention_bwd(q, k, v, do, lse, seed, p=0.0, causal=False):
     # one call launches dQ (which stores the row term), then dK/dV
     _launch(_BWD_KIND[route], ops[0], ptrs, strides, seed, lse, delta, grads,
             None, p, causal, _scale(q))
-    short_attention_bwd.launches += 2
-    short_attention_bwd.routes[route] += 2
+    count(short_attention_bwd, route, 2)
     return grads.unbind(0)
 
 

@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from . import _build, _library
+from ._counts import count
 
 __all__ = ["weight_only_matmul", "weight_only_matmul_op",
            "weight_only_matmul_nd",
@@ -126,8 +127,7 @@ def _wo_cuda(x, qweight, scale, weight_dtype):
             _build.dtype_code(x.dtype), int(weight_dtype == "int4"), route,
             stream)
     _build.check(err, "weight_only_matmul")
-    weight_only_matmul.launches += 1
-    weight_only_matmul.routes[route] += 1
+    count(weight_only_matmul, route)
     return out
 
 
@@ -268,8 +268,7 @@ def row_gemv(x, weight, bias=None):
                 b.data_ptr() if b is not None else None, out.data_ptr(), m,
                 n, k, _build.dtype_code(x.dtype), route, stream)
         _build.check(err, "row_gemv")
-        row_gemv.launches += 1
-        row_gemv.routes[route] += 1
+        count(row_gemv, route)
     return out.reshape(*lead, n)
 
 

@@ -28,12 +28,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...models.resnet import _conv
 from ...nn import BatchNorm2D, Conv2D, LayerList, Sequential, Silu
 from .. import ops as vops
 from ._init import init_kwargs
 
-__all__ = ["PPYOLOE", "ppyoloe_s", "train_flops_per_image"]
+__all__ = ["PPYOLOE", "ppyoloe_s"]
 
 
 def _level_points(h, w, s):
@@ -324,31 +323,3 @@ def _giou(a, b):
 def ppyoloe_s(num_classes=80, **kw):
     return PPYOLOE(num_classes=num_classes, width=0.5, depth=1, **kw)
 
-
-def _csp_flops(blk, hw):
-    """(FLOPs, output size) of a `_CSPBlock` on a square hw x hw input."""
-    flops, hw = _conv(blk.down[0], hw)
-    convs = [blk.split1[0], blk.split2[0], blk.fuse[0]]
-    convs += [cbs[0] for pair in blk.blocks for cbs in pair]
-    return flops + sum(_conv(c, hw)[0] for c in convs), hw
-
-
-def train_flops_per_image(model, image_size):
-    """Training FLOPs per image of a `PPYOLOE` on square images: 3 x the
-    forward's convolutions, 2 per multiply-add (2·k²·C_in/groups·C_out·
-    H_out·W_out each; BN, activations, the loss and elementwise work are
-    not counted)."""
-    flops, hw = _conv(model.stem[0], image_size)
-    sizes = []
-    for stage in (model.stage1, model.stage2, model.stage3, model.stage4):
-        f, hw = _csp_flops(stage, hw)
-        flops += f
-        sizes.append(hw)
-    levels = sizes[1:]                          # P3, P4, P5
-    for lat, hw in zip((model.lat3, model.lat4, model.lat5), levels):
-        flops += _conv(lat[0], hw)[0]
-    for head, hw in zip(model.heads, levels):
-        for conv in (head.cls_conv[0], head.reg_conv[0], head.cls_pred,
-                     head.reg_pred):
-            flops += _conv(conv, hw)[0]
-    return 3 * flops

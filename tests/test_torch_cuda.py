@@ -3192,3 +3192,174 @@ def test_small_ppyoloe_trains_and_postprocesses_on_the_card(cuda,
     for bb, sc, lb in dets:
         assert bb.shape[1:] == (4,) and len(sc) == len(lb) <= 100
         assert np.isfinite(bb).all() and lb.dtype == np.int64
+
+
+def test_roi_pools_on_the_card_equal_the_cpu_at_integer_edges(cuda):
+    """Boxes whose bin edges fall on integers (0..6 in 3 bins: edges 2, 4)
+    and on halves: the card's bins are the CPU's exactly (a CUDA division
+    by a host scalar multiplies by its reciprocal; `vision.ops._div`
+    divides by a device tensor), so the pooled maps are equal."""
+    from paddle_tpu_torch.vision import ops
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 18, 40, 44, generator=g)
+    boxes = torch.tensor([[0.0, 0.0, 6.0, 6.0], [1.5, 2.5, 7.5, 11.5],
+                          [3.0, 1.0, 4.0, 1.05], [0.0, 0.0, 33.0, 21.0],
+                          [4.0, 4.0, 31.0, 28.0], [2.0, 3.0, 2.0, 3.0]])
+    for scale in (1.0, 0.5, 1.0 / 3):
+        want = ops.roi_pool(x, boxes, [3, 3], 3, scale)
+        got = ops.roi_pool(x.cuda(), boxes.cuda(), [3, 3], 3, scale)
+        assert torch.equal(got.cpu(), want), scale
+        want = ops.psroi_pool(x, boxes, [3, 3], 3, scale)
+        got = ops.psroi_pool(x.cuda(), boxes.cuda(), [3, 3], 3, scale)
+        assert torch.equal(got.cpu() == 0, want == 0), scale
+        assert (got.cpu() - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+def test_detection_ops_on_the_card_equal_the_cpu(cuda, monkeypatch):
+    """RoIAlign forward and backward, DCNv2 forward and backward, the
+    YOLOv3 loss and its gradient, `yolo_box`, `matrix_nms` and the
+    proposal ops at small shapes: floats within 1e-5 of the CPU's
+    (gradients normwise), every index and count equal (TF32 off)."""
+    import numpy as np
+
+    from paddle_tpu_torch.vision import ops
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+    rng = np.random.RandomState(1)
+
+    def both(fn, *arrays):
+        outs = []
+        for dev in ("cpu", "cuda"):
+            ts = [torch.from_numpy(a).to(dev).requires_grad_(
+                a.dtype == np.float32) for a in arrays]
+            out = fn(*ts)
+            out.float().sum().backward() if out.requires_grad else None
+            outs.append((out.detach().cpu(), [t.grad.cpu() for t in ts
+                                              if t.grad is not None]))
+        (a, ga), (b, gb) = outs
+        assert (b - a).abs().max() <= 1e-5 * max(a.abs().max(), 1e-30)
+        for u, v in zip(ga, gb):
+            assert (v - u).norm() <= 1e-5 * u.norm()
+
+    x = rng.randn(2, 8, 50, 60).astype(np.float32)
+    xy = rng.uniform(0, 180, (12, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(8, 60, (12, 2))],
+                           1).astype(np.float32)
+    both(lambda f, b: ops.roi_align(f, b, torch.tensor([5, 7]), 7, 0.25, 0,
+                                    True) * 1.5, x, boxes)
+    xd = rng.randn(2, 6, 9, 9).astype(np.float32)
+    off = rng.randn(2, 18, 9, 9).astype(np.float32)
+    w = (rng.randn(6, 6, 3, 3) * 0.2).astype(np.float32)
+    mask = rng.rand(2, 9, 9, 9).astype(np.float32)
+    both(lambda a, o, ww, m: ops.deform_conv2d(a, o, ww, None, 1, 1, 1, 1, 1,
+                                               m), xd, off, w, mask)
+    anchors = [10, 13, 16, 30, 33, 23]
+    head = rng.randn(2, 3 * 85, 13, 13).astype(np.float32)
+    gt = np.zeros((2, 6, 4), np.float32)
+    gt[:, :4, :2] = rng.uniform(0.1, 0.9, (2, 4, 2))
+    gt[:, :4, 2:] = rng.uniform(0.05, 0.3, (2, 4, 2))
+    labels = rng.randint(0, 80, (2, 6))
+    both(lambda h, g_: ops.yolo_loss(h, g_, torch.from_numpy(labels).to(
+        h.device), anchors, [0, 1, 2], 80, 0.7, 32, use_label_smooth=False),
+        head, gt)
+    size = torch.tensor([[416, 416], [400, 380]])
+    bc, sc = ops.yolo_box(torch.from_numpy(head), size, anchors, 80, 0.01,
+                          32)
+    bg, sg = ops.yolo_box(torch.from_numpy(head).cuda(), size.cuda(),
+                          anchors, 80, 0.01, 32)
+    assert (bg.cpu() - bc).abs().max() <= 1e-5 * bc.abs().max()
+    assert (sg.cpu() - sc).abs().max() <= 1e-5 * sc.abs().max()
+    want = ops.matrix_nms(bc, sc.transpose(1, 2) * 40, 0.05, 0.05, -1, 50,
+                          background_label=-1, return_index=True)
+    got = ops.matrix_nms(bg, sg.transpose(1, 2) * 40, 0.05, 0.05, -1, 50,
+                         background_label=-1, return_index=True)
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[2].cpu(), want[2])
+    assert (got[0].cpu() - want[0]).abs().max() <= 1e-5 * want[0].abs().max()
+    ys, xs = np.meshgrid(np.arange(12) * 8.0, np.arange(14) * 8.0,
+                         indexing="ij")
+    anc = np.stack([xs - 16, ys - 16, xs + 16, ys + 16], -1)[:, :, None]
+    anc = np.repeat(anc, 3, 2).astype(np.float32)
+    inputs = [rng.randn(2, 3, 12, 14).astype(np.float32),
+              (rng.randn(2, 12, 12, 14) * 0.5).astype(np.float32),
+              np.array([[96.0, 112.0], [90.0, 100.0]], np.float32), anc,
+              np.ones_like(anc)]
+    want = ops.generate_proposals(*(torch.from_numpy(a) for a in inputs),
+                                  200, 60, 0.7, 0.0, return_rois_num=True)
+    got = ops.generate_proposals(*(torch.from_numpy(a).cuda()
+                                   for a in inputs), 200, 60, 0.7, 0.0,
+                                 return_rois_num=True)
+    assert torch.equal(got[2].cpu(), want[2])
+    assert (got[0].cpu() - want[0]).abs().max() <= 1e-5 * want[0].abs().max()
+    outs, restore, nums = ops.distribute_fpn_proposals(
+        got[0], 2, 5, 4, 56, rois_num=got[2])
+    wouts, wrestore, wnums = ops.distribute_fpn_proposals(
+        want[0], 2, 5, 4, 56, rois_num=want[2])
+    assert torch.equal(restore.cpu(), wrestore)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(nums, wnums))
+
+
+@pytest.mark.parametrize("name,size", [("resnext50_32x4d", 64),
+                                       ("googlenet", 64),
+                                       ("shufflenet_v2_x0_5", 64),
+                                       ("mobilenet_v3_small", 64)])
+def test_cnn_zoo_step_on_the_card_matches_the_cpu(cuda, name, size,
+                                                  monkeypatch):
+    """One f32 Momentum step with the batch norms on their running
+    statistics: the card's loss and grad norm within 1e-4 of the CPU's
+    on the same weights (TF32 off, as in `chip_smoke.py`: cuDNN's TF32
+    convolutions moved the grad norm by 1.4e-4); ResNeXt's blocks stay
+    off the fused route."""
+    import os
+
+    import numpy as np
+
+    from paddle_tpu_torch.distributed import parallelize
+    from paddle_tpu_torch.nn import BatchNorm2D
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.ops import fused_resblock
+    from paddle_tpu_torch.vision import models
+
+    def loss_fn(m, x, y):
+        out = m(x)
+        out = out[0] if isinstance(out, tuple) else out
+        return cross_entropy(out, y).mean()
+
+    def step(device, state):
+        m = getattr(models, name)(num_classes=10, data_format="NHWC",
+                                  device=device, seed=3)
+        m.load_state_dict(state)
+        for bn in m.modules():
+            if isinstance(bn, BatchNorm2D):
+                bn._use_global_stats = True
+        eng = parallelize(m, Momentum(learning_rate=0.05, momentum=0.9,
+                                      parameters=m.parameters()),
+                          loss_fn=loss_fn)
+        loss = float(eng.train_batch(x.to(device), y.to(device)))
+        return m, (loss, float(eng.last_grad_norm))
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.randn(4, size, size, 3).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 10, 4))
+    state = {k: v.clone() for k, v in getattr(models, name)(
+        num_classes=10, data_format="NHWC", device="cpu",
+        seed=3).state_dict().items()}
+    _, want = step("cpu", state)
+    before = fused_resblock.fused_bottleneck_fwd.launches
+    old = os.environ.get("PADDLE_TPU_FUSED_RESBLOCK")
+    os.environ["PADDLE_TPU_FUSED_RESBLOCK"] = "1"
+    try:
+        _, got = step("cuda", state)
+    finally:
+        if old is None:
+            os.environ.pop("PADDLE_TPU_FUSED_RESBLOCK")
+        else:
+            os.environ["PADDLE_TPU_FUSED_RESBLOCK"] = old
+    assert fused_resblock.fused_bottleneck_fwd.launches == before
+    assert all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(got, want)), \
+        (got, want)

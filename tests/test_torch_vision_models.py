@@ -206,6 +206,25 @@ def test_vision_exports_match_the_jax_package():
               "wide_resnet50_2")
     for name in ported:
         assert hasattr(jmodels, name) and hasattr(tmodels, name), name
+    # every model the JAX package exports, in vision.models and vision
+    import types
+
+    from paddle_tpu.vision import ops as jops
+
+    exported = [n for n in dir(jmodels) if not n.startswith("_")
+                and not isinstance(getattr(jmodels, n), types.ModuleType)]
+    assert len(exported) >= 60
+    for name in exported:
+        assert hasattr(tmodels, name) and hasattr(tvision, name), name
+        assert name in tmodels.__all__, name
+    # and every op of vision.ops
+    ops = [n for n in dir(jops) if not n.startswith("_") and callable(
+        getattr(jops, n)) and getattr(getattr(jops, n), "__module__",
+                                      "") == jops.__name__]
+    assert {"roi_align", "matrix_nms", "DeformConv2D"} <= set(ops)
+    for name in ops:
+        assert hasattr(tvision.ops, name) and name in tvision.ops.__all__, \
+            name
     for name in jvision.__all__ if hasattr(jvision, "__all__") else ():
         assert hasattr(tvision, name), name
     assert tmodels.resnet50 is __import__(
